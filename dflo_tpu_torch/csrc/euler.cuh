@@ -1,0 +1,284 @@
+// Device functions shared by the three kernels of the explicit RK/TVB step:
+// Euler pressure and fluxes, the branchless HLLC flux, the characteristic
+// eigen matrices, NaN-propagating min/max, the per-degree dimensions and the
+// block reduction of the diagnostics.
+//
+// Every function follows its torch twin in dflo_tpu_torch/physics and
+// dflo_tpu_torch/stab operation by operation, so kernel and plain version
+// differ only by rounding (FMA contraction, summation order).  Nothing here
+// uses reduced precision: the build has no --use_fast_math.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace dflo {
+
+constexpr double GAMMA = 1.4;
+constexpr double FLOOR = 1.0e-13;   // physics/euler.FLOOR
+constexpr double EPS = 1.0e-13;     // stab/positivity.EPS
+constexpr double REL_F32 = 4.0e-6;  // stab/positivity.REL_F32
+enum { MX = 0, MY = 1, RHO = 2, ENE = 3 };
+
+// thread block: 32 cells along x (one warp, coalesced) by 4 rows
+constexpr int BX = 32;
+constexpr int BY = 4;
+constexpr int NWARP = BX * BY / 32;
+
+template <int P>
+struct Dims {
+  static constexpr int NQ = P + 1;          // 1-D Gauss points = nodes
+  static constexpr int K = NQ * NQ;         // DoFs per cell
+  static constexpr int NL = 2 * K + 4 * NQ; // lift columns
+  // positivity points: GLL(N) x Gauss(p+1), twice (stab/positivity._pos_points)
+  static constexpr int NG = ((P + 3) % 2 == 0) ? (P + 3) / 2 : (P + 4) / 2;
+  static constexpr int QP = 2 * NG * NQ;
+};
+
+// jnp.maximum / jnp.minimum semantics: NaN in either operand gives NaN.
+// (fmax/fmin drop a NaN and return the other operand, which would hide a
+// blown-up cell from the fatal-negativity flag.)
+template <typename T>
+__device__ __forceinline__ T nmax(T a, T b) { return (a != a || a > b) ? a : b; }
+template <typename T>
+__device__ __forceinline__ T nmin(T a, T b) { return (a != a || a < b) ? a : b; }
+
+// max(x, FLOOR) keeping NaN (torch.clamp(x, min=FLOOR))
+template <typename T>
+__device__ __forceinline__ T pos_floor(T x) { return nmax(x, T(FLOOR)); }
+
+template <typename T>
+__device__ __forceinline__ T pressure(const T w[4]) {
+  const T ke = T(0.5) * (w[MX] * w[MX] + w[MY] * w[MY]) / w[RHO];
+  return T(GAMMA - 1.0) * (w[ENE] - ke);
+}
+
+// Cartesian physical fluxes (physics/euler.flux_x / flux_y)
+template <typename T>
+__device__ __forceinline__ void flux_xy(const T w[4], T fx[4], T fy[4]) {
+  const T p = pressure(w);
+  const T u = w[MX] / w[RHO];
+  const T v = w[MY] / w[RHO];
+  fx[MX] = w[MX] * u + p;
+  fx[MY] = w[MY] * u;
+  fx[RHO] = w[MX];
+  fx[ENE] = (w[ENE] + p) * u;
+  fy[MX] = w[MX] * v;
+  fy[MY] = w[MY] * v + p;
+  fy[RHO] = w[MY];
+  fy[ENE] = (w[ENE] + p) * v;
+}
+
+// HLLC flux, SU2-derived variant (src/equation.h:559-681), branchless like
+// physics/fluxes.hllc.  Both cells sharing a face call it with the same
+// (UL, UR, nx, ny) in the same order, so they get the same flux.
+template <typename T>
+__device__ __forceinline__ void hllc(const T UL[4], const T UR[4], const T nx,
+                                     const T ny, T F[4]) {
+  const T g1 = T(GAMMA - 1.0);
+  const T rl = UL[RHO], rr = UR[RHO];
+  const T sl_ = sqrt(pos_floor(rl)), sr_ = sqrt(pos_floor(rr));
+  const T fl = sl_ / (sl_ + sr_);
+  const T fr = T(1) - fl;
+
+  const T ul = UL[MX] / rl, vl = UL[MY] / rl;
+  const T ur = UR[MX] / rr, vr = UR[MY] / rr;
+  const T v2l = ul * ul + vl * vl;
+  const T v2r = ur * ur + vr * vr;
+  const T vnl = ul * nx + vl * ny;
+  const T vnr = ur * nx + vr * ny;
+  const T u = ul * fl + ur * fr;
+  const T v = vl * fl + vr * fr;
+  const T vn = u * nx + v * ny;
+  const T v2 = u * u + v * v;
+
+  const T pl = g1 * (UL[ENE] - T(0.5) * rl * v2l);
+  const T pr = g1 * (UR[ENE] - T(0.5) * rr * v2r);
+  const T hl = (UL[ENE] + pl) / rl;
+  const T hr = (UR[ENE] + pr) / rr;
+  const T cl = sqrt(T(GAMMA) * pos_floor(pl) / pos_floor(rl));
+  const T cr = sqrt(T(GAMMA) * pos_floor(pr) / pos_floor(rr));
+  const T el = UL[ENE] / rl;
+  const T er = UR[ENE] / rr;
+
+  const T h = hl * fl + hr * fr;
+  const T c = sqrt(pos_floor(g1 * (h - T(0.5) * v2)));
+
+  const T s_l = nmin(vn - c, vnl - cl);
+  const T s_r = nmax(vn + c, vnr + cr);
+  const T s_m = (pl - pr - rl * vnl * (s_l - vnl) + rr * vnr * (s_r - vnr)) /
+                (rr * (s_r - vnr) - rl * (s_l - vnl));
+  const T p_star = rr * (vnr - s_r) * (vnr - s_m) + pr;
+
+  // the selects of physics/fluxes.hllc: s_m >= 0 -> (s_l > 0 ? f_l : f*_l),
+  // else (s_r >= 0 ? f*_r : f_r)
+  const bool left = s_m >= T(0);
+  const bool upwind = left ? (s_l > T(0)) : !(s_r >= T(0));
+  const T rho = left ? rl : rr;
+  const T uu = left ? ul : ur;
+  const T vv = left ? vl : vr;
+  const T vnn = left ? vnl : vnr;
+  const T p = left ? pl : pr;
+  const T e = left ? el : er;
+  if (upwind) {
+    F[MX] = rho * uu * vnn + p * nx;
+    F[MY] = rho * vv * vnn + p * ny;
+    F[RHO] = rho * vnn;
+    F[ENE] = e * rho * vnn + p * vnn;
+  } else {
+    const T s = left ? s_l : s_r;
+    T den = s - s_m;
+    den = fabs(den) < T(1e-300) ? T(1) : den;
+    const T inv = T(1) / den;
+    const T smu = s - vnn;
+    const T rho_s = rho * smu * inv;
+    const T mx_s = (rho * uu * smu + (p_star - p) * nx) * inv;
+    const T my_s = (rho * vv * smu + (p_star - p) * ny) * inv;
+    const T e_s = (smu * e * rho - p * vnn + p_star * s_m) * inv;
+    F[MX] = mx_s * s_m + p_star * nx;
+    F[MY] = my_s * s_m + p_star * ny;
+    F[RHO] = rho_s * s_m;
+    F[ENE] = (e_s + p_star) * s_m;
+  }
+}
+
+// Left/right eigenvector matrices along x (dir 0) or y (dir 1) of state ub,
+// in the internal (rho, mx, my, E) ordering (physics/euler.eigen_matrices).
+// The operations and their order are those of the torch version, division
+// by a constant written as a product with its reciprocal as there, so that
+// with contraction off (fused_post.cu is built with -fmad=false) both round
+// alike.
+template <typename T>
+__device__ __forceinline__ void eigen(const T ub[4], int dir, T R[4][4],
+                                      T L[4][4]) {
+  const T g1 = T(GAMMA - 1.0);
+  const T rho = ub[RHO];
+  const T u = ub[MX] / rho;
+  const T v = ub[MY] / rho;
+  const T q2 = u * u + v * v;
+  const T p = g1 * (ub[ENE] - T(0.5) * rho * q2);
+  const T c2 = T(GAMMA) * pos_floor(p) / pos_floor(rho);
+  const T c = sqrt(c2);
+  const T inv_c2 = T(1) / c2;
+  const T beta = T(0.5) * inv_c2;
+  const T phi2 = T(0.5 * (GAMMA - 1.0)) * q2;
+  const T h = c2 * T(1.0 / (GAMMA - 1.0)) + T(0.5) * q2;
+  const T one = T(1), zero = T(0);
+  L[0][0] = one - phi2 / c2; L[0][1] = g1 * u / c2; L[0][2] = g1 * v / c2;
+  L[0][3] = -g1 * inv_c2;
+  R[0][0] = one; R[0][1] = zero; R[0][2] = one; R[0][3] = one;
+  if (dir == 0) {
+    R[1][0] = u; R[1][1] = zero; R[1][2] = u + c; R[1][3] = u - c;
+    R[2][0] = v; R[2][1] = -one; R[2][2] = v; R[2][3] = v;
+    R[3][0] = T(0.5) * q2; R[3][1] = -v; R[3][2] = h + c * u; R[3][3] = h - c * u;
+    L[1][0] = v; L[1][1] = zero; L[1][2] = -one; L[1][3] = zero;
+    L[2][0] = beta * (phi2 - c * u); L[2][1] = beta * (c - g1 * u);
+    L[2][2] = -beta * g1 * v; L[2][3] = beta * g1;
+    L[3][0] = beta * (phi2 + c * u); L[3][1] = -beta * (c + g1 * u);
+    L[3][2] = -beta * g1 * v; L[3][3] = beta * g1;
+  } else {
+    R[1][0] = u; R[1][1] = one; R[1][2] = u; R[1][3] = u;
+    R[2][0] = v; R[2][1] = zero; R[2][2] = v + c; R[2][3] = v - c;
+    R[3][0] = T(0.5) * q2; R[3][1] = u; R[3][2] = h + c * v; R[3][3] = h - c * v;
+    L[1][0] = -u; L[1][1] = one; L[1][2] = zero; L[1][3] = zero;
+    L[2][0] = beta * (phi2 - c * v); L[2][1] = -beta * g1 * u;
+    L[2][2] = beta * (c - g1 * v); L[2][3] = beta * g1;
+    L[3][0] = beta * (phi2 + c * v); L[3][1] = -beta * g1 * u;
+    L[3][2] = -beta * (c + g1 * v); L[3][3] = beta * g1;
+  }
+}
+
+// W_char = L @ (rho, mx, my, E)(W)   (physics/euler.to_characteristic)
+template <typename T>
+__device__ __forceinline__ void to_char(const T L[4][4], const T w[4], T out[4]) {
+  const T V[4] = {w[RHO], w[MX], w[MY], w[ENE]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = L[i][0] * V[0] + L[i][1] * V[1] + L[i][2] * V[2] + L[i][3] * V[3];
+}
+
+// inverse transform back to the conserved layout (physics/euler.to_conserved)
+template <typename T>
+__device__ __forceinline__ void to_cons(const T R[4][4], const T wc[4], T out[4]) {
+  T V[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    V[i] = R[i][0] * wc[0] + R[i][1] * wc[1] + R[i][2] * wc[2] + R[i][3] * wc[3];
+  out[MX] = V[1];
+  out[MY] = V[2];
+  out[RHO] = V[0];
+  out[ENE] = V[3];
+}
+
+// sum_k op[k] * v[k], one multiply and one add per term in k order
+// (contract._ordered_sum; exact only where contraction is off)
+template <typename T, int K>
+__device__ __forceinline__ T dot_seq(const T* __restrict__ op, const T v[K]) {
+  T acc = op[0] * v[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) acc = acc + op[k] * v[k];
+  return acc;
+}
+
+// sum_k op[k] * u[(c*K + k) * plane + cell] for one component c
+template <typename T, int K>
+__device__ __forceinline__ T dot_cell(const T* __restrict__ op,
+                                      const T* __restrict__ u, int c,
+                                      long plane, long cell) {
+  T acc = op[0] * __ldg(u + (long)(c * K) * plane + cell);
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    acc = fma(op[k], __ldg(u + (long)(c * K + k) * plane + cell), acc);
+  return acc;
+}
+
+// Block reduction of the per-cell diagnostics: NaN-propagating max of lam and
+// min of mq over the block; thread 0 writes the block's partials.  Every
+// thread of the block must call it.
+template <typename T>
+__device__ __forceinline__ void block_diag(T lam, T mq, T* __restrict__ lam_part,
+                                           T* __restrict__ minq_part) {
+  __shared__ T s_lam[NWARP];
+  __shared__ T s_mq[NWARP];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lam = nmax(lam, __shfl_down_sync(0xffffffffu, lam, off));
+    mq = nmin(mq, __shfl_down_sync(0xffffffffu, mq, off));
+  }
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  if ((tid & 31) == 0) {
+    s_lam[tid >> 5] = lam;
+    s_mq[tid >> 5] = mq;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    T l = s_lam[0], m = s_mq[0];
+#pragma unroll
+    for (int w = 1; w < NWARP; ++w) {
+      l = nmax(l, s_lam[w]);
+      m = nmin(m, s_mq[w]);
+    }
+    const int b = blockIdx.y * gridDim.x + blockIdx.x;
+    lam_part[b] = l;
+    minq_part[b] = m;
+  }
+}
+
+// per-cell (lam, min(rho, p)) from the cell average (fused_diag's body and
+// fused_post's diag; pallas_kernels.py:1697-1715)
+template <typename T>
+__device__ __forceinline__ void cell_diag(const T ub[4], T h, T& lam, T& mq) {
+  const T rho = ub[RHO];
+  const T pre = pressure(ub);
+  const T cs = sqrt(T(GAMMA) * fabs(pre) / fabs(rho));
+  const T vx = fabs(ub[MX] / rho);
+  const T vy = fabs(ub[MY] / rho);
+  lam = (cs + vx) / h + (cs + vy) / h;
+  mq = nmin(rho, pre);
+}
+
+inline dim3 grid_for(int ny, int nx) {
+  return dim3((nx + BX - 1) / BX, (ny + BY - 1) / BY);
+}
+
+}  // namespace dflo

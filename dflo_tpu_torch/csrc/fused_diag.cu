@@ -1,0 +1,74 @@
+// Fused step diagnostics, hand-written for Hopper.
+//
+// Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_diag (single chip,
+// unmasked).  Per cell, from its cell average: the CFL wave speed
+// (c + |vx|)/h + (c + |vy|)/h (compute_time_step_cartesian,
+// src/claw.cc:483-512) and min(rho, p) for the fatal-negativity flag
+// (src/positivity.cc:26-39).  Each block reduces its cells with
+// NaN-propagating max/min (a NaN cell must reach the driver's
+// bad = ~(minq >= EPS)) and writes one partial each; the wrapper reduces the
+// partials with torch.amax/amin, as the TPU version does with jnp.max/min.
+//
+// What bounds it on the H100: bytes, one read of the state (4K values per
+// cell, coalesced along x) and almost no arithmetic.  The simple design
+// reads each value once and writes one pair of partials per 128-cell block;
+// a later version folds this pass into the previous step's fused post, as the
+// chunked loop already does for every step but the first of a chunk.
+#include <stdint.h>
+
+#include "euler.cuh"
+
+namespace dflo {
+
+template <typename T, int P>
+__global__ void __launch_bounds__(BX * BY)
+fused_diag_kernel(const T* __restrict__ u, const T* __restrict__ avg,
+                  T* __restrict__ lam_part, T* __restrict__ minq_part, int ny,
+                  int nx, T h) {
+  constexpr int K = Dims<P>::K;
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  T lam = T(-INFINITY), mq = T(INFINITY);   // identities of the reductions
+  if (x < nx && y < ny) {
+    const long plane = (long)ny * nx;
+    const long cell = (long)y * nx + x;
+    T ub[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ub[c] = dot_cell<T, K>(avg, u, c, plane, cell);
+    cell_diag(ub, h, lam, mq);
+  }
+  block_diag(lam, mq, lam_part, minq_part);
+}
+
+template <typename T, int P>
+static int launch(const void* u, const void* avg, void* lam_part,
+                  void* minq_part, int ny, int nx, double h,
+                  cudaStream_t stream) {
+  fused_diag_kernel<T, P><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
+      (const T*)u, (const T*)avg, (T*)lam_part, (T*)minq_part, ny, nx, T(h));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace dflo
+
+// dtype: 0 = float32, 1 = float64; p in {1, 2, 3}; lam_part/minq_part hold
+// dflo_num_blocks(ny, nx) entries.  Returns cudaGetLastError() after the
+// launch, -1 for an unsupported case.
+extern "C" int dflo_fused_diag(int dtype, int p, const void* u, const void* avg,
+                               void* lam_part, void* minq_part, int ny, int nx,
+                               double h, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define DFLO_CASE(T, P) \
+  return dflo::launch<T, P>(u, avg, lam_part, minq_part, ny, nx, h, s)
+  if (dtype == 0) {
+    if (p == 1) DFLO_CASE(float, 1);
+    if (p == 2) DFLO_CASE(float, 2);
+    if (p == 3) DFLO_CASE(float, 3);
+  } else if (dtype == 1) {
+    if (p == 1) DFLO_CASE(double, 1);
+    if (p == 2) DFLO_CASE(double, 2);
+    if (p == 3) DFLO_CASE(double, 3);
+  }
+#undef DFLO_CASE
+  return -1;
+}

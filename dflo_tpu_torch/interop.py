@@ -1,0 +1,37 @@
+"""Carry the JAX package's arrays into the port.
+
+The two packages share no code at run time (the port never imports JAX), so
+tests hand the reference's arrays across as numpy: the state with
+:func:`state_from_numpy`, and a reference ``Basis`` (any object with its
+fields) with :func:`operators_from_numpy`.  Both packages then compute from
+identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from dflo_tpu_torch.ops.basis import Basis
+
+
+def state_from_numpy(u_np, dtype: torch.dtype, device) -> torch.Tensor:
+    """[4, K, ny, nx] numpy state (or anything np.asarray takes) -> tensor."""
+    u = np.asarray(u_np)
+    if u.ndim != 4 or u.shape[0] != 4:
+        raise ValueError(f"expected a [4, K, ny, nx] state, got {u.shape}")
+    # np.array copies: a JAX array's numpy view is read-only
+    return torch.from_numpy(np.array(u, order="C")).to(dtype=dtype,
+                                                       device=device)
+
+
+def operators_from_numpy(basis_like) -> Basis:
+    """The port's Basis from the arrays of a reference Basis."""
+    kw = {}
+    for f in dataclasses.fields(Basis):
+        v = getattr(basis_like, f.name)
+        kw[f.name] = v if f.name in ("family", "degree", "nq", "K") \
+            else np.array(v)
+    return Basis(**kw)

@@ -1,0 +1,173 @@
+"""2-D compressible Euler physics as plain torch functions.
+
+The torch counterparts of dflo_tpu/physics/euler.py.  All functions operate on
+conserved-state tensors ``U[4, ...]`` with the component axis leading and
+arbitrary trailing batch dims; everything is branchless (``torch.where``
+selects), so the same code runs on any device and dtype.
+
+Component order matches the reference (src/equation.h:26-28):
+momentum first, then density, then energy.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# component indices (dim = 2)
+MX, MY, RHO, ENE = 0, 1, 2, 3
+N_COMP = 4
+GAMMA = 1.4  # src/equation.cc:33
+
+#: positivity floor for the sqrt arguments of wave speeds (see
+#: dflo_tpu/physics/euler.FLOOR): keeps f32 Mach-10 shocks NaN-free while
+#: leaving every finite-state result bit-identical
+FLOOR = 1.0e-13
+
+
+def _pos(x):
+    """max(x, FLOOR) for quantities that are positive up to roundoff."""
+    return torch.clamp(x, min=FLOOR)
+
+
+def kinetic_energy(U):
+    """0.5*|m|^2/rho  (src/equation.h:67-79)."""
+    return 0.5 * (U[MX] * U[MX] + U[MY] * U[MY]) / U[RHO]
+
+
+def pressure(U):
+    """(gamma-1)(E - ke)  (src/equation.h:84-92)."""
+    return (GAMMA - 1.0) * (U[ENE] - kinetic_energy(U))
+
+
+def sound_speed(U):
+    return torch.sqrt(GAMMA * _pos(pressure(U)) / _pos(U[RHO]))
+
+
+def flux_x(U):
+    """Cartesian x-flux column F(U)  (src/equation.h:158-193)."""
+    p = pressure(U)
+    u = U[MX] / U[RHO]
+    return torch.stack([U[MX] * u + p, U[MY] * u, U[MX], (U[ENE] + p) * u])
+
+
+def flux_y(U):
+    p = pressure(U)
+    v = U[MY] / U[RHO]
+    return torch.stack([U[MX] * v, U[MY] * v + p, U[MY], (U[ENE] + p) * v])
+
+
+# -----------------------------------------------------------------------------
+# Characteristic algebra (src/equation.h:225-306), in the internal ordering
+# (rho, mx, my, E); to_characteristic/to_conserved reorder from/to the
+# conserved layout exactly as the reference.
+# -----------------------------------------------------------------------------
+
+def eigen_matrices(U):
+    """Left/right eigenvector matrices along x and y from state U[4, ...].
+
+    Returns (Rx, Lx, Ry, Ly), each [4, 4, ...] in the (rho, mx, my, E)
+    internal ordering of src/equation.h:225-265.
+    """
+    g1 = GAMMA - 1.0
+    rho = U[RHO]
+    u = U[MX] / rho
+    v = U[MY] / rho
+    q2 = u * u + v * v
+    p = g1 * (U[ENE] - 0.5 * rho * q2)
+    c2 = GAMMA * _pos(p) / _pos(rho)
+    c = torch.sqrt(c2)
+    # divisions by a constant are written as products with its reciprocal
+    # (and 1/c2 once): csrc/euler.cuh `eigen` evaluates the same operations
+    inv_c2 = torch.reciprocal(c2)
+    beta = 0.5 * inv_c2
+    phi2 = 0.5 * g1 * q2
+    h = c2 * (1.0 / g1) + 0.5 * q2
+    zero = torch.zeros_like(rho)
+    one = torch.ones_like(rho)
+
+    def M(rows):
+        return torch.stack([torch.stack(r) for r in rows])
+
+    Rx = M([[one, zero, one, one],
+            [u, zero, u + c, u - c],
+            [v, -one, v, v],
+            [0.5 * q2, -v, h + c * u, h - c * u]])
+    Ry = M([[one, zero, one, one],
+            [u, one, u, u],
+            [v, zero, v + c, v - c],
+            [0.5 * q2, u, h + c * v, h - c * v]])
+    Lx = M([[1 - phi2 / c2, g1 * u / c2, g1 * v / c2, -g1 * inv_c2],
+            [v, zero, -one, zero],
+            [beta * (phi2 - c * u), beta * (c - g1 * u), -beta * g1 * v,
+             beta * g1],
+            [beta * (phi2 + c * u), -beta * (c + g1 * u), -beta * g1 * v,
+             beta * g1]])
+    Ly = M([[1 - phi2 / c2, g1 * u / c2, g1 * v / c2, -g1 * inv_c2],
+            [-u, one, zero, zero],
+            [beta * (phi2 - c * v), -beta * g1 * u, beta * (c - g1 * v),
+             beta * g1],
+            [beta * (phi2 + c * v), -beta * g1 * u, -beta * (c + g1 * v),
+             beta * g1]])
+    return Rx, Lx, Ry, Ly
+
+
+def _reorder_to_internal(W):
+    """(mx, my, rho, E) -> (rho, mx, my, E)  (src/equation.h:276-279)."""
+    return torch.stack([W[RHO], W[MX], W[MY], W[ENE]])
+
+
+def _reorder_to_conserved(V):
+    return torch.stack([V[1], V[2], V[0], V[3]])
+
+
+def _mat4(A, V):
+    """A @ V per cell, each row summed in column order (as csrc/euler.cuh)."""
+    return torch.stack([A[i, 0] * V[0] + A[i, 1] * V[1] + A[i, 2] * V[2]
+                        + A[i, 3] * V[3] for i in range(4)])
+
+
+def to_characteristic(L, W):
+    """W_char = L @ reorder(W); L is [4, 4, ...], W is [4, ...]."""
+    return _mat4(L, _reorder_to_internal(W))
+
+
+def to_conserved(R, Wc):
+    """Inverse transform (src/equation.h:290-306)."""
+    return _reorder_to_conserved(_mat4(R, Wc))
+
+
+# -----------------------------------------------------------------------------
+# Boundary conditions (src/equation.h:862-1033)
+# -----------------------------------------------------------------------------
+
+# BoundaryKind codes, equal to dflo_tpu.physics.euler's
+BC_INFLOW, BC_OUTFLOW, BC_SLIP, BC_PRESSURE, BC_FARFIELD, BC_PERIODIC, BC_NONE = (
+    0, 1, 2, 3, 4, 5, -1)
+
+#: the kinds compute_wminus handles in this slice (the pressure kind comes with
+#: the rest of the physics envelope)
+SUPPORTED_BC = (BC_INFLOW, BC_OUTFLOW, BC_SLIP, BC_FARFIELD, BC_PERIODIC)
+
+
+def compute_wminus(kind: int, nx: float, ny: float, Wplus, bvals):
+    """Ghost state from the inside trace + BC data (src/equation.h:939-1033).
+
+    kind  : one BC_* code for the whole side (the Cartesian sides of this
+            slice are unsegmented)
+    nx,ny : outward unit normal components
+    Wplus : [4, ...] inside trace
+    bvals : [4, ...] boundary expression values
+    """
+    if kind in (BC_INFLOW, BC_FARFIELD):
+        return bvals
+    if kind == BC_OUTFLOW:
+        return Wplus
+    if kind == BC_SLIP:
+        vdotn = Wplus[MX] * nx + Wplus[MY] * ny
+        return torch.stack([Wplus[MX] - 2.0 * vdotn * nx,
+                            Wplus[MY] - 2.0 * vdotn * ny,
+                            Wplus[RHO], Wplus[ENE]])
+    raise NotImplementedError(
+        f"boundary kind {kind} is not ported yet (slice A covers inflow, "
+        f"outflow, slip and farfield; the pressure kind comes with the "
+        f"physics envelope slice)")

@@ -1,0 +1,83 @@
+"""KXRCF shock indicator as whole-domain tensor sweeps.
+
+The torch counterpart of dflo_tpu/stab/indicator.py for the density and
+energy indicators (compute_shock_indicator_kxrcf, src/indicator.cc:48-198):
+per cell, the inflow-part boundary integral of the jump in the indicator
+variable, normalized by h^{(p+1)/2} * inflow measure * cell average.
+Boundary faces contribute no jump (src/indicator.cc:174-179).  A cell is
+marked (limiter active) when the indicator exceeds 1 (src/limiter.cc:263).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dflo_tpu_torch.ops import basis as basis_mod
+from dflo_tpu_torch.ops.basis import EAST, NORTH, SOUTH, WEST
+from dflo_tpu_torch.ops.contract import as_tensor, basis_apply1, quad_reduce1
+from dflo_tpu_torch.physics import euler
+from dflo_tpu_torch.stab.limiter import neighbor_valid
+
+
+def make_shock_indicator(basis: basis_mod.Basis, mesh, kind: str = "density",
+                         per_x: bool = False, per_y: bool = False, *,
+                         dtype: torch.dtype, device):
+    """Build indicator(u, ubar) -> (shock_ind[ny,nx], jump_ind[ny,nx]).
+
+    kind : 'density' | 'energy' (KXRCF).  The 'limiter', 'u2' and 'residual'
+           indicators come with later slices.
+    """
+    if kind not in ("density", "energy"):
+        raise NotImplementedError(
+            f"shock indicator {kind!r} is not ported yet (this slice carries "
+            f"the KXRCF density and energy indicators)")
+    comp = {"density": euler.RHO, "energy": euler.ENE}[kind]
+    faceV = [as_tensor(basis.faceV[f], dtype, device) for f in range(4)]
+    wq = as_tensor(basis.wq, dtype, device)
+    dx, dy = mesh.dx, mesh.dy
+    diam = float(np.sqrt(dx * dx + dy * dy))
+    h = mesh.diameter_h
+    p = basis.degree
+    vW, vE, vS, vN = (as_tensor(v, dtype, device) for v in
+                      neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
+
+    def indicator(u, ubar):
+        v = u[comp]                                   # [K, ny, nx]
+        tW = basis_apply1(faceV[WEST], v)             # [nq, ny, nx]
+        tE = basis_apply1(faceV[EAST], v)
+        tS = basis_apply1(faceV[SOUTH], v)
+        tN = basis_apply1(faceV[NORTH], v)
+
+        # neighbor traces across each face; skipped faces get zero jump
+        jW = (tW - torch.roll(tE, 1, dims=2)) * vW
+        jE = (tE - torch.roll(tW, -1, dims=2)) * vE
+        jS = (tS - torch.roll(tN, 1, dims=1)) * vS
+        jN = (tN - torch.roll(tS, -1, dims=1)) * vN
+
+        # inflow flags per face from cell-average velocity (vel . n < 0)
+        vx = ubar[euler.MX] / ubar[euler.RHO]
+        vy = ubar[euler.MY] / ubar[euler.RHO]
+        inW = (-vx < 0) * vW
+        inE = (vx < 0) * vE
+        inS = (-vy < 0) * vS
+        inN = (vy < 0) * vN
+
+        def fint(j):
+            return quad_reduce1(wq, j)
+
+        ind = (inW * fint(jW) + inE * fint(jE)) * dy \
+            + (inS * fint(jS) + inN * fint(jN)) * dx
+        measure = (inW + inE) * dy + (inS + inN) * dx
+
+        denom = diam ** (0.5 * (p + 1)) * measure * ubar[comp]
+        safe = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+        shock = torch.where(torch.abs(denom) > 0.0, torch.abs(ind) / safe,
+                            torch.zeros_like(denom))
+
+        jump2 = ((fint(jW**2) * vW + fint(jE**2) * vE) * dy
+                 + (fint(jS**2) * vS + fint(jN**2) * vN) * dx)
+        jump = torch.sqrt(jump2 / (4.0 * h)) * diam
+        return shock, jump
+
+    return indicator

@@ -1,0 +1,127 @@
+"""TVB minmod slope limiter for the nodal Qk basis, vectorized over all cells.
+
+The torch counterpart of dflo_tpu/stab/limiter.py's gradient-based Qk limiter
+(apply_limiter_TVB_Qk, src/limiter.cc:224-370): neighbor lookups are tensor
+rolls of the cell-average field, the characteristic transform is a batched
+4x4 contraction (src/equation.h:225-306), and the "reduce to linear" rewrite
+is a select between the original DoFs and the limited linear rebuild.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dflo_tpu_torch.ops import basis as basis_mod
+from dflo_tpu_torch.ops.contract import as_tensor, basis_reduce
+from dflo_tpu_torch.physics import euler
+
+
+def minmod(a, b, c, Mdx2):
+    """TVB minmod (src/limiter.cc:15-30): pass-through below the TVB
+    threshold, sign-matched minimum otherwise."""
+    samesign = (a * b > 0) & (b * c > 0)
+    m = torch.sign(a) * torch.minimum(torch.abs(a),
+                                      torch.minimum(torch.abs(b), torch.abs(c)))
+    return torch.where(torch.abs(a) < Mdx2, a,
+                       torch.where(samesign, m, torch.zeros_like(m)))
+
+
+def _mean4(a):
+    """Mean over the 4 components, summed in component order."""
+    return (a[0] + a[1] + a[2] + a[3]) * 0.25
+
+
+def neighbor_valid(shape, per_x: bool, per_y: bool):
+    """Bool numpy [ny, nx] flags (W, E, S, N): does an in-domain neighbor
+    exist in that direction?  (The reference's lcell/rcell/bcell/tcell
+    tables, src/claw.cc:336-380.)"""
+    ny, nx = shape
+    vW = np.ones(shape, bool)
+    vE = np.ones(shape, bool)
+    vS = np.ones(shape, bool)
+    vN = np.ones(shape, bool)
+    if not per_x:
+        vW[:, 0] = False
+        vE[:, nx - 1] = False
+    if not per_y:
+        vS[0, :] = False
+        vN[ny - 1, :] = False
+    return vW, vE, vS, vN
+
+
+def neighbor_diffs(ubar, D, valid):
+    """Backward/forward cell-average differences with the reference's
+    boundary fallback: where a neighbor is missing the difference degrades to
+    the cell's own slope D (src/limiter.cc:283-316).
+
+    ubar [4, ny, nx]; D = (Dx, Dy) each [4, ny, nx]; valid = (W, E, S, N)
+    bool tensors.  Returns (dbx, dfx, dby, dfy)."""
+    Dx, Dy = D
+    vW, vE, vS, vN = valid
+    dbx = torch.where(vW, ubar - torch.roll(ubar, 1, dims=-1), Dx)
+    dfx = torch.where(vE, torch.roll(ubar, -1, dims=-1) - ubar, Dx)
+    dby = torch.where(vS, ubar - torch.roll(ubar, 1, dims=-2), Dy)
+    dfy = torch.where(vN, torch.roll(ubar, -1, dims=-2) - ubar, Dy)
+    return dbx, dfx, dby, dfy
+
+
+def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
+                     beta: float = 1.0, char_lim: bool = False,
+                     per_x: bool = False, per_y: bool = False, *,
+                     dtype: torch.dtype, device):
+    """Build limit(u, ubar, marked) -> u for a nodal Qk basis.
+
+    marked : [ny, nx] shock indicator; cells with marked > 1 are limited
+             (src/limiter.cc:263).
+    M, beta, char_lim mirror Parameters::Limiter (src/parameters.h:241-256).
+    """
+    if basis.family != "Qk":
+        raise NotImplementedError(
+            "the modal Pk TVB limiter comes with the MOOD slice")
+    h = mesh.diameter_h
+    inv_h = 1.0 / h
+    Mdx2 = M * h * h
+    valid = tuple(torch.as_tensor(v, device=device) for v in
+                  neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
+    # mean reference gradient operators: gx[k] = sum_q w2q dphi_k/dx
+    gx_op = as_tensor(basis.wq2 @ basis.Gx, dtype, device)
+    gy_op = as_tensor(basis.wq2 @ basis.Gy, dtype, device)
+    # physical node offsets from the cell center
+    drx = as_tensor((basis.nodes[:, 0] - 0.5) * mesh.dx, dtype, device)
+    dry = as_tensor((basis.nodes[:, 1] - 0.5) * mesh.dy, dtype, device)
+
+    def limit(u, ubar, marked):
+        # h * mean physical gradient (src/limiter.cc:269-281)
+        Dx = (h / mesh.dx) * basis_reduce(gx_op, u)
+        Dy = (h / mesh.dy) * basis_reduce(gy_op, u)
+        dbx, dfx, dby, dfy = neighbor_diffs(ubar, (Dx, Dy), valid)
+
+        if char_lim:
+            Rx, Lx, Ry, Ly = euler.eigen_matrices(ubar)
+            cDx = euler.to_characteristic(Lx, Dx)
+            cDy = euler.to_characteristic(Ly, Dy)
+            cdbx = euler.to_characteristic(Lx, dbx)
+            cdfx = euler.to_characteristic(Lx, dfx)
+            cdby = euler.to_characteristic(Ly, dby)
+            cdfy = euler.to_characteristic(Ly, dfy)
+        else:
+            cDx, cDy, cdbx, cdfx, cdby, cdfy = Dx, Dy, dbx, dfx, dby, dfy
+
+        Dxn = minmod(cDx, beta * cdbx, beta * cdfx, Mdx2)
+        Dyn = minmod(cDy, beta * cdby, beta * cdfy, Mdx2)
+        # the component means summed in order, as csrc/fused_post.cu does
+        change = (_mean4(torch.abs(Dxn - cDx))
+                  + _mean4(torch.abs(Dyn - cDy)))
+        if char_lim:
+            Dxn = euler.to_conserved(Rx, Dxn)
+            Dyn = euler.to_conserved(Ry, Dyn)
+
+        # linear rebuild at the nodal points (src/limiter.cc:355-366)
+        u_lim = (ubar[:, None]
+                 + drx[None, :, None, None] * (Dxn * inv_h)[:, None]
+                 + dry[None, :, None, None] * (Dyn * inv_h)[:, None])
+        active = (marked > 1.0) & (change > 1.0e-10)
+        return torch.where(active[None, None], u_lim, u)
+
+    return limit

@@ -1,0 +1,136 @@
+"""Each CUDA kernel of dflo_tpu_torch against its plain PyTorch version, on
+the card, for every instantiated degree (p = 1, 2, 3) and dtype.
+
+Marked ``gpu``; without a CUDA device every test skips.  The file imports no
+JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
+imports JAX, hence --noconftest):
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
+
+Tolerances, relative to the plain version's largest magnitude per
+component: f64 1e-11 and f32 1e-5 (1e-4 for the post chain), the round-off of
+another summation order and of FMA contraction.  The f32 post may flip a
+limiter threshold decision (KXRCF > 1, change > 1e-10) in a few cells; those
+are counted and bounded by 1 % of the cells at this small size.
+"""
+
+import pytest
+import torch
+
+from dflo_tpu_torch import ic
+from dflo_tpu_torch.entry import dmr_ic, dmr_inflow
+from dflo_tpu_torch.mesh import CartesianMesh
+from dflo_tpu_torch.ops import kernels
+from dflo_tpu_torch.ops.basis import make_basis
+from dflo_tpu_torch.physics import euler
+from dflo_tpu_torch.solver.spatial import BoundarySide, make_rhs
+from dflo_tpu_torch.stab.positivity import EPS
+
+pytestmark = pytest.mark.gpu
+
+NX, NY = 96, 20          # ragged against the 32 x 4 block on both axes
+TOL = {torch.float64: 1e-11, torch.float32: 1e-5}
+POST_TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
+BCS = dict(W=BoundarySide(euler.BC_INFLOW, dmr_inflow),
+           E=BoundarySide(euler.BC_OUTFLOW),
+           S=BoundarySide(euler.BC_SLIP),
+           N=BoundarySide(euler.BC_FARFIELD, dmr_inflow))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def rel(k, p) -> float:
+    k, p = k.double(), p.double()
+    if k.dim() == 0:
+        return float((k - p).abs() / p.abs().clamp(min=1e-300))
+    num = (k - p).abs().flatten(1).amax(1)
+    return float((num / p.abs().flatten(1).amax(1).clamp(min=1e-300)).max())
+
+
+def setup(p, dtype, device):
+    """Operators and a limited, perturbed DMR state on Q_p."""
+    basis = make_basis("Qk", p)
+    mesh = CartesianMesh(NX, NY, 0.0, 4.0, 0.0, 1.0)
+    gen = torch.Generator().manual_seed(p)
+    u = ic.set_initial_condition(basis, mesh, dmr_ic, dtype=torch.float64,
+                                 device="cpu")
+    u = u * (1.0 + 0.05 * (2.0 * torch.rand(u.shape, generator=gen,
+                                            dtype=torch.float64) - 1.0))
+    u = u.to(dtype=dtype, device=device)
+    post = kernels.post_operators(basis, mesh, indicator="density", beta=2.0,
+                                  char_lim=True, pos_lim=True,
+                                  dtype=dtype, device=device)
+    rhs = make_rhs(basis, mesh, BCS, flux="hllc", dtype=dtype, device=device,
+                   fused=True)
+    diag = kernels.diag_operators(basis, mesh, dtype=dtype, device=device)
+    return u, post, rhs, diag
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3))
+def test_fused_residual_matches_plain(cuda, p, dtype):
+    dt = getattr(torch, dtype)
+    u, post, rhs, _ = setup(p, dt, cuda)
+    u = kernels.fused_post_plain(u, post)
+    strips = rhs.strips(u, 0.0)
+    before = kernels.fused_residual.launches
+    R = kernels.fused_residual(u, *strips, rhs.ops)
+    assert rel(R, kernels.fused_residual_plain(u, *strips, rhs.ops)) <= TOL[dt]
+    sc = torch.tensor([0.75, 1e-4], dtype=dt, device=cuda)
+    u_old = u.flip(-1).contiguous()
+    S = kernels.fused_residual(u, *strips, rhs.ops, u_old=u_old, sc=sc)
+    Sp = kernels.fused_residual_plain(u, *strips, rhs.ops, u_old=u_old, sc=sc)
+    torch.cuda.synchronize()
+    assert rel(S, Sp) <= TOL[dt]
+    assert kernels.fused_residual.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3))
+def test_fused_post_and_diag_match_plain(cuda, p, dtype):
+    dt = getattr(torch, dtype)
+    u, post, _, diag = setup(p, dt, cuda)
+    k0 = kernels.fused_post(u, post)
+    k, lam, minq = kernels.fused_post(u, post, with_diag=True)
+    pl, lam_p, minq_p = kernels.fused_post_plain(u, post, with_diag=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k, k0)
+    scale = pl.double().abs().flatten(1).amax(1)
+    cell = ((k.double() - pl.double()).abs()
+            / scale[:, None, None, None]).amax((0, 1))
+    flipped = cell > POST_TOL[dt]
+    assert int(flipped.sum()) <= (0 if dt == torch.float64 else NX * NY // 100)
+    assert float(torch.where(flipped, 0.0, cell).max()) <= POST_TOL[dt]
+    assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+    lam_d, minq_d = kernels.fused_diag(u, diag)
+    lam_dp, minq_dp = kernels.fused_diag_plain(u, diag)
+    assert rel(lam_d, lam_dp) <= TOL[dt] and rel(minq_d, minq_dp) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+def test_nan_cell_reaches_the_fatal_flag(cuda, dtype):
+    dt = getattr(torch, dtype)
+    u, post, _, diag = setup(2, dt, cuda)
+    u[:, :, NY // 2, NX // 3] = float("nan")
+    _, minq = kernels.fused_diag(u, diag)
+    _, _, minq2 = kernels.fused_post(u, post, with_diag=True)
+    assert bool(~(minq >= EPS)) and bool(~(minq2 >= EPS))
+
+
+def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
+    u, post, rhs, diag = setup(2, torch.float64, cuda)
+    strips = rhs.strips(u, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.fused_post(u.transpose(2, 3), post)
+    with pytest.raises(ValueError):
+        kernels.fused_residual(u, *strips, rhs.ops, u_old=u)
+    with pytest.raises(ValueError, match="share"):
+        kernels.fused_diag(u.float(), diag)
+    with pytest.raises(ValueError, match="strip"):
+        kernels.fused_residual(u, strips[2], strips[1], strips[2], strips[3],
+                               rhs.ops)
