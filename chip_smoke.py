@@ -6,25 +6,50 @@ versions.
 Phases (any failure raises, and the script then prints no result):
 
 1. card and build: the card's name and power limit; nvcc builds
-   dflo_tpu_torch/csrc/*.cu (timed).
-2. each kernel against its plain PyTorch version on the card, on the
+   dflo_tpu_torch/csrc/*.cu (one process per source, timed) and prints
+   ptxas' registers and spills.
+2. RK/TVB kernels against their plain PyTorch versions on the card, on the
    1152 x 288 Q2 double-Mach-reflection (DMR) state after the initial
    post_stage and after 10 plain steps, in float32 and float64: both forms of
    the residual, the post with and without its diagnostics, the diag; CUDA
    event times (median of 20); the f64 free stream through the residual
    kernel; one NaN cell must trip the fatal flag.
-3. the main path: entry._build(1152, 288, float32, cuda) and
-   Solver._multi_step(50); every kernel launched, no plain version called,
-   no fatal flag, finite state; DoF-updates/s.
+3. the RK main path: entry._build(1152, 288, float32, cuda) and
+   Solver._multi_step(50); every kernel of the path launched, no plain
+   version called, no fatal flag, finite state; DoF-updates/s.
 4. the entry() analog at 128 x 24: one f64 step with the kernels against the
    plain step, on the card and on the CPU.
+5. MOOD kernels against their plain versions, on the 1152 x 288 P2 DMR
+   state after 3 MOOD steps through the plain versions (on the card), in
+   float32 and float64: the dense modal residual (R and u + dt*R), the sparse
+   candidate on a realistic cell set (pass 1's changed cells, their
+   neighbors and the cells the positivity chain moves) and on every cell,
+   the modal positivity in all four forms, the Pk post with and without its
+   diag, the check (bitwise), the diag on Pk; CUDA event times.
+6. the MOOD main path: entry._build(1152, 288, float32, cuda, "mood"),
+   post_stage, Solver._multi_step(20) after a warm-up; every kernel of the
+   path launched (the Pk post in both forms), no plain version called, no
+   fatal flag, finite state; bench.py's headline metric
+   dmr_q2_pk_mood_dof_updates_per_sec with ms/step, MoodStats, cascade
+   passes, host syncs and strips per step.
+7. sparse against dense, f64, 128 x 32, 3 MOOD steps: the default stage
+   against make_mood(..., sparse_mode="off") (which launches
+   fused_modal_pos with truncation), and the kernels against the plain
+   versions on the same card: state within 1e-10, equal degree and
+   limiter maps, equal MoodStats.
+8. the device's busy share: each main path's chunk (RK 5 steps, MOOD 3)
+   under torch.profiler; busy time is the union of the device events'
+   intervals; idle shares of the traced wall and of the untraced ms/step
+   of phases 3 and 6.
 
-The last lines are the kernel table and the card as JSON.  The machine with
-the card has no JAX: this script imports neither jax nor dflo_tpu.
+The last lines are the kernel table, the card line and the card as JSON.  The
+machine with the card has no JAX: this script imports neither jax nor
+dflo_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -40,24 +65,56 @@ import torch
 #: threshold decision (KXRCF > 1, change > 1e-10) in a few cells, which are
 #: counted and bounded separately.
 TOL = {torch.float64: {"fused_residual": 1e-11, "fused_post": 1e-11,
-                       "fused_diag": 1e-11},
+                       "fused_diag": 1e-11, "fused_mood_candidate": 1e-11,
+                       "fused_modal_pos": 1e-11, "fused_pk_post": 1e-11},
        torch.float32: {"fused_residual": 1e-5, "fused_post": 1e-4,
-                       "fused_diag": 1e-5}}
+                       "fused_diag": 1e-5, "fused_mood_candidate": 1e-5,
+                       "fused_modal_pos": 1e-5, "fused_pk_post": 1e-4}}
 MAX_FLIP_FRACTION = 1e-4          # 0.01 % of the cells
 NX, NY = 1152, 288
 MAIN_STEPS = 50
+MOOD_STEPS = 20
+MOOD_PLAIN_STEPS = 3              # steps that make the MOOD kernels' input
+SD_NX, SD_NY, SD_STEPS = 128, 32, 3
+SD_TOL = 1e-10
+#: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
+#: outside the tensor cores): HBM bytes/s and FLOP/s per dtype
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
+#: table rows: name -> (CUDA source, TPU kernel it replaces (file:line),
+#: TPU function, wrapper, main path it runs on)
+PK = "dflo_tpu/ops/pallas_kernels.py"
 SOURCES = {
-    "fused_residual": ("dflo_tpu_torch/csrc/fused_residual.cu",
-                       "dflo_tpu/ops/pallas_kernels.py:617",
-                       "dflo_tpu/ops/pallas_kernels.py:make_fused_residual"),
-    "fused_post": ("dflo_tpu_torch/csrc/fused_post.cu",
-                   "dflo_tpu/ops/pallas_kernels.py:1075",
-                   "dflo_tpu/ops/pallas_kernels.py:make_fused_post"),
-    "fused_diag": ("dflo_tpu_torch/csrc/fused_diag.cu",
-                   "dflo_tpu/ops/pallas_kernels.py:1663",
-                   "dflo_tpu/ops/pallas_kernels.py:make_fused_diag"),
+    "fused_residual": ("dflo_tpu_torch/csrc/fused_residual.cu", f"{PK}:617",
+                       f"{PK}:make_fused_residual", "fused_residual", "rk"),
+    "fused_post": ("dflo_tpu_torch/csrc/fused_post.cu", f"{PK}:1075",
+                   f"{PK}:make_fused_post", "fused_post", "rk"),
+    "fused_diag": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
+                   f"{PK}:make_fused_diag", "fused_diag", "rk"),
+    "fused_residual_pk": ("dflo_tpu_torch/csrc/fused_residual.cu",
+                          f"{PK}:617", f"{PK}:make_fused_residual (modal Pk)",
+                          "fused_residual", "mood"),
+    "fused_mood_candidate": ("dflo_tpu_torch/csrc/fused_mood_candidate.cu",
+                             f"{PK}:955",
+                             f"{PK}:make_fused_residual(...).sparse",
+                             "fused_mood_candidate", "mood"),
+    "fused_modal_pos": ("dflo_tpu_torch/csrc/fused_modal_pos.cu",
+                        f"{PK}:1805", f"{PK}:make_fused_modal_pos",
+                        "fused_modal_pos", "mood"),
+    "fused_pk_post": ("dflo_tpu_torch/csrc/fused_pk_post.cu", f"{PK}:1997",
+                      f"{PK}:make_fused_pk_post", "fused_pk_post", "mood"),
+    "fused_mood_check": ("dflo_tpu_torch/csrc/fused_mood_check.cu",
+                         f"{PK}:2222", f"{PK}:make_fused_mood_check",
+                         "fused_mood_check", "mood"),
+    "fused_diag_pk": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
+                      f"{PK}:make_fused_diag (Pk)", "fused_diag", "mood"),
 }
+#: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
+WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
+            "fused_diag", "fused_modal_pos", "fused_pk_post",
+            "fused_mood_check")
+
 
 
 def card_line() -> str:
@@ -84,6 +141,20 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return statistics.median(ts)
 
 
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of fn() in ms, each call ending in a
+    synchronize (host work and device work together)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ts)
+
+
 def rel_err(k: torch.Tensor, p: torch.Tensor) -> float:
     """max over components of max|k - p| / max|p| (component = leading axis
     for states, the whole tensor for scalars)."""
@@ -97,6 +168,98 @@ def rel_err(k: torch.Tensor, p: torch.Tensor) -> float:
 
 def abs_err(k: torch.Tensor, p: torch.Tensor) -> float:
     return float((k.double() - p.double()).abs().max())
+
+
+def record(results, name, tag, pairs):
+    """Fold the (kernel, plain) pairs' errors into results[name]; returns the
+    largest relative error."""
+    r = results[name]
+    e = max(rel_err(k, p) for k, p in pairs)
+    r[f"max_rel_err_{tag}"] = max(r.get(f"max_rel_err_{tag}", 0.0), e)
+    r[f"max_abs_err_{tag}"] = max(r.get(f"max_abs_err_{tag}", 0.0),
+                                  max(abs_err(k, p) for k, p in pairs))
+    return e
+
+
+@contextlib.contextmanager
+def plain_versions(kernels):
+    """Every kernel wrapper replaced by its plain version: the same control
+    flow on the same card, for comparisons."""
+    saved = {n: getattr(kernels, n) for n in WRAPPERS}
+    for n in WRAPPERS:
+        setattr(kernels, n, getattr(kernels, n + "_plain"))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(kernels, n, f)
+
+
+def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
+         halo: int = 0):
+    """(bytes, operations) that the kernel's function needs on n cells of
+    `basis`: each input read once and each output written once.  Operations
+    count a multiply-add as 2 and a division, square root or comparison as
+    1: the linear maps by their operators' nonzero entries (V, Gx, Gy,
+    faceV, the cell average, the positivity points' evaluation); each
+    face's two traces and its flux once (two faces per cell); the Euler
+    flux 20 per point, HLLC 100 per face point, the positivity's point
+    arithmetic 45 per point, KXRCF 80 per face point.  Bytes of the diag:
+    only the modes its cell average reads.  Data-dependent work
+    is counted on this run's data: the characteristic TVB (300 per cell plus
+    the rebuild) on the `marked` cells only; the candidate's residual on its
+    `cells` and its {truncation -> positivity} chain once on each of the
+    `halo` cells (the set with its face neighbors)."""
+    from dflo_tpu_torch.stab.positivity import _pos_points
+
+    def nnz(a):
+        """nonzero entries; an entry within 1e-12 of the largest is a zero
+        integral's quadrature round-off (the Pk average's modes 1..K-1)"""
+        a = torch.as_tensor(a).abs()
+        return int((a > 1e-12 * a.max()).sum())
+
+    S = 4 if dtype == torch.float32 else 8
+    K = basis.K
+    nq = basis.faceV.shape[1]
+    modal = basis.family == "Pk"
+    state = 4 * K * S
+    avg = basis.wq2 @ basis.V
+    res = (8 * nnz(basis.V) * modal                     # point values
+           + 20 * basis.V.shape[0]                      # Euler fluxes
+           + 8 * (nnz(basis.Gx) + nnz(basis.Gy))        # volume lift
+           + 8 * nnz(basis.faceV)                       # face traces
+           + 2 * nq * 100                               # HLLC
+           + 8 * nnz(basis.faceV))                      # face lifts
+    vp = basis.eval_at(_pos_points(basis.degree))
+    pos = 8 * nnz(vp) + 45 * vp.shape[0] + 16 * K + 20
+    tvb = 300 + 32 * K
+    if name == "fused_residual":             # SSP-stage form, main path
+        return 3 * state * n, (res + 20 * K) * n
+    if name == "fused_residual_pk":          # u + dt*R, MOOD pass 1
+        return 2 * state * n, (res + 8 * K) * n
+    if name == "fused_mood_candidate":
+        return (halo * (state + 4) + cells * state + n,
+                (res + 8 * K) * cells + pos * halo)
+    if name == "fused_modal_pos":            # main-path form: no truncation
+        return 2 * state * n, pos * n
+    if name == "fused_pk_post":              # with diag
+        return (2 * state + S) * n, (4 + pos + 40) * n + tvb * marked
+    if name == "fused_post":                 # with diag
+        return (2 * state * n,
+                (8 * K + 2 * nnz(basis.faceV) + 80 * nq + pos + 40) * n
+                + tvb * marked)
+    if name == "fused_mood_check":
+        return (5 * S + 4 + 1 + 6) * n, 60 * n
+    # fused_diag(_pk): the modes the cell average reads, then the wave speed
+    return 4 * nnz(avg) * S * n, (8 * nnz(avg) + 20) * n
+
+
+def bound(name, basis, dtype, n, **data):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the dtype's peak."""
+    b, f = work(name, basis, dtype, n, **data)
+    tb, tf = b / HBM_BPS, f / PEAK_FLOPS[dtype]
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
 def post_err(k: torch.Tensor, p: torch.Tensor, tol: float):
@@ -162,6 +325,7 @@ def phase_kernels(entry, kernels, euler, results):
         print(f"[{tag}] state after 10 plain steps: t={t!r}, "
               f"{n_marked} cells marked by KXRCF")
         assert n_marked > 0, "the indicator marks no cell"
+        results["fused_post"][f"data_{tag}"] = {"marked": n_marked}
 
         tt = torch.full((), t, dtype=dt, device="cuda")
         dtt = torch.full((), 1e-4, dtype=dt, device="cuda")
@@ -185,11 +349,7 @@ def phase_kernels(entry, kernels, euler, results):
             pk0 = kernels.fused_post(u, s._post_ops)
             torch.cuda.synchronize()
             for name, pairs in checks.items():
-                e = max(rel_err(k, p) for k, p in pairs)
-                a = max(abs_err(k, p) for k, p in pairs)
-                r = results[name]
-                r[f"max_rel_err_{tag}"] = max(r.get(f"max_rel_err_{tag}", 0), e)
-                r[f"max_abs_err_{tag}"] = max(r.get(f"max_abs_err_{tag}", 0), a)
+                e = record(results, name, tag, pairs)
                 print(f"[{tag}] {label}: {name} rel err {e:.3e} "
                       f"(tol {tol[name]:.0e})")
                 assert e <= tol[name], f"{name} {tag} disagrees: {e}"
@@ -278,6 +438,378 @@ def phase_kernels(entry, kernels, euler, results):
         results[f"free_stream_f64_{nx}x{ny}"] = fs_max
 
 
+def phase_mood_kernels(entry, kernels, results):
+    """Phase 5 for both dtypes; fills results[name][...], with the data the
+    bounds count (marked cells, the candidate's cell set and halo)."""
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.stab import mood as mood_mod
+    for dt in (torch.float32, torch.float64):
+        tag = "f32" if dt == torch.float32 else "f64"
+        tol = TOL[dt]
+        s, u0 = entry._build(NX, NY, dtype=dt, device="cuda", method="mood")
+        u, t = s.post_stage(u0), 0.0
+        with plain_versions(kernels):
+            for _ in range(MOOD_PLAIN_STEPS):
+                u, dtt, bad, st = s._step(u, t, 1.0)
+                t += float(dtt)
+                assert not bool(bad), f"{tag}: plain MOOD steps tripped bad"
+            # one stage through the plain versions: its marks feed the post
+            _, marked, st_plain, _ = s._mood_stage(u, s._scalar(t), dtt)
+        stage, rops = s._mood_stage, s.rhs.ops
+        mops, cops, pops = stage.mops, stage.cops, s._pk_post_ops
+        tt, h = s._scalar(t), dtt
+        print(f"[{tag}] MOOD state after {MOOD_PLAIN_STEPS} plain steps: "
+              f"t={t!r}; a plain stage: n_reduce={int(st_plain.n_reduce)}, "
+              f"n_marked={int(st_plain.n_marked)}, passes={st_plain.iters}")
+        assert int(st_plain.n_reduce) > 0, "the cascade does not fire"
+
+        # pass 1 and its check give a realistic degree map and cell set
+        rho0 = mops.avg0 * u[euler.RHO, 0]
+        bmin = mood_mod.neighborhood_min(rho0, stage.valid)
+        bmax = mood_mod.neighborhood_max(rho0, stage.valid)
+        deg0 = torch.full((NY, NX), s.basis.degree, dtype=torch.int32,
+                          device="cuda")
+        lim0 = torch.zeros((NY, NX), dtype=torch.bool, device="cuda")
+        strips = s.rhs.strips(u, tt)
+        u_c = kernels.fused_residual_plain(u, *strips, rops, dt=h)
+        deg1, lim1, chg1 = kernels.fused_mood_check_plain(u_c, bmin, bmax,
+                                                          deg0, lim0, cops)
+        moved = (kernels.fused_modal_pos_plain(u, mops) != u
+                 ).flatten(0, 1).any(0)
+        aff = (chg1 | mood_mod.dilate4_valid(chg1, stage.valid)
+               | mood_mod.dilate4_valid(moved, stage.valid))
+        n_set = int(aff.sum())
+        results["fused_mood_candidate"][f"data_{tag}"] = {
+            "cells": n_set,
+            "halo": int(mood_mod.dilate4_valid(aff, stage.valid).sum())}
+        results["fused_pk_post"][f"data_{tag}"] = {
+            "marked": int(marked.sum())}
+        every = torch.ones_like(aff)
+        tp_strips = s.rhs.strips(u, tt, deg1)
+        shock = marked.to(dt) * 2.0
+
+        def cand(fn, cells):
+            return fn(u, u_c.clone(), deg1, cells, *tp_strips, rops, mops, h)
+
+        checks = {
+            "fused_residual_pk": [
+                (kernels.fused_residual(u, *strips, rops),
+                 kernels.fused_residual_plain(u, *strips, rops)),
+                (kernels.fused_residual(u, *strips, rops, dt=h), u_c)],
+            "fused_mood_candidate": [
+                (cand(kernels.fused_mood_candidate, c),
+                 cand(kernels.fused_mood_candidate_plain, c))
+                for c in (aff, every)],
+            "fused_modal_pos": [
+                pair for deg in (None, deg1)
+                for pair in [(kernels.fused_modal_pos(u, mops, deg),
+                              kernels.fused_modal_pos_plain(u, mops, deg)),
+                             *zip(kernels.fused_modal_pos(u, mops, deg,
+                                                          with_diag=True),
+                                  kernels.fused_modal_pos_plain(
+                                      u, mops, deg, with_diag=True))]],
+            "fused_diag_pk": list(zip(kernels.fused_diag(u, s._diag_ops),
+                                      kernels.fused_diag_plain(u,
+                                                               s._diag_ops))),
+        }
+        torch.cuda.synchronize()
+        for name, pairs in checks.items():
+            e = record(results, name, tag, pairs)
+            print(f"[{tag}] {name} rel err {e:.3e} (tol "
+                  f"{tol.get(name, tol['fused_diag']):.0e})")
+            assert e <= tol.get(name, tol["fused_diag"]), \
+                f"{name} {tag} disagrees: {e}"
+        # cells off the set keep u_prev bitwise
+        kc = cand(kernels.fused_mood_candidate, aff)
+        assert torch.equal(kc[..., ~aff], u_c[..., ~aff])
+
+        pk = kernels.fused_pk_post(u, shock, pops, with_diag=True)
+        pp = kernels.fused_pk_post_plain(u, shock, pops, with_diag=True)
+        pk0 = kernels.fused_pk_post(u, shock, pops)
+        torch.cuda.synchronize()
+        e_in, nflip = post_err(pk[0], pp[0], tol["fused_pk_post"])
+        e0_in, nflip0 = post_err(pk0, pp[0], tol["fused_pk_post"])
+        e_diag = max(rel_err(pk[1], pp[1]), rel_err(pk[2], pp[2]))
+        r = results["fused_pk_post"]
+        e = max(e_in, e0_in, e_diag)
+        r[f"max_rel_err_{tag}"] = e
+        r[f"max_abs_err_{tag}"] = abs_err(pk[0], pp[0])
+        r[f"flipped_cells_{tag}"] = max(nflip, nflip0)
+        r[f"bitwise_{tag}"] = bool(torch.equal(pk[0], pp[0]))
+        print(f"[{tag}] fused_pk_post rel err {e:.3e} outside "
+              f"{max(nflip, nflip0)} flipped cells of {int(marked.sum())} "
+              f"marked (tol {tol['fused_pk_post']:.0e}); bitwise "
+              f"{r[f'bitwise_{tag}']}; diag rel err {e_diag:.3e}")
+        assert e <= tol["fused_pk_post"], f"fused_pk_post {tag}: {e}"
+        assert (nflip == nflip0 == 0 if dt == torch.float64
+                else max(nflip, nflip0) <= MAX_FLIP_FRACTION * NX * NY)
+
+        # the check, bitwise: on pass 1 and on a later pass
+        candk = cand(kernels.fused_mood_candidate, aff)
+        for (uc, dg, lm) in ((u_c, deg0, lim0), (candk, deg1, lim1)):
+            outk = kernels.fused_mood_check(uc, bmin, bmax, dg, lm, cops)
+            outp = kernels.fused_mood_check_plain(uc, bmin, bmax, dg, lm,
+                                                  cops)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(outk, outp)), \
+                f"fused_mood_check {tag} is not bitwise"
+        results["fused_mood_check"][f"max_abs_err_{tag}"] = 0.0
+        results["fused_mood_check"][f"max_rel_err_{tag}"] = 0.0
+        print(f"[{tag}] fused_mood_check bitwise equal (pass 1: "
+              f"{int(chg1.sum())} cells reduced); candidate cell set "
+              f"{n_set} of {NX * NY}")
+
+        # ---- times, main-path forms ---------------------------------------
+        u_prev = u_c.clone()
+        timings = {
+            "fused_residual_pk": (
+                lambda: kernels.fused_residual(u, *strips, rops, dt=h),
+                lambda: kernels.fused_residual_plain(u, *strips, rops, dt=h)),
+            "fused_mood_candidate": (
+                lambda: kernels.fused_mood_candidate(
+                    u, u_prev, deg1, aff, *tp_strips, rops, mops, h),
+                lambda: kernels.fused_mood_candidate_plain(
+                    u, u_prev, deg1, aff, *tp_strips, rops, mops, h)),
+            "fused_modal_pos": (
+                lambda: kernels.fused_modal_pos(u, mops),
+                lambda: kernels.fused_modal_pos_plain(u, mops)),
+            "fused_pk_post": (
+                lambda: kernels.fused_pk_post(u, shock, pops, with_diag=True),
+                lambda: kernels.fused_pk_post_plain(u, shock, pops,
+                                                    with_diag=True)),
+            "fused_mood_check": (
+                lambda: kernels.fused_mood_check(u_c, bmin, bmax, deg0, lim0,
+                                                 cops),
+                lambda: kernels.fused_mood_check_plain(u_c, bmin, bmax, deg0,
+                                                       lim0, cops)),
+            "fused_diag_pk": (
+                lambda: kernels.fused_diag(u, s._diag_ops),
+                lambda: kernels.fused_diag_plain(u, s._diag_ops)),
+        }
+        for name, (fk, fp) in timings.items():
+            ms_k, ms_p = time_ms(fk), time_ms(fp)
+            results[name][f"ms_{tag}"] = ms_k
+            results[name][f"plain_ms_{tag}"] = ms_p
+            print(f"[{tag}] {name}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms "
+                  f"at {NX}x{NY}")
+        if dt == torch.float32:
+            # host clock, ending in a synchronize: the strips (plain torch,
+            # O(boundary)) and one whole cascade stage through the kernels
+            host = {"strips_ms": host_ms(lambda: s.rhs.strips(u, tt)),
+                    "strips_tp_ms": host_ms(lambda: s.rhs.strips(u, tt,
+                                                                 deg1)),
+                    "mood_stage_ms": host_ms(lambda: stage(u, tt, h))}
+            results["mood_host_f32"] = host
+            print(f"[{tag}] host ms (median of 5): {host}")
+
+        # ---- NaN must reach the fatal flag through the Pk post diag -------
+        u_nan = u.clone()
+        u_nan[:, :, NY // 2, NX // 3] = float("nan")
+        from dflo_tpu_torch.stab.positivity import EPS
+        _u, _lam, minq = kernels.fused_pk_post(u_nan, shock, pops,
+                                               with_diag=True)
+        assert bool(~(minq >= EPS)), "a NaN cell did not reach the flag"
+
+
+def phase_main_rk(entry, kernels, plain_calls):
+    """Phase 3: the RK main path; returns its launch counts and ms/step."""
+    solver, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda")
+    u = solver.post_stage(u0)
+    multi = solver._multi_step(MAIN_STEPS)
+    solver._multi_step(2)(u, 0.0, 1.0e3)            # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    plain_calls["n"] = 0
+    t0 = time.perf_counter()
+    u1, t1, n_done, bad, _ = multi(u, 0.0, 1.0e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n_done, bad = int(n_done), bool(bad)
+    finite = bool(torch.isfinite(u1).all())
+    print(f"RK main path: {n_done} steps to t={float(t1)!r} in {wall:.4f} s, "
+          f"bad={bad}, finite={finite}, launches={counts}, "
+          f"plain calls={plain_calls['n']}")
+    assert n_done == MAIN_STEPS and not bad and finite
+    assert all(counts[k] > 0 for k in ("fused_residual", "fused_post",
+                                       "fused_diag")), counts
+    assert plain_calls["n"] == 0, "the main path called a plain version"
+    rate = 4 * solver.basis.K * NX * NY * MAIN_STEPS / wall
+    print(json.dumps({"dmr_q2_rk_tvb_dof_updates_per_sec": rate,
+                      "unit": "DoF-updates/s", "dtype": "float32",
+                      "grid": [NX, NY], "steps": MAIN_STEPS,
+                      "ms_per_step": 1e3 * wall / MAIN_STEPS,
+                      "card": card_line()}))
+    return counts, 1e3 * wall / MAIN_STEPS
+
+
+def phase_main_mood(entry, kernels, plain_calls):
+    """Phase 6: the MOOD main path; returns its launch counts and
+    ms/step."""
+    solver, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
+                              method="mood")
+    u = solver.post_stage(u0)
+    multi = solver._multi_step(MOOD_STEPS)
+    solver._multi_step(2)(u, 0.0, 1.0e3)            # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    plain_calls["n"] = 0
+    syncs0 = solver.host_syncs
+    t0 = time.perf_counter()
+    u1, t1, n_done, bad, stats = multi(u, 0.0, 1.0e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    syncs = solver.host_syncs - syncs0
+    n_done, bad = int(n_done), bool(bad)
+    finite = bool(torch.isfinite(u1).all())
+    print(f"MOOD main path: {n_done} steps to t={float(t1)!r} in {wall:.4f} "
+          f"s, bad={bad}, finite={finite}, launches={counts}, "
+          f"plain calls={plain_calls['n']}, cascade reads={syncs}")
+    assert n_done == MOOD_STEPS and not bad and finite
+    need = ("fused_residual", "fused_mood_candidate", "fused_modal_pos",
+            "fused_pk_post", "fused_pk_post_with_diag", "fused_mood_check",
+            "fused_diag")
+    assert all(counts[k] > 0 for k in need), counts
+    assert counts["fused_pk_post"] > counts["fused_pk_post_with_diag"]
+    assert plain_calls["n"] == 0, "the MOOD path called a plain version"
+    n_stages = MOOD_STEPS * len(solver.ark)
+    per_step = {k: v / MOOD_STEPS for k, v in counts.items()}
+    print(json.dumps({
+        "dmr_q2_pk_mood_dof_updates_per_sec":
+            4 * solver.basis.K * NX * NY * MOOD_STEPS / wall,
+        "unit": "DoF-updates/s", "dtype": "float32", "grid": [NX, NY],
+        "steps": MOOD_STEPS, "ms_per_step": 1e3 * wall / MOOD_STEPS,
+        "mood_stats_per_step": {
+            "n_reduce": int(stats.n_reduce) / MOOD_STEPS,
+            "n_marked": int(stats.n_marked) / MOOD_STEPS,
+            "passes": stats.iters / MOOD_STEPS},
+        "cascade_passes_per_stage": stats.iters / n_stages,
+        "host_syncs_per_step": syncs / MOOD_STEPS,
+        "strips_per_step": (counts["fused_residual"]
+                            + counts["fused_mood_candidate"]) / MOOD_STEPS,
+        "launches_per_step": per_step, "card": card_line()}))
+    return counts, 1e3 * wall / MOOD_STEPS
+
+
+def device_busy(fn) -> dict | None:
+    """fn() under torch.profiler (CUDA activity only): the host-clock wall,
+    the device's busy time (the union of its kernels' and copies'
+    intervals), the device events and the port's kernels among them, and
+    the device time by kernel name.  None if the trace holds no device
+    event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return None
+    busy, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict[str, float] = {}
+    for e in evs:
+        key = e.name.split("(")[0][:90]
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    port = [e for e in evs if "dflo::fused_" in e.name]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": 1e3 * wall, "busy_ms": 1e-3 * busy,
+            "device_events": len(evs), "port_kernel_events": len(port),
+            "port_kernel_ms": 1e-3 * sum(e.time_range.elapsed_us()
+                                         for e in port),
+            "top_ms": {k: 1e-3 * v for k, v in top}}
+
+
+def phase_trace(entry, ms_per_step):
+    """Phase 8: each main path's chunk under torch.profiler (RK 5 steps,
+    MOOD 3 steps, f32, 1152 x 288, after a warm-up): device busy time, and
+    the idle share of the traced wall and of the untraced ms/step of the
+    main-path phase (ms_per_step[method]; tracing slows the host), device
+    events and the port's kernels per step.  A measurement only: a trace
+    without device events is reported as not measured."""
+    out = {}
+    for method, steps in (("rk", 5), ("mood", 3)):
+        s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
+                             method=method)
+        u = s.post_stage(u0)
+        multi = s._multi_step(steps)
+        multi(u, 0.0, 1.0e3)                       # warm-up
+        r = device_busy(lambda: multi(u, 0.0, 1.0e3))
+        if r is not None:
+            r = {**r, "steps": steps,
+                 "idle_share_traced": 1.0 - r["busy_ms"] / r["wall_ms"],
+                 "idle_share": 1.0 - r["busy_ms"] / steps
+                               / ms_per_step[method],
+                 "wall_ms_per_step": r["wall_ms"] / steps,
+                 "untraced_ms_per_step": ms_per_step[method],
+                 "busy_ms_per_step": r["busy_ms"] / steps,
+                 "port_kernel_ms_per_step": r["port_kernel_ms"] / steps,
+                 "device_events_per_step": r["device_events"] / steps,
+                 "port_kernel_events_per_step":
+                     r["port_kernel_events"] / steps}
+        print(f"{method} trace ({steps} steps): "
+              f"{json.dumps(r) if r else 'no device events: not measured'}")
+        out[method] = r
+    return out
+
+
+def phase_sparse_dense(entry, kernels, results):
+    """Phase 7: the sparse cascade against the dense one and the kernels
+    against the plain versions, f64, on the card."""
+    from dflo_tpu_torch.stab.mood import make_mood
+    runs = {}
+    for label in ("sparse", "dense", "sparse_plain"):
+        s, u0 = entry._build(SD_NX, SD_NY, dtype=torch.float64,
+                             device="cuda", method="mood")
+        if label == "dense":
+            s._mood_stage = make_mood(s.basis, s.mesh, s.rhs,
+                                      sparse_mode="off")
+        u, t, out = s.post_stage(u0), 0.0, []
+        kernels.reset_launch_counts()
+        ctx = (plain_versions(kernels) if label == "sparse_plain"
+               else contextlib.nullcontext())
+        with ctx:
+            for _ in range(SD_STEPS):
+                u, dt, bad, st = s._step(u, t, 1.0)
+                t += float(dt)
+                assert not bool(bad)
+                out.append((u, s.last_deg, s.last_lim,
+                            (int(st.n_reduce), int(st.n_marked), st.iters)))
+        torch.cuda.synchronize()
+        runs[label] = (out, kernels.launch_counts())
+    ref = runs["sparse"][0]
+    worst, failures = 0.0, []
+    for label in ("dense", "sparse_plain"):
+        for k, (a, b) in enumerate(zip(ref, runs[label][0])):
+            e = rel_err(b[0], a[0])
+            worst = max(worst, e)
+            cell = (b[0] - a[0]).abs().flatten(0, 1).amax(0)
+            bad_cells = torch.nonzero(cell > SD_TOL * a[0].abs().max())
+            maps = torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+            print(f"[f64 {SD_NX}x{SD_NY}] step {k}: sparse vs {label}: "
+                  f"rel {e:.3e}, equal maps {maps}, stats {a[3]} / {b[3]}, "
+                  f"cells over tol {bad_cells.tolist()[:8]}")
+            if e > SD_TOL or not maps or a[3] != b[3]:
+                failures.append((label, k, e))
+    assert not failures, f"sparse against dense / plain: {failures}"
+    fired = sum(r[3][0] for r in ref)
+    dense_counts = runs["dense"][1]
+    print(f"sparse vs dense: {fired} degree reductions in {SD_STEPS} steps; "
+          f"the dense run launched fused_modal_pos "
+          f"{dense_counts['fused_modal_pos']} times")
+    assert fired > 0 and dense_counts["fused_modal_pos"] > 0
+    results["sparse_vs_dense_f64"] = {"max_rel_err": worst,
+                                      "degree_reductions": fired,
+                                      "dense_modal_pos_launches":
+                                          dense_counts["fused_modal_pos"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -287,6 +819,7 @@ def main() -> int:
     from dflo_tpu_torch.ops import kernels
     from dflo_tpu_torch.physics import euler
     assert "jax" not in sys.modules and "dflo_tpu" not in sys.modules
+    t_start = time.perf_counter()
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -302,46 +835,30 @@ def main() -> int:
         if "Used" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
-    # ---- phase 2: kernels against plain versions ---------------------------
+    # ---- phases 2 and 5: kernels against plain versions ----------------------
     results = {name: {} for name in SOURCES}
     phase_kernels(entry, kernels, euler, results)
+    phase_mood_kernels(entry, kernels, results)
 
-    # ---- phase 3: the main path --------------------------------------------
+    # ---- phases 3 and 6: the main paths, with the plain versions counted -----
     plain_calls = {"n": 0}
-    for name in ("fused_residual_plain", "fused_post_plain",
-                 "fused_diag_plain"):
-        fn = getattr(kernels, name)
+    for name in WRAPPERS:
+        fn = getattr(kernels, name + "_plain")
 
         def counted(*a, _fn=fn, **k):
             plain_calls["n"] += 1
             return _fn(*a, **k)
-        setattr(kernels, name, counted)
-    solver, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda")
-    u = solver.post_stage(u0)
-    multi = solver._multi_step(MAIN_STEPS)
-    solver._multi_step(2)(u, 0.0, 1.0e3)            # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    plain_calls["n"] = 0
-    t0 = time.perf_counter()
-    u1, t1, n_done, bad, _ = multi(u, 0.0, 1.0e3)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    n_done, bad = int(n_done), bool(bad)
-    finite = bool(torch.isfinite(u1).all())
-    print(f"main path: {n_done} steps to t={float(t1)!r} in {wall:.4f} s, "
-          f"bad={bad}, finite={finite}, launches={counts}, "
-          f"plain calls={plain_calls['n']}")
-    assert n_done == MAIN_STEPS and not bad and finite
-    assert all(v > 0 for v in counts.values()), counts
-    assert plain_calls["n"] == 0, "the main path called a plain version"
-    rate = 4 * solver.basis.K * NX * NY * MAIN_STEPS / wall
-    print(json.dumps({"dmr_q2_rk_tvb_dof_updates_per_sec": rate,
-                      "unit": "DoF-updates/s", "dtype": "float32",
-                      "grid": [NX, NY], "steps": MAIN_STEPS,
-                      "ms_per_step": 1e3 * wall / MAIN_STEPS,
-                      "card": card}))
+        setattr(kernels, name + "_plain", counted)
+    counts, ms_step = {}, {}
+    counts["rk"], ms_step["rk"] = phase_main_rk(entry, kernels, plain_calls)
+    counts["mood"], ms_step["mood"] = phase_main_mood(entry, kernels,
+                                                      plain_calls)
+
+    # ---- phase 8: the device's busy share under torch.profiler --------------
+    busy = phase_trace(entry, ms_step)
+
+    # ---- phase 7: sparse against dense ---------------------------------------
+    phase_sparse_dense(entry, kernels, results)
 
     # ---- phase 4: entry() analog, one f64 step ------------------------------
     fn, (ue, te, tend) = entry.entry(dtype=torch.float64, device="cuda")
@@ -357,25 +874,43 @@ def main() -> int:
     assert e_gpu <= 1e-10 and e_cpu <= 1e-10
 
     # ---- result lines -----------------------------------------------------
+    from dflo_tpu_torch.ops.basis import make_basis
+    bases = {"rk": make_basis("Qk", 2), "mood": make_basis("Pk", 2)}
     table = []
-    for name, (src, line, tpu) in SOURCES.items():
+    for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
+        n_cells = NX * NY
+        data = r.get("data_f32", {})
+        b_ms, b_by = bound(name, bases[path], torch.float32, n_cells, **data)
+        n_bytes, n_ops = work(name, bases[path], torch.float32, n_cells,
+                              **data)
         table.append({
             "name": name, "route": "cuda", "source": src, "replaces": line,
-            "tpu_kernel": tpu, "launches": counts[name],
+            "tpu_kernel": tpu, "path": path,
+            "launches": counts[path][wrapper],
             "max_abs_err": r["max_abs_err_f32"],
+            "ms": r["ms_f32"], "plain_ms": r["plain_ms_f32"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bytes": n_bytes, "operations": n_ops,
             "max_abs_err_f64": r["max_abs_err_f64"],
             "max_rel_err_f32": r["max_rel_err_f32"],
             "max_rel_err_f64": r["max_rel_err_f64"],
-            "ms": r["ms_f32"], "plain_ms": r["plain_ms_f32"],
             "ms_f64": r["ms_f64"], "plain_ms_f64": r["plain_ms_f64"],
+            "bound_ms_f64": bound(name, bases[path], torch.float64, n_cells,
+                                  **r.get("data_f64", {}))[0],
+            **({"bound_data_f32": data} if data else {}),
             **({"flipped_cells_f32": r["flipped_cells_f32"]}
-               if name == "fused_post" else {})})
+               if "flipped_cells_f32" in r else {})})
     assert all(math.isfinite(v) for row in table for v in row.values()
                if isinstance(v, float))
     print(json.dumps({"build_s": build_s, "card": card,
+                      "total_s": time.perf_counter() - t_start,
+                      "device_busy": busy,
+                      "fused_pk_post_with_diag_launches":
+                          counts["mood"]["fused_pk_post_with_diag"],
                       **{k: v for k, v in results.items()
-                         if k.startswith("free_stream")}}))
+                         if k.startswith(("free_stream", "sparse_vs",
+                                          "mood_host"))}}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-// Device functions shared by the three kernels of the explicit RK/TVB step:
-// Euler pressure and fluxes, the branchless HLLC flux, the characteristic
-// eigen matrices, NaN-propagating min/max, the per-degree dimensions and the
-// block reduction of the diagnostics.
+// Device functions shared by the kernels of the port: Euler pressure and
+// fluxes, the branchless HLLC flux, the characteristic eigen matrices and the
+// TVB slope limiter, NaN-propagating min/max, the per-degree dimensions of
+// the nodal Qk and modal Pk bases and the block reduction of the
+// diagnostics.
 //
 // Every function follows its torch twin in dflo_tpu_torch/physics and
 // dflo_tpu_torch/stab operation by operation, so kernel and plain version
@@ -25,15 +26,22 @@ constexpr int BX = 32;
 constexpr int BY = 4;
 constexpr int NWARP = BX * BY / 32;
 
-template <int P>
-struct Dims {
-  static constexpr int NQ = P + 1;          // 1-D Gauss points = nodes
-  static constexpr int K = NQ * NQ;         // DoFs per cell
-  static constexpr int NL = 2 * K + 4 * NQ; // lift columns
+// Degree-P dimensions: MODAL = false is the collocated nodal Qk basis (the
+// DoFs are the values at the Q Gauss points), MODAL = true the modal Pk
+// Legendre basis (total degree <= P, K = (P+1)(P+2)/2 modes).
+template <int P, bool MODAL>
+struct BDims {
+  static constexpr int NQ = P + 1;                  // 1-D Gauss points
+  static constexpr int Q = NQ * NQ;                 // volume quadrature points
+  static constexpr int K = MODAL ? (P + 1) * (P + 2) / 2 : Q;  // DoFs per cell
+  static constexpr int NL = 2 * Q + 4 * NQ;         // lift columns
   // positivity points: GLL(N) x Gauss(p+1), twice (stab/positivity._pos_points)
   static constexpr int NG = ((P + 3) % 2 == 0) ? (P + 3) / 2 : (P + 4) / 2;
   static constexpr int QP = 2 * NG * NQ;
 };
+
+template <int P>
+using Dims = BDims<P, false>;
 
 // jnp.maximum / jnp.minimum semantics: NaN in either operand gives NaN.
 // (fmax/fmin drop a NaN and return the other operand, which would hide a
@@ -146,7 +154,7 @@ __device__ __forceinline__ void hllc(const T UL[4], const T UR[4], const T nx,
 // in the internal (rho, mx, my, E) ordering (physics/euler.eigen_matrices).
 // The operations and their order are those of the torch version, division
 // by a constant written as a product with its reciprocal as there, so that
-// with contraction off (fused_post.cu is built with -fmad=false) both round
+// with contraction off (every source is built with -fmad=false) both round
 // alike.
 template <typename T>
 __device__ __forceinline__ void eigen(const T ub[4], int dir, T R[4][4],
@@ -210,6 +218,128 @@ __device__ __forceinline__ void to_cons(const T R[4][4], const T wc[4], T out[4]
   out[ENE] = V[3];
 }
 
+// TVB minmod (stab/limiter.minmod)
+template <typename T>
+__device__ __forceinline__ T minmod(T a, T b, T c, T Mdx2) {
+  const bool samesign = (a * b > T(0)) && (b * c > T(0));
+  const T sg = a > T(0) ? T(1) : (a < T(0) ? T(-1) : a);  // torch.sign
+  const T m = sg * nmin(fabs(a), nmin(fabs(b), fabs(c)));
+  return fabs(a) < Mdx2 ? a : (samesign ? m : T(0));
+}
+
+// TVB slope limiting of one cell (stab/limiter.make_tvb_limiter, shared by
+// fused_post.cu and fused_pk_post.cu): the slopes Dx, Dy and the backward /
+// forward mean differences, optionally in characteristic variables of the
+// cell mean ub, through minmod with beta and Mdx2; returns the change
+// measure mean|Dxn - Dx| + mean|Dyn - Dy| (in the limited variables) and
+// writes the limited slopes, back in conserved variables, to Dxn, Dyn.
+template <typename T>
+__device__ __forceinline__ T tvb_slopes(const T ub[4], T Dx[4], T Dy[4],
+                                        T dbx[4], T dfx[4], T dby[4],
+                                        T dfy[4], bool char_lim, T beta,
+                                        T Mdx2, T Dxn[4], T Dyn[4]) {
+  T change = T(0);
+#pragma unroll
+  for (int dir = 0; dir < 2; ++dir) {
+    T* D = dir == 0 ? Dx : Dy;
+    T* db = dir == 0 ? dbx : dby;
+    T* df = dir == 0 ? dfx : dfy;
+    T* Dn = dir == 0 ? Dxn : Dyn;
+    T Rm[4][4], Lm[4][4], cD[4], cdb[4], cdf[4], cDn[4];
+    if (char_lim) {
+      eigen(ub, dir, Rm, Lm);
+      to_char(Lm, D, cD);
+      to_char(Lm, db, cdb);
+      to_char(Lm, df, cdf);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) { cD[c] = D[c]; cdb[c] = db[c]; cdf[c] = df[c]; }
+    }
+    T s = T(0);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      cDn[c] = minmod(cD[c], beta * cdb[c], beta * cdf[c], Mdx2);
+      s = c == 0 ? fabs(cDn[c] - cD[c]) : s + fabs(cDn[c] - cD[c]);
+    }
+    change = change + s * T(0.25);
+    if (char_lim) {
+      to_cons(Rm, cDn, Dn);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) Dn[c] = cDn[c];
+    }
+  }
+  return change;
+}
+
+// Zhang-Shu scale factors of one cell (stab/positivity, src/positivity.cc:
+// 16-208) with the dtype-aware floors (absolute EPS in f64, relative
+// REL_F32 floors in f32): theta1 from the density at the QP positivity
+// points Pm [QP][K], theta2 from the pressure there after the density
+// squeeze.  w holds the cell's DoFs before either scaling and ub its mean;
+// the caller applies the scaling (nodal: every DoF about the mean; modal:
+// mode 0 about the mean, the other modes toward 0).  The operations and
+// their order are the plain version's: the point values are ordered sums
+// (ops/contract.basis_apply_ordered), one multiply and one add per term,
+// so with contraction off (-fmad=false) the branches at the pressure floor
+// (pre < eps_p, |1 - t| < 1e-14, decided by rounding there) go the same way
+// in the kernel and in the plain version, at any shape.
+template <typename T, int K, int QP>
+__device__ __forceinline__ void zs_thetas(const T w[4][K], const T ub[4],
+                                          const T* __restrict__ Pm,
+                                          T& theta1, T& theta2) {
+  const T inv_g1 = T(1) / T(GAMMA - 1.0);   // the plain version's 1/g1
+  T eps_r = T(EPS), eps_p = T(EPS);
+  if (sizeof(T) < sizeof(double)) {   // f32: relative floors
+    eps_r = nmax(T(EPS), T(REL_F32) * ub[RHO]);
+    eps_p = nmax(T(EPS), T(REL_F32) * pressure(ub));
+  }
+  const T rho_avg = ub[RHO];
+  T rho_min = T(INFINITY);
+#pragma unroll
+  for (int q = 0; q < QP; ++q) {
+    T r = Pm[q * K] * w[RHO][0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) r = r + Pm[q * K + k] * w[RHO][k];
+    rho_min = nmin(rho_min, r);
+  }
+  const T rat = fabs(rho_avg - eps_r) / (fabs(rho_avg - rho_min) + T(1.0e-13));
+  theta1 = nmin(rat, T(1));
+  const T mavg_x = ub[MX], mavg_y = ub[MY], ravg = ub[RHO], Eavg = ub[ENE];
+  theta2 = T(INFINITY);
+#pragma unroll
+  for (int q = 0; q < QP; ++q) {
+    T Wq[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      T s = Pm[q * K] * w[c][0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) s = s + Pm[q * K + k] * w[c][k];
+      Wq[c] = s;
+    }
+    Wq[RHO] = Wq[RHO] * theta1 + rho_avg * (T(1) - theta1);
+    const T pre = pressure(Wq);
+    const T drho = Wq[RHO] - ub[RHO], dE = Wq[ENE] - ub[ENE];
+    const T dmx = Wq[MX] - ub[MX], dmy = Wq[MY] - ub[MY];
+    const T a1 = T(2) * drho * dE - (dmx * dmx + dmy * dmy);
+    const T b1 = T(2) * drho * (Eavg - eps_p * inv_g1) + T(2) * ravg * dE -
+                 T(2) * (mavg_x * dmx + mavg_y * dmy);
+    const T c1 = T(2) * ravg * Eavg - (mavg_x * mavg_x + mavg_y * mavg_y) -
+                 T(2) * eps_p * ravg * inv_g1;
+    const T a1s = a1 == T(0) ? T(1) : a1;
+    const T b1n = b1 / a1s, c1n = c1 / a1s;
+    const T Dq = sqrt(fabs(b1n * b1n - T(4) * c1n));
+    const T t1 = T(0.5) * (-b1n - Dq);
+    const T t2 = T(0.5) * (-b1n + Dq);
+    const bool t1_ok = (t1 > T(-1.0e-12)) && (t1 < T(1) + T(1.0e-12));
+    T t = t1_ok ? t1 : t2;
+    t = t < T(0) ? T(0) : (t > T(1) ? T(1) : t);   // clip, NaN kept
+    t = fabs(T(1) - t) < T(1.0e-14) ? T(0) : t;
+    t = pre < eps_p ? t : T(1);
+    theta2 = nmin(theta2, t);
+  }
+}
+
 // sum_k op[k] * v[k], one multiply and one add per term in k order
 // (contract._ordered_sum; exact only where contraction is off)
 template <typename T, int K>
@@ -220,7 +350,8 @@ __device__ __forceinline__ T dot_seq(const T* __restrict__ op, const T v[K]) {
   return acc;
 }
 
-// sum_k op[k] * u[(c*K + k) * plane + cell] for one component c
+// sum_k op[k] * u[(c*K + k) * plane + cell] for one component c, in k order
+// (contract.basis_reduce)
 template <typename T, int K>
 __device__ __forceinline__ T dot_cell(const T* __restrict__ op,
                                       const T* __restrict__ u, int c,
@@ -228,7 +359,7 @@ __device__ __forceinline__ T dot_cell(const T* __restrict__ op,
   T acc = op[0] * __ldg(u + (long)(c * K) * plane + cell);
 #pragma unroll
   for (int k = 1; k < K; ++k)
-    acc = fma(op[k], __ldg(u + (long)(c * K + k) * plane + cell), acc);
+    acc = acc + op[k] * __ldg(u + (long)(c * K + k) * plane + cell);
   return acc;
 }
 
@@ -265,15 +396,17 @@ __device__ __forceinline__ void block_diag(T lam, T mq, T* __restrict__ lam_part
 }
 
 // per-cell (lam, min(rho, p)) from the cell average (fused_diag's body and
-// fused_post's diag; pallas_kernels.py:1697-1715)
+// the posts' diag; pallas_kernels.py:1697-1715); inv_h = T(1) / T(h), the
+// reciprocal PyTorch multiplies by where the plain version divides by h
 template <typename T>
-__device__ __forceinline__ void cell_diag(const T ub[4], T h, T& lam, T& mq) {
+__device__ __forceinline__ void cell_diag(const T ub[4], T inv_h, T& lam,
+                                          T& mq) {
   const T rho = ub[RHO];
   const T pre = pressure(ub);
   const T cs = sqrt(T(GAMMA) * fabs(pre) / fabs(rho));
   const T vx = fabs(ub[MX] / rho);
   const T vy = fabs(ub[MY] / rho);
-  lam = (cs + vx) / h + (cs + vy) / h;
+  lam = (cs + vx) * inv_h + (cs + vy) * inv_h;
   mq = nmin(rho, pre);
 }
 

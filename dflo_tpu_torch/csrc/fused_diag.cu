@@ -1,7 +1,10 @@
 // Fused step diagnostics, hand-written for Hopper.
 //
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_diag (single chip,
-// unmasked).  Per cell, from its cell average: the CFL wave speed
+// unmasked), for any basis: the cell average is the mean-weight row
+// avg = wq2 @ V (K entries) against the cell's K DoFs, so the kernel is
+// instantiated on K alone (nodal Q1-Q3: 4, 9, 16; modal P1-P3: 3, 6, 10).
+// Per cell, from its cell average: the CFL wave speed
 // (c + |vx|)/h + (c + |vy|)/h (compute_time_step_cartesian,
 // src/claw.cc:483-512) and min(rho, p) for the fatal-negativity flag
 // (src/positivity.cc:26-39).  Each block reduces its cells with
@@ -20,12 +23,11 @@
 
 namespace dflo {
 
-template <typename T, int P>
+template <typename T, int K>
 __global__ void __launch_bounds__(BX * BY)
 fused_diag_kernel(const T* __restrict__ u, const T* __restrict__ avg,
                   T* __restrict__ lam_part, T* __restrict__ minq_part, int ny,
                   int nx, T h) {
-  constexpr int K = Dims<P>::K;
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   T lam = T(-INFINITY), mq = T(INFINITY);   // identities of the reductions
@@ -35,40 +37,45 @@ fused_diag_kernel(const T* __restrict__ u, const T* __restrict__ avg,
     T ub[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) ub[c] = dot_cell<T, K>(avg, u, c, plane, cell);
-    cell_diag(ub, h, lam, mq);
+    cell_diag(ub, T(1) / h, lam, mq);
   }
   block_diag(lam, mq, lam_part, minq_part);
 }
 
-template <typename T, int P>
+template <typename T, int K>
 static int launch(const void* u, const void* avg, void* lam_part,
                   void* minq_part, int ny, int nx, double h,
                   cudaStream_t stream) {
-  fused_diag_kernel<T, P><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
+  fused_diag_kernel<T, K><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
       (const T*)u, (const T*)avg, (T*)lam_part, (T*)minq_part, ny, nx, T(h));
   return (int)cudaGetLastError();
 }
 
 }  // namespace dflo
 
-// dtype: 0 = float32, 1 = float64; p in {1, 2, 3}; lam_part/minq_part hold
-// dflo_num_blocks(ny, nx) entries.  Returns cudaGetLastError() after the
-// launch, -1 for an unsupported case.
-extern "C" int dflo_fused_diag(int dtype, int p, const void* u, const void* avg,
+// dtype: 0 = float32, 1 = float64; K in {3, 4, 6, 9, 10, 16} (the DoFs per
+// cell of Pk / Qk, p = 1..3); lam_part/minq_part hold dflo_num_blocks(ny,
+// nx) entries.  Returns cudaGetLastError() after the launch, -1 for an
+// unsupported case.
+extern "C" int dflo_fused_diag(int dtype, int K, const void* u, const void* avg,
                                void* lam_part, void* minq_part, int ny, int nx,
                                double h, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define DFLO_CASE(T, P) \
-  return dflo::launch<T, P>(u, avg, lam_part, minq_part, ny, nx, h, s)
-  if (dtype == 0) {
-    if (p == 1) DFLO_CASE(float, 1);
-    if (p == 2) DFLO_CASE(float, 2);
-    if (p == 3) DFLO_CASE(float, 3);
-  } else if (dtype == 1) {
-    if (p == 1) DFLO_CASE(double, 1);
-    if (p == 2) DFLO_CASE(double, 2);
-    if (p == 3) DFLO_CASE(double, 3);
+#define DFLO_CASE(T, K) \
+  return dflo::launch<T, K>(u, avg, lam_part, minq_part, ny, nx, h, s)
+#define DFLO_SIZES(T)                                             \
+  switch (K) {                                                    \
+    case 3: DFLO_CASE(T, 3);                                      \
+    case 4: DFLO_CASE(T, 4);                                      \
+    case 6: DFLO_CASE(T, 6);                                      \
+    case 9: DFLO_CASE(T, 9);                                      \
+    case 10: DFLO_CASE(T, 10);                                    \
+    case 16: DFLO_CASE(T, 16);                                    \
+    default: return -1;                                           \
   }
+  if (dtype == 0) DFLO_SIZES(float)
+  if (dtype == 1) DFLO_SIZES(double)
+#undef DFLO_SIZES
 #undef DFLO_CASE
   return -1;
 }

@@ -81,20 +81,11 @@ __device__ __forceinline__ T face_jump(const T* __restrict__ wq, const T t[NQ],
   return dot_seq<T, NQ>(wq, j);
 }
 
-// TVB minmod (stab/limiter.minmod)
-template <typename T>
-__device__ __forceinline__ T minmod(T a, T b, T c, T Mdx2) {
-  const bool samesign = (a * b > T(0)) && (b * c > T(0));
-  const T sg = a > T(0) ? T(1) : (a < T(0) ? T(-1) : a);  // torch.sign
-  const T m = sg * nmin(fabs(a), nmin(fabs(b), fabs(c)));
-  return fabs(a) < Mdx2 ? a : (samesign ? m : T(0));
-}
-
 // The chain follows stab/indicator, stab/limiter and stab/positivity
 // operation by operation.  Every quantity that feeds a threshold decision
 // (KXRCF > 1, change > 1e-10) is computed with the IEEE operations of the
-// torch version in the same order (ordered sums, no contraction: this file
-// is built with -fmad=false), so in float32 the kernel and the plain
+// torch version in the same order (ordered sums, no contraction: every
+// source is built with -fmad=false), so in float32 the kernel and the plain
 // version take the same limiter decisions.
 template <typename T, int P>
 __global__ void __launch_bounds__(BX * BY)
@@ -182,38 +173,10 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
       dby[c] = vS ? ub[c] - ubS[c] : Dy[c];
       dfy[c] = vN ? ubN[c] - ub[c] : Dy[c];
     }
-    const T beta = T(prm.beta), Mdx2 = T(prm.Mdx2);
-    T Dxn[4], Dyn[4], change = T(0);
-#pragma unroll
-    for (int dir = 0; dir < 2; ++dir) {
-      T* D = dir == 0 ? Dx : Dy;
-      T* db = dir == 0 ? dbx : dby;
-      T* df = dir == 0 ? dfx : dfy;
-      T* Dn = dir == 0 ? Dxn : Dyn;
-      T Rm[4][4], Lm[4][4], cD[4], cdb[4], cdf[4], cDn[4];
-      if (prm.char_lim) {
-        eigen(ub, dir, Rm, Lm);
-        to_char(Lm, D, cD);
-        to_char(Lm, db, cdb);
-        to_char(Lm, df, cdf);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) { cD[c] = D[c]; cdb[c] = db[c]; cdf[c] = df[c]; }
-      }
-      T s = T(0);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        cDn[c] = minmod(cD[c], beta * cdb[c], beta * cdf[c], Mdx2);
-        s = c == 0 ? fabs(cDn[c] - cD[c]) : s + fabs(cDn[c] - cD[c]);
-      }
-      change = change + s * T(0.25);
-      if (prm.char_lim) {
-        to_cons(Rm, cDn, Dn);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) Dn[c] = cDn[c];
-      }
-    }
+    T Dxn[4], Dyn[4];
+    const T change = tvb_slopes(ub, Dx, Dy, dbx, dfx, dby, dfy,
+                                prm.char_lim != 0, T(prm.beta), T(prm.Mdx2),
+                                Dxn, Dyn);
     if (shock > T(1) && change > T(1.0e-10)) {
       // nodal linear rebuild ub + drx (Dxn / h) + dry (Dyn / h)
       const T inv_h = T(prm.inv_h);
@@ -228,56 +191,8 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
 
     // ---- Zhang-Shu positivity (src/positivity.cc:16-208) -----------------
     if (prm.pos_lim) {
-      const T g1 = T(GAMMA - 1.0);
-      T eps_r = T(EPS), eps_p = T(EPS);
-      if (sizeof(T) < sizeof(double)) {   // f32: relative floors
-        eps_r = nmax(T(EPS), T(REL_F32) * ub[RHO]);
-        eps_p = nmax(T(EPS), T(REL_F32) * pressure(ub));
-      }
-      const T rho_avg = ub[RHO];
-      T rho_min = T(INFINITY);
-#pragma unroll
-      for (int q = 0; q < QP; ++q) {
-        T r = Pm[q * K] * w[RHO][0];
-#pragma unroll
-        for (int k = 1; k < K; ++k) r = fma(Pm[q * K + k], w[RHO][k], r);
-        rho_min = nmin(rho_min, r);
-      }
-      const T rat = fabs(rho_avg - eps_r) / (fabs(rho_avg - rho_min) + T(1.0e-13));
-      const T theta1 = nmin(rat, T(1));
-      const T mavg_x = ub[MX], mavg_y = ub[MY], ravg = ub[RHO], Eavg = ub[ENE];
-      T theta2 = T(INFINITY);
-#pragma unroll
-      for (int q = 0; q < QP; ++q) {
-        T Wq[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          T s = Pm[q * K] * w[c][0];
-#pragma unroll
-          for (int k = 1; k < K; ++k) s = fma(Pm[q * K + k], w[c][k], s);
-          Wq[c] = s;
-        }
-        Wq[RHO] = Wq[RHO] * theta1 + rho_avg * (T(1) - theta1);
-        const T pre = pressure(Wq);
-        const T drho = Wq[RHO] - ub[RHO], dE = Wq[ENE] - ub[ENE];
-        const T dmx = Wq[MX] - ub[MX], dmy = Wq[MY] - ub[MY];
-        const T a1 = T(2) * drho * dE - (dmx * dmx + dmy * dmy);
-        const T b1 = T(2) * drho * (Eavg - eps_p / g1) + T(2) * ravg * dE -
-                     T(2) * (mavg_x * dmx + mavg_y * dmy);
-        const T c1 = T(2) * ravg * Eavg - (mavg_x * mavg_x + mavg_y * mavg_y) -
-                     T(2) * eps_p * ravg / g1;
-        const T a1s = a1 == T(0) ? T(1) : a1;
-        const T b1n = b1 / a1s, c1n = c1 / a1s;
-        const T Dq = sqrt(fabs(b1n * b1n - T(4) * c1n));
-        const T t1 = T(0.5) * (-b1n - Dq);
-        const T t2 = T(0.5) * (-b1n + Dq);
-        const bool t1_ok = (t1 > T(-1.0e-12)) && (t1 < T(1) + T(1.0e-12));
-        T t = t1_ok ? t1 : t2;
-        t = t < T(0) ? T(0) : (t > T(1) ? T(1) : t);   // clip, NaN kept
-        t = fabs(T(1) - t) < T(1.0e-14) ? T(0) : t;
-        t = pre < eps_p ? t : T(1);
-        theta2 = nmin(theta2, t);
-      }
+      T theta1, theta2;
+      zs_thetas<T, K, QP>(w, ub, Pm, theta1, theta2);
 #pragma unroll
       for (int k = 0; k < K; ++k)
         w[RHO][k] = w[RHO][k] * theta1 + ub[RHO] * (T(1) - theta1);
@@ -293,7 +208,7 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
 #pragma unroll
       for (int k = 0; k < K; ++k) out[(long)(c * K + k) * plane + cell] = w[c][k];
 
-    if (lam_part != nullptr) cell_diag(ub, h, lam, mq);
+    if (lam_part != nullptr) cell_diag(ub, T(1) / h, lam, mq);
   }
   if (lam_part != nullptr) block_diag(lam, mq, lam_part, minq_part);
 }

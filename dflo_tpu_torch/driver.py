@@ -1,17 +1,26 @@
-"""Explicit solver driver for the RK/TVB method on one device.
+"""Explicit solver driver on one device: RK/TVB on nodal Qk and the MOOD
+cascade on modal Pk.
 
-The torch counterpart of dflo_tpu/driver.py's ``Solver`` for ``method="rk"``:
-each SSP stage is one fused residual pass (residual + blend) followed by one
-fused post pass (averages -> KXRCF -> characteristic TVB -> positivity), and
-the final stage's post also yields the next step's CFL wave speed and the
-fatal-negativity minimum.  The kernels are chosen by the device of the
-state: on a CUDA tensor every wrapper launches its kernel, on a CPU tensor
-it runs its plain version; the control flow is the same on both.
+The torch counterpart of dflo_tpu/driver.py's ``Solver``:
 
-Configurations outside this slice raise NotImplementedError naming the
-slice that brings them: MOOD and the modal Pk basis (slice B), masked
-domains, other fluxes and indicators (physics envelope), device meshes
-(multi-GPU slice).
+- ``method="rk"``: each SSP stage is one fused residual pass (residual +
+  blend) followed by one fused post pass (averages -> KXRCF ->
+  characteristic TVB -> positivity), and the final stage's post also yields
+  the next step's CFL wave speed and the fatal-negativity minimum.
+- ``method="mood"``: each SSP stage runs the MOOD cascade (stab/mood.py)
+  from the stage predictor, blends, and runs the fused Pk post (modal TVB on
+  the cells the cascade marked, then positivity); the final stage's Pk post
+  yields the wave speed and the negativity minimum.  The state before the
+  first step goes through the plain stab chain (KXRCF -> modal TVB -> modal
+  positivity), as the JAX package's post_stage does for Pk.
+
+The kernels are chosen by the device of the state: on a CUDA tensor every
+wrapper launches its kernel, on a CPU tensor it runs its plain version; the
+control flow is the same on both.
+
+Configurations outside the ported slices raise NotImplementedError: implicit
+stepping, masked domains, other fluxes and indicators (physics envelope),
+device meshes (multi-GPU slice).
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ from dflo_tpu_torch.ops import kernels
 from dflo_tpu_torch.ops.contract import basis_reduce
 from dflo_tpu_torch.solver import rk as rk_mod
 from dflo_tpu_torch.solver.spatial import BoundarySide, _check_bcs, make_rhs
+from dflo_tpu_torch.stab.indicator import make_shock_indicator
+from dflo_tpu_torch.stab.mood import MoodStats, make_mood
 from dflo_tpu_torch.stab.positivity import EPS
 
 
@@ -42,18 +53,21 @@ class LimiterConfig:
 
 
 class Solver:
-    """Explicit RK/TVB DG solver on a Cartesian mesh, on one device."""
+    """Explicit DG solver on a Cartesian mesh, on one device: RK/TVB on
+    nodal Qk (method="rk") or the MOOD cascade on modal Pk
+    (method="mood")."""
 
     def __init__(self, basis: basis_mod.Basis, mesh,
                  bcs: dict[str, BoundarySide], flux: str = "hllc",
                  limiter: LimiterConfig | None = None, cfl: float = 0.9, *,
                  dtype: torch.dtype, device, scheme: str | None = None,
                  method: str = "rk", mask=None, device_mesh=None):
-        if method == "mood":
-            raise NotImplementedError("method='mood' (MOOD on the modal Pk "
-                                      "basis) comes with slice B of the port")
-        if method != "rk":
+        if method not in ("rk", "mood"):
             raise NotImplementedError(f"method {method!r} is not ported yet")
+        if (basis.family == "Pk") != (method == "mood"):
+            raise NotImplementedError(
+                "the port carries RK/TVB on the nodal Qk basis and MOOD on "
+                "the modal Pk basis (src/parameters.cc:536-544)")
         if mask is not None:
             raise NotImplementedError("masked domains come with the physics "
                                       "envelope slice")
@@ -78,16 +92,34 @@ class Solver:
 
         self.rhs = make_rhs(basis, mesh, bcs, flux=flux, dtype=dtype,
                             device=self.device, fused=True)
-        self._post_ops = kernels.post_operators(
-            basis, mesh, indicator=cfg.shock_indicator, M=cfg.M,
-            beta=cfg.beta, char_lim=cfg.char_lim, pos_lim=cfg.pos_lim,
-            per_x=per_x, per_y=per_y, dtype=dtype, device=self.device)
         self._diag_ops = kernels.diag_operators(basis, mesh, dtype=dtype,
                                                 device=self.device)
+        if method == "rk":
+            self._post_ops = kernels.post_operators(
+                basis, mesh, indicator=cfg.shock_indicator, M=cfg.M,
+                beta=cfg.beta, char_lim=cfg.char_lim, pos_lim=cfg.pos_lim,
+                per_x=per_x, per_y=per_y, dtype=dtype, device=self.device)
+        else:
+            if not cfg.pos_lim:
+                raise NotImplementedError(
+                    "the MOOD path of the port carries positivity on")
+            dev = self.device
+            self._indicator = make_shock_indicator(
+                basis, mesh, cfg.shock_indicator, per_x, per_y, dtype=dtype,
+                device=dev)
+            self._pk_post_ops = kernels.pk_post_operators(
+                basis, mesh, M=cfg.M, beta=cfg.beta, char_lim=cfg.char_lim,
+                per_x=per_x, per_y=per_y, dtype=dtype, device=dev)
+            self._mood_stage = make_mood(basis, mesh, self.rhs, per_x, per_y)
         self.ark, self.stage_times = rk_mod.rk_coeffs(
             scheme or rk_mod.default_scheme(basis.degree))
         self._step = self._make_step()
         self._multi_cache: dict[int, Callable] = {}
+        # the most recent step's summed MoodStats and its final stage's
+        # limiter marks and degree map (MOOD only)
+        self.last_stats = None
+        self.last_lim = None
+        self.last_deg = None
 
     # ------------------------------------------------------------------
     def _scalar(self, x) -> torch.Tensor:
@@ -98,34 +130,72 @@ class Solver:
         return torch.full((), float(x), dtype=self.dtype, device=self.device)
 
     def cell_averages(self, u):
+        if self.method == "mood":
+            # modal Legendre: mode 0 is the mean (dflo_tpu/driver.py:371)
+            return self._pk_post_ops.avg0 * u[:, 0]
         return basis_reduce(self._diag_ops.avg, u)
 
     def post_stage(self, u, t=0.0):
-        """Stabilization chain after each RK stage (src/claw.cc:762-766)."""
-        return kernels.fused_post(u, self._post_ops)
+        """Stabilization chain after each RK stage (src/claw.cc:762-766);
+        for MOOD the chain before the first step (the plain stab chain
+        KXRCF -> modal TVB -> positivity, dflo_tpu/driver.py:394-408)."""
+        if self.method == "rk":
+            return kernels.fused_post(u, self._post_ops)
+        ubar = self.cell_averages(u)
+        shock, _ = self._indicator(u, ubar)
+        ops = self._pk_post_ops
+        return ops.positivity(ops.limit(u, ubar, shock), ubar)
 
     def _post_diag(self, u, t=0.0):
         """post_stage plus (lam_max, minq) of the stage's cell averages."""
         return kernels.fused_post(u, self._post_ops, with_diag=True)
 
-    def _carry_lam_ok(self) -> bool:
-        """Carry-λ eligibility (dflo_tpu/driver.py:469): the CFL wave speed
-        can ride the chunk carry when the step's tail is the fused post with
-        its diag and dt is the plain global-CFL form — always so for the RK
-        method of this slice."""
-        return self.method == "rk"
+    @property
+    def host_syncs(self) -> int:
+        """Host reads of device values inside steps so far: the MOOD
+        cascade's one ``bool(chg.any())`` per pass (0 for RK)."""
+        return self._mood_stage.host_syncs if self.method == "mood" else 0
+
+    def _mood_rk_step(self, u, t, dt, live=None):
+        """SSP stages with the MOOD cascade replacing plain forward-Euler
+        updates (iterate_mood, src/claw.cc:777-871): each stage re-cascades
+        from degree p, blends, then runs the Pk post with the TVB limiter
+        only on the cells the cascade marked (src/mood.cc:335-340) and
+        positivity (src/claw.cc:866-869).  Returns (u, summed MoodStats,
+        (lam, minq) of the final stage's post)."""
+        u_old = u
+        n_red = n_mark = None
+        iters = 0
+        n_st = len(self.ark)
+        for si, (a, c) in enumerate(zip(self.ark, self.stage_times)):
+            u_cand, marked, st, deg = self._mood_stage(u, t + c * dt, dt,
+                                                       live=live)
+            n_red = st.n_reduce if n_red is None else n_red + st.n_reduce
+            n_mark = st.n_marked if n_mark is None else n_mark + st.n_marked
+            iters += st.iters
+            u = a * u_old + (1.0 - a) * u_cand
+            shock = marked.to(u.dtype) * 2.0
+            if si == n_st - 1:
+                u, lam, minq = kernels.fused_pk_post(u, shock,
+                                                     self._pk_post_ops,
+                                                     with_diag=True)
+                self.last_lim, self.last_deg = marked, deg
+            else:
+                u = kernels.fused_pk_post(u, shock, self._pk_post_ops)
+        return u, MoodStats(n_red, n_mark, iters), (lam, minq)
 
     def _make_step(self, carry_lam: bool = False):
         """step(u, t, t_end) -> (u, dt, bad, stats); carry_lam=True builds
         step(u, t, t_end, lam_prev) -> (..., lam_next) for the chunked loop:
-        the wave speed comes from the previous step's final-stage post
-        instead of a whole-state diag pass.  Nothing in it waits for the
-        device."""
-        if carry_lam:
-            assert self._carry_lam_ok()
+        the wave speed comes from the previous step's final-stage post (the
+        fused post for RK, the Pk post for MOOD: both preserve cell means)
+        instead of a whole-state diag pass (dflo_tpu/driver.py:469-489).
+        Nothing in it waits for the device, except the MOOD cascade's one
+        read per pass; live (a 0-dim bool tensor) stops the cascade of a
+        step the chunked loop discards."""
         denom = 2.0 * self.basis.degree + 1.0
 
-        def step(u, t, t_end, lam_prev=None):
+        def step(u, t, t_end, lam_prev=None, live=None):
             t = self._scalar(t)
             t_end = self._scalar(t_end)
             if carry_lam:
@@ -133,13 +203,18 @@ class Solver:
             else:
                 lam, _ = kernels.fused_diag(u, self._diag_ops)
             dt = torch.minimum(self.cfl / lam / denom, t_end - t)
-            u, lam_new, minq = rk_mod.ssp_rk_step(
-                self.rhs, u, t, dt, self.ark, self.stage_times,
-                post_stage=self._post_diag, post_diag=True)
+            if self.method == "mood":
+                u, stats, (lam_new, minq) = self._mood_rk_step(u, t, dt, live)
+                self.last_stats = stats
+            else:
+                u, lam_new, minq = rk_mod.ssp_rk_step(
+                    self.rhs, u, t, dt, self.ark, self.stage_times,
+                    post_stage=self._post_diag, post_diag=True)
+                stats = ()
             bad = ~(minq >= EPS)            # NaN-safe
             if carry_lam:
-                return u, dt, bad, (), lam_new
-            return u, dt, bad, ()
+                return u, dt, bad, stats, lam_new
+            return u, dt, bad, stats
         return step
 
     def _multi_step(self, chunk: int):
@@ -147,7 +222,10 @@ class Solver:
         (dflo_tpu/driver.py:573): t, the Kahan compensator, the step count
         and `bad` stay 0-dim device tensors, and a step takes effect only
         while t < t_end - 1e-12 and `bad` is unset.  Returns
-        multi(u, t, t_end) -> (u, t, n_done, bad, stats)."""
+        multi(u, t, t_end) -> (u, t, n_done, bad, stats).  stats (MOOD):
+        MoodStats summed over the chunk, the counts over the steps that took
+        effect and the passes over every step dispatched (the JAX loop
+        returns the last step's); () for RK."""
         if chunk not in self._multi_cache:
             step = self._make_step(carry_lam=True)
 
@@ -160,9 +238,15 @@ class Solver:
                 # seed once per chunk; thereafter the wave speed comes free
                 # from the final stage's fused post diagnostics
                 lam, _ = kernels.fused_diag(u, self._diag_ops)
+                stats = ()
                 for _ in range(chunk):
                     live = (t < t_end - 1e-12) & ~bad
-                    un, dt, bad_n, _st, lam_n = step(u, t, t_end, lam)
+                    un, dt, bad_n, st, lam_n = step(u, t, t_end, lam, live)
+                    if st:
+                        st = MoodStats(st.n_reduce * live, st.n_marked * live,
+                                       st.iters)
+                        stats = st if not stats else MoodStats(
+                            *(a + b for a, b in zip(stats, st)))
                     u = torch.where(live, un, u)
                     y = dt - comp
                     t2 = t + y
@@ -171,7 +255,7 @@ class Solver:
                     it = it + live.to(it.dtype)
                     bad = bad | (live & bad_n)
                     lam = torch.where(live, lam_n, lam)
-                return u, t, it, bad, ()
+                return u, t, it, bad, stats
 
             self._multi_cache[chunk] = multi
         return self._multi_cache[chunk]
@@ -191,7 +275,8 @@ class Solver:
             multi = self._multi_step(chunk)
             tdev = self._scalar(t)
             while t < t_end - 1e-12 and it < max_steps:
-                u, tdev, n, bad, _stats = multi(u, tdev, t_end)
+                u, tdev, n, bad, stats = multi(u, tdev, t_end)
+                self.last_stats = stats or None
                 if bool(bad):
                     raise FloatingPointError(
                         f"negative density/pressure cell average near "

@@ -1,10 +1,13 @@
-"""Entry points of the port: the double-Mach-reflection (DMR) RK/TVB step.
+"""Entry points of the port: the double-Mach-reflection (DMR) step.
 
-The analogs of __graft_entry__._build and entry() for ``method="rk"``: Q2
-nodal Gauss basis on the 4 x 1 box, inflow (Mach-10 post-shock state) on the
-west side, outflow east, slip wall south, farfield north, HLLC flux,
-characteristic TVB with the KXRCF density indicator (beta = 2) and Zhang-Shu
-positivity, SSP-RK3 at CFL 0.5 with a global dt.
+The analogs of __graft_entry__._build and entry(): degree-2 elements on the
+4 x 1 box, inflow (Mach-10 post-shock state) on the west side, outflow east,
+slip wall south, farfield north, HLLC flux, characteristic TVB with the
+KXRCF density indicator (beta = 2) and Zhang-Shu positivity, SSP-RK3 at
+CFL 0.5 with a global dt.  ``method="rk"`` runs RK/TVB on the Q2 nodal Gauss
+basis; ``method="mood"`` the MOOD cascade on the modal P2 basis (the
+configuration of bench.py's headline metric).  Both run on the card unless
+the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -50,8 +53,9 @@ def dmr_ic(x, y, t=0.0):
 
 
 def _build(nx: int, ny: int, dtype: torch.dtype = torch.float64,
-           device="cpu", method: str = "rk"):
-    """(solver, u0) of the DMR configuration on an nx x ny mesh."""
+           device="cuda", method: str = "rk"):
+    """(solver, u0) of the DMR configuration on an nx x ny mesh; u0 is the
+    nodal interpolant (Qk) or the L2 projection (Pk) of the IC."""
     basis = make_basis("Pk" if method == "mood" else "Qk", 2)
     mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
     bcs = dict(W=BoundarySide(euler.BC_INFLOW, dmr_inflow),
@@ -67,7 +71,7 @@ def _build(nx: int, ny: int, dtype: torch.dtype = torch.float64,
     return solver, u0
 
 
-def entry(dtype: torch.dtype = torch.float64, device="cpu"):
+def entry(dtype: torch.dtype = torch.float64, device="cuda"):
     """(fn, example_args): one full solver step at 128 x 24.
 
     The example state is the initial condition after the stabilization

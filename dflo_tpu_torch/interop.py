@@ -4,7 +4,9 @@ The two packages share no code at run time (the port never imports JAX), so
 tests hand the reference's arrays across as numpy: the state with
 :func:`state_from_numpy`, and a reference ``Basis`` (any object with its
 fields) with :func:`operators_from_numpy`.  Both packages then compute from
-identical inputs.
+identical inputs.  The MOOD cascade's degree (int32) and limiter-mark
+(bool) planes and its MoodStats cross the same way
+(:func:`planes_from_numpy`, :func:`stats_as_numpy`).
 """
 
 from __future__ import annotations
@@ -35,3 +37,18 @@ def operators_from_numpy(basis_like) -> Basis:
         kw[f.name] = v if f.name in ("family", "degree", "nq", "K") \
             else np.array(v)
     return Basis(**kw)
+
+
+def planes_from_numpy(deg_np, lim_np, device) -> tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """[ny, nx] degree and limiter-mark planes -> (int32, bool) tensors."""
+    deg = torch.from_numpy(np.array(deg_np, np.int32))
+    lim = torch.from_numpy(np.array(lim_np, bool))
+    return deg.to(device), lim.to(device)
+
+
+def stats_as_numpy(stats) -> np.ndarray:
+    """(n_reduce, n_marked, iters) of either package's MoodStats as an
+    int64 array."""
+    return np.array([int(np.asarray(v.cpu() if isinstance(v, torch.Tensor)
+                                    else v)) for v in stats], np.int64)

@@ -19,6 +19,16 @@ def as_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float64)).to(dtype=dtype, device=device)
 
 
+def recip(s: float, like: torch.Tensor) -> torch.Tensor:
+    """1/s as a 0-dim tensor of like's dtype and device, rounded in that
+    dtype: what the kernels multiply by (T(1) / T(s)) where the plain
+    versions would divide by the Python scalar s.  (PyTorch itself divides
+    a tensor by a Python scalar as a true division on the CPU and as a
+    multiply by the reciprocal on CUDA.)"""
+    one = torch.ones((), dtype=like.dtype, device=like.device)
+    return one / torch.full((), s, dtype=like.dtype, device=like.device)
+
+
 def basis_apply(M: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """[Q, K] x [c, K, *rest] -> [c, Q, *rest]."""
     return torch.einsum("qk,ck...->cq...", M, u)
@@ -43,6 +53,18 @@ def _ordered_sum(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def basis_reduce(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """[K] x [c, K, *rest] -> [c, *rest] (e.g. cell averages)."""
     return _ordered_sum(v, u.transpose(0, 1))
+
+
+def basis_apply_ordered(M: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """[Q, K] x [c, K, *rest] -> [c, Q, *rest] as ordered sums over k (one
+    multiply and one add per term, in k order), whatever the shape: the
+    positivity points, whose values feed the limiter's branches at the
+    pressure floor, round the same in every caller and in the kernels."""
+    sh = (1, M.shape[0]) + (1,) * (u.dim() - 2)
+    acc = M[:, 0].view(sh) * u[:, 0:1]
+    for k in range(1, M.shape[1]):
+        acc = acc + M[:, k].view(sh) * u[:, k:k + 1]
+    return acc
 
 
 def basis_apply1(M: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

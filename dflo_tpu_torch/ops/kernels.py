@@ -1,23 +1,29 @@
-"""The three hand-written CUDA kernels of the explicit RK/TVB step, their
-plain PyTorch versions, launch counters and the nvcc loader.
+"""The hand-written CUDA kernels of the port, their plain PyTorch versions,
+launch counters and the nvcc loader.
 
-=================  ==========================================  ====================
-wrapper            TPU kernel it replaces                      CUDA source
-=================  ==========================================  ====================
-fused_residual     dflo_tpu/ops/pallas_kernels.py              csrc/fused_residual.cu
-                   make_fused_residual (dense, collocated Qk)
-fused_post         make_fused_post                             csrc/fused_post.cu
-fused_diag         make_fused_diag                             csrc/fused_diag.cu
-=================  ==========================================  ====================
+=====================  ==========================================  ==========================
+wrapper                TPU kernel it replaces                      CUDA source
+                       (dflo_tpu/ops/pallas_kernels.py)
+=====================  ==========================================  ==========================
+fused_residual         make_fused_residual, dense (collocated Qk   csrc/fused_residual.cu
+                       and modal Pk)
+fused_mood_candidate   make_fused_residual(...).sparse             csrc/fused_mood_candidate.cu
+fused_post             make_fused_post                             csrc/fused_post.cu
+fused_diag             make_fused_diag                             csrc/fused_diag.cu
+fused_modal_pos        make_fused_modal_pos                        csrc/fused_modal_pos.cu
+fused_pk_post          make_fused_pk_post                          csrc/fused_pk_post.cu
+fused_mood_check       make_fused_mood_check                       csrc/fused_mood_check.cu
+=====================  ==========================================  ==========================
 
 Each wrapper takes its plain version for a tensor that lies on the CPU, and
 for a CUDA tensor launches its kernel or raises: there is no fallback.  Each
 counts its launches in ``<wrapper>.launches`` (only where the kernel is
 launched), so a run can show that the main path went through the kernels.
 
-The small operators go to the kernels as one device buffer per builder
-(``residual_operators``, ``post_operators``, ``diag_operators``), built once
-from the NumPy basis; the plain versions read the same buffer through views.
+The small operators go to the kernels as device buffers built once from the
+NumPy basis (``residual_operators``, ``post_operators``, ``diag_operators``,
+``modal_operators``, ``pk_post_operators``, ``mood_check_operators``); the
+plain versions read the same buffers through views.
 
 The kernels are built at first use: ``nvcc`` compiles ``csrc/*.cu`` (one
 process per source, all started together) into one shared library under
@@ -38,13 +44,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dflo_tpu_torch.ops import basis as basis_mod
-from dflo_tpu_torch.ops.contract import as_tensor, basis_apply, basis_reduce
+from dflo_tpu_torch.ops.contract import (as_tensor, basis_apply_ordered,
+                                         basis_reduce, recip)
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.physics.fluxes import hllc
+from dflo_tpu_torch.stab import mood as mood_mod
 from dflo_tpu_torch.stab.indicator import make_shock_indicator
-from dflo_tpu_torch.stab.limiter import make_tvb_limiter
+from dflo_tpu_torch.stab.limiter import make_tvb_limiter, neighbor_valid
 from dflo_tpu_torch.stab.positivity import _pos_points, make_positivity_limiter
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -52,14 +61,18 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: nvcc flags: Hopper (sm_90a), full IEEE arithmetic (no --use_fast_math)
+#: and no multiply-add contraction (-fmad=false): every kernel performs its
+#: plain version's IEEE operations in the plain version's order, so the two
+#: take the same threshold decisions (the TVB gate change > 1e-10, the
+#: positivity branches at the pressure floor, the MOOD check) in both dtypes
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
-#: per-source extra flags: the post chain must round like its plain version
-#: (no multiply-add contraction), so that float32 limiter decisions agree
-NVCC_SOURCE_FLAGS = {"fused_post.cu": ("-fmad=false",)}
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
-#: degrees the kernels are instantiated for
+#: degrees the kernels are instantiated for (the MOOD check needs p >= 2)
 DEGREES = (1, 2, 3)
+#: the thread block of every kernel, 32 cells along x by 4 rows (csrc/
+#: euler.cuh BX, BY); the sparse MOOD candidate reads one flag per block
+TILE_Y, TILE_X = 4, 32
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _lib = None
@@ -87,7 +100,7 @@ def _nvcc() -> str:
 
 def _sources() -> tuple[list[Path], str]:
     srcs = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(repr((NVCC_FLAGS, NVCC_SOURCE_FLAGS)).encode())
+    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -109,8 +122,7 @@ def build(ptxas_info: bool = False) -> tuple[Path, str]:
     extra = ("-Xptxas", "-v") if ptxas_info else ()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS,
-                                   *NVCC_SOURCE_FLAGS.get(s.name, ()), *extra,
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *extra,
                                    "-c", str(s), "-o", str(o)],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -141,15 +153,22 @@ def _load():
     so, _ = build()
     lib = ctypes.CDLL(str(so))
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.dflo_num_blocks.argtypes = [ci, ci]
-    lib.dflo_num_blocks.restype = ci
-    lib.dflo_fused_residual.argtypes = [ci, ci] + [vp] * 9 + [ci, ci, vp]
-    lib.dflo_fused_residual.restype = ci
-    lib.dflo_fused_post.argtypes = ([ci, ci] + [vp] * 5 + [ci] * 7
-                                    + [cd] * 9 + [vp])
-    lib.dflo_fused_post.restype = ci
-    lib.dflo_fused_diag.argtypes = [ci, ci] + [vp] * 4 + [ci, ci, cd, vp]
-    lib.dflo_fused_diag.restype = ci
+    sig = {
+        "dflo_num_blocks": [ci, ci],
+        "dflo_fused_residual": [ci, ci, ci] + [vp] * 9 + [ci, ci, vp],
+        "dflo_fused_mood_candidate": [ci, ci] + [vp] * 11 + [cd, ci, ci, vp,
+                                                             vp],
+        "dflo_fused_post": [ci, ci] + [vp] * 5 + [ci] * 7 + [cd] * 9 + [vp],
+        "dflo_fused_diag": [ci, ci] + [vp] * 4 + [ci, ci, cd, vp],
+        "dflo_fused_modal_pos": [ci, ci] + [vp] * 6 + [ci, ci, cd, cd, vp],
+        "dflo_fused_pk_post": [ci, ci] + [vp] * 6 + [ci] * 5 + [cd] * 4
+                              + [vp],
+        "dflo_fused_mood_check": [ci, ci] + [vp] * 8 + [ci] * 4 + [cd, vp],
+    }
+    for name, args in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ci
     _lib = lib
     return lib
 
@@ -189,29 +208,68 @@ def _cuda_or_cpu(u: torch.Tensor, *others: torch.Tensor | None) -> bool:
     return True
 
 
+def _check_plane(t: torch.Tensor, like: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple[int, ...], name: str) -> None:
+    """An integer or flag operand of a kernel: its own dtype, u's device."""
+    if t.device != like.device or t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype} on {like.device}, got "
+                         f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _partials(lib, u: torch.Tensor, ny: int, nx: int):
+    nb = lib.dflo_num_blocks(ny, nx)
+    return (torch.empty(nb, dtype=u.dtype, device=u.device),
+            torch.empty(nb, dtype=u.dtype, device=u.device))
+
+
+def _wrappers():
+    return (fused_residual, fused_mood_candidate, fused_post, fused_diag,
+            fused_modal_pos, fused_pk_post, fused_mood_check)
+
+
 def reset_launch_counts() -> None:
-    for fn in (fused_residual, fused_post, fused_diag):
+    for fn in _wrappers():
         fn.launches = 0
+    fused_pk_post.launches_with_diag = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches
-            for fn in (fused_residual, fused_post, fused_diag)}
+    """Launches per wrapper since the last reset, plus the Pk post's
+    launches of its diag form under "fused_pk_post_with_diag"."""
+    out = {fn.__name__: fn.launches for fn in _wrappers()}
+    out["fused_pk_post_with_diag"] = fused_pk_post.launches_with_diag
+    return out
 
 
 # ---------------------------------------------------------------------------
 # operator buffers
 # ---------------------------------------------------------------------------
 
-def _check_basis(basis: basis_mod.Basis) -> None:
-    if basis.family != "Qk" or not basis.is_nodal_collocated:
+def _check_basis(basis: basis_mod.Basis, modal: bool | None = None) -> bool:
+    """True for the modal Pk basis, False for collocated nodal Qk; raises
+    for anything the kernels do not take (modal=True/False: only that
+    one)."""
+    if basis.family == "Pk":
+        is_modal = True
+    elif basis.family == "Qk" and basis.is_nodal_collocated:
+        is_modal = False
+    else:
         raise NotImplementedError(
-            "the kernels of this slice take the collocated nodal Qk basis "
-            "(the modal Pk forms come with the MOOD slice)")
+            "the kernels take the collocated nodal Qk basis and the modal Pk "
+            f"basis, got {basis.family} with nq = {basis.nq}")
+    if modal is not None and modal != is_modal:
+        raise NotImplementedError(
+            f"this kernel takes the {'modal Pk' if modal else 'nodal Qk'} "
+            f"basis, got {basis.family}")
     if basis.degree not in DEGREES:
         raise NotImplementedError(
             f"the kernels are instantiated for degrees {DEGREES}, "
             f"got {basis.degree}")
+    return is_modal
 
 
 def _flat(parts, dtype, device) -> tuple[torch.Tensor, list[torch.Tensor]]:
@@ -226,23 +284,36 @@ def _flat(parts, dtype, device) -> tuple[torch.Tensor, list[torch.Tensor]]:
     return buf, views
 
 
+def _mode0_mean(basis: basis_mod.Basis) -> float:
+    """avg0 = (wq2 @ V)[0]: modal Legendre mode 0 carries the cell mean, the
+    other mean weights are quadrature round-off (< 1e-13)."""
+    avg = basis.wq2 @ basis.V
+    assert np.abs(avg[1:]).max() < 1e-13, "mode 0 must carry the mean"
+    return float(avg[0])
+
+
 @dataclasses.dataclass(frozen=True)
 class ResidualOps:
-    """Operators of the fused residual: faceV [4, nq, K] and
-    lift [K, 2K + 4nq] = [dy*GxW^T | dx*GyW^T | +W | -E | +S | -N face lifts],
-    rows pre-scaled by minv/area (pallas_kernels.py:642-660).  HLLC reads
-    no cell averages, so the buffer carries none."""
+    """Operators of the fused residual: faceV [4, nq, K],
+    lift [K, 2Q + 4nq] = [dy*GxW^T | dx*GyW^T | +W | -E | +S | -N face lifts],
+    rows pre-scaled by minv/area (pallas_kernels.py:642-660), and for the
+    modal basis V [Q, K], the basis at the Q volume quadrature points (the
+    kernel contracts the DoFs to point values before the fluxes).  HLLC
+    reads no cell averages, so the buffer carries none."""
     p: int
     K: int
     nq: int
+    Q: int
+    modal: bool
     buf: torch.Tensor
     faceV: torch.Tensor
     lift: torch.Tensor
+    V: torch.Tensor | None
 
 
 def residual_operators(basis: basis_mod.Basis, mesh, *, dtype, device
                        ) -> ResidualOps:
-    _check_basis(basis)
+    modal = _check_basis(basis)
     scale = (1.0 / basis.mass)[:, None] / (mesh.dx * mesh.dy)
     GxW = basis.wq2[:, None] * basis.Gx
     GyW = basis.wq2[:, None] * basis.Gy
@@ -251,8 +322,37 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, dtype, device
         [mesh.dy * GxW.T * scale, mesh.dx * GyW.T * scale,
          mesh.dy * fvw[0].T * scale, -mesh.dy * fvw[1].T * scale,
          mesh.dx * fvw[2].T * scale, -mesh.dx * fvw[3].T * scale], axis=1)
-    buf, (faceV, lift_t) = _flat([basis.faceV, lift], dtype, device)
-    return ResidualOps(basis.degree, basis.K, basis.nq, buf, faceV, lift_t)
+    parts = [basis.faceV, lift] + ([basis.V] if modal else [])
+    buf, views = _flat(parts, dtype, device)
+    return ResidualOps(basis.degree, basis.K, basis.nq, len(basis.wq2), modal,
+                       buf, views[0], views[1], views[2] if modal else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModalOps:
+    """The {Pk truncation -> Zhang-Shu positivity} chain of the MOOD
+    candidate (pallas_kernels._modal_tp_slabs): P [Qp, K], the basis at the
+    positivity points; mode_degree [K] (int64), the total degree of each
+    mode; avg0, the mode-0 mean weight; h, the CFL length of the diag form;
+    positivity, the plain stab/positivity closure on the same operators."""
+    p: int
+    K: int
+    avg0: float
+    h: float
+    P: torch.Tensor
+    mode_degree: torch.Tensor
+    positivity: object
+
+
+def modal_operators(basis: basis_mod.Basis, mesh, *, dtype, device
+                    ) -> ModalOps:
+    _check_basis(basis, modal=True)
+    P = as_tensor(basis.eval_at(_pos_points(basis.degree)), dtype, device)
+    return ModalOps(basis.degree, basis.K, _mode0_mean(basis),
+                    mesh.diameter_h, P.contiguous(),
+                    torch.as_tensor(basis.mode_degree, device=device),
+                    make_positivity_limiter(basis, dtype=dtype,
+                                            device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,7 +390,7 @@ def post_operators(basis: basis_mod.Basis, mesh, *, indicator: str = "density",
                    M: float = 0.0, beta: float = 1.0, char_lim: bool = False,
                    pos_lim: bool = True, per_x: bool = False,
                    per_y: bool = False, dtype, device) -> PostOps:
-    _check_basis(basis)
+    _check_basis(basis, modal=False)
     h = mesh.diameter_h
     diam = float(np.sqrt(mesh.dx * mesh.dx + mesh.dy * mesh.dy))
     p = basis.degree
@@ -313,6 +413,42 @@ def post_operators(basis: basis_mod.Basis, mesh, *, indicator: str = "density",
 
 
 @dataclasses.dataclass(frozen=True)
+class PkPostOps:
+    """Operators and parameters of the fused Pk post (make_fused_pk_post):
+    the modal TVB limiter on the cells whose shock plane exceeds 1, then
+    Zhang-Shu positivity about mode 0.  P [Qp, K] feeds the kernel; limit
+    and positivity are the plain stab/* closures of the same chain."""
+    p: int
+    K: int
+    avg0: float
+    h: float
+    per_x: bool
+    per_y: bool
+    char_lim: bool
+    beta: float
+    Mdx2: float
+    P: torch.Tensor
+    limit: object
+    positivity: object
+
+
+def pk_post_operators(basis: basis_mod.Basis, mesh, *, M: float = 0.0,
+                      beta: float = 1.0, char_lim: bool = False,
+                      per_x: bool = False, per_y: bool = False, dtype,
+                      device) -> PkPostOps:
+    _check_basis(basis, modal=True)
+    h = mesh.diameter_h
+    P = as_tensor(basis.eval_at(_pos_points(basis.degree)), dtype, device)
+    return PkPostOps(
+        basis.degree, basis.K, _mode0_mean(basis), h, per_x, per_y, char_lim,
+        beta, M * h * h, P.contiguous(),
+        make_tvb_limiter(basis, mesh, M=M, beta=beta, char_lim=char_lim,
+                         per_x=per_x, per_y=per_y, dtype=dtype,
+                         device=device),
+        make_positivity_limiter(basis, dtype=dtype, device=device))
+
+
+@dataclasses.dataclass(frozen=True)
 class DiagOps:
     """Operators of the fused diagnostics: avg [K] and the CFL length h."""
     p: int
@@ -328,6 +464,31 @@ def diag_operators(basis: basis_mod.Basis, mesh, *, dtype, device) -> DiagOps:
                    mesh.diameter_h)
 
 
+@dataclasses.dataclass(frozen=True)
+class MoodCheckOps:
+    """Parameters of the fused MOOD check: the degree p (the u2 planes are
+    the density modes 2 and 2p+1), avg0, and the periodic flags with the
+    plain version's neighbor-exists planes (W, E, S, N)."""
+    p: int
+    K: int
+    avg0: float
+    per_x: bool
+    per_y: bool
+    valid: tuple
+
+
+def mood_check_operators(basis: basis_mod.Basis, mesh, *, per_x: bool = False,
+                         per_y: bool = False, device) -> MoodCheckOps:
+    _check_basis(basis, modal=True)
+    if basis.degree < 2:
+        raise NotImplementedError("the MOOD check needs p >= 2 (the u2 "
+                                  "smoothness test reads the D2 modes)")
+    valid = tuple(torch.as_tensor(v, device=device) for v in
+                  neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
+    return MoodCheckOps(basis.degree, basis.K, _mode0_mean(basis), per_x,
+                        per_y, valid)
+
+
 def _check_state(u: torch.Tensor, K: int) -> tuple[int, int]:
     if u.dim() != 4 or u.shape[0] != 4 or u.shape[1] != K:
         raise ValueError(f"state must be [4, {K}, ny, nx], got "
@@ -335,20 +496,59 @@ def _check_state(u: torch.Tensor, K: int) -> tuple[int, int]:
     return u.shape[2], u.shape[3]
 
 
+def _lam_minq(ubar, h: float):
+    """(max over cells of (c+|vx|)/h + (c+|vy|)/h, min over cells of
+    min(rho, p)) from cell averages, NaN-propagating (the diag of
+    pallas_kernels.py:1434-1451 and :1697-1715); 1/h rounded in the working
+    dtype, as the kernels multiply by it."""
+    rho = ubar[euler.RHO]
+    pre = euler.pressure(ubar)
+    cs = torch.sqrt(euler.GAMMA * torch.abs(pre) / torch.abs(rho))
+    vx = torch.abs(ubar[euler.MX] / rho)
+    vy = torch.abs(ubar[euler.MY] / rho)
+    inv_h = recip(h, ubar)
+    lam = (cs + vx) * inv_h + (cs + vy) * inv_h
+    return torch.amax(lam), torch.minimum(torch.amin(rho), torch.amin(pre))
+
+
 # ---------------------------------------------------------------------------
-# fused residual
+# fused residual (dense)
 # ---------------------------------------------------------------------------
 
+def _lift_ordered(lift, Fx, Fy, faces):
+    """R[c, k] = sum over the lift columns of lift[k, col] * flux, as ordered
+    sums in the kernel's order (csrc/residual.cuh): per volume quadrature
+    point its x then its y column, then the W, E, S and N face columns."""
+    Q, nq = Fx.shape[1], faces[0].shape[1]
+    sh = (1, lift.shape[0]) + (1,) * (Fx.dim() - 2)
+
+    def term(col, F):
+        return lift[:, col].view(sh) * F[:, None]
+    R = term(0, Fx[:, 0])
+    R = R + term(Q, Fy[:, 0])
+    for n in range(1, Q):
+        R = R + term(n, Fx[:, n])
+        R = R + term(Q + n, Fy[:, n])
+    for f, F in enumerate(faces):
+        for q in range(nq):
+            R = R + term(2 * Q + f * nq + q, F[:, q])
+    return R
+
+
 def fused_residual_plain(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
-                         sc=None):
+                         sc=None, dt=None):
     """Plain version of the fused residual: the periodic-wrap residual
     everywhere, plus the delta strips lifted into the edge columns and rows.
     With (u_old, sc = [a, dt]) it returns the SSP stage
-    a*u_old + (1-a)*(u + dt*R), else R = M^{-1} R(u)."""
-    faceV, lift = ops.faceV, ops.lift
-    Fx = euler.flux_x(u)                    # collocated: nodes = quad points
-    Fy = euler.flux_y(u)
-    uW, uE, uS, uN = (basis_apply(faceV[f], u) for f in range(4))
+    a*u_old + (1-a)*(u + dt*R); with dt alone the forward-Euler update
+    u + dt*R (the MOOD cascade's first candidate); else R = M^{-1} R(u).
+    Every contraction is an ordered sum in the kernel's order."""
+    faceV = ops.faceV
+    # collocated: nodes = quadrature points; modal: point values W = V u
+    W = basis_apply_ordered(ops.V, u) if ops.modal else u
+    Fx = euler.flux_x(W)
+    Fy = euler.flux_y(W)
+    uW, uE, uS, uN = (basis_apply_ordered(faceV[f], u) for f in range(4))
     # west-face flux of every column: left state = the west neighbor's east
     # trace (periodic wrap); the east-face flux is the next column's west
     Fw = hllc(torch.roll(uE, 1, -1), uW, 1.0, 0.0)
@@ -360,34 +560,43 @@ def fused_residual_plain(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
     Fe = torch.cat([Fe[..., :-1], Fe[..., -1:] + dfe[..., None]], -1)
     Fs = torch.cat([Fs[..., :1, :] + dfs[:, :, None], Fs[..., 1:, :]], -2)
     Fn = torch.cat([Fn[..., :-1, :], Fn[..., -1:, :] + dfn[:, :, None]], -2)
-    R = basis_apply(lift, torch.cat([Fx, Fy, Fw, Fe, Fs, Fn], dim=1))
-    if u_old is None:
-        return R
-    a, dt = sc[0], sc[1]
-    return a * u_old + (1.0 - a) * (u + dt * R)
+    R = _lift_ordered(ops.lift, Fx, Fy, (Fw, Fe, Fs, Fn))
+    if u_old is not None:
+        a, dt_ = sc[0], sc[1]
+        return a * u_old + (1.0 - a) * (u + dt_ * R)
+    if dt is not None:
+        return u + dt * R
+    return R
 
 
 def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
-                   sc=None):
+                   sc=None, dt=None):
     """M^{-1} R(u) with the boundary delta strips (dfw/dfe [4, nq, ny],
     dfs/dfn [4, nq, nx]); with (u_old, sc = [a, dt] on u's device) the whole
-    SSP stage.  CPU tensors: the plain version; CUDA tensors: the kernel."""
+    SSP stage; with dt (a 0-dim tensor on u's device) u + dt*R.  CPU
+    tensors: the plain version; CUDA tensors: the kernel."""
     ny, nx = _check_state(u, ops.K)
     if (u_old is None) != (sc is None):
         raise ValueError("u_old and sc go together")
-    if not _cuda_or_cpu(u, dfw, dfe, dfs, dfn, u_old, sc, ops.buf):
-        return fused_residual_plain(u, dfw, dfe, dfs, dfn, ops, u_old, sc)
+    if dt is not None and u_old is not None:
+        raise ValueError("dt is the forward-Euler form; the stage form "
+                         "takes dt in sc")
+    if not _cuda_or_cpu(u, dfw, dfe, dfs, dfn, u_old, sc, dt, ops.buf):
+        return fused_residual_plain(u, dfw, dfe, dfs, dfn, ops, u_old, sc, dt)
     for s, n in ((dfw, ny), (dfe, ny), (dfs, nx), (dfn, nx)):
         if tuple(s.shape) != (4, ops.nq, n):
             raise ValueError(f"strip shape {tuple(s.shape)} != "
                              f"{(4, ops.nq, n)}")
     if sc is not None and tuple(sc.shape) != (2,):
         raise ValueError("sc must be [a, dt]")
+    if dt is not None and dt.numel() != 1:
+        raise ValueError("dt must hold one value")
     lib = _load()
     out = torch.empty_like(u)
     rc = lib.dflo_fused_residual(
-        _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(dfw), _ptr(dfe), _ptr(dfs),
-        _ptr(dfn), _ptr(u_old), _ptr(sc), _ptr(ops.buf), _ptr(out), ny, nx,
+        _DTYPE_CODE[u.dtype], int(ops.modal), ops.p, _ptr(u), _ptr(dfw),
+        _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(u_old),
+        _ptr(sc if sc is not None else dt), _ptr(ops.buf), _ptr(out), ny, nx,
         _stream(u.device))
     _check(rc, "fused_residual")
     fused_residual.launches += 1
@@ -398,21 +607,126 @@ fused_residual.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# fused post
+# fused modal positivity and the sparse MOOD candidate
 # ---------------------------------------------------------------------------
 
-def _lam_minq(ubar, h: float):
-    """(max over cells of (c+|vx|)/h + (c+|vy|)/h, min over cells of
-    min(rho, p)) from cell averages, NaN-propagating (the diag of
-    pallas_kernels.py:1434-1451 and :1697-1715)."""
-    rho = ubar[euler.RHO]
-    pre = euler.pressure(ubar)
-    cs = torch.sqrt(euler.GAMMA * torch.abs(pre) / torch.abs(rho))
-    vx = torch.abs(ubar[euler.MX] / rho)
-    vy = torch.abs(ubar[euler.MY] / rho)
-    lam = (cs + vx) / h + (cs + vy) / h
-    return torch.amax(lam), torch.minimum(torch.amin(rho), torch.amin(pre))
+def modal_tp_plain(u, deg, ops: ModalOps):
+    """{Pk truncation to deg -> Zhang-Shu positivity about mode 0} on
+    u[4, K, *cells] with deg[*cells] (None: positivity only); the plain
+    twin of csrc/modal.cuh modal_tp (pallas_kernels._modal_tp_slabs)."""
+    if deg is not None:
+        md = ops.mode_degree.view((1, ops.K) + (1,) * (u.dim() - 2))
+        u = torch.where(md <= deg[None, None], u,
+                        torch.zeros((), dtype=u.dtype, device=u.device))
+    return ops.positivity(u, ops.avg0 * u[:, 0])
 
+
+def tile_flags(cells: torch.Tensor) -> torch.Tensor:
+    """uint8 [ceil(ny/TILE_Y), ceil(nx/TILE_X)]: 1 for each tile (thread
+    block of the candidate kernel) that holds a set cell of the bool plane
+    `cells`.  Plane ops on the device: no host sync, no nonzero()."""
+    ny, nx = cells.shape
+    nty, ntx = -(-ny // TILE_Y), -(-nx // TILE_X)
+    c = F.pad(cells.to(torch.uint8), (0, ntx * TILE_X - nx,
+                                      0, nty * TILE_Y - ny))
+    return c.view(nty, TILE_Y, ntx, TILE_X).amax(dim=(1, 3)).contiguous()
+
+
+def fused_mood_candidate_plain(u_pre, u_prev, deg, cells, dfw, dfe, dfs,
+                               dfn, rops: ResidualOps, mops: ModalOps, dt):
+    """Plain version of the sparse MOOD candidate: u_t + dt*R(u_t) with
+    u_t = modal_tp(u_pre, deg), written into u_prev on the cells set in
+    `cells`; every other cell keeps u_prev.  The strips must come from the
+    same u_t (solver/spatial strips(u_pre, t, deg))."""
+    cand = fused_residual_plain(modal_tp_plain(u_pre, deg, mops), dfw, dfe,
+                                dfs, dfn, rops, dt=dt)
+    return u_prev.copy_(torch.where(cells[None, None], cand, u_prev))
+
+
+def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
+                         rops: ResidualOps, mops: ModalOps, dt):
+    """The one-pass MOOD candidate u_t + dt*R(u_t), u_t = {truncation to
+    deg -> positivity}(u_pre) applied to each cell and to each face
+    neighbor with its own degree, recomputed on the cells set in the bool
+    plane `cells` and written IN PLACE into u_prev; the other cells keep
+    u_prev.  Returns u_prev.  With every cell set it is the dense
+    candidate.  CPU tensors: the plain version; CUDA tensors: the kernel,
+    over a grid of TILE_Y x TILE_X tiles with a per-tile flag plane
+    (tile_flags(cells), built here on the device): a block whose tile holds
+    no set cell returns at once."""
+    ny, nx = _check_state(u_pre, rops.K)
+    if not rops.modal:
+        raise NotImplementedError("the MOOD candidate takes the modal Pk "
+                                  "basis")
+    if tuple(u_prev.shape) != tuple(u_pre.shape):
+        raise ValueError("u_prev must have u_pre's shape")
+    if not _cuda_or_cpu(u_pre, u_prev, dfw, dfe, dfs, dfn, dt, rops.buf,
+                        mops.P):
+        return fused_mood_candidate_plain(u_pre, u_prev, deg, cells, dfw, dfe,
+                                          dfs, dfn, rops, mops, dt)
+    _check_plane(deg, u_pre, torch.int32, (ny, nx), "deg")
+    _check_plane(cells, u_pre, torch.bool, (ny, nx), "cells")
+    for s, n in ((dfw, ny), (dfe, ny), (dfs, nx), (dfn, nx)):
+        if tuple(s.shape) != (4, rops.nq, n):
+            raise ValueError(f"strip shape {tuple(s.shape)} != "
+                             f"{(4, rops.nq, n)}")
+    flags = tile_flags(cells)
+    lib = _load()
+    rc = lib.dflo_fused_mood_candidate(
+        _DTYPE_CODE[u_pre.dtype], rops.p, _ptr(u_pre), _ptr(deg),
+        _ptr(cells), _ptr(flags), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn),
+        _ptr(dt), _ptr(rops.buf), _ptr(mops.P), mops.avg0, ny, nx,
+        _ptr(u_prev), _stream(u_pre.device))
+    _check(rc, "fused_mood_candidate")
+    fused_mood_candidate.launches += 1
+    return u_prev
+
+
+fused_mood_candidate.launches = 0
+
+
+def fused_modal_pos_plain(u, ops: ModalOps, deg=None, with_diag=False):
+    """Plain version of the fused modal positivity: modal_tp_plain, plus
+    (lam_max, minq) of the mode-0 means with with_diag (truncation keeps
+    mode 0 and Zhang-Shu scales about the mean)."""
+    out = modal_tp_plain(u, deg, ops)
+    if not with_diag:
+        return out
+    return (out, *_lam_minq(ops.avg0 * u[:, 0], ops.h))
+
+
+def fused_modal_pos(u, ops: ModalOps, deg=None, with_diag: bool = False):
+    """{truncation to deg ->} Zhang-Shu positivity about mode 0 on a Pk
+    state (deg None: no truncation); with_diag also returns the 0-dim
+    (lam_max, minq).  CPU tensors: the plain version; CUDA tensors: the
+    kernel."""
+    ny, nx = _check_state(u, ops.K)
+    if not _cuda_or_cpu(u, ops.P):
+        return fused_modal_pos_plain(u, ops, deg, with_diag)
+    if deg is not None:
+        _check_plane(deg, u, torch.int32, (ny, nx), "deg")
+    lib = _load()
+    out = torch.empty_like(u)
+    lam_p = minq_p = None
+    if with_diag:
+        lam_p, minq_p = _partials(lib, u, ny, nx)
+    rc = lib.dflo_fused_modal_pos(
+        _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(deg), _ptr(ops.P),
+        _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx, ops.avg0, ops.h,
+        _stream(u.device))
+    _check(rc, "fused_modal_pos")
+    fused_modal_pos.launches += 1
+    if not with_diag:
+        return out
+    return out, torch.amax(lam_p), torch.amin(minq_p)
+
+
+fused_modal_pos.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused post (nodal Qk)
+# ---------------------------------------------------------------------------
 
 def fused_post_plain(u, ops: PostOps, with_diag: bool = False):
     """Plain version of the fused post: the stab/* chain
@@ -439,9 +753,7 @@ def fused_post(u, ops: PostOps, with_diag: bool = False):
     out = torch.empty_like(u)
     lam_p = minq_p = None
     if with_diag:
-        nb = lib.dflo_num_blocks(ny, nx)
-        lam_p = torch.empty(nb, dtype=u.dtype, device=u.device)
-        minq_p = torch.empty(nb, dtype=u.dtype, device=u.device)
+        lam_p, minq_p = _partials(lib, u, ny, nx)
     rc = lib.dflo_fused_post(
         _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(ops.buf), _ptr(out),
         _ptr(lam_p), _ptr(minq_p), ny, nx, int(ops.per_x), int(ops.per_y),
@@ -456,6 +768,54 @@ def fused_post(u, ops: PostOps, with_diag: bool = False):
 
 
 fused_post.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused Pk post (the MOOD stage's stabilization)
+# ---------------------------------------------------------------------------
+
+def fused_pk_post_plain(u, shock, ops: PkPostOps, with_diag: bool = False):
+    """Plain version of the fused Pk post: mode-0 averages -> modal TVB on
+    the cells with shock > 1 -> Zhang-Shu positivity (the XLA chain of
+    dflo_tpu/driver.py _mood_rk_step), plus (lam_max, minq) of the means
+    with with_diag (the chain preserves them)."""
+    ubar = ops.avg0 * u[:, 0]
+    u1 = ops.positivity(ops.limit(u, ubar, shock), ubar)
+    if not with_diag:
+        return u1
+    return (u1, *_lam_minq(ubar, ops.h))
+
+
+def fused_pk_post(u, shock, ops: PkPostOps, with_diag: bool = False):
+    """The MOOD stage's post on a Pk state: shock [ny, nx] in u's dtype
+    (2.0 where the cascade marked the cell, else 0); with_diag also returns
+    the 0-dim (lam_max, minq).  CPU tensors: the plain version; CUDA
+    tensors: the kernel."""
+    ny, nx = _check_state(u, ops.K)
+    if not _cuda_or_cpu(u, shock, ops.P):
+        return fused_pk_post_plain(u, shock, ops, with_diag)
+    if tuple(shock.shape) != (ny, nx):
+        raise ValueError(f"shock shape {tuple(shock.shape)} != {(ny, nx)}")
+    lib = _load()
+    out = torch.empty_like(u)
+    lam_p = minq_p = None
+    if with_diag:
+        lam_p, minq_p = _partials(lib, u, ny, nx)
+    rc = lib.dflo_fused_pk_post(
+        _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(shock), _ptr(ops.P),
+        _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx, int(ops.per_x),
+        int(ops.per_y), int(ops.char_lim), ops.avg0, 0.5 * ops.beta, ops.Mdx2,
+        ops.h, _stream(u.device))
+    _check(rc, "fused_pk_post")
+    fused_pk_post.launches += 1
+    if not with_diag:
+        return out
+    fused_pk_post.launches_with_diag += 1
+    return out, torch.amax(lam_p), torch.amin(minq_p)
+
+
+fused_pk_post.launches = 0
+fused_pk_post.launches_with_diag = 0
 
 
 # ---------------------------------------------------------------------------
@@ -475,10 +835,8 @@ def fused_diag(u, ops: DiagOps):
     if not _cuda_or_cpu(u, ops.avg):
         return fused_diag_plain(u, ops)
     lib = _load()
-    nb = lib.dflo_num_blocks(ny, nx)
-    lam_p = torch.empty(nb, dtype=u.dtype, device=u.device)
-    minq_p = torch.empty(nb, dtype=u.dtype, device=u.device)
-    rc = lib.dflo_fused_diag(_DTYPE_CODE[u.dtype], ops.p, _ptr(u),
+    lam_p, minq_p = _partials(lib, u, ny, nx)
+    rc = lib.dflo_fused_diag(_DTYPE_CODE[u.dtype], ops.K, _ptr(u),
                              _ptr(ops.avg), _ptr(lam_p), _ptr(minq_p), ny, nx,
                              ops.h, _stream(u.device))
     _check(rc, "fused_diag")
@@ -487,3 +845,47 @@ def fused_diag(u, ops: DiagOps):
 
 
 fused_diag.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused MOOD check
+# ---------------------------------------------------------------------------
+
+def fused_mood_check_plain(u_c, dmp_min, dmp_max, deg, lim,
+                           ops: MoodCheckOps):
+    """Plain version of the fused MOOD check: stab/mood.check_update on the
+    candidate's density planes (mode 0, D2xx = mode 2, D2yy = mode 2p+1)."""
+    return mood_mod.check_update(
+        ops.avg0 * u_c[euler.RHO, 0], u_c[euler.RHO, 2],
+        u_c[euler.RHO, 2 * ops.p + 1], dmp_min, dmp_max, deg, lim, ops.valid)
+
+
+def fused_mood_check(u_c, dmp_min, dmp_max, deg, lim, ops: MoodCheckOps):
+    """One acceptance pass of the MOOD cascade on the candidate u_c:
+    DMP against [dmp_min, dmp_max], u2 smoothness, degree reduction, limiter
+    marks and their spread to face neighbors.  deg int32 and lim bool
+    [ny, nx]; returns (deg_new int32, lim_new bool, chg bool).  CPU tensors:
+    the plain version; CUDA tensors: the kernel (bitwise equal to it)."""
+    ny, nx = _check_state(u_c, ops.K)
+    if not _cuda_or_cpu(u_c, dmp_min, dmp_max):
+        return fused_mood_check_plain(u_c, dmp_min, dmp_max, deg, lim, ops)
+    for t, name in ((dmp_min, "dmp_min"), (dmp_max, "dmp_max")):
+        if tuple(t.shape) != (ny, nx):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {(ny, nx)}")
+    _check_plane(deg, u_c, torch.int32, (ny, nx), "deg")
+    _check_plane(lim, u_c, torch.bool, (ny, nx), "lim")
+    lib = _load()
+    deg_new = torch.empty_like(deg)
+    lim_new = torch.empty_like(lim)
+    chg = torch.empty_like(lim)
+    rc = lib.dflo_fused_mood_check(
+        _DTYPE_CODE[u_c.dtype], ops.p, _ptr(u_c), _ptr(dmp_min),
+        _ptr(dmp_max), _ptr(deg), _ptr(lim), _ptr(deg_new), _ptr(lim_new),
+        _ptr(chg), ny, nx, int(ops.per_x), int(ops.per_y), ops.avg0,
+        _stream(u_c.device))
+    _check(rc, "fused_mood_check")
+    fused_mood_check.launches += 1
+    return deg_new, lim_new, chg
+
+
+fused_mood_check.launches = 0

@@ -2,8 +2,9 @@
 O(boundary) delta-flux strips that feed the fused residual kernel.
 
 The torch counterpart of dflo_tpu/solver/spatial.py for the unmasked,
-single-device Cartesian path.  The state is ``u[4, K, ny, nx]``; the residual
-is du/dt = M^{-1} R(u, t) with the diagonal mass solve folded in.
+single-device Cartesian path, on the collocated nodal Qk basis and the modal
+Pk basis.  The state is ``u[4, K, ny, nx]``; the residual is
+du/dt = M^{-1} R(u, t) with the diagonal mass solve folded in.
 
 Two forms, selected by ``make_rhs(..., fused=...)``:
 
@@ -16,7 +17,11 @@ Two forms, selected by ``make_rhs(..., fused=...)``:
   (true boundary flux minus wrap flux) at the domain edges.  The strips stay
   in torch: the boundary states come from user callables (the inflow lambda),
   which cannot run inside a kernel.  ``.stage`` gives the whole SSP stage
-  ``a*u_old + (1-a)*(u + dt*R)`` in one kernel pass.
+  ``a*u_old + (1-a)*(u + dt*R)`` in one kernel pass and ``.step`` the
+  forward-Euler update ``u + dt*R``.  On the Pk basis ``.sparse_candidate``
+  is the MOOD cascade's candidate on a set of cells
+  (``kernels.fused_mood_candidate``), with strips from the same
+  {truncated -> positivity-limited} edge lines (``strips(u, t, deg)``).
 """
 
 from __future__ import annotations
@@ -123,16 +128,32 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         ghost = euler.compute_wminus(side.kind, nrm_x, nrm_y, trace, bvals)
         return num_flux(trace, ghost, nrm_x, nrm_y)
 
-    def strips(u, t):
+    modal = basis.family == "Pk"
+    mops = (kernels.modal_operators(basis, mesh, dtype=dtype, device=device)
+            if fused and modal else None)
+
+    def strips(u, t, deg=None):
         """O(boundary) delta-flux strips (dflo_tpu/solver/spatial.py:525):
         the true boundary flux minus the periodic-wrap flux the kernel
         computes at the domain edges.  Returns (dfw, dfe [4, nq, ny],
-        dfs, dfn [4, nq, nx]); zero on periodic sides."""
+        dfs, dfn [4, nq, nx]); zero on periodic sides.  deg (Pk, the MOOD
+        candidate): the edge DoF lines are {truncated -> positivity-limited}
+        first (kernels.modal_tp_plain, tp_line of pallas_kernels.py:
+        933-943), so the strips see the u_t the kernel traces."""
         ny_, nx_ = u.shape[-2:]
+
+        def edge(idx):
+            """The edge DoF line u[:, :, *idx], tp'd with deg[idx] when
+            deg is given."""
+            line = u[(slice(None), slice(None)) + idx]
+            if deg is None:
+                return line
+            return kernels.modal_tp_plain(line, deg[idx], mops)
+
         if per_x:
             dfw = dfe = u.new_zeros((4, nq, ny_))
         else:
-            c0, cl = u[:, :, :, 0], u[:, :, :, -1]
+            c0, cl = edge((slice(None), 0)), edge((slice(None), -1))
             uW0 = torch.einsum("qk,cky->cqy", faceV[WEST], c0)
             uEl = torch.einsum("qk,cky->cqy", faceV[EAST], cl)
             Fwrap = num_flux(uEl, uW0, 1.0, 0.0)
@@ -141,7 +162,7 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         if per_y:
             dfs = dfn = u.new_zeros((4, nq, nx_))
         else:
-            r0, rl = u[:, :, 0], u[:, :, -1]
+            r0, rl = edge((0,)), edge((-1,))
             uS0 = torch.einsum("qk,ckx->cqx", faceV[SOUTH], r0)
             uNl = torch.einsum("qk,ckx->cqx", faceV[NORTH], rl)
             Fwrap = num_flux(uNl, uS0, 0.0, 1.0)
@@ -168,9 +189,26 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
             return kernels.fused_residual(u, *strips(u, t), ops,
                                           u_old=u_old, sc=sc)
 
+        def step_fused(u, t, dt):
+            """u + dt*du/dt in one kernel pass (dt a 0-dim tensor on u's
+            device): the MOOD cascade's first candidate."""
+            return kernels.fused_residual(u, *strips(u, t), ops, dt=dt)
+
         rhs_fused.stage = stage_fused
+        rhs_fused.step = step_fused
         rhs_fused.strips = strips
         rhs_fused.ops = ops
+        if modal:
+            def sparse_candidate(u, u_prev, deg, t, dt, cells):
+                """The MOOD candidate u_t + dt*R(u_t), u_t = {truncation to
+                deg -> positivity}(u), on the cells set in the bool plane
+                `cells`, written into u_prev; other cells keep u_prev
+                (dflo_tpu/solver/spatial.py:621-632)."""
+                return kernels.fused_mood_candidate(
+                    u, u_prev, deg, cells, *strips(u, t, deg), ops, mops, dt)
+
+            rhs_fused.sparse_candidate = sparse_candidate
+            rhs_fused.modal_ops = mops
         return rhs_fused
 
     def rhs(u, t):

@@ -1,7 +1,9 @@
-"""TVB minmod slope limiter for the nodal Qk basis, vectorized over all cells.
+"""TVB minmod slope limiter for the nodal Qk and modal Pk bases, vectorized
+over all cells.
 
 The torch counterpart of dflo_tpu/stab/limiter.py's gradient-based Qk limiter
-(apply_limiter_TVB_Qk, src/limiter.cc:224-370): neighbor lookups are tensor
+(apply_limiter_TVB_Qk, src/limiter.cc:224-370) and modal Pk limiter
+(apply_limiter_TVB_Pk, src/limiter.cc:376-516): neighbor lookups are tensor
 rolls of the cell-average field, the characteristic transform is a batched
 4x4 contraction (src/equation.h:225-306), and the "reduce to linear" rewrite
 is a select between the original DoFs and the limited linear rebuild.
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 
 from dflo_tpu_torch.ops import basis as basis_mod
-from dflo_tpu_torch.ops.contract import as_tensor, basis_reduce
+from dflo_tpu_torch.ops.contract import as_tensor, basis_reduce, recip
 from dflo_tpu_torch.physics import euler
 
 
@@ -70,31 +72,54 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
                      beta: float = 1.0, char_lim: bool = False,
                      per_x: bool = False, per_y: bool = False, *,
                      dtype: torch.dtype, device):
-    """Build limit(u, ubar, marked) -> u for a nodal Qk basis.
+    """Build limit(u, ubar, marked) -> u for the nodal Qk or the modal Pk
+    basis.
 
     marked : [ny, nx] shock indicator; cells with marked > 1 are limited
              (src/limiter.cc:263).
     M, beta, char_lim mirror Parameters::Limiter (src/parameters.h:241-256).
+    Pk (apply_limiter_TVB_Pk, src/limiter.cc:376-516): the slopes are the
+    (1,0) and (0,1) Legendre coefficients times sqrt(3), beta is halved, and
+    the rebuild keeps [mean, x-slope, y-slope] and zeroes the other modes.
     """
-    if basis.family != "Qk":
+    if basis.family not in ("Qk", "Pk"):
         raise NotImplementedError(
-            "the modal Pk TVB limiter comes with the MOOD slice")
+            f"the TVB limiter of the port takes Qk or Pk, not {basis.family}")
+    modal = basis.family == "Pk"
+    p = basis.degree
     h = mesh.diameter_h
     inv_h = 1.0 / h
     Mdx2 = M * h * h
+    sqrt3 = float(np.sqrt(3.0))
     valid = tuple(torch.as_tensor(v, device=device) for v in
                   neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
-    # mean reference gradient operators: gx[k] = sum_q w2q dphi_k/dx
-    gx_op = as_tensor(basis.wq2 @ basis.Gx, dtype, device)
-    gy_op = as_tensor(basis.wq2 @ basis.Gy, dtype, device)
-    # physical node offsets from the cell center
-    drx = as_tensor((basis.nodes[:, 0] - 0.5) * mesh.dx, dtype, device)
-    dry = as_tensor((basis.nodes[:, 1] - 0.5) * mesh.dy, dtype, device)
+    if modal:
+        ix_x, ix_y = 1, p + 1       # (1,0) / (0,1) modes (src/limiter.cc:414)
+        beta_eff = 0.5 * beta       # src/limiter.cc:395
+        keep = torch.zeros(basis.K, dtype=dtype, device=device)
+        keep[0] = 1.0
+        ex = torch.zeros(basis.K, dtype=dtype, device=device)
+        ex[ix_x] = 1.0
+        ey = torch.zeros(basis.K, dtype=dtype, device=device)
+        ey[ix_y] = 1.0
+        inv_sqrt3 = recip(sqrt3, ey)    # as csrc/fused_pk_post.cu multiplies
+    else:
+        beta_eff = beta
+        # mean reference gradient operators: gx[k] = sum_q w2q dphi_k/dx
+        gx_op = as_tensor(basis.wq2 @ basis.Gx, dtype, device)
+        gy_op = as_tensor(basis.wq2 @ basis.Gy, dtype, device)
+        # physical node offsets from the cell center
+        drx = as_tensor((basis.nodes[:, 0] - 0.5) * mesh.dx, dtype, device)
+        dry = as_tensor((basis.nodes[:, 1] - 0.5) * mesh.dy, dtype, device)
 
     def limit(u, ubar, marked):
-        # h * mean physical gradient (src/limiter.cc:269-281)
-        Dx = (h / mesh.dx) * basis_reduce(gx_op, u)
-        Dy = (h / mesh.dy) * basis_reduce(gy_op, u)
+        if modal:
+            Dx = sqrt3 * u[:, ix_x]                      # [4, ny, nx]
+            Dy = sqrt3 * u[:, ix_y]
+        else:
+            # h * mean physical gradient (src/limiter.cc:269-281)
+            Dx = (h / mesh.dx) * basis_reduce(gx_op, u)
+            Dy = (h / mesh.dy) * basis_reduce(gy_op, u)
         dbx, dfx, dby, dfy = neighbor_diffs(ubar, (Dx, Dy), valid)
 
         if char_lim:
@@ -108,8 +133,8 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
         else:
             cDx, cDy, cdbx, cdfx, cdby, cdfy = Dx, Dy, dbx, dfx, dby, dfy
 
-        Dxn = minmod(cDx, beta * cdbx, beta * cdfx, Mdx2)
-        Dyn = minmod(cDy, beta * cdby, beta * cdfy, Mdx2)
+        Dxn = minmod(cDx, beta_eff * cdbx, beta_eff * cdfx, Mdx2)
+        Dyn = minmod(cDy, beta_eff * cdby, beta_eff * cdfy, Mdx2)
         # the component means summed in order, as csrc/fused_post.cu does
         change = (_mean4(torch.abs(Dxn - cDx))
                   + _mean4(torch.abs(Dyn - cDy)))
@@ -117,10 +142,17 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
             Dxn = euler.to_conserved(Rx, Dxn)
             Dyn = euler.to_conserved(Ry, Dyn)
 
-        # linear rebuild at the nodal points (src/limiter.cc:355-366)
-        u_lim = (ubar[:, None]
-                 + drx[None, :, None, None] * (Dxn * inv_h)[:, None]
-                 + dry[None, :, None, None] * (Dyn * inv_h)[:, None])
+        if modal:
+            # keep [mean, x-slope, y-slope], zero the rest; mode 0 takes
+            # the average itself, as dflo_tpu/stab/limiter.py does
+            u_lim = (ubar[:, None] * keep[None, :, None, None]
+                     + (Dxn * inv_sqrt3)[:, None] * ex[None, :, None, None]
+                     + (Dyn * inv_sqrt3)[:, None] * ey[None, :, None, None])
+        else:
+            # linear rebuild at the nodal points (src/limiter.cc:355-366)
+            u_lim = (ubar[:, None]
+                     + drx[None, :, None, None] * (Dxn * inv_h)[:, None]
+                     + dry[None, :, None, None] * (Dyn * inv_h)[:, None])
         active = (marked > 1.0) & (change > 1.0e-10)
         return torch.where(active[None, None], u_lim, u)
 

@@ -1,0 +1,225 @@
+"""MOOD a posteriori stabilization on the modal Pk basis.
+
+The torch counterpart of dflo_tpu/stab/mood.py (the reference's MOOD
+cascade, src/mood.cc:1-491; driver iterate_mood, src/claw.cc:777-871), in
+the form the JAX package runs on the TPU: pass 1 peeled out of the loop
+(the forward-Euler update of the unmodified stage predictor), then a fixed
+point in which every pass recomputes the candidate only on the cells whose
+candidate can change (the sparse re-update of src/claw.cc:806-852), each
+pass ending in the acceptance check.
+
+Which cells can change: a cell whose degree changed, or a face neighbor of
+one, and -- unlike the JAX package's TPU path -- every cell where applying
+the {truncation -> positivity} chain to the predictor at full degree is not
+the identity, with its face neighbors.  Zhang-Shu positivity is not
+idempotent: on a cell it limited to the pressure floor, a second application
+can take the reference's round-off branch (|1 - t| < 1e-14 -> t = 0) and
+flatten the cell to its mean.  The dense cascade (and the JAX package's CPU
+path) re-applies it to every cell from pass 2 on; a sparse pass that skips
+such a cell keeps its pass-1 value and disagrees.  Recomputing those cells
+too makes the sparse cascade equal to the dense one, whatever the tiles.
+
+Per check (apply_mood, src/mood.cc:290-400):
+- DMP on the candidate's density mean against the neighborhood min/max of
+  the predictor's means (+-1e-6, src/mood.cc:314-317);
+- Diot's u2 smoothness exemption on the density D2 modes (src/mood.cc:
+  233-282, eps = 0.5);
+- failing cells with degree > 1 drop one degree; failing degree-1 cells
+  switch on the TVB limiter; failing degree-1 cells already marked spread
+  the reduction to their face neighbors, without wrapping at edges that
+  are not periodic (src/mood.cc:335-394).
+
+The fixed point runs on the host, one ``bool(chg.any())`` per pass (up to
+``max_iters``); everything else stays on the device.  MOOD requires the Pk
+basis and global time stepping (src/parameters.cc:536-544).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from dflo_tpu_torch.physics import euler
+from dflo_tpu_torch.stab.limiter import neighbor_valid
+
+DMP_EPS = 1.0e-6     # src/mood.cc:296
+U2_EPS = 0.5         # src/mood.cc:271
+U2_TINY = 1.0e-12    # curvatures at round-off level count as smooth (as
+                     # dflo_tpu/stab/mood.py; not in the reference)
+
+
+def neighborhood_min(a, valid):
+    """min over {cell, existing face neighbors} of a [ny, nx] plane; valid
+    = (W, E, S, N) neighbor-exists planes (non-wrapping at edges that are
+    not periodic)."""
+    vW, vE, vS, vN = valid
+    big = torch.full((), float("inf"), dtype=a.dtype, device=a.device)
+    m = a
+    m = torch.minimum(m, torch.where(vW, torch.roll(a, 1, -1), big))
+    m = torch.minimum(m, torch.where(vE, torch.roll(a, -1, -1), big))
+    m = torch.minimum(m, torch.where(vS, torch.roll(a, 1, -2), big))
+    m = torch.minimum(m, torch.where(vN, torch.roll(a, -1, -2), big))
+    return m
+
+
+def neighborhood_max(a, valid):
+    vW, vE, vS, vN = valid
+    big = torch.full((), float("-inf"), dtype=a.dtype, device=a.device)
+    m = a
+    m = torch.maximum(m, torch.where(vW, torch.roll(a, 1, -1), big))
+    m = torch.maximum(m, torch.where(vE, torch.roll(a, -1, -1), big))
+    m = torch.maximum(m, torch.where(vS, torch.roll(a, 1, -2), big))
+    m = torch.maximum(m, torch.where(vN, torch.roll(a, -1, -2), big))
+    return m
+
+
+def dilate4_valid(flag, valid):
+    """Validity-masked 4-neighborhood dilation of a bool plane: the spread
+    reaches only existing face neighbors (src/mood.cc:341-394)."""
+    vW, vE, vS, vN = valid
+    out = flag
+    out = out | (vW & torch.roll(flag, 1, -1)) | (vE & torch.roll(flag, -1, -1))
+    out = out | (vS & torch.roll(flag, 1, -2)) | (vN & torch.roll(flag, -1, -2))
+    return out
+
+
+def u2_ok(d2xx, d2yy, valid):
+    """Diot's u2 smoothness exemption on the density D2 Legendre planes
+    (src/mood.cc:240-282): over the plus stencil, min and max of each D2
+    share a sign and are comparable, or both are at round-off level."""
+    ok = torch.ones(d2xx.shape, dtype=torch.bool, device=d2xx.device)
+    for D2 in (d2xx, d2yy):
+        mn = neighborhood_min(D2, valid)
+        mx = neighborhood_max(D2, valid)
+        amn = torch.abs(mn)
+        amx = torch.abs(mx)
+        flat = torch.maximum(amn, amx) < U2_TINY
+        ok = ok & (flat | ((mn * mx >= 0) & (amn >= amx * (1.0 - U2_EPS))))
+    return ok
+
+
+def check_update(rho, d2xx, d2yy, dmp_min, dmp_max, deg, lim, valid):
+    """DMP acceptance + degree-reduction / limiter-mark bookkeeping on a
+    candidate (apply_mood, src/mood.cc:290-491).  rho is the candidate's
+    density mean, d2xx/d2yy its density D2 modes; deg int32, lim bool.
+    Returns (deg_new, lim_new, chg): chg marks the cells whose degree
+    dropped."""
+    dmp = (rho - dmp_min > -DMP_EPS) & (rho - dmp_max < DMP_EPS)
+    fail = ~(dmp | u2_ok(d2xx, d2yy, valid))
+    red_self = fail & (deg > 1)
+    mark_self = fail & (deg == 1) & ~lim
+    spread = fail & (deg == 1) & lim
+    nb = dilate4_valid(spread, valid)
+    red_nb = nb & (deg > 1) & ~red_self
+    mark_nb = nb & (deg == 1) & ~lim & ~mark_self
+    chg = red_self | red_nb
+    return deg - chg.to(deg.dtype), lim | mark_self | mark_nb, chg
+
+
+class MoodStats(NamedTuple):
+    """Per-stage cascade counters (src/claw.cc:851 printout): total degree
+    reductions, cells handed to the TVB limiter (0-dim int64 tensors on the
+    state's device) and cascade passes (a host int)."""
+    n_reduce: torch.Tensor
+    n_marked: torch.Tensor
+    iters: int
+
+
+class MoodStage:
+    """mood_stage(u_pre, t, dt) -> (u_candidate, limiter_marked, MoodStats,
+    degree) for one SSP stage (dflo_tpu/stab/mood.py make_mood, the TPU form).
+    rhs is the fused modal residual of solver/spatial.make_rhs(...,
+    fused=True) (its ``.step``, ``.sparse_candidate`` and ``.modal_ops``).
+
+    Each pass's candidate goes through the port's kernels (their plain
+    versions on CPU tensors): pass 1 is the dense modal residual's
+    forward-Euler form u + dt*R(u); later passes are the sparse candidate on
+    the cells that can change (sparse_mode="auto"; see the module
+    docstring), or with sparse_mode="off" the dense fused_modal_pos(u_pre,
+    deg) followed by the dense forward-Euler residual on every cell.
+    host_syncs counts the ``bool(chg.any())`` reads."""
+
+    def __init__(self, basis, mesh, rhs, per_x: bool = False,
+                 per_y: bool = False, *, max_iters: int = 20,
+                 dmp_bounds: str = "neighborhood", sparse_mode: str = "auto"):
+        from dflo_tpu_torch.ops import kernels
+        if basis.family != "Pk":
+            raise ValueError("MOOD is implemented only for Pk "
+                             "(src/parameters.cc:541-544)")
+        if dmp_bounds == "collapsed":
+            raise NotImplementedError(
+                "dmp_bounds='collapsed' (the reference's executed bounds, a "
+                "validation option) is not ported yet")
+        if dmp_bounds != "neighborhood":
+            raise ValueError(f"unknown dmp_bounds {dmp_bounds!r}")
+        if sparse_mode not in ("auto", "off"):
+            raise ValueError(f"unknown sparse_mode {sparse_mode!r}")
+        self.kernels = kernels
+        self.p = basis.degree
+        self.rhs = rhs
+        self.max_iters = max_iters
+        self.sparse = sparse_mode == "auto"
+        self.mops = rhs.modal_ops
+        device = self.mops.P.device
+        self.valid = tuple(torch.as_tensor(v, device=device) for v in
+                           neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
+        self.cops = kernels.mood_check_operators(basis, mesh, per_x=per_x,
+                                                 per_y=per_y, device=device)
+        self.host_syncs = 0
+
+    def __call__(self, u_pre, t, dt, deg_in=None, live=None):
+        """live: optional 0-dim bool tensor; when false the cascade stops
+        after pass 1 (a step whose result the chunked loop discards).  The
+        fourth result is the settled degree map (int32), which the JAX
+        stage does not return."""
+        if deg_in is not None:
+            raise NotImplementedError(
+                "the MOOD warm start (deg_in) is not ported yet; every stage "
+                "re-cascades from degree p, as the reference does")
+        k = self.kernels
+        rho0 = self.mops.avg0 * u_pre[euler.RHO, 0]
+        dmp_min = neighborhood_min(rho0, self.valid)
+        dmp_max = neighborhood_max(rho0, self.valid)
+        shape = u_pre.shape[-2:]
+        deg = torch.full(shape, self.p, dtype=torch.int32,
+                         device=u_pre.device)
+        lim = torch.zeros(shape, dtype=torch.bool, device=u_pre.device)
+
+        # ---- pass 1, peeled: the unmodified predictor's forward Euler ----
+        u_c = self.rhs.step(u_pre, t, dt)
+        deg, lim, chg = k.fused_mood_check(u_c, dmp_min, dmp_max, deg, lim,
+                                           self.cops)
+        it = 1
+        moved = None
+        while it < self.max_iters:
+            if live is not None:
+                chg = chg & live
+            self.host_syncs += 1
+            if not bool(chg.any()):
+                break
+            if self.sparse:
+                if moved is None:
+                    # cells (and their neighbors) that the full-degree
+                    # chain changes: the dense cascade's candidate differs
+                    # from pass 1 there even where no degree changed
+                    u_pos = k.fused_modal_pos(u_pre, self.mops)
+                    moved = dilate4_valid(
+                        (u_pos != u_pre).flatten(0, 1).any(0), self.valid)
+                # candidates change only where a degree changed or a face
+                # neighbor's did, or where the chain moved the predictor
+                aff = chg | dilate4_valid(chg, self.valid) | moved
+                u_c = self.rhs.sparse_candidate(u_pre, u_c, deg, t, dt, aff)
+            else:
+                u_t = k.fused_modal_pos(u_pre, self.mops, deg)
+                u_c = self.rhs.step(u_t, t, dt)
+            deg, lim, chg = k.fused_mood_check(u_c, dmp_min, dmp_max, deg,
+                                               lim, self.cops)
+            it += 1
+        stats = MoodStats(torch.sum(self.p - deg), torch.sum(lim), it)
+        return u_c, lim, stats, deg
+
+
+#: dflo_tpu/stab/mood.py's builder name: make_mood(basis, mesh, rhs, per_x,
+#: per_y, ...) -> mood_stage
+make_mood = MoodStage

@@ -16,7 +16,7 @@ import torch
 
 from dflo_tpu_torch.ops import basis as basis_mod
 from dflo_tpu_torch.ops import quadrature
-from dflo_tpu_torch.ops.contract import as_tensor, basis_apply
+from dflo_tpu_torch.ops.contract import as_tensor, basis_apply_ordered, recip
 from dflo_tpu_torch.physics import euler
 
 EPS = 1.0e-13  # src/positivity.cc:27
@@ -51,23 +51,34 @@ def _pos_points(degree: int) -> np.ndarray:
 
 def make_positivity_limiter(basis: basis_mod.Basis, *, dtype: torch.dtype,
                             device):
-    """Build limit(u, ubar) -> u (Zhang-Shu scaling) for a nodal basis."""
-    if basis.family == "Pk":
-        raise NotImplementedError(
-            "the modal positivity limiter comes with the MOOD slice")
+    """Build limit(u, ubar) -> u (Zhang-Shu scaling).  Nodal bases scale
+    every DoF about the average; the modal Pk basis scales the non-mean
+    coefficients and mixes mode 0 with the average (scale_about_avg,
+    src/positivity.cc:90-110)."""
     P = as_tensor(basis.eval_at(_pos_points(basis.degree)), dtype, device)
-    g1 = euler.GAMMA - 1.0
+    modal = basis.family == "Pk"
+    # 1/(gamma-1) rounded in the working dtype, as the kernels multiply by it
+    inv_g1 = recip(euler.GAMMA - 1.0, P)
+
+    def scale(v, vbar, theta):
+        """theta*v + (1-theta)*vbar per cell; v [c, K, ...], vbar [c, ...]."""
+        if modal:
+            return torch.cat([v[:, :1] * theta + vbar[:, None] * (1.0 - theta),
+                              v[:, 1:] * theta], dim=1)
+        return v * theta + vbar[:, None] * (1.0 - theta)
 
     def limit(u, ubar):
         eps_r, eps_p = pos_floors(ubar, u.dtype)
         # ---- density pass (src/positivity.cc:68-111) ----------------------
-        W = basis_apply(P, u)                          # [4, Qp, ny, nx]
+        # point values as ordered sums, as the kernels compute them: the
+        # pressure-floor branches below are decided by their rounding
+        W = basis_apply_ordered(P, u)                  # [4, Qp, ny, nx]
         rho_min = torch.amin(W[euler.RHO], dim=0)      # [ny, nx]
         rho_avg = ubar[euler.RHO]
         rat = torch.abs(rho_avg - eps_r) / (torch.abs(rho_avg - rho_min)
                                             + 1.0e-13)
         theta1 = torch.clamp(rat, max=1.0)
-        u_rho = u[euler.RHO] * theta1 + rho_avg[None] * (1.0 - theta1)
+        u_rho = scale(u[euler.RHO:euler.RHO + 1], rho_avg[None], theta1)[0]
         u = torch.stack([u[euler.MX], u[euler.MY], u_rho, u[euler.ENE]])
 
         # ---- pressure pass (src/positivity.cc:113-182) --------------------
@@ -84,10 +95,10 @@ def make_positivity_limiter(basis: basis_mod.Basis, *, dtype: torch.dtype,
 
         epn = eps_p if eps_p.dim() == 0 else eps_p[None]
         a1 = 2.0 * drho * dE - (dmx * dmx + dmy * dmy)
-        b1 = (2.0 * drho * (Eavg - epn / g1)
+        b1 = (2.0 * drho * (Eavg - epn * inv_g1)
               + 2.0 * ravg * dE - 2.0 * (mavg_x * dmx + mavg_y * dmy))
         c1 = (2.0 * ravg * Eavg - (mavg_x**2 + mavg_y**2)
-              - 2.0 * epn * ravg / g1)
+              - 2.0 * epn * ravg * inv_g1)
         a1s = torch.where(a1 == 0.0, torch.ones_like(a1), a1)
         b1n, c1n = b1 / a1s, c1 / a1s
         D = torch.sqrt(torch.abs(b1n * b1n - 4.0 * c1n))
@@ -99,7 +110,7 @@ def make_positivity_limiter(basis: basis_mod.Basis, *, dtype: torch.dtype,
         t = torch.where(torch.abs(1.0 - t) < 1.0e-14, torch.zeros_like(t), t)
         t = torch.where(pre < epn, t, torch.ones_like(t))
         theta2 = torch.amin(t, dim=0)                  # [ny, nx]
-        return u * theta2 + ubar[:, None] * (1.0 - theta2)
+        return scale(u, ubar, theta2)
 
     return limit
 

@@ -1,5 +1,6 @@
 """Each CUDA kernel of dflo_tpu_torch against its plain PyTorch version, on
-the card, for every instantiated degree (p = 1, 2, 3) and dtype.
+the card: the RK/TVB kernels for every instantiated degree (p = 1, 2, 3),
+the MOOD kernels for p = 2 and 3 (96 x 24, modal Pk), in both dtypes.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -8,12 +9,14 @@ imports JAX, hence --noconftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerances, relative to the plain version's largest magnitude per
-component: f64 1e-11 and f32 1e-5 (1e-4 for the post chain), the round-off of
-another summation order and of FMA contraction.  The f32 post may flip a
+component: f64 1e-11 and f32 1e-5 (1e-4 for the post chains), the round-off
+of another summation order and of FMA contraction.  The MOOD check's
+integer and flag outputs are bitwise equal.  The f32 post may flip a
 limiter threshold decision (KXRCF > 1, change > 1e-10) in a few cells; those
 are counted and bounded by 1 % of the cells at this small size.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -134,3 +137,132 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="strip"):
         kernels.fused_residual(u, strips[2], strips[1], strips[2], strips[3],
                                rhs.ops)
+
+
+# ---------------------------------------------------------------------------
+# the MOOD kernels on the modal Pk basis
+# ---------------------------------------------------------------------------
+
+PK_NX, PK_NY = 96, 24
+
+
+def setup_pk(p, dtype, device, seed=0):
+    """Operators and a positivity-limited, perturbed DMR state on P_p, a
+    mixed degree map and random cell/limiter planes (numpy seed)."""
+    basis = make_basis("Pk", p)
+    mesh = CartesianMesh(PK_NX, PK_NY, 0.0, 4.0, 0.0, 1.0)
+    rng = np.random.default_rng(seed)
+    u = ic.set_initial_condition(basis, mesh, dmr_ic, dtype=torch.float64,
+                                 device="cpu")
+    u = u * torch.from_numpy(1.0 + 0.05 * rng.uniform(-1.0, 1.0, u.shape))
+    mops64 = kernels.modal_operators(basis, mesh, dtype=torch.float64,
+                                     device="cpu")
+    u = kernels.modal_tp_plain(u, None, mops64).to(dtype=dtype, device=device)
+    rhs = make_rhs(basis, mesh, BCS, flux="hllc", dtype=dtype, device=device,
+                   fused=True)
+    planes = dict(
+        deg=torch.from_numpy(rng.integers(1, p + 1, (PK_NY, PK_NX),
+                                          dtype=np.int32)).to(device),
+        cells=torch.from_numpy(rng.uniform(size=(PK_NY, PK_NX)) < 0.3
+                               ).to(device),
+        lim=torch.from_numpy(rng.uniform(size=(PK_NY, PK_NX)) < 0.2
+                             ).to(device),
+        shock=torch.from_numpy(np.where(rng.uniform(size=(PK_NY, PK_NX))
+                                        < 0.5, 2.0, 0.0)).to(dtype=dtype,
+                                                             device=device))
+    return basis, mesh, u, rhs, planes
+
+
+def cell_flips(k, p, tol):
+    """(max relative error outside flipped cells, flipped cells)."""
+    scale = p.double().abs().flatten(1).amax(1)
+    cell = ((k.double() - p.double()).abs()
+            / scale[:, None, None, None]).amax((0, 1))
+    flipped = cell > tol
+    return float(torch.where(flipped, 0.0, cell).max()), int(flipped.sum())
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (2, 3))
+def test_modal_residual_and_candidate_match_plain(cuda, p, dtype):
+    dt = getattr(torch, dtype)
+    basis, mesh, u, rhs, pl = setup_pk(p, dt, cuda, seed=p)
+    strips = rhs.strips(u, 0.0)
+    h = torch.full((), 1e-4, dtype=dt, device=cuda)
+    for kw in ({}, {"dt": h}):
+        k = kernels.fused_residual(u, *strips, rhs.ops, **kw)
+        assert rel(k, kernels.fused_residual_plain(u, *strips, rhs.ops, **kw)) \
+            <= TOL[dt]
+    # the candidate on a random cell set and on every cell, in place
+    mops = rhs.modal_ops
+    tp_strips = rhs.strips(u, 0.0, pl["deg"])
+    prev = u.flip(-1).contiguous()
+    for cells in (pl["cells"], torch.ones_like(pl["cells"])):
+        before = kernels.fused_mood_candidate.launches
+        k = kernels.fused_mood_candidate(u, prev.clone(), pl["deg"], cells,
+                                         *tp_strips, rhs.ops, mops, h)
+        q = kernels.fused_mood_candidate_plain(u, prev.clone(), pl["deg"],
+                                               cells, *tp_strips, rhs.ops,
+                                               mops, h)
+        torch.cuda.synchronize()
+        assert kernels.fused_mood_candidate.launches == before + 1
+        e, flips = cell_flips(k, q, TOL[dt])
+        assert e <= TOL[dt] and flips == 0
+        assert torch.equal(k[..., ~cells], prev[..., ~cells])
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (2, 3))
+def test_modal_pos_pk_post_and_diag_match_plain(cuda, p, dtype):
+    dt = getattr(torch, dtype)
+    basis, mesh, u, rhs, pl = setup_pk(p, dt, cuda, seed=10 + p)
+    mops = kernels.modal_operators(basis, mesh, dtype=dt, device=cuda)
+    for deg in (None, pl["deg"]):
+        k, lam, minq = kernels.fused_modal_pos(u, mops, deg, with_diag=True)
+        q, lam_p, minq_p = kernels.fused_modal_pos_plain(u, mops, deg,
+                                                         with_diag=True)
+        torch.cuda.synchronize()
+        assert torch.equal(k, kernels.fused_modal_pos(u, mops, deg))
+        e, flips = cell_flips(k, q, TOL[dt])
+        assert e <= TOL[dt] and flips == 0
+        assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+    post = kernels.pk_post_operators(basis, mesh, beta=2.0, char_lim=True,
+                                     dtype=dt, device=cuda)
+    k, lam, minq = kernels.fused_pk_post(u, pl["shock"], post, with_diag=True)
+    q, lam_p, minq_p = kernels.fused_pk_post_plain(u, pl["shock"], post,
+                                                   with_diag=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k, kernels.fused_pk_post(u, pl["shock"], post))
+    e, flips = cell_flips(k, q, POST_TOL[dt])
+    assert e <= POST_TOL[dt]
+    assert flips <= (0 if dt == torch.float64 else PK_NX * PK_NY // 100)
+    assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+    diag = kernels.diag_operators(basis, mesh, dtype=dt, device=cuda)
+    for a, b in zip(kernels.fused_diag(u, diag),
+                    kernels.fused_diag_plain(u, diag)):
+        assert rel(a, b) <= TOL[dt]
+
+
+@pytest.mark.parametrize("per", ((False, False), (True, True)))
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (2, 3))
+def test_mood_check_is_bitwise_plain(cuda, p, dtype, per):
+    dt = getattr(torch, dtype)
+    basis, mesh, u, rhs, pl = setup_pk(p, dt, cuda, seed=20 + p)
+    ops = kernels.mood_check_operators(basis, mesh, per_x=per[0],
+                                       per_y=per[1], device=cuda)
+    from dflo_tpu_torch.stab import mood
+    rho0 = ops.avg0 * u[euler.RHO, 0]
+    bmin = mood.neighborhood_min(rho0, ops.valid)
+    bmax = mood.neighborhood_max(rho0, ops.valid)
+    # a candidate near the predictor, so the DMP test goes both ways
+    cand = (u * (1.0 + 1e-6 * torch.randn(u.shape, dtype=torch.float64,
+                                          generator=torch.Generator()
+                                          .manual_seed(p)).to(u))).contiguous()
+    k = kernels.fused_mood_check(cand, bmin, bmax, pl["deg"], pl["lim"], ops)
+    q = kernels.fused_mood_check_plain(cand, bmin, bmax, pl["deg"], pl["lim"],
+                                       ops)
+    torch.cuda.synchronize()
+    for a, b in zip(k, q):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert 0 < int(k[2].sum()) < PK_NX * PK_NY       # both outcomes occur

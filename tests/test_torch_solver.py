@@ -159,7 +159,7 @@ def test_nan_state_trips_the_fatal_flag(port, chunk):
 
 
 def test_entry_step_is_the_solver_step():
-    fn, (u, t, t_end) = entry.entry()
+    fn, (u, t, t_end) = entry.entry(device="cpu")
     assert tuple(u.shape) == (4, 9, 24, 128) and u.dtype == F64
     s, u0 = entry._build(128, 24, dtype=F64, device="cpu")
     u0 = s.post_stage(u0)
@@ -175,8 +175,8 @@ def test_out_of_slice_configurations_raise():
     lim = LimiterConfig(type="TVB", shock_indicator="density", beta=2.0,
                         char_lim=True, pos_lim=True)
     args = (s.basis, s.mesh, s.bcs)
-    with pytest.raises(NotImplementedError, match="slice B"):
-        entry._build(16, 4, method="mood")
+    with pytest.raises(NotImplementedError, match="implicit"):
+        Solver(*args, limiter=lim, dtype=F64, device="cpu", method="implicit")
     with pytest.raises(NotImplementedError, match="masked"):
         Solver(*args, limiter=lim, dtype=F64, device="cpu",
                mask=np.ones((4, 16), bool))
@@ -196,7 +196,8 @@ def test_port_never_imports_jax():
     for f in list(src.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
     code = ("import sys, dflo_tpu_torch, dflo_tpu_torch.entry, "
-            "dflo_tpu_torch.interop; "
+            "dflo_tpu_torch.interop, dflo_tpu_torch.stab.mood, "
+            "dflo_tpu_torch.ops.kernels; "
             "assert 'jax' not in sys.modules and 'dflo_tpu' not in "
             "sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
