@@ -37,10 +37,27 @@ Phases (any failure raises, and the script then prints no result):
    fused_modal_pos with truncation), and the kernels against the plain
    versions on the same card: state within 1e-10, equal degree and
    limiter maps, equal MoodStats.
-8. the device's busy share: each main path's chunk (RK 5 steps, MOOD 3)
-   under torch.profiler; busy time is the union of the device events'
-   intervals; idle shares of the traced wall and of the untraced ms/step
-   of phases 3 and 6.
+8. the device's busy share: each main path's chunk (RK 5 steps, MOOD 3,
+   forward step 3) under torch.profiler; busy time is the union of the
+   device events' intervals; idle shares of the traced wall and of the
+   untraced ms/step of phases 3, 6 and 10.
+9. forward-step kernels against their plain versions, on the Mach-3
+   forward step of examples/forward_step_tpu.prm at its full 1920 x 640
+   (Q1, LxF, the solid-cell mask, the `limiter` indicator), on its IC after
+   post_stage and after 10 plain steps, in float32 and float64: the masked
+   LxF residual (R and stage forms), the masked post with and without its
+   diag, the masked diag and volume_residual; CUDA event times (median of
+   20).
+10. the forward-step main path through the port's CLI,
+   cli.run([examples/forward_step_tpu.prm, --max-steps 50, --chunk 10,
+   --output-dir <tmp>]) in float32: every kernel of the path launched, no
+   plain version called, finite state, both VTU snapshots written; then
+   Solver._multi_step(10) on the CLI's solver, timed apart from output:
+   fwdstep_q1_rk_tvb_dof_updates_per_sec and ms/step.
+11. the volume_kernel="pallas" path at 1920 x 640: the residual with its
+   volume term through volume_residual against the plain residual, f64 and
+   f32; then 5 steps of Solver(volume_kernel="pallas", post_kernel="fused")
+   in f32 with volume_residual launched, no fatal flag, finite state.
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -52,9 +69,11 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -66,10 +85,12 @@ import torch
 #: counted and bounded separately.
 TOL = {torch.float64: {"fused_residual": 1e-11, "fused_post": 1e-11,
                        "fused_diag": 1e-11, "fused_mood_candidate": 1e-11,
-                       "fused_modal_pos": 1e-11, "fused_pk_post": 1e-11},
+                       "fused_modal_pos": 1e-11, "fused_pk_post": 1e-11,
+                       "volume_residual": 1e-11},
        torch.float32: {"fused_residual": 1e-5, "fused_post": 1e-4,
                        "fused_diag": 1e-5, "fused_mood_candidate": 1e-5,
-                       "fused_modal_pos": 1e-5, "fused_pk_post": 1e-4}}
+                       "fused_modal_pos": 1e-5, "fused_pk_post": 1e-4,
+                       "volume_residual": 1e-5}}
 MAX_FLIP_FRACTION = 1e-4          # 0.01 % of the cells
 NX, NY = 1152, 288
 MAIN_STEPS = 50
@@ -77,6 +98,12 @@ MOOD_STEPS = 20
 MOOD_PLAIN_STEPS = 3              # steps that make the MOOD kernels' input
 SD_NX, SD_NY, SD_STEPS = 128, 32, 3
 SD_TOL = 1e-10
+#: the forward step (examples/forward_step_tpu.prm, read as it ships)
+FS_PRM = "examples/forward_step_tpu.prm"
+FS_NX, FS_NY = 1920, 640
+FS_PLAIN_STEPS = 10
+FS_STEPS, FS_CHUNK = 50, 10
+PALLAS_STEPS = 5
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
 #: outside the tensor cores): HBM bytes/s and FLOP/s per dtype
 HBM_BPS = 3.35e12
@@ -109,11 +136,26 @@ SOURCES = {
                          "fused_mood_check", "mood"),
     "fused_diag_pk": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
                       f"{PK}:make_fused_diag (Pk)", "fused_diag", "mood"),
+    "fused_residual_fwd": ("dflo_tpu_torch/csrc/fused_residual_lxf.cu",
+                           f"{PK}:617",
+                           f"{PK}:make_fused_residual (masked, lxf)",
+                           "fused_residual", "fwd"),
+    "fused_post_fwd": ("dflo_tpu_torch/csrc/fused_post.cu", f"{PK}:1075",
+                       f"{PK}:make_fused_post (masked, limiter)",
+                       "fused_post", "fwd"),
+    "fused_diag_fwd": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
+                       f"{PK}:make_fused_diag (masked)", "fused_diag", "fwd"),
+    "volume_residual": ("dflo_tpu_torch/csrc/volume_residual.cu",
+                        f"{PK}:166", f"{PK}:volume_residual",
+                        "volume_residual", "pallas"),
 }
+#: the grid of each path: the DMR's and the forward step's
+GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
+         "pallas": (FS_NX, FS_NY)}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
-            "fused_mood_check")
+            "fused_mood_check", "volume_residual")
 
 
 
@@ -196,20 +238,24 @@ def plain_versions(kernels):
 
 
 def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
-         halo: int = 0):
+         halo: int = 0, fluid: int = 0):
     """(bytes, operations) that the kernel's function needs on n cells of
     `basis`: each input read once and each output written once.  Operations
     count a multiply-add as 2 and a division, square root or comparison as
     1: the linear maps by their operators' nonzero entries (V, Gx, Gy,
     faceV, the cell average, the positivity points' evaluation); each
     face's two traces and its flux once (two faces per cell); the Euler
-    flux 20 per point, HLLC 100 per face point, the positivity's point
-    arithmetic 45 per point, KXRCF 80 per face point.  Bytes of the diag:
+    flux 20 per point, HLLC 100 per face point, LxF 70 (its two wave
+    speeds from the cell averages), the positivity's point arithmetic 45
+    per point, KXRCF 80 per face point.  Bytes of the diag:
     only the modes its cell average reads.  Data-dependent work
     is counted on this run's data: the characteristic TVB (300 per cell plus
     the rebuild) on the `marked` cells only; the candidate's residual on its
     `cells` and its {truncation -> positivity} chain once on each of the
-    `halo` cells (the set with its face neighbors)."""
+    `halo` cells (the set with its face neighbors); the forward step's
+    `limiter` indicator sends every `fluid` cell to the TVB (its kernel
+    computes the slopes of every cell).  A mask costs one byte per cell,
+    the post's flag plane five."""
     from dflo_tpu_torch.stab.positivity import _pos_points
 
     def nnz(a):
@@ -235,6 +281,17 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     tvb = 300 + 32 * K
     if name == "fused_residual":             # SSP-stage form, main path
         return 3 * state * n, (res + 20 * K) * n
+    if name == "fused_residual_fwd":         # masked LxF, SSP-stage form
+        lxf = res - 2 * nq * 100 + 2 * nq * 70 + 8 * nnz(avg)
+        return 3 * state * n + n, (lxf + 20 * K) * n
+    if name == "volume_residual":
+        return (2 * state * n,
+                (20 * K + 8 * (nnz(basis.Gx) + nnz(basis.Gy))) * n)
+    if name == "fused_post_fwd":             # masked, mark-all, with diag
+        return (2 * state * n + 5 * n,
+                (8 * K + pos + 40) * n + tvb * fluid)
+    if name == "fused_diag_fwd":
+        return 4 * nnz(avg) * S * n + n, (8 * nnz(avg) + 20) * n
     if name == "fused_residual_pk":          # u + dt*R, MOOD pass 1
         return 2 * state * n, (res + 8 * K) * n
     if name == "fused_mood_candidate":
@@ -297,8 +354,8 @@ def plain_step(s, u, t, t_end):
     dt = torch.minimum(s.cfl / lam / (2.0 * s.basis.degree + 1.0), t_end - t)
     u, _lam, minq = rk_mod.ssp_rk_step(
         PlainStage(s), u, t, dt, s.ark, s.stage_times,
-        post_stage=lambda v, tc: kernels.fused_post_plain(v, s._post_ops,
-                                                          True),
+        post_stage=lambda v, tc: kernels.fused_post_plain(s.apply_mask(v),
+                                                          s._post_ops, True),
         post_diag=True)
     return u, dt, ~(minq >= EPS)
 
@@ -611,6 +668,225 @@ def phase_mood_kernels(entry, kernels, results):
         assert bool(~(minq >= EPS)), "a NaN cell did not reach the flag"
 
 
+def plain_rhs(s):
+    """The plain ("xla") residual of solver s's configuration."""
+    from dflo_tpu_torch.solver.spatial import make_rhs
+    return make_rhs(s.basis, s.mesh, s.bcs, flux=s.flux, dtype=s.dtype,
+                    device=s.device, volume_kernel="xla", mask=s.mask)
+
+
+def fs_solver(dtype, **solver_kw):
+    """(params, solver, IC) of examples/forward_step_tpu.prm on the card,
+    through the port's config layer and CLI builders."""
+    from dflo_tpu_torch import cli
+    from dflo_tpu_torch.config.params import AllParameters
+    params = AllParameters.from_prm_file(FS_PRM)
+    s, _ = cli.build_solver(params, dtype=dtype, device="cuda", **solver_kw)
+    assert (s.mesh.nx, s.mesh.ny) == (FS_NX, FS_NY)
+    return params, s, cli.set_ic(params, s)
+
+
+def check_post(results, name, tag, tol, pk, pk0, pp):
+    """Fold a post's (kernel with diag, kernel without, plain with diag)
+    into results[name]: error outside flipped cells, flipped cells, diag."""
+    e_in, n_flip = post_err(pk[0], pp[0], tol)
+    e0_in, n_flip0 = post_err(pk0, pp[0], tol)
+    e_diag = max(rel_err(pk[1], pp[1]), rel_err(pk[2], pp[2]))
+    e, nflip = max(e_in, e0_in, e_diag), max(n_flip, n_flip0)
+    r = results[name]
+    r[f"max_rel_err_{tag}"] = max(r.get(f"max_rel_err_{tag}", 0), e)
+    r[f"max_abs_err_{tag}"] = max(r.get(f"max_abs_err_{tag}", 0),
+                                  abs_err(pk[0], pp[0]))
+    r[f"flipped_cells_{tag}"] = max(r.get(f"flipped_cells_{tag}", 0), nflip)
+    r[f"bitwise_{tag}"] = (r.get(f"bitwise_{tag}", True)
+                           and bool(torch.equal(pk[0], pp[0])))
+    return e, nflip, e_diag
+
+
+def phase_fwd_kernels(kernels, results):
+    """Phase 9 for both dtypes: the forward-step kernels against their
+    plain versions at 1920 x 640; returns the f64 10-step state for phase
+    11."""
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        tag = "f32" if dt == torch.float32 else "f64"
+        tol = TOL[dt]
+        params, s, u0 = fs_solver(dt)
+        mask = s._post_ops.mask
+        u_a = s.post_stage(u0)
+        u_b, t = u_a, 0.0
+        for _ in range(FS_PLAIN_STEPS):
+            u_b, dtt, bad = plain_step(s, u_b, t, params.final_time)
+            t += float(dtt)
+            assert not bool(bad), f"{tag}: plain steps tripped the fatal flag"
+        n_fluid = int(mask.sum())
+        print(f"[{tag}] forward step after {FS_PLAIN_STEPS} plain steps: "
+              f"t={t!r}, {n_fluid} fluid cells of {FS_NX * FS_NY}")
+        results["fused_post_fwd"][f"data_{tag}"] = {"fluid": n_fluid}
+        out[tag] = (s, u_b, t)
+
+        ops = s.rhs.ops
+        lift = plain_rhs(s).lift_stack          # [K, 2K] volume lift
+        tt = torch.full((), t, dtype=dt, device="cuda")
+        dtt = torch.full((), 1e-4, dtype=dt, device="cuda")
+        sc = torch.stack([torch.full_like(dtt, 0.75), dtt])
+        for label, u in (("post_stage", u_a), (f"{FS_PLAIN_STEPS} steps",
+                                               u_b)):
+            strips = s.rhs.strips(u, tt)
+            checks = {
+                "fused_residual_fwd": [
+                    (kernels.fused_residual(u, *strips, ops),
+                     kernels.fused_residual_plain(u, *strips, ops)),
+                    (kernels.fused_residual(u, *strips, ops, u_old=u_a, sc=sc),
+                     kernels.fused_residual_plain(u, *strips, ops, u_old=u_a,
+                                                  sc=sc))],
+                "fused_diag_fwd": list(zip(
+                    kernels.fused_diag(u, s._diag_ops),
+                    kernels.fused_diag_plain(u, s._diag_ops))),
+                "volume_residual": [(kernels.volume_residual(lift, u),
+                                     kernels.volume_residual_plain(lift, u))],
+            }
+            pk = kernels.fused_post(u, s._post_ops, with_diag=True)
+            pp = kernels.fused_post_plain(u, s._post_ops, with_diag=True)
+            pk0 = kernels.fused_post(u, s._post_ops)
+            torch.cuda.synchronize()
+            for name, pairs in checks.items():
+                e = record(results, name, tag, pairs)
+                tname = name.replace("_fwd", "")
+                print(f"[{tag}] forward step, {label}: {name} rel err "
+                      f"{e:.3e} (tol {tol[tname]:.0e})")
+                assert e <= tol[tname], f"{name} {tag} disagrees: {e}"
+            e, nflip, e_diag = check_post(results, "fused_post_fwd", tag,
+                                          tol["fused_post"], pk, pk0, pp)
+            print(f"[{tag}] forward step, {label}: fused_post_fwd rel err "
+                  f"{e:.3e} outside {nflip} flipped cells (tol "
+                  f"{tol['fused_post']:.0e}); bitwise "
+                  f"{results['fused_post_fwd'][f'bitwise_{tag}']}; diag rel "
+                  f"err {e_diag:.3e}")
+            assert e <= tol["fused_post"], f"fused_post_fwd {tag}: {e}"
+            if dt == torch.float64:
+                assert nflip == 0, "f64 post flipped a limiter decision"
+            else:
+                assert nflip <= MAX_FLIP_FRACTION * FS_NX * FS_NY, \
+                    f"too many flipped cells: {nflip}"
+
+        # ---- times on the 10-step state (main-path forms) ----------------
+        strips = s.rhs.strips(u_b, tt)
+        timings = {
+            "fused_residual_fwd": (
+                lambda: kernels.fused_residual(u_b, *strips, ops, u_old=u_a,
+                                               sc=sc),
+                lambda: kernels.fused_residual_plain(u_b, *strips, ops,
+                                                     u_old=u_a, sc=sc)),
+            "fused_post_fwd": (
+                lambda: kernels.fused_post(u_b, s._post_ops, with_diag=True),
+                lambda: kernels.fused_post_plain(u_b, s._post_ops,
+                                                 with_diag=True)),
+            "fused_diag_fwd": (
+                lambda: kernels.fused_diag(u_b, s._diag_ops),
+                lambda: kernels.fused_diag_plain(u_b, s._diag_ops)),
+            "volume_residual": (
+                lambda: kernels.volume_residual(lift, u_b),
+                lambda: kernels.volume_residual_plain(lift, u_b)),
+        }
+        for name, (fk, fp) in timings.items():
+            ms_k = time_ms(fk)
+            ms_p = time_ms(fp)
+            results[name][f"ms_{tag}"] = ms_k
+            results[name][f"plain_ms_{tag}"] = ms_p
+            print(f"[{tag}] {name}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms "
+                  f"at {FS_NX}x{FS_NY}")
+    return out
+
+
+def phase_main_fwd(kernels, plain_calls):
+    """Phase 10: the forward step through the port's CLI; returns its launch
+    counts, ms/step and (solver, state) for the trace."""
+    from dflo_tpu_torch import cli
+    with tempfile.TemporaryDirectory() as out:
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        t0 = time.perf_counter()
+        res = cli.run([FS_PRM, "--max-steps", str(FS_STEPS), "--chunk",
+                       str(FS_CHUNK), "--output-dir", out])
+        torch.cuda.synchronize()
+        wall_cli = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        snaps = sorted(f for f in os.listdir(out) if f.endswith(".vtu"))
+        sizes = [os.path.getsize(os.path.join(out, f)) for f in snaps]
+    finite = bool(torch.isfinite(res.u).all())
+    print(f"forward-step CLI: {res.it} steps to t={res.t!r} in {wall_cli:.2f} "
+          f"s with set-up and output, finite={finite}, launches={counts}, "
+          f"plain calls={plain_calls['n']}, snapshots {snaps} ({sizes} B)")
+    assert res.it == FS_STEPS and finite
+    assert res.u.dtype == torch.float32 and res.u.is_cuda
+    assert all(counts[k] > 0 for k in ("fused_residual", "fused_post",
+                                       "fused_diag")), counts
+    assert plain_calls["n"] == 0, "the forward step called a plain version"
+    assert snaps == ["solution-000.vtu", "solution-001.vtu"]
+
+    # ---- the CLI's solver timed apart from output ------------------------
+    s = res.solver
+    multi = s._multi_step(FS_CHUNK)
+    multi(res.u, res.t, 4.0)                       # warm-up
+    torch.cuda.synchronize()
+    u, t, n, bad = res.u, res.t, 0, False
+    t0 = time.perf_counter()
+    for _ in range(FS_STEPS // FS_CHUNK):
+        u, t, nd, bad_c, _ = multi(u, t, 4.0)
+        n, bad = n + nd, bad | bad_c
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, bad = int(n), bool(bad)
+    assert n == FS_STEPS and not bad and bool(torch.isfinite(u).all())
+    rate = 4 * s.basis.K * FS_NX * FS_NY * FS_STEPS / wall
+    print(json.dumps({"fwdstep_q1_rk_tvb_dof_updates_per_sec": rate,
+                      "unit": "DoF-updates/s", "dtype": "float32",
+                      "grid": [FS_NX, FS_NY], "steps": FS_STEPS,
+                      "chunk": FS_CHUNK, "ms_per_step": 1e3 * wall / FS_STEPS,
+                      "cli_wall_s": wall_cli,
+                      "launches_per_step": {k: v / FS_STEPS
+                                            for k, v in counts.items()},
+                      "card": card_line()}))
+    return counts, 1e3 * wall / FS_STEPS, (s, u)
+
+
+def phase_pallas(kernels, plain_calls, fwd_states):
+    """Phase 11: the volume_kernel="pallas" path; returns its launch
+    counts."""
+    solvers = {}
+    for tag, dt in (("f64", torch.float64), ("f32", torch.float32)):
+        _, u, t = fwd_states[tag]
+        _, s, _ = fs_solver(dt, volume_kernel="pallas", post_kernel="fused")
+        solvers[tag] = s
+        tt = s._scalar(t)
+        e = rel_err(s.rhs(u, tt), plain_rhs(s)(u, tt))
+        torch.cuda.synchronize()
+        print(f"[{tag}] volume_kernel='pallas' residual against the plain "
+              f"residual at {FS_NX}x{FS_NY}: rel err {e:.3e} "
+              f"(tol {TOL[dt]['fused_residual']:.0e})")
+        assert e <= TOL[dt]["fused_residual"]
+    s = solvers["f32"]
+    _, u, t = fwd_states["f32"]
+    multi = s._multi_step(PALLAS_STEPS)
+    kernels.reset_launch_counts()
+    plain_calls["n"] = 0
+    t0 = time.perf_counter()
+    u1, t1, n, bad, _ = multi(u, t, 4.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n, bad = int(n), bool(bad)
+    finite = bool(torch.isfinite(u1).all())
+    print(f"volume_kernel='pallas' path (f32): {n} steps in {wall:.3f} s, "
+          f"bad={bad}, finite={finite}, launches={counts}, plain calls="
+          f"{plain_calls['n']}")
+    assert n == PALLAS_STEPS and not bad and finite
+    assert counts["volume_residual"] > 0 and counts["fused_post"] > 0
+    assert counts["fused_residual"] == 0 and plain_calls["n"] == 0
+    return counts
+
+
 def phase_main_rk(entry, kernels, plain_calls):
     """Phase 3: the RK main path; returns its launch counts and ms/step."""
     solver, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda")
@@ -726,18 +1002,23 @@ def device_busy(fn) -> dict | None:
             "top_ms": {k: 1e-3 * v for k, v in top}}
 
 
-def phase_trace(entry, ms_per_step):
-    """Phase 8: each main path's chunk under torch.profiler (RK 5 steps,
-    MOOD 3 steps, f32, 1152 x 288, after a warm-up): device busy time, and
-    the idle share of the traced wall and of the untraced ms/step of the
-    main-path phase (ms_per_step[method]; tracing slows the host), device
-    events and the port's kernels per step.  A measurement only: a trace
-    without device events is reported as not measured."""
+def phase_trace(entry, ms_per_step, fwd):
+    """Phase 8: each main path's chunk under torch.profiler (RK 5 steps and
+    MOOD 3 steps at 1152 x 288, the forward step 3 steps on the CLI's
+    solver fwd = (solver, state) at 1920 x 640; f32, after a warm-up):
+    device busy time, and the idle share of the traced wall and of the
+    untraced ms/step of the main-path phase (ms_per_step[method]; tracing
+    slows the host), device events and the port's kernels per step.  A
+    measurement only: a trace without device events is reported as not
+    measured."""
     out = {}
-    for method, steps in (("rk", 5), ("mood", 3)):
-        s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
-                             method=method)
-        u = s.post_stage(u0)
+    for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3)):
+        if method == "fwd":
+            s, u = fwd
+        else:
+            s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
+                                 method=method)
+            u = s.post_stage(u0)
         multi = s._multi_step(steps)
         multi(u, 0.0, 1.0e3)                       # warm-up
         r = device_busy(lambda: multi(u, 0.0, 1.0e3))
@@ -835,10 +1116,11 @@ def main() -> int:
         if "Used" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
-    # ---- phases 2 and 5: kernels against plain versions ----------------------
+    # ---- phases 2, 5 and 9: kernels against plain versions ------------------
     results = {name: {} for name in SOURCES}
     phase_kernels(entry, kernels, euler, results)
     phase_mood_kernels(entry, kernels, results)
+    fwd_states = phase_fwd_kernels(kernels, results)
 
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
     plain_calls = {"n": 0}
@@ -854,8 +1136,14 @@ def main() -> int:
     counts["mood"], ms_step["mood"] = phase_main_mood(entry, kernels,
                                                       plain_calls)
 
+    # ---- phases 10 and 11: the forward step, through the CLI and with the
+    # volume_kernel="pallas" path --------------------------------------------
+    counts["fwd"], ms_step["fwd"], fwd = phase_main_fwd(kernels, plain_calls)
+    counts["pallas"] = phase_pallas(kernels, plain_calls, fwd_states)
+    del fwd_states
+
     # ---- phase 8: the device's busy share under torch.profiler --------------
-    busy = phase_trace(entry, ms_step)
+    busy = phase_trace(entry, ms_step, fwd)
 
     # ---- phase 7: sparse against dense ---------------------------------------
     phase_sparse_dense(entry, kernels, results)
@@ -875,11 +1163,12 @@ def main() -> int:
 
     # ---- result lines -----------------------------------------------------
     from dflo_tpu_torch.ops.basis import make_basis
-    bases = {"rk": make_basis("Qk", 2), "mood": make_basis("Pk", 2)}
+    bases = {"rk": make_basis("Qk", 2), "mood": make_basis("Pk", 2),
+             "fwd": make_basis("Qk", 1), "pallas": make_basis("Qk", 1)}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
-        n_cells = NX * NY
+        n_cells = GRIDS[path][0] * GRIDS[path][1]
         data = r.get("data_f32", {})
         b_ms, b_by = bound(name, bases[path], torch.float32, n_cells, **data)
         n_bytes, n_ops = work(name, bases[path], torch.float32, n_cells,
@@ -899,8 +1188,12 @@ def main() -> int:
             "bound_ms_f64": bound(name, bases[path], torch.float64, n_cells,
                                   **r.get("data_f64", {}))[0],
             **({"bound_data_f32": data} if data else {}),
-            **({"flipped_cells_f32": r["flipped_cells_f32"]}
-               if "flipped_cells_f32" in r else {})})
+            **({"flipped_cells_f32": r["flipped_cells_f32"],
+                "flipped_cells_f64": r["flipped_cells_f64"]}
+               if "flipped_cells_f32" in r else {}),
+            **({"bitwise_f32": r["bitwise_f32"],
+                "bitwise_f64": r["bitwise_f64"]}
+               if "bitwise_f32" in r else {})})
     assert all(math.isfinite(v) for row in table for v in row.values()
                if isinstance(v, float))
     print(json.dumps({"build_s": build_s, "card": card,

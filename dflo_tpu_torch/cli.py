@@ -1,0 +1,287 @@
+"""Command-line driver: ``python -m dflo_tpu_torch input.prm``.
+
+The torch counterpart of dflo_tpu/cli.py for the explicit Cartesian path
+(after src/main.cc:13-81 and src/claw.cc:953-1130): parse the .prm config,
+build the Cartesian mesh and its solid-cell mask from the `cartesian mesh`
+subsection, wire the boundary ids to the four sides, set the IC, march in
+time with the configured flux and limiter chain (``method = rk3`` on Qk,
+``mood`` on Pk), write VTU snapshots and checkpoints on their cadence and
+report the wall time of each phase.
+
+The run is on the card; ``--platform cpu`` runs it on the CPU, where every
+kernel wrapper takes its plain version.  Without a CUDA device and without
+``--platform cpu`` the run stops with an error: it never falls back to the
+CPU by itself.  The reference's other branches (mesh files, unstructured
+meshes, AMR, implicit and steady solves, device meshes) raise
+NotImplementedError naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import sys
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from dflo_tpu_torch import ic as ic_mod
+from dflo_tpu_torch.config.params import AllParameters
+from dflo_tpu_torch.diagnostics import angular_momentum
+from dflo_tpu_torch.driver import LimiterConfig, Solver
+from dflo_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from dflo_tpu_torch.io.vtk import write_vtu
+from dflo_tpu_torch.mesh import CartesianMesh
+from dflo_tpu_torch.ops.basis import make_basis
+from dflo_tpu_torch.physics import euler
+from dflo_tpu_torch.solver.spatial import BoundarySide
+from dflo_tpu_torch.utils.profiling import Timer, device_trace
+
+#: where the branches this CLI does not carry yet come from (ROADMAP)
+_LATER = {
+    "mesh files": "slices D and E (ROADMAP items 15 and 16: .geo/.msh/"
+                  ".struct meshes and unstructured meshes)",
+    "envelope": "the physics envelope (ROADMAP item 13)",
+    "implicit": "slice D (ROADMAP item 14: implicit and steady stepping)",
+    "amr": "slice F (ROADMAP item 17: AMR)",
+    "devices": "slice G (ROADMAP item 18: multi-GPU)",
+}
+
+
+def _later(what: str, key: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; it comes with "
+                               f"{_LATER[key]}")
+
+
+def build_domain(params: AllParameters, prm_dir: str = "."):
+    """(mesh, mask, side boundary ids) from the `cartesian mesh` subsection:
+    the mask is True on fluid cells, False where the `solid` expression of
+    the cell centre is nonzero."""
+    cm = params.cartesian_mesh
+    if not (params.mesh_type == "cartesian" or cm.nx > 0):
+        raise _later(f"mesh file {params.mesh_filename!r}", "mesh files")
+    mesh = CartesianMesh(cm.nx, cm.ny, cm.x0, cm.x1, cm.y0, cm.y1)
+    # native meshes use the Gmsh-free convention S=1, E=2, N=3, W=4
+    side_bids = {"W": np.full(cm.ny, 4), "E": np.full(cm.ny, 2),
+                 "S": np.full(cm.nx, 1), "N": np.full(cm.nx, 3)}
+    mask = None
+    if cm.solid is not None:
+        xc, yc = mesh.cell_centers()
+        solid = cm.solid(torch.as_tensor(xc), torch.as_tensor(yc))
+        mask = ~np.asarray(solid.numpy(), bool)
+    return mesh, mask, side_bids
+
+
+def build_bcs(params: AllParameters, side_bids: dict):
+    """Map the boundary_N config table onto the four domain sides; a side
+    id without a boundary_N entry is a slip wall."""
+    sides = {}
+    for name, bids in side_bids.items():
+        uniq = sorted(set(int(b) for b in bids))
+        if len(uniq) != 1:
+            raise _later(f"side {name} with boundary ids {uniq} (a "
+                         f"segmented side)", "envelope")
+        spec = params.boundary_conditions.get(uniq[0])
+        sides[name] = (BoundarySide(euler.BC_SLIP) if spec is None
+                       else BoundarySide(spec.kind, spec.values))
+    return sides
+
+
+def build_ic(params: AllParameters):
+    for table in (ic_mod.IC_FUNCTIONS, ic_mod.IC_CELLWISE):
+        if params.ic_function in table:
+            return table[params.ic_function](params)
+    return params.initial_conditions
+
+
+def set_ic(params: AllParameters, solver):
+    """The initial state: the IC expression set on the basis, solid cells
+    pinned."""
+    u = ic_mod.set_initial_condition(solver.basis, solver.mesh,
+                                     build_ic(params), dtype=solver.dtype,
+                                     device=solver.device)
+    return solver.apply_mask(u)
+
+
+def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
+                 dtype: torch.dtype, device, **solver_kw):
+    """(solver, mask) of the configuration; solver_kw go to Solver (e.g.
+    volume_kernel, post_kernel)."""
+    mesh, mask, side_bids = (domain if domain is not None
+                             else build_domain(params, prm_dir))
+    if params.basis == "GLL":
+        raise _later("the GLL basis (basis = GLL)", "envelope")
+    if (params.gravity != 0.0 or params.external_force is not None
+            or params.potential is not None):
+        raise _later("a body force (gravity, force or potential)",
+                     "envelope")
+    if params.mass_matrix != "diagonal":
+        raise _later(f"mass matrix = {params.mass_matrix}", "envelope")
+    if params.diffusion_coef != 0.0:
+        raise _later("the mu_shock diffusion", "envelope")
+    if params.output.format != "vtk":
+        raise _later(f"output format {params.output.format!r}", "envelope")
+    if params.refinement.do_refine:
+        raise _later("refinement = true", "amr")
+    if params.solver.implicit or params.is_stationary:
+        raise _later(f"linear solver method = {params.solver.method}",
+                     "implicit")
+    if params.time_step_type != "global" or params.cfl <= 0:
+        raise _later("a fixed or local time step", "envelope")
+    basis = make_basis(params.basis, params.degree)
+    lim = LimiterConfig(
+        type=params.limiter.type,
+        shock_indicator=params.limiter.shock_indicator,
+        M=params.limiter.M, beta=params.limiter.beta,
+        char_lim=params.limiter.char_lim, pos_lim=params.limiter.pos_lim,
+        conserve_angular_momentum=params.limiter.conserve_angular_momentum)
+    solver = Solver(basis, mesh, build_bcs(params, side_bids),
+                    flux=params.flux.flux, limiter=lim, cfl=params.cfl,
+                    dtype=dtype, device=device,
+                    method="mood" if params.solver.method == "mood" else "rk",
+                    mask=mask, **solver_kw)
+    return solver, mask
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        prog="dflo_tpu_torch",
+        description="DG Euler solver on one NVIDIA GPU (PyTorch + CUDA)")
+    ap.add_argument("prm", help="deal.II-style .prm configuration file")
+    ap.add_argument("--output-dir", default="output")
+    ap.add_argument("--final-time", type=float, default=None,
+                    help="override the config's final time")
+    ap.add_argument("--max-steps", type=int, default=10**7,
+                    help="stop after N time steps")
+    ap.add_argument("--resume", default=None, help="checkpoint to resume from")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save a checkpoint every N outputs")
+    ap.add_argument("--platform", default=None, choices=("cuda", "cpu"),
+                    help="the device (default: the CUDA card; cpu runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--x64", action="store_true",
+                    help="run in float64 (default float32)")
+    ap.add_argument("--chunk", type=int, default=1,
+                    help="steps per host round trip (cadences are then "
+                         "chunk-granular)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="shard the domain over N devices (not ported)")
+    ap.add_argument("--slices", type=int, default=0,
+                    help="with --devices: S slices (not ported)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the time loop to "
+                         "DIR/trace.json")
+    return ap.parse_args(argv)
+
+
+class CliRun(NamedTuple):
+    """What a CLI run leaves: the solver, the final state, time and steps."""
+    solver: Solver
+    u: torch.Tensor
+    t: float
+    it: int
+
+
+def run(argv=None) -> CliRun:
+    """The CLI's run (see the module docstring); returns its CliRun."""
+    args = parse_args(argv)
+    if args.devices or args.slices:
+        raise _later("--devices", "devices")
+    if args.platform == "cpu":
+        device = torch.device("cpu")
+    elif torch.cuda.is_available():
+        device = torch.device("cuda")
+    else:
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is "
+                           "false); pass --platform cpu to run on the CPU")
+    dtype = torch.float64 if args.x64 else torch.float32
+
+    t_wall = time.time()
+    timer = Timer()
+    params = AllParameters.from_prm_file(args.prm)
+    prm_dir = os.path.dirname(os.path.abspath(args.prm))
+    with timer("Setup"):
+        solver, mask = build_solver(params, prm_dir, dtype=dtype,
+                                    device=device)
+    basis, mesh = solver.basis, solver.mesh
+    print(f"dflo_tpu_torch: {basis.family}{basis.degree}, mesh "
+          f"{mesh.nx}x{mesh.ny}, flux={params.flux.flux}, "
+          f"limiter={params.limiter.type}, {dtype}, {device}")
+
+    u = set_ic(params, solver)
+    t0 = 0.0
+    if args.resume:
+        u_np, t0, _, _ = load_checkpoint(args.resume, basis=basis, mesh=mesh)
+        u = torch.as_tensor(u_np).to(dtype=dtype, device=device).contiguous()
+
+    t_end = (args.final_time if args.final_time is not None
+             else params.final_time)
+    out_iter = params.output.output_iter_step
+    out_tstep = params.output.output_time_step
+    next_out_t = [out_tstep]          # src/claw.cc:1093-1099 time cadence
+    ang_iter = params.output.ang_mom_step
+    snap = [0]
+
+    def write_snapshot(u, t):
+        with timer("Output"):
+            u_np = u.detach().cpu().numpy()
+            write_vtu(os.path.join(args.output_dir,
+                                   f"solution-{snap[0]:03d}.vtu"),
+                      basis, mesh, u_np, t=t,
+                      schlieren=params.output.schlieren_plot, mask=mask)
+            if args.checkpoint_every and snap[0] % args.checkpoint_every == 0:
+                save_checkpoint(os.path.join(args.output_dir,
+                                             f"checkpoint-{snap[0]:03d}.npz"),
+                                u_np, t, snap[0], basis=basis, mesh=mesh)
+        snap[0] += 1
+
+    write_snapshot(u, t0)
+    verbose = params.solver.output == "verbose"
+
+    def callback(u, t, it):
+        if it % 50 == 0 or t >= t_end - 1e-12 or verbose:
+            line = f"  it={it:6d}  t={t:.6f}"
+            stats = solver.last_stats
+            if solver.method == "mood" and stats is not None:
+                # cascade counters (src/claw.cc:851 printout)
+                line += (f"  mood: reduce={int(stats.n_reduce)}"
+                         f" limit={int(stats.n_marked)}"
+                         f" passes={int(stats.iters)}")
+            elif verbose:
+                # explicit per-step rhs norm (src/claw.cc:749,768-769)
+                res = float(torch.sqrt(torch.sum(solver.rhs(u, t) ** 2)))
+                line += f"  res={res:.3e}"
+            print(line)
+        if out_iter and it % out_iter == 0:
+            write_snapshot(u, t)
+        elif t + 1e-12 >= next_out_t[0]:
+            write_snapshot(u, t)
+            next_out_t[0] += out_tstep
+        if ang_iter and it % ang_iter == 0:
+            am = float(angular_momentum(basis, mesh, u, mask))
+            print(f"Total angular momentum: {t:18.8e} {am:24.14e}")
+
+    trace = (device_trace(args.profile) if args.profile
+             else contextlib.nullcontext())
+    with timer("Time loop"), trace:
+        u, t, it = solver.run(u, t_end, t0=t0, callback=callback,
+                              chunk=max(args.chunk, 1),
+                              max_steps=args.max_steps)
+        if u.is_cuda:
+            torch.cuda.synchronize(u.device)
+    write_snapshot(u, t)
+    print(timer.summary())
+    print(f"steps={it}  final t={t:.6f}  wall={time.time() - t_wall:.1f}s")
+    return CliRun(solver, u, t, it)
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

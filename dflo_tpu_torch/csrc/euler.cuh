@@ -1,5 +1,6 @@
 // Device functions shared by the kernels of the port: Euler pressure and
-// fluxes, the branchless HLLC flux, the characteristic eigen matrices and the
+// fluxes, the branchless HLLC and the local Lax-Friedrichs fluxes, the
+// slip-wall mirror of a masked domain, the characteristic eigen matrices and the
 // TVB slope limiter, NaN-propagating min/max, the per-degree dimensions of
 // the nodal Qk and modal Pk bases and the block reduction of the
 // diagnostics.
@@ -148,6 +149,38 @@ __device__ __forceinline__ void hllc(const T UL[4], const T UR[4], const T nx,
     F[RHO] = rho_s * s_m;
     F[ENE] = (e_s + p_star) * s_m;
   }
+}
+
+// |v.n| + c of a state (physics/euler.max_eigenvalue_normal)
+template <typename T>
+__device__ __forceinline__ T max_eig_normal(const T A[4], const T nx,
+                                            const T ny) {
+  const T vn = (A[MX] * nx + A[MY] * ny) / A[RHO];
+  const T c = sqrt(T(GAMMA) * pos_floor(pressure(A)) / pos_floor(A[RHO]));
+  return fabs(vn) + c;
+}
+
+// Local Lax-Friedrichs flux (src/equation.h:324-377), as physics/fluxes.lxf:
+// the central flux plus 0.5 lam (UL - UR), lam the larger |v.n| + c of the
+// two cells' AVERAGES AL, AR (src/assemble_explicit.cc:335-340).  Both cells
+// sharing a face call it with the same operands in the same order.
+template <typename T>
+__device__ __forceinline__ void lxf(const T UL[4], const T UR[4],
+                                    const T AL[4], const T AR[4], const T nx,
+                                    const T ny, T F[4]) {
+  const T vnl = (UL[MX] * nx + UL[MY] * ny) / UL[RHO];
+  const T vnr = (UR[MX] * nx + UR[MY] * ny) / UR[RHO];
+  const T pl = pressure(UL), pr = pressure(UR);
+  const T lam = nmax(max_eig_normal(AL, nx, ny), max_eig_normal(AR, nx, ny));
+  const T half = T(0.5);
+  const T d = half * lam;
+  F[MX] = half * (pl * nx + UL[MX] * vnl + pr * nx + UR[MX] * vnr) +
+          d * (UL[MX] - UR[MX]);
+  F[MY] = half * (pl * ny + UL[MY] * vnl + pr * ny + UR[MY] * vnr) +
+          d * (UL[MY] - UR[MY]);
+  F[RHO] = half * (UL[RHO] * vnl + UR[RHO] * vnr) + d * (UL[RHO] - UR[RHO]);
+  F[ENE] = half * ((UL[ENE] + pl) * vnl + (UR[ENE] + pr) * vnr) +
+           d * (UL[ENE] - UR[ENE]);
 }
 
 // Left/right eigenvector matrices along x (dir 0) or y (dir 1) of state ub,

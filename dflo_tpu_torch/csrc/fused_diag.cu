@@ -1,13 +1,15 @@
 // Fused step diagnostics, hand-written for Hopper.
 //
-// Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_diag (single chip,
-// unmasked), for any basis: the cell average is the mean-weight row
+// Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_diag (single chip),
+// masked or not, for any basis: the cell average is the mean-weight row
 // avg = wq2 @ V (K entries) against the cell's K DoFs, so the kernel is
 // instantiated on K alone (nodal Q1-Q3: 4, 9, 16; modal P1-P3: 3, 6, 10).
 // Per cell, from its cell average: the CFL wave speed
 // (c + |vx|)/h + (c + |vy|)/h (compute_time_step_cartesian,
 // src/claw.cc:483-512) and min(rho, p) for the fatal-negativity flag
-// (src/positivity.cc:26-39).  Each block reduces its cells with
+// (src/positivity.cc:26-39).  On a masked domain a solid cell (uint8 fluid
+// flag 0) counts as lam = 0 and min(rho, p) = inf, so it enters neither
+// reduction (pallas_kernels.py:1675-1710).  Each block reduces its cells with
 // NaN-propagating max/min (a NaN cell must reach the driver's
 // bad = ~(minq >= EPS)) and writes one partial each; the wrapper reduces the
 // partials with torch.amax/amin, as the TPU version does with jnp.max/min.
@@ -26,8 +28,8 @@ namespace dflo {
 template <typename T, int K>
 __global__ void __launch_bounds__(BX * BY)
 fused_diag_kernel(const T* __restrict__ u, const T* __restrict__ avg,
-                  T* __restrict__ lam_part, T* __restrict__ minq_part, int ny,
-                  int nx, T h) {
+                  const uint8_t* __restrict__ mask, T* __restrict__ lam_part,
+                  T* __restrict__ minq_part, int ny, int nx, T h) {
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   T lam = T(-INFINITY), mq = T(INFINITY);   // identities of the reductions
@@ -38,31 +40,37 @@ fused_diag_kernel(const T* __restrict__ u, const T* __restrict__ avg,
 #pragma unroll
     for (int c = 0; c < 4; ++c) ub[c] = dot_cell<T, K>(avg, u, c, plane, cell);
     cell_diag(ub, T(1) / h, lam, mq);
+    if (mask != nullptr && __ldg(mask + cell) == 0) {
+      lam = T(0);
+      mq = T(INFINITY);
+    }
   }
   block_diag(lam, mq, lam_part, minq_part);
 }
 
 template <typename T, int K>
-static int launch(const void* u, const void* avg, void* lam_part,
-                  void* minq_part, int ny, int nx, double h,
+static int launch(const void* u, const void* avg, const void* mask,
+                  void* lam_part, void* minq_part, int ny, int nx, double h,
                   cudaStream_t stream) {
   fused_diag_kernel<T, K><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
-      (const T*)u, (const T*)avg, (T*)lam_part, (T*)minq_part, ny, nx, T(h));
+      (const T*)u, (const T*)avg, (const uint8_t*)mask, (T*)lam_part,
+      (T*)minq_part, ny, nx, T(h));
   return (int)cudaGetLastError();
 }
 
 }  // namespace dflo
 
 // dtype: 0 = float32, 1 = float64; K in {3, 4, 6, 9, 10, 16} (the DoFs per
-// cell of Pk / Qk, p = 1..3); lam_part/minq_part hold dflo_num_blocks(ny,
-// nx) entries.  Returns cudaGetLastError() after the launch, -1 for an
-// unsupported case.
+// cell of Pk / Qk, p = 1..3); mask: uint8 [ny, nx] fluid flags, or NULL;
+// lam_part/minq_part hold dflo_num_blocks(ny, nx) entries.  Returns
+// cudaGetLastError() after the launch, -1 for an unsupported case.
 extern "C" int dflo_fused_diag(int dtype, int K, const void* u, const void* avg,
-                               void* lam_part, void* minq_part, int ny, int nx,
-                               double h, void* stream) {
+                               const void* mask, void* lam_part,
+                               void* minq_part, int ny, int nx, double h,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define DFLO_CASE(T, K) \
-  return dflo::launch<T, K>(u, avg, lam_part, minq_part, ny, nx, h, s)
+  return dflo::launch<T, K>(u, avg, mask, lam_part, minq_part, ny, nx, h, s)
 #define DFLO_SIZES(T)                                             \
   switch (K) {                                                    \
     case 3: DFLO_CASE(T, 3);                                      \

@@ -1,16 +1,20 @@
 // Fused stabilization chain of one RK stage, hand-written for Hopper.
 //
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_post (the single-chip
-// kernel, with and without its diag outputs), unmasked.  Per cell, in this
-// order: its cell average and its four neighbors' averages; the KXRCF jump
-// of the indicator variable across its faces (pallas_kernels.py:1290-1323);
-// the characteristic TVB limiter with minmod, Mdx2 and the change > 1e-10
-// gate (:1325-1365); Zhang-Shu positivity with the dtype-aware floors
-// (:1367-1425); with diag, the CFL wave speed and min(rho, p) of the cell
-// average (the chain preserves cell means), reduced per block with
-// NaN-propagating max/min into partials that the wrapper reduces with
-// torch.amax/amin (:1527).  Neighbor-exists flags come from global-edge
-// arithmetic (:1277-1288); per_x / per_y are arguments.
+// kernel, with and without its diag outputs), masked or not.  Per cell, in
+// this order: its cell average and its four neighbors' averages; the KXRCF
+// jump of the indicator variable across its faces (pallas_kernels.py:
+// 1290-1323), or with the `limiter` indicator every cell marked
+// (:1158-1160); the characteristic TVB limiter with minmod, Mdx2 and the
+// change > 1e-10 gate (:1325-1365); Zhang-Shu positivity with the
+// dtype-aware floors (:1367-1425); with diag, the CFL wave speed and
+// min(rho, p) of the cell average (the chain preserves cell means), reduced
+// per block with NaN-propagating max/min into partials that the wrapper
+// reduces with torch.amax/amin (:1527).  Neighbor-exists flags come from
+// global-edge arithmetic (:1277-1288; per_x / per_y are arguments) or, on a
+// masked domain, from the static flag plane vflags [5, ny, nx] (uint8: the
+// W, E, S, N fluid-neighbor flags and the cell's own fluid flag,
+// :1135-1151); a solid cell enters neither diag reduction (:1442-1447).
 //
 // What bounds it on the H100: bytes.  Each cell reads its own 4K values and
 // each neighbor's 4K values (for the neighbor's average and facing trace),
@@ -26,7 +30,7 @@
 namespace dflo {
 
 struct PostParams {
-  int per_x, per_y, comp, char_lim, pos_lim;
+  int per_x, per_y, comp, mark_all, char_lim, pos_lim;
   double dx, dy, h, hdx, hdy, inv_h, diam_pow, Mdx2, beta;
 };
 
@@ -90,6 +94,7 @@ __device__ __forceinline__ T face_jump(const T* __restrict__ wq, const T t[NQ],
 template <typename T, int P>
 __global__ void __launch_bounds__(BX * BY)
 fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
+                  const uint8_t* __restrict__ vflags,
                   T* __restrict__ out, T* __restrict__ lam_part,
                   T* __restrict__ minq_part, int ny, int nx, PostParams prm) {
   constexpr int K = Dims<P>::K, NQ = Dims<P>::NQ, QP = Dims<P>::QP;
@@ -111,8 +116,16 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
     const int xe = x == nx - 1 ? 0 : x + 1;
     const int ys = y == 0 ? ny - 1 : y - 1;
     const int yn = y == ny - 1 ? 0 : y + 1;
-    const bool vW = prm.per_x || x > 0, vE = prm.per_x || x < nx - 1;
-    const bool vS = prm.per_y || y > 0, vN = prm.per_y || y < ny - 1;
+    bool vW = prm.per_x || x > 0, vE = prm.per_x || x < nx - 1;
+    bool vS = prm.per_y || y > 0, vN = prm.per_y || y < ny - 1;
+    bool fluid = true;
+    if (vflags != nullptr) {
+      vW = __ldg(vflags + cell) != 0;
+      vE = __ldg(vflags + plane + cell) != 0;
+      vS = __ldg(vflags + 2 * plane + cell) != 0;
+      vN = __ldg(vflags + 3 * plane + cell) != 0;
+      fluid = __ldg(vflags + 4 * plane + cell) != 0;
+    }
     const int comp = prm.comp;
     const T dx = T(prm.dx), dy = T(prm.dy), h = T(prm.h);
 
@@ -131,7 +144,8 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
       ub[c] = dot_seq<T, K>(avg, w[c]);
     }
 
-    // ---- KXRCF shock indicator (src/indicator.cc:48-198) ----------------
+    // ---- KXRCF shock indicator (src/indicator.cc:48-198), or every cell
+    // marked (the `limiter` indicator, src/indicator.cc:19-22) -------------
     // the indicator variable's DoFs, selected without a runtime index into
     // the register array
     T wi[K];
@@ -159,8 +173,10 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
     const T ind = (inW * fW + inE * fE) * dy + (inS * fS + inN * fN) * dx;
     const T measure = (inW + inE) * dy + (inS + inN) * dx;
     const T denom = T(prm.diam_pow) * measure * ubi;
-    const T shock = fabs(denom) > T(0)
-                        ? fabs(ind) / (denom == T(0) ? T(1) : denom) : T(0);
+    const bool marked =
+        prm.mark_all ||
+        (fabs(denom) > T(0) ? fabs(ind) / (denom == T(0) ? T(1) : denom)
+                            : T(0)) > T(1);
 
     // ---- TVB limiter (src/limiter.cc:224-370) ----------------------------
     T Dx[4], Dy[4], dbx[4], dfx[4], dby[4], dfy[4];
@@ -177,7 +193,7 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
     const T change = tvb_slopes(ub, Dx, Dy, dbx, dfx, dby, dfy,
                                 prm.char_lim != 0, T(prm.beta), T(prm.Mdx2),
                                 Dxn, Dyn);
-    if (shock > T(1) && change > T(1.0e-10)) {
+    if (marked && change > T(1.0e-10)) {
       // nodal linear rebuild ub + drx (Dxn / h) + dry (Dyn / h)
       const T inv_h = T(prm.inv_h);
 #pragma unroll
@@ -208,39 +224,49 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
 #pragma unroll
       for (int k = 0; k < K; ++k) out[(long)(c * K + k) * plane + cell] = w[c][k];
 
-    if (lam_part != nullptr) cell_diag(ub, T(1) / h, lam, mq);
+    if (lam_part != nullptr) {
+      cell_diag(ub, T(1) / h, lam, mq);
+      if (!fluid) {   // solid cells enter neither reduction
+        lam = T(0);
+        mq = T(INFINITY);
+      }
+    }
   }
   if (lam_part != nullptr) block_diag(lam, mq, lam_part, minq_part);
 }
 
 template <typename T, int P>
-static int launch(const void* u, const void* ops, void* out, void* lam_part,
-                  void* minq_part, int ny, int nx, const PostParams& prm,
-                  cudaStream_t stream) {
+static int launch(const void* u, const void* ops, const void* vflags,
+                  void* out, void* lam_part, void* minq_part, int ny, int nx,
+                  const PostParams& prm, cudaStream_t stream) {
   fused_post_kernel<T, P><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
-      (const T*)u, (const T*)ops, (T*)out, (T*)lam_part, (T*)minq_part, ny, nx,
-      prm);
+      (const T*)u, (const T*)ops, (const uint8_t*)vflags, (T*)out,
+      (T*)lam_part, (T*)minq_part, ny, nx, prm);
   return (int)cudaGetLastError();
 }
 
 }  // namespace dflo
 
-// dtype: 0 = float32, 1 = float64; p in {1, 2, 3}.  lam_part/minq_part NULL
-// for the form without diag, else dflo_num_blocks(ny, nx) entries each.
-// Returns cudaGetLastError() after the launch, -1 for an unsupported case.
+// dtype: 0 = float32, 1 = float64; p in {1, 2, 3}.  vflags: uint8
+// [5, ny, nx] flag plane of a masked domain, or NULL.  lam_part/minq_part
+// NULL for the form without diag, else dflo_num_blocks(ny, nx) entries
+// each.  mark_all: the `limiter` indicator.  Returns cudaGetLastError()
+// after the launch, -1 for an unsupported case.
 extern "C" int dflo_fused_post(int dtype, int p, const void* u, const void* ops,
-                               void* out, void* lam_part, void* minq_part,
-                               int ny, int nx, int per_x, int per_y, int comp,
-                               int char_lim, int pos_lim, double dx, double dy,
-                               double h, double hdx, double hdy, double inv_h,
+                               const void* vflags, void* out, void* lam_part,
+                               void* minq_part, int ny, int nx, int per_x,
+                               int per_y, int comp, int mark_all, int char_lim,
+                               int pos_lim, double dx, double dy, double h,
+                               double hdx, double hdy, double inv_h,
                                double diam_pow, double Mdx2, double beta,
                                void* stream) {
   if ((lam_part == nullptr) != (minq_part == nullptr)) return -1;
-  const dflo::PostParams prm{per_x, per_y, comp, char_lim, pos_lim, dx, dy, h,
-                             hdx, hdy, inv_h, diam_pow, Mdx2, beta};
+  const dflo::PostParams prm{per_x, per_y, comp, mark_all, char_lim, pos_lim,
+                             dx, dy, h, hdx, hdy, inv_h, diam_pow, Mdx2, beta};
   cudaStream_t s = (cudaStream_t)stream;
-#define DFLO_CASE(T, P) \
-  return dflo::launch<T, P>(u, ops, out, lam_part, minq_part, ny, nx, prm, s)
+#define DFLO_CASE(T, P)                                                     \
+  return dflo::launch<T, P>(u, ops, vflags, out, lam_part, minq_part, ny,  \
+                            nx, prm, s)
   if (dtype == 0) {
     if (p == 1) DFLO_CASE(float, 1);
     if (p == 2) DFLO_CASE(float, 2);

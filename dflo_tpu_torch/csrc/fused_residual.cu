@@ -1,20 +1,23 @@
 // Fused DG residual, hand-written for Hopper.
 //
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_residual (the dense
-// entry `fused`, kernel body _fused_kernel) in its hllc, unmasked form, on
-// the collocated nodal Qk basis and on the modal Pk basis (the V
-// contraction to quadrature-point values before the fluxes,
-// pallas_kernels.py:450-459).  It computes M^{-1} R(u) (residual.cuh) and
-// writes, by form: R; the SSP stage a*u_old + (1-a)*(u + dt*R) with
-// [a, dt] read from a device pointer so the host never waits on dt; or the
-// forward-Euler update u + dt*R (the MOOD cascade's first candidate, whose
-// [dt] is read the same way).
+// entry `fused`, kernel body _fused_kernel) in its hllc form, on the
+// collocated nodal Qk basis and on the modal Pk basis (the V contraction to
+// quadrature-point values before the fluxes, pallas_kernels.py:450-459),
+// with or without a solid-cell mask (its masked form, :287-292, :472-533,
+// :598-599).  fused_residual_lxf.cu instantiates the same kernel with the
+// LxF flux.  It computes M^{-1} R(u) (residual.cuh) and writes, by form: R;
+// the SSP stage a*u_old + (1-a)*(u + dt*R) with [a, dt] read from a device
+// pointer so the host never waits on dt; or the forward-Euler update
+// u + dt*R (the MOOD cascade's first candidate, whose [dt] is read the same
+// way).
 //
 // What bounds it on the H100: at f32 roughly bytes and operations alike.
 // One thread per cell, adjacent threads on adjacent x, so every (c, k)
 // plane of the [4, K, ny, nx] state loads coalesced; each cell reads its own
 // 4K values and the 4K values of each of its four neighbors (roughly 5x the
-// state through L1/L2 per call) and writes 4K values.  The arithmetic (the
+// state through L1/L2 per call) and writes 4K values (a mask adds one byte
+// for the cell and each neighbor).  The arithmetic (the
 // V contraction and fluxes at Q points, two traces and one HLLC flux per
 // face point, the lifts) is about 4,000 operations per P2 cell.
 //
@@ -27,82 +30,21 @@
 
 #include "residual.cuh"
 
-namespace dflo {
-
-template <typename T, int P, bool MODAL>
-__global__ void __launch_bounds__(BX * BY)
-fused_residual_kernel(const T* __restrict__ u, const T* __restrict__ dfw,
-                      const T* __restrict__ dfe, const T* __restrict__ dfs,
-                      const T* __restrict__ dfn, const T* __restrict__ uold,
-                      const T* __restrict__ sc, const T* __restrict__ ops,
-                      T* __restrict__ out, int ny, int nx) {
-  constexpr int K = BDims<P, MODAL>::K;
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= nx || y >= ny) return;
-  const long plane = (long)ny * nx;
-  const long cell = (long)y * nx + x;
-
-  T R[4][K], w[4][K];
-  cell_residual<T, P, MODAL, false>(u, nullptr, nullptr, T(0), dfw, dfe, dfs,
-                                    dfn, ops, x, y, ny, nx, R, w);
-
-  // ---- write R, the SSP stage, or the forward-Euler update ---------------
-  if (uold != nullptr) {
-    const T a = sc[0], dt = sc[1];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const long i = (long)(c * K + k) * plane + cell;
-        out[i] = a * __ldg(uold + i) + (T(1) - a) * (__ldg(u + i) + dt * R[c][k]);
-      }
-  } else if (sc != nullptr) {
-    const T dt = sc[0];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const long i = (long)(c * K + k) * plane + cell;
-        out[i] = __ldg(u + i) + dt * R[c][k];
-      }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < K; ++k) out[(long)(c * K + k) * plane + cell] = R[c][k];
-  }
-}
-
-template <typename T, int P, bool MODAL>
-static int launch(const void* u, const void* dfw, const void* dfe,
-                  const void* dfs, const void* dfn, const void* uold,
-                  const void* sc, const void* ops, void* out, int ny, int nx,
-                  cudaStream_t stream) {
-  fused_residual_kernel<T, P, MODAL>
-      <<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
-          (const T*)u, (const T*)dfw, (const T*)dfe, (const T*)dfs,
-          (const T*)dfn, (const T*)uold, (const T*)sc, (const T*)ops, (T*)out,
-          ny, nx);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace dflo
-
 // dtype: 0 = float32, 1 = float64; modal: 0 = collocated Qk, 1 = Pk;
 // p in {1, 2, 3}.  Forms: uold and sc = [a, dt] -> the SSP stage; uold NULL
-// and sc = [dt] -> u + dt*R; both NULL -> R.  Returns the cudaGetLastError()
-// code after the launch (0 = launched), -1 for an unsupported case.
+// and sc = [dt] -> u + dt*R; both NULL -> R.  mask: uint8 [ny, nx] fluid
+// flags, or NULL.  Returns the cudaGetLastError() code after the launch
+// (0 = launched), -1 for an unsupported case.
 extern "C" int dflo_fused_residual(int dtype, int modal, int p, const void* u,
                                    const void* dfw, const void* dfe,
                                    const void* dfs, const void* dfn,
                                    const void* uold, const void* sc,
-                                   const void* ops, void* out, int ny, int nx,
-                                   void* stream) {
+                                   const void* ops, const void* mask,
+                                   void* out, int ny, int nx, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define DFLO_CASE(T, P, M)                                                     \
-  return dflo::launch<T, P, M>(u, dfw, dfe, dfs, dfn, uold, sc, ops, out, ny, \
-                               nx, s)
+#define DFLO_CASE(T, P, M)                                                   \
+  return dflo::launch_residual<T, P, M, dflo::HLLC>(                         \
+      u, dfw, dfe, dfs, dfn, uold, sc, ops, mask, out, ny, nx, s)
 #define DFLO_DEGREES(T, M)           \
   if (p == 1) DFLO_CASE(T, 1, M);    \
   if (p == 2) DFLO_CASE(T, 2, M);    \

@@ -6,11 +6,15 @@
 // Per cell: the volume flux at the Q quadrature points (collocated Qk: the
 // DoFs are the point values; modal Pk: W = V u first,
 // pallas_kernels.py:450-459), the four face traces of the cell and of each
-// face neighbor, one HLLC flux per face and the volume and face lifts with
-// minv/area folded into the lift rows.  Neighbors wrap periodically, as on
-// the TPU; the caller's delta strips (true boundary flux minus wrap flux,
+// face neighbor, one numerical flux per face (HLLC, or LxF with the cell
+// averages of both cells) and the volume and face lifts with minv/area
+// folded into the lift rows.  Neighbors wrap periodically, as on the TPU;
+// the caller's delta strips (true boundary flux minus wrap flux,
 // solver/spatial.strips) are added at global column 0 / nx-1 and row
-// 0 / ny-1.  Each cell recomputes the shared face flux from the same
+// 0 / ny-1.  On a masked domain (a uint8 fluid-flag plane) a fluid|solid
+// face, the wrap faces included, takes the slip-wall mirror of the fluid
+// side's trace and average (pallas_kernels.py:472-533), and a solid cell's
+// residual is zeroed (:598-599).  Each cell recomputes the shared face flux from the same
 // operands in the same order as its neighbor ("canonical recompute",
 // pallas_kernels.py:184-193), so no face buffer goes through memory.
 //
@@ -22,9 +26,14 @@
 // later stages.
 #pragma once
 
+#include <stdint.h>
+
 #include "modal.cuh"
 
 namespace dflo {
+
+// the numerical flux of the residual (template argument FLUX)
+enum { HLLC = 0, LXF = 1 };
 
 // operator buffer layout (ops/kernels.residual_operators)
 template <int P, bool MODAL>
@@ -33,14 +42,19 @@ struct ResOps {
   static constexpr int FACEV = 0;                       // [4][NQ][K]
   static constexpr int LIFT = 4 * D::NQ * D::K;         // [K][NL]
   static constexpr int VOL = LIFT + D::K * D::NL;       // [Q][K] (modal)
+  static constexpr int AVG = VOL + (MODAL ? D::Q * D::K : 0);  // [K]
 };
 
-// face trace (NQ points) of one cell streamed from memory, for face f
-template <typename T, int P, bool MODAL>
+// face trace (NQ points) of one cell streamed from memory, for face f; with
+// AVG also its cell average ub[c] = sum_k avg[k] u[c][k] (an ordered sum, as
+// contract.basis_reduce), from the same loads
+template <typename T, int P, bool MODAL, bool AVG = false>
 __device__ __forceinline__ void trace_mem(const T* __restrict__ u,
                                           const T* __restrict__ faceVf,
                                           long plane, long cell,
-                                          T tr[4][P + 1]) {
+                                          T tr[4][P + 1],
+                                          const T* __restrict__ avg = nullptr,
+                                          T* ub = nullptr) {
   constexpr int K = BDims<P, MODAL>::K, NQ = P + 1;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -48,14 +62,18 @@ __device__ __forceinline__ void trace_mem(const T* __restrict__ u,
     T v = __ldg(u + (long)(c * K) * plane + cell);
 #pragma unroll
     for (int q = 0; q < NQ; ++q) acc[q] = faceVf[q * K] * v;
+    T a = T(0);
+    if constexpr (AVG) a = avg[0] * v;
 #pragma unroll
     for (int k = 1; k < K; ++k) {
       v = __ldg(u + (long)(c * K + k) * plane + cell);
 #pragma unroll
       for (int q = 0; q < NQ; ++q) acc[q] = acc[q] + faceVf[q * K + k] * v;
+      if constexpr (AVG) a = a + avg[k] * v;
     }
 #pragma unroll
     for (int q = 0; q < NQ; ++q) tr[c][q] = acc[q];
+    if constexpr (AVG) ub[c] = a;
   }
 }
 
@@ -79,20 +97,47 @@ __device__ __forceinline__ void trace_reg(const T w[4][BDims<P, MODAL>::K],
   }
 }
 
-// HLLC at the nq points of one face, FL/FR the left/right traces along the
-// +x (nx=1) or +y (ny=1) normal; F[c][q]
-template <typename T, int P>
+// the numerical flux at the nq points of one face, FL/FR the left/right
+// traces along the +x (nx=1) or +y (ny=1) normal, AL/AR the left/right cell
+// averages (read by LxF only); F[c][q]
+template <typename T, int P, int FLUX>
 __device__ __forceinline__ void face_flux(const T FL[4][P + 1],
-                                          const T FR[4][P + 1], T nx, T ny,
-                                          T F[4][P + 1]) {
+                                          const T FR[4][P + 1],
+                                          const T AL[4], const T AR[4], T nx,
+                                          T ny, T F[4][P + 1]) {
 #pragma unroll
   for (int q = 0; q < P + 1; ++q) {
     const T l[4] = {FL[0][q], FL[1][q], FL[2][q], FL[3][q]};
     const T r[4] = {FR[0][q], FR[1][q], FR[2][q], FR[3][q]};
     T f[4];
-    hllc(l, r, nx, ny, f);
+    if constexpr (FLUX == LXF) lxf(l, r, AL, AR, nx, ny, f);
+    else hllc(l, r, nx, ny, f);
 #pragma unroll
     for (int c = 0; c < 4; ++c) F[c][q] = f[c];
+  }
+}
+
+// Slip-wall mirror operands at a fluid|solid face (physics/euler.wall_fix):
+// left solid, right fluid -> the left trace and average become the right
+// ones with the normal momentum (component MX for an x face, MY for a y
+// face) negated; left fluid, right solid -> the other way round.
+template <typename T, int NQ>
+__device__ __forceinline__ void wall_fix(T FL[4][NQ], T FR[4][NQ], T AL[4],
+                                         T AR[4], bool mL, bool mR, int nc) {
+  if (!mL && mR) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) FL[c][q] = c == nc ? -FR[c][q] : FR[c][q];
+      AL[c] = c == nc ? -AR[c] : AR[c];
+    }
+  } else if (mL && !mR) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) FR[c][q] = c == nc ? -FL[c][q] : FL[c][q];
+      AR[c] = c == nc ? -AL[c] : AL[c];
+    }
   }
 }
 
@@ -133,20 +178,23 @@ __device__ __forceinline__ void lift_volume(const T* __restrict__ lift, int n,
   }
 }
 
-// A face neighbor's trace on face f: streamed, or (TP) from its DoFs after
-// truncation to its own degree and positivity.
-template <typename T, int P, bool MODAL, bool TP>
+// A face neighbor's trace on face f: streamed (with AVG also its cell
+// average), or (TP) from its DoFs after truncation to its own degree and
+// positivity.
+template <typename T, int P, bool MODAL, bool TP, bool AVG>
 __device__ __forceinline__ void neighbor_trace(
     const T* __restrict__ u, const int* __restrict__ deg,
     const T* __restrict__ Pm, T avg0, const T* __restrict__ faceVf,
-    long plane, long ncell, T tr[4][P + 1]) {
+    long plane, long ncell, T tr[4][P + 1], const T* __restrict__ avg,
+    T ub[4]) {
   if constexpr (TP) {
+    static_assert(!AVG, "the MOOD candidate carries HLLC");
     T v[4][BDims<P, MODAL>::K];
     load_cell<T, BDims<P, MODAL>::K>(u, plane, ncell, v);
     modal_tp<T, P>(v, __ldg(deg + ncell), Pm, avg0);
     trace_reg<T, P, MODAL>(v, faceVf, tr);
   } else {
-    trace_mem<T, P, MODAL>(u, faceVf, plane, ncell, tr);
+    trace_mem<T, P, MODAL, AVG>(u, faceVf, plane, ncell, tr, avg, ub);
   }
 }
 
@@ -154,20 +202,26 @@ __device__ __forceinline__ void neighbor_trace(
 // DoFs are held in w[4][K] (always for the modal basis, which contracts
 // them with V; with TP they are {truncated -> positivity-limited} first,
 // and so is every neighbor before its trace); otherwise (collocated Qk)
-// they are streamed from memory and w is not written.
-template <typename T, int P, bool MODAL, bool TP>
+// they are streamed from memory and w is not written.  FLUX: HLLC, or LXF
+// (collocated Qk), which also reads the cell averages of the cell and of
+// each face neighbor.  mask: the uint8 fluid flags of a masked domain, or
+// nullptr.
+template <typename T, int P, bool MODAL, bool TP, int FLUX = HLLC>
 __device__ __forceinline__ void cell_residual(
     const T* __restrict__ u, const int* __restrict__ deg,
     const T* __restrict__ Pm, T avg0, const T* __restrict__ dfw,
     const T* __restrict__ dfe, const T* __restrict__ dfs,
     const T* __restrict__ dfn, const T* __restrict__ ops, int x, int y,
     int ny, int nx, T R[4][BDims<P, MODAL>::K],
-    T w[4][BDims<P, MODAL>::K]) {
+    T w[4][BDims<P, MODAL>::K],
+    const uint8_t* __restrict__ mask = nullptr) {
   static_assert(MODAL || !TP, "truncation needs the modal basis");
   using D = BDims<P, MODAL>;
   using O = ResOps<P, MODAL>;
   constexpr int K = D::K, NQ = D::NQ, Q = D::Q;
   constexpr bool REG = MODAL || TP;
+  constexpr bool AVG = FLUX == LXF;
+  static_assert(!(AVG && REG), "LxF is instantiated for the collocated basis");
   const long plane = (long)ny * nx;
   const long cell = (long)y * nx + x;
   const int xw = x == 0 ? nx - 1 : x - 1;
@@ -176,6 +230,9 @@ __device__ __forceinline__ void cell_residual(
   const int yn = y == ny - 1 ? 0 : y + 1;
   const T* faceV = ops + O::FACEV;
   const T* lift = ops + O::LIFT;
+  const T* avg = ops + O::AVG;
+  const bool masked = mask != nullptr;
+  const bool m_own = masked ? __ldg(mask + cell) != 0 : true;
 
 #pragma unroll
   for (int c = 0; c < 4; ++c)
@@ -212,58 +269,126 @@ __device__ __forceinline__ void cell_residual(
     }
   }
 
-  T own[4][NQ], nb[4][NQ], F[4][NQ];
-  auto own_trace = [&](int f) {
-    if constexpr (REG) trace_reg<T, P, MODAL>(w, faceV + f * NQ * K, own);
-    else trace_mem<T, P, MODAL>(u, faceV + f * NQ * K, plane, cell, own);
+  // the cell's own average (LxF)
+  T ub[4] = {T(0), T(0), T(0), T(0)};
+  if constexpr (AVG) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ub[c] = dot_cell<T, K>(avg, u, c, plane, cell);
+  }
+
+  T own[4][NQ], nb[4][NQ], F[4][NQ], a_own[4], a_nb[4];
+  // One face: the cell's trace on face f_own, the neighbor ncell's trace on
+  // the facing face f_nb; left = the neighbor on the W and S faces.  nc is
+  // the normal momentum component a wall mirror negates; strip/stride/sidx
+  // address the delta strip added where `edge` holds; col0 is the face's
+  // first lift column.
+  auto face = [&](int f_own, int f_nb, long ncell, bool nb_left, T nxv, T nyv,
+                  int nc, bool edge, const T* __restrict__ strip, int stride,
+                  int sidx, int col0) {
+    if constexpr (REG) trace_reg<T, P, MODAL>(w, faceV + f_own * NQ * K, own);
+    else trace_mem<T, P, MODAL>(u, faceV + f_own * NQ * K, plane, cell, own);
+    neighbor_trace<T, P, MODAL, TP, AVG>(u, deg, Pm, avg0,
+                                         faceV + f_nb * NQ * K, plane, ncell,
+                                         nb, avg, a_nb);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a_own[c] = ub[c];
+    const bool m_nb = masked ? __ldg(mask + ncell) != 0 : true;
+    if (nb_left) {
+      if (masked) wall_fix<T, NQ>(nb, own, a_nb, a_own, m_nb, m_own, nc);
+      face_flux<T, P, FLUX>(nb, own, a_nb, a_own, nxv, nyv, F);
+    } else {
+      if (masked) wall_fix<T, NQ>(own, nb, a_own, a_nb, m_own, m_nb, nc);
+      face_flux<T, P, FLUX>(own, nb, a_own, a_nb, nxv, nyv, F);
+    }
+    if (edge)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) F[c][q] += strip[(c * NQ + q) * stride + sidx];
+    lift_face<T, P, MODAL>(lift, col0, F, R);
   };
-  // ---- west face: left = west neighbor's east trace -----------------------
-  own_trace(0);
-  neighbor_trace<T, P, MODAL, TP>(u, deg, Pm, avg0, faceV + 1 * NQ * K, plane,
-                                  (long)y * nx + xw, nb);
-  face_flux<T, P>(nb, own, T(1), T(0), F);
-  if (x == 0)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) F[c][q] += dfw[(c * NQ + q) * ny + y];
-  lift_face<T, P, MODAL>(lift, 2 * Q + 0 * NQ, F, R);
+  // west: left = west neighbor's east trace; east: right = east neighbor's
+  // west trace; south / north likewise along y
+  face(0, 1, (long)y * nx + xw, true, T(1), T(0), MX, x == 0, dfw, ny, y,
+       2 * Q + 0 * NQ);
+  face(1, 0, (long)y * nx + xe, false, T(1), T(0), MX, x == nx - 1, dfe, ny,
+       y, 2 * Q + 1 * NQ);
+  face(2, 3, (long)ys * nx + x, true, T(0), T(1), MY, y == 0, dfs, nx, x,
+       2 * Q + 2 * NQ);
+  face(3, 2, (long)yn * nx + x, false, T(0), T(1), MY, y == ny - 1, dfn, nx,
+       x, 2 * Q + 3 * NQ);
 
-  // ---- east face: right = east neighbor's west trace ----------------------
-  own_trace(1);
-  neighbor_trace<T, P, MODAL, TP>(u, deg, Pm, avg0, faceV + 0 * NQ * K, plane,
-                                  (long)y * nx + xe, nb);
-  face_flux<T, P>(own, nb, T(1), T(0), F);
-  if (x == nx - 1)
+  if (masked) {
+    // solid cells are frozen (R * mask, as the plain version multiplies)
+    const T m = m_own ? T(1) : T(0);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) F[c][q] += dfe[(c * NQ + q) * ny + y];
-  lift_face<T, P, MODAL>(lift, 2 * Q + 1 * NQ, F, R);
+      for (int k = 0; k < K; ++k) R[c][k] = R[c][k] * m;
+  }
+}
 
-  // ---- south face: left = south neighbor's north trace --------------------
-  own_trace(2);
-  neighbor_trace<T, P, MODAL, TP>(u, deg, Pm, avg0, faceV + 3 * NQ * K, plane,
-                                  (long)ys * nx + x, nb);
-  face_flux<T, P>(nb, own, T(0), T(1), F);
-  if (y == 0)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) F[c][q] += dfs[(c * NQ + q) * nx + x];
-  lift_face<T, P, MODAL>(lift, 2 * Q + 2 * NQ, F, R);
+// The dense fused residual of one cell per thread: R, the SSP stage
+// a*u_old + (1-a)*(u + dt*R) with [a, dt] read from a device pointer so the
+// host never waits on dt, or the forward-Euler update u + dt*R (sc = [dt]).
+template <typename T, int P, bool MODAL, int FLUX>
+__global__ void __launch_bounds__(BX * BY)
+fused_residual_kernel(const T* __restrict__ u, const T* __restrict__ dfw,
+                      const T* __restrict__ dfe, const T* __restrict__ dfs,
+                      const T* __restrict__ dfn, const T* __restrict__ uold,
+                      const T* __restrict__ sc, const T* __restrict__ ops,
+                      const uint8_t* __restrict__ mask, T* __restrict__ out,
+                      int ny, int nx) {
+  constexpr int K = BDims<P, MODAL>::K;
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= nx || y >= ny) return;
+  const long plane = (long)ny * nx;
+  const long cell = (long)y * nx + x;
 
-  // ---- north face: right = north neighbor's south trace -------------------
-  own_trace(3);
-  neighbor_trace<T, P, MODAL, TP>(u, deg, Pm, avg0, faceV + 2 * NQ * K, plane,
-                                  (long)yn * nx + x, nb);
-  face_flux<T, P>(own, nb, T(0), T(1), F);
-  if (y == ny - 1)
+  T R[4][K], w[4][K];
+  cell_residual<T, P, MODAL, false, FLUX>(u, nullptr, nullptr, T(0), dfw, dfe,
+                                          dfs, dfn, ops, x, y, ny, nx, R, w,
+                                          mask);
+
+  // ---- write R, the SSP stage, or the forward-Euler update ---------------
+  if (uold != nullptr) {
+    const T a = sc[0], dt = sc[1];
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) F[c][q] += dfn[(c * NQ + q) * nx + x];
-  lift_face<T, P, MODAL>(lift, 2 * Q + 3 * NQ, F, R);
+      for (int k = 0; k < K; ++k) {
+        const long i = (long)(c * K + k) * plane + cell;
+        out[i] = a * __ldg(uold + i) + (T(1) - a) * (__ldg(u + i) + dt * R[c][k]);
+      }
+  } else if (sc != nullptr) {
+    const T dt = sc[0];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const long i = (long)(c * K + k) * plane + cell;
+        out[i] = __ldg(u + i) + dt * R[c][k];
+      }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int k = 0; k < K; ++k) out[(long)(c * K + k) * plane + cell] = R[c][k];
+  }
+}
+
+template <typename T, int P, bool MODAL, int FLUX>
+int launch_residual(const void* u, const void* dfw, const void* dfe,
+                    const void* dfs, const void* dfn, const void* uold,
+                    const void* sc, const void* ops, const void* mask,
+                    void* out, int ny, int nx, cudaStream_t stream) {
+  fused_residual_kernel<T, P, MODAL, FLUX>
+      <<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
+          (const T*)u, (const T*)dfw, (const T*)dfe, (const T*)dfs,
+          (const T*)dfn, (const T*)uold, (const T*)sc, (const T*)ops,
+          (const uint8_t*)mask, (T*)out, ny, nx);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace dflo

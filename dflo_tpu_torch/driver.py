@@ -4,9 +4,12 @@ cascade on modal Pk.
 The torch counterpart of dflo_tpu/driver.py's ``Solver``:
 
 - ``method="rk"``: each SSP stage is one fused residual pass (residual +
-  blend) followed by one fused post pass (averages -> KXRCF ->
+  blend) followed by one fused post pass (averages -> shock indicator ->
   characteristic TVB -> positivity), and the final stage's post also yields
-  the next step's CFL wave speed and the fatal-negativity minimum.
+  the next step's CFL wave speed and the fatal-negativity minimum.  A
+  solid-cell mask (the forward step's obstacle) pins solid cells to a benign
+  state before every post and freezes their residual; the kernels mirror
+  the fluid state at fluid|solid faces.
 - ``method="mood"``: each SSP stage runs the MOOD cascade (stab/mood.py)
   from the stage predictor, blends, and runs the fused Pk post (modal TVB on
   the cells the cascade marked, then positivity); the final stage's Pk post
@@ -14,12 +17,17 @@ The torch counterpart of dflo_tpu/driver.py's ``Solver``:
   first step goes through the plain stab chain (KXRCF -> modal TVB -> modal
   positivity), as the JAX package's post_stage does for Pk.
 
-The kernels are chosen by the device of the state: on a CUDA tensor every
-wrapper launches its kernel, on a CPU tensor it runs its plain version; the
-control flow is the same on both.
+``volume_kernel`` and ``post_kernel`` select the forms as the reference's
+Solver does (dflo_tpu/driver.py:104-138): "auto" takes the fused kernels
+wherever the configuration is inside their envelope, as the reference does
+on a TPU; "xla" runs the plain PyTorch residual or post chain,
+``volume_kernel="pallas"`` the plain residual with its volume term through
+``kernels.volume_residual``.  Each wrapper is chosen by the device of the
+state: on a CUDA tensor it launches its kernel, on a CPU tensor it runs its
+plain version, so the control flow is the same on both.
 
 Configurations outside the ported slices raise NotImplementedError: implicit
-stepping, masked domains, other fluxes and indicators (physics envelope),
+stepping, masked MOOD, the other fluxes and indicators (physics envelope),
 device meshes (multi-GPU slice).
 """
 
@@ -28,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from dflo_tpu_torch.ops import basis as basis_mod
@@ -52,6 +61,30 @@ class LimiterConfig:
     conserve_angular_momentum: bool = False
 
 
+def _kernel_forms(basis, flux: str, method: str, volume_kernel: str,
+                  post_kernel: str) -> tuple[str, str]:
+    """Resolve "auto" (dflo_tpu/driver.py:104-138): the fused kernels
+    wherever the configuration is inside their envelope (collocated Qk with
+    hllc or lxf, modal Pk with hllc; degrees 1-3), else the plain forms."""
+    modal = basis.family == "Pk"
+    vol_ok = (basis.degree in kernels.DEGREES
+              and (modal or (basis.family == "Qk"
+                             and basis.is_nodal_collocated))
+              and (flux == "hllc" or (flux == "lxf" and not modal)))
+    if volume_kernel == "auto":
+        volume_kernel = "fused" if vol_ok else "xla"
+    if post_kernel == "auto":
+        post_kernel = "fused" if vol_ok and not modal else "xla"
+    if volume_kernel not in ("fused", "pallas", "xla"):
+        raise ValueError(f"unknown volume kernel {volume_kernel!r}")
+    if post_kernel not in ("fused", "xla"):
+        raise ValueError(f"unknown post kernel {post_kernel!r}")
+    if method == "mood" and volume_kernel != "fused":
+        raise NotImplementedError("the port's MOOD cascade runs on the fused "
+                                  "residual (volume_kernel='fused')")
+    return volume_kernel, post_kernel
+
+
 class Solver:
     """Explicit DG solver on a Cartesian mesh, on one device: RK/TVB on
     nodal Qk (method="rk") or the MOOD cascade on modal Pk
@@ -61,44 +94,61 @@ class Solver:
                  bcs: dict[str, BoundarySide], flux: str = "hllc",
                  limiter: LimiterConfig | None = None, cfl: float = 0.9, *,
                  dtype: torch.dtype, device, scheme: str | None = None,
-                 method: str = "rk", mask=None, device_mesh=None):
+                 method: str = "rk", mask=None,
+                 solid_state=(0.0, 0.0, 1.0, 2.5),
+                 volume_kernel: str = "auto", post_kernel: str = "auto",
+                 device_mesh=None):
         if method not in ("rk", "mood"):
             raise NotImplementedError(f"method {method!r} is not ported yet")
         if (basis.family == "Pk") != (method == "mood"):
             raise NotImplementedError(
                 "the port carries RK/TVB on the nodal Qk basis and MOOD on "
                 "the modal Pk basis (src/parameters.cc:536-544)")
-        if mask is not None:
-            raise NotImplementedError("masked domains come with the physics "
+        if mask is not None and method == "mood":
+            raise NotImplementedError("masked MOOD comes with the physics "
                                       "envelope slice")
         if device_mesh is not None:
             raise NotImplementedError("device meshes come with the multi-GPU "
                                       "slice")
         cfg = limiter or LimiterConfig()
         if (cfg.type != "TVB" or cfg.conserve_angular_momentum
-                or cfg.shock_indicator not in ("density", "energy")):
+                or cfg.shock_indicator not in ("limiter", "density",
+                                               "energy")):
             raise NotImplementedError(
-                "this slice carries the TVB limiter with the KXRCF density or "
-                "energy indicator (no angular-momentum option)")
+                "the port carries the TVB limiter with the limiter, density "
+                "or energy indicator (no angular-momentum option)")
+        volume_kernel, post_kernel = _kernel_forms(
+            basis, flux, method, volume_kernel, post_kernel)
         self.basis = basis
         self.mesh = mesh
         self.bcs = bcs
+        self.flux = flux
         self.cfl = cfl
         self.dtype = dtype
         self.device = torch.device(device)
         self.method = method
         self.limiter_cfg = cfg
+        self.volume_kernel, self.post_kernel = volume_kernel, post_kernel
         per_x, per_y = _check_bcs(bcs)
+        self.mask = None if mask is None else np.asarray(mask, bool)
+        if self.mask is not None:
+            self._fmask = torch.as_tensor(self.mask, device=self.device)
+            self._u_solid = torch.tensor(solid_state, dtype=dtype,
+                                         device=self.device)[:, None, None,
+                                                             None]
 
         self.rhs = make_rhs(basis, mesh, bcs, flux=flux, dtype=dtype,
-                            device=self.device, fused=True)
-        self._diag_ops = kernels.diag_operators(basis, mesh, dtype=dtype,
+                            device=self.device, volume_kernel=volume_kernel,
+                            mask=self.mask)
+        self._diag_ops = kernels.diag_operators(basis, mesh, mask=self.mask,
+                                                dtype=dtype,
                                                 device=self.device)
         if method == "rk":
             self._post_ops = kernels.post_operators(
                 basis, mesh, indicator=cfg.shock_indicator, M=cfg.M,
                 beta=cfg.beta, char_lim=cfg.char_lim, pos_lim=cfg.pos_lim,
-                per_x=per_x, per_y=per_y, dtype=dtype, device=self.device)
+                per_x=per_x, per_y=per_y, mask=self.mask, dtype=dtype,
+                device=self.device)
         else:
             if not cfg.pos_lim:
                 raise NotImplementedError(
@@ -135,20 +185,36 @@ class Solver:
             return self._pk_post_ops.avg0 * u[:, 0]
         return basis_reduce(self._diag_ops.avg, u)
 
+    def apply_mask(self, u):
+        """Freeze solid-masked cells at the benign reference state
+        (dflo_tpu/driver.py:381-385)."""
+        if self.mask is None:
+            return u
+        return torch.where(self._fmask, u, self._u_solid)
+
     def post_stage(self, u, t=0.0):
-        """Stabilization chain after each RK stage (src/claw.cc:762-766);
-        for MOOD the chain before the first step (the plain stab chain
-        KXRCF -> modal TVB -> positivity, dflo_tpu/driver.py:394-408)."""
+        """Stabilization chain after each RK stage (src/claw.cc:762-766),
+        solid cells pinned first; for MOOD the chain before the first step
+        (the plain stab chain KXRCF -> modal TVB -> positivity,
+        dflo_tpu/driver.py:394-408)."""
         if self.method == "rk":
-            return kernels.fused_post(u, self._post_ops)
+            return self._post()(self.apply_mask(u), self._post_ops)
         ubar = self.cell_averages(u)
         shock, _ = self._indicator(u, ubar)
         ops = self._pk_post_ops
         return ops.positivity(ops.limit(u, ubar, shock), ubar)
 
     def _post_diag(self, u, t=0.0):
-        """post_stage plus (lam_max, minq) of the stage's cell averages."""
-        return kernels.fused_post(u, self._post_ops, with_diag=True)
+        """post_stage plus (lam_max, minq) of the stage's (fluid) cell
+        averages."""
+        return self._post()(self.apply_mask(u), self._post_ops,
+                            with_diag=True)
+
+    def _post(self):
+        """The RK post chain: the kernel, or (post_kernel="xla") its plain
+        version on every device."""
+        return (kernels.fused_post if self.post_kernel == "fused"
+                else kernels.fused_post_plain)
 
     @property
     def host_syncs(self) -> int:

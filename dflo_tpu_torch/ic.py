@@ -3,7 +3,9 @@
 The torch counterpart of dflo_tpu/ic.py's basis-dependent setter: nodal
 interpolation for Qk (set_initial_condition_Qk, src/ic.cc:104-121) and the L2
 projection for the modal Pk basis (src/ic.cc:128-168).  The IC callable takes
-torch coordinate tensors ``fn(x, y, t) -> [4, ...]``.
+torch coordinate tensors ``fn(x, y, t) -> [4, ...]``, e.g. a compiled .prm
+expression (config/expressions).  The reference's named ICs (IC_FUNCTIONS,
+IC_CELLWISE) are listed by name and raise until they are ported.
 """
 
 from __future__ import annotations
@@ -36,3 +38,19 @@ def set_initial_condition(basis: basis_mod.Basis, mesh, fn, t: float = 0.0, *,
     u = basis_apply(proj.T, f.to(dtype=dtype, device=device)) \
         * as_tensor(1.0 / basis.mass, dtype, device)[None, :, None, None]
     return u.contiguous()
+
+
+def _not_ported(name: str):
+    def make(params=None):
+        raise NotImplementedError(
+            f"the named initial condition {name!r} is not ported yet "
+            f"(ROADMAP, modules to port, item 13: the physics envelope); "
+            f"give the IC as w_0..w_3 expressions")
+    return make
+
+
+#: the reference's named ICs (dflo_tpu/ic.py IC_FUNCTIONS, IC_CELLWISE,
+#: after src/ic.cc:104-121 and src_gll/ic.cc:226-377), by name
+IC_FUNCTIONS = {name: _not_ported(name) for name in (
+    "isenvort", "vortsys", "rt", "rrt", "isohydro", "polyhydro", "keplerian")}
+IC_CELLWISE = {name: _not_ported(name) for name in ("shocktube", "rt_gll")}

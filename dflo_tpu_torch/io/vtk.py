@@ -1,0 +1,138 @@
+"""Solution output: derived quantities and a VTU writer for Cartesian meshes.
+
+The NumPy counterpart of dflo_tpu/io/vtk.py's ``write_vtu`` (after
+src/output.cc:32-107 and EulerEquations::Postprocessor,
+src/equation.cc:35-187): conserved fields plus XVelocity, YVelocity,
+Pressure and the schlieren field |grad rho|^2 (src/equation.cc:122-124),
+one VTU file per snapshot (output/solution-NNN.vtu, as src/output.cc:95-105
+names them).  Each DG cell is written as its own patch of p x p quad
+subcells with values at its (p+1)^2 uniform nodes, so discontinuities at
+cell interfaces render as they are (deal.II's DataOut::build_patches);
+solid cells of a masked domain are left out.
+
+The file is the appended-raw-binary VTU the reference package's native
+writer produces (native/dflo_native.cc vtu_write: UInt64 block headers,
+Float64 fields), written here with NumPy alone; it runs on the host at
+output cadence.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from dflo_tpu_torch.ops import basis as basis_mod
+from dflo_tpu_torch.physics import euler
+
+
+def _apply(M: np.ndarray, u: np.ndarray) -> np.ndarray:
+    """[Q, K] x [c, K, ny, nx] -> [c, Q, ny, nx]."""
+    return np.einsum("qk,ckyx->cqyx", M, u)
+
+
+def derived_fields(W):
+    """(XVelocity, YVelocity, Pressure) from conserved values W[4, ...]
+    (src/equation.cc:113-120)."""
+    vx = W[euler.MX] / W[euler.RHO]
+    vy = W[euler.MY] / W[euler.RHO]
+    p = (euler.GAMMA - 1.0) * (W[euler.ENE]
+                               - 0.5 * (W[euler.MX]**2 + W[euler.MY]**2)
+                               / W[euler.RHO])
+    return vx, vy, p
+
+
+def _patch_nodes(p: int) -> np.ndarray:
+    """(p+1)^2 uniform reference nodes, x fastest."""
+    s = np.linspace(0.0, 1.0, p + 1)
+    return np.array([(a, b) for b in s for a in s])
+
+
+def write_vtu(path: str, basis: basis_mod.Basis, mesh, u, t: float = 0.0,
+              schlieren: bool = True, mask=None):
+    """Write the DG solution u [4, K, ny, nx] (numpy) on a Cartesian mesh as
+    a VTU file of per-cell patches; mask: optional [ny, nx] fluid flags,
+    solid cells are dropped."""
+    u = np.asarray(u, np.float64)
+    p = basis.degree
+    ny, nx = u.shape[-2:]
+    nodes = _patch_nodes(p)
+    M = len(nodes)
+    m = np.ones((ny, nx), bool) if mask is None else np.asarray(mask, bool)
+    iy, ix = np.nonzero(m)
+    ncell = len(iy)
+
+    def gather(field):                               # [M, ny, nx] -> flat
+        return field[:, iy, ix].T.ravel()
+
+    xn, yn = mesh.point_coords(nodes)                # [M, ny, nx]
+    pts = np.zeros((ncell * M, 3))
+    pts[:, 0] = gather(xn)
+    pts[:, 1] = gather(yn)
+
+    vals = _apply(basis.eval_at(nodes), u)           # [4, M, ny, nx]
+    fields = {"Density": gather(vals[euler.RHO]),
+              "XMomentum": gather(vals[euler.MX]),
+              "YMomentum": gather(vals[euler.MY]),
+              "Energy": gather(vals[euler.ENE])}
+    vx, vy, pr = derived_fields(vals)
+    fields["XVelocity"] = gather(vx)
+    fields["YVelocity"] = gather(vy)
+    fields["Pressure"] = gather(pr)
+    if schlieren:
+        Gx, Gy = basis.grad_at(nodes)
+        rho = u[euler.RHO][None]
+        drdx = _apply(Gx, rho)[0] / mesh.dx
+        drdy = _apply(Gy, rho)[0] / mesh.dy
+        fields["schlieren_plot"] = gather(drdx**2 + drdy**2)
+
+    # connectivity: p*p quad subcells per cell
+    n1 = p + 1
+    sub = np.array([[j * n1 + i, j * n1 + i + 1, (j + 1) * n1 + i + 1,
+                     (j + 1) * n1 + i] for j in range(p) for i in range(p)])
+    conn = (np.arange(ncell)[:, None, None] * M + sub[None]).reshape(-1, 4)
+    _write_vtu_file(path, pts, conn, fields, t)
+
+
+def _write_vtu_file(path, pts, conn, point_fields, t):
+    """Appended-raw-binary VTU: each block is a UInt64 byte count followed
+    by the little-endian data."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    ncells, npts = len(conn), len(pts)
+    blocks = [("Points", np.ascontiguousarray(pts, "<f8"), 3),
+              ("connectivity", np.ascontiguousarray(conn, "<i4"), 1),
+              ("offsets", np.arange(4, 4 * ncells + 1, 4, dtype="<i4"), 1),
+              ("types", np.full(ncells, 9, "u1"), 1)]      # VTK_QUAD
+    blocks += [(n, np.ascontiguousarray(a, "<f8"), 1)
+               for n, a in point_fields.items()]
+    kinds = {"<f8": "Float64", "<i4": "Int32", "|u1": "UInt8"}
+    offs, off = [], 0
+    for _, a, _ in blocks:
+        offs.append(off)
+        off += 8 + a.nbytes
+
+    def header(i):
+        name, a, ncomp = blocks[i]
+        return (f'<DataArray type="{kinds[a.dtype.str]}" Name="{name}" '
+                f'NumberOfComponents="{ncomp}" format="appended" '
+                f'offset="{offs[i]}"/>\n')
+
+    xml = ['<?xml version="1.0"?>\n'
+           '<VTKFile type="UnstructuredGrid" version="1.0" '
+           'byte_order="LittleEndian" header_type="UInt64">\n'
+           '<UnstructuredGrid>\n'
+           '<FieldData><DataArray type="Float64" Name="TimeValue" '
+           f'NumberOfTuples="1" format="ascii">{t!r}</DataArray>'
+           '</FieldData>\n'
+           f'<Piece NumberOfPoints="{npts}" NumberOfCells="{ncells}">\n'
+           '<Points>\n', header(0), '</Points>\n<Cells>\n',
+           header(1), header(2), header(3), '</Cells>\n<PointData>\n']
+    xml += [header(i) for i in range(4, len(blocks))]
+    xml += ['</PointData>\n</Piece>\n</UnstructuredGrid>\n'
+            '<AppendedData encoding="raw">\n_']
+    with open(path, "wb") as f:
+        f.write("".join(xml).encode())
+        for _, a, _ in blocks:
+            f.write(np.uint64(a.nbytes).tobytes())
+            f.write(a.tobytes())
+        f.write(b"\n</AppendedData>\n</VTKFile>\n")

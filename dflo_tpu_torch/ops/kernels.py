@@ -6,13 +6,15 @@ wrapper                TPU kernel it replaces                      CUDA source
                        (dflo_tpu/ops/pallas_kernels.py)
 =====================  ==========================================  ==========================
 fused_residual         make_fused_residual, dense (collocated Qk   csrc/fused_residual.cu
-                       and modal Pk)
+                       and modal Pk; hllc, and lxf on Qk; with a   csrc/fused_residual_lxf.cu
+                       solid-cell mask)
 fused_mood_candidate   make_fused_residual(...).sparse             csrc/fused_mood_candidate.cu
 fused_post             make_fused_post                             csrc/fused_post.cu
 fused_diag             make_fused_diag                             csrc/fused_diag.cu
 fused_modal_pos        make_fused_modal_pos                        csrc/fused_modal_pos.cu
 fused_pk_post          make_fused_pk_post                          csrc/fused_pk_post.cu
 fused_mood_check       make_fused_mood_check                       csrc/fused_mood_check.cu
+volume_residual        volume_residual                             csrc/volume_residual.cu
 =====================  ==========================================  ==========================
 
 Each wrapper takes its plain version for a tensor that lies on the CPU, and
@@ -50,7 +52,7 @@ from dflo_tpu_torch.ops import basis as basis_mod
 from dflo_tpu_torch.ops.contract import (as_tensor, basis_apply_ordered,
                                          basis_reduce, recip)
 from dflo_tpu_torch.physics import euler
-from dflo_tpu_torch.physics.fluxes import hllc
+from dflo_tpu_torch.physics.fluxes import get_flux
 from dflo_tpu_torch.stab import mood as mood_mod
 from dflo_tpu_torch.stab.indicator import make_shock_indicator
 from dflo_tpu_torch.stab.limiter import make_tvb_limiter, neighbor_valid
@@ -155,11 +157,13 @@ def _load():
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     sig = {
         "dflo_num_blocks": [ci, ci],
-        "dflo_fused_residual": [ci, ci, ci] + [vp] * 9 + [ci, ci, vp],
+        "dflo_fused_residual": [ci, ci, ci] + [vp] * 10 + [ci, ci, vp],
+        "dflo_fused_residual_lxf": [ci, ci] + [vp] * 10 + [ci, ci, vp],
+        "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
         "dflo_fused_mood_candidate": [ci, ci] + [vp] * 11 + [cd, ci, ci, vp,
                                                              vp],
-        "dflo_fused_post": [ci, ci] + [vp] * 5 + [ci] * 7 + [cd] * 9 + [vp],
-        "dflo_fused_diag": [ci, ci] + [vp] * 4 + [ci, ci, cd, vp],
+        "dflo_fused_post": [ci, ci] + [vp] * 6 + [ci] * 8 + [cd] * 9 + [vp],
+        "dflo_fused_diag": [ci, ci] + [vp] * 5 + [ci, ci, cd, vp],
         "dflo_fused_modal_pos": [ci, ci] + [vp] * 6 + [ci, ci, cd, cd, vp],
         "dflo_fused_pk_post": [ci, ci] + [vp] * 6 + [ci] * 5 + [cd] * 4
                               + [vp],
@@ -228,7 +232,7 @@ def _partials(lib, u: torch.Tensor, ny: int, nx: int):
 
 def _wrappers():
     return (fused_residual, fused_mood_candidate, fused_post, fused_diag,
-            fused_modal_pos, fused_pk_post, fused_mood_check)
+            fused_modal_pos, fused_pk_post, fused_mood_check, volume_residual)
 
 
 def reset_launch_counts() -> None:
@@ -296,24 +300,48 @@ def _mode0_mean(basis: basis_mod.Basis) -> float:
 class ResidualOps:
     """Operators of the fused residual: faceV [4, nq, K],
     lift [K, 2Q + 4nq] = [dy*GxW^T | dx*GyW^T | +W | -E | +S | -N face lifts],
-    rows pre-scaled by minv/area (pallas_kernels.py:642-660), and for the
+    rows pre-scaled by minv/area (pallas_kernels.py:642-660), for the
     modal basis V [Q, K], the basis at the Q volume quadrature points (the
-    kernel contracts the DoFs to point values before the fluxes).  HLLC
-    reads no cell averages, so the buffer carries none."""
+    kernel contracts the DoFs to point values before the fluxes), and
+    avg [K], the cell-average row (LxF's dissipation speed reads the
+    averages of both cells of a face).  flux: "hllc" or "lxf"; mask: the
+    bool [ny, nx] fluid flags of a masked domain, or None."""
     p: int
     K: int
     nq: int
     Q: int
     modal: bool
+    flux: str
     buf: torch.Tensor
     faceV: torch.Tensor
     lift: torch.Tensor
     V: torch.Tensor | None
+    avg: torch.Tensor
+    mask: torch.Tensor | None
 
 
-def residual_operators(basis: basis_mod.Basis, mesh, *, dtype, device
-                       ) -> ResidualOps:
+def _mask_tensor(mask, mesh, device) -> torch.Tensor | None:
+    """The bool [ny, nx] fluid flags of a masked domain on device."""
+    if mask is None:
+        return None
+    m = np.asarray(mask, bool)
+    if m.shape != (mesh.ny, mesh.nx):
+        raise ValueError(f"mask shape {m.shape} != {(mesh.ny, mesh.nx)}")
+    return torch.as_tensor(np.ascontiguousarray(m), device=device)
+
+
+def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "hllc",
+                       mask=None, dtype, device) -> ResidualOps:
     modal = _check_basis(basis)
+    if flux not in ("hllc", "lxf"):
+        raise NotImplementedError(
+            f"the fused residual kernel carries hllc and lxf, not {flux!r} "
+            f"(the other fluxes come with the physics envelope slice)")
+    if modal and (flux != "hllc" or mask is not None):
+        raise NotImplementedError(
+            "the fused residual takes the modal Pk basis with hllc on an "
+            "unmasked domain (masked and LxF MOOD come with the physics "
+            "envelope slice)")
     scale = (1.0 / basis.mass)[:, None] / (mesh.dx * mesh.dy)
     GxW = basis.wq2[:, None] * basis.Gx
     GyW = basis.wq2[:, None] * basis.Gy
@@ -322,10 +350,13 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, dtype, device
         [mesh.dy * GxW.T * scale, mesh.dx * GyW.T * scale,
          mesh.dy * fvw[0].T * scale, -mesh.dy * fvw[1].T * scale,
          mesh.dx * fvw[2].T * scale, -mesh.dx * fvw[3].T * scale], axis=1)
-    parts = [basis.faceV, lift] + ([basis.V] if modal else [])
+    parts = ([basis.faceV, lift] + ([basis.V] if modal else [])
+             + [basis.wq2 @ basis.V])
     buf, views = _flat(parts, dtype, device)
     return ResidualOps(basis.degree, basis.K, basis.nq, len(basis.wq2), modal,
-                       buf, views[0], views[1], views[2] if modal else None)
+                       flux, buf, views[0], views[1],
+                       views[2] if modal else None, views[-1],
+                       _mask_tensor(mask, mesh, device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -364,13 +395,19 @@ class PostOps:
     P [Qp, K] (positivity points), the layout of PostOps in
     csrc/fused_post.cu (pallas_kernels.py:1167-1176 builds the same
     operators).  indicator, limit and positivity are the plain stab/*
-    closures of the same chain, on the same operators."""
+    closures of the same chain, on the same operators.  mark_all: the
+    `limiter` indicator (every cell goes to the TVB gate).  With a mask,
+    vflags [5, ny, nx] (bool) holds the fluid-neighbor flags W, E, S, N
+    (stab/limiter.neighbor_valid) and the cell's own fluid flag
+    (pallas_kernels.py:1135-1151), and mask the fluid flags the diag
+    reads; both None on an unmasked domain."""
     p: int
     K: int
     nq: int
     buf: torch.Tensor
     avg: torch.Tensor
     comp: int
+    mark_all: bool
     char_lim: bool
     pos_lim: bool
     per_x: bool
@@ -384,13 +421,19 @@ class PostOps:
     indicator: object
     limit: object
     positivity: object
+    vflags: torch.Tensor | None
+    mask: torch.Tensor | None
 
 
 def post_operators(basis: basis_mod.Basis, mesh, *, indicator: str = "density",
                    M: float = 0.0, beta: float = 1.0, char_lim: bool = False,
                    pos_lim: bool = True, per_x: bool = False,
-                   per_y: bool = False, dtype, device) -> PostOps:
+                   per_y: bool = False, mask=None, dtype, device) -> PostOps:
     _check_basis(basis, modal=False)
+    if indicator not in ("density", "energy", "limiter"):
+        raise NotImplementedError(
+            f"the fused post carries the limiter, density and energy "
+            f"indicators, not {indicator!r}")
     h = mesh.diameter_h
     diam = float(np.sqrt(mesh.dx * mesh.dx + mesh.dy * mesh.dy))
     p = basis.degree
@@ -399,17 +442,24 @@ def post_operators(basis: basis_mod.Basis, mesh, *, indicator: str = "density",
          basis.wq2 @ basis.Gy, (basis.nodes[:, 0] - 0.5) * mesh.dx,
          (basis.nodes[:, 1] - 0.5) * mesh.dy,
          basis.eval_at(_pos_points(p))], dtype, device)
-    ind = make_shock_indicator(basis, mesh, indicator, per_x, per_y,
+    ind = make_shock_indicator(basis, mesh, indicator, per_x, per_y, mask,
                                dtype=dtype, device=device)
     lim = make_tvb_limiter(basis, mesh, M=M, beta=beta, char_lim=char_lim,
-                           per_x=per_x, per_y=per_y, dtype=dtype,
+                           per_x=per_x, per_y=per_y, mask=mask, dtype=dtype,
                            device=device)
     pos = (make_positivity_limiter(basis, dtype=dtype, device=device)
            if pos_lim else None)
+    mask_t = _mask_tensor(mask, mesh, device)
+    vflags = None
+    if mask_t is not None:
+        vflags = torch.stack([torch.as_tensor(v, device=device) for v in
+                              neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
+                                             mask)] + [mask_t]).contiguous()
     return PostOps(p, basis.K, basis.nq, buf, views[2],
-                   {"density": euler.RHO, "energy": euler.ENE}[indicator],
-                   char_lim, pos_lim, per_x, per_y, mesh.dx, mesh.dy, h,
-                   diam ** (0.5 * (p + 1)), M * h * h, beta, ind, lim, pos)
+                   euler.ENE if indicator == "energy" else euler.RHO,
+                   indicator == "limiter", char_lim, pos_lim, per_x, per_y,
+                   mesh.dx, mesh.dy, h, diam ** (0.5 * (p + 1)), M * h * h,
+                   beta, ind, lim, pos, vflags, mask_t)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -450,18 +500,22 @@ def pk_post_operators(basis: basis_mod.Basis, mesh, *, M: float = 0.0,
 
 @dataclasses.dataclass(frozen=True)
 class DiagOps:
-    """Operators of the fused diagnostics: avg [K] and the CFL length h."""
+    """Operators of the fused diagnostics: avg [K], the CFL length h and
+    the bool [ny, nx] fluid flags of a masked domain (solid cells enter
+    neither reduction), or None."""
     p: int
     K: int
     avg: torch.Tensor
     h: float
+    mask: torch.Tensor | None
 
 
-def diag_operators(basis: basis_mod.Basis, mesh, *, dtype, device) -> DiagOps:
+def diag_operators(basis: basis_mod.Basis, mesh, *, mask=None, dtype,
+                   device) -> DiagOps:
     _check_basis(basis)
     return DiagOps(basis.degree, basis.K,
                    as_tensor(basis.wq2 @ basis.V, dtype, device),
-                   mesh.diameter_h)
+                   mesh.diameter_h, _mask_tensor(mask, mesh, device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -496,11 +550,12 @@ def _check_state(u: torch.Tensor, K: int) -> tuple[int, int]:
     return u.shape[2], u.shape[3]
 
 
-def _lam_minq(ubar, h: float):
+def _lam_minq(ubar, h: float, mask=None):
     """(max over cells of (c+|vx|)/h + (c+|vy|)/h, min over cells of
     min(rho, p)) from cell averages, NaN-propagating (the diag of
     pallas_kernels.py:1434-1451 and :1697-1715); 1/h rounded in the working
-    dtype, as the kernels multiply by it."""
+    dtype, as the kernels multiply by it.  Solid cells (mask False) count
+    as lam = 0 and min(rho, p) = inf (pallas_kernels.py:1442-1447)."""
     rho = ubar[euler.RHO]
     pre = euler.pressure(ubar)
     cs = torch.sqrt(euler.GAMMA * torch.abs(pre) / torch.abs(rho))
@@ -508,6 +563,11 @@ def _lam_minq(ubar, h: float):
     vy = torch.abs(ubar[euler.MY] / rho)
     inv_h = recip(h, ubar)
     lam = (cs + vx) * inv_h + (cs + vy) * inv_h
+    if mask is not None:
+        lam = torch.where(mask, lam, torch.zeros_like(lam))
+        inf = torch.full_like(rho, float("inf"))
+        rho = torch.where(mask, rho, inf)
+        pre = torch.where(mask, pre, inf)
     return torch.amax(lam), torch.minimum(torch.amin(rho), torch.amin(pre))
 
 
@@ -538,22 +598,38 @@ def _lift_ordered(lift, Fx, Fy, faces):
 def fused_residual_plain(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
                          sc=None, dt=None):
     """Plain version of the fused residual: the periodic-wrap residual
-    everywhere, plus the delta strips lifted into the edge columns and rows.
-    With (u_old, sc = [a, dt]) it returns the SSP stage
-    a*u_old + (1-a)*(u + dt*R); with dt alone the forward-Euler update
-    u + dt*R (the MOOD cascade's first candidate); else R = M^{-1} R(u).
-    Every contraction is an ordered sum in the kernel's order."""
+    everywhere (slip-wall mirrors at fluid|solid faces of a masked domain,
+    the wrap faces included), plus the delta strips lifted into the edge
+    columns and rows, with solid cells' residual zeroed.  With
+    (u_old, sc = [a, dt]) it returns the SSP stage a*u_old + (1-a)*(u + dt*R);
+    with dt alone the forward-Euler update u + dt*R (the MOOD cascade's
+    first candidate); else R = M^{-1} R(u).  Every contraction is an ordered
+    sum in the kernel's order."""
+    num_flux = get_flux(ops.flux)
     faceV = ops.faceV
     # collocated: nodes = quadrature points; modal: point values W = V u
     W = basis_apply_ordered(ops.V, u) if ops.modal else u
     Fx = euler.flux_x(W)
     Fy = euler.flux_y(W)
     uW, uE, uS, uN = (basis_apply_ordered(faceV[f], u) for f in range(4))
+    ub = basis_reduce(ops.avg, u)[:, None]             # [4, 1, ny, nx]
     # west-face flux of every column: left state = the west neighbor's east
     # trace (periodic wrap); the east-face flux is the next column's west
-    Fw = hllc(torch.roll(uE, 1, -1), uW, 1.0, 0.0)
+    FL, FR = torch.roll(uE, 1, -1), uW
+    AL, AR = torch.roll(ub, 1, -1).expand_as(FL), ub.expand_as(FR)
+    if ops.mask is not None:
+        FL, FR, AL, AR = euler.wall_fix(FL, FR, AL, AR,
+                                        torch.roll(ops.mask, 1, -1), ops.mask,
+                                        euler.mirror_x)
+    Fw = num_flux(FL, FR, 1.0, 0.0, AL=AL, AR=AR)
     Fe = torch.roll(Fw, -1, -1)
-    Fs = hllc(torch.roll(uN, 1, -2), uS, 0.0, 1.0)
+    FL, FR = torch.roll(uN, 1, -2), uS
+    AL, AR = torch.roll(ub, 1, -2).expand_as(FL), ub.expand_as(FR)
+    if ops.mask is not None:
+        FL, FR, AL, AR = euler.wall_fix(FL, FR, AL, AR,
+                                        torch.roll(ops.mask, 1, -2), ops.mask,
+                                        euler.mirror_y)
+    Fs = num_flux(FL, FR, 0.0, 1.0, AL=AL, AR=AR)
     Fn = torch.roll(Fs, -1, -2)
     # boundary corrections at the global edge columns / rows
     Fw = torch.cat([Fw[..., :1] + dfw[..., None], Fw[..., 1:]], -1)
@@ -561,6 +637,8 @@ def fused_residual_plain(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
     Fs = torch.cat([Fs[..., :1, :] + dfs[:, :, None], Fs[..., 1:, :]], -2)
     Fn = torch.cat([Fn[..., :-1, :], Fn[..., -1:, :] + dfn[:, :, None]], -2)
     R = _lift_ordered(ops.lift, Fx, Fy, (Fw, Fe, Fs, Fn))
+    if ops.mask is not None:
+        R = R * ops.mask.to(R.dtype)                   # solid cells frozen
     if u_old is not None:
         a, dt_ = sc[0], sc[1]
         return a * u_old + (1.0 - a) * (u + dt_ * R)
@@ -573,8 +651,9 @@ def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
                    sc=None, dt=None):
     """M^{-1} R(u) with the boundary delta strips (dfw/dfe [4, nq, ny],
     dfs/dfn [4, nq, nx]); with (u_old, sc = [a, dt] on u's device) the whole
-    SSP stage; with dt (a 0-dim tensor on u's device) u + dt*R.  CPU
-    tensors: the plain version; CUDA tensors: the kernel."""
+    SSP stage; with dt (a 0-dim tensor on u's device) u + dt*R.  The flux
+    (hllc or lxf) and the mask come with ops.  CPU tensors: the plain
+    version; CUDA tensors: the kernel."""
     ny, nx = _check_state(u, ops.K)
     if (u_old is None) != (sc is None):
         raise ValueError("u_old and sc go together")
@@ -591,13 +670,18 @@ def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
         raise ValueError("sc must be [a, dt]")
     if dt is not None and dt.numel() != 1:
         raise ValueError("dt must hold one value")
+    if ops.mask is not None:
+        _check_plane(ops.mask, u, torch.bool, (ny, nx), "mask")
     lib = _load()
     out = torch.empty_like(u)
-    rc = lib.dflo_fused_residual(
-        _DTYPE_CODE[u.dtype], int(ops.modal), ops.p, _ptr(u), _ptr(dfw),
-        _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(u_old),
-        _ptr(sc if sc is not None else dt), _ptr(ops.buf), _ptr(out), ny, nx,
-        _stream(u.device))
+    args = (_ptr(u), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(u_old),
+            _ptr(sc if sc is not None else dt), _ptr(ops.buf),
+            _ptr(ops.mask), _ptr(out), ny, nx, _stream(u.device))
+    if ops.flux == "lxf":
+        rc = lib.dflo_fused_residual_lxf(_DTYPE_CODE[u.dtype], ops.p, *args)
+    else:
+        rc = lib.dflo_fused_residual(_DTYPE_CODE[u.dtype], int(ops.modal),
+                                     ops.p, *args)
     _check(rc, "fused_residual")
     fused_residual.launches += 1
     return out
@@ -739,25 +823,30 @@ def fused_post_plain(u, ops: PostOps, with_diag: bool = False):
         u1 = ops.positivity(u1, ubar)
     if not with_diag:
         return u1
-    return (u1, *_lam_minq(ubar, ops.h))
+    return (u1, *_lam_minq(ubar, ops.h, ops.mask))
 
 
 def fused_post(u, ops: PostOps, with_diag: bool = False):
-    """One stage's stabilization chain; with_diag also returns the 0-dim
-    tensors (lam_max, minq).  CPU tensors: the plain version; CUDA tensors:
-    the kernel (per-block diag partials reduced here with amax/amin)."""
+    """One stage's stabilization chain (a masked domain's solid cells count
+    as missing neighbors and enter neither diag reduction); with_diag also
+    returns the 0-dim tensors (lam_max, minq).  CPU tensors: the plain
+    version; CUDA tensors: the kernel (per-block diag partials reduced here
+    with amax/amin)."""
     ny, nx = _check_state(u, ops.K)
     if not _cuda_or_cpu(u, ops.buf):
         return fused_post_plain(u, ops, with_diag)
+    if ops.vflags is not None:
+        _check_plane(ops.vflags, u, torch.bool, (5, ny, nx), "vflags")
     lib = _load()
     out = torch.empty_like(u)
     lam_p = minq_p = None
     if with_diag:
         lam_p, minq_p = _partials(lib, u, ny, nx)
     rc = lib.dflo_fused_post(
-        _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(ops.buf), _ptr(out),
-        _ptr(lam_p), _ptr(minq_p), ny, nx, int(ops.per_x), int(ops.per_y),
-        ops.comp, int(ops.char_lim), int(ops.pos_lim), ops.dx, ops.dy, ops.h,
+        _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(ops.buf),
+        _ptr(ops.vflags), _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx,
+        int(ops.per_x), int(ops.per_y), ops.comp, int(ops.mark_all),
+        int(ops.char_lim), int(ops.pos_lim), ops.dx, ops.dy, ops.h,
         ops.h / ops.dx, ops.h / ops.dy, 1.0 / ops.h, ops.diam_pow, ops.Mdx2,
         ops.beta, _stream(u.device))
     _check(rc, "fused_post")
@@ -824,21 +913,24 @@ fused_pk_post.launches_with_diag = 0
 
 def fused_diag_plain(u, ops: DiagOps):
     """Plain version of the fused diag: compute_dt's wave speed and the
-    negativity min over the cell averages of u."""
-    return _lam_minq(basis_reduce(ops.avg, u), ops.h)
+    negativity min over the (fluid) cell averages of u."""
+    return _lam_minq(basis_reduce(ops.avg, u), ops.h, ops.mask)
 
 
 def fused_diag(u, ops: DiagOps):
-    """(lam_max, minq) as 0-dim tensors.  CPU tensors: the plain version;
-    CUDA tensors: the kernel plus an amax/amin over its per-block partials."""
+    """(lam_max, minq) as 0-dim tensors, over the fluid cells of a masked
+    domain.  CPU tensors: the plain version; CUDA tensors: the kernel plus
+    an amax/amin over its per-block partials."""
     ny, nx = _check_state(u, ops.K)
     if not _cuda_or_cpu(u, ops.avg):
         return fused_diag_plain(u, ops)
+    if ops.mask is not None:
+        _check_plane(ops.mask, u, torch.bool, (ny, nx), "mask")
     lib = _load()
     lam_p, minq_p = _partials(lib, u, ny, nx)
     rc = lib.dflo_fused_diag(_DTYPE_CODE[u.dtype], ops.K, _ptr(u),
-                             _ptr(ops.avg), _ptr(lam_p), _ptr(minq_p), ny, nx,
-                             ops.h, _stream(u.device))
+                             _ptr(ops.avg), _ptr(ops.mask), _ptr(lam_p),
+                             _ptr(minq_p), ny, nx, ops.h, _stream(u.device))
     _check(rc, "fused_diag")
     fused_diag.launches += 1
     return torch.amax(lam_p), torch.amin(minq_p)
@@ -889,3 +981,56 @@ def fused_mood_check(u_c, dmp_min, dmp_max, deg, lim, ops: MoodCheckOps):
 
 
 fused_mood_check.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# volume residual (collocated Qk)
+# ---------------------------------------------------------------------------
+
+def volume_residual_plain(lift, u):
+    """Plain version of volume_residual: the Euler fluxes at the K
+    collocated nodes, then R[c, m] = sum_k lift[m, k] Fx[c, k]
+    + lift[m, K + k] Fy[c, k] as one ordered sum (per node its x then its y
+    column), the kernel's order."""
+    K = u.shape[1]
+    Fx = euler.flux_x(u)
+    Fy = euler.flux_y(u)
+    sh = (1, K) + (1,) * (u.dim() - 2)
+
+    def term(col, F):
+        return lift[:, col].view(sh) * F[:, None]
+    R = term(0, Fx[:, 0])
+    R = R + term(K, Fy[:, 0])
+    for k in range(1, K):
+        R = R + term(k, Fx[:, k])
+        R = R + term(K + k, Fy[:, k])
+    return R
+
+
+def volume_residual(lift, u):
+    """The collocated volume term [dy GxW^T | dx GyW^T] @ [Fx; Fy] of
+    u[4, K, ny, nx] (the `volume_kernel='pallas'` path of solver/spatial,
+    pallas_kernels.volume_residual): lift [K, 2K] in u's dtype.  CPU
+    tensors: the plain version; CUDA tensors: the kernel."""
+    if u.dim() != 4 or u.shape[0] != 4:
+        raise ValueError(f"state must be [4, K, ny, nx], got "
+                         f"{tuple(u.shape)}")
+    K, (ny, nx) = u.shape[1], u.shape[2:]
+    if tuple(lift.shape) != (K, 2 * K):
+        raise ValueError(f"lift shape {tuple(lift.shape)} != {(K, 2 * K)}")
+    if not _cuda_or_cpu(u, lift):
+        return volume_residual_plain(lift, u)
+    if K not in (4, 9, 16):
+        raise NotImplementedError(f"volume_residual is instantiated for the "
+                                  f"collocated Q1-Q3 (K = 4, 9, 16), got {K}")
+    lib = _load()
+    out = torch.empty_like(u)
+    rc = lib.dflo_volume_residual(_DTYPE_CODE[u.dtype], K, _ptr(u),
+                                  _ptr(lift), _ptr(out), ny, nx,
+                                  _stream(u.device))
+    _check(rc, "volume_residual")
+    volume_residual.launches += 1
+    return out
+
+
+volume_residual.launches = 0

@@ -43,6 +43,12 @@ def sound_speed(U):
     return torch.sqrt(GAMMA * _pos(pressure(U)) / _pos(U[RHO]))
 
 
+def max_eigenvalue_normal(U, nx, ny):
+    """|v.n| + c  (src/equation.h:119-137)."""
+    vn = (U[MX] * nx + U[MY] * ny) / U[RHO]
+    return torch.abs(vn) + sound_speed(U)
+
+
 def flux_x(U):
     """Cartesian x-flux column F(U)  (src/equation.h:158-193)."""
     p = pressure(U)
@@ -147,6 +153,28 @@ BC_INFLOW, BC_OUTFLOW, BC_SLIP, BC_PRESSURE, BC_FARFIELD, BC_PERIODIC, BC_NONE =
 #: the kinds compute_wminus handles in this slice (the pressure kind comes with
 #: the rest of the physics envelope)
 SUPPORTED_BC = (BC_INFLOW, BC_OUTFLOW, BC_SLIP, BC_FARFIELD, BC_PERIODIC)
+
+
+def mirror_x(U):
+    """Slip-wall ghost for an x-normal face: reflect the normal momentum."""
+    return torch.stack([-U[MX], U[MY], U[RHO], U[ENE]])
+
+
+def mirror_y(U):
+    return torch.stack([U[MX], -U[MY], U[RHO], U[ENE]])
+
+
+def wall_fix(FL, FR, AL, AR, mL, mR, mirror):
+    """Slip-wall mirror operands at the fluid|solid faces of a masked domain
+    (dflo_tpu/solver/spatial.py:517-523, pallas_kernels.py:478-487): where
+    the left cell is solid and the right one fluid, the left trace and
+    average become the mirror of the right ones, and the other way round.
+    mL, mR: bool fluid flags of the left and right cells, broadcast over
+    the trailing axes of the [4, nq, ...] operands."""
+    wL = (~mL & mR)[None, None]                 # solid | fluid
+    wR = (mL & ~mR)[None, None]                 # fluid | solid
+    return (torch.where(wL, mirror(FR), FL), torch.where(wR, mirror(FL), FR),
+            torch.where(wL, mirror(AR), AL), torch.where(wR, mirror(AL), AR))
 
 
 def compute_wminus(kind: int, nx: float, ny: float, Wplus, bvals):

@@ -2,22 +2,47 @@
 
 The torch counterparts of dflo_tpu/physics/fluxes.py.  A flux takes
 left/right traces ``UL, UR [4, ...]`` and the unit-normal components
-``nx, ny`` and returns the numerical normal flux ``[4, ...]``.  Control flow
-is ``torch.where`` selects, written in the same order as the reference so the
-CUDA twin in csrc/euler.cuh can follow it operation by operation.
+``nx, ny`` (and, for the fluxes that read them, the cell averages ``AL, AR``
+of the two cells) and returns the numerical normal flux ``[4, ...]``.
+Control flow is ``torch.where`` selects, written in the same order as the
+reference so the CUDA twins in csrc/euler.cuh can follow them operation by
+operation.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dflo_tpu_torch.physics.euler import ENE, GAMMA, MX, MY, RHO, _pos
+from dflo_tpu_torch.physics.euler import (ENE, GAMMA, MX, MY, RHO, _pos,
+                                          max_eigenvalue_normal, pressure)
 
 
-def hllc(UL, UR, nx, ny):
+def _vn(U, nx, ny):
+    return (U[MX] * nx + U[MY] * ny) / U[RHO]
+
+
+def lxf(UL, UR, nx, ny, AL=None, AR=None):
+    """Local Lax-Friedrichs (src/equation.h:324-377).  The dissipation speed
+    comes from the cell averages AL/AR, as the reference's lxf_flux does
+    (src/assemble_explicit.cc:335-340); the traces stand in without them."""
+    AL = UL if AL is None else AL
+    AR = UR if AR is None else AR
+    vnl, vnr = _vn(UL, nx, ny), _vn(UR, nx, ny)
+    pl, pr = pressure(UL), pressure(UR)
+    lam = torch.maximum(max_eigenvalue_normal(AL, nx, ny),
+                        max_eigenvalue_normal(AR, nx, ny))
+    f = torch.stack([
+        0.5 * (pl * nx + UL[MX] * vnl + pr * nx + UR[MX] * vnr),
+        0.5 * (pl * ny + UL[MY] * vnl + pr * ny + UR[MY] * vnr),
+        0.5 * (UL[RHO] * vnl + UR[RHO] * vnr),
+        0.5 * ((UL[ENE] + pl) * vnl + (UR[ENE] + pr) * vnr),
+    ])
+    return f + 0.5 * lam * (UL - UR)
+
+
+def hllc(UL, UR, nx, ny, AL=None, AR=None):
     """HLLC flux, SU2-derived variant (src/equation.h:559-681), branchless.
-    (The reference's flux signature also takes the cell averages AL/AR,
-    which HLLC does not read.)"""
+    It reads no cell averages (AL, AR)."""
     rl, rr = UL[RHO], UR[RHO]
     sl_, sr_ = torch.sqrt(_pos(rl)), torch.sqrt(_pos(rr))
     fl = sl_ / (sl_ + sr_)
@@ -80,10 +105,10 @@ def hllc(UL, UR, nx, ny):
     return torch.where(s_m >= 0.0, left, right)
 
 
-FLUX_FUNCTIONS = {"hllc": hllc}
+FLUX_FUNCTIONS = {"hllc": hllc, "lxf": lxf}
 
 #: the reference's other fluxes, ported with the physics envelope slice
-_LATER = ("lxf", "sw", "roe", "kfvs", "kep")
+_LATER = ("sw", "roe", "kfvs", "kep")
 
 
 def get_flux(name: str):
@@ -92,8 +117,8 @@ def get_flux(name: str):
         return FLUX_FUNCTIONS[name]
     if name in _LATER:
         raise NotImplementedError(
-            f"numerical flux {name!r} is not ported yet; this slice carries "
-            f"hllc only (the other fluxes come with the physics envelope "
-            f"slice)")
+            f"numerical flux {name!r} is not ported yet; the port carries "
+            f"hllc and lxf (the other fluxes come with the physics envelope "
+            f"slice, ROADMAP item 13)")
     raise ValueError(f"unknown numerical flux {name!r}; choose from "
                      f"{sorted(FLUX_FUNCTIONS) + list(_LATER)}")

@@ -65,12 +65,18 @@ def ssp_rk_step(rhs: Callable, u, t, dt, ark, stage_times,
     return (u, *diag) if post_diag else u
 
 
-def compute_dt(ubar, mesh, degree: int, cfl: float):
+def compute_dt(ubar, mesh, degree: int, cfl: float, mask=None):
     """Global CFL time step (0-dim tensor) from cell averages ubar[4, ny, nx]:
-    dt_c = cfl / sum_d (c + |v_d|)/h / (2p+1), h = diameter/sqrt(dim)."""
+    dt_c = cfl / sum_d (c + |v_d|)/h / (2p+1), h = diameter/sqrt(dim).
+    Solid cells (mask: bool [ny, nx] fluid flags on ubar's device) are
+    left out of the min."""
     h = mesh.diameter_h
     c = euler.sound_speed(ubar)
     vx = torch.abs(ubar[euler.MX] / ubar[euler.RHO])
     vy = torch.abs(ubar[euler.MY] / ubar[euler.RHO])
     max_eig = (c + vx) / h + (c + vy) / h
-    return torch.amin(cfl / max_eig / (2.0 * degree + 1.0))
+    dt_cells = cfl / max_eig / (2.0 * degree + 1.0)
+    if mask is not None:
+        dt_cells = torch.where(mask, dt_cells,
+                               torch.full_like(dt_cells, float("inf")))
+    return torch.amin(dt_cells)

@@ -1,22 +1,27 @@
 """DG spatial residual on one device: the plain torch residual and the
 O(boundary) delta-flux strips that feed the fused residual kernel.
 
-The torch counterpart of dflo_tpu/solver/spatial.py for the unmasked,
-single-device Cartesian path, on the collocated nodal Qk basis and the modal
-Pk basis.  The state is ``u[4, K, ny, nx]``; the residual is
-du/dt = M^{-1} R(u, t) with the diagonal mass solve folded in.
+The torch counterpart of dflo_tpu/solver/spatial.py for the single-device
+Cartesian path, on the collocated nodal Qk basis and the modal Pk basis,
+optionally with a solid-cell mask (fluid-solid faces get slip-wall mirror
+states and solid cells a zero residual).  The state is ``u[4, K, ny, nx]``;
+the residual is du/dt = M^{-1} R(u, t) with the diagonal mass solve folded
+in.  The fluxes get the cell averages of both cells (LxF's dissipation
+speed reads them; HLLC does not).
 
-Two forms, selected by ``make_rhs(..., fused=...)``:
+Three forms, selected by ``make_rhs(..., volume_kernel=...)`` as in the
+reference:
 
-- plain (``fused=False``): the whole-domain contraction form of the
-  reference's rhs (dflo_tpu/solver/spatial.py:637), with true boundary fluxes
-  from ghost states.  It is the plain reference the fused path is tested
-  against.
-- fused (``fused=True``): ``dflo_tpu_torch.ops.kernels.fused_residual``
-  computes the periodic-wrap residual everywhere and adds the delta strips
-  (true boundary flux minus wrap flux) at the domain edges.  The strips stay
-  in torch: the boundary states come from user callables (the inflow lambda),
-  which cannot run inside a kernel.  ``.stage`` gives the whole SSP stage
+- ``"xla"``: the whole-domain contraction form of the reference's rhs
+  (dflo_tpu/solver/spatial.py:637), with true boundary fluxes from ghost
+  states.  It is the plain reference the fused path is tested against.
+- ``"pallas"``: the same, with the volume term computed by
+  ``kernels.volume_residual`` (collocated bases only).
+- ``"fused"``: ``kernels.fused_residual`` computes the periodic-wrap
+  residual everywhere and adds the delta strips (true boundary flux minus
+  wrap flux) at the domain edges.  The strips stay in torch: the boundary
+  states come from user callables (the inflow expression), which cannot run
+  inside a kernel.  ``.stage`` gives the whole SSP stage
   ``a*u_old + (1-a)*(u + dt*R)`` in one kernel pass and ``.step`` the
   forward-Euler update ``u + dt*R``.  On the Pk basis ``.sparse_candidate``
   is the MOOD cascade's candidate on a set of cells
@@ -29,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from dflo_tpu_torch.ops import basis as basis_mod
@@ -79,28 +85,57 @@ def _check_bcs(bcs) -> tuple[bool, bool]:
 
 def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
              flux: str = "hllc", *, dtype: torch.dtype, device,
-             fused: bool = False):
+             volume_kernel: str = "xla", mask=None):
     """Build du/dt = rhs(u, t) for a Cartesian mesh (see module docstring).
 
-    bcs : {'W','E','S','N'} -> BoundarySide; periodic sides come in opposite
-          pairs.  The fused form carries ``.strips(u, t)``,
-          ``.stage(u, u_old, t, a, dt)`` and ``.ops`` (the kernel operators).
+    bcs  : {'W','E','S','N'} -> BoundarySide; periodic sides come in opposite
+           pairs.
+    mask : optional bool [ny, nx], True = fluid cell.
+    The fused form carries ``.strips(u, t)``, ``.stage(u, u_old, t, a, dt)``,
+    ``.step(u, t, dt)`` and ``.ops`` (the kernel operators); the plain forms
+    ``.lift_stack``, the [K, 2Q] volume lift [dy GxW^T | dx GyW^T].
     """
     num_flux = get_flux(flux)
     per_x, per_y = _check_bcs(bcs)
+    if volume_kernel not in ("xla", "pallas", "fused"):
+        raise ValueError(f"unknown volume kernel {volume_kernel!r}")
     collocated = basis.is_nodal_collocated
+    if volume_kernel == "pallas" and not collocated:
+        raise ValueError("volume_kernel='pallas' needs a collocated basis "
+                         "(the fully-fused kernel handles modal bases)")
     nq = basis.nq
     dx, dy = mesh.dx, mesh.dy
 
     def cast(a):
         return as_tensor(a, dtype, device)
 
+    if mask is not None:
+        mask = np.asarray(mask, bool)
+        if mask.shape != (mesh.ny, mesh.nx):
+            raise ValueError(f"mask shape {mask.shape} != (ny, nx)")
+        fmask = cast(mask)
+
+        def flags(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+        # interior-interface wall flags (a mirror flux where True)
+        wallx_L = flags(~mask[:, :-1] & mask[:, 1:])    # solid | fluid
+        wallx_R = flags(mask[:, :-1] & ~mask[:, 1:])    # fluid | solid
+        wally_L = flags(~mask[:-1, :] & mask[1:, :])
+        wally_R = flags(mask[:-1, :] & ~mask[1:, :])
+        # the fluid flags of the cells on either side of the wrap faces
+        walls_x = flags(mask[:, -1]), flags(mask[:, 0])
+        walls_y = flags(mask[-1, :]), flags(mask[0, :])
+    else:
+        walls_x = walls_y = None
+
     V = cast(basis.V)
     GxW = cast(basis.wq2[:, None] * basis.Gx)
     GyW = cast(basis.wq2[:, None] * basis.Gy)
     faceV = [cast(basis.faceV[f]) for f in range(4)]
     faceVw = [cast(basis.wq[:, None] * basis.faceV[f]) for f in range(4)]
-    lift_stack = torch.cat([dy * GxW.T, dx * GyW.T], dim=1)      # [K, 2Q]
+    avg_op = cast(basis.wq2 @ basis.V)
+    lift_stack = torch.cat([dy * GxW.T, dx * GyW.T], dim=1).contiguous()
     minv = cast(1.0 / basis.mass)
     area = dx * dy
 
@@ -110,13 +145,12 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         xb, yb = mesh.face_coords(side, basis.xq)
         face_xy[name] = (cast(xb), cast(yb))
 
-    def boundary_flux(name: str, trace, t):
+    def boundary_flux(name: str, trace, ubar_b, t):
         """Outward numerical flux on one domain side.
 
         trace  : [4, nq, n_along] inside trace
-        Returns [4, nq, n_along], w.r.t. the OUTWARD normal.  (HLLC reads no
-        cell averages; the reference's AL/AR arguments come back with the
-        fluxes that do, in the physics envelope slice.)"""
+        ubar_b : [4, n_along] boundary-cell averages
+        Returns [4, nq, n_along], w.r.t. the OUTWARD normal."""
         side = bcs[name]
         nrm_x, nrm_y = NORMALS[name]
         if side.values is not None:
@@ -126,20 +160,23 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         else:
             bvals = trace
         ghost = euler.compute_wminus(side.kind, nrm_x, nrm_y, trace, bvals)
-        return num_flux(trace, ghost, nrm_x, nrm_y)
+        A = ubar_b[:, None, :].expand_as(trace)
+        return num_flux(trace, ghost, nrm_x, nrm_y, AL=A, AR=A)
 
     modal = basis.family == "Pk"
+    fused = volume_kernel == "fused"
     mops = (kernels.modal_operators(basis, mesh, dtype=dtype, device=device)
             if fused and modal else None)
 
     def strips(u, t, deg=None):
         """O(boundary) delta-flux strips (dflo_tpu/solver/spatial.py:525):
         the true boundary flux minus the periodic-wrap flux the kernel
-        computes at the domain edges.  Returns (dfw, dfe [4, nq, ny],
-        dfs, dfn [4, nq, nx]); zero on periodic sides.  deg (Pk, the MOOD
-        candidate): the edge DoF lines are {truncated -> positivity-limited}
-        first (kernels.modal_tp_plain, tp_line of pallas_kernels.py:
-        933-943), so the strips see the u_t the kernel traces."""
+        computes at the domain edges, with the kernel's slip-wall mirror at
+        a fluid|solid wrap face.  Returns (dfw, dfe [4, nq, ny], dfs, dfn
+        [4, nq, nx]); zero on periodic sides.  deg (Pk, the MOOD candidate):
+        the edge DoF lines are {truncated -> positivity-limited} first
+        (kernels.modal_tp_plain, tp_line of pallas_kernels.py:933-943), so
+        the strips see the u_t the kernel traces."""
         ny_, nx_ = u.shape[-2:]
 
         def edge(idx):
@@ -150,32 +187,45 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
                 return line
             return kernels.modal_tp_plain(line, deg[idx], mops)
 
+        def wrap_flux(uL, uR, aL, aR, walls, mirror, nrm):
+            """The flux the kernel computes at the wrap faces; walls: the
+            fluid flags (left, right) of the wrap's cells, or None."""
+            AL = aL[:, None].expand_as(uL)
+            AR = aR[:, None].expand_as(uR)
+            if walls is not None:
+                uL, uR, AL, AR = euler.wall_fix(uL, uR, AL, AR, *walls, mirror)
+            return num_flux(uL, uR, *nrm, AL=AL, AR=AR)
+
         if per_x:
             dfw = dfe = u.new_zeros((4, nq, ny_))
         else:
             c0, cl = edge((slice(None), 0)), edge((slice(None), -1))
             uW0 = torch.einsum("qk,cky->cqy", faceV[WEST], c0)
             uEl = torch.einsum("qk,cky->cqy", faceV[EAST], cl)
-            Fwrap = num_flux(uEl, uW0, 1.0, 0.0)
-            dfw = -boundary_flux("W", uW0, t) - Fwrap
-            dfe = boundary_flux("E", uEl, t) - Fwrap
+            ub0 = torch.einsum("k,cky->cy", avg_op, c0)
+            ubl = torch.einsum("k,cky->cy", avg_op, cl)
+            Fwrap = wrap_flux(uEl, uW0, ubl, ub0, walls_x, euler.mirror_x,
+                              (1.0, 0.0))
+            dfw = -boundary_flux("W", uW0, ub0, t) - Fwrap
+            dfe = boundary_flux("E", uEl, ubl, t) - Fwrap
         if per_y:
             dfs = dfn = u.new_zeros((4, nq, nx_))
         else:
             r0, rl = edge((0,)), edge((-1,))
             uS0 = torch.einsum("qk,ckx->cqx", faceV[SOUTH], r0)
             uNl = torch.einsum("qk,ckx->cqx", faceV[NORTH], rl)
-            Fwrap = num_flux(uNl, uS0, 0.0, 1.0)
-            dfs = -boundary_flux("S", uS0, t) - Fwrap
-            dfn = boundary_flux("N", uNl, t) - Fwrap
+            ub0 = torch.einsum("k,ckx->cx", avg_op, r0)
+            ubl = torch.einsum("k,ckx->cx", avg_op, rl)
+            Fwrap = wrap_flux(uNl, uS0, ubl, ub0, walls_y, euler.mirror_y,
+                              (0.0, 1.0))
+            dfs = -boundary_flux("S", uS0, ub0, t) - Fwrap
+            dfn = boundary_flux("N", uNl, ubl, t) - Fwrap
         return (dfw.contiguous(), dfe.contiguous(), dfs.contiguous(),
                 dfn.contiguous())
 
     if fused:
-        if flux != "hllc":
-            raise NotImplementedError("the fused residual kernel carries hllc")
-        ops = kernels.residual_operators(basis, mesh, dtype=dtype,
-                                         device=device)
+        ops = kernels.residual_operators(basis, mesh, flux=flux, mask=mask,
+                                         dtype=dtype, device=device)
 
         def rhs_fused(u, t):
             """du/dt through the fused residual kernel."""
@@ -212,48 +262,84 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         return rhs_fused
 
     def rhs(u, t):
-        """du/dt for u[4, K, ny, nx] at time t (plain torch)."""
+        """du/dt for u[4, K, ny, nx] at time t (plain torch; with
+        volume_kernel='pallas' the volume term through its kernel)."""
         W = u if collocated else basis_apply(V, u)
-        Fx = euler.flux_x(W)
-        Fy = euler.flux_y(W)
         uW = basis_apply(faceV[WEST], u)
         uE = basis_apply(faceV[EAST], u)
         uS = basis_apply(faceV[SOUTH], u)
         uN = basis_apply(faceV[NORTH], u)
+        ub = basis_reduce(avg_op, u)                  # [4, ny, nx]
 
         # ---- volume term: + int F . grad(phi) dV -------------------------
-        R = basis_apply(lift_stack, torch.cat([Fx, Fy], dim=1))
+        if volume_kernel == "pallas":
+            R = kernels.volume_residual(lift_stack, u)
+        else:
+            R = basis_apply(lift_stack, torch.cat([euler.flux_x(W),
+                                                   euler.flux_y(W)], dim=1))
 
         # ---- x-direction interfaces (normal +x), nx+1 slots ---------------
-        Fi = num_flux(uE[..., :-1], uW[..., 1:], 1.0, 0.0)
+        FL, FR = uE[..., :-1], uW[..., 1:]
+        AL = ub[:, None, :, :-1].expand_as(FL)
+        AR = ub[:, None, :, 1:].expand_as(FR)
+        if mask is not None:
+            # slip-wall mirror states at fluid-solid interfaces
+            w = wallx_L[None, None]
+            FL, AL = (torch.where(w, euler.mirror_x(FR), FL),
+                      torch.where(w, euler.mirror_x(AR), AL))
+            w = wallx_R[None, None]
+            FR, AR = (torch.where(w, euler.mirror_x(uE[..., :-1]), FR),
+                      torch.where(w, euler.mirror_x(
+                          ub[:, None, :, :-1].expand_as(FL)), AR))
+        Fi = num_flux(FL, FR, 1.0, 0.0, AL=AL, AR=AR)
         if per_x:
-            Fwrap = num_flux(uE[..., -1], uW[..., 0], 1.0, 0.0)
+            Aw = ub[:, None, :, -1].expand_as(uE[..., -1])
+            Ae = ub[:, None, :, 0].expand_as(uW[..., 0])
+            Fwrap = num_flux(uE[..., -1], uW[..., 0], 1.0, 0.0, AL=Aw, AR=Ae)
             Fx_all = torch.cat([Fwrap[..., None], Fi, Fwrap[..., None]], -1)
         else:
             # outward boundary fluxes sign-flipped into the +x orientation
             # (conservative fluxes satisfy F(a,b,n) = -F(b,a,-n))
-            Fw = -boundary_flux("W", uW[..., 0], t)
-            Fe = boundary_flux("E", uE[..., -1], t)
+            Fw = -boundary_flux("W", uW[..., 0], ub[..., 0], t)
+            Fe = boundary_flux("E", uE[..., -1], ub[..., -1], t)
             Fx_all = torch.cat([Fw[..., None], Fi, Fe[..., None]], -1)
         R = R - dy * basis_apply(faceVw[EAST].T, Fx_all[..., 1:])
         R = R + dy * basis_apply(faceVw[WEST].T, Fx_all[..., :-1])
 
         # ---- y-direction interfaces (normal +y), ny+1 slots ---------------
-        Fj = num_flux(uN[..., :-1, :], uS[..., 1:, :], 0.0, 1.0)
+        FL, FR = uN[..., :-1, :], uS[..., 1:, :]
+        AL = ub[:, None, :-1, :].expand_as(FL)
+        AR = ub[:, None, 1:, :].expand_as(FR)
+        if mask is not None:
+            w = wally_L[None, None]
+            FL, AL = (torch.where(w, euler.mirror_y(FR), FL),
+                      torch.where(w, euler.mirror_y(AR), AL))
+            w = wally_R[None, None]
+            FR, AR = (torch.where(w, euler.mirror_y(uN[..., :-1, :]), FR),
+                      torch.where(w, euler.mirror_y(
+                          ub[:, None, :-1, :].expand_as(FL)), AR))
+        Fj = num_flux(FL, FR, 0.0, 1.0, AL=AL, AR=AR)
         if per_y:
-            Fwrap = num_flux(uN[..., -1, :], uS[..., 0, :], 0.0, 1.0)
+            As = ub[:, None, -1, :].expand_as(uN[..., -1, :])
+            An = ub[:, None, 0, :].expand_as(uS[..., 0, :])
+            Fwrap = num_flux(uN[..., -1, :], uS[..., 0, :], 0.0, 1.0, AL=As,
+                             AR=An)
             Fy_all = torch.cat([Fwrap[..., None, :], Fj, Fwrap[..., None, :]],
                                -2)
         else:
-            Fs = -boundary_flux("S", uS[..., 0, :], t)
-            Fn = boundary_flux("N", uN[..., -1, :], t)
+            Fs = -boundary_flux("S", uS[..., 0, :], ub[..., 0, :], t)
+            Fn = boundary_flux("N", uN[..., -1, :], ub[..., -1, :], t)
             Fy_all = torch.cat([Fs[..., None, :], Fj, Fn[..., None, :]], -2)
         R = R - dx * basis_apply(faceVw[NORTH].T, Fy_all[..., 1:, :])
         R = R + dx * basis_apply(faceVw[SOUTH].T, Fy_all[..., :-1, :])
 
         # ---- diagonal mass solve (src/claw.cc:694-713) -------------------
-        return R * (minv[None, :, None, None] / area)
+        R = R * (minv[None, :, None, None] / area)
+        if mask is not None:
+            R = R * fmask[None, None]                 # solid cells are frozen
+        return R
 
+    rhs.lift_stack = lift_stack
     return rhs
 
 

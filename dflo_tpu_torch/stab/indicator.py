@@ -1,11 +1,13 @@
-"""KXRCF shock indicator as whole-domain tensor sweeps.
+"""Shock indicators as whole-domain tensor sweeps.
 
-The torch counterpart of dflo_tpu/stab/indicator.py for the density and
+The torch counterpart of dflo_tpu/stab/indicator.py for the `limiter` kind,
+which marks every cell (src/indicator.cc:19-22), and the KXRCF density and
 energy indicators (compute_shock_indicator_kxrcf, src/indicator.cc:48-198):
 per cell, the inflow-part boundary integral of the jump in the indicator
 variable, normalized by h^{(p+1)/2} * inflow measure * cell average.
-Boundary faces contribute no jump (src/indicator.cc:174-179).  A cell is
-marked (limiter active) when the indicator exceeds 1 (src/limiter.cc:263).
+Boundary faces, and faces to a solid cell of a masked domain, contribute no
+jump (src/indicator.cc:174-179).  A cell is marked (limiter active) when the
+indicator exceeds 1 (src/limiter.cc:263).
 """
 
 from __future__ import annotations
@@ -21,17 +23,27 @@ from dflo_tpu_torch.stab.limiter import neighbor_valid
 
 
 def make_shock_indicator(basis: basis_mod.Basis, mesh, kind: str = "density",
-                         per_x: bool = False, per_y: bool = False, *,
+                         per_x: bool = False, per_y: bool = False,
+                         mask: np.ndarray | None = None, *,
                          dtype: torch.dtype, device):
     """Build indicator(u, ubar) -> (shock_ind[ny,nx], jump_ind[ny,nx]).
 
-    kind : 'density' | 'energy' (KXRCF).  The 'limiter', 'u2' and 'residual'
-           indicators come with later slices.
+    kind : 'limiter' (mark all, src/indicator.cc:19-22) | 'density' |
+           'energy' (KXRCF).  The 'u2' and 'residual' indicators come with
+           later slices.
+    mask : optional bool [ny, nx] fluid flags; faces whose neighbor is solid
+           count like boundary faces.
     """
+    if kind == "limiter":
+        def mark_all(u, ubar):
+            shape = u.shape[-2:]
+            return (torch.full(shape, 1e20, dtype=dtype, device=u.device),
+                    torch.zeros(shape, dtype=dtype, device=u.device))
+        return mark_all
     if kind not in ("density", "energy"):
         raise NotImplementedError(
-            f"shock indicator {kind!r} is not ported yet (this slice carries "
-            f"the KXRCF density and energy indicators)")
+            f"shock indicator {kind!r} is not ported yet (the port carries "
+            f"the limiter kind and the KXRCF density and energy indicators)")
     comp = {"density": euler.RHO, "energy": euler.ENE}[kind]
     faceV = [as_tensor(basis.faceV[f], dtype, device) for f in range(4)]
     wq = as_tensor(basis.wq, dtype, device)
@@ -40,7 +52,8 @@ def make_shock_indicator(basis: basis_mod.Basis, mesh, kind: str = "density",
     h = mesh.diameter_h
     p = basis.degree
     vW, vE, vS, vN = (as_tensor(v, dtype, device) for v in
-                      neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
+                      neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
+                                     mask))
 
     def indicator(u, ubar):
         v = u[comp]                                   # [K, ny, nx]

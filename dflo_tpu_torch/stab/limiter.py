@@ -34,22 +34,28 @@ def _mean4(a):
     return (a[0] + a[1] + a[2] + a[3]) * 0.25
 
 
-def neighbor_valid(shape, per_x: bool, per_y: bool):
-    """Bool numpy [ny, nx] flags (W, E, S, N): does an in-domain neighbor
-    exist in that direction?  (The reference's lcell/rcell/bcell/tcell
-    tables, src/claw.cc:336-380.)"""
-    ny, nx = shape
-    vW = np.ones(shape, bool)
-    vE = np.ones(shape, bool)
-    vS = np.ones(shape, bool)
-    vN = np.ones(shape, bool)
-    if not per_x:
-        vW[:, 0] = False
-        vE[:, nx - 1] = False
-    if not per_y:
-        vS[0, :] = False
-        vN[ny - 1, :] = False
-    return vW, vE, vS, vN
+def neighbor_valid(shape, per_x: bool, per_y: bool,
+                   mask: np.ndarray | None = None):
+    """Bool numpy [ny, nx] flags (W, E, S, N): does a usable (in-domain,
+    fluid) neighbor exist in that direction?  (The reference's lcell/rcell/
+    bcell/tcell tables, src/claw.cc:336-380, plus the solid-cell mask.)"""
+    m = np.ones(shape, bool) if mask is None else np.asarray(mask, bool)
+
+    def shifted(axis, shift, periodic):
+        s = np.roll(m, shift, axis=axis)
+        if not periodic:
+            if axis == 1 and shift == 1:
+                s[:, 0] = False
+            elif axis == 1:
+                s[:, -1] = False
+            elif shift == 1:
+                s[0, :] = False
+            else:
+                s[-1, :] = False
+        return s
+
+    return (shifted(1, 1, per_x), shifted(1, -1, per_x),
+            shifted(0, 1, per_y), shifted(0, -1, per_y))
 
 
 def neighbor_diffs(ubar, D, valid):
@@ -70,10 +76,12 @@ def neighbor_diffs(ubar, D, valid):
 
 def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
                      beta: float = 1.0, char_lim: bool = False,
-                     per_x: bool = False, per_y: bool = False, *,
+                     per_x: bool = False, per_y: bool = False,
+                     mask: np.ndarray | None = None, *,
                      dtype: torch.dtype, device):
     """Build limit(u, ubar, marked) -> u for the nodal Qk or the modal Pk
-    basis.
+    basis.  mask: optional bool [ny, nx] fluid flags; a solid neighbor
+    counts as a missing one (neighbor_valid).
 
     marked : [ny, nx] shock indicator; cells with marked > 1 are limited
              (src/limiter.cc:263).
@@ -92,7 +100,7 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
     Mdx2 = M * h * h
     sqrt3 = float(np.sqrt(3.0))
     valid = tuple(torch.as_tensor(v, device=device) for v in
-                  neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
+                  neighbor_valid((mesh.ny, mesh.nx), per_x, per_y, mask))
     if modal:
         ix_x, ix_y = 1, p + 1       # (1,0) / (0,1) modes (src/limiter.cc:414)
         beta_eff = 0.5 * beta       # src/limiter.cc:395

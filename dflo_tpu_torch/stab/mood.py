@@ -130,7 +130,8 @@ class MoodStage:
     """mood_stage(u_pre, t, dt) -> (u_candidate, limiter_marked, MoodStats,
     degree) for one SSP stage (dflo_tpu/stab/mood.py make_mood, the TPU form).
     rhs is the fused modal residual of solver/spatial.make_rhs(...,
-    fused=True) (its ``.step``, ``.sparse_candidate`` and ``.modal_ops``).
+    volume_kernel="fused") (its ``.step``, ``.sparse_candidate`` and
+    ``.modal_ops``).
 
     Each pass's candidate goes through the port's kernels (their plain
     versions on CPU tensors): pass 1 is the dense modal residual's

@@ -115,9 +115,12 @@ def make_positivity_limiter(basis: basis_mod.Basis, *, dtype: torch.dtype,
     return limit
 
 
-def negative_average_flag(ubar):
-    """0-dim bool tensor: any cell-average density or pressure < EPS — the
-    fatal condition of src/positivity.cc:26-39.  Written as ~(x >= EPS) so
-    NaN states also trip it."""
-    return torch.any(~(torch.minimum(ubar[euler.RHO], euler.pressure(ubar))
-                       >= EPS))
+def negative_average_flag(ubar, mask=None):
+    """0-dim bool tensor: any (fluid) cell-average density or pressure < EPS
+    — the fatal condition of src/positivity.cc:26-39.  Written as
+    ~(x >= EPS) so NaN states also trip it.  mask: bool [ny, nx] fluid
+    flags on ubar's device, or None."""
+    bad = ~(torch.minimum(ubar[euler.RHO], euler.pressure(ubar)) >= EPS)
+    if mask is not None:
+        bad = bad & mask
+    return torch.any(bad)

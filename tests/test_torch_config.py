@@ -1,0 +1,135 @@
+"""The port's .prm configuration layer against the JAX package's.
+
+Both shipped forward-step configs (examples/forward_step.prm and
+examples/forward_step_tpu.prm) parse to the same parameters in both
+packages; their compiled expressions (IC, boundary data, the solid mask)
+give the same values, the mask bit for bit on the full-size mesh.  The
+expression compilers agree on a set of expressions covering the
+whitelisted syntax to 1e-13 relative (elementary functions may round the
+last bit differently).  The CLI's branches that are not ported raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dflo_tpu import cli as jcli
+from dflo_tpu.config import expressions as jexpr
+from dflo_tpu.config.params import AllParameters as JParams
+from dflo_tpu_torch import cli
+from dflo_tpu_torch import ic
+from dflo_tpu_torch.config import expressions
+from dflo_tpu_torch.config.params import AllParameters
+
+PRMS = ("examples/forward_step.prm", "examples/forward_step_tpu.prm")
+
+
+def plain_fields(obj) -> dict:
+    """The dataclass's fields without the compiled expressions."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = plain_fields(v)
+        elif not callable(v) and not isinstance(v, dict):
+            out[f.name] = v
+    return out
+
+
+@pytest.mark.parametrize("prm", PRMS)
+def test_params_match_jax(prm):
+    jp, tp = JParams.from_prm_file(prm), AllParameters.from_prm_file(prm)
+    assert plain_fields(jp) == plain_fields(tp)
+    assert sorted(jp.boundary_conditions) == sorted(tp.boundary_conditions)
+    x = np.linspace(0.0, 3.0, 7)
+    y = np.linspace(0.0, 1.0, 7)
+    for bid, jspec in jp.boundary_conditions.items():
+        tspec = tp.boundary_conditions[bid]
+        assert jspec.kind == tspec.kind
+        assert np.array_equal(
+            np.asarray(jspec.values(jnp.asarray(x), jnp.asarray(y), 0.0)),
+            tspec.values(torch.from_numpy(x), torch.from_numpy(y), 0.0))
+    assert np.array_equal(
+        np.asarray(jp.initial_conditions(jnp.asarray(x), jnp.asarray(y))),
+        tp.initial_conditions(torch.from_numpy(x), torch.from_numpy(y)))
+    # the solid mask on the full mesh, bit for bit
+    jmesh, jmask, jbids = jcli.build_domain(jp)
+    tmesh, tmask, tbids = cli.build_domain(tp)
+    assert dataclasses.astuple(jmesh) == dataclasses.astuple(tmesh)
+    assert jmask.dtype == tmask.dtype == bool
+    assert np.array_equal(jmask, tmask)
+    assert 0 < int((~tmask).sum()) < tmask.size
+    assert all(np.array_equal(jbids[k], tbids[k]) for k in "WESN")
+    jb, tb = jcli.build_bcs(jp, jbids), cli.build_bcs(tp, tbids)
+    assert {k: s.kind for k, s in jb.items()} == {k: s.kind
+                                                  for k, s in tb.items()}
+
+
+EXPRS = ("1.0*(x<=0.5)+0.125*(x>0.5)", "(x>0.6)*(y<0.2)", "4.2", "-x^2+y",
+         "sqrt(x*x+y*y)", "if(x>1, sin(pi*x), cos(2*y))", "exp(-x)*erf(y)",
+         "0.3 < x < 1.7", "(x>1) && (y<0.5) || (x<0.2)", "atan2(y, x+1)",
+         "pow(x+1, 1.5) + abs(y-0.5) + log(x+2) - tanh(y)",
+         "min(x, y) + max(x, 2*y) + floor(3*x) + ceil(y) + sign(y-0.5)",
+         "t*x + _pi", "x % 0.7")
+
+
+@pytest.mark.parametrize("expr", EXPRS)
+def test_expressions_match_jax(expr):
+    x = np.linspace(0.0, 3.0, 31)
+    y = np.linspace(0.0, 1.0, 31)
+    j = np.asarray(jexpr.compile_expression(expr)(jnp.asarray(x),
+                                                  jnp.asarray(y), 0.25))
+    t = expressions.compile_expression(expr)(torch.from_numpy(x),
+                                             torch.from_numpy(y), 0.25)
+    assert t.shape == j.shape
+    if j.dtype == bool:
+        assert t.dtype == torch.bool and np.array_equal(j, t.numpy())
+    else:
+        assert t.dtype == torch.float64
+        np.testing.assert_allclose(t.numpy(), j, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("bad", ("__import__('os')", "x.real", "foo(x)",
+                                 "z + 1", "x if y else 1", "'a'"))
+def test_expression_whitelist(bad):
+    for compile_ in (jexpr.compile_expression,
+                     expressions.compile_expression):
+        with pytest.raises(ValueError):
+            compile_(bad)
+
+
+def test_unported_branches_raise(tmp_path):
+    src = open(PRMS[0]).read()
+
+    def params(old, new):
+        f = tmp_path / "v.prm"
+        f.write_text(src.replace(old, new))
+        return AllParameters.from_prm_file(str(f))
+
+    cases = {
+        "GLL": params("set degree = 1", "set degree = 1\nset basis = GLL"),
+        "AMR": params("set refinement = false", "set refinement = true"),
+        "implicit": params("set method = rk3", "set method = gmres"),
+        "fluxes": params("set flux = lxf", "set flux = roe"),
+    }
+    for what, p in cases.items():
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.build_solver(p, dtype=torch.float64, device="cpu")
+    gmsh = params("set mesh type = cartesian",
+                  "set mesh type = gmsh\nset mesh file = a.msh")
+    gmsh.cartesian_mesh.nx = 0
+    with pytest.raises(NotImplementedError, match="ROADMAP items 15"):
+        cli.build_domain(gmsh)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+        cli.run([PRMS[0], "--platform", "cpu", "--devices", "4"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ic.IC_FUNCTIONS["isenvort"]()
+    if not torch.cuda.is_available():
+        # the default device is the card, with no fallback to the CPU
+        with pytest.raises(RuntimeError, match="--platform cpu"):
+            cli.run([PRMS[0], "--max-steps", "0"])
+

@@ -69,7 +69,7 @@ def setup(p, dtype, device):
                                   char_lim=True, pos_lim=True,
                                   dtype=dtype, device=device)
     rhs = make_rhs(basis, mesh, BCS, flux="hllc", dtype=dtype, device=device,
-                   fused=True)
+                   volume_kernel="fused")
     diag = kernels.diag_operators(basis, mesh, dtype=dtype, device=device)
     return u, post, rhs, diag
 
@@ -159,7 +159,7 @@ def setup_pk(p, dtype, device, seed=0):
                                      device="cpu")
     u = kernels.modal_tp_plain(u, None, mops64).to(dtype=dtype, device=device)
     rhs = make_rhs(basis, mesh, BCS, flux="hllc", dtype=dtype, device=device,
-                   fused=True)
+                   volume_kernel="fused")
     planes = dict(
         deg=torch.from_numpy(rng.integers(1, p + 1, (PK_NY, PK_NX),
                                           dtype=np.int32)).to(device),
@@ -266,3 +266,128 @@ def test_mood_check_is_bitwise_plain(cuda, p, dtype, per):
     for a, b in zip(k, q):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert 0 < int(k[2].sum()) < PK_NX * PK_NY       # both outcomes occur
+
+
+# ---------------------------------------------------------------------------
+# the forward-step kernels: the masked LxF residual, the masked post with the
+# `limiter` indicator, the masked diag, and volume_residual
+# ---------------------------------------------------------------------------
+
+FS_NX, FS_NY = 90, 30      # the 3 x 1 box; ragged against the 32 x 4 block
+INFLOW = (4.2, 0.0, 1.4, 8.8)
+
+
+def fs_inflow(x, y, t):
+    return torch.stack([torch.full_like(x, v) for v in INFLOW])
+
+
+FS_BCS = dict(W=BoundarySide(euler.BC_INFLOW, fs_inflow),
+              E=BoundarySide(euler.BC_OUTFLOW),
+              S=BoundarySide(euler.BC_SLIP), N=BoundarySide(euler.BC_SLIP))
+
+
+def setup_fs(p, dtype, device, seed=0):
+    """The masked forward-step operators on Q_p and a perturbed inflow
+    state (numpy seed), solid cells pinned, after the plain masked post."""
+    basis = make_basis("Qk", p)
+    mesh = CartesianMesh(FS_NX, FS_NY, 0.0, 3.0, 0.0, 1.0)
+    xc, yc = mesh.cell_centers()
+    mask = ~((xc > 0.6) & (yc < 0.2))
+    rng = np.random.default_rng(seed)
+    u = np.zeros((4, basis.K, FS_NY, FS_NX))
+    u[0], u[1], u[2], u[3] = 4.2, 0.5, 1.4, 8.8
+    u = u * (1.0 + 0.05 * rng.uniform(-1.0, 1.0, u.shape))
+    u = np.where(mask, u, np.array([0.0, 0.0, 1.0, 2.5])[:, None, None, None])
+    post64 = kernels.post_operators(basis, mesh, indicator="limiter",
+                                    beta=2.0, char_lim=True, pos_lim=True,
+                                    mask=mask, dtype=torch.float64,
+                                    device="cpu")
+    u = kernels.fused_post_plain(torch.from_numpy(u), post64)
+    post = kernels.post_operators(basis, mesh, indicator="limiter", beta=2.0,
+                                  char_lim=True, pos_lim=True, mask=mask,
+                                  dtype=dtype, device=device)
+    rhs = make_rhs(basis, mesh, FS_BCS, flux="lxf", dtype=dtype,
+                   device=device, volume_kernel="fused", mask=mask)
+    diag = kernels.diag_operators(basis, mesh, mask=mask, dtype=dtype,
+                                  device=device)
+    return basis, mesh, u.to(dtype=dtype, device=device), rhs, post, diag
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2))
+def test_masked_lxf_residual_matches_plain(cuda, p, dtype):
+    dt = getattr(torch, dtype)
+    basis, mesh, u, rhs, _, _ = setup_fs(p, dt, cuda, seed=30 + p)
+    strips = rhs.strips(u, 0.0)
+    before = kernels.fused_residual.launches
+    R = kernels.fused_residual(u, *strips, rhs.ops)
+    assert rel(R, kernels.fused_residual_plain(u, *strips, rhs.ops)) <= TOL[dt]
+    sc = torch.tensor([0.75, 1e-4], dtype=dt, device=cuda)
+    u_old = u.flip(-2).contiguous()
+    S = kernels.fused_residual(u, *strips, rhs.ops, u_old=u_old, sc=sc)
+    Sp = kernels.fused_residual_plain(u, *strips, rhs.ops, u_old=u_old, sc=sc)
+    torch.cuda.synchronize()
+    assert rel(S, Sp) <= TOL[dt]
+    assert kernels.fused_residual.launches == before + 2
+    assert float(R[..., ~rhs.ops.mask].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2))
+def test_masked_post_and_diag_match_plain(cuda, p, dtype):
+    dt = getattr(torch, dtype)
+    basis, mesh, u, rhs, post, diag = setup_fs(p, dt, cuda, seed=40 + p)
+    # one plain stage from the limited state, so the post has work to do
+    u = kernels.fused_residual_plain(u, *rhs.strips(u, 0.0), rhs.ops,
+                                     dt=torch.tensor(2e-3, dtype=dt,
+                                                     device=cuda))
+    k0 = kernels.fused_post(u, post)
+    k, lam, minq = kernels.fused_post(u, post, with_diag=True)
+    q, lam_p, minq_p = kernels.fused_post_plain(u, post, with_diag=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k, k0)
+    e, flips = cell_flips(k, q, POST_TOL[dt])
+    assert e <= POST_TOL[dt]
+    assert flips <= (0 if dt == torch.float64 else FS_NX * FS_NY // 100)
+    assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+    for a, b in zip(kernels.fused_diag(u, diag),
+                    kernels.fused_diag_plain(u, diag)):
+        assert rel(a, b) <= TOL[dt]
+    # a NaN solid cell enters neither reduction; a NaN fluid cell trips
+    # the fatal flag
+    iy, ix = (~rhs.ops.mask).nonzero()[0].tolist()
+    u_bad = u.clone()
+    u_bad[:, :, iy, ix] = float("nan")
+    lam_b, minq_b = kernels.fused_diag(u_bad, diag)
+    assert rel(lam_b, lam_p) <= TOL[dt] and bool(minq_b >= EPS)
+    u_bad[:, :, FS_NY - 1, 0] = float("nan")
+    _, minq_b = kernels.fused_diag(u_bad, diag)
+    _, _, minq_c = kernels.fused_post(u_bad, post, with_diag=True)
+    assert bool(~(minq_b >= EPS)) and bool(~(minq_c >= EPS))
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3))
+def test_volume_residual_matches_plain(cuda, p, dtype):
+    dt = getattr(torch, dtype)
+    basis, mesh, u, _, _, _ = setup_fs(p, dt, cuda, seed=50 + p)
+    GxW = basis.wq2[:, None] * basis.Gx
+    GyW = basis.wq2[:, None] * basis.Gy
+    lift = torch.tensor(np.concatenate([mesh.dy * GxW.T, mesh.dx * GyW.T], 1),
+                        dtype=dt, device=cuda).contiguous()
+    before = kernels.volume_residual.launches
+    k = kernels.volume_residual(lift, u)
+    q = kernels.volume_residual_plain(lift, u)
+    torch.cuda.synchronize()
+    assert kernels.volume_residual.launches == before + 1
+    assert rel(k, q) <= TOL[dt]
+    # the residual with the volume term through the kernel (the
+    # volume_kernel="pallas" path) against the plain residual
+    xc, yc = mesh.cell_centers()
+    kw = dict(flux="lxf", dtype=dt, device=cuda,
+              mask=~((xc > 0.6) & (yc < 0.2)))
+    Rp = make_rhs(basis, mesh, FS_BCS, volume_kernel="pallas", **kw)(u, 0.0)
+    Rx = make_rhs(basis, mesh, FS_BCS, volume_kernel="xla", **kw)(u, 0.0)
+    torch.cuda.synchronize()
+    assert rel(Rp, Rx) <= TOL[dt]
+

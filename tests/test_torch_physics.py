@@ -107,9 +107,10 @@ def test_unported_kinds_and_fluxes_raise():
     with pytest.raises(NotImplementedError, match="physics envelope"):
         teuler.compute_wminus(teuler.BC_PRESSURE, 1.0, 0.0, W, W)
     assert tfluxes.get_flux("hllc") is tfluxes.hllc
-    for name in ("lxf", "roe", "sw", "kfvs", "kep"):
+    assert tfluxes.get_flux("lxf") is tfluxes.lxf
+    for name in ("roe", "sw", "kfvs", "kep"):
         assert name in jfluxes.FLUX_FUNCTIONS
-        with pytest.raises(NotImplementedError, match="hllc only"):
+        with pytest.raises(NotImplementedError, match="hllc and lxf"):
             tfluxes.get_flux(name)
     with pytest.raises(ValueError):
         tfluxes.get_flux("nope")

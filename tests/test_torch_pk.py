@@ -181,7 +181,7 @@ def test_modal_residual_plain_matches_jax(jax_bcs, p):
     ts, _ = entry._build(NX, NY, device="cpu", method="mood")
     rhs = ts.rhs if p == 2 else make_rhs(make_basis("Pk", p), MESH, ts.bcs,
                                          flux="hllc", dtype=F64,
-                                         device="cpu", fused=True)
+                                         device="cpu", volume_kernel="fused")
     u = torch.from_numpy(u_np)
     h = torch.tensor(dt, dtype=F64)
     assert rel(R_jax, rhs(u, t)) <= TOL
@@ -202,7 +202,7 @@ def test_modal_residual_forms_match_plain_rhs(p):
     plain = make_rhs(basis, MESH, ts.bcs, flux="hllc", dtype=F64,
                      device="cpu")
     fused = make_rhs(basis, MESH, ts.bcs, flux="hllc", dtype=F64,
-                     device="cpu", fused=True)
+                     device="cpu", volume_kernel="fused")
     u = torch.from_numpy(u_np)
     t, dt, a = 0.01, 2.5e-4, 0.75
     R = plain(u, t)

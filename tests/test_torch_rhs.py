@@ -83,7 +83,7 @@ def test_residual_forms_match_plain_rhs_and_jax(dmr, p):
     plain = make_rhs(basis, ts.mesh, ts.bcs, flux="hllc", dtype=F64,
                      device="cpu")
     fused = make_rhs(basis, ts.mesh, ts.bcs, flux="hllc", dtype=F64,
-                     device="cpu", fused=True)
+                     device="cpu", volume_kernel="fused")
     R_plain = plain(u, t)
     R_wrap = kernels.fused_residual_plain(u, *fused.strips(u, t), fused.ops)
     assert rel(R_jax, R_plain) <= TOL
@@ -108,7 +108,7 @@ def test_strips_vanish_on_periodic_sides_and_carry_the_boundary(dmr):
     basis = make_basis("Qk", 2)
     u = interop.state_from_numpy(perturbed_dmr_state(2, seed=3), F64, "cpu")
     per = make_rhs(basis, ts.mesh, PERIODIC, flux="hllc", dtype=F64,
-                   device="cpu", fused=True)
+                   device="cpu", volume_kernel="fused")
     for s in per.strips(u, 0.0):
         assert float(s.abs().max()) == 0.0
     dfw, dfe, dfs, dfn = ts.rhs.strips(u, 0.0)
@@ -125,7 +125,7 @@ def test_periodic_residual_matches_jax(dmr, p):
     u = interop.state_from_numpy(u_np, F64, "cpu")
     R_jax = np.asarray(jax_rhs(p, js, jbcs)(jnp.asarray(u_np), 0.0))
     fused = make_rhs(make_basis("Qk", p), ts.mesh, PERIODIC, flux="hllc",
-                     dtype=F64, device="cpu", fused=True)
+                     dtype=F64, device="cpu", volume_kernel="fused")
     assert rel(R_jax, fused(u, 0.0)) <= TOL
 
 
@@ -140,9 +140,9 @@ def test_free_stream_f64(dmr, p):
                       pr / (euler.GAMMA - 1.0) + 0.5 * rho * (vx**2 + vy**2)],
                      dtype=F64)
     u = w[:, None, None, None].expand(4, basis.K, NY, NX).contiguous()
-    for fused in (False, True):
+    for form in ("xla", "fused"):
         rhs = make_rhs(basis, ts.mesh, PERIODIC, flux="hllc", dtype=F64,
-                       device="cpu", fused=fused)
+                       device="cpu", volume_kernel=form)
         assert float(rhs(u, 0.0).abs().max()) < 1e-12
 
 

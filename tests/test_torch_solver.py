@@ -178,8 +178,8 @@ def test_out_of_slice_configurations_raise():
     with pytest.raises(NotImplementedError, match="implicit"):
         Solver(*args, limiter=lim, dtype=F64, device="cpu", method="implicit")
     with pytest.raises(NotImplementedError, match="masked"):
-        Solver(*args, limiter=lim, dtype=F64, device="cpu",
-               mask=np.ones((4, 16), bool))
+        Solver(make_basis("Pk", 2), s.mesh, s.bcs, limiter=lim, dtype=F64,
+               device="cpu", method="mood", mask=np.ones((4, 16), bool))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         Solver(*args, limiter=lim, dtype=F64, device="cpu", device_mesh=1)
     with pytest.raises(NotImplementedError):
@@ -197,7 +197,7 @@ def test_port_never_imports_jax():
         assert not pat.search(f.read_text()), f
     code = ("import sys, dflo_tpu_torch, dflo_tpu_torch.entry, "
             "dflo_tpu_torch.interop, dflo_tpu_torch.stab.mood, "
-            "dflo_tpu_torch.ops.kernels; "
+            "dflo_tpu_torch.ops.kernels, dflo_tpu_torch.cli; "
             "assert 'jax' not in sys.modules and 'dflo_tpu' not in "
             "sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
