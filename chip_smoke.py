@@ -58,6 +58,27 @@ Phases (any failure raises, and the script then prints no result):
    volume term through volume_residual against the plain residual, f64 and
    f32; then 5 steps of Solver(volume_kernel="pallas", post_kernel="fused")
    in f32 with volume_residual launched, no fatal flag, finite state.
+12. the block kernels of the sharded RK path against their plain versions,
+   on phase 2's two DMR states split over a (2, 2) virtual mesh (four
+   blocks of 144 x 576 on the one card), in float32 and float64: the post's
+   block form with and without diag against its plain block form; the
+   sharded post against the single-device post kernel on the whole state
+   (bitwise, else its error and flipped cells within TOL and
+   MAX_FLIP_FRACTION); the sharded diag against the single-device diag
+   (equal); the sharded residual and stage against the single-device
+   kernel (TOL); CUDA event times (median of 20) per block launch and for
+   the whole sharded post and diag; the sharded rows' `ms` is the four
+   blocks' kernel time alone (a torch.profiler trace of 20 calls), their
+   `sharded_call_ms` the whole call with its halo copies and reduce.
+13. the sharded main path: entry._build(1152, 288, float32, cuda,
+   device_mesh=(2, 2) on the card), post_stage, Solver._multi_step(50):
+   the residual, the post's block form and the sharded diag launched, no
+   plain version called, no fatal flag, finite state;
+   dmr_q2_rk_tvb_sharded_dof_updates_per_sec and ms/step.  Then 10 f64
+   steps of the sharded solver against the single-device solver on the
+   same card: each dt within 1e-14 relative, the state within 1e-10.  With
+   two or more cards both runs repeat over distinct cards; with one, a line
+   says so.
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -104,6 +125,10 @@ FS_NX, FS_NY = 1920, 640
 FS_PLAIN_STEPS = 10
 FS_STEPS, FS_CHUNK = 50, 10
 PALLAS_STEPS = 5
+#: the sharded path: the DMR split over a (2, 2) mesh of blocks
+SHARD = (2, 2)
+SHARD_STEPS = 50
+SHARD_F64_STEPS = 10
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
 #: outside the tensor cores): HBM bytes/s and FLOP/s per dtype
 HBM_BPS = 3.35e12
@@ -148,14 +173,21 @@ SOURCES = {
     "volume_residual": ("dflo_tpu_torch/csrc/volume_residual.cu",
                         f"{PK}:166", f"{PK}:volume_residual",
                         "volume_residual", "pallas"),
+    "fused_post_block": ("dflo_tpu_torch/csrc/fused_post.cu", f"{PK}:1536",
+                         f"{PK}:make_fused_post_sharded",
+                         "fused_post_block", "shard"),
+    "fused_diag_sharded": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1758",
+                           f"{PK}:make_fused_diag_sharded",
+                           "fused_diag_sharded", "shard"),
 }
 #: the grid of each path: the DMR's and the forward step's
 GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
-         "pallas": (FS_NX, FS_NY)}
+         "pallas": (FS_NX, FS_NY), "shard": (NX, NY)}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
-            "fused_mood_check", "volume_residual")
+            "fused_mood_check", "volume_residual", "fused_post_sharded",
+            "fused_diag_sharded")
 
 
 
@@ -181,6 +213,26 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def kernel_ms(fn, pattern: str, launches: int,
+              reps: int = 20) -> float | None:
+    """Device time per fn() call of the kernels whose names hold pattern:
+    their events' durations summed over reps calls under torch.profiler
+    (after a warm-up) over reps, so host gaps between launches are left
+    out.  None unless the trace holds exactly `launches` such events per
+    call (a trace that drops events would under-count)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and pattern in e.name]
+    return 1e-3 * sum(us) / reps if len(us) == launches * reps else None
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -247,7 +299,9 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     face's two traces and its flux once (two faces per cell); the Euler
     flux 20 per point, HLLC 100 per face point, LxF 70 (its two wave
     speeds from the cell averages), the positivity's point arithmetic 45
-    per point, KXRCF 80 per face point.  Bytes of the diag:
+    per point, KXRCF 80 per face point.  The sharded post and diag do
+    their single-device forms' work on the whole state (the halo lines are
+    intermediates, not inputs).  Bytes of the diag:
     only the modes its cell average reads.  Data-dependent work
     is counted on this run's data: the characteristic TVB (300 per cell plus
     the rebuild) on the `marked` cells only; the candidate's residual on its
@@ -301,7 +355,7 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
         return 2 * state * n, pos * n
     if name == "fused_pk_post":              # with diag
         return (2 * state + S) * n, (4 + pos + 40) * n + tvb * marked
-    if name == "fused_post":                 # with diag
+    if name in ("fused_post", "fused_post_block"):     # with diag
         return (2 * state * n,
                 (8 * K + 2 * nnz(basis.faceV) + 80 * nq + pos + 40) * n
                 + tvb * marked)
@@ -361,11 +415,14 @@ def plain_step(s, u, t, t_end):
 
 
 def phase_kernels(entry, kernels, euler, results):
-    """Phase 2 for both dtypes; fills results[name][...]."""
+    """Phase 2 for both dtypes; fills results[name][...] and returns
+    {tag: (solver, state after post_stage, state after 10 plain steps, t)}
+    for phase 12."""
     from dflo_tpu_torch.driver import LimiterConfig, Solver
     from dflo_tpu_torch.mesh import CartesianMesh
     from dflo_tpu_torch.ops.basis import make_basis
     from dflo_tpu_torch.solver.spatial import BoundarySide
+    states = {}
     for dt in (torch.float32, torch.float64):
         tag = "f32" if dt == torch.float32 else "f64"
         tol = TOL[dt]
@@ -383,6 +440,8 @@ def phase_kernels(entry, kernels, euler, results):
               f"{n_marked} cells marked by KXRCF")
         assert n_marked > 0, "the indicator marks no cell"
         results["fused_post"][f"data_{tag}"] = {"marked": n_marked}
+        results["fused_post_block"][f"data_{tag}"] = {"marked": n_marked}
+        states[tag] = (s, u_a, u_b, t)
 
         tt = torch.full((), t, dtype=dt, device="cuda")
         dtt = torch.full((), 1e-4, dtype=dt, device="cuda")
@@ -493,6 +552,7 @@ def phase_kernels(entry, kernels, euler, results):
               f"fused_residual {fs_max:.3e} (bound {bound:.1e})")
         assert fs_max < bound, "free stream not preserved"
         results[f"free_stream_f64_{nx}x{ny}"] = fs_max
+    return states
 
 
 def phase_mood_kernels(entry, kernels, results):
@@ -1002,19 +1062,21 @@ def device_busy(fn) -> dict | None:
             "top_ms": {k: 1e-3 * v for k, v in top}}
 
 
-def phase_trace(entry, ms_per_step, fwd):
+def phase_trace(entry, ms_per_step, built):
     """Phase 8: each main path's chunk under torch.profiler (RK 5 steps and
     MOOD 3 steps at 1152 x 288, the forward step 3 steps on the CLI's
-    solver fwd = (solver, state) at 1920 x 640; f32, after a warm-up):
+    solver at 1920 x 640, the sharded RK path 3 steps on the (2, 2) virtual
+    mesh; built[method] = (solver, state) for the last two; f32, after a
+    warm-up):
     device busy time, and the idle share of the traced wall and of the
     untraced ms/step of the main-path phase (ms_per_step[method]; tracing
     slows the host), device events and the port's kernels per step.  A
     measurement only: a trace without device events is reported as not
     measured."""
     out = {}
-    for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3)):
-        if method == "fwd":
-            s, u = fwd
+    for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3), ("shard", 3)):
+        if method in built:
+            s, u = built[method]
         else:
             s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
                                  method=method)
@@ -1091,6 +1153,231 @@ def phase_sparse_dense(entry, kernels, results):
                                           dense_counts["fused_modal_pos"]}
 
 
+def virtual_mesh():
+    """The (2, 2) mesh of four blocks on the one card."""
+    from dflo_tpu_torch.parallel import device_mesh
+    return device_mesh(SHARD, [torch.device("cuda")] * (SHARD[0] * SHARD[1]))
+
+
+def phase_shard_kernels(entry, kernels, results, states):
+    """Phase 12 for both dtypes, on phase 2's states; fills
+    results["fused_post_block"] and results["fused_diag_sharded"]."""
+    from dflo_tpu_torch.parallel import exchange_halos, reduce_max, reduce_min
+    dm = virtual_mesh()
+    for dt in (torch.float32, torch.float64):
+        tag = "f32" if dt == torch.float32 else "f64"
+        tol = TOL[dt]
+        s, u_a, u_b, t = states[tag]
+        sN, _ = entry._build(NX, NY, dtype=dt, device="cuda", device_mesh=dm)
+        pops, dops = sN._blk_post_ops, sN._blk_diag_ops
+        tt = torch.full((), t, dtype=dt, device="cuda")
+        dtt = torch.full((), 1e-4, dtype=dt, device="cuda")
+        sc = torch.stack([torch.full_like(dtt, 0.75), dtt])
+        rb = results["fused_post_block"]
+        rd = results["fused_diag_sharded"]
+        for label, u in (("post_stage", u_a), ("10 steps", u_b)):
+            blocks = sN.shard(u)
+            halos = exchange_halos(blocks, dm, s._post_ops.per_x,
+                                   s._post_ops.per_y)
+            # the block form against its plain block form, launched block
+            # by block, compared on the assembled state (its magnitudes
+            # scale the errors: a block may hold a zero component)
+            pk, pk0, pp = [], [], []
+            for b, o, h in zip(blocks, pops, halos):
+                pk.append(kernels.fused_post(b, o, True, halos=h))
+                pk0.append(kernels.fused_post(b, o, halos=h))
+                pp.append(kernels.fused_post_plain(b, o, True, halos=h))
+
+            def whole(outs):
+                return (sN.gather([x[0] for x in outs]),
+                        reduce_max([x[1] for x in outs]),
+                        reduce_min([x[2] for x in outs]))
+            torch.cuda.synchronize()
+            e, nflip, e_diag = check_post(results, "fused_post_block", tag,
+                                          tol["fused_post"], whole(pk),
+                                          sN.gather(pk0), whole(pp))
+            assert e <= tol["fused_post"], f"block post {tag}: {e}"
+            assert (nflip == 0 if dt == torch.float64
+                    else nflip <= MAX_FLIP_FRACTION * NX * NY)
+            print(f"[{tag}] {label}: block post vs its plain block form: "
+                  f"rel err {rb[f'max_rel_err_{tag}']:.3e}, flipped "
+                  f"{rb[f'flipped_cells_{tag}']}, bitwise "
+                  f"{rb[f'bitwise_{tag}']}")
+            # the sharded post against the single-device post kernel
+            outs, lam, mq = kernels.fused_post_sharded(blocks, pops, dm, True)
+            p1 = kernels.fused_post(u, s._post_ops, with_diag=True)
+            g = sN.gather(outs)
+            torch.cuda.synchronize()
+            same = (torch.equal(g, p1[0]) and torch.equal(lam, p1[1])
+                    and torch.equal(mq, p1[2]))
+            e_in, nflip = post_err(g, p1[0], tol["fused_post"])
+            e_diag = max(rel_err(lam, p1[1]), rel_err(mq, p1[2]))
+            rb[f"sharded_vs_single_bitwise_{tag}"] = (
+                rb.get(f"sharded_vs_single_bitwise_{tag}", True) and same)
+            rb[f"sharded_vs_single_rel_err_{tag}"] = max(
+                rb.get(f"sharded_vs_single_rel_err_{tag}", 0.0), e_in,
+                e_diag)
+            rb[f"sharded_vs_single_flipped_{tag}"] = max(
+                rb.get(f"sharded_vs_single_flipped_{tag}", 0), nflip)
+            print(f"[{tag}] {label}: sharded post vs single-device post: "
+                  f"bitwise {same}; rel err {max(e_in, e_diag):.3e} outside "
+                  f"{nflip} flipped cells")
+            assert max(e_in, e_diag) <= tol["fused_post"]
+            assert nflip <= MAX_FLIP_FRACTION * NX * NY
+            # the sharded diag: equal to the single-device diag
+            dk = kernels.fused_diag_sharded(blocks, dops, dm)
+            dp = kernels.fused_diag_sharded_plain(blocks, dops, dm)
+            d1 = kernels.fused_diag(u, s._diag_ops)
+            torch.cuda.synchronize()
+            record(results, "fused_diag_sharded", tag, list(zip(dk, dp)))
+            assert all(torch.equal(a, b) for a, b in zip(dk, d1)), \
+                f"sharded diag {tag} differs from the single-device diag"
+            assert rd[f"max_rel_err_{tag}"] <= tol["fused_diag"]
+            # the sharded residual and stage against the single-device
+            # kernel on the whole state
+            e_r = rel_err(sN.gather(sN.rhs(blocks, tt)), s.rhs(u, tt))
+            e_s = rel_err(
+                sN.gather(sN.rhs.stage(blocks, sN.shard(u_a), tt, 0.75, dtt)),
+                kernels.fused_residual(u, *s.rhs.strips(u, tt), s.rhs.ops,
+                                       u_old=u_a, sc=sc))
+            torch.cuda.synchronize()
+            rb[f"sharded_residual_rel_err_{tag}"] = max(
+                rb.get(f"sharded_residual_rel_err_{tag}", 0.0), e_r, e_s)
+            print(f"[{tag}] {label}: sharded diag equal to single-device; "
+                  f"sharded residual rel err {e_r:.3e}, stage {e_s:.3e} "
+                  f"(tol {tol['fused_residual']:.0e})")
+            assert max(e_r, e_s) <= tol["fused_residual"]
+
+        # ---- times on the 10-step state ----------------------------------
+        blocks = sN.shard(u_b)
+        halos = exchange_halos(blocks, dm, s._post_ops.per_x,
+                               s._post_ops.per_y)
+        block_ms = [time_ms(lambda b=b, o=o, h=h: kernels.fused_post(
+            b, o, True, halos=h)) for b, o, h in zip(blocks, pops, halos)]
+        rb[f"block_ms_{tag}"] = block_ms
+        rd[f"block_ms_{tag}"] = [time_ms(lambda b=b, o=o: kernels.fused_diag(
+            b, o)) for b, o in zip(blocks, dops)]
+        # ms: the four blocks' kernel time alone (the trace, else the sum
+        # of the per-block event times); sharded_call_ms: the whole
+        # function (halo exchange, launches, reduce, host gaps)
+        for r, fn, kname in (
+                (rb, lambda: kernels.fused_post_sharded(blocks, pops, dm,
+                                                        True),
+                 "fused_post_kernel"),
+                (rd, lambda: kernels.fused_diag_sharded(blocks, dops, dm),
+                 "fused_diag_kernel")):
+            r[f"sharded_call_ms_{tag}"] = time_ms(fn)
+            k = kernel_ms(fn, kname, len(blocks))
+            r[f"ms_{tag}"] = sum(r[f"block_ms_{tag}"]) if k is None else k
+            r[f"ms_source_{tag}"] = ("block_events" if k is None
+                                     else "trace")
+        rb[f"plain_ms_{tag}"] = time_ms(
+            lambda: kernels.fused_post_sharded_plain(blocks, pops, dm, True))
+        rd[f"plain_ms_{tag}"] = time_ms(
+            lambda: kernels.fused_diag_sharded_plain(blocks, dops, dm))
+        rb[f"stage_ms_{tag}"] = time_ms(lambda: sN.rhs.stage(
+            blocks, blocks, tt, 0.75, dtt))
+        print(f"[{tag}] block post per block launch {block_ms} ms; sharded "
+              f"post kernels {rb[f'ms_{tag}']:.4f} ms "
+              f"({rb[f'ms_source_{tag}']}), whole call "
+              f"{rb[f'sharded_call_ms_{tag}']:.4f} ms (plain "
+              f"{rb[f'plain_ms_{tag}']:.4f}); sharded diag kernels "
+              f"{rd[f'ms_{tag}']:.4f} ms ({rd[f'ms_source_{tag}']}), whole "
+              f"call {rd[f'sharded_call_ms_{tag}']:.4f} ms (plain "
+              f"{rd[f'plain_ms_{tag}']:.4f}); sharded stage (strips + 4 "
+              f"residual launches) {rb[f'stage_ms_{tag}']:.4f} ms, at "
+              f"{NX}x{NY} on {SHARD}")
+
+
+def shard_vs_single(entry, dm, label):
+    """SHARD_F64_STEPS f64 steps of the sharded solver on dm against the
+    single-device solver on the card: (worst dt rel err, worst state rel
+    err)."""
+    s1, u0 = entry._build(NX, NY, dtype=torch.float64, device="cuda")
+    sN, _ = entry._build(NX, NY, dtype=torch.float64, device="cuda",
+                         device_mesh=dm)
+    u = s1.post_stage(u0)
+    b = sN.post_stage(sN.shard(u0))
+    assert torch.equal(sN.gather(b).to(u.device), u)
+    t, e_dt, e_u = 0.0, 0.0, 0.0
+    for _ in range(SHARD_F64_STEPS):
+        u, dt1, bad1, _ = s1._step(u, t, 1.0)
+        b, dtN, badN, _ = sN._step(b, t, 1.0)
+        t += float(dt1)
+        assert not bool(bad1) and not bool(badN)
+        e_dt = max(e_dt, abs(float(dtN) - float(dt1)) / float(dt1))
+        e_u = max(e_u, rel_err(sN.gather(b).to(u.device), u))
+    print(f"[f64] {label}: {SHARD_F64_STEPS} sharded steps vs one device: dt "
+          f"rel err {e_dt:.3e} (tol 1e-14), state rel err {e_u:.3e} "
+          f"(tol 1e-10)")
+    assert e_dt <= 1e-14 and e_u <= 1e-10
+    return e_dt, e_u
+
+
+def phase_main_shard(entry, kernels, plain_calls, results):
+    """Phase 13: the sharded RK main path on the (2, 2) virtual mesh, then
+    the f64 1-vs-N check (and both over distinct cards when there are two or
+    more); returns the launch counts, ms/step and (solver, blocks) for the
+    trace."""
+    from dflo_tpu_torch.parallel import compatible_shape, device_mesh
+
+    def main_path(dm, label):
+        solver, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
+                                  device_mesh=dm)
+        u = solver.post_stage(solver.shard(u0))
+        multi = solver._multi_step(SHARD_STEPS)
+        solver._multi_step(2)(u, 0.0, 1.0e3)            # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        t0 = time.perf_counter()
+        u1, t1, n_done, bad, _ = multi(u, 0.0, 1.0e3)
+        for d in {b.device for b in u1}:
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        n_done, bad = int(n_done), bool(bad)
+        finite = all(bool(torch.isfinite(b).all()) for b in u1)
+        print(f"sharded main path ({label}): {n_done} steps to "
+              f"t={float(t1)!r} in {wall:.4f} s, bad={bad}, finite={finite}, "
+              f"launches={counts}, plain calls={plain_calls['n']}")
+        assert n_done == SHARD_STEPS and not bad and finite
+        assert all(counts[k] > 0 for k in ("fused_residual", "fused_post",
+                                           "fused_post_block",
+                                           "fused_diag_sharded")), counts
+        assert counts["fused_post"] == counts["fused_post_block"]
+        assert counts["fused_diag"] == 0
+        assert plain_calls["n"] == 0, "the sharded path called a plain version"
+        rate = 4 * solver.basis.K * NX * NY * SHARD_STEPS / wall
+        print(json.dumps({"dmr_q2_rk_tvb_sharded_dof_updates_per_sec": rate,
+                          "unit": "DoF-updates/s", "dtype": "float32",
+                          "grid": [NX, NY], "mesh": list(dm.shape),
+                          "devices": [str(d) for d in dm.flat],
+                          "steps": SHARD_STEPS,
+                          "ms_per_step": 1e3 * wall / SHARD_STEPS,
+                          "launches_per_step": {k: v / SHARD_STEPS
+                                                for k, v in counts.items()},
+                          "card": card_line()}))
+        return counts, 1e3 * wall / SHARD_STEPS, (solver, u)
+
+    dm = virtual_mesh()
+    counts, ms, traced = main_path(dm, f"{SHARD} virtual mesh on one card")
+    results["shard_f64_vs_single"] = {
+        "virtual": shard_vs_single(entry, dm, "virtual mesh")}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        n = 4 if n_cards >= 4 else 2
+        dm_n = device_mesh(compatible_shape(n, NY, NX),
+                           [torch.device("cuda", i) for i in range(n)])
+        main_path(dm_n, f"{dm_n.shape} over {n} distinct cards")
+        results["shard_f64_vs_single"]["distinct_cards"] = shard_vs_single(
+            entry, dm_n, f"{n} distinct cards")
+    else:
+        print(f"distinct cards: not run ({n_cards} CUDA device visible; the "
+              f"sharded path ran on the {SHARD} virtual mesh of one card)")
+    return counts, ms, traced
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1118,9 +1405,13 @@ def main() -> int:
 
     # ---- phases 2, 5 and 9: kernels against plain versions ------------------
     results = {name: {} for name in SOURCES}
-    phase_kernels(entry, kernels, euler, results)
+    dmr_states = phase_kernels(entry, kernels, euler, results)
     phase_mood_kernels(entry, kernels, results)
     fwd_states = phase_fwd_kernels(kernels, results)
+
+    # ---- phase 12: the sharded path's block kernels -------------------------
+    phase_shard_kernels(entry, kernels, results, dmr_states)
+    del dmr_states
 
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
     plain_calls = {"n": 0}
@@ -1142,8 +1433,12 @@ def main() -> int:
     counts["pallas"] = phase_pallas(kernels, plain_calls, fwd_states)
     del fwd_states
 
+    # ---- phase 13: the sharded main path and the 1-vs-N check --------------
+    counts["shard"], ms_step["shard"], shard = phase_main_shard(
+        entry, kernels, plain_calls, results)
+
     # ---- phase 8: the device's busy share under torch.profiler --------------
-    busy = phase_trace(entry, ms_step, fwd)
+    busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard})
 
     # ---- phase 7: sparse against dense ---------------------------------------
     phase_sparse_dense(entry, kernels, results)
@@ -1164,7 +1459,8 @@ def main() -> int:
     # ---- result lines -----------------------------------------------------
     from dflo_tpu_torch.ops.basis import make_basis
     bases = {"rk": make_basis("Qk", 2), "mood": make_basis("Pk", 2),
-             "fwd": make_basis("Qk", 1), "pallas": make_basis("Qk", 1)}
+             "fwd": make_basis("Qk", 1), "pallas": make_basis("Qk", 1),
+             "shard": make_basis("Qk", 2)}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
@@ -1193,7 +1489,10 @@ def main() -> int:
                if "flipped_cells_f32" in r else {}),
             **({"bitwise_f32": r["bitwise_f32"],
                 "bitwise_f64": r["bitwise_f64"]}
-               if "bitwise_f32" in r else {})})
+               if "bitwise_f32" in r else {}),
+            **{k: v for k, v in r.items()
+               if k.startswith(("block_ms", "sharded_", "stage_ms",
+                                "ms_source"))}})
     assert all(math.isfinite(v) for row in table for v in row.values()
                if isinstance(v, float))
     print(json.dumps({"build_s": build_s, "card": card,
@@ -1203,7 +1502,7 @@ def main() -> int:
                           counts["mood"]["fused_pk_post_with_diag"],
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
-                                          "mood_host"))}}))
+                                          "mood_host", "shard_f64"))}}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

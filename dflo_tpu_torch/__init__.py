@@ -9,7 +9,8 @@ with the HLLC or LxF flux; MOOD on modal Pk) run through eight hand-written
 CUDA kernels (``dflo_tpu_torch/csrc``, loaded by
 ``dflo_tpu_torch.ops.kernels``); each has a plain PyTorch version beside it
 that runs on CPU tensors.  ``python -m dflo_tpu_torch input.prm`` runs a
-``.prm`` configuration (``dflo_tpu_torch.cli``).
+``.prm`` configuration (``dflo_tpu_torch.cli``); ``dflo_tpu_torch.parallel``
+splits the RK/TVB step over a mesh of devices.
 
 Reduced-precision products broke the DG free-stream cancellation in the
 reference's history, so TF32 is switched off for matmuls and cuDNN here.

@@ -11,8 +11,11 @@ report the wall time of each phase.
 The run is on the card; ``--platform cpu`` runs it on the CPU, where every
 kernel wrapper takes its plain version.  Without a CUDA device and without
 ``--platform cpu`` the run stops with an error: it never falls back to the
-CPU by itself.  The reference's other branches (mesh files, unstructured
-meshes, AMR, implicit and steady solves, device meshes) raise
+CPU by itself.  ``--devices N`` splits the domain over N devices (the
+most-square mesh that divides the grid, parallel/sharding): N distinct
+cards, or with ``--platform cpu`` N CPU blocks; snapshots and checkpoints
+gather the blocks first.  The reference's other branches (mesh files,
+unstructured meshes, AMR, implicit and steady solves, ``--slices``) raise
 NotImplementedError naming the ROADMAP item that brings them.
 """
 
@@ -36,6 +39,7 @@ from dflo_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from dflo_tpu_torch.io.vtk import write_vtu
 from dflo_tpu_torch.mesh import CartesianMesh
 from dflo_tpu_torch.ops.basis import make_basis
+from dflo_tpu_torch.parallel.sharding import compatible_shape, device_mesh
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.solver.spatial import BoundarySide
 from dflo_tpu_torch.utils.profiling import Timer, device_trace
@@ -146,6 +150,23 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
     return solver, mask
 
 
+def mesh_of(n: int, device: torch.device, mesh):
+    """The device mesh of --devices n: n distinct cards (raises if fewer
+    are visible; never a virtual mesh), or n blocks on the CPU, in the
+    most-square shape that divides the grid."""
+    shape = compatible_shape(n, mesh.ny, mesh.nx)
+    if shape is None:
+        raise ValueError(f"--devices {n}: no mesh of {n} divides the "
+                         f"{mesh.nx} x {mesh.ny} grid")
+    if device.type == "cpu":
+        return device_mesh(shape, [device] * n)
+    visible = torch.cuda.device_count()
+    if visible < n:
+        raise RuntimeError(f"--devices {n} needs {n} cards, {visible} are "
+                           f"visible")
+    return device_mesh(shape, [torch.device("cuda", i) for i in range(n)])
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="dflo_tpu_torch",
@@ -168,7 +189,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="steps per host round trip (cadences are then "
                          "chunk-granular)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="shard the domain over N devices (not ported)")
+                    help="shard the domain over N devices: N cards, or N "
+                         "CPU blocks with --platform cpu")
     ap.add_argument("--slices", type=int, default=0,
                     help="with --devices: S slices (not ported)")
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -178,7 +200,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 class CliRun(NamedTuple):
-    """What a CLI run leaves: the solver, the final state, time and steps."""
+    """What a CLI run leaves: the solver, the final state (gathered onto the
+    first device under a mesh), time and steps."""
     solver: Solver
     u: torch.Tensor
     t: float
@@ -188,8 +211,8 @@ class CliRun(NamedTuple):
 def run(argv=None) -> CliRun:
     """The CLI's run (see the module docstring); returns its CliRun."""
     args = parse_args(argv)
-    if args.devices or args.slices:
-        raise _later("--devices", "devices")
+    if args.slices:
+        raise _later("--slices", "devices")
     if args.platform == "cpu":
         device = torch.device("cpu")
     elif torch.cuda.is_available():
@@ -204,8 +227,11 @@ def run(argv=None) -> CliRun:
     params = AllParameters.from_prm_file(args.prm)
     prm_dir = os.path.dirname(os.path.abspath(args.prm))
     with timer("Setup"):
-        solver, mask = build_solver(params, prm_dir, dtype=dtype,
-                                    device=device)
+        domain = build_domain(params, prm_dir)
+        dm = (mesh_of(args.devices, device, domain[0]) if args.devices
+              else None)
+        solver, mask = build_solver(params, prm_dir, domain, dtype=dtype,
+                                    device=device, device_mesh=dm)
     basis, mesh = solver.basis, solver.mesh
     print(f"dflo_tpu_torch: {basis.family}{basis.degree}, mesh "
           f"{mesh.nx}x{mesh.ny}, flux={params.flux.flux}, "
@@ -216,6 +242,12 @@ def run(argv=None) -> CliRun:
     if args.resume:
         u_np, t0, _, _ = load_checkpoint(args.resume, basis=basis, mesh=mesh)
         u = torch.as_tensor(u_np).to(dtype=dtype, device=device).contiguous()
+    if dm is not None:
+        u = solver.shard(u)
+
+    def whole(u):
+        """The whole state (the blocks gathered under a mesh)."""
+        return u if isinstance(u, torch.Tensor) else solver.gather(u)
 
     t_end = (args.final_time if args.final_time is not None
              else params.final_time)
@@ -227,7 +259,7 @@ def run(argv=None) -> CliRun:
 
     def write_snapshot(u, t):
         with timer("Output"):
-            u_np = u.detach().cpu().numpy()
+            u_np = whole(u).detach().cpu().numpy()
             write_vtu(os.path.join(args.output_dir,
                                    f"solution-{snap[0]:03d}.vtu"),
                       basis, mesh, u_np, t=t,
@@ -252,7 +284,10 @@ def run(argv=None) -> CliRun:
                          f" passes={int(stats.iters)}")
             elif verbose:
                 # explicit per-step rhs norm (src/claw.cc:749,768-769)
-                res = float(torch.sqrt(torch.sum(solver.rhs(u, t) ** 2)))
+                R = solver.rhs(u, t)
+                sq = (float(torch.sum(R ** 2)) if isinstance(R, torch.Tensor)
+                      else sum(float(torch.sum(r ** 2)) for r in R))
+                res = sq ** 0.5
                 line += f"  res={res:.3e}"
             print(line)
         if out_iter and it % out_iter == 0:
@@ -261,7 +296,7 @@ def run(argv=None) -> CliRun:
             write_snapshot(u, t)
             next_out_t[0] += out_tstep
         if ang_iter and it % ang_iter == 0:
-            am = float(angular_momentum(basis, mesh, u, mask))
+            am = float(angular_momentum(basis, mesh, whole(u), mask))
             print(f"Total angular momentum: {t:18.8e} {am:24.14e}")
 
     trace = (device_trace(args.profile) if args.profile
@@ -270,8 +305,9 @@ def run(argv=None) -> CliRun:
         u, t, it = solver.run(u, t_end, t0=t0, callback=callback,
                               chunk=max(args.chunk, 1),
                               max_steps=args.max_steps)
+        u = whole(u)
         if u.is_cuda:
-            torch.cuda.synchronize(u.device)
+            torch.cuda.synchronize()
     write_snapshot(u, t)
     print(timer.summary())
     print(f"steps={it}  final t={t:.6f}  wall={time.time() - t_wall:.1f}s")

@@ -1,7 +1,9 @@
 // Fused stabilization chain of one RK stage, hand-written for Hopper.
 //
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_post (the single-chip
-// kernel, with and without its diag outputs), masked or not.  Per cell, in
+// kernel, with and without its diag outputs), masked or not, and the
+// per-device kernel of make_fused_post_sharded (pallas_kernels.py:1536-1652,
+// the block form below).  Per cell, in
 // this order: its cell average and its four neighbors' averages; the KXRCF
 // jump of the indicator variable across its faces (pallas_kernels.py:
 // 1290-1323), or with the `limiter` indicator every cell marked
@@ -11,10 +13,27 @@
 // min(rho, p) of the cell average (the chain preserves cell means), reduced
 // per block with NaN-propagating max/min into partials that the wrapper
 // reduces with torch.amax/amin (:1527).  Neighbor-exists flags come from
-// global-edge arithmetic (:1277-1288; per_x / per_y are arguments) or, on a
-// masked domain, from the static flag plane vflags [5, ny, nx] (uint8: the
-// W, E, S, N fluid-neighbor flags and the cell's own fluid flag,
-// :1135-1151); a solid cell enters neither diag reduction (:1442-1447).
+// edge arithmetic (:1277-1288): a cell off the block's border always has its
+// neighbor, a border cell has one where the argument nb_w / nb_e / nb_s /
+// nb_n says so (the periodic flags on one device; under a device mesh, 0
+// only at a true, non-periodic domain edge, the runtime edge flags of
+// :1599-1609); on a masked domain the static flag plane vflags [5, ny, nx]
+// (uint8: the W, E, S, N fluid-neighbor flags and the cell's own fluid
+// flag, :1135-1151) gives them instead; a solid cell enters neither diag
+// reduction (:1442-1447).
+//
+// The block form (one block of a domain split over a device mesh): the
+// neighbor DoF lines across the block's four borders come in as halo lines
+// hW, hE [4, K, ny] and hS, hN [4, K, nx] (the neighbor blocks' edge
+// columns and rows).  A border cell reads its neighbor's DoFs from the halo
+// line where the wrapped index would leave the block, so it computes the
+// same neighbor average and trace from the same numbers in the same order
+// as on one device, and the sharded post equals the single-device post
+// bitwise.  The TPU kernel exchanges packs of traces and averages instead
+// (equal to f32 reassociation round-off); raw DoF lines cost a few more
+// bytes (4K values per border cell) and keep the arithmetic one path.  A
+// null halo pointer keeps the block wrap (one device, or a true domain
+// edge, where the edge flag switches the neighbor off).
 //
 // What bounds it on the H100: bytes.  Each cell reads its own 4K values and
 // each neighbor's 4K values (for the neighbor's average and facing trace),
@@ -30,7 +49,7 @@
 namespace dflo {
 
 struct PostParams {
-  int per_x, per_y, comp, mark_all, char_lim, pos_lim;
+  int nb_w, nb_e, nb_s, nb_n, comp, mark_all, char_lim, pos_lim;
   double dx, dy, h, hdx, hdy, inv_h, diam_pow, Mdx2, beta;
 };
 
@@ -56,7 +75,9 @@ __device__ __forceinline__ void load_comp(const T* __restrict__ u, int c,
   for (int k = 0; k < K; ++k) v[k] = __ldg(u + (long)(c * K + k) * plane + cell);
 }
 
-// a neighbor's cell average and its trace of component comp on face f
+// a neighbor's cell average and its trace of component comp on face f; u is
+// the state (plane = ny * nx, cell its index) or a halo line (plane = its
+// length, cell the index along it)
 template <typename T, int P>
 __device__ __forceinline__ void avg_and_trace(const T* __restrict__ u,
                                               const T* __restrict__ ops, int f,
@@ -95,6 +116,8 @@ template <typename T, int P>
 __global__ void __launch_bounds__(BX * BY)
 fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
                   const uint8_t* __restrict__ vflags,
+                  const T* __restrict__ hW, const T* __restrict__ hE,
+                  const T* __restrict__ hS, const T* __restrict__ hN,
                   T* __restrict__ out, T* __restrict__ lam_part,
                   T* __restrict__ minq_part, int ny, int nx, PostParams prm) {
   constexpr int K = Dims<P>::K, NQ = Dims<P>::NQ, QP = Dims<P>::QP;
@@ -116,8 +139,8 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
     const int xe = x == nx - 1 ? 0 : x + 1;
     const int ys = y == 0 ? ny - 1 : y - 1;
     const int yn = y == ny - 1 ? 0 : y + 1;
-    bool vW = prm.per_x || x > 0, vE = prm.per_x || x < nx - 1;
-    bool vS = prm.per_y || y > 0, vN = prm.per_y || y < ny - 1;
+    bool vW = prm.nb_w || x > 0, vE = prm.nb_e || x < nx - 1;
+    bool vS = prm.nb_s || y > 0, vN = prm.nb_n || y < ny - 1;
     bool fluid = true;
     if (vflags != nullptr) {
       vW = __ldg(vflags + cell) != 0;
@@ -129,12 +152,25 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
     const int comp = prm.comp;
     const T dx = T(prm.dx), dy = T(prm.dy), h = T(prm.h);
 
-    // ---- neighbor averages and their facing indicator traces ------------
+    // ---- neighbor averages and their facing indicator traces (from a halo
+    // line where the neighbor lies across the block's border) -------------
     T ubW[4], ubE[4], ubS[4], ubN[4], tEw[NQ], tWe[NQ], tNs[NQ], tSn[NQ];
-    avg_and_trace<T, P>(u, ops, 1, comp, plane, (long)y * nx + xw, ubW, tEw);
-    avg_and_trace<T, P>(u, ops, 0, comp, plane, (long)y * nx + xe, ubE, tWe);
-    avg_and_trace<T, P>(u, ops, 3, comp, plane, (long)ys * nx + x, ubS, tNs);
-    avg_and_trace<T, P>(u, ops, 2, comp, plane, (long)yn * nx + x, ubN, tSn);
+    if (x == 0 && hW != nullptr)
+      avg_and_trace<T, P>(hW, ops, 1, comp, ny, y, ubW, tEw);
+    else
+      avg_and_trace<T, P>(u, ops, 1, comp, plane, (long)y * nx + xw, ubW, tEw);
+    if (x == nx - 1 && hE != nullptr)
+      avg_and_trace<T, P>(hE, ops, 0, comp, ny, y, ubE, tWe);
+    else
+      avg_and_trace<T, P>(u, ops, 0, comp, plane, (long)y * nx + xe, ubE, tWe);
+    if (y == 0 && hS != nullptr)
+      avg_and_trace<T, P>(hS, ops, 3, comp, nx, x, ubS, tNs);
+    else
+      avg_and_trace<T, P>(u, ops, 3, comp, plane, (long)ys * nx + x, ubS, tNs);
+    if (y == ny - 1 && hN != nullptr)
+      avg_and_trace<T, P>(hN, ops, 2, comp, nx, x, ubN, tSn);
+    else
+      avg_and_trace<T, P>(u, ops, 2, comp, plane, (long)yn * nx + x, ubN, tSn);
 
     // ---- own state and average ------------------------------------------
     T w[4][K], ub[4];
@@ -237,10 +273,12 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
 
 template <typename T, int P>
 static int launch(const void* u, const void* ops, const void* vflags,
-                  void* out, void* lam_part, void* minq_part, int ny, int nx,
-                  const PostParams& prm, cudaStream_t stream) {
+                  const void* const h[4], void* out, void* lam_part,
+                  void* minq_part, int ny, int nx, const PostParams& prm,
+                  cudaStream_t stream) {
   fused_post_kernel<T, P><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
-      (const T*)u, (const T*)ops, (const uint8_t*)vflags, (T*)out,
+      (const T*)u, (const T*)ops, (const uint8_t*)vflags, (const T*)h[0],
+      (const T*)h[1], (const T*)h[2], (const T*)h[3], (T*)out,
       (T*)lam_part, (T*)minq_part, ny, nx, prm);
   return (int)cudaGetLastError();
 }
@@ -248,25 +286,34 @@ static int launch(const void* u, const void* ops, const void* vflags,
 }  // namespace dflo
 
 // dtype: 0 = float32, 1 = float64; p in {1, 2, 3}.  vflags: uint8
-// [5, ny, nx] flag plane of a masked domain, or NULL.  lam_part/minq_part
-// NULL for the form without diag, else dflo_num_blocks(ny, nx) entries
-// each.  mark_all: the `limiter` indicator.  Returns cudaGetLastError()
-// after the launch, -1 for an unsupported case.
+// [5, ny, nx] flag plane of a masked domain, or NULL.  hW, hE ([4, K, ny])
+// and hS, hN ([4, K, nx]): the block form's halo lines, each NULL for the
+// block wrap (the single-device form passes four NULLs); not with vflags.
+// nb_w, nb_e, nb_s, nb_n: 1 where the cells on that border have a neighbor
+// across it.  lam_part/minq_part NULL for the form without diag, else
+// dflo_num_blocks(ny, nx) entries each.  mark_all: the `limiter` indicator.
+// Returns cudaGetLastError() after the launch, -1 for an unsupported case.
 extern "C" int dflo_fused_post(int dtype, int p, const void* u, const void* ops,
-                               const void* vflags, void* out, void* lam_part,
-                               void* minq_part, int ny, int nx, int per_x,
-                               int per_y, int comp, int mark_all, int char_lim,
+                               const void* vflags, const void* hW,
+                               const void* hE, const void* hS, const void* hN,
+                               void* out, void* lam_part, void* minq_part,
+                               int ny, int nx, int nb_w, int nb_e, int nb_s,
+                               int nb_n, int comp, int mark_all, int char_lim,
                                int pos_lim, double dx, double dy, double h,
                                double hdx, double hdy, double inv_h,
                                double diam_pow, double Mdx2, double beta,
                                void* stream) {
   if ((lam_part == nullptr) != (minq_part == nullptr)) return -1;
-  const dflo::PostParams prm{per_x, per_y, comp, mark_all, char_lim, pos_lim,
-                             dx, dy, h, hdx, hdy, inv_h, diam_pow, Mdx2, beta};
+  const void* const halo[4] = {hW, hE, hS, hN};
+  if (vflags != nullptr && (hW || hE || hS || hN)) return -1;
+  const dflo::PostParams prm{nb_w,     nb_e,     nb_s,    nb_n, comp,
+                             mark_all, char_lim, pos_lim, dx,   dy,
+                             h,        hdx,      hdy,     inv_h, diam_pow,
+                             Mdx2,     beta};
   cudaStream_t s = (cudaStream_t)stream;
 #define DFLO_CASE(T, P)                                                     \
-  return dflo::launch<T, P>(u, ops, vflags, out, lam_part, minq_part, ny,  \
-                            nx, prm, s)
+  return dflo::launch<T, P>(u, ops, vflags, halo, out, lam_part,           \
+                            minq_part, ny, nx, prm, s)
   if (dtype == 0) {
     if (p == 1) DFLO_CASE(float, 1);
     if (p == 2) DFLO_CASE(float, 2);

@@ -26,9 +26,22 @@ on a TPU; "xla" runs the plain PyTorch residual or post chain,
 state: on a CUDA tensor it launches its kernel, on a CPU tensor it runs its
 plain version, so the control flow is the same on both.
 
+With ``device_mesh`` (parallel/sharding: a grid of devices, which may
+repeat) the RK/TVB step on collocated Qk runs on the state split into
+blocks, ``u`` a row-major list of ``[4, K, ly, lx]`` blocks (``shard`` and
+``gather`` convert): per stage the sharded residual (the residual kernel on
+each block, delta strips from the exchanged halo lines), the sharded post
+(the post's block form on each block) and, with the diag, the max / min of
+the blocks' (lam, minq) on the first block's device, where the step's
+scalars (t, dt, bad) live.  The same chunked loop runs, with one host sync
+per chunk.  The port's kernels take any block shape: a mesh needs only
+``ny % DY == nx % DX == 0`` (the JAX package's sharded kernels also want
+8 x 128-aligned blocks).
+
 Configurations outside the ported slices raise NotImplementedError: implicit
-stepping, masked MOOD, the other fluxes and indicators (physics envelope),
-device meshes (multi-GPU slice).
+stepping, masked MOOD, the other fluxes and indicators (physics envelope);
+under a device mesh, MOOD, masks and the plain and volume_residual forms
+(ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -42,6 +55,8 @@ import torch
 from dflo_tpu_torch.ops import basis as basis_mod
 from dflo_tpu_torch.ops import kernels
 from dflo_tpu_torch.ops.contract import basis_reduce
+from dflo_tpu_torch.parallel.sharding import (block_shape, gather_state,
+                                              shard_state)
 from dflo_tpu_torch.solver import rk as rk_mod
 from dflo_tpu_torch.solver.spatial import BoundarySide, _check_bcs, make_rhs
 from dflo_tpu_torch.stab.indicator import make_shock_indicator
@@ -59,6 +74,15 @@ class LimiterConfig:
     char_lim: bool = False
     pos_lim: bool = False
     conserve_angular_momentum: bool = False
+
+
+def _where(cond, new, old):
+    """torch.where over a state or, under a mesh, each block (cond, a 0-dim
+    bool on the first block's device, goes to each block's device)."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(cond, new, old)
+    return [torch.where(cond.to(n.device, non_blocking=True), n, o)
+            for n, o in zip(new, old)]
 
 
 def _kernel_forms(basis, flux: str, method: str, volume_kernel: str,
@@ -85,10 +109,16 @@ def _kernel_forms(basis, flux: str, method: str, volume_kernel: str,
     return volume_kernel, post_kernel
 
 
+def _mesh_later(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} under a device mesh is not ported yet; it comes with the "
+        f"rest of the multi-GPU slice (ROADMAP item 18)")
+
+
 class Solver:
-    """Explicit DG solver on a Cartesian mesh, on one device: RK/TVB on
-    nodal Qk (method="rk") or the MOOD cascade on modal Pk
-    (method="mood")."""
+    """Explicit DG solver on a Cartesian mesh, on one device or (RK/TVB,
+    device_mesh) on a mesh of blocks: RK/TVB on nodal Qk (method="rk") or
+    the MOOD cascade on modal Pk (method="mood")."""
 
     def __init__(self, basis: basis_mod.Basis, mesh,
                  bcs: dict[str, BoundarySide], flux: str = "hllc",
@@ -108,8 +138,14 @@ class Solver:
             raise NotImplementedError("masked MOOD comes with the physics "
                                       "envelope slice")
         if device_mesh is not None:
-            raise NotImplementedError("device meshes come with the multi-GPU "
-                                      "slice")
+            if method == "mood":
+                raise _mesh_later("the MOOD cascade")
+            if mask is not None:
+                raise _mesh_later("a solid-cell mask")
+            if torch.device(device).type != device_mesh.flat[0].type:
+                raise ValueError(f"device {device} is not of the mesh's "
+                                 f"type ({device_mesh.flat[0].type})")
+            block_shape(device_mesh, mesh.ny, mesh.nx)
         cfg = limiter or LimiterConfig()
         if (cfg.type != "TVB" or cfg.conserve_angular_momentum
                 or cfg.shock_indicator not in ("limiter", "density",
@@ -119,13 +155,20 @@ class Solver:
                 "or energy indicator (no angular-momentum option)")
         volume_kernel, post_kernel = _kernel_forms(
             basis, flux, method, volume_kernel, post_kernel)
+        if device_mesh is not None and (volume_kernel, post_kernel) != (
+                "fused", "fused"):
+            raise _mesh_later(f"volume_kernel={volume_kernel!r} / "
+                              f"post_kernel={post_kernel!r}")
         self.basis = basis
         self.mesh = mesh
         self.bcs = bcs
         self.flux = flux
         self.cfl = cfl
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device_mesh = device_mesh
+        # under a mesh the step's scalars live on the first block's device
+        self.device = (torch.device(device) if device_mesh is None
+                       else device_mesh.flat[0])
         self.method = method
         self.limiter_cfg = cfg
         self.volume_kernel, self.post_kernel = volume_kernel, post_kernel
@@ -139,17 +182,30 @@ class Solver:
 
         self.rhs = make_rhs(basis, mesh, bcs, flux=flux, dtype=dtype,
                             device=self.device, volume_kernel=volume_kernel,
-                            mask=self.mask)
-        self._diag_ops = kernels.diag_operators(basis, mesh, mask=self.mask,
-                                                dtype=dtype,
-                                                device=self.device)
-        if method == "rk":
-            self._post_ops = kernels.post_operators(
+                            mask=self.mask, device_mesh=device_mesh)
+
+        def diag_ops(dev):
+            return kernels.diag_operators(basis, mesh, mask=self.mask,
+                                          dtype=dtype, device=dev)
+
+        def post_ops(dev):
+            return kernels.post_operators(
                 basis, mesh, indicator=cfg.shock_indicator, M=cfg.M,
                 beta=cfg.beta, char_lim=cfg.char_lim, pos_lim=cfg.pos_lim,
                 per_x=per_x, per_y=per_y, mask=self.mask, dtype=dtype,
-                device=self.device)
+                device=dev)
+
+        if device_mesh is None:
+            self._diag_ops = diag_ops(self.device)
+            if method == "rk":
+                self._post_ops = post_ops(self.device)
         else:
+            # one operator set per distinct device, listed per block
+            by_dev = {d: (diag_ops(d), post_ops(d))
+                      for d in dict.fromkeys(device_mesh.flat)}
+            self._blk_diag_ops = [by_dev[d][0] for d in device_mesh.flat]
+            self._blk_post_ops = [by_dev[d][1] for d in device_mesh.flat]
+        if method == "mood":
             if not cfg.pos_lim:
                 raise NotImplementedError(
                     "the MOOD path of the port carries positivity on")
@@ -179,6 +235,22 @@ class Solver:
             return x.to(dtype=self.dtype, device=self.device)
         return torch.full((), float(x), dtype=self.dtype, device=self.device)
 
+    def shard(self, u):
+        """A whole state -> the row-major block list of the device mesh."""
+        return shard_state(u, self.device_mesh)
+
+    def gather(self, blocks):
+        """The block list -> the whole state on the first block's
+        device."""
+        return gather_state(blocks, self.device_mesh)
+
+    def _diag(self, u):
+        """(lam_max, minq) of the state (a block list under a mesh)."""
+        if self.device_mesh is None:
+            return kernels.fused_diag(u, self._diag_ops)
+        return kernels.fused_diag_sharded(u, self._blk_diag_ops,
+                                          self.device_mesh)
+
     def cell_averages(self, u):
         if self.method == "mood":
             # modal Legendre: mode 0 is the mean (dflo_tpu/driver.py:371)
@@ -198,7 +270,7 @@ class Solver:
         (the plain stab chain KXRCF -> modal TVB -> positivity,
         dflo_tpu/driver.py:394-408)."""
         if self.method == "rk":
-            return self._post()(self.apply_mask(u), self._post_ops)
+            return self._post()(self.apply_mask(u))
         ubar = self.cell_averages(u)
         shock, _ = self._indicator(u, ubar)
         ops = self._pk_post_ops
@@ -207,14 +279,18 @@ class Solver:
     def _post_diag(self, u, t=0.0):
         """post_stage plus (lam_max, minq) of the stage's (fluid) cell
         averages."""
-        return self._post()(self.apply_mask(u), self._post_ops,
-                            with_diag=True)
+        return self._post()(self.apply_mask(u), with_diag=True)
 
     def _post(self):
-        """The RK post chain: the kernel, or (post_kernel="xla") its plain
-        version on every device."""
-        return (kernels.fused_post if self.post_kernel == "fused"
+        """The RK post chain as post(u, with_diag=False): the kernel, or
+        (post_kernel="xla") its plain version on every device; under a mesh
+        the sharded post over the block list."""
+        if self.device_mesh is not None:
+            return lambda u, with_diag=False: kernels.fused_post_sharded(
+                u, self._blk_post_ops, self.device_mesh, with_diag)
+        post = (kernels.fused_post if self.post_kernel == "fused"
                 else kernels.fused_post_plain)
+        return lambda u, with_diag=False: post(u, self._post_ops, with_diag)
 
     @property
     def host_syncs(self) -> int:
@@ -267,7 +343,7 @@ class Solver:
             if carry_lam:
                 lam = lam_prev
             else:
-                lam, _ = kernels.fused_diag(u, self._diag_ops)
+                lam, _ = self._diag(u)
             dt = torch.minimum(self.cfl / lam / denom, t_end - t)
             if self.method == "mood":
                 u, stats, (lam_new, minq) = self._mood_rk_step(u, t, dt, live)
@@ -303,7 +379,7 @@ class Solver:
                 bad = torch.zeros((), dtype=torch.bool, device=self.device)
                 # seed once per chunk; thereafter the wave speed comes free
                 # from the final stage's fused post diagnostics
-                lam, _ = kernels.fused_diag(u, self._diag_ops)
+                lam, _ = self._diag(u)
                 stats = ()
                 for _ in range(chunk):
                     live = (t < t_end - 1e-12) & ~bad
@@ -313,7 +389,7 @@ class Solver:
                                        st.iters)
                         stats = st if not stats else MoodStats(
                             *(a + b for a, b in zip(stats, st)))
-                    u = torch.where(live, un, u)
+                    u = _where(live, un, u)
                     y = dt - comp
                     t2 = t + y
                     comp = torch.where(live, (t2 - t) - y, comp)

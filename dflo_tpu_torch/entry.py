@@ -7,7 +7,10 @@ KXRCF density indicator (beta = 2) and Zhang-Shu positivity, SSP-RK3 at
 CFL 0.5 with a global dt.  ``method="rk"`` runs RK/TVB on the Q2 nodal Gauss
 basis; ``method="mood"`` the MOOD cascade on the modal P2 basis (the
 configuration of bench.py's headline metric).  Both run on the card unless
-the caller asks for another device.
+the caller asks for another device.  ``_build(..., device_mesh=dm)`` builds
+the RK solver on a mesh of blocks (parallel/sharding) and
+``dryrun_multichip`` steps it once, the analogs of
+``__graft_entry__._build(..., device_mesh=...)`` and ``dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from dflo_tpu_torch import ic
 from dflo_tpu_torch.driver import LimiterConfig, Solver
 from dflo_tpu_torch.mesh import CartesianMesh
 from dflo_tpu_torch.ops.basis import make_basis
+from dflo_tpu_torch.parallel.sharding import device_mesh as make_device_mesh
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.solver.spatial import BoundarySide
 
@@ -53,9 +57,11 @@ def dmr_ic(x, y, t=0.0):
 
 
 def _build(nx: int, ny: int, dtype: torch.dtype = torch.float64,
-           device="cuda", method: str = "rk"):
+           device="cuda", method: str = "rk", device_mesh=None):
     """(solver, u0) of the DMR configuration on an nx x ny mesh; u0 is the
-    nodal interpolant (Qk) or the L2 projection (Pk) of the IC."""
+    nodal interpolant (Qk) or the L2 projection (Pk) of the IC, a whole
+    state on `device` (under a device mesh, ``solver.shard(u0)`` splits
+    it)."""
     basis = make_basis("Pk" if method == "mood" else "Qk", 2)
     mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
     bcs = dict(W=BoundarySide(euler.BC_INFLOW, dmr_inflow),
@@ -65,7 +71,8 @@ def _build(nx: int, ny: int, dtype: torch.dtype = torch.float64,
     lim = LimiterConfig(type="TVB", shock_indicator="density", beta=2.0,
                         char_lim=True, pos_lim=True)
     solver = Solver(basis, mesh, bcs, flux="hllc", limiter=lim, cfl=0.5,
-                    dtype=dtype, device=device, method=method)
+                    dtype=dtype, device=device, method=method,
+                    device_mesh=device_mesh)
     u0 = ic.set_initial_condition(basis, mesh, dmr_ic, dtype=dtype,
                                   device=device)
     return solver, u0
@@ -89,3 +96,27 @@ def entry(dtype: torch.dtype = torch.float64, device="cuda"):
 
     return fn, (u0, torch.zeros((), dtype=dtype, device=device),
                 torch.full((), 1.0e-3, dtype=dtype, device=device))
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> None:
+    """One sharded RK step over an n-block mesh (the most-square shape) on
+    an 8 DX x 8 DY DMR grid, in float64, held against the single-device
+    step.  All blocks sit on `device`: a virtual mesh, as the JAX dry run's
+    virtual CPU devices (a mesh over distinct cards is
+    ``device_mesh(devices=...)``)."""
+    dev = torch.device(device)
+    dm = make_device_mesh(devices=[dev] * n_devices)
+    ny_dev, nx_dev = dm.shape
+    solver, u0 = _build(8 * nx_dev, 8 * ny_dev, dtype=torch.float64,
+                        device=dev, device_mesh=dm)
+    single, _ = _build(8 * nx_dev, 8 * ny_dev, dtype=torch.float64,
+                       device=dev)
+    u0 = single.post_stage(u0)
+    t, t_end = solver._scalar(0.0), solver._scalar(1.0e-3)
+    blocks, dt, bad, _ = solver._make_step()(solver.shard(u0), t, t_end)
+    ref, dt_ref, _, _ = single._make_step()(u0, t, t_end)
+    u1 = solver.gather(blocks)
+    assert len(blocks) == n_devices and not bool(bad)
+    assert float(dt) == float(dt_ref)
+    err = float((u1 - ref).abs().max() / ref.abs().max())
+    assert err <= 1e-12, f"sharded step differs from one device by {err}"

@@ -9,8 +9,11 @@ fused_residual         make_fused_residual, dense (collocated Qk   csrc/fused_re
                        and modal Pk; hllc, and lxf on Qk; with a   csrc/fused_residual_lxf.cu
                        solid-cell mask)
 fused_mood_candidate   make_fused_residual(...).sparse             csrc/fused_mood_candidate.cu
-fused_post             make_fused_post                             csrc/fused_post.cu
+fused_post             make_fused_post; with halo lines, the       csrc/fused_post.cu
+                       per-device kernel of
+                       make_fused_post_sharded
 fused_diag             make_fused_diag                             csrc/fused_diag.cu
+fused_diag_sharded     make_fused_diag_sharded                     csrc/fused_diag.cu
 fused_modal_pos        make_fused_modal_pos                        csrc/fused_modal_pos.cu
 fused_pk_post          make_fused_pk_post                          csrc/fused_pk_post.cu
 fused_mood_check       make_fused_mood_check                       csrc/fused_mood_check.cu
@@ -21,6 +24,11 @@ Each wrapper takes its plain version for a tensor that lies on the CPU, and
 for a CUDA tensor launches its kernel or raises: there is no fallback.  Each
 counts its launches in ``<wrapper>.launches`` (only where the kernel is
 launched), so a run can show that the main path went through the kernels.
+Under a device mesh the state is a list of blocks (parallel/sharding):
+``fused_post_sharded`` exchanges the halo lines and launches the post's
+block form once per block (counted in ``fused_post.launches`` and
+``fused_post.launches_block``), ``fused_diag_sharded`` the diag once per
+block; both reduce the per-block (lam, minq) on the first block's device.
 
 The small operators go to the kernels as device buffers built once from the
 NumPy basis (``residual_operators``, ``post_operators``, ``diag_operators``,
@@ -51,6 +59,8 @@ import torch.nn.functional as F
 from dflo_tpu_torch.ops import basis as basis_mod
 from dflo_tpu_torch.ops.contract import (as_tensor, basis_apply_ordered,
                                          basis_reduce, recip)
+from dflo_tpu_torch.parallel.sharding import (DeviceMesh, exchange_halos,
+                                              reduce_max, reduce_min)
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.physics.fluxes import get_flux
 from dflo_tpu_torch.stab import mood as mood_mod
@@ -162,7 +172,8 @@ def _load():
         "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
         "dflo_fused_mood_candidate": [ci, ci] + [vp] * 11 + [cd, ci, ci, vp,
                                                              vp],
-        "dflo_fused_post": [ci, ci] + [vp] * 6 + [ci] * 8 + [cd] * 9 + [vp],
+        "dflo_fused_post": [ci, ci] + [vp] * 10 + [ci] * 10 + [cd] * 9
+                           + [vp],
         "dflo_fused_diag": [ci, ci] + [vp] * 5 + [ci, ci, cd, vp],
         "dflo_fused_modal_pos": [ci, ci] + [vp] * 6 + [ci, ci, cd, cd, vp],
         "dflo_fused_pk_post": [ci, ci] + [vp] * 6 + [ci] * 5 + [cd] * 4
@@ -175,6 +186,14 @@ def _load():
         fn.restype = ci
     _lib = lib
     return lib
+
+
+def _call(dev: torch.device, fn, *args) -> int:
+    """fn(*args) (a kernel's C entry point) with dev as the current CUDA
+    device: a launch goes to the current device's context, so a block on
+    another card than the current one needs the switch."""
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def _check(rc: int, name: str) -> None:
@@ -232,20 +251,24 @@ def _partials(lib, u: torch.Tensor, ny: int, nx: int):
 
 def _wrappers():
     return (fused_residual, fused_mood_candidate, fused_post, fused_diag,
-            fused_modal_pos, fused_pk_post, fused_mood_check, volume_residual)
+            fused_diag_sharded, fused_modal_pos, fused_pk_post,
+            fused_mood_check, volume_residual)
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
     fused_pk_post.launches_with_diag = 0
+    fused_post.launches_block = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Launches per wrapper since the last reset, plus the Pk post's
-    launches of its diag form under "fused_pk_post_with_diag"."""
+    launches of its diag form under "fused_pk_post_with_diag" and the
+    post's launches of its block form under "fused_post_block"."""
     out = {fn.__name__: fn.launches for fn in _wrappers()}
     out["fused_pk_post_with_diag"] = fused_pk_post.launches_with_diag
+    out["fused_post_block"] = fused_post.launches_block
     return out
 
 
@@ -678,10 +701,11 @@ def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
             _ptr(sc if sc is not None else dt), _ptr(ops.buf),
             _ptr(ops.mask), _ptr(out), ny, nx, _stream(u.device))
     if ops.flux == "lxf":
-        rc = lib.dflo_fused_residual_lxf(_DTYPE_CODE[u.dtype], ops.p, *args)
+        rc = _call(u.device, lib.dflo_fused_residual_lxf,
+                   _DTYPE_CODE[u.dtype], ops.p, *args)
     else:
-        rc = lib.dflo_fused_residual(_DTYPE_CODE[u.dtype], int(ops.modal),
-                                     ops.p, *args)
+        rc = _call(u.device, lib.dflo_fused_residual, _DTYPE_CODE[u.dtype],
+                   int(ops.modal), ops.p, *args)
     _check(rc, "fused_residual")
     fused_residual.launches += 1
     return out
@@ -756,7 +780,7 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
                              f"{(4, rops.nq, n)}")
     flags = tile_flags(cells)
     lib = _load()
-    rc = lib.dflo_fused_mood_candidate(
+    rc = _call(u_pre.device, lib.dflo_fused_mood_candidate,
         _DTYPE_CODE[u_pre.dtype], rops.p, _ptr(u_pre), _ptr(deg),
         _ptr(cells), _ptr(flags), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn),
         _ptr(dt), _ptr(rops.buf), _ptr(mops.P), mops.avg0, ny, nx,
@@ -794,7 +818,7 @@ def fused_modal_pos(u, ops: ModalOps, deg=None, with_diag: bool = False):
     lam_p = minq_p = None
     if with_diag:
         lam_p, minq_p = _partials(lib, u, ny, nx)
-    rc = lib.dflo_fused_modal_pos(
+    rc = _call(u.device, lib.dflo_fused_modal_pos,
         _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(deg), _ptr(ops.P),
         _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx, ops.avg0, ops.h,
         _stream(u.device))
@@ -812,51 +836,149 @@ fused_modal_pos.launches = 0
 # fused post (nodal Qk)
 # ---------------------------------------------------------------------------
 
-def fused_post_plain(u, ops: PostOps, with_diag: bool = False):
+def _pad_halos(u, halos):
+    """u[4, K, ly, lx] framed by its halo lines -> [4, K, ly+2, lx+2]; a
+    missing line (None) takes the block's own opposite edge, the wrap the
+    kernel reads there; the corners (read by no cell) repeat the S and N
+    lines' end cells."""
+    hW, hE, hS, hN = (h if h is not None else w for h, w in zip(
+        halos, (u[..., -1], u[..., 0], u[..., -1, :], u[..., 0, :])))
+    mid = torch.cat([hW[..., None], u, hE[..., None]], dim=-1)
+
+    def row(h):
+        return torch.cat([h[..., :1], h, h[..., -1:]], dim=-1)[..., None, :]
+    return torch.cat([row(hS), mid, row(hN)], dim=-2)
+
+
+def _padded_valid(ly: int, lx: int, halos, device):
+    """The neighbor-exists flags (W, E, S, N) of the framed block: every
+    cell has its neighbors, except that a border cell of a side whose halo
+    is None (a true, non-periodic domain edge) has none across it."""
+    valid = [torch.ones((ly + 2, lx + 2), dtype=torch.bool, device=device)
+             for _ in range(4)]
+    if halos[0] is None:
+        valid[0][:, 1] = False
+    if halos[1] is None:
+        valid[1][:, lx] = False
+    if halos[2] is None:
+        valid[2][1, :] = False
+    if halos[3] is None:
+        valid[3][ly, :] = False
+    return tuple(valid)
+
+
+def fused_post_plain(u, ops: PostOps, with_diag: bool = False, halos=None):
     """Plain version of the fused post: the stab/* chain
     {cell averages -> KXRCF -> TVB -> positivity}, plus (lam_max, minq) of
-    the cell averages with with_diag (the chain preserves cell means)."""
+    the cell averages with with_diag (the chain preserves cell means).
+    halos = (hW, hE, hS, hN) (parallel/sharding.exchange_halos): the block
+    form, the same chain on the block framed by its halo lines, with the
+    border flags of its true domain edges."""
+    valid = None
+    if halos is not None:
+        if ops.vflags is not None:
+            raise NotImplementedError(
+                "the post on a masked domain under a device mesh is not "
+                "ported yet (ROADMAP item 18)")
+        ly, lx = u.shape[-2:]
+        valid = _padded_valid(ly, lx, halos, u.device)
+        u = _pad_halos(u, halos)
     ubar = basis_reduce(ops.avg, u)
-    shock, _ = ops.indicator(u, ubar)
-    u1 = ops.limit(u, ubar, shock)
+    shock, _ = ops.indicator(u, ubar, valid=valid)
+    u1 = ops.limit(u, ubar, shock, valid=valid)
     if ops.positivity is not None:
         u1 = ops.positivity(u1, ubar)
+    if halos is not None:
+        u1 = u1[..., 1:-1, 1:-1].contiguous()
+        ubar = ubar[..., 1:-1, 1:-1]
     if not with_diag:
         return u1
     return (u1, *_lam_minq(ubar, ops.h, ops.mask))
 
 
-def fused_post(u, ops: PostOps, with_diag: bool = False):
+def fused_post(u, ops: PostOps, with_diag: bool = False, halos=None):
     """One stage's stabilization chain (a masked domain's solid cells count
     as missing neighbors and enter neither diag reduction); with_diag also
-    returns the 0-dim tensors (lam_max, minq).  CPU tensors: the plain
-    version; CUDA tensors: the kernel (per-block diag partials reduced here
-    with amax/amin)."""
+    returns the 0-dim tensors (lam_max, minq).  halos = (hW, hE, hS, hN):
+    the block form, on one block of a domain split over a device mesh (its
+    neighbors' edge DoF lines; None on a true, non-periodic domain edge,
+    whose border cells then have no neighbor across it).  CPU tensors: the
+    plain version; CUDA tensors: the kernel (per-block diag partials
+    reduced here with amax/amin)."""
     ny, nx = _check_state(u, ops.K)
-    if not _cuda_or_cpu(u, ops.buf):
-        return fused_post_plain(u, ops, with_diag)
+    hs = (None,) * 4 if halos is None else tuple(halos)
+    if not _cuda_or_cpu(u, ops.buf, *hs):
+        return fused_post_plain(u, ops, with_diag, halos)
     if ops.vflags is not None:
+        if halos is not None:
+            raise NotImplementedError(
+                "the post on a masked domain under a device mesh is not "
+                "ported yet (ROADMAP item 18)")
         _check_plane(ops.vflags, u, torch.bool, (5, ny, nx), "vflags")
+    for h, n in zip(hs, (ny, ny, nx, nx)):
+        if h is not None and tuple(h.shape) != (4, ops.K, n):
+            raise ValueError(f"halo line shape {tuple(h.shape)} != "
+                             f"{(4, ops.K, n)}")
+    if halos is None:
+        nb = (ops.per_x, ops.per_x, ops.per_y, ops.per_y)
+    else:
+        nb = tuple(h is not None for h in hs)
     lib = _load()
     out = torch.empty_like(u)
     lam_p = minq_p = None
     if with_diag:
         lam_p, minq_p = _partials(lib, u, ny, nx)
-    rc = lib.dflo_fused_post(
+    rc = _call(u.device, lib.dflo_fused_post,
         _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(ops.buf),
-        _ptr(ops.vflags), _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx,
-        int(ops.per_x), int(ops.per_y), ops.comp, int(ops.mark_all),
+        _ptr(ops.vflags), *map(_ptr, hs), _ptr(out), _ptr(lam_p),
+        _ptr(minq_p), ny, nx, *map(int, nb), ops.comp, int(ops.mark_all),
         int(ops.char_lim), int(ops.pos_lim), ops.dx, ops.dy, ops.h,
         ops.h / ops.dx, ops.h / ops.dy, 1.0 / ops.h, ops.diam_pow, ops.Mdx2,
         ops.beta, _stream(u.device))
     _check(rc, "fused_post")
     fused_post.launches += 1
+    if halos is not None:
+        fused_post.launches_block += 1
     if not with_diag:
         return out
     return out, torch.amax(lam_p), torch.amin(minq_p)
 
 
 fused_post.launches = 0
+fused_post.launches_block = 0
+
+
+def _sharded(post, blocks, ops, dm: DeviceMesh, with_diag: bool):
+    """post (fused_post or its plain version) on every block with its halo
+    lines; with with_diag the per-block (lam, minq) reduced across the
+    blocks."""
+    if len(blocks) != len(ops) or len(blocks) != len(dm.flat):
+        raise ValueError("one block and one operator set per mesh device")
+    halos = exchange_halos(blocks, dm, ops[0].per_x, ops[0].per_y)
+    outs = [post(u, o, with_diag, halos=h)
+            for u, o, h in zip(blocks, ops, halos)]
+    if not with_diag:
+        return outs
+    return ([o[0] for o in outs], reduce_max([o[1] for o in outs]),
+            reduce_min([o[2] for o in outs]))
+
+
+def fused_post_sharded_plain(blocks, ops, dm: DeviceMesh,
+                             with_diag: bool = False):
+    """Plain version of fused_post_sharded: fused_post_plain's block form on
+    every block."""
+    return _sharded(fused_post_plain, blocks, ops, dm, with_diag)
+
+
+def fused_post_sharded(blocks, ops, dm: DeviceMesh, with_diag: bool = False):
+    """The post of a state split over a device mesh (make_fused_post_sharded,
+    pallas_kernels.py:1536-1652): blocks, the row-major block list; ops, one
+    PostOps per block (on its device).  Exchanges the halo lines, runs the
+    post's block form on each block (CUDA blocks: the kernel, once per
+    block) and, with with_diag, reduces the blocks' (lam_max, minq) on the
+    first block's device.  Equal to the single-device post on the gathered
+    state, bitwise."""
+    return _sharded(fused_post, blocks, ops, dm, with_diag)
 
 
 # ---------------------------------------------------------------------------
@@ -890,7 +1012,7 @@ def fused_pk_post(u, shock, ops: PkPostOps, with_diag: bool = False):
     lam_p = minq_p = None
     if with_diag:
         lam_p, minq_p = _partials(lib, u, ny, nx)
-    rc = lib.dflo_fused_pk_post(
+    rc = _call(u.device, lib.dflo_fused_pk_post,
         _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(shock), _ptr(ops.P),
         _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx, int(ops.per_x),
         int(ops.per_y), int(ops.char_lim), ops.avg0, 0.5 * ops.beta, ops.Mdx2,
@@ -917,26 +1039,63 @@ def fused_diag_plain(u, ops: DiagOps):
     return _lam_minq(basis_reduce(ops.avg, u), ops.h, ops.mask)
 
 
-def fused_diag(u, ops: DiagOps):
-    """(lam_max, minq) as 0-dim tensors, over the fluid cells of a masked
-    domain.  CPU tensors: the plain version; CUDA tensors: the kernel plus
-    an amax/amin over its per-block partials."""
+def _diag_launch(u, ops: DiagOps):
+    """The diag kernel on CUDA tensors (True) or its plain version (False),
+    as the pair ((lam_max, minq), launched)."""
     ny, nx = _check_state(u, ops.K)
     if not _cuda_or_cpu(u, ops.avg):
-        return fused_diag_plain(u, ops)
+        return fused_diag_plain(u, ops), False
     if ops.mask is not None:
         _check_plane(ops.mask, u, torch.bool, (ny, nx), "mask")
     lib = _load()
     lam_p, minq_p = _partials(lib, u, ny, nx)
-    rc = lib.dflo_fused_diag(_DTYPE_CODE[u.dtype], ops.K, _ptr(u),
-                             _ptr(ops.avg), _ptr(ops.mask), _ptr(lam_p),
-                             _ptr(minq_p), ny, nx, ops.h, _stream(u.device))
+    rc = _call(u.device, lib.dflo_fused_diag, _DTYPE_CODE[u.dtype], ops.K,
+               _ptr(u), _ptr(ops.avg), _ptr(ops.mask), _ptr(lam_p),
+               _ptr(minq_p), ny, nx, ops.h, _stream(u.device))
     _check(rc, "fused_diag")
-    fused_diag.launches += 1
-    return torch.amax(lam_p), torch.amin(minq_p)
+    return (torch.amax(lam_p), torch.amin(minq_p)), True
+
+
+def fused_diag(u, ops: DiagOps):
+    """(lam_max, minq) as 0-dim tensors, over the fluid cells of a masked
+    domain.  CPU tensors: the plain version; CUDA tensors: the kernel plus
+    an amax/amin over its per-block partials."""
+    out, launched = _diag_launch(u, ops)
+    fused_diag.launches += launched
+    return out
 
 
 fused_diag.launches = 0
+
+
+def fused_diag_sharded_plain(blocks, ops, dm: DeviceMesh):
+    """Plain version of fused_diag_sharded: the plain diag of every block,
+    reduced across the blocks."""
+    if len(blocks) != len(ops) or len(blocks) != len(dm.flat):
+        raise ValueError("one block and one operator set per mesh device")
+    pairs = [fused_diag_plain(u, o) for u, o in zip(blocks, ops)]
+    return (reduce_max([p[0] for p in pairs]),
+            reduce_min([p[1] for p in pairs]))
+
+
+def fused_diag_sharded(blocks, ops, dm: DeviceMesh):
+    """(lam_max, minq) of a state split over a device mesh
+    (make_fused_diag_sharded, pallas_kernels.py:1758-1792): the diag of
+    every block (CUDA blocks: csrc/fused_diag.cu, once per block), then
+    max / min across the blocks on the first block's device.  ops: one
+    DiagOps per block (on its device).  Equal to the single-device diag."""
+    if len(blocks) != len(ops) or len(blocks) != len(dm.flat):
+        raise ValueError("one block and one operator set per mesh device")
+    pairs = []
+    for u, o in zip(blocks, ops):
+        out, launched = _diag_launch(u, o)
+        fused_diag_sharded.launches += launched
+        pairs.append(out)
+    return (reduce_max([p[0] for p in pairs]),
+            reduce_min([p[1] for p in pairs]))
+
+
+fused_diag_sharded.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -970,7 +1129,7 @@ def fused_mood_check(u_c, dmp_min, dmp_max, deg, lim, ops: MoodCheckOps):
     deg_new = torch.empty_like(deg)
     lim_new = torch.empty_like(lim)
     chg = torch.empty_like(lim)
-    rc = lib.dflo_fused_mood_check(
+    rc = _call(u_c.device, lib.dflo_fused_mood_check,
         _DTYPE_CODE[u_c.dtype], ops.p, _ptr(u_c), _ptr(dmp_min),
         _ptr(dmp_max), _ptr(deg), _ptr(lim), _ptr(deg_new), _ptr(lim_new),
         _ptr(chg), ny, nx, int(ops.per_x), int(ops.per_y), ops.avg0,
@@ -1025,9 +1184,8 @@ def volume_residual(lift, u):
                                   f"collocated Q1-Q3 (K = 4, 9, 16), got {K}")
     lib = _load()
     out = torch.empty_like(u)
-    rc = lib.dflo_volume_residual(_DTYPE_CODE[u.dtype], K, _ptr(u),
-                                  _ptr(lift), _ptr(out), ny, nx,
-                                  _stream(u.device))
+    rc = _call(u.device, lib.dflo_volume_residual, _DTYPE_CODE[u.dtype], K,
+               _ptr(u), _ptr(lift), _ptr(out), ny, nx, _stream(u.device))
     _check(rc, "volume_residual")
     volume_residual.launches += 1
     return out

@@ -1,8 +1,9 @@
-"""DG spatial residual on one device: the plain torch residual and the
-O(boundary) delta-flux strips that feed the fused residual kernel.
+"""DG spatial residual: the plain torch residual and the O(boundary)
+delta-flux strips that feed the fused residual kernel, on one device or on
+a mesh of blocks.
 
-The torch counterpart of dflo_tpu/solver/spatial.py for the single-device
-Cartesian path, on the collocated nodal Qk basis and the modal Pk basis,
+The torch counterpart of dflo_tpu/solver/spatial.py for the Cartesian
+path, on the collocated nodal Qk basis and the modal Pk basis,
 optionally with a solid-cell mask (fluid-solid faces get slip-wall mirror
 states and solid cells a zero residual).  The state is ``u[4, K, ny, nx]``;
 the residual is du/dt = M^{-1} R(u, t) with the diagonal mass solve folded
@@ -27,6 +28,15 @@ reference:
   is the MOOD cascade's candidate on a set of cells
   (``kernels.fused_mood_candidate``), with strips from the same
   {truncated -> positivity-limited} edge lines (``strips(u, t, deg)``).
+
+With ``device_mesh`` (parallel/sharding) the state is a list of blocks and
+only the fused form exists (dflo_tpu/solver/spatial.py:267-490, without its
+source and MOOD-candidate arms): each block runs the residual kernel on its
+own block, which wraps within the block, and its delta strips carry the
+truth at all four borders: at an inner (or periodic) seam the flux between
+its edge trace and the neighbor's, traced from the exchanged halo line; at
+a true domain edge the boundary flux, its face coordinates sliced at the
+block's offset.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from dflo_tpu_torch.ops import basis as basis_mod
 from dflo_tpu_torch.ops import kernels
 from dflo_tpu_torch.ops.basis import EAST, NORTH, SOUTH, WEST
 from dflo_tpu_torch.ops.contract import as_tensor, basis_apply, basis_reduce
+from dflo_tpu_torch.parallel.sharding import block_shape, exchange_halos
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.physics.fluxes import get_flux
 
@@ -85,7 +96,7 @@ def _check_bcs(bcs) -> tuple[bool, bool]:
 
 def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
              flux: str = "hllc", *, dtype: torch.dtype, device,
-             volume_kernel: str = "xla", mask=None):
+             volume_kernel: str = "xla", mask=None, device_mesh=None):
     """Build du/dt = rhs(u, t) for a Cartesian mesh (see module docstring).
 
     bcs  : {'W','E','S','N'} -> BoundarySide; periodic sides come in opposite
@@ -94,7 +105,16 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
     The fused form carries ``.strips(u, t)``, ``.stage(u, u_old, t, a, dt)``,
     ``.step(u, t, dt)`` and ``.ops`` (the kernel operators); the plain forms
     ``.lift_stack``, the [K, 2Q] volume lift [dy GxW^T | dx GyW^T].
+    device_mesh: the sharded fused form over block lists
+    (:func:`_make_rhs_sharded`); `device` is then unused.
     """
+    if device_mesh is not None:
+        if volume_kernel != "fused" or mask is not None:
+            raise NotImplementedError(
+                "under a device mesh the port carries the fused residual on "
+                "an unmasked domain; the plain forms and masks come with the "
+                "rest of the multi-GPU slice (ROADMAP item 18)")
+        return _make_rhs_sharded(basis, mesh, bcs, flux, dtype, device_mesh)
     num_flux = get_flux(flux)
     per_x, per_y = _check_bcs(bcs)
     if volume_kernel not in ("xla", "pallas", "fused"):
@@ -145,16 +165,19 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         xb, yb = mesh.face_coords(side, basis.xq)
         face_xy[name] = (cast(xb), cast(yb))
 
-    def boundary_flux(name: str, trace, ubar_b, t):
+    def boundary_flux(name: str, trace, ubar_b, t, off: int = 0):
         """Outward numerical flux on one domain side.
 
         trace  : [4, nq, n_along] inside trace
         ubar_b : [4, n_along] boundary-cell averages
+        off    : the first cell of the side's stretch (a block's offset
+                 along it; the JAX path's _bflux_local)
         Returns [4, nq, n_along], w.r.t. the OUTWARD normal."""
         side = bcs[name]
         nrm_x, nrm_y = NORMALS[name]
         if side.values is not None:
-            xb, yb = face_xy[name]
+            n_along = trace.shape[-1]
+            xb, yb = (c[:, off:off + n_along] for c in face_xy[name])
             bvals = torch.as_tensor(side.values(xb, yb, t)).to(
                 dtype=trace.dtype, device=trace.device).expand_as(trace)
         else:
@@ -168,7 +191,7 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
     mops = (kernels.modal_operators(basis, mesh, dtype=dtype, device=device)
             if fused and modal else None)
 
-    def strips(u, t, deg=None):
+    def strips(u, t, deg=None, halos=None, off=(0, 0)):
         """O(boundary) delta-flux strips (dflo_tpu/solver/spatial.py:525):
         the true boundary flux minus the periodic-wrap flux the kernel
         computes at the domain edges, with the kernel's slip-wall mirror at
@@ -176,8 +199,17 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         [4, nq, nx]); zero on periodic sides.  deg (Pk, the MOOD candidate):
         the edge DoF lines are {truncated -> positivity-limited} first
         (kernels.modal_tp_plain, tp_line of pallas_kernels.py:933-943), so
-        the strips see the u_t the kernel traces."""
+        the strips see the u_t the kernel traces.
+
+        Block form (u one block of a meshed state, dflo_tpu/solver/
+        spatial.py:333-418): halos = (hW, hE, hS, hN), the neighbors' edge
+        DoF lines (parallel/sharding.exchange_halos); off = (oy, ox), the
+        block's first cell.  The true flux at a side is the seam flux with
+        the neighbor's trace where its halo is given (a periodic seam
+        included), else the boundary flux on the side's stretch."""
         ny_, nx_ = u.shape[-2:]
+        hW, hE, hS, hN = (None,) * 4 if halos is None else halos
+        oy, ox = off
 
         def edge(idx):
             """The edge DoF line u[:, :, *idx], tp'd with deg[idx] when
@@ -196,7 +228,12 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
                 uL, uR, AL, AR = euler.wall_fix(uL, uR, AL, AR, *walls, mirror)
             return num_flux(uL, uR, *nrm, AL=AL, AR=AR)
 
-        if per_x:
+        def seam(uL, uR, aL, aR, nrm):
+            """The flux across a seam between two blocks' edge traces."""
+            return num_flux(uL, uR, *nrm, AL=aL[:, None].expand_as(uL),
+                            AR=aR[:, None].expand_as(uR))
+
+        if per_x and halos is None:
             dfw = dfe = u.new_zeros((4, nq, ny_))
         else:
             c0, cl = edge((slice(None), 0)), edge((slice(None), -1))
@@ -206,9 +243,15 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
             ubl = torch.einsum("k,cky->cy", avg_op, cl)
             Fwrap = wrap_flux(uEl, uW0, ubl, ub0, walls_x, euler.mirror_x,
                               (1.0, 0.0))
-            dfw = -boundary_flux("W", uW0, ub0, t) - Fwrap
-            dfe = boundary_flux("E", uEl, ubl, t) - Fwrap
-        if per_y:
+            dfw = (seam(torch.einsum("qk,cky->cqy", faceV[EAST], hW), uW0,
+                        torch.einsum("k,cky->cy", avg_op, hW), ub0,
+                        (1.0, 0.0)) if hW is not None
+                   else -boundary_flux("W", uW0, ub0, t, oy)) - Fwrap
+            dfe = (seam(uEl, torch.einsum("qk,cky->cqy", faceV[WEST], hE),
+                        ubl, torch.einsum("k,cky->cy", avg_op, hE),
+                        (1.0, 0.0)) if hE is not None
+                   else boundary_flux("E", uEl, ubl, t, oy)) - Fwrap
+        if per_y and halos is None:
             dfs = dfn = u.new_zeros((4, nq, nx_))
         else:
             r0, rl = edge((0,)), edge((-1,))
@@ -218,8 +261,14 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
             ubl = torch.einsum("k,ckx->cx", avg_op, rl)
             Fwrap = wrap_flux(uNl, uS0, ubl, ub0, walls_y, euler.mirror_y,
                               (0.0, 1.0))
-            dfs = -boundary_flux("S", uS0, ub0, t) - Fwrap
-            dfn = boundary_flux("N", uNl, ubl, t) - Fwrap
+            dfs = (seam(torch.einsum("qk,ckx->cqx", faceV[NORTH], hS), uS0,
+                        torch.einsum("k,ckx->cx", avg_op, hS), ub0,
+                        (0.0, 1.0)) if hS is not None
+                   else -boundary_flux("S", uS0, ub0, t, ox)) - Fwrap
+            dfn = (seam(uNl, torch.einsum("qk,ckx->cqx", faceV[SOUTH], hN),
+                        ubl, torch.einsum("k,ckx->cx", avg_op, hN),
+                        (0.0, 1.0)) if hN is not None
+                   else boundary_flux("N", uNl, ubl, t, ox)) - Fwrap
         return (dfw.contiguous(), dfe.contiguous(), dfs.contiguous(),
                 dfn.contiguous())
 
@@ -341,6 +390,57 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
 
     rhs.lift_stack = lift_stack
     return rhs
+
+
+def _make_rhs_sharded(basis, mesh, bcs, flux, dtype, dm):
+    """The fused residual over the block list of a state split on dm.
+
+    One single-device fused rhs per distinct device holds the operators
+    there; each block runs ``kernels.fused_residual``, which wraps within
+    the block, with the strips of its halo lines and offset, which carry
+    the truth at all four of its borders.  The returned rhs(blocks, t) and
+    ``.stage(blocks, u_old, t, a, dt)`` take and return block lists, with
+    t, dt 0-dim tensors (or Python floats); ``.strips(blocks, t)`` gives
+    every block's four strips."""
+    per_x, per_y = _check_bcs(bcs)
+    ly, lx = block_shape(dm, mesh.ny, mesh.nx)
+    local = {}
+    for dev in dm.flat:
+        if dev not in local:
+            local[dev] = make_rhs(basis, mesh, bcs, flux, dtype=dtype,
+                                  device=dev, volume_kernel="fused")
+    DX = dm.shape[1]
+    offs = [(k // DX * ly, k % DX * lx) for k in range(len(dm.flat))]
+
+    def on(x, dev):
+        return x.to(dev, non_blocking=True) if isinstance(x, torch.Tensor) \
+            else x
+
+    def strips(blocks, t):
+        halos = exchange_halos(blocks, dm, per_x, per_y)
+        return [local[dev].strips(u, on(t, dev), halos=h, off=o)
+                for u, h, o, dev in zip(blocks, halos, offs, dm.flat)]
+
+    def rhs_sharded(blocks, t):
+        """du/dt of every block through the fused residual kernel."""
+        return [kernels.fused_residual(u, *st, local[dev].ops)
+                for u, st, dev in zip(blocks, strips(blocks, t), dm.flat)]
+
+    def stage_sharded(blocks, u_old, t, a, dt):
+        """a*u_old + (1-a)*(u + dt*du/dt) of every block in one kernel pass
+        each (dt a 0-dim tensor; no host sync)."""
+        out = []
+        for u, uo, st, dev in zip(blocks, u_old, strips(blocks, t), dm.flat):
+            dtt = torch.as_tensor(dt, dtype=u.dtype).to(u.device,
+                                                       non_blocking=True)
+            sc = torch.stack([torch.full_like(dtt, a), dtt])
+            out.append(kernels.fused_residual(u, *st, local[dev].ops,
+                                              u_old=uo, sc=sc))
+        return out
+
+    rhs_sharded.stage = stage_sharded
+    rhs_sharded.strips = strips
+    return rhs_sharded
 
 
 def cell_averages(basis: basis_mod.Basis, u):

@@ -26,16 +26,20 @@ def make_shock_indicator(basis: basis_mod.Basis, mesh, kind: str = "density",
                          per_x: bool = False, per_y: bool = False,
                          mask: np.ndarray | None = None, *,
                          dtype: torch.dtype, device):
-    """Build indicator(u, ubar) -> (shock_ind[ny,nx], jump_ind[ny,nx]).
+    """Build indicator(u, ubar, valid=None) -> (shock_ind[ny,nx],
+    jump_ind[ny,nx]).
 
     kind : 'limiter' (mark all, src/indicator.cc:19-22) | 'density' |
            'energy' (KXRCF).  The 'u2' and 'residual' indicators come with
            later slices.
     mask : optional bool [ny, nx] fluid flags; faces whose neighbor is solid
            count like boundary faces.
+    valid: the call's own neighbor-exists flags (W, E, S, N), bool [ny, nx]
+           each, in place of the ones built here for the mesh (the post's
+           block form passes those of a block framed by its halo lines).
     """
     if kind == "limiter":
-        def mark_all(u, ubar):
+        def mark_all(u, ubar, valid=None):
             shape = u.shape[-2:]
             return (torch.full(shape, 1e20, dtype=dtype, device=u.device),
                     torch.zeros(shape, dtype=dtype, device=u.device))
@@ -51,11 +55,13 @@ def make_shock_indicator(basis: basis_mod.Basis, mesh, kind: str = "density",
     diam = float(np.sqrt(dx * dx + dy * dy))
     h = mesh.diameter_h
     p = basis.degree
-    vW, vE, vS, vN = (as_tensor(v, dtype, device) for v in
-                      neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
-                                     mask))
+    valid_mesh = tuple(as_tensor(v, dtype, device) for v in
+                       neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
+                                      mask))
 
-    def indicator(u, ubar):
+    def indicator(u, ubar, valid=None):
+        vW, vE, vS, vN = (valid_mesh if valid is None
+                          else (f.to(u.dtype) for f in valid))
         v = u[comp]                                   # [K, ny, nx]
         tW = basis_apply1(faceV[WEST], v)             # [nq, ny, nx]
         tE = basis_apply1(faceV[EAST], v)

@@ -79,9 +79,11 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
                      per_x: bool = False, per_y: bool = False,
                      mask: np.ndarray | None = None, *,
                      dtype: torch.dtype, device):
-    """Build limit(u, ubar, marked) -> u for the nodal Qk or the modal Pk
-    basis.  mask: optional bool [ny, nx] fluid flags; a solid neighbor
-    counts as a missing one (neighbor_valid).
+    """Build limit(u, ubar, marked, valid=None) -> u for the nodal Qk or the
+    modal Pk basis.  mask: optional bool [ny, nx] fluid flags; a solid
+    neighbor counts as a missing one (neighbor_valid).  valid: the call's
+    own neighbor-exists flags (W, E, S, N), bool [ny, nx] each, in place of
+    the mesh's (the post's block form passes those of a framed block).
 
     marked : [ny, nx] shock indicator; cells with marked > 1 are limited
              (src/limiter.cc:263).
@@ -99,8 +101,9 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
     inv_h = 1.0 / h
     Mdx2 = M * h * h
     sqrt3 = float(np.sqrt(3.0))
-    valid = tuple(torch.as_tensor(v, device=device) for v in
-                  neighbor_valid((mesh.ny, mesh.nx), per_x, per_y, mask))
+    valid_mesh = tuple(torch.as_tensor(v, device=device) for v in
+                       neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
+                                      mask))
     if modal:
         ix_x, ix_y = 1, p + 1       # (1,0) / (0,1) modes (src/limiter.cc:414)
         beta_eff = 0.5 * beta       # src/limiter.cc:395
@@ -120,7 +123,7 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
         drx = as_tensor((basis.nodes[:, 0] - 0.5) * mesh.dx, dtype, device)
         dry = as_tensor((basis.nodes[:, 1] - 0.5) * mesh.dy, dtype, device)
 
-    def limit(u, ubar, marked):
+    def limit(u, ubar, marked, valid=None):
         if modal:
             Dx = sqrt3 * u[:, ix_x]                      # [4, ny, nx]
             Dy = sqrt3 * u[:, ix_y]
@@ -128,7 +131,8 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
             # h * mean physical gradient (src/limiter.cc:269-281)
             Dx = (h / mesh.dx) * basis_reduce(gx_op, u)
             Dy = (h / mesh.dy) * basis_reduce(gy_op, u)
-        dbx, dfx, dby, dfy = neighbor_diffs(ubar, (Dx, Dy), valid)
+        dbx, dfx, dby, dfy = neighbor_diffs(
+            ubar, (Dx, Dy), valid_mesh if valid is None else valid)
 
         if char_lim:
             Rx, Lx, Ry, Ly = euler.eigen_matrices(ubar)

@@ -1,6 +1,8 @@
 """Each CUDA kernel of dflo_tpu_torch against its plain PyTorch version, on
 the card: the RK/TVB kernels for every instantiated degree (p = 1, 2, 3),
-the MOOD kernels for p = 2 and 3 (96 x 24, modal Pk), in both dtypes.
+the MOOD kernels for p = 2 and 3 (96 x 24, modal Pk), in both dtypes; the
+post's block form and the sharded diag on a (2, 2) virtual mesh (and over
+distinct cards where there are two or more).
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -391,3 +393,85 @@ def test_volume_residual_matches_plain(cuda, p, dtype):
     torch.cuda.synchronize()
     assert rel(Rp, Rx) <= TOL[dt]
 
+
+
+# ---------------------------------------------------------------------------
+# the sharded RK path: the post's block form and the sharded diag
+# ---------------------------------------------------------------------------
+
+def _virtual_mesh(dev):
+    from dflo_tpu_torch.parallel import device_mesh
+    return device_mesh((2, 2), [dev] * 4)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3))
+def test_block_post_and_sharded_diag_match(cuda, p, dtype):
+    """On NX x NY split into four 10 x 48 blocks: the block form against
+    its plain block form (the single form's tolerances), the sharded post
+    against the single-device post kernel (bitwise: the same neighbor
+    numbers through the same operations) and the sharded diag equal to the
+    single-device diag."""
+    from dflo_tpu_torch.parallel import exchange_halos, gather_state
+    from dflo_tpu_torch.parallel import shard_state
+    dt = getattr(torch, dtype)
+    u, post, _, diag = setup(p, dt, cuda)
+    u = kernels.fused_post_plain(u, post)       # a limited state
+    dm = _virtual_mesh(cuda)
+    blocks = shard_state(u, dm)
+    halos = exchange_halos(blocks, dm, post.per_x, post.per_y)
+    before = kernels.fused_post.launches_block
+    ks, qs = [], []
+    for b, h in zip(blocks, halos):
+        k, lam, mq = kernels.fused_post(b, post, True, halos=h)
+        q, lam_p, mq_p = kernels.fused_post_plain(b, post, True, halos=h)
+        ks.append(k)
+        qs.append(q)
+        assert rel(lam, lam_p) <= TOL[dt] and rel(mq, mq_p) <= TOL[dt]
+    torch.cuda.synchronize()
+    assert kernels.fused_post.launches_block == before + 4
+    # scaled by the whole state's magnitudes (a block may hold a zero
+    # component: the momenta ahead of the shock)
+    err, flipped = cell_flips(gather_state(ks, dm), gather_state(qs, dm),
+                              POST_TOL[dt])
+    assert flipped <= (0 if dt == torch.float64 else NX * NY // 100)
+    assert err <= POST_TOL[dt]
+    outs, lam, mq = kernels.fused_post_sharded(blocks, [post] * 4, dm, True)
+    k1, lam1, mq1 = kernels.fused_post(u, post, with_diag=True)
+    torch.cuda.synchronize()
+    assert torch.equal(gather_state(outs, dm), k1)
+    assert torch.equal(lam, lam1) and torch.equal(mq, mq1)
+    before = kernels.fused_diag_sharded.launches
+    dk = kernels.fused_diag_sharded(blocks, [diag] * 4, dm)
+    assert kernels.fused_diag_sharded.launches == before + 4
+    assert all(torch.equal(a, b) for a, b in
+               zip(dk, kernels.fused_diag(u, diag)))
+    dp = kernels.fused_diag_sharded_plain(blocks, [diag] * 4, dm)
+    assert all(rel(a, b) <= TOL[dt] for a, b in zip(dk, dp))
+
+
+def test_sharded_step_over_distinct_cards(cuda):
+    """Three f64 steps of the DMR on a mesh over distinct cards against the
+    single-device step (runs where two or more cards are visible)."""
+    from dflo_tpu_torch import entry
+    from dflo_tpu_torch.parallel import device_mesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    n = 4 if n >= 4 else 2
+    dm = device_mesh((2, n // 2) if n == 4 else (1, 2),
+                     [torch.device("cuda", i) for i in range(n)])
+    s1, u0 = entry._build(NX, NY, dtype=torch.float64, device=cuda)
+    sN, _ = entry._build(NX, NY, dtype=torch.float64, device=cuda,
+                         device_mesh=dm)
+    u = s1.post_stage(u0)
+    b = sN.post_stage(sN.shard(u0))
+    assert sorted({x.device.index for x in b}) == list(range(n))
+    t = 0.0
+    for _ in range(3):
+        u, dt1, _, _ = s1._step(u, t, 1.0)
+        b, dtN, bad, _ = sN._step(b, t, 1.0)
+        t += float(dt1)
+        assert abs(float(dtN) - float(dt1)) <= 1e-14 * float(dt1)
+        assert not bool(bad)
+    assert rel(sN.gather(b).to(u.device), u) <= 1e-10

@@ -23,6 +23,7 @@ from dflo_tpu_torch import entry, interop
 from dflo_tpu_torch.driver import LimiterConfig, Solver
 from dflo_tpu_torch.ops import kernels
 from dflo_tpu_torch.ops.basis import make_basis
+from dflo_tpu_torch.parallel import device_mesh
 from dflo_tpu_torch.solver import rk as trk
 
 NX, NY = 32, 8
@@ -181,7 +182,9 @@ def test_out_of_slice_configurations_raise():
         Solver(make_basis("Pk", 2), s.mesh, s.bcs, limiter=lim, dtype=F64,
                device="cpu", method="mood", mask=np.ones((4, 16), bool))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
-        Solver(*args, limiter=lim, dtype=F64, device="cpu", device_mesh=1)
+        Solver(*args, limiter=lim, dtype=F64, device="cpu",
+               device_mesh=device_mesh((1, 2), ["cpu"] * 2),
+               post_kernel="xla")
     with pytest.raises(NotImplementedError):
         Solver(*args, limiter=LimiterConfig(type="none"), dtype=F64,
                device="cpu")
