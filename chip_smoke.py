@@ -38,7 +38,7 @@ Phases (any failure raises, and the script then prints no result):
    versions on the same card: state within 1e-10, equal degree and
    limiter maps, equal MoodStats.
 8. the device's busy share: each main path's chunk (RK 5 steps, MOOD 3,
-   forward step 3) under torch.profiler; busy time is the union of the
+   forward step 3, sharded RK 3, the vortex 10) under torch.profiler; busy time is the union of the
    device events' intervals; idle shares of the traced wall and of the
    untraced ms/step of phases 3, 6 and 10.
 9. forward-step kernels against their plain versions, on the Mach-3
@@ -79,6 +79,27 @@ Phases (any failure raises, and the script then prints no result):
    same card: each dt within 1e-14 relative, the state within 1e-10.  With
    two or more cards both runs repeat over distinct cards; with one, a line
    says so.
+14. the modal LxF forms and the periodic Q1 post against their plain
+   versions, f32 and f64: the LxF residual on the modal P2 basis in its R,
+   u + dt*R and SSP-stage forms on the IC of examples/isentropic_vortex.prm
+   at 2048 x 2048 (K = 6), with the Pk diag there; the LxF MOOD candidate
+   on the 1152 x 288 P2 DMR state run with flux="lxf" after 3 plain MOOD
+   steps, on a realistic cell set and on every cell (bitwise); the Q1 post
+   periodic on both axes, with and without its diag, on
+   examples/vortex_system_pbc.prm at 2048 x 2048 on its IC after
+   post_stage and after 10 plain steps; CUDA event times (median of 20).
+15. the vortex main path: cli.build_solver on isentropic_vortex.prm at
+   2048 x 2048 (P2, LxF, limiter none, periodic on all sides), f32,
+   Solver._multi_step(10) five times after a warm-up: the modal LxF stage
+   form and the Pk diag launched, no plain version called, no fatal flag,
+   finite state; isenvort_p2_lxf_rk_dof_updates_per_sec, ms/step and the
+   density l2_error against the IC (the vortex is stationary: information,
+   not a gate); its chunk is traced in phase 8.
+16. the five Cartesian configs without a body force (sod_shock_tube,
+   sod_mood, isentropic_vortex, vortex_system, vortex_system_pbc) through
+   cli.run at their shipped sizes, --max-steps 20 --chunk 10, f32: finite,
+   no plain version called, the forms each carries launched, a snapshot
+   written.
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -129,6 +150,25 @@ PALLAS_STEPS = 5
 SHARD = (2, 2)
 SHARD_STEPS = 50
 SHARD_F64_STEPS = 10
+#: the modal LxF path: the periodic isentropic vortex (and the periodic Q1
+#: post of the vortex system), at 2048 x 2048
+VORTEX_PRM = "examples/isentropic_vortex.prm"
+PBC_PRM = "examples/vortex_system_pbc.prm"
+VX_N = 2048
+VX_STEPS, VX_CHUNK = 50, 10
+#: the five Cartesian configs without a body force, through cli.run
+#: (phase 16), and the kernel forms each must launch
+CONFIG_STEPS, CONFIG_CHUNK = 20, 10
+CONFIG_FORMS = {
+    "sod_shock_tube": ("fused_residual[pk_hllc_stage]", "fused_diag"),
+    "sod_mood": ("fused_residual[pk_lxf_step]", "fused_mood_candidate[lxf]",
+                 "fused_modal_pos", "fused_pk_post", "fused_mood_check",
+                 "fused_diag"),
+    "isentropic_vortex": ("fused_residual[pk_lxf_stage]", "fused_diag"),
+    "vortex_system": ("fused_residual[pk_lxf_stage]", "fused_diag"),
+    "vortex_system_pbc": ("fused_residual[qk_lxf_stage]", "fused_post",
+                          "fused_diag"),
+}
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
 #: outside the tensor cores): HBM bytes/s and FLOP/s per dtype
 HBM_BPS = 3.35e12
@@ -179,10 +219,29 @@ SOURCES = {
     "fused_diag_sharded": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1758",
                            f"{PK}:make_fused_diag_sharded",
                            "fused_diag_sharded", "shard"),
+    "fused_residual_pk_lxf": ("dflo_tpu_torch/csrc/fused_residual_lxf.cu",
+                              f"{PK}:617",
+                              f"{PK}:make_fused_residual (modal Pk, lxf)",
+                              "fused_residual[pk_lxf_stage]", "vortex"),
+    "fused_diag_pk_vortex": ("dflo_tpu_torch/csrc/fused_diag.cu",
+                             f"{PK}:1663", f"{PK}:make_fused_diag (Pk)",
+                             "fused_diag", "vortex"),
+    "fused_mood_candidate_lxf": ("dflo_tpu_torch/csrc/"
+                                 "fused_mood_candidate_lxf.cu", f"{PK}:955",
+                                 f"{PK}:make_fused_residual(...).sparse (lxf)",
+                                 "fused_mood_candidate[lxf]", "sod_mood"),
+    "fused_post_pbc": ("dflo_tpu_torch/csrc/fused_post.cu", f"{PK}:1075",
+                       f"{PK}:make_fused_post (periodic x and y, limiter)",
+                       "fused_post", "pbc"),
 }
-#: the grid of each path: the DMR's and the forward step's
+#: the grid each row is measured and bounded at, by path: the DMR's, the
+#: forward step's, the vortex's; the LxF candidate's launches come from
+#: sod_mood (phase 16) and its times from the DMR run with LxF, the
+#: periodic post's launches from vortex_system_pbc as shipped and its times
+#: at 2048 x 2048
 GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
-         "pallas": (FS_NX, FS_NY), "shard": (NX, NY)}
+         "pallas": (FS_NX, FS_NY), "shard": (NX, NY), "vortex": (VX_N, VX_N),
+         "sod_mood": (NX, NY), "pbc": (VX_N, VX_N)}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
@@ -308,7 +367,8 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     `cells` and its {truncation -> positivity} chain once on each of the
     `halo` cells (the set with its face neighbors); the forward step's
     `limiter` indicator sends every `fluid` cell to the TVB (its kernel
-    computes the slopes of every cell).  A mask costs one byte per cell,
+    computes the slopes of every cell), the periodic post's every cell
+    (`marked`).  LxF costs 70 per face point and the two cells' averages.  A mask costs one byte per cell,
     the post's flag plane five."""
     from dflo_tpu_torch.stab.positivity import _pos_points
 
@@ -335,9 +395,16 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     tvb = 300 + 32 * K
     if name == "fused_residual":             # SSP-stage form, main path
         return 3 * state * n, (res + 20 * K) * n
+    lxf = res - 2 * nq * 100 + 2 * nq * 70 + 8 * nnz(avg)
     if name == "fused_residual_fwd":         # masked LxF, SSP-stage form
-        lxf = res - 2 * nq * 100 + 2 * nq * 70 + 8 * nnz(avg)
         return 3 * state * n + n, (lxf + 20 * K) * n
+    if name == "fused_residual_pk_lxf":      # modal LxF, SSP-stage form
+        return 3 * state * n, (lxf + 20 * K) * n
+    if name == "fused_mood_candidate_lxf":
+        return (halo * (state + 4) + cells * state + n,
+                (lxf + 8 * K) * cells + pos * halo)
+    if name == "fused_post_pbc":             # mark-all, no positivity, diag
+        return 2 * state * n, (8 * K + 40) * n + tvb * marked
     if name == "volume_residual":
         return (2 * state * n,
                 (20 * K + 8 * (nnz(basis.Gx) + nnz(basis.Gy))) * n)
@@ -555,6 +622,38 @@ def phase_kernels(entry, kernels, euler, results):
     return states
 
 
+def cascade_pass1(kernels, s, u, tt, h) -> dict:
+    """Pass 1 of a MOOD stage of solver s on u through the plain versions:
+    the DMP bounds, the initial planes, the strips, the forward-Euler
+    candidate u_c and its check (deg1, lim1, chg1), and the cell set the
+    next pass recomputes (aff: the changed cells, their neighbors and the
+    cells the full-degree positivity chain moves, with their neighbors),
+    with the data the candidate's bound counts."""
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.stab import mood as mood_mod
+    stage = s._mood_stage
+    mops, cops = stage.mops, stage.cops
+    ny, nx = u.shape[-2:]
+    rho0 = mops.avg0 * u[euler.RHO, 0]
+    out = {"bmin": mood_mod.neighborhood_min(rho0, stage.valid),
+           "bmax": mood_mod.neighborhood_max(rho0, stage.valid),
+           "deg0": torch.full((ny, nx), s.basis.degree, dtype=torch.int32,
+                              device=u.device),
+           "lim0": torch.zeros((ny, nx), dtype=torch.bool, device=u.device),
+           "strips": s.rhs.strips(u, tt)}
+    out["u_c"] = kernels.fused_residual_plain(u, *out["strips"], s.rhs.ops,
+                                              dt=h)
+    out["deg1"], out["lim1"], out["chg1"] = kernels.fused_mood_check_plain(
+        out["u_c"], out["bmin"], out["bmax"], out["deg0"], out["lim0"], cops)
+    moved = (kernels.fused_modal_pos_plain(u, mops) != u).flatten(0, 1).any(0)
+    aff = (out["chg1"] | mood_mod.dilate4_valid(out["chg1"], stage.valid)
+           | mood_mod.dilate4_valid(moved, stage.valid))
+    out["aff"] = aff
+    out["data"] = {"cells": int(aff.sum()),
+                   "halo": int(mood_mod.dilate4_valid(aff, stage.valid).sum())}
+    return out
+
+
 def phase_mood_kernels(entry, kernels, results):
     """Phase 5 for both dtypes; fills results[name][...], with the data the
     bounds count (marked cells, the candidate's cell set and halo)."""
@@ -581,24 +680,13 @@ def phase_mood_kernels(entry, kernels, results):
         assert int(st_plain.n_reduce) > 0, "the cascade does not fire"
 
         # pass 1 and its check give a realistic degree map and cell set
-        rho0 = mops.avg0 * u[euler.RHO, 0]
-        bmin = mood_mod.neighborhood_min(rho0, stage.valid)
-        bmax = mood_mod.neighborhood_max(rho0, stage.valid)
-        deg0 = torch.full((NY, NX), s.basis.degree, dtype=torch.int32,
-                          device="cuda")
-        lim0 = torch.zeros((NY, NX), dtype=torch.bool, device="cuda")
-        strips = s.rhs.strips(u, tt)
-        u_c = kernels.fused_residual_plain(u, *strips, rops, dt=h)
-        deg1, lim1, chg1 = kernels.fused_mood_check_plain(u_c, bmin, bmax,
-                                                          deg0, lim0, cops)
-        moved = (kernels.fused_modal_pos_plain(u, mops) != u
-                 ).flatten(0, 1).any(0)
-        aff = (chg1 | mood_mod.dilate4_valid(chg1, stage.valid)
-               | mood_mod.dilate4_valid(moved, stage.valid))
+        c1 = cascade_pass1(kernels, s, u, tt, h)
+        bmin, bmax, deg0, lim0 = c1["bmin"], c1["bmax"], c1["deg0"], c1["lim0"]
+        strips, u_c, deg1, lim1, chg1, aff = (
+            c1["strips"], c1["u_c"], c1["deg1"], c1["lim1"], c1["chg1"],
+            c1["aff"])
         n_set = int(aff.sum())
-        results["fused_mood_candidate"][f"data_{tag}"] = {
-            "cells": n_set,
-            "halo": int(mood_mod.dilate4_valid(aff, stage.valid).sum())}
+        results["fused_mood_candidate"][f"data_{tag}"] = c1["data"]
         results["fused_pk_post"][f"data_{tag}"] = {
             "marked": int(marked.sum())}
         every = torch.ones_like(aff)
@@ -735,15 +823,24 @@ def plain_rhs(s):
                     device=s.device, volume_kernel="xla", mask=s.mask)
 
 
-def fs_solver(dtype, **solver_kw):
-    """(params, solver, IC) of examples/forward_step_tpu.prm on the card,
-    through the port's config layer and CLI builders."""
+def prm_solver(prm, dtype, n: int | None = None, **solver_kw):
+    """(params, solver, IC) of a .prm config on the card, through the
+    port's config layer and CLI builders; n: an n x n grid in place of the
+    shipped one."""
     from dflo_tpu_torch import cli
     from dflo_tpu_torch.config.params import AllParameters
-    params = AllParameters.from_prm_file(FS_PRM)
+    params = AllParameters.from_prm_file(prm)
+    if n is not None:
+        params.cartesian_mesh.nx = params.cartesian_mesh.ny = n
     s, _ = cli.build_solver(params, dtype=dtype, device="cuda", **solver_kw)
-    assert (s.mesh.nx, s.mesh.ny) == (FS_NX, FS_NY)
     return params, s, cli.set_ic(params, s)
+
+
+def fs_solver(dtype, **solver_kw):
+    """(params, solver, IC) of examples/forward_step_tpu.prm on the card."""
+    params, s, u0 = prm_solver(FS_PRM, dtype, **solver_kw)
+    assert (s.mesh.nx, s.mesh.ny) == (FS_NX, FS_NY)
+    return params, s, u0
 
 
 def check_post(results, name, tag, tol, pk, pk0, pp):
@@ -1066,15 +1163,16 @@ def phase_trace(entry, ms_per_step, built):
     """Phase 8: each main path's chunk under torch.profiler (RK 5 steps and
     MOOD 3 steps at 1152 x 288, the forward step 3 steps on the CLI's
     solver at 1920 x 640, the sharded RK path 3 steps on the (2, 2) virtual
-    mesh; built[method] = (solver, state) for the last two; f32, after a
-    warm-up):
+    mesh, the vortex 10 steps at 2048 x 2048; built[method] = (solver,
+    state) for the last three; f32, after a warm-up):
     device busy time, and the idle share of the traced wall and of the
     untraced ms/step of the main-path phase (ms_per_step[method]; tracing
     slows the host), device events and the port's kernels per step.  A
     measurement only: a trace without device events is reported as not
     measured."""
     out = {}
-    for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3), ("shard", 3)):
+    for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3), ("shard", 3),
+                          ("vortex", VX_CHUNK)):
         if method in built:
             s, u = built[method]
         else:
@@ -1378,6 +1476,217 @@ def phase_main_shard(entry, kernels, plain_calls, results):
     return counts, ms, traced
 
 
+def fold(results, name, tag, pairs, tol, bitwise: bool = False):
+    """Record the (kernel, plain) pairs under results[name], print and
+    check them (bitwise=True: each pair equal); returns the error."""
+    e = record(results, name, tag, pairs)
+    eq = all(torch.equal(k, q) for k, q in pairs)
+    r = results[name]
+    r[f"bitwise_{tag}"] = r.get(f"bitwise_{tag}", True) and eq
+    print(f"[{tag}] {name} rel err {e:.3e} (tol {tol:.0e}); bitwise {eq}")
+    assert e <= tol, f"{name} {tag} disagrees: {e}"
+    assert eq or not bitwise, f"{name} {tag} is not bitwise"
+    return e
+
+
+def time_pair(results, name, tag, fk, fp, grid):
+    """CUDA-event times of a kernel call and its plain version."""
+    ms_k, ms_p = time_ms(fk), time_ms(fp)
+    results[name][f"ms_{tag}"] = ms_k
+    results[name][f"plain_ms_{tag}"] = ms_p
+    print(f"[{tag}] {name}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms at "
+          f"{grid[0]}x{grid[1]}")
+
+
+def phase_lxf_kernels(entry, kernels, results):
+    """Phase 14 for both dtypes: the modal LxF residual's three forms and
+    the Pk diag on the vortex at 2048 x 2048, the LxF candidate on the
+    DMR, the periodic Q1 post at 2048 x 2048."""
+    from dflo_tpu_torch.driver import Solver
+    for dt in (torch.float32, torch.float64):
+        tag = "f32" if dt == torch.float32 else "f64"
+        tol = TOL[dt]
+        # ---- the modal LxF residual and the Pk diag on the vortex's IC --
+        _, s, u = prm_solver(VORTEX_PRM, dt, VX_N)
+        assert (s.basis.family, s.flux, s.rhs.ops.flux) == ("Pk", "lxf", "lxf")
+        assert s.limiter_cfg.type == "none" and s.post_kernel == "xla"
+        ops, strips = s.rhs.ops, s.rhs.strips(u, s._scalar(0.0))
+        h = torch.full((), 1e-4, dtype=dt, device="cuda")
+        sc = torch.stack([torch.full_like(h, 0.75), h])
+        u_old = torch.roll(u, 1, -1).contiguous()
+        forms = ({}, {"dt": h}, {"u_old": u_old, "sc": sc})
+        fold(results, "fused_residual_pk_lxf", tag,
+             [(kernels.fused_residual(u, *strips, ops, **kw),
+               kernels.fused_residual_plain(u, *strips, ops, **kw))
+              for kw in forms], tol["fused_residual"])
+        fold(results, "fused_diag_pk_vortex", tag,
+             list(zip(kernels.fused_diag(u, s._diag_ops),
+                      kernels.fused_diag_plain(u, s._diag_ops))),
+             tol["fused_diag"])
+        time_pair(results, "fused_residual_pk_lxf", tag,
+                  lambda: kernels.fused_residual(u, *strips, ops, **forms[2]),
+                  lambda: kernels.fused_residual_plain(u, *strips, ops,
+                                                       **forms[2]),
+                  (VX_N, VX_N))
+        time_pair(results, "fused_diag_pk_vortex", tag,
+                  lambda: kernels.fused_diag(u, s._diag_ops),
+                  lambda: kernels.fused_diag_plain(u, s._diag_ops),
+                  (VX_N, VX_N))
+        del s, u, u_old, strips
+        torch.cuda.empty_cache()
+
+        # ---- the LxF candidate on the DMR run with LxF ------------------
+        s0, u = entry._build(NX, NY, dtype=dt, device="cuda", method="mood")
+        s = Solver(s0.basis, s0.mesh, s0.bcs, flux="lxf",
+                   limiter=s0.limiter_cfg, cfl=s0.cfl, dtype=dt,
+                   device="cuda", method="mood")
+        u, t = s.post_stage(u), 0.0
+        with plain_versions(kernels):
+            for _ in range(MOOD_PLAIN_STEPS):
+                u, dtt, bad, _ = s._step(u, t, 1.0)
+                t += float(dtt)
+                assert not bool(bad), f"{tag}: plain LxF MOOD steps: bad"
+        tt = s._scalar(t)
+        c1 = cascade_pass1(kernels, s, u, tt, dtt)
+        results["fused_mood_candidate_lxf"][f"data_{tag}"] = c1["data"]
+        print(f"[{tag}] LxF MOOD state after {MOOD_PLAIN_STEPS} plain steps: "
+              f"t={t!r}; pass 1 reduces {int(c1['chg1'].sum())} cells, "
+              f"candidate set {c1['data']}")
+        assert int(c1["chg1"].sum()) > 0, "the LxF cascade does not fire"
+        tp_strips = s.rhs.strips(u, tt, c1["deg1"])
+        rops, mops = s.rhs.ops, s.rhs.modal_ops
+
+        def cand(fn, cells):
+            return fn(u, c1["u_c"].clone(), c1["deg1"], cells, *tp_strips,
+                      rops, mops, dtt)
+
+        fold(results, "fused_mood_candidate_lxf", tag,
+             [(cand(kernels.fused_mood_candidate, c),
+               cand(kernels.fused_mood_candidate_plain, c))
+              for c in (c1["aff"], torch.ones_like(c1["aff"]))],
+             tol["fused_mood_candidate"], bitwise=True)
+        u_prev = c1["u_c"].clone()
+        time_pair(results, "fused_mood_candidate_lxf", tag,
+                  lambda: kernels.fused_mood_candidate(
+                      u, u_prev, c1["deg1"], c1["aff"], *tp_strips, rops,
+                      mops, dtt),
+                  lambda: kernels.fused_mood_candidate_plain(
+                      u, u_prev, c1["deg1"], c1["aff"], *tp_strips, rops,
+                      mops, dtt), (NX, NY))
+        del s, s0, u, c1, u_prev
+
+        # ---- the Q1 post periodic on both axes --------------------------
+        params, s, u0 = prm_solver(PBC_PRM, dt, VX_N)
+        po = s._post_ops
+        assert po.per_x and po.per_y and po.mark_all and not po.pos_lim
+        u_a = s.post_stage(u0)
+        u_b, t = u_a, 0.0
+        for _ in range(10):
+            u_b, dtt, bad = plain_step(s, u_b, t, params.final_time)
+            t += float(dtt)
+            assert not bool(bad), f"{tag}: plain pbc steps tripped bad"
+        results["fused_post_pbc"][f"data_{tag}"] = {"marked": VX_N * VX_N}
+        for label, v in (("post_stage", u_a), ("10 steps", u_b)):
+            pk = kernels.fused_post(v, po, with_diag=True)
+            pp = kernels.fused_post_plain(v, po, with_diag=True)
+            pk0 = kernels.fused_post(v, po)
+            torch.cuda.synchronize()
+            e, nflip, e_diag = check_post(results, "fused_post_pbc", tag,
+                                          tol["fused_post"], pk, pk0, pp)
+            print(f"[{tag}] vortex_system_pbc {VX_N}x{VX_N}, {label}: "
+                  f"fused_post_pbc rel err {e:.3e} outside {nflip} flipped "
+                  f"cells (tol {tol['fused_post']:.0e}); bitwise "
+                  f"{results['fused_post_pbc'][f'bitwise_{tag}']}; diag rel "
+                  f"err {e_diag:.3e}")
+            assert e <= tol["fused_post"], f"fused_post_pbc {tag}: {e}"
+            assert nflip <= (0 if dt == torch.float64
+                             else MAX_FLIP_FRACTION * VX_N * VX_N), nflip
+        time_pair(results, "fused_post_pbc", tag,
+                  lambda: kernels.fused_post(u_b, po, with_diag=True),
+                  lambda: kernels.fused_post_plain(u_b, po, with_diag=True),
+                  (VX_N, VX_N))
+        del s, u0, u_a, u_b
+        torch.cuda.empty_cache()
+
+
+def phase_main_vortex(kernels, plain_calls):
+    """Phase 15: the vortex main path at 2048 x 2048; returns its launch
+    counts, ms/step and (solver, state) for the trace."""
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.physics import euler
+    params, s, u0 = prm_solver(VORTEX_PRM, torch.float32, VX_N)
+    u = s.post_stage(u0)
+    assert torch.equal(u, u0), "limiter none without positivity: no post"
+    t_end = params.final_time
+    multi = s._multi_step(VX_CHUNK)
+    multi(u, 0.0, t_end)                            # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    plain_calls["n"] = 0
+    n, bad, t = 0, False, 0.0
+    t0 = time.perf_counter()
+    for _ in range(VX_STEPS // VX_CHUNK):
+        u, t, nd, bad_c, _ = multi(u, t, t_end)
+        n, bad = n + nd, bad | bad_c
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n, bad = int(n), bool(bad)
+    finite = bool(torch.isfinite(u).all())
+    err = ic.l2_error(s.basis, s.mesh, u, ic.IC_FUNCTIONS["isenvort"](),
+                      float(t))
+    print(f"vortex main path: {n} steps to t={float(t)!r} in {wall:.4f} s, "
+          f"bad={bad}, finite={finite}, launches={counts}, plain calls="
+          f"{plain_calls['n']}")
+    assert n == VX_STEPS and not bad and finite
+    assert counts["fused_residual[pk_lxf_stage]"] == 3 * VX_STEPS, counts
+    assert counts["fused_diag"] > 0, counts
+    assert plain_calls["n"] == 0, "the vortex path called a plain version"
+    ms = 1e3 * wall / VX_STEPS
+    print(json.dumps({
+        "isenvort_p2_lxf_rk_dof_updates_per_sec":
+            4 * s.basis.K * VX_N * VX_N * VX_STEPS / wall,
+        "unit": "DoF-updates/s", "dtype": "float32", "grid": [VX_N, VX_N],
+        "steps": VX_STEPS, "chunk": VX_CHUNK, "ms_per_step": ms,
+        "t": float(t), "rho_l2_error_vs_ic": float(err[euler.RHO]),
+        "launches_per_step": {k: v / VX_STEPS for k, v in counts.items()
+                              if v}, "card": card_line()}))
+    return counts, ms, (s, u)
+
+
+def phase_configs(kernels, plain_calls):
+    """Phase 16: the five configs through cli.run at their shipped sizes;
+    returns {config: launch counts}."""
+    from dflo_tpu_torch import cli
+    out = {}
+    for name in CONFIG_FORMS:
+        with tempfile.TemporaryDirectory() as d:
+            kernels.reset_launch_counts()
+            plain_calls["n"] = 0
+            t0 = time.perf_counter()
+            res = cli.run([f"examples/{name}.prm", "--max-steps",
+                           str(CONFIG_STEPS), "--chunk", str(CONFIG_CHUNK),
+                           "--output-dir", d])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            snaps = sorted(f for f in os.listdir(d) if f.endswith(".vtu"))
+        finite = bool(torch.isfinite(res.u).all())
+        used = {k: v for k, v in counts.items() if v}
+        print(f"config {name}: {res.it} steps to t={res.t!r} in {wall:.2f} s "
+              f"(with set-up and output), {res.solver.basis.family}"
+              f"{res.solver.basis.degree} {res.solver.flux} "
+              f"{res.solver.method}, finite={finite}, launches={used}, plain "
+              f"calls={plain_calls['n']}, snapshots={snaps}")
+        assert res.it == CONFIG_STEPS and finite
+        assert res.u.dtype == torch.float32 and res.u.is_cuda
+        assert plain_calls["n"] == 0, f"{name} called a plain version"
+        assert all(counts[k] > 0 for k in CONFIG_FORMS[name]), (name, counts)
+        assert snaps and snaps[0] == "solution-000.vtu", snaps
+        out[name] = counts
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1413,6 +1722,9 @@ def main() -> int:
     phase_shard_kernels(entry, kernels, results, dmr_states)
     del dmr_states
 
+    # ---- phase 14: the modal LxF forms and the periodic post ---------------
+    phase_lxf_kernels(entry, kernels, results)
+
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
     plain_calls = {"n": 0}
     for name in WRAPPERS:
@@ -1437,8 +1749,17 @@ def main() -> int:
     counts["shard"], ms_step["shard"], shard = phase_main_shard(
         entry, kernels, plain_calls, results)
 
+    # ---- phases 15 and 16: the vortex main path, the five configs ----------
+    counts["vortex"], ms_step["vortex"], vortex = phase_main_vortex(
+        kernels, plain_calls)
+    by_config = phase_configs(kernels, plain_calls)
+    counts["sod_mood"] = by_config["sod_mood"]
+    counts["pbc"] = by_config["vortex_system_pbc"]
+
     # ---- phase 8: the device's busy share under torch.profiler --------------
-    busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard})
+    busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard,
+                                        "vortex": vortex})
+    del vortex
 
     # ---- phase 7: sparse against dense ---------------------------------------
     phase_sparse_dense(entry, kernels, results)
@@ -1460,7 +1781,8 @@ def main() -> int:
     from dflo_tpu_torch.ops.basis import make_basis
     bases = {"rk": make_basis("Qk", 2), "mood": make_basis("Pk", 2),
              "fwd": make_basis("Qk", 1), "pallas": make_basis("Qk", 1),
-             "shard": make_basis("Qk", 2)}
+             "shard": make_basis("Qk", 2), "vortex": make_basis("Pk", 2),
+             "sod_mood": make_basis("Pk", 2), "pbc": make_basis("Qk", 1)}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
@@ -1495,8 +1817,11 @@ def main() -> int:
                                 "ms_source"))}})
     assert all(math.isfinite(v) for row in table for v in row.values()
                if isinstance(v, float))
+    total_s = time.perf_counter() - t_start
+    print(f"chip_smoke: every phase passed in {total_s:.1f} s (build "
+          f"{build_s:.1f} s)")
     print(json.dumps({"build_s": build_s, "card": card,
-                      "total_s": time.perf_counter() - t_start,
+                      "total_s": total_s,
                       "device_busy": busy,
                       "fused_pk_post_with_diag_launches":
                           counts["mood"]["fused_pk_post_with_diag"],

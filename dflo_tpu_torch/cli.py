@@ -4,9 +4,9 @@ The torch counterpart of dflo_tpu/cli.py for the explicit Cartesian path
 (after src/main.cc:13-81 and src/claw.cc:953-1130): parse the .prm config,
 build the Cartesian mesh and its solid-cell mask from the `cartesian mesh`
 subsection, wire the boundary ids to the four sides, set the IC, march in
-time with the configured flux and limiter chain (``method = rk3`` on Qk,
-``mood`` on Pk), write VTU snapshots and checkpoints on their cadence and
-report the wall time of each phase.
+time with the configured flux and limiter chain (``method = rk3`` on Qk
+or Pk, ``mood`` on Pk), write VTU snapshots and checkpoints on their
+cadence and report the wall time of each phase.
 
 The run is on the card; ``--platform cpu`` runs it on the CPU, where every
 kernel wrapper takes its plain version.  Without a CUDA device and without
@@ -46,12 +46,15 @@ from dflo_tpu_torch.utils.profiling import Timer, device_trace
 
 #: where the branches this CLI does not carry yet come from (ROADMAP)
 _LATER = {
-    "mesh files": "slices D and E (ROADMAP items 15 and 16: .geo/.msh/"
-                  ".struct meshes and unstructured meshes)",
-    "envelope": "the physics envelope (ROADMAP item 13)",
-    "implicit": "slice D (ROADMAP item 14: implicit and steady stepping)",
-    "amr": "slice F (ROADMAP item 17: AMR)",
-    "devices": "slice G (ROADMAP item 18: multi-GPU)",
+    "mesh files": "slices D and E (ROADMAP queue 1, items 7 and 8: .geo/"
+                  ".msh/.struct meshes and unstructured meshes)",
+    "gravity": "slice C, part 2 (ROADMAP queue 1, item 3: body forces and "
+               "GLL)",
+    "envelope": "the physics envelope (ROADMAP queue 1, item 4)",
+    "implicit": "slice D (ROADMAP queue 1, item 6: implicit and steady "
+                "stepping)",
+    "amr": "slice F (ROADMAP queue 1, item 9: AMR)",
+    "devices": "slice G (ROADMAP queue 1, item 10: multi-GPU)",
 }
 
 
@@ -95,18 +98,24 @@ def build_bcs(params: AllParameters, side_bids: dict):
 
 
 def build_ic(params: AllParameters):
-    for table in (ic_mod.IC_FUNCTIONS, ic_mod.IC_CELLWISE):
-        if params.ic_function in table:
-            return table[params.ic_function](params)
+    if params.ic_function in ic_mod.IC_FUNCTIONS:
+        return ic_mod.IC_FUNCTIONS[params.ic_function](params)
     return params.initial_conditions
 
 
 def set_ic(params: AllParameters, solver):
-    """The initial state: the IC expression set on the basis, solid cells
-    pinned."""
-    u = ic_mod.set_initial_condition(solver.basis, solver.mesh,
-                                     build_ic(params), dtype=solver.dtype,
-                                     device=solver.device)
+    """The initial state, solid cells pinned: the setters that branch on
+    the cell centre (IC_CELLWISE) through
+    set_initial_condition_cellcentered, every other IC set on the basis
+    (dflo_tpu/cli.py:108-125)."""
+    kw = dict(dtype=solver.dtype, device=solver.device)
+    if params.ic_function in ic_mod.IC_CELLWISE:
+        fn = ic_mod.IC_CELLWISE[params.ic_function](params)
+        u = ic_mod.set_initial_condition_cellcentered(solver.basis,
+                                                      solver.mesh, fn, **kw)
+    else:
+        u = ic_mod.set_initial_condition(solver.basis, solver.mesh,
+                                         build_ic(params), **kw)
     return solver.apply_mask(u)
 
 
@@ -117,11 +126,11 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
     mesh, mask, side_bids = (domain if domain is not None
                              else build_domain(params, prm_dir))
     if params.basis == "GLL":
-        raise _later("the GLL basis (basis = GLL)", "envelope")
+        raise _later("the GLL basis (basis = GLL)", "gravity")
     if (params.gravity != 0.0 or params.external_force is not None
             or params.potential is not None):
         raise _later("a body force (gravity, force or potential)",
-                     "envelope")
+                     "gravity")
     if params.mass_matrix != "diagonal":
         raise _later(f"mass matrix = {params.mass_matrix}", "envelope")
     if params.diffusion_coef != 0.0:

@@ -2,44 +2,54 @@
 // Hopper.
 //
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_residual with
-// flux_name="lxf" on the collocated nodal Qk basis, masked (the forward
-// step's solid-cell mask, pallas_kernels.py:287-292, :472-533, :598-599)
-// or not: the kernel of fused_residual.cu (residual.cuh) instantiated with
-// FLUX = LXF.  Each face's dissipation speed is the larger |v.n| + c of
-// the two cells' averages (src/assemble_explicit.cc:335-340), so every cell
-// also forms its own average and each neighbor's, from the loads its traces
-// make anyway; at a fluid|solid face the solid side's trace and average are
-// the slip-wall mirror of the fluid side's.
+// flux_name="lxf" (kernel body _fused_kernel, :268), on the collocated
+// nodal Qk basis, masked (the forward step's solid-cell mask,
+// pallas_kernels.py:287-292, :472-533, :598-599) or not, and on the modal Pk
+// basis (the V contraction to quadrature-point values first, :450-459): the
+// kernel of fused_residual.cu (residual.cuh) instantiated with FLUX = LXF, in
+// its R, SSP-stage and u + dt*R forms.  Each face's dissipation speed is the
+// larger |v.n| + c of the two cells' averages (src/assemble_explicit.cc:
+// 335-340), the averages being the avg row applied to each cell's DoFs
+// (pallas_kernels.py:340, :368, :380): on Qk from the loads its traces make
+// anyway, on Pk from the DoFs the cell holds in registers and, for each
+// neighbor, from the loads of its trace.  At a fluid|solid face the solid
+// side's trace and average are the slip-wall mirror of the fluid side's.
 //
 // What bounds it on the H100: bytes, as fused_residual.cu (each cell reads
 // its own 4K values and its four neighbors', about 5x the state through
 // L1/L2, and writes 4K); LxF costs fewer operations per face point than
-// HLLC.  Its own source so that nvcc builds it beside fused_residual.cu.
+// HLLC, and the averages add 8K per cell and neighbor.  Its own source so
+// that nvcc builds it beside fused_residual.cu.
 #include <stdint.h>
 
 #include "residual.cuh"
 
-// dtype: 0 = float32, 1 = float64; p in {1, 2, 3} (collocated Qk).  Forms
-// and mask as dflo_fused_residual.  Returns the cudaGetLastError() code
-// after the launch (0 = launched), -1 for an unsupported case.
-extern "C" int dflo_fused_residual_lxf(int dtype, int p, const void* u,
-                                       const void* dfw, const void* dfe,
-                                       const void* dfs, const void* dfn,
-                                       const void* uold, const void* sc,
-                                       const void* ops, const void* mask,
-                                       void* out, int ny, int nx,
-                                       void* stream) {
+// dtype: 0 = float32, 1 = float64; modal: 0 = collocated Qk, 1 = Pk;
+// p in {1, 2, 3}.  Forms and mask (collocated Qk only) as
+// dflo_fused_residual.  Returns the cudaGetLastError() code after the launch
+// (0 = launched), -1 for an unsupported case.
+extern "C" int dflo_fused_residual_lxf(int dtype, int modal, int p,
+                                       const void* u, const void* dfw,
+                                       const void* dfe, const void* dfs,
+                                       const void* dfn, const void* uold,
+                                       const void* sc, const void* ops,
+                                       const void* mask, void* out, int ny,
+                                       int nx, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define DFLO_CASE(T, P)                                                      \
-  return dflo::launch_residual<T, P, false, dflo::LXF>(                      \
+#define DFLO_CASE(T, P, M)                                                   \
+  return dflo::launch_residual<T, P, M, dflo::LXF>(                          \
       u, dfw, dfe, dfs, dfn, uold, sc, ops, mask, out, ny, nx, s)
-#define DFLO_DEGREES(T)           \
-  if (p == 1) DFLO_CASE(T, 1);    \
-  if (p == 2) DFLO_CASE(T, 2);    \
-  if (p == 3) DFLO_CASE(T, 3);
+#define DFLO_DEGREES(T, M)           \
+  if (p == 1) DFLO_CASE(T, 1, M);    \
+  if (p == 2) DFLO_CASE(T, 2, M);    \
+  if (p == 3) DFLO_CASE(T, 3, M);
   if (uold != nullptr && sc == nullptr) return -1;
-  if (dtype == 0) { DFLO_DEGREES(float) }
-  if (dtype == 1) { DFLO_DEGREES(double) }
+  if (modal && mask != nullptr) return -1;
+  if (dtype == 0) {
+    if (modal) { DFLO_DEGREES(float, true) } else { DFLO_DEGREES(float, false) }
+  } else if (dtype == 1) {
+    if (modal) { DFLO_DEGREES(double, true) } else { DFLO_DEGREES(double, false) }
+  }
 #undef DFLO_DEGREES
 #undef DFLO_CASE
   return -1;

@@ -14,9 +14,10 @@
 // 0 / ny-1.  On a masked domain (a uint8 fluid-flag plane) a fluid|solid
 // face, the wrap faces included, takes the slip-wall mirror of the fluid
 // side's trace and average (pallas_kernels.py:472-533), and a solid cell's
-// residual is zeroed (:598-599).  Each cell recomputes the shared face flux from the same
-// operands in the same order as its neighbor ("canonical recompute",
-// pallas_kernels.py:184-193), so no face buffer goes through memory.
+// residual is zeroed (:598-599).  Each cell recomputes the shared face flux
+// from the same operands in the same order as its neighbor ("canonical
+// recompute", pallas_kernels.py:184-193), so no face buffer goes through
+// memory.
 //
 // Every contraction is an ordered sum (one multiply and one add per term,
 // in the order of ops/kernels.fused_residual_plain) and the sources are
@@ -74,6 +75,20 @@ __device__ __forceinline__ void trace_mem(const T* __restrict__ u,
 #pragma unroll
     for (int q = 0; q < NQ; ++q) tr[c][q] = acc[q];
     if constexpr (AVG) ub[c] = a;
+  }
+}
+
+// the cell average ub[c] = sum_k avg[k] w[c][k] of register-held DoFs (an
+// ordered sum, as contract.basis_reduce and trace_mem)
+template <typename T, int K>
+__device__ __forceinline__ void avg_reg(const T w[4][K],
+                                        const T* __restrict__ avg, T ub[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    T a = avg[0] * w[c][0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) a = a + avg[k] * w[c][k];
+    ub[c] = a;
   }
 }
 
@@ -178,9 +193,10 @@ __device__ __forceinline__ void lift_volume(const T* __restrict__ lift, int n,
   }
 }
 
-// A face neighbor's trace on face f: streamed (with AVG also its cell
-// average), or (TP) from its DoFs after truncation to its own degree and
-// positivity.
+// A face neighbor's trace on face f (with AVG also its cell average):
+// streamed, or (TP) from its DoFs after truncation to its own degree and
+// positivity, the average then of those DoFs (the plain candidate averages
+// the tp'd state, pallas_kernels.py:340, :368, :380).
 template <typename T, int P, bool MODAL, bool TP, bool AVG>
 __device__ __forceinline__ void neighbor_trace(
     const T* __restrict__ u, const int* __restrict__ deg,
@@ -188,11 +204,11 @@ __device__ __forceinline__ void neighbor_trace(
     long plane, long ncell, T tr[4][P + 1], const T* __restrict__ avg,
     T ub[4]) {
   if constexpr (TP) {
-    static_assert(!AVG, "the MOOD candidate carries HLLC");
     T v[4][BDims<P, MODAL>::K];
     load_cell<T, BDims<P, MODAL>::K>(u, plane, ncell, v);
     modal_tp<T, P>(v, __ldg(deg + ncell), Pm, avg0);
     trace_reg<T, P, MODAL>(v, faceVf, tr);
+    if constexpr (AVG) avg_reg<T, BDims<P, MODAL>::K>(v, avg, ub);
   } else {
     trace_mem<T, P, MODAL, AVG>(u, faceVf, plane, ncell, tr, avg, ub);
   }
@@ -202,9 +218,10 @@ __device__ __forceinline__ void neighbor_trace(
 // DoFs are held in w[4][K] (always for the modal basis, which contracts
 // them with V; with TP they are {truncated -> positivity-limited} first,
 // and so is every neighbor before its trace); otherwise (collocated Qk)
-// they are streamed from memory and w is not written.  FLUX: HLLC, or LXF
-// (collocated Qk), which also reads the cell averages of the cell and of
-// each face neighbor.  mask: the uint8 fluid flags of a masked domain, or
+// they are streamed from memory and w is not written.  FLUX: HLLC, or LXF,
+// which also reads the cell averages of the cell and of each face neighbor
+// (of the register-held DoFs where they are held, so with TP the averages
+// of the tp'd states).  mask: the uint8 fluid flags of a masked domain, or
 // nullptr.
 template <typename T, int P, bool MODAL, bool TP, int FLUX = HLLC>
 __device__ __forceinline__ void cell_residual(
@@ -221,7 +238,6 @@ __device__ __forceinline__ void cell_residual(
   constexpr int K = D::K, NQ = D::NQ, Q = D::Q;
   constexpr bool REG = MODAL || TP;
   constexpr bool AVG = FLUX == LXF;
-  static_assert(!(AVG && REG), "LxF is instantiated for the collocated basis");
   const long plane = (long)ny * nx;
   const long cell = (long)y * nx + x;
   const int xw = x == 0 ? nx - 1 : x - 1;
@@ -271,7 +287,9 @@ __device__ __forceinline__ void cell_residual(
 
   // the cell's own average (LxF)
   T ub[4] = {T(0), T(0), T(0), T(0)};
-  if constexpr (AVG) {
+  if constexpr (AVG && REG) {
+    avg_reg<T, K>(w, avg, ub);
+  } else if constexpr (AVG) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) ub[c] = dot_cell<T, K>(avg, u, c, plane, cell);
   }

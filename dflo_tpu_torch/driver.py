@@ -1,30 +1,39 @@
-"""Explicit solver driver on one device: RK/TVB on nodal Qk and the MOOD
-cascade on modal Pk.
+"""Explicit solver driver on one device: RK on the nodal Qk and modal Pk
+bases, and the MOOD cascade on modal Pk.
 
 The torch counterpart of dflo_tpu/driver.py's ``Solver``:
 
 - ``method="rk"``: each SSP stage is one fused residual pass (residual +
-  blend) followed by one fused post pass (averages -> shock indicator ->
-  characteristic TVB -> positivity), and the final stage's post also yields
-  the next step's CFL wave speed and the fatal-negativity minimum.  A
-  solid-cell mask (the forward step's obstacle) pins solid cells to a benign
-  state before every post and freezes their residual; the kernels mirror
-  the fluid state at fluid|solid faces.
+  blend) followed by the stage's post.  On collocated Qk with the TVB
+  limiter the post is one fused pass (averages -> shock indicator ->
+  characteristic TVB -> positivity), and the final stage's post also
+  yields the next step's CFL wave speed and the fatal-negativity minimum.
+  Everywhere else (the modal Pk basis, or limiter type "none") the post is
+  the plain stab chain {indicator -> TVB -> positivity}, each step present
+  only where configured, and the diag kernel reads the wave speed and
+  the negativity minimum off the step's result.  A solid-cell mask (the
+  forward step's obstacle) pins solid cells to a benign state before
+  every post and freezes their residual; the kernels mirror the fluid
+  state at fluid|solid faces.
 - ``method="mood"``: each SSP stage runs the MOOD cascade (stab/mood.py)
   from the stage predictor, blends, and runs the fused Pk post (modal TVB on
   the cells the cascade marked, then positivity); the final stage's Pk post
   yields the wave speed and the negativity minimum.  The state before the
   first step goes through the plain stab chain (KXRCF -> modal TVB -> modal
-  positivity), as the JAX package's post_stage does for Pk.
+  positivity), as the JAX package's post_stage does for Pk.  MOOD needs
+  the Pk basis and a global dt (dflo_tpu/driver.py:64-66).
 
 ``volume_kernel`` and ``post_kernel`` select the forms as the reference's
 Solver does (dflo_tpu/driver.py:104-138): "auto" takes the fused kernels
 wherever the configuration is inside their envelope, as the reference does
 on a TPU; "xla" runs the plain PyTorch residual or post chain,
 ``volume_kernel="pallas"`` the plain residual with its volume term through
-``kernels.volume_residual``.  Each wrapper is chosen by the device of the
-state: on a CUDA tensor it launches its kernel, on a CPU tensor it runs its
-plain version, so the control flow is the same on both.
+``kernels.volume_residual``.  The fused post exists for the collocated Qk
+TVB chain only (the reference's post_ok); the Pk RK post is the plain
+modal chain on every device, in the reference too, which has no fused
+kernel for it.  Each wrapper is chosen by the device of the state: on a
+CUDA tensor it launches its kernel, on a CPU tensor it runs its plain
+version, so the control flow is the same on both.
 
 With ``device_mesh`` (parallel/sharding: a grid of devices, which may
 repeat) the RK/TVB step on collocated Qk runs on the state split into
@@ -39,9 +48,9 @@ per chunk.  The port's kernels take any block shape: a mesh needs only
 8 x 128-aligned blocks).
 
 Configurations outside the ported slices raise NotImplementedError: implicit
-stepping, masked MOOD, the other fluxes and indicators (physics envelope);
-under a device mesh, MOOD, masks and the plain and volume_residual forms
-(ROADMAP item 18).
+stepping, masked MOOD, the minmax limiter, the other fluxes and indicators
+(the physics envelope); under a device mesh, MOOD, masks, the plain and
+volume_residual forms and the plain post chain (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -60,8 +69,9 @@ from dflo_tpu_torch.parallel.sharding import (block_shape, gather_state,
 from dflo_tpu_torch.solver import rk as rk_mod
 from dflo_tpu_torch.solver.spatial import BoundarySide, _check_bcs, make_rhs
 from dflo_tpu_torch.stab.indicator import make_shock_indicator
+from dflo_tpu_torch.stab.limiter import make_tvb_limiter
 from dflo_tpu_torch.stab.mood import MoodStats, make_mood
-from dflo_tpu_torch.stab.positivity import EPS
+from dflo_tpu_torch.stab.positivity import EPS, make_positivity_limiter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,24 +95,30 @@ def _where(cond, new, old):
             for n, o in zip(new, old)]
 
 
-def _kernel_forms(basis, flux: str, method: str, volume_kernel: str,
-                  post_kernel: str) -> tuple[str, str]:
-    """Resolve "auto" (dflo_tpu/driver.py:104-138): the fused kernels
-    wherever the configuration is inside their envelope (collocated Qk with
-    hllc or lxf, modal Pk with hllc; degrees 1-3), else the plain forms."""
+def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
+                  volume_kernel: str, post_kernel: str) -> tuple[str, str]:
+    """Resolve "auto" (dflo_tpu/driver.py:104-138): the fused residual
+    wherever the configuration is inside its envelope (collocated Qk or
+    modal Pk, hllc or lxf, degrees 1-3), the fused post on collocated Qk
+    with the TVB limiter (the reference's post_ok), else the plain
+    forms."""
     modal = basis.family == "Pk"
     vol_ok = (basis.degree in kernels.DEGREES
               and (modal or (basis.family == "Qk"
                              and basis.is_nodal_collocated))
-              and (flux == "hllc" or (flux == "lxf" and not modal)))
+              and flux in ("hllc", "lxf"))
+    post_ok = vol_ok and not modal and limiter.type == "TVB"
     if volume_kernel == "auto":
         volume_kernel = "fused" if vol_ok else "xla"
     if post_kernel == "auto":
-        post_kernel = "fused" if vol_ok and not modal else "xla"
+        post_kernel = "fused" if post_ok else "xla"
     if volume_kernel not in ("fused", "pallas", "xla"):
         raise ValueError(f"unknown volume kernel {volume_kernel!r}")
     if post_kernel not in ("fused", "xla"):
         raise ValueError(f"unknown post kernel {post_kernel!r}")
+    if method == "rk" and post_kernel == "fused" and not post_ok:
+        raise ValueError("post_kernel='fused' covers the collocated Qk TVB "
+                         "chain only (dflo_tpu/driver.py:129-140)")
     if method == "mood" and volume_kernel != "fused":
         raise NotImplementedError("the port's MOOD cascade runs on the fused "
                                   "residual (volume_kernel='fused')")
@@ -112,16 +128,17 @@ def _kernel_forms(basis, flux: str, method: str, volume_kernel: str,
 def _mesh_later(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} under a device mesh is not ported yet; it comes with the "
-        f"rest of the multi-GPU slice (ROADMAP item 18)")
+        f"rest of the multi-GPU slice (ROADMAP queue 1, item 10)")
 
 
 class Solver:
-    """Explicit DG solver on a Cartesian mesh, on one device or (RK/TVB,
-    device_mesh) on a mesh of blocks: RK/TVB on nodal Qk (method="rk") or
-    the MOOD cascade on modal Pk (method="mood")."""
+    """Explicit DG solver on a Cartesian mesh, on one device or (RK/TVB on
+    collocated Qk, device_mesh) on a mesh of blocks: RK on nodal Qk or
+    modal Pk (method="rk") or the MOOD cascade on modal Pk
+    (method="mood")."""
 
     def __init__(self, basis: basis_mod.Basis, mesh,
-                 bcs: dict[str, BoundarySide], flux: str = "hllc",
+                 bcs: dict[str, BoundarySide], flux: str = "lxf",
                  limiter: LimiterConfig | None = None, cfl: float = 0.9, *,
                  dtype: torch.dtype, device, scheme: str | None = None,
                  method: str = "rk", mask=None,
@@ -130,10 +147,10 @@ class Solver:
                  device_mesh=None):
         if method not in ("rk", "mood"):
             raise NotImplementedError(f"method {method!r} is not ported yet")
-        if (basis.family == "Pk") != (method == "mood"):
-            raise NotImplementedError(
-                "the port carries RK/TVB on the nodal Qk basis and MOOD on "
-                "the modal Pk basis (src/parameters.cc:536-544)")
+        modal = basis.family == "Pk"
+        if method == "mood" and not modal:
+            raise ValueError("MOOD requires the Pk basis "
+                             "(src/parameters.cc:541-544)")
         if mask is not None and method == "mood":
             raise NotImplementedError("masked MOOD comes with the physics "
                                       "envelope slice")
@@ -147,14 +164,25 @@ class Solver:
                                  f"type ({device_mesh.flat[0].type})")
             block_shape(device_mesh, mesh.ny, mesh.nx)
         cfg = limiter or LimiterConfig()
-        if (cfg.type != "TVB" or cfg.conserve_angular_momentum
+        if cfg.type not in ("none", "TVB"):
+            if cfg.type == "minmax":
+                raise NotImplementedError(
+                    "the minmax limiter is not ported yet (the physics "
+                    "envelope, ROADMAP queue 1, item 4)")
+            raise ValueError(f"unknown limiter type {cfg.type!r}")
+        if cfg.type == "TVB" and (
+                cfg.conserve_angular_momentum
                 or cfg.shock_indicator not in ("limiter", "density",
                                                "energy")):
             raise NotImplementedError(
                 "the port carries the TVB limiter with the limiter, density "
                 "or energy indicator (no angular-momentum option)")
+        if method == "mood" and (cfg.type != "TVB" or not cfg.pos_lim):
+            raise NotImplementedError(
+                "the MOOD path of the port carries the TVB limiter and "
+                "positivity on")
         volume_kernel, post_kernel = _kernel_forms(
-            basis, flux, method, volume_kernel, post_kernel)
+            basis, flux, method, cfg, volume_kernel, post_kernel)
         if device_mesh is not None and (volume_kernel, post_kernel) != (
                 "fused", "fused"):
             raise _mesh_later(f"volume_kernel={volume_kernel!r} / "
@@ -195,9 +223,12 @@ class Solver:
                 per_x=per_x, per_y=per_y, mask=self.mask, dtype=dtype,
                 device=dev)
 
+        # the RK post on collocated Qk with TVB: the fused post (or its
+        # plain version) with its diag; every other post is the plain chain
+        self._fused_chain = method == "rk" and not modal and cfg.type == "TVB"
         if device_mesh is None:
             self._diag_ops = diag_ops(self.device)
-            if method == "rk":
+            if self._fused_chain:
                 self._post_ops = post_ops(self.device)
         else:
             # one operator set per distinct device, listed per block
@@ -205,14 +236,24 @@ class Solver:
                       for d in dict.fromkeys(device_mesh.flat)}
             self._blk_diag_ops = [by_dev[d][0] for d in device_mesh.flat]
             self._blk_post_ops = [by_dev[d][1] for d in device_mesh.flat]
-        if method == "mood":
-            if not cfg.pos_lim:
-                raise NotImplementedError(
-                    "the MOOD path of the port carries positivity on")
-            dev = self.device
+        if modal:
+            self._avg0 = kernels.mode0_mean(basis)
+        # the plain stab chain {indicator -> TVB -> positivity}, each step
+        # only where configured (dflo_tpu/driver.py:223-233, :389-408)
+        dev = self.device
+        self._indicator = self._limit = self._positivity = None
+        if not self._fused_chain and cfg.type == "TVB":
             self._indicator = make_shock_indicator(
-                basis, mesh, cfg.shock_indicator, per_x, per_y, dtype=dtype,
+                basis, mesh, cfg.shock_indicator, per_x, per_y, self.mask,
+                dtype=dtype, device=dev)
+            self._limit = make_tvb_limiter(
+                basis, mesh, M=cfg.M, beta=cfg.beta, char_lim=cfg.char_lim,
+                per_x=per_x, per_y=per_y, mask=self.mask, dtype=dtype,
                 device=dev)
+        if not self._fused_chain and cfg.pos_lim:
+            self._positivity = make_positivity_limiter(basis, dtype=dtype,
+                                                       device=dev)
+        if method == "mood":
             self._pk_post_ops = kernels.pk_post_operators(
                 basis, mesh, M=cfg.M, beta=cfg.beta, char_lim=cfg.char_lim,
                 per_x=per_x, per_y=per_y, dtype=dtype, device=dev)
@@ -252,9 +293,9 @@ class Solver:
                                           self.device_mesh)
 
     def cell_averages(self, u):
-        if self.method == "mood":
+        if self.basis.family == "Pk":
             # modal Legendre: mode 0 is the mean (dflo_tpu/driver.py:371)
-            return self._pk_post_ops.avg0 * u[:, 0]
+            return self._avg0 * u[:, 0]
         return basis_reduce(self._diag_ops.avg, u)
 
     def apply_mask(self, u):
@@ -266,15 +307,22 @@ class Solver:
 
     def post_stage(self, u, t=0.0):
         """Stabilization chain after each RK stage (src/claw.cc:762-766),
-        solid cells pinned first; for MOOD the chain before the first step
-        (the plain stab chain KXRCF -> modal TVB -> positivity,
-        dflo_tpu/driver.py:394-408)."""
-        if self.method == "rk":
+        solid cells pinned first: the fused post (collocated Qk, TVB) or
+        the plain chain {indicator -> TVB -> positivity} with the steps the
+        limiter configuration has (dflo_tpu/driver.py:389-408); for MOOD
+        the chain before the first step."""
+        if self._fused_chain:
             return self._post()(self.apply_mask(u))
+        u = self.apply_mask(u)
+        if self._limit is None and self._positivity is None:
+            return u
         ubar = self.cell_averages(u)
-        shock, _ = self._indicator(u, ubar)
-        ops = self._pk_post_ops
-        return ops.positivity(ops.limit(u, ubar, shock), ubar)
+        if self._limit is not None:
+            shock, _ = self._indicator(u, ubar)
+            u = self._limit(u, ubar, shock)
+        if self._positivity is not None:
+            u = self._positivity(u, ubar)
+        return u
 
     def _post_diag(self, u, t=0.0):
         """post_stage plus (lam_max, minq) of the stage's (fluid) cell
@@ -282,9 +330,10 @@ class Solver:
         return self._post()(self.apply_mask(u), with_diag=True)
 
     def _post(self):
-        """The RK post chain as post(u, with_diag=False): the kernel, or
-        (post_kernel="xla") its plain version on every device; under a mesh
-        the sharded post over the block list."""
+        """The fused RK post chain (collocated Qk, TVB) as post(u,
+        with_diag=False): the kernel, or (post_kernel="xla") its plain
+        version on every device; under a mesh the sharded post over the
+        block list."""
         if self.device_mesh is not None:
             return lambda u, with_diag=False: kernels.fused_post_sharded(
                 u, self._blk_post_ops, self.device_mesh, with_diag)
@@ -331,7 +380,9 @@ class Solver:
         step(u, t, t_end, lam_prev) -> (..., lam_next) for the chunked loop:
         the wave speed comes from the previous step's final-stage post (the
         fused post for RK, the Pk post for MOOD: both preserve cell means)
-        instead of a whole-state diag pass (dflo_tpu/driver.py:469-489).
+        or, after the plain chain, from the diag of the step's result,
+        instead of a whole-state diag pass at the start of every step
+        (dflo_tpu/driver.py:469-489).
         Nothing in it waits for the device, except the MOOD cascade's one
         read per pass; live (a 0-dim bool tensor) stops the cascade of a
         step the chunked loop discards."""
@@ -345,14 +396,21 @@ class Solver:
             else:
                 lam, _ = self._diag(u)
             dt = torch.minimum(self.cfl / lam / denom, t_end - t)
+            stats = ()
             if self.method == "mood":
                 u, stats, (lam_new, minq) = self._mood_rk_step(u, t, dt, live)
                 self.last_stats = stats
-            else:
+            elif self._fused_chain:
                 u, lam_new, minq = rk_mod.ssp_rk_step(
                     self.rhs, u, t, dt, self.ark, self.stage_times,
                     post_stage=self._post_diag, post_diag=True)
-                stats = ()
+            else:
+                # the plain chain preserves cell means too: one diag of the
+                # step's result gives the next wave speed and the flag
+                u = rk_mod.ssp_rk_step(self.rhs, u, t, dt, self.ark,
+                                       self.stage_times,
+                                       post_stage=self.post_stage)
+                lam_new, minq = self._diag(u)
             bad = ~(minq >= EPS)            # NaN-safe
             if carry_lam:
                 return u, dt, bad, stats, lam_new

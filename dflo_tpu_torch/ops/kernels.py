@@ -6,9 +6,10 @@ wrapper                TPU kernel it replaces                      CUDA source
                        (dflo_tpu/ops/pallas_kernels.py)
 =====================  ==========================================  ==========================
 fused_residual         make_fused_residual, dense (collocated Qk   csrc/fused_residual.cu
-                       and modal Pk; hllc, and lxf on Qk; with a   csrc/fused_residual_lxf.cu
-                       solid-cell mask)
-fused_mood_candidate   make_fused_residual(...).sparse             csrc/fused_mood_candidate.cu
+                       and modal Pk, hllc and lxf; a solid-cell    csrc/fused_residual_lxf.cu
+                       mask on Qk)
+fused_mood_candidate   make_fused_residual(...).sparse (hllc,      csrc/fused_mood_candidate.cu
+                       lxf)                                        csrc/fused_mood_candidate_lxf.cu
 fused_post             make_fused_post; with halo lines, the       csrc/fused_post.cu
                        per-device kernel of
                        make_fused_post_sharded
@@ -23,7 +24,8 @@ volume_residual        volume_residual                             csrc/volume_r
 Each wrapper takes its plain version for a tensor that lies on the CPU, and
 for a CUDA tensor launches its kernel or raises: there is no fallback.  Each
 counts its launches in ``<wrapper>.launches`` (only where the kernel is
-launched), so a run can show that the main path went through the kernels.
+launched), so a run can show that the main path went through the kernels;
+the residual and the candidate also count per form (``launch_counts``).
 Under a device mesh the state is a list of blocks (parallel/sharding):
 ``fused_post_sharded`` exchanges the halo lines and launches the post's
 block form once per block (counted in ``fused_post.launches`` and
@@ -168,10 +170,12 @@ def _load():
     sig = {
         "dflo_num_blocks": [ci, ci],
         "dflo_fused_residual": [ci, ci, ci] + [vp] * 10 + [ci, ci, vp],
-        "dflo_fused_residual_lxf": [ci, ci] + [vp] * 10 + [ci, ci, vp],
+        "dflo_fused_residual_lxf": [ci, ci, ci] + [vp] * 10 + [ci, ci, vp],
         "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
         "dflo_fused_mood_candidate": [ci, ci] + [vp] * 11 + [cd, ci, ci, vp,
                                                              vp],
+        "dflo_fused_mood_candidate_lxf": [ci, ci] + [vp] * 11
+                                         + [cd, ci, ci, vp, vp],
         "dflo_fused_post": [ci, ci] + [vp] * 10 + [ci] * 10 + [cd] * 9
                            + [vp],
         "dflo_fused_diag": [ci, ci] + [vp] * 5 + [ci, ci, cd, vp],
@@ -255,21 +259,43 @@ def _wrappers():
             fused_mood_check, volume_residual)
 
 
+#: launches per kernel form since the last reset (launch_counts)
+_FORM_LAUNCHES: dict[str, int] = {}
+
+
+def _count_form(key: str) -> None:
+    _FORM_LAUNCHES[key] = _FORM_LAUNCHES.get(key, 0) + 1
+
+
 def reset_launch_counts() -> None:
     for fn in _wrappers():
         fn.launches = 0
     fused_pk_post.launches_with_diag = 0
     fused_post.launches_block = 0
+    _FORM_LAUNCHES.clear()
 
 
 def launch_counts() -> dict[str, int]:
     """Launches per wrapper since the last reset, plus the Pk post's
-    launches of its diag form under "fused_pk_post_with_diag" and the
-    post's launches of its block form under "fused_post_block"."""
+    launches of its diag form under "fused_pk_post_with_diag", the post's
+    launches of its block form under "fused_post_block", and per form of
+    the residual ("fused_residual[pk_lxf_stage]": basis, flux, a mask, and
+    R, stage or step) and of the candidate ("fused_mood_candidate[lxf]")."""
     out = {fn.__name__: fn.launches for fn in _wrappers()}
     out["fused_pk_post_with_diag"] = fused_pk_post.launches_with_diag
     out["fused_post_block"] = fused_post.launches_block
+    out.update(sorted(_FORM_LAUNCHES.items()))
     return out
+
+
+def _residual_form(ops: "ResidualOps", u_old=None, dt=None) -> str:
+    """The launch-count key of a residual call: "fused_residual[<basis>_
+    <flux>[_masked]_<form>]", form R, stage (u_old given) or step (dt
+    given)."""
+    form = "stage" if u_old is not None else "step" if dt is not None else "R"
+    masked = "_masked" if ops.mask is not None else ""
+    return (f"fused_residual[{'pk' if ops.modal else 'qk'}_{ops.flux}"
+            f"{masked}_{form}]")
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +337,7 @@ def _flat(parts, dtype, device) -> tuple[torch.Tensor, list[torch.Tensor]]:
     return buf, views
 
 
-def _mode0_mean(basis: basis_mod.Basis) -> float:
+def mode0_mean(basis: basis_mod.Basis) -> float:
     """avg0 = (wq2 @ V)[0]: modal Legendre mode 0 carries the cell mean, the
     other mean weights are quadrature round-off (< 1e-13)."""
     avg = basis.wq2 @ basis.V
@@ -353,18 +379,17 @@ def _mask_tensor(mask, mesh, device) -> torch.Tensor | None:
     return torch.as_tensor(np.ascontiguousarray(m), device=device)
 
 
-def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "hllc",
+def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
                        mask=None, dtype, device) -> ResidualOps:
     modal = _check_basis(basis)
     if flux not in ("hllc", "lxf"):
         raise NotImplementedError(
             f"the fused residual kernel carries hllc and lxf, not {flux!r} "
             f"(the other fluxes come with the physics envelope slice)")
-    if modal and (flux != "hllc" or mask is not None):
+    if modal and mask is not None:
         raise NotImplementedError(
-            "the fused residual takes the modal Pk basis with hllc on an "
-            "unmasked domain (masked and LxF MOOD come with the physics "
-            "envelope slice)")
+            "the fused residual takes the modal Pk basis on an unmasked "
+            "domain (masks on Pk come with the physics envelope slice)")
     scale = (1.0 / basis.mass)[:, None] / (mesh.dx * mesh.dy)
     GxW = basis.wq2[:, None] * basis.Gx
     GyW = basis.wq2[:, None] * basis.Gy
@@ -402,7 +427,7 @@ def modal_operators(basis: basis_mod.Basis, mesh, *, dtype, device
                     ) -> ModalOps:
     _check_basis(basis, modal=True)
     P = as_tensor(basis.eval_at(_pos_points(basis.degree)), dtype, device)
-    return ModalOps(basis.degree, basis.K, _mode0_mean(basis),
+    return ModalOps(basis.degree, basis.K, mode0_mean(basis),
                     mesh.diameter_h, P.contiguous(),
                     torch.as_tensor(basis.mode_degree, device=device),
                     make_positivity_limiter(basis, dtype=dtype,
@@ -513,7 +538,7 @@ def pk_post_operators(basis: basis_mod.Basis, mesh, *, M: float = 0.0,
     h = mesh.diameter_h
     P = as_tensor(basis.eval_at(_pos_points(basis.degree)), dtype, device)
     return PkPostOps(
-        basis.degree, basis.K, _mode0_mean(basis), h, per_x, per_y, char_lim,
+        basis.degree, basis.K, mode0_mean(basis), h, per_x, per_y, char_lim,
         beta, M * h * h, P.contiguous(),
         make_tvb_limiter(basis, mesh, M=M, beta=beta, char_lim=char_lim,
                          per_x=per_x, per_y=per_y, dtype=dtype,
@@ -562,7 +587,7 @@ def mood_check_operators(basis: basis_mod.Basis, mesh, *, per_x: bool = False,
                                   "smoothness test reads the D2 modes)")
     valid = tuple(torch.as_tensor(v, device=device) for v in
                   neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
-    return MoodCheckOps(basis.degree, basis.K, _mode0_mean(basis), per_x,
+    return MoodCheckOps(basis.degree, basis.K, mode0_mean(basis), per_x,
                         per_y, valid)
 
 
@@ -700,14 +725,13 @@ def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
     args = (_ptr(u), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(u_old),
             _ptr(sc if sc is not None else dt), _ptr(ops.buf),
             _ptr(ops.mask), _ptr(out), ny, nx, _stream(u.device))
-    if ops.flux == "lxf":
-        rc = _call(u.device, lib.dflo_fused_residual_lxf,
-                   _DTYPE_CODE[u.dtype], ops.p, *args)
-    else:
-        rc = _call(u.device, lib.dflo_fused_residual, _DTYPE_CODE[u.dtype],
-                   int(ops.modal), ops.p, *args)
+    entry = (lib.dflo_fused_residual_lxf if ops.flux == "lxf"
+             else lib.dflo_fused_residual)
+    rc = _call(u.device, entry, _DTYPE_CODE[u.dtype], int(ops.modal), ops.p,
+               *args)
     _check(rc, "fused_residual")
     fused_residual.launches += 1
+    _count_form(_residual_form(ops, u_old, dt))
     return out
 
 
@@ -780,13 +804,15 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
                              f"{(4, rops.nq, n)}")
     flags = tile_flags(cells)
     lib = _load()
-    rc = _call(u_pre.device, lib.dflo_fused_mood_candidate,
-        _DTYPE_CODE[u_pre.dtype], rops.p, _ptr(u_pre), _ptr(deg),
-        _ptr(cells), _ptr(flags), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn),
-        _ptr(dt), _ptr(rops.buf), _ptr(mops.P), mops.avg0, ny, nx,
-        _ptr(u_prev), _stream(u_pre.device))
+    entry = (lib.dflo_fused_mood_candidate_lxf if rops.flux == "lxf"
+             else lib.dflo_fused_mood_candidate)
+    rc = _call(u_pre.device, entry, _DTYPE_CODE[u_pre.dtype], rops.p,
+        _ptr(u_pre), _ptr(deg), _ptr(cells), _ptr(flags), _ptr(dfw),
+        _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(dt), _ptr(rops.buf),
+        _ptr(mops.P), mops.avg0, ny, nx, _ptr(u_prev), _stream(u_pre.device))
     _check(rc, "fused_mood_candidate")
     fused_mood_candidate.launches += 1
+    _count_form(f"fused_mood_candidate[{rops.flux}]")
     return u_prev
 
 
@@ -879,7 +905,7 @@ def fused_post_plain(u, ops: PostOps, with_diag: bool = False, halos=None):
         if ops.vflags is not None:
             raise NotImplementedError(
                 "the post on a masked domain under a device mesh is not "
-                "ported yet (ROADMAP item 18)")
+                "ported yet (ROADMAP queue 1, item 10)")
         ly, lx = u.shape[-2:]
         valid = _padded_valid(ly, lx, halos, u.device)
         u = _pad_halos(u, halos)
@@ -913,7 +939,7 @@ def fused_post(u, ops: PostOps, with_diag: bool = False, halos=None):
         if halos is not None:
             raise NotImplementedError(
                 "the post on a masked domain under a device mesh is not "
-                "ported yet (ROADMAP item 18)")
+                "ported yet (ROADMAP queue 1, item 10)")
         _check_plane(ops.vflags, u, torch.bool, (5, ny, nx), "vflags")
     for h, n in zip(hs, (ny, ny, nx, nx)):
         if h is not None and tuple(h.shape) != (4, ops.K, n):

@@ -23,7 +23,7 @@ JAX package's sharded kernels also need ``(ny/DY) % 8 == 0`` and
 ``(nx/DX) % 128 == 0`` (dflo_tpu/driver.py:92-97) and run XLA otherwise.
 One process per card under ``torch.distributed`` (the multi-host idiom),
 the multi-slice mesh and the flat-cell sharding are not ported (ROADMAP
-item 18).
+queue 1, item 10).
 """
 
 from __future__ import annotations

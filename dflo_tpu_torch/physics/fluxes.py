@@ -119,6 +119,6 @@ def get_flux(name: str):
         raise NotImplementedError(
             f"numerical flux {name!r} is not ported yet; the port carries "
             f"hllc and lxf (the other fluxes come with the physics envelope "
-            f"slice, ROADMAP item 13)")
+            f"slice, ROADMAP queue 1, item 4)")
     raise ValueError(f"unknown numerical flux {name!r}; choose from "
                      f"{sorted(FLUX_FUNCTIONS) + list(_LATER)}")

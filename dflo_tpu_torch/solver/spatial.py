@@ -95,7 +95,7 @@ def _check_bcs(bcs) -> tuple[bool, bool]:
 
 
 def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
-             flux: str = "hllc", *, dtype: torch.dtype, device,
+             flux: str = "lxf", *, dtype: torch.dtype, device,
              volume_kernel: str = "xla", mask=None, device_mesh=None):
     """Build du/dt = rhs(u, t) for a Cartesian mesh (see module docstring).
 
@@ -113,7 +113,7 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
             raise NotImplementedError(
                 "under a device mesh the port carries the fused residual on "
                 "an unmasked domain; the plain forms and masks come with the "
-                "rest of the multi-GPU slice (ROADMAP item 18)")
+                "rest of the multi-GPU slice (ROADMAP queue 1, item 10)")
         return _make_rhs_sharded(basis, mesh, bcs, flux, dtype, device_mesh)
     num_flux = get_flux(flux)
     per_x, per_y = _check_bcs(bcs)

@@ -2,7 +2,10 @@
 the card: the RK/TVB kernels for every instantiated degree (p = 1, 2, 3),
 the MOOD kernels for p = 2 and 3 (96 x 24, modal Pk), in both dtypes; the
 post's block form and the sharded diag on a (2, 2) virtual mesh (and over
-distinct cards where there are two or more).
+distinct cards where there are two or more); the modal LxF residual in its
+three forms (p = 1, 2, 3) and the LxF candidate (p = 2, 3, bitwise) at the
+ragged ny = 4 and 10, and the Q1 post periodic on both axes (the vortex
+system's), with and without its diag.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -148,11 +151,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
 PK_NX, PK_NY = 96, 24
 
 
-def setup_pk(p, dtype, device, seed=0):
+def setup_pk(p, dtype, device, seed=0, ny=PK_NY, flux="hllc"):
     """Operators and a positivity-limited, perturbed DMR state on P_p, a
     mixed degree map and random cell/limiter planes (numpy seed)."""
     basis = make_basis("Pk", p)
-    mesh = CartesianMesh(PK_NX, PK_NY, 0.0, 4.0, 0.0, 1.0)
+    mesh = CartesianMesh(PK_NX, ny, 0.0, 4.0, 0.0, 1.0)
     rng = np.random.default_rng(seed)
     u = ic.set_initial_condition(basis, mesh, dmr_ic, dtype=torch.float64,
                                  device="cpu")
@@ -160,16 +163,16 @@ def setup_pk(p, dtype, device, seed=0):
     mops64 = kernels.modal_operators(basis, mesh, dtype=torch.float64,
                                      device="cpu")
     u = kernels.modal_tp_plain(u, None, mops64).to(dtype=dtype, device=device)
-    rhs = make_rhs(basis, mesh, BCS, flux="hllc", dtype=dtype, device=device,
+    rhs = make_rhs(basis, mesh, BCS, flux=flux, dtype=dtype, device=device,
                    volume_kernel="fused")
     planes = dict(
-        deg=torch.from_numpy(rng.integers(1, p + 1, (PK_NY, PK_NX),
+        deg=torch.from_numpy(rng.integers(1, p + 1, (ny, PK_NX),
                                           dtype=np.int32)).to(device),
-        cells=torch.from_numpy(rng.uniform(size=(PK_NY, PK_NX)) < 0.3
+        cells=torch.from_numpy(rng.uniform(size=(ny, PK_NX)) < 0.3
                                ).to(device),
-        lim=torch.from_numpy(rng.uniform(size=(PK_NY, PK_NX)) < 0.2
+        lim=torch.from_numpy(rng.uniform(size=(ny, PK_NX)) < 0.2
                              ).to(device),
-        shock=torch.from_numpy(np.where(rng.uniform(size=(PK_NY, PK_NX))
+        shock=torch.from_numpy(np.where(rng.uniform(size=(ny, PK_NX))
                                         < 0.5, 2.0, 0.0)).to(dtype=dtype,
                                                              device=device))
     return basis, mesh, u, rhs, planes
@@ -475,3 +478,84 @@ def test_sharded_step_over_distinct_cards(cuda):
         assert abs(float(dtN) - float(dt1)) <= 1e-14 * float(dt1)
         assert not bool(bad)
     assert rel(sN.gather(b).to(u.device), u) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# the modal LxF forms and the periodic Q1 post
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ny", (4, 10))
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3))
+def test_modal_lxf_residual_matches_plain(cuda, p, dtype, ny):
+    """The LxF residual on P_p in its R, u + dt*R and SSP-stage forms, each
+    counted under its own form."""
+    dt = getattr(torch, dtype)
+    _, _, u, rhs, _ = setup_pk(p, dt, cuda, seed=p, ny=ny, flux="lxf")
+    strips = rhs.strips(u, 0.0)
+    h = torch.full((), 1e-4, dtype=dt, device=cuda)
+    sc = torch.tensor([0.75, 1e-4], dtype=dt, device=cuda)
+    u_old = u.flip(-1).contiguous()
+    kernels.reset_launch_counts()
+    for kw in ({}, {"dt": h}, {"u_old": u_old, "sc": sc}):
+        k = kernels.fused_residual(u, *strips, rhs.ops, **kw)
+        q = kernels.fused_residual_plain(u, *strips, rhs.ops, **kw)
+        torch.cuda.synchronize()
+        assert rel(k, q) <= TOL[dt], kw.keys()
+    counts = kernels.launch_counts()
+    assert all(counts[f"fused_residual[pk_lxf_{f}]"] == 1
+               for f in ("R", "step", "stage")), counts
+
+
+@pytest.mark.parametrize("ny", (4, 10))
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (2, 3))
+def test_lxf_candidate_is_bitwise_plain(cuda, p, dtype, ny):
+    """The LxF candidate on a random cell set and on every cell, bitwise
+    equal to its plain version (the averages of the tp'd states)."""
+    dt = getattr(torch, dtype)
+    _, _, u, rhs, pl = setup_pk(p, dt, cuda, seed=10 + p, ny=ny, flux="lxf")
+    h = torch.full((), 1e-4, dtype=dt, device=cuda)
+    tp_strips = rhs.strips(u, 0.0, pl["deg"])
+    prev = u.flip(-1).contiguous()
+    kernels.reset_launch_counts()
+    for cells in (pl["cells"], torch.ones_like(pl["cells"])):
+        k = kernels.fused_mood_candidate(u, prev.clone(), pl["deg"], cells,
+                                         *tp_strips, rhs.ops, rhs.modal_ops,
+                                         h)
+        q = kernels.fused_mood_candidate_plain(u, prev.clone(), pl["deg"],
+                                               cells, *tp_strips, rhs.ops,
+                                               rhs.modal_ops, h)
+        torch.cuda.synchronize()
+        assert torch.equal(k, q)
+        assert torch.equal(k[..., ~cells], prev[..., ~cells])
+    assert kernels.launch_counts()["fused_mood_candidate[lxf]"] == 2
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+def test_periodic_q1_post_matches_plain(cuda, dtype):
+    """The Q1 post periodic on both axes (vortex_system_pbc: the `limiter`
+    indicator, characteristic TVB, no positivity) on the vortex system's
+    IC with a 2 % perturbation (a numpy seed), with and without its
+    diag."""
+    dt = getattr(torch, dtype)
+    basis = make_basis("Qk", 1)
+    mesh = CartesianMesh(80, 44, -20.0, 20.0, -20.0, 20.0)
+    rng = np.random.default_rng(7)
+    u = ic.set_initial_condition(basis, mesh, ic.vortex_system(),
+                                 dtype=torch.float64, device="cpu")
+    u = (u * torch.from_numpy(1.0 + 0.02 * rng.uniform(-1.0, 1.0, u.shape))
+         ).to(dtype=dt, device=cuda)
+    post = kernels.post_operators(basis, mesh, indicator="limiter", beta=2.0,
+                                  char_lim=True, pos_lim=False, per_x=True,
+                                  per_y=True, dtype=dt, device=cuda)
+    k0 = kernels.fused_post(u, post)
+    k, lam, minq = kernels.fused_post(u, post, with_diag=True)
+    pl, lam_p, minq_p = kernels.fused_post_plain(u, post, with_diag=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k, k0)
+    e, flips = cell_flips(k, pl, POST_TOL[dt])
+    assert e <= POST_TOL[dt]
+    assert flips <= (0 if dt == torch.float64 else 80 * 44 // 100)
+    assert not torch.equal(pl, u)               # the limiter did act
+    assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]

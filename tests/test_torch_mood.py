@@ -26,6 +26,11 @@
   state within 1e-10 outside columns 0-9, the cells the five pressure-floor
   cells above reach in two steps; the third step's dt already depends on
   them (ROADMAP, "Faults found").
+- With the LxF flux: the plain candidate with every cell set against
+  dflo_tpu's dense candidate {truncation -> positivity} + dt * R_lxf at
+  ragged ny (4 and 10), 1e-12 relative (its dissipation speed reads the
+  averages of the tp'd states on both sides of each face); and three MOOD
+  steps on the contact discontinuity as above, 1e-10.
 """
 
 import jax
@@ -269,3 +274,83 @@ def test_dmr_mood_steps_match_jax(dmr):
                / np.abs(r[0]).max())
         assert err[:, 10:].max() <= TOL, k
     assert err.max() > TOL                  # the floor cells do differ
+
+
+# ---------------------------------------------------------------------------
+# the LxF flux: the candidate and the cascade
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ny", (4, 10))
+def test_lxf_candidate_plain_matches_jax_candidate(ny):
+    """The plain sparse candidate with the LxF flux and every cell set is
+    dflo_tpu's dense candidate positivity(truncation(u_pre)) + dt*R_lxf;
+    with a cell set the other cells keep u_prev bitwise."""
+    from dflo_tpu.solver import spatial as jspatial
+    from dflo_tpu.stab import positivity as jpos
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.solver.spatial import make_rhs
+    p = 2
+    mesh = CartesianMesh(NX, ny, 0.0, 4.0, 0.0, 1.0)
+    jb, tb = jax_make_basis("Pk", p), make_basis("Pk", p)
+    rng = np.random.default_rng(50 + ny)
+    u = ic.set_initial_condition(tb, mesh, entry.dmr_ic, dtype=F64,
+                                 device="cpu")
+    u = u * torch.from_numpy(1.0 + 0.05 * rng.uniform(-1.0, 1.0, u.shape))
+    tbcs = entry._build(NX, ny, device="cpu", method="mood")[0].bcs
+    rhs = make_rhs(tb, mesh, tbcs, flux="lxf", dtype=F64, device="cpu",
+                   volume_kernel="fused")
+    u = kernels.modal_tp_plain(u, None, rhs.modal_ops)
+    u_np = u.numpy()
+    deg = rng.integers(1, p + 1, (ny, NX)).astype(np.int32)
+    t, dt = 0.0, 2e-4
+    trunc = np.stack([(jb.mode_degree <= d) for d in range(p + 1)])
+    mean = jnp.asarray(float((jb.wq2 @ jb.V)[0]) * u_np[:, 0])
+    ut = jax.jit(jpos.make_positivity_limiter(jb, mesh, jnp.float64))(
+        jnp.asarray(u_np * np.moveaxis(trunc[deg], -1, 0)[None]), mean)
+    jrhs = jax.jit(jspatial.make_rhs(
+        jb, mesh, graft._build(NX, ny, method="mood")[0].bcs, flux="lxf",
+        dtype=jnp.float64, volume_kernel="xla"))
+    ref = np.asarray(ut + dt * jrhs(ut, t))
+    degt = torch.from_numpy(deg)
+    h = tdt(dt)
+    full = rhs.sparse_candidate(u, torch.zeros_like(u), degt, t, h,
+                                torch.ones((ny, NX), dtype=torch.bool))
+    assert rel(ref, full) <= 1e-12
+    cells = torch.from_numpy(rng.uniform(size=(ny, NX)) < 0.3)
+    prev = torch.from_numpy(rng.standard_normal(u.shape))
+    part = rhs.sparse_candidate(u, prev.clone(), degt, t, h, cells)
+    assert torch.equal(part[..., ~cells], prev[..., ~cells])
+    assert torch.equal(part[..., cells], full[..., cells])
+
+
+def test_three_lxf_mood_steps_match_jax():
+    """MOOD with the LxF flux (sod_mood's scheme) on the contact
+    discontinuity: three steps of the port's Solver against dflo_tpu's
+    jitted Solver._step, state within 1e-10, equal MoodStats."""
+    from dflo_tpu.driver import LimiterConfig as JLim
+    from dflo_tpu.driver import Solver as JSolver
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.driver import LimiterConfig, Solver
+    lim = dict(type="TVB", shock_indicator="density", beta=2.0,
+               char_lim=True, pos_lim=True)
+    mesh = CartesianMesh(NX, NY, 0.0, 4.0, 0.0, 1.0)
+    js = JSolver(jax_make_basis("Pk", 2), mesh,
+                 graft._build(NX, NY, method="mood")[0].bcs, flux="lxf",
+                 limiter=JLim(**lim), cfl=0.5, dtype=jnp.float64,
+                 method="mood")
+    ts = Solver(make_basis("Pk", 2), mesh,
+                entry._build(NX, NY, device="cpu", method="mood")[0].bcs,
+                flux="lxf", limiter=LimiterConfig(**lim), cfl=0.5,
+                dtype=F64, device="cpu", method="mood")
+    assert ts.rhs.ops.flux == "lxf"
+    u = ts.post_stage(ic.set_initial_condition(ts.basis, mesh, contact,
+                                               dtype=F64, device="cpu"))
+    ref = jax_steps(js, u.numpy(), 3)
+    v, t = u, 0.0
+    for r in ref:
+        v, dt, b, st = ts._step(v, t, 1.0)
+        t += float(dt)
+        assert abs(float(dt) - r[1]) <= 1e-13 * r[1]
+        assert rel(r[0], v) <= TOL and not bool(b) and not r[2]
+        assert np.array_equal(r[3], interop.stats_as_numpy(st))
+    assert sum(int(r[3][0]) for r in ref) > 0      # the cascade fired

@@ -323,3 +323,97 @@ def test_pk_diag_plain_matches_jax():
     assert rel(0.5 / dt_ref / (2 * p + 1), lam) <= TOL
     assert bool(~(minq >= tpos.EPS)) == bool(
         jpos.negative_average_flag(jubar))
+
+
+# ---------------------------------------------------------------------------
+# modal LxF: the residual's three forms, and RK on Pk (the reference's
+# Solver runs it; the port refused it before)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ny", (4, 10))
+@pytest.mark.parametrize("p", (1, 2, 3))
+def test_modal_lxf_residual_plain_matches_jax(jax_bcs, p, ny):
+    """fused_residual_plain with the LxF flux on P_p (the dissipation speed
+    from the avg row applied to each side's DoFs, pallas_kernels.py:340,
+    :368, :380) against dflo_tpu's XLA residual with flux="lxf", in its R,
+    u + dt*R and SSP-stage forms, on the DMR's inflow, outflow, slip and
+    farfield sides at ragged ny."""
+    mesh = CartesianMesh(NX, ny, 0.0, 4.0, 0.0, 1.0)
+    basis = make_basis("Pk", p)
+    rng = np.random.default_rng(30 + p)
+    u = ic.set_initial_condition(basis, mesh, entry.dmr_ic, dtype=F64,
+                                 device="cpu")
+    u = u * torch.from_numpy(1.0 + 0.05 * rng.uniform(-1.0, 1.0, u.shape))
+    mops = kernels.modal_operators(basis, mesh, dtype=F64, device="cpu")
+    u = kernels.modal_tp_plain(u, None, mops)
+    u_np = u.numpy()
+    t, dt, a = 0.01, 2.5e-4, 0.75
+    R_jax = np.asarray(jax.jit(jspatial.make_rhs(
+        jax_make_basis("Pk", p), mesh, jax_bcs, flux="lxf",
+        dtype=jnp.float64, volume_kernel="xla"))(jnp.asarray(u_np), t))
+    ts, _ = entry._build(NX, ny, device="cpu", method="mood")
+    rhs = make_rhs(basis, mesh, ts.bcs, flux="lxf", dtype=F64, device="cpu",
+                   volume_kernel="fused")
+    assert rhs.ops.flux == "lxf" and rhs.ops.modal
+    h = torch.tensor(dt, dtype=F64)
+    assert rel(R_jax, rhs(u, t)) <= TOL
+    assert rel(u_np + dt * R_jax, rhs.step(u, t, h)) <= TOL
+    u_old = rng.standard_normal(u_np.shape) * 0.01 + u_np
+    assert rel(a * u_old + (1.0 - a) * (u_np + dt * R_jax),
+               rhs.stage(u, torch.from_numpy(u_old), t, a, h)) <= TOL
+
+
+def pk_rk_solvers(p: int, flux: str, ny: int = NY, **lim):
+    """(dflo_tpu Solver, port Solver, projected DMR IC as numpy) of RK on
+    P_p on the DMR sides, CFL 0.5, f64, the limiter lim."""
+    from dflo_tpu.driver import LimiterConfig as JLim
+    from dflo_tpu.driver import Solver as JSolver
+    from dflo_tpu_torch.driver import LimiterConfig, Solver
+    mesh = CartesianMesh(NX, ny, 0.0, 4.0, 0.0, 1.0)
+    jbcs = graft._build(NX, ny, method="mood")[0].bcs
+    tbcs = entry._build(NX, ny, device="cpu", method="mood")[0].bcs
+    js = JSolver(jax_make_basis("Pk", p), mesh, jbcs, flux=flux,
+                 limiter=JLim(**lim), cfl=0.5, dtype=jnp.float64,
+                 method="rk")
+    ts = Solver(make_basis("Pk", p), mesh, tbcs, flux=flux,
+                limiter=LimiterConfig(**lim), cfl=0.5, dtype=F64,
+                device="cpu", method="rk")
+    u0 = ic.set_initial_condition(ts.basis, mesh, entry.dmr_ic, dtype=F64,
+                                  device="cpu").numpy()
+    return js, ts, u0
+
+
+@pytest.mark.parametrize("p, flux, lim", [
+    (2, "hllc", dict(type="TVB", shock_indicator="limiter", beta=2.0,
+                     char_lim=True)),
+    (2, "lxf", dict(type="TVB", shock_indicator="density", beta=2.0,
+                    char_lim=True, pos_lim=True)),
+    (1, "lxf", dict(type="TVB", shock_indicator="limiter", beta=2.0,
+                    char_lim=True))])
+def test_pk_rk_solver_matches_jax(p, flux, lim):
+    """RK on the modal Pk basis (ROADMAP queue 3, fault 1): the port's
+    Solver(method="rk") on P_p, its post the plain modal chain (no fused
+    post exists for it in either package) and its diag the Pk diag,
+    against dflo_tpu's Solver: the post-staged IC and three steps (dt, the
+    fatal flag, the state) to 1e-10."""
+    js, ts, u0 = pk_rk_solvers(p, flux, **lim)
+    assert (ts.volume_kernel, ts.post_kernel) == ("fused", "xla")
+    uj = jax.jit(js.post_stage)(jnp.asarray(u0))
+    ut = ts.post_stage(torch.from_numpy(u0))
+    assert rel(uj, ut) <= 1e-10
+    tj = tt = 0.0
+    for _ in range(3):
+        uj, dtj, badj, _ = js._step(uj, tj, 1.0)
+        ut, dtt, badt, _ = ts._step(ut, tt, 1.0)
+        assert float(dtt) == pytest.approx(float(dtj), rel=1e-12)
+        assert bool(badt) == bool(badj) is False
+        tj += float(dtj)
+        tt += float(dtt)
+        assert rel(uj, ut) <= 1e-10
+    # the chunked loop (the diag of the step's result carries the wave
+    # speed) lands where the stepwise loop did
+    un, t3, n, bad, _ = ts._multi_step(3)(ts.post_stage(torch.from_numpy(u0)),
+                                          0.0, 1.0)
+    assert int(n) == 3 and not bool(bad)
+    assert float(t3) == pytest.approx(tt, rel=1e-14)
+    assert rel(ut, un) <= 1e-14

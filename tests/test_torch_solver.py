@@ -185,8 +185,8 @@ def test_out_of_slice_configurations_raise():
         Solver(*args, limiter=lim, dtype=F64, device="cpu",
                device_mesh=device_mesh((1, 2), ["cpu"] * 2),
                post_kernel="xla")
-    with pytest.raises(NotImplementedError):
-        Solver(*args, limiter=LimiterConfig(type="none"), dtype=F64,
+    with pytest.raises(NotImplementedError, match="minmax"):
+        Solver(*args, limiter=LimiterConfig(type="minmax"), dtype=F64,
                device="cpu")
     with pytest.raises(NotImplementedError, match="degrees"):
         kernels.residual_operators(make_basis("Qk", 4), s.mesh, dtype=F64,
@@ -205,3 +205,91 @@ def test_port_never_imports_jax():
             "sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+# ---------------------------------------------------------------------------
+# the reference's defaults: the flux left unset, limiter type "none"
+# ---------------------------------------------------------------------------
+
+def test_default_flux_is_the_reference_default():
+    """A Solver and a make_rhs built with the flux left unset run lxf, the
+    reference's default (ROADMAP queue 3, fault 3): their residuals equal
+    dflo_tpu's, also built with the flux unset, on a perturbed DMR state
+    (f64, 1e-12)."""
+    from dflo_tpu.driver import Solver as JSolver
+    from dflo_tpu.ops.basis import make_basis as jax_make_basis
+    from dflo_tpu.solver import spatial as jspatial
+    from dflo_tpu_torch.solver.spatial import make_rhs
+    js, u0 = graft._build(NX, NY)
+    ts, _ = entry._build(NX, NY, dtype=F64, device="cpu")
+    rng = np.random.default_rng(41)
+    u_np = np.asarray(jax.jit(js.post_stage)(u0))
+    u_np = u_np * (1.0 + 0.01 * rng.uniform(-1.0, 1.0, u_np.shape))
+    u = torch.from_numpy(u_np)
+    jb = jax_make_basis("Qk", 2)
+    R_jax = np.asarray(jax.jit(jspatial.make_rhs(jb, js.mesh, js.bcs))(
+        u_np, 0.01))
+    R_solver = np.asarray(jax.jit(JSolver(jb, js.mesh, js.bcs).rhs)(
+        u_np, 0.01))
+    assert rel(R_jax, R_solver) <= 1e-14
+    rhs = make_rhs(ts.basis, ts.mesh, ts.bcs, dtype=F64, device="cpu")
+    s = Solver(ts.basis, ts.mesh, ts.bcs, dtype=F64, device="cpu")
+    assert s.flux == "lxf" and s.rhs.ops.flux == "lxf"
+    assert rel(R_jax, rhs(u, 0.01)) <= 1e-12
+    assert rel(R_jax, s.rhs(u, 0.01)) <= 1e-12
+    assert kernels.residual_operators(ts.basis, ts.mesh, dtype=F64,
+                                      device="cpu").flux == "lxf"
+
+
+@pytest.mark.parametrize("family, p, pos_lim", [("Qk", 1, True),
+                                                ("Qk", 2, False),
+                                                ("Pk", 2, False)])
+def test_none_limiter_matches_jax(family, p, pos_lim):
+    """Limiter type "none", the default in both packages (ROADMAP queue 3,
+    fault 2): no limit step, positivity where pos_lim asks for it; "auto"
+    resolves the post to the plain chain, as the reference's post_ok does.
+    The periodic isentropic vortex at 16 x 16 (LxF), three steps of the
+    port's Solver against dflo_tpu's (dt, flag, state to 1e-10)."""
+    from dflo_tpu import ic as jic
+    from dflo_tpu.driver import LimiterConfig as JLim
+    from dflo_tpu.driver import Solver as JSolver
+    from dflo_tpu.ops.basis import make_basis as jax_make_basis
+    from dflo_tpu.physics import euler as jeuler
+    from dflo_tpu.solver.spatial import BoundarySide as JSide
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.mesh import CartesianMesh
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.solver.spatial import BoundarySide
+    mesh = CartesianMesh(16, 16, -5.0, 5.0, -5.0, 5.0)
+    jper, tper = JSide(jeuler.BC_PERIODIC), BoundarySide(euler.BC_PERIODIC)
+    js = JSolver(jax_make_basis(family, p), mesh,
+                 dict(W=jper, E=jper, S=jper, N=jper),
+                 limiter=JLim(type="none", pos_lim=pos_lim),
+                 dtype=jax.numpy.float64)
+    ts = Solver(make_basis(family, p), mesh,
+                dict(W=tper, E=tper, S=tper, N=tper),
+                limiter=LimiterConfig(type="none", pos_lim=pos_lim),
+                dtype=F64, device="cpu")
+    assert (ts.volume_kernel, ts.post_kernel) == ("fused", "xla")
+    u0 = ic.set_initial_condition(ts.basis, mesh, ic.isentropic_vortex(),
+                                  dtype=F64, device="cpu").numpy()
+    assert rel(jic.set_initial_condition(js.basis, mesh,
+                                         jic.isentropic_vortex()), u0) \
+        <= 1e-14
+    uj = jax.jit(js.post_stage)(jax.numpy.asarray(u0))
+    ut = ts.post_stage(torch.from_numpy(u0))
+    if not pos_lim:
+        assert np.array_equal(ut.numpy(), u0)      # no limit step at all
+    assert rel(uj, ut) <= 1e-14
+    tj = tt = 0.0
+    for _ in range(3):
+        uj, dtj, badj, _ = js._step(uj, tj, 20.0)
+        ut, dtt, badt, _ = ts._step(ut, tt, 20.0)
+        assert float(dtt) == pytest.approx(float(dtj), rel=1e-12)
+        assert bool(badt) == bool(badj) is False
+        tj += float(dtj)
+        tt += float(dtt)
+        assert rel(uj, ut) <= 1e-10
+    with pytest.raises(ValueError, match="collocated Qk TVB"):
+        Solver(ts.basis, mesh, ts.bcs, limiter=LimiterConfig(type="none"),
+               dtype=F64, device="cpu", post_kernel="fused")
