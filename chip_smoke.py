@@ -38,7 +38,8 @@ Phases (any failure raises, and the script then prints no result):
    versions on the same card: state within 1e-10, equal degree and
    limiter maps, equal MoodStats.
 8. the device's busy share: each main path's chunk (RK 5 steps, MOOD 3,
-   forward step 3, sharded RK 3, the vortex 10) under torch.profiler; busy time is the union of the
+   forward step 3, sharded RK 3, the vortex 10, rayleigh_taylor 10,
+   iso_xing_shu 10) under torch.profiler; busy time is the union of the
    device events' intervals; idle shares of the traced wall and of the
    untraced ms/step of phases 3, 6 and 10.
 9. forward-step kernels against their plain versions, on the Mach-3
@@ -95,11 +96,35 @@ Phases (any failure raises, and the script then prints no result):
    finite state; isenvort_p2_lxf_rk_dof_updates_per_sec, ms/step and the
    density l2_error against the IC (the vortex is stationary: information,
    not a gate); its chunk is traced in phase 8.
-16. the five Cartesian configs without a body force (sod_shock_tube,
-   sod_mood, isentropic_vortex, vortex_system, vortex_system_pbc) through
-   cli.run at their shipped sizes, --max-steps 20 --chunk 10, f32: finite,
-   no plain version called, the forms each carries launched, a snapshot
-   written.
+16. the seven Cartesian configs (sod_shock_tube, sod_mood,
+   isentropic_vortex, vortex_system, vortex_system_pbc, rayleigh_taylor,
+   iso_xing_shu) through cli.run at their shipped sizes, --max-steps 20
+   --chunk 10, f32: finite, no plain version called, the forms each carries
+   launched, a snapshot written.
+17. the residual's source arms against their plain versions, f32 and f64,
+   in the R, u + dt*R and SSP-stage forms: gravity on Q1 (the constant
+   g of examples/rayleigh_taylor.prm), the same on P2 and the force planes
+   of an external force on Q1, on rayleigh_taylor's 1:3 box at
+   1024 x 3072 and its IC after post_stage; the isothermal well-balanced
+   arm on GLL1-3 with hllc and lxf on examples/iso_xing_shu.prm's unit box
+   at 2048 x 2048, its hydrostatic IC with a seeded 1 % perturbation, and
+   the diag on GLL2 there; whether each is bitwise; CUDA event times
+   (median of 20) of the stage forms beside the plain versions' and the
+   same launch without the source arm (what the arm costs).  Then the
+   well-balance oracle through the fused path: GLL2, 512 x 512, outflow
+   sides, the hydrostatic IC, 25 f64 steps with lxf and with hllc: drift
+   max|u - u0| below 5e-13 (tests/test_gravity.py's bound).
+18. the two main paths through cli.run, f32, 50 steps in chunks of 10:
+   rayleigh_taylor.prm at 1024 x 3072 (Q1, hllc, gravity, characteristic
+   TVB) and iso_xing_shu.prm at 2048 x 2048 (GLL2, hllc, isothermal
+   well-balancing, limiter none): finite, no fatal flag, no plain version
+   called, the source form launched; then Solver._multi_step(10) five
+   times on the CLI's solver after a warm-up, timed apart from output:
+   rt_q1_rk_tvb_gravity_dof_updates_per_sec and
+   isohydro_gll2_wb_rk_dof_updates_per_sec with ms/step (their chunks are
+   traced in phase 8).  The P2 gravity and the force-plane forms run 10
+   steps each on rayleigh_taylor's solver with basis = Pk, degree = 2, and
+   with the gravity replaced by the external force, at 1024 x 3072.
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -160,6 +185,9 @@ VX_STEPS, VX_CHUNK = 50, 10
 #: (phase 16), and the kernel forms each must launch
 CONFIG_STEPS, CONFIG_CHUNK = 20, 10
 CONFIG_FORMS = {
+    "rayleigh_taylor": ("fused_residual[qk_hllc_grav_stage]", "fused_post",
+                        "fused_diag"),
+    "iso_xing_shu": ("fused_residual[gll_hllc_wbiso_stage]", "fused_diag"),
     "sod_shock_tube": ("fused_residual[pk_hllc_stage]", "fused_diag"),
     "sod_mood": ("fused_residual[pk_lxf_step]", "fused_mood_candidate[lxf]",
                  "fused_modal_pos", "fused_pk_post", "fused_mood_check",
@@ -169,6 +197,17 @@ CONFIG_FORMS = {
     "vortex_system_pbc": ("fused_residual[qk_lxf_stage]", "fused_post",
                           "fused_diag"),
 }
+#: the body-force and gravity paths: rayleigh_taylor's 1:3 box and
+#: iso_xing_shu's unit box (phases 17-18), the well-balance oracle's grid
+RT_PRM = "examples/rayleigh_taylor.prm"
+ISO_PRM = "examples/iso_xing_shu.prm"
+RT_NX, RT_NY = 1024, 3072
+ISO_N = 2048
+SRC_STEPS, SRC_CHUNK = 50, 10
+VARIANT_STEPS = 10
+WB_N, WB_STEPS, WB_DRIFT = 512, 25, 5e-13
+#: the external force of the force-plane form (f_0, f_1 expressions)
+FORCE_EXPR = ("0.01*sin(2*pi*x)*cos(t)", "-1.0")
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
 #: outside the tensor cores): HBM bytes/s and FLOP/s per dtype
 HBM_BPS = 3.35e12
@@ -233,6 +272,26 @@ SOURCES = {
     "fused_post_pbc": ("dflo_tpu_torch/csrc/fused_post.cu", f"{PK}:1075",
                        f"{PK}:make_fused_post (periodic x and y, limiter)",
                        "fused_post", "pbc"),
+    "fused_residual_grav": ("dflo_tpu_torch/csrc/fused_residual_src.cu",
+                            f"{PK}:617",
+                            f"{PK}:make_fused_residual (source, :573)",
+                            "fused_residual[qk_hllc_grav_stage]", "rt"),
+    "fused_residual_pk_grav": ("dflo_tpu_torch/csrc/fused_residual_src.cu",
+                               f"{PK}:617",
+                               f"{PK}:make_fused_residual (modal Pk, "
+                               f"source, :573)",
+                               "fused_residual[pk_hllc_grav_stage]", "rt_pk"),
+    "fused_residual_force": ("dflo_tpu_torch/csrc/fused_residual_planes.cu",
+                             f"{PK}:617",
+                             f"{PK}:make_fused_residual (source, :573)",
+                             "fused_residual[qk_hllc_force_stage]",
+                             "rt_force"),
+    "fused_residual_wbiso": ("dflo_tpu_torch/csrc/fused_residual_wb.cu",
+                             f"{PK}:617",
+                             f"{PK}:make_fused_residual (wb_iso, :578)",
+                             "fused_residual[gll_hllc_wbiso_stage]", "iso"),
+    "fused_diag_gll": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
+                       f"{PK}:make_fused_diag (GLL)", "fused_diag", "iso"),
 }
 #: the grid each row is measured and bounded at, by path: the DMR's, the
 #: forward step's, the vortex's; the LxF candidate's launches come from
@@ -241,7 +300,9 @@ SOURCES = {
 #: at 2048 x 2048
 GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
          "pallas": (FS_NX, FS_NY), "shard": (NX, NY), "vortex": (VX_N, VX_N),
-         "sod_mood": (NX, NY), "pbc": (VX_N, VX_N)}
+         "sod_mood": (NX, NY), "pbc": (VX_N, VX_N), "rt": (RT_NX, RT_NY),
+         "rt_pk": (RT_NX, RT_NY), "rt_force": (RT_NX, RT_NY),
+         "iso": (ISO_N, ISO_N)}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
@@ -369,7 +430,12 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     `limiter` indicator sends every `fluid` cell to the TVB (its kernel
     computes the slopes of every cell), the periodic post's every cell
     (`marked`).  LxF costs 70 per face point and the two cells' averages.  A mask costs one byte per cell,
-    the post's flag plane five."""
+    the post's flag plane five.  The source arms: a body force 6 per
+    quadrature point and its lift by the nonzero entries of src =
+    minv (wq2 V)^T (the force planes add their 2Q values per cell); the
+    isothermal arm reads phi (K per cell) and costs RT 10, exp and the
+    division 3 per node, the nodal derivatives by Gxn's and Gyn's nonzero
+    entries and 14 per node for S and its adds."""
     from dflo_tpu_torch.stab.positivity import _pos_points
 
     def nnz(a):
@@ -395,6 +461,17 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     tvb = 300 + 32 * K
     if name == "fused_residual":             # SSP-stage form, main path
         return 3 * state * n, (res + 20 * K) * n
+    Q = basis.V.shape[0]
+    src = ((1.0 / basis.mass)[:, None] * basis.wq2[None, :] * basis.V.T)
+    force = 6 * Q + 8 * nnz(src)            # S(W) and its lift
+    if name in ("fused_residual_grav", "fused_residual_pk_grav"):
+        return 3 * state * n, (res + 20 * K + force) * n
+    if name == "fused_residual_force":       # + the planes fx, fy
+        return 3 * state * n + 2 * Q * S * n, (res + 20 * K + force) * n
+    if name == "fused_residual_wbiso":       # + phi; RT, exp, grad E, S
+        return (3 * state * n + K * S * n,
+                (res + 20 * K + 10 + 17 * K
+                 + 2 * (nnz(basis.Gx) + nnz(basis.Gy))) * n)
     lxf = res - 2 * nq * 100 + 2 * nq * 70 + 8 * nnz(avg)
     if name == "fused_residual_fwd":         # masked LxF, SSP-stage form
         return 3 * state * n + n, (lxf + 20 * K) * n
@@ -823,15 +900,21 @@ def plain_rhs(s):
                     device=s.device, volume_kernel="xla", mask=s.mask)
 
 
-def prm_solver(prm, dtype, n: int | None = None, **solver_kw):
+def prm_solver(prm, dtype, n: int | None = None, grid=None, edit=None,
+               **solver_kw):
     """(params, solver, IC) of a .prm config on the card, through the
-    port's config layer and CLI builders; n: an n x n grid in place of the
-    shipped one."""
+    port's config layer and CLI builders; n: an n x n grid, grid: an
+    (nx, ny) grid in place of the shipped one; edit(params): other changes
+    to the parameters."""
     from dflo_tpu_torch import cli
     from dflo_tpu_torch.config.params import AllParameters
     params = AllParameters.from_prm_file(prm)
     if n is not None:
-        params.cartesian_mesh.nx = params.cartesian_mesh.ny = n
+        grid = (n, n)
+    if grid is not None:
+        params.cartesian_mesh.nx, params.cartesian_mesh.ny = grid
+    if edit is not None:
+        edit(params)
     s, _ = cli.build_solver(params, dtype=dtype, device="cuda", **solver_kw)
     return params, s, cli.set_ic(params, s)
 
@@ -1163,8 +1246,10 @@ def phase_trace(entry, ms_per_step, built):
     """Phase 8: each main path's chunk under torch.profiler (RK 5 steps and
     MOOD 3 steps at 1152 x 288, the forward step 3 steps on the CLI's
     solver at 1920 x 640, the sharded RK path 3 steps on the (2, 2) virtual
-    mesh, the vortex 10 steps at 2048 x 2048; built[method] = (solver,
-    state) for the last three; f32, after a warm-up):
+    mesh, the vortex 10 steps at 2048 x 2048, rayleigh_taylor 10 steps at
+    1024 x 3072 and iso_xing_shu 10 steps at 2048 x 2048 on their CLI's
+    solvers; built[method] = (solver, state) for all but the first two;
+    f32, after a warm-up):
     device busy time, and the idle share of the traced wall and of the
     untraced ms/step of the main-path phase (ms_per_step[method]; tracing
     slows the host), device events and the port's kernels per step.  A
@@ -1172,7 +1257,8 @@ def phase_trace(entry, ms_per_step, built):
     measured."""
     out = {}
     for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3), ("shard", 3),
-                          ("vortex", VX_CHUNK)):
+                          ("vortex", VX_CHUNK), ("rt", SRC_CHUNK),
+                          ("iso", SRC_CHUNK)):
         if method in built:
             s, u = built[method]
         else:
@@ -1655,7 +1741,7 @@ def phase_main_vortex(kernels, plain_calls):
 
 
 def phase_configs(kernels, plain_calls):
-    """Phase 16: the five configs through cli.run at their shipped sizes;
+    """Phase 16: the seven configs through cli.run at their shipped sizes;
     returns {config: launch counts}."""
     from dflo_tpu_torch import cli
     out = {}
@@ -1685,6 +1771,247 @@ def phase_configs(kernels, plain_calls):
         assert snaps and snaps[0] == "solution-000.vtu", snaps
         out[name] = counts
     return out
+
+
+def rt_pk(params):
+    """rayleigh_taylor on the modal P2 basis (the P2 gravity form)."""
+    params.basis, params.degree = "Pk", 2
+
+
+def rt_force(params):
+    """rayleigh_taylor with its gravity replaced by the external force of
+    FORCE_EXPR (the force-plane form)."""
+    from dflo_tpu_torch.config.expressions import compile_expression
+    fx, fy = (compile_expression(e) for e in FORCE_EXPR)
+    params.gravity = 0.0
+    params.external_force = lambda x, y, t: (fx(x, y, t), fy(x, y, t))
+
+
+def iso_variant(p: int, flux: str):
+    def edit(params):
+        params.degree, params.flux.flux = p, flux
+    return edit
+
+
+def check_forms(kernels, results, name, tag, tol, s, u, t, bitwise=False):
+    """The fused residual of solver s on u at time t in its R, u + dt*R and
+    SSP-stage forms against the plain version; returns (stage call, plain
+    stage call, error)."""
+    ops = s.rhs.ops
+    strips, force = s.rhs.strips(u, t), s.rhs.force(t)
+    h = torch.full((), 1e-4, dtype=u.dtype, device="cuda")
+    sc = torch.stack([torch.full_like(h, 0.75), h])
+    u_old = torch.roll(u, 1, -1).contiguous()
+    forms = ({}, {"dt": h}, {"u_old": u_old, "sc": sc})
+    e = fold(results, name, tag,
+             [(kernels.fused_residual(u, *strips, ops, force=force, **kw),
+               kernels.fused_residual_plain(u, *strips, ops, force=force,
+                                            **kw))
+              for kw in forms], tol, bitwise)
+    return (lambda: kernels.fused_residual(u, *strips, ops, force=force,
+                                           **forms[2]),
+            lambda: kernels.fused_residual_plain(u, *strips, ops,
+                                                 force=force, **forms[2]),
+            e)
+
+
+def time_without_source(kernels, results, name, tag, s, u, t):
+    """The same SSP-stage launch with the operators of no source arm (the
+    residual the arm is added to), timed into results[name]: what the arm
+    costs."""
+    base = kernels.residual_operators(s.basis, s.mesh, flux=s.flux,
+                                      dtype=u.dtype, device="cuda")
+    strips = s.rhs.strips(u, t)
+    h = torch.full((), 1e-4, dtype=u.dtype, device="cuda")
+    sc = torch.stack([torch.full_like(h, 0.75), h])
+    u_old = torch.roll(u, 1, -1).contiguous()
+    ms = time_ms(lambda: kernels.fused_residual(u, *strips, base,
+                                                u_old=u_old, sc=sc))
+    results[name][f"no_source_ms_{tag}"] = ms
+    print(f"[{tag}] {name}: the same stage without the source arm {ms:.4f} "
+          f"ms")
+
+
+def phase_source_kernels(kernels, results):
+    """Phase 17 for both dtypes, then the f64 well-balance oracle."""
+    for dt in (torch.float32, torch.float64):
+        tag = "f32" if dt == torch.float32 else "f64"
+        tol = TOL[dt]["fused_residual"]
+        # ---- the body force on rayleigh_taylor's box ---------------------
+        for name, edit, arm in (("fused_residual_grav", None, "grav"),
+                                ("fused_residual_pk_grav", rt_pk, "grav"),
+                                ("fused_residual_force", rt_force, "force")):
+            _, s, u0 = prm_solver(RT_PRM, dt, grid=(RT_NX, RT_NY), edit=edit)
+            assert s.rhs.ops.source == arm and s.flux == "hllc", name
+            u = s.post_stage(u0)
+            tt = torch.full((), 0.37, dtype=dt, device="cuda")
+            fk, fp, _ = check_forms(kernels, results, name, tag, tol, s, u,
+                                    tt)
+            time_pair(results, name, tag, fk, fp, (RT_NX, RT_NY))
+            time_without_source(kernels, results, name, tag, s, u, tt)
+            if name == "fused_residual_pk_grav":
+                ops, strips = s.rhs.ops, s.rhs.strips(u, tt)
+                r = results[name]
+                r[f"ms_R_{tag}"] = time_ms(
+                    lambda: kernels.fused_residual(u, *strips, ops))
+                r[f"plain_ms_R_{tag}"] = time_ms(
+                    lambda: kernels.fused_residual_plain(u, *strips, ops))
+                print(f"[{tag}] {name} R form: kernel {r[f'ms_R_{tag}']:.4f}"
+                      f" ms, plain {r[f'plain_ms_R_{tag}']:.4f} ms")
+            del s, u, u0, fk, fp
+            torch.cuda.empty_cache()
+        # ---- isothermal well-balancing on GLL1-3, iso_xing_shu's box -----
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        for p in (1, 2, 3):
+            for flux in ("hllc", "lxf"):
+                _, s, u0 = prm_solver(ISO_PRM, dt, ISO_N,
+                                      edit=iso_variant(p, flux))
+                assert s.rhs.ops.source == "wbiso" and s.flux == flux
+                noise = torch.rand(u0.shape, generator=gen, device="cuda",
+                                   dtype=dt)
+                u = (u0 * (1.0 + 0.01 * (2.0 * noise - 1.0))).contiguous()
+                del noise, u0
+                tt = torch.full((), 0.0, dtype=dt, device="cuda")
+                main = (p, flux) == (2, "hllc")
+                name = "fused_residual_wbiso"
+                if main:
+                    fk, fp, _ = check_forms(kernels, results, name, tag, tol,
+                                            s, u, tt)
+                    time_pair(results, name, tag, fk, fp, (ISO_N, ISO_N))
+                    time_without_source(kernels, results, name, tag, s, u, tt)
+                    fold(results, "fused_diag_gll", tag,
+                         list(zip(kernels.fused_diag(u, s._diag_ops),
+                                  kernels.fused_diag_plain(u, s._diag_ops))),
+                         TOL[dt]["fused_diag"])
+                    time_pair(results, "fused_diag_gll", tag,
+                              lambda: kernels.fused_diag(u, s._diag_ops),
+                              lambda: kernels.fused_diag_plain(u,
+                                                               s._diag_ops),
+                              (ISO_N, ISO_N))
+                else:
+                    # the other degrees and the other flux: checked into the
+                    # row's error and bitwise flag, timed under variants
+                    fk, fp, e = check_forms(kernels, results, name, tag, tol,
+                                            s, u, tt)
+                    v = results[name].setdefault(f"variants_{tag}", {})
+                    v[f"gll{p}_{flux}"] = {"ms": time_ms(fk),
+                                           "plain_ms": time_ms(fp),
+                                           "max_rel_err": e}
+                    print(f"[{tag}] {name} GLL{p} {flux}: kernel "
+                          f"{v[f'gll{p}_{flux}']['ms']:.4f} ms, plain "
+                          f"{v[f'gll{p}_{flux}']['plain_ms']:.4f} ms")
+                del s, u, fk, fp
+                torch.cuda.empty_cache()
+
+    # ---- the well-balance oracle through the fused path, f64 ------------
+    for flux in ("lxf", "hllc"):
+        _, s, u0 = prm_solver(ISO_PRM, torch.float64, WB_N,
+                              edit=iso_variant(2, flux))
+        kernels.reset_launch_counts()
+        u, t, n, bad, _ = s._multi_step(WB_STEPS)(s.post_stage(u0), 0.0, 1e9)
+        counts = kernels.launch_counts()
+        drift = float((u - u0).abs().max())
+        print(f"well-balance oracle GLL2 {flux} {WB_N}x{WB_N} f64: "
+              f"{int(n)} steps to t={float(t)!r}, drift {drift:.3e} (bound "
+              f"{WB_DRIFT:.0e}), launches "
+              f"{counts[f'fused_residual[gll_{flux}_wbiso_stage]']}")
+        assert int(n) == WB_STEPS and not bool(bad)
+        assert counts[f"fused_residual[gll_{flux}_wbiso_stage]"] \
+            == len(s.ark) * WB_STEPS, counts
+        assert drift < WB_DRIFT, drift
+        results["well_balance_drift"][flux] = drift
+        del s, u, u0
+        torch.cuda.empty_cache()
+
+
+def cut_prm(src: str, out: str, nx: int, ny: int) -> str:
+    """A copy of the config src with nx, ny replaced, written to out."""
+    import re
+    text = open(src).read()
+    text = re.sub(r"set nx = \d+", f"set nx = {nx}", text)
+    text = re.sub(r"set ny = \d+", f"set ny = {ny}", text)
+    with open(out, "w") as f:
+        f.write(text)
+    return out
+
+
+def phase_main_source(kernels, plain_calls, name, metric, prm, grid, form):
+    """Phase 18: a body-force main path through cli.run at full size, then
+    its solver timed apart from output; returns launch counts, ms/step and
+    (solver, state) for the trace."""
+    from dflo_tpu_torch import cli
+    nx, ny = grid
+    with tempfile.TemporaryDirectory() as out:
+        cut = cut_prm(prm, os.path.join(out, f"{name}.prm"), nx, ny)
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        t0 = time.perf_counter()
+        res = cli.run([cut, "--max-steps", str(SRC_STEPS), "--chunk",
+                       str(SRC_CHUNK), "--output-dir", out])
+        torch.cuda.synchronize()
+        wall_cli = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        snaps = sorted(f for f in os.listdir(out) if f.endswith(".vtu"))
+        sizes = [os.path.getsize(os.path.join(out, f)) for f in snaps]
+    finite = bool(torch.isfinite(res.u).all())
+    used = {k: v for k, v in counts.items() if v}
+    print(f"{name} CLI {nx}x{ny}: {res.it} steps to t={res.t!r} in "
+          f"{wall_cli:.2f} s with set-up and output, finite={finite}, "
+          f"launches={used}, plain calls={plain_calls['n']}, snapshots "
+          f"{snaps} ({sizes} B)")
+    assert res.it == SRC_STEPS and finite
+    assert res.u.dtype == torch.float32 and res.u.is_cuda
+    assert counts[form] == len(res.solver.ark) * SRC_STEPS, counts
+    assert counts["fused_diag"] > 0, counts
+    assert plain_calls["n"] == 0, f"{name} called a plain version"
+    assert snaps and snaps[0] == "solution-000.vtu", snaps
+
+    s = res.solver
+    multi = s._multi_step(SRC_CHUNK)
+    multi(res.u, res.t, 1e3)                       # warm-up
+    torch.cuda.synchronize()
+    u, t, n, bad = res.u, res.t, 0, False
+    t0 = time.perf_counter()
+    for _ in range(SRC_STEPS // SRC_CHUNK):
+        u, t, nd, bad_c, _ = multi(u, t, 1e3)
+        n, bad = n + nd, bad | bad_c
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, bad = int(n), bool(bad)
+    assert n == SRC_STEPS and not bad and bool(torch.isfinite(u).all())
+    ms = 1e3 * wall / SRC_STEPS
+    print(json.dumps({metric: 4 * s.basis.K * nx * ny * SRC_STEPS / wall,
+                      "unit": "DoF-updates/s", "dtype": "float32",
+                      "grid": [nx, ny], "steps": SRC_STEPS,
+                      "chunk": SRC_CHUNK, "ms_per_step": ms,
+                      "cli_wall_s": wall_cli, "t": float(t),
+                      "launches_per_step": {k: v / SRC_STEPS
+                                            for k, v in used.items()},
+                      "card": card_line()}))
+    return counts, ms, (s, u)
+
+
+def phase_variant_path(kernels, plain_calls, name, edit, form):
+    """Phase 18's P2-gravity and force-plane runs: rayleigh_taylor's solver
+    with edit at 1024 x 3072, VARIANT_STEPS steps of the chunked loop;
+    returns the launch counts."""
+    _, s, u0 = prm_solver(RT_PRM, torch.float32, grid=(RT_NX, RT_NY),
+                          edit=edit)
+    u = s.post_stage(u0)
+    multi = s._multi_step(VARIANT_STEPS)
+    kernels.reset_launch_counts()
+    plain_calls["n"] = 0
+    u, t, n, bad, _ = multi(u, 0.0, 1e3)
+    counts = kernels.launch_counts()
+    n, bad, finite = int(n), bool(bad), bool(torch.isfinite(u).all())
+    print(f"{name} path {RT_NX}x{RT_NY}: {n} steps to t={float(t)!r}, "
+          f"bad={bad}, finite={finite}, launches="
+          f"{ {k: v for k, v in counts.items() if v} }, plain calls="
+          f"{plain_calls['n']}")
+    assert n == VARIANT_STEPS and not bad and finite
+    assert counts[form] == len(s.ark) * VARIANT_STEPS, counts
+    assert plain_calls["n"] == 0, f"{name} called a plain version"
+    return counts
 
 
 def main() -> int:
@@ -1725,6 +2052,10 @@ def main() -> int:
     # ---- phase 14: the modal LxF forms and the periodic post ---------------
     phase_lxf_kernels(entry, kernels, results)
 
+    # ---- phase 17: the source arms and the well-balance oracle --------------
+    results["well_balance_drift"] = {}
+    phase_source_kernels(kernels, results)
+
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
     plain_calls = {"n": 0}
     for name in WRAPPERS:
@@ -1749,17 +2080,33 @@ def main() -> int:
     counts["shard"], ms_step["shard"], shard = phase_main_shard(
         entry, kernels, plain_calls, results)
 
-    # ---- phases 15 and 16: the vortex main path, the five configs ----------
+    # ---- phases 15 and 16: the vortex main path, the seven configs ---------
     counts["vortex"], ms_step["vortex"], vortex = phase_main_vortex(
         kernels, plain_calls)
     by_config = phase_configs(kernels, plain_calls)
     counts["sod_mood"] = by_config["sod_mood"]
     counts["pbc"] = by_config["vortex_system_pbc"]
 
+    # ---- phase 18: the body-force main paths --------------------------------
+    counts["rt"], ms_step["rt"], rt = phase_main_source(
+        kernels, plain_calls, "rayleigh_taylor",
+        "rt_q1_rk_tvb_gravity_dof_updates_per_sec", RT_PRM, (RT_NX, RT_NY),
+        "fused_residual[qk_hllc_grav_stage]")
+    counts["iso"], ms_step["iso"], iso = phase_main_source(
+        kernels, plain_calls, "iso_xing_shu",
+        "isohydro_gll2_wb_rk_dof_updates_per_sec", ISO_PRM, (ISO_N, ISO_N),
+        "fused_residual[gll_hllc_wbiso_stage]")
+    counts["rt_pk"] = phase_variant_path(kernels, plain_calls, "rt_pk", rt_pk,
+                                         "fused_residual[pk_hllc_grav_stage]")
+    counts["rt_force"] = phase_variant_path(
+        kernels, plain_calls, "rt_force", rt_force,
+        "fused_residual[qk_hllc_force_stage]")
+
     # ---- phase 8: the device's busy share under torch.profiler --------------
     busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard,
-                                        "vortex": vortex})
-    del vortex
+                                        "vortex": vortex, "rt": rt,
+                                        "iso": iso})
+    del vortex, rt, iso
 
     # ---- phase 7: sparse against dense ---------------------------------------
     phase_sparse_dense(entry, kernels, results)
@@ -1782,7 +2129,10 @@ def main() -> int:
     bases = {"rk": make_basis("Qk", 2), "mood": make_basis("Pk", 2),
              "fwd": make_basis("Qk", 1), "pallas": make_basis("Qk", 1),
              "shard": make_basis("Qk", 2), "vortex": make_basis("Pk", 2),
-             "sod_mood": make_basis("Pk", 2), "pbc": make_basis("Qk", 1)}
+             "sod_mood": make_basis("Pk", 2), "pbc": make_basis("Qk", 1),
+             "rt": make_basis("Qk", 1), "rt_pk": make_basis("Pk", 2),
+             "rt_force": make_basis("Qk", 1),
+             "iso": make_basis("Qk_gll", 2)}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
@@ -1814,7 +2164,8 @@ def main() -> int:
                if "bitwise_f32" in r else {}),
             **{k: v for k, v in r.items()
                if k.startswith(("block_ms", "sharded_", "stage_ms",
-                                "ms_source"))}})
+                                "ms_source", "variants_", "ms_R_",
+                                "plain_ms_R_", "no_source_ms_"))}})
     assert all(math.isfinite(v) for row in table for v in row.values()
                if isinstance(v, float))
     total_s = time.perf_counter() - t_start
@@ -1827,7 +2178,8 @@ def main() -> int:
                           counts["mood"]["fused_pk_post_with_diag"],
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
-                                          "mood_host", "shard_f64"))}}))
+                                          "mood_host", "shard_f64",
+                                          "well_balance"))}}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

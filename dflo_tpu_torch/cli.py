@@ -4,9 +4,11 @@ The torch counterpart of dflo_tpu/cli.py for the explicit Cartesian path
 (after src/main.cc:13-81 and src/claw.cc:953-1130): parse the .prm config,
 build the Cartesian mesh and its solid-cell mask from the `cartesian mesh`
 subsection, wire the boundary ids to the four sides, set the IC, march in
-time with the configured flux and limiter chain (``method = rk3`` on Qk
-or Pk, ``mood`` on Pk), write VTU snapshots and checkpoints on their
-cadence and report the wall time of each phase.
+time with the configured flux, limiter chain and body force
+(``method = rk3`` on Qk, GLL or Pk, ``mood`` on Pk; ``gravity``, the
+``f_0``/``f_1`` force or a ``potential`` for well-balanced gravity), write
+VTU snapshots and checkpoints on their cadence and report the wall time of
+each phase.
 
 The run is on the card; ``--platform cpu`` runs it on the CPU, where every
 kernel wrapper takes its plain version.  Without a CUDA device and without
@@ -48,8 +50,6 @@ from dflo_tpu_torch.utils.profiling import Timer, device_trace
 _LATER = {
     "mesh files": "slices D and E (ROADMAP queue 1, items 7 and 8: .geo/"
                   ".msh/.struct meshes and unstructured meshes)",
-    "gravity": "slice C, part 2 (ROADMAP queue 1, item 3: body forces and "
-               "GLL)",
     "envelope": "the physics envelope (ROADMAP queue 1, item 4)",
     "implicit": "slice D (ROADMAP queue 1, item 6: implicit and steady "
                 "stepping)",
@@ -119,18 +119,23 @@ def set_ic(params: AllParameters, solver):
     return solver.apply_mask(u)
 
 
+def build_source(params: AllParameters):
+    """The body force of the configuration (dflo_tpu/cli.py:130-147):
+    `gravity` g as the constant force (0, -g), else the `f_0`/`f_1`
+    expressions as an external force, else None."""
+    if params.gravity != 0.0:
+        return euler.GravitySource(0.0, -params.gravity)
+    if params.external_force is not None:
+        return euler.ExternalForce(params.external_force)
+    return None
+
+
 def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
                  dtype: torch.dtype, device, **solver_kw):
     """(solver, mask) of the configuration; solver_kw go to Solver (e.g.
     volume_kernel, post_kernel)."""
     mesh, mask, side_bids = (domain if domain is not None
                              else build_domain(params, prm_dir))
-    if params.basis == "GLL":
-        raise _later("the GLL basis (basis = GLL)", "gravity")
-    if (params.gravity != 0.0 or params.external_force is not None
-            or params.potential is not None):
-        raise _later("a body force (gravity, force or potential)",
-                     "gravity")
     if params.mass_matrix != "diagonal":
         raise _later(f"mass matrix = {params.mass_matrix}", "envelope")
     if params.diffusion_coef != 0.0:
@@ -144,7 +149,15 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
                      "implicit")
     if params.time_step_type != "global" or params.cfl <= 0:
         raise _later("a fixed or local time step", "envelope")
-    basis = make_basis(params.basis, params.degree)
+    basis = make_basis({"Qk": "Qk", "Pk": "Pk", "GLL": "Qk_gll"}[params.basis],
+                       params.degree)
+    well_balanced = None
+    if (params.potential is not None and params.gravity == 0.0
+            and params.external_force is None):
+        # the potential is the force description (src_gll/parameters.cc:
+        # 358); beside a `gravity` constant it is documentation only, as
+        # the reference trees never apply both (dflo_tpu/cli.py:231-238)
+        well_balanced = params.well_balanced
     lim = LimiterConfig(
         type=params.limiter.type,
         shock_indicator=params.limiter.shock_indicator,
@@ -155,7 +168,9 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
                     flux=params.flux.flux, limiter=lim, cfl=params.cfl,
                     dtype=dtype, device=device,
                     method="mood" if params.solver.method == "mood" else "rk",
-                    mask=mask, **solver_kw)
+                    mask=mask, source=build_source(params),
+                    well_balanced=well_balanced, potential=params.potential,
+                    **solver_kw)
     return solver, mask
 
 

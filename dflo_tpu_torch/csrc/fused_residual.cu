@@ -2,8 +2,9 @@
 //
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_residual (the dense
 // entry `fused`, kernel body _fused_kernel) in its hllc form, on the
-// collocated nodal Qk basis and on the modal Pk basis (the V contraction to
-// quadrature-point values before the fluxes, pallas_kernels.py:450-459),
+// collocated nodal Qk and GLL bases and on the modal Pk basis (the V
+// contraction to quadrature-point values before the fluxes,
+// pallas_kernels.py:450-459),
 // with or without a solid-cell mask (its masked form, :287-292, :472-533,
 // :598-599).  fused_residual_lxf.cu instantiates the same kernel with the
 // LxF flux.  It computes M^{-1} R(u) (residual.cuh) and writes, by form: R;
@@ -41,23 +42,11 @@ extern "C" int dflo_fused_residual(int dtype, int modal, int p, const void* u,
                                    const void* uold, const void* sc,
                                    const void* ops, const void* mask,
                                    void* out, int ny, int nx, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define DFLO_CASE(T, P, M)                                                   \
-  return dflo::launch_residual<T, P, M, dflo::HLLC>(                         \
-      u, dfw, dfe, dfs, dfn, uold, sc, ops, mask, out, ny, nx, s)
-#define DFLO_DEGREES(T, M)           \
-  if (p == 1) DFLO_CASE(T, 1, M);    \
-  if (p == 2) DFLO_CASE(T, 2, M);    \
-  if (p == 3) DFLO_CASE(T, 3, M);
-  if (uold != nullptr && sc == nullptr) return -1;
-  if (dtype == 0) {
-    if (modal) { DFLO_DEGREES(float, true) } else { DFLO_DEGREES(float, false) }
-  } else if (dtype == 1) {
-    if (modal) { DFLO_DEGREES(double, true) } else { DFLO_DEGREES(double, false) }
-  }
-#undef DFLO_DEGREES
-#undef DFLO_CASE
-  return -1;
+  // no source arm: no planes, no potential, no gravity
+  const dflo::ResArgs a{u,   dfw, dfe, dfs, dfn, uold, sc, ops, mask,
+                        nullptr, nullptr, nullptr, 0.0, 0.0, out, ny, nx};
+  return dflo::launch_table<dflo::HLLC, dflo::SRC_NONE>(
+      dtype, modal, p, a, (cudaStream_t)stream);
 }
 
 // number of thread blocks (= diagnostic partials) for an ny x nx grid

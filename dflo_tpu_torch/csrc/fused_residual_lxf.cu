@@ -35,22 +35,10 @@ extern "C" int dflo_fused_residual_lxf(int dtype, int modal, int p,
                                        const void* sc, const void* ops,
                                        const void* mask, void* out, int ny,
                                        int nx, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define DFLO_CASE(T, P, M)                                                   \
-  return dflo::launch_residual<T, P, M, dflo::LXF>(                          \
-      u, dfw, dfe, dfs, dfn, uold, sc, ops, mask, out, ny, nx, s)
-#define DFLO_DEGREES(T, M)           \
-  if (p == 1) DFLO_CASE(T, 1, M);    \
-  if (p == 2) DFLO_CASE(T, 2, M);    \
-  if (p == 3) DFLO_CASE(T, 3, M);
-  if (uold != nullptr && sc == nullptr) return -1;
   if (modal && mask != nullptr) return -1;
-  if (dtype == 0) {
-    if (modal) { DFLO_DEGREES(float, true) } else { DFLO_DEGREES(float, false) }
-  } else if (dtype == 1) {
-    if (modal) { DFLO_DEGREES(double, true) } else { DFLO_DEGREES(double, false) }
-  }
-#undef DFLO_DEGREES
-#undef DFLO_CASE
-  return -1;
+  // no source arm: no planes, no potential, no gravity
+  const dflo::ResArgs a{u,   dfw, dfe, dfs, dfn, uold, sc, ops, mask,
+                        nullptr, nullptr, nullptr, 0.0, 0.0, out, ny, nx};
+  return dflo::launch_table<dflo::LXF, dflo::SRC_NONE>(
+      dtype, modal, p, a, (cudaStream_t)stream);
 }

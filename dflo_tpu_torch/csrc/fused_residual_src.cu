@@ -1,0 +1,89 @@
+// Fused DG residual with a source term, hand-written for Hopper: the entry
+// point of every source arm, and the gravity arm with the HLLC flux.
+//
+// Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_residual with a
+// `source` (kernel body _fused_kernel, its ops["src"] arm, :573-577,
+// :682-700) or with well_balanced="isothermal" (its wb_iso arm, :578-593,
+// :701-727): the kernel of fused_residual.cu (residual.cuh) with the
+// template argument SRC, in its R, SSP-stage and u + dt*R forms.
+//
+// - FORCE_CONST, gravity (rayleigh_taylor): the constant g = (gx, gy)
+//   arrives as two scalars.  The TPU kernel streams the quadrature points'
+//   coordinates because its source is a generic callable it traces; this
+//   one computes the same function without them: no coordinate bytes.
+// - FORCE_PLANES, an external force f(x, y, t): the caller evaluates f at
+//   the call's t on the quadrature points (torch, no host sync) and the
+//   kernel reads the planes fx, fy [Q, ny, nx] and applies forcing_external.
+// - Both force arms lift S through the baked src = minv . (wq2 V)^T on
+//   collocated Qk and GLL (where it is the identity up to rounding) and on
+//   modal Pk (W at the quadrature points first).
+// - WB_ISO (iso_xing_shu), collocated only: exp(-phi/RT) on the nodal
+//   potential plane phi [K, ny, nx] with RT from the cell average, the nodal
+//   derivatives through the baked Gxn, Gyn and 1/dx, 1/dy (IEEE exp, no
+//   contraction: -fmad=false, so the plain twin rounds alike up to exp).
+//
+// What bounds it on the H100: bytes, as fused_residual.cu: the state's
+// reads (its own 4K values and four neighbors', about 5x through L1/L2)
+// and writes; gravity adds no bytes and 10 operations per point plus the
+// K x Q lift of S, the planes 2Q values per cell, the isothermal arm K
+// values of phi and K exp, 2K^2 multiply-adds of the derivatives and about
+// 10 operations per node.  The design keeps the source in the same pass:
+// nothing of S goes through memory.
+//
+// The arms' launch tables live in five sources built side by side
+// (launch_table in residual.cuh): this one (gravity, hllc),
+// fused_residual_src_lxf.cu (gravity, lxf), fused_residual_planes.cu and
+// fused_residual_planes_lxf.cu (the force planes) and fused_residual_wb.cu
+// (isothermal, both fluxes).
+#include <stdint.h>
+
+#include "residual.cuh"
+
+namespace dflo {
+// the other arms' tables are instantiated in their own sources
+#define DFLO_TABLE(FLUX, SRC) \
+  int launch_table<FLUX, SRC>(int, int, int, const ResArgs&, cudaStream_t)
+extern template DFLO_TABLE(LXF, FORCE_CONST);
+extern template DFLO_TABLE(HLLC, FORCE_PLANES);
+extern template DFLO_TABLE(LXF, FORCE_PLANES);
+extern template DFLO_TABLE(HLLC, WB_ISO);
+extern template DFLO_TABLE(LXF, WB_ISO);
+template DFLO_TABLE(HLLC, FORCE_CONST);
+#undef DFLO_TABLE
+}  // namespace dflo
+
+// dtype: 0 = float32, 1 = float64; modal: 0 = collocated (Qk, GLL), 1 = Pk;
+// p in {1, 2, 3}; flux: 0 = hllc, 1 = lxf; src: 1 = FORCE_CONST (gx, gy),
+// 2 = FORCE_PLANES (fx, fy [Q, ny, nx]), 3 = WB_ISO (phi [K, ny, nx],
+// collocated only).  Forms and mask as dflo_fused_residual (the mask on the
+// collocated basis only).  Returns the cudaGetLastError() code after the
+// launch (0 = launched), -1 for an unsupported case.
+extern "C" int dflo_fused_residual_src(int dtype, int modal, int p, int flux,
+                                       int src, const void* u,
+                                       const void* dfw, const void* dfe,
+                                       const void* dfs, const void* dfn,
+                                       const void* uold, const void* sc,
+                                       const void* ops, const void* mask,
+                                       const void* fx, const void* fy,
+                                       const void* phi, double gx, double gy,
+                                       void* out, int ny, int nx,
+                                       void* stream) {
+  using namespace dflo;
+  if (modal && mask != nullptr) return -1;
+  const ResArgs a{u,  dfw, dfe, dfs, dfn, uold, sc, ops, mask,
+                  fx, fy,  phi, gx,  gy,  out,  ny, nx};
+  cudaStream_t s = (cudaStream_t)stream;
+#define DFLO_ARM(FLUX, SRC) \
+  if (src == SRC) return launch_table<FLUX, SRC>(dtype, modal, p, a, s)
+  if (flux == HLLC) {
+    DFLO_ARM(HLLC, FORCE_CONST);
+    DFLO_ARM(HLLC, FORCE_PLANES);
+    DFLO_ARM(HLLC, WB_ISO);
+  } else if (flux == LXF) {
+    DFLO_ARM(LXF, FORCE_CONST);
+    DFLO_ARM(LXF, FORCE_PLANES);
+    DFLO_ARM(LXF, WB_ISO);
+  }
+#undef DFLO_ARM
+  return -1;
+}

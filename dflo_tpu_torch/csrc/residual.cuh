@@ -3,8 +3,8 @@
 // fused_mood_candidate.cu (the MOOD candidate on {truncated ->
 // positivity-limited} states).
 //
-// Per cell: the volume flux at the Q quadrature points (collocated Qk: the
-// DoFs are the point values; modal Pk: W = V u first,
+// Per cell: the volume flux at the Q quadrature points (collocated Qk and
+// GLL: the DoFs are the point values; modal Pk: W = V u first,
 // pallas_kernels.py:450-459), the four face traces of the cell and of each
 // face neighbor, one numerical flux per face (HLLC, or LxF with the cell
 // averages of both cells) and the volume and face lifts with minv/area
@@ -19,8 +19,21 @@
 // recompute", pallas_kernels.py:184-193), so no face buffer goes through
 // memory.
 //
+// Source arms (template argument SRC, pallas_kernels.py:573-593), added
+// after the lifts and before the mask: a body force S(W) at the Q volume
+// quadrature points lifted through the baked src = minv . (wq2 V)^T [K, Q],
+// one point column at a time in point order (FORCE_CONST: gravity with the
+// constant g = (gx, gy); FORCE_PLANES: an external force f(x, y, t) whose
+// planes fx, fy [Q, ny, nx] the caller evaluated at this call's t); or, on a
+// collocated basis, the isothermal well-balanced gravity source (WB_ISO):
+// RT from the cell average, E = exp(-phi/RT) on the nodal potential plane
+// phi [K, ny, nx], its nodal derivatives Gxn E / dx and Gyn E / dy, and
+// rho RT / E times them added node by node (src_gll/assemble_explicit.cc:
+// 30-135).  A source adds nothing at a face, so the delta strips do not
+// change.
+//
 // Every contraction is an ordered sum (one multiply and one add per term,
-// in the order of ops/kernels.fused_residual_plain) and the sources are
+// in the order of ops/kernels.fused_residual_plain) and the .cu files are
 // built with -fmad=false, so kernel and plain version round alike: the
 // MOOD cascade re-applies positivity to the stage predictor, whose branch at
 // the pressure floor rounding decides, so an ulp in a residual would change
@@ -36,7 +49,13 @@ namespace dflo {
 // the numerical flux of the residual (template argument FLUX)
 enum { HLLC = 0, LXF = 1 };
 
-// operator buffer layout (ops/kernels.residual_operators)
+// the source arm of the residual (template argument SRC)
+enum { SRC_NONE = 0, FORCE_CONST = 1, FORCE_PLANES = 2, WB_ISO = 3 };
+
+// operator buffer layout (ops/kernels.residual_operators); after the cell
+// average row, by source arm: the force arms' projection src [K][Q], or the
+// isothermal arm's nodal derivative matrices Gxn, Gyn [K][K] and
+// [1/dx, 1/dy]
 template <int P, bool MODAL>
 struct ResOps {
   using D = BDims<P, MODAL>;
@@ -44,7 +63,48 @@ struct ResOps {
   static constexpr int LIFT = 4 * D::NQ * D::K;         // [K][NL]
   static constexpr int VOL = LIFT + D::K * D::NL;       // [Q][K] (modal)
   static constexpr int AVG = VOL + (MODAL ? D::Q * D::K : 0);  // [K]
+  static constexpr int SRCOP = AVG + D::K;              // [K][Q] (force)
+  static constexpr int GXN = AVG + D::K;                // [K][K] (WB_ISO)
+  static constexpr int GYN = GXN + D::K * D::K;         // [K][K]
+  static constexpr int INVD = GYN + D::K * D::K;        // [2]
 };
+
+// the per-call operands of the source arms (unused members stay null / 0)
+template <typename T>
+struct SrcArgs {
+  const T* fx = nullptr;   // [Q, ny, nx] force planes (FORCE_PLANES)
+  const T* fy = nullptr;
+  const T* phi = nullptr;  // [K, ny, nx] nodal potential (WB_ISO)
+  T gx = T(0);             // constant gravity (FORCE_CONST)
+  T gy = T(0);
+};
+
+// IEEE exp of the working dtype (expf for float; torch.exp's on the card)
+__device__ __forceinline__ float ieee_exp(float x) { return expf(x); }
+__device__ __forceinline__ double ieee_exp(double x) { return ::exp(x); }
+
+// the state at volume quadrature point n: the streamed nodal values
+// (collocated: the nodes are the quadrature points), or V[n] . w of the
+// register-held DoFs (modal), each an ordered sum over k
+template <typename T, int P, bool MODAL>
+__device__ __forceinline__ void point_state(const T* __restrict__ u,
+                                            long plane, long cell,
+                                            const T* __restrict__ V,
+                                            const T w[4][BDims<P, MODAL>::K],
+                                            int n, T wq[4]) {
+  constexpr int K = BDims<P, MODAL>::K;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if constexpr (MODAL) {
+      T acc = V[n * K] * w[c][0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) acc = acc + V[n * K + k] * w[c][k];
+      wq[c] = acc;
+    } else {
+      wq[c] = __ldg(u + (long)(c * K + n) * plane + cell);
+    }
+  }
+}
 
 // face trace (NQ points) of one cell streamed from memory, for face f; with
 // AVG also its cell average ub[c] = sum_k avg[k] u[c][k] (an ordered sum, as
@@ -223,7 +283,8 @@ __device__ __forceinline__ void neighbor_trace(
 // (of the register-held DoFs where they are held, so with TP the averages
 // of the tp'd states).  mask: the uint8 fluid flags of a masked domain, or
 // nullptr.
-template <typename T, int P, bool MODAL, bool TP, int FLUX = HLLC>
+template <typename T, int P, bool MODAL, bool TP, int FLUX = HLLC,
+          int SRC = SRC_NONE>
 __device__ __forceinline__ void cell_residual(
     const T* __restrict__ u, const int* __restrict__ deg,
     const T* __restrict__ Pm, T avg0, const T* __restrict__ dfw,
@@ -231,8 +292,12 @@ __device__ __forceinline__ void cell_residual(
     const T* __restrict__ dfn, const T* __restrict__ ops, int x, int y,
     int ny, int nx, T R[4][BDims<P, MODAL>::K],
     T w[4][BDims<P, MODAL>::K],
-    const uint8_t* __restrict__ mask = nullptr) {
+    const uint8_t* __restrict__ mask = nullptr,
+    const SrcArgs<T>& src = SrcArgs<T>()) {
   static_assert(MODAL || !TP, "truncation needs the modal basis");
+  static_assert(SRC == SRC_NONE || !TP, "the candidate takes no source");
+  static_assert(SRC != WB_ISO || !MODAL,
+                "well-balanced gravity needs a collocated basis");
   using D = BDims<P, MODAL>;
   using O = ResOps<P, MODAL>;
   constexpr int K = D::K, NQ = D::NQ, Q = D::Q;
@@ -260,36 +325,19 @@ __device__ __forceinline__ void cell_residual(
     load_cell<T, K>(u, plane, cell, w);
     if constexpr (TP) modal_tp<T, P>(w, __ldg(deg + cell), Pm, avg0);
   }
-  if constexpr (MODAL) {
-    const T* V = ops + O::VOL;
+  const T* V = ops + O::VOL;
 #pragma unroll
-    for (int n = 0; n < Q; ++n) {
-      T wq[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        T acc = V[n * K] * w[c][0];
-#pragma unroll
-        for (int k = 1; k < K; ++k) acc = acc + V[n * K + k] * w[c][k];
-        wq[c] = acc;
-      }
-      lift_volume<T, P, MODAL>(lift, n, wq, R);
-    }
-  } else {
-    // collocated: the nodes are the quadrature points
-#pragma unroll
-    for (int n = 0; n < K; ++n) {
-      T wq[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) wq[c] = __ldg(u + (long)(c * K + n) * plane + cell);
-      lift_volume<T, P, MODAL>(lift, n, wq, R);
-    }
+  for (int n = 0; n < Q; ++n) {
+    T wq[4];
+    point_state<T, P, MODAL>(u, plane, cell, V, w, n, wq);
+    lift_volume<T, P, MODAL>(lift, n, wq, R);
   }
 
-  // the cell's own average (LxF)
+  // the cell's own average (LxF; the isothermal source's RT)
   T ub[4] = {T(0), T(0), T(0), T(0)};
   if constexpr (AVG && REG) {
     avg_reg<T, K>(w, avg, ub);
-  } else if constexpr (AVG) {
+  } else if constexpr (AVG || SRC == WB_ISO) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) ub[c] = dot_cell<T, K>(avg, u, c, plane, cell);
   }
@@ -336,6 +384,69 @@ __device__ __forceinline__ void cell_residual(
   face(3, 2, (long)yn * nx + x, false, T(0), T(1), MY, y == ny - 1, dfn, nx,
        x, 2 * Q + 3 * NQ);
 
+  // ---- source arms, after the lifts --------------------------------------
+  if constexpr (SRC == FORCE_CONST || SRC == FORCE_PLANES) {
+    // R += src[:, n] S(W(n)) point by point (ops/kernels._lift_source)
+    const T* sop = ops + O::SRCOP;
+#pragma unroll
+    for (int n = 0; n < Q; ++n) {
+      T wq[4], s[4];
+      point_state<T, P, MODAL>(u, plane, cell, V, w, n, wq);
+      if constexpr (SRC == FORCE_CONST) {
+        // physics/euler.forcing_gravity
+        s[MX] = src.gx * wq[RHO];
+        s[MY] = src.gy * wq[RHO];
+        s[RHO] = T(0);
+        s[ENE] = src.gx * wq[MX] + src.gy * wq[MY];
+      } else {
+        // physics/euler.forcing_external
+        const T fx = __ldg(src.fx + (long)n * plane + cell);
+        const T fy = __ldg(src.fy + (long)n * plane + cell);
+        s[MX] = wq[RHO] * fx;
+        s[MY] = wq[RHO] * fy;
+        s[RHO] = T(0);
+        s[ENE] = wq[MX] * fx + wq[MY] * fy;
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const T l = sop[k * Q + n];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) R[c][k] = R[c][k] + l * s[c];
+      }
+    }
+  } else if constexpr (SRC == WB_ISO) {
+    // isothermal well-balanced gravity on the nodes (pallas_kernels.py:
+    // 578-593): RT of the cell average, E = exp(-phi/RT), the nodal
+    // derivatives of E times the baked 1/dx, 1/dy, then S = rho RT / E grad E
+    const T* gxn = ops + O::GXN;
+    const T* gyn = ops + O::GYN;
+    const T inv_dx = ops[O::INVD], inv_dy = ops[O::INVD + 1];
+    const T rt = pressure(ub) / ub[RHO];
+    T E[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      E[k] = ieee_exp(-__ldg(src.phi + (long)k * plane + cell) / rt);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T dex = gxn[k * K] * E[0], dey = gyn[k * K] * E[0];
+#pragma unroll
+      for (int j = 1; j < K; ++j) {
+        dex = dex + gxn[k * K + j] * E[j];
+        dey = dey + gyn[k * K + j] * E[j];
+      }
+      dex = dex * inv_dx;
+      dey = dey * inv_dy;
+      T wk[4];
+      point_state<T, P, MODAL>(u, plane, cell, V, w, k, wk);
+      const T fac = wk[RHO] * rt / E[k];
+      const T sx = fac * dex, sy = fac * dey;
+      R[MX][k] = R[MX][k] + sx;
+      R[MY][k] = R[MY][k] + sy;
+      R[RHO][k] = R[RHO][k] + T(0);
+      R[ENE][k] = R[ENE][k] + (wk[MX] * sx + wk[MY] * sy) / wk[RHO];
+    }
+  }
+
   if (masked) {
     // solid cells are frozen (R * mask, as the plain version multiplies)
     const T m = m_own ? T(1) : T(0);
@@ -348,15 +459,16 @@ __device__ __forceinline__ void cell_residual(
 
 // The dense fused residual of one cell per thread: R, the SSP stage
 // a*u_old + (1-a)*(u + dt*R) with [a, dt] read from a device pointer so the
-// host never waits on dt, or the forward-Euler update u + dt*R (sc = [dt]).
-template <typename T, int P, bool MODAL, int FLUX>
+// host never waits on dt, or the forward-Euler update u + dt*R (sc = [dt]);
+// SRC adds a source arm with its operands in src.
+template <typename T, int P, bool MODAL, int FLUX, int SRC = SRC_NONE>
 __global__ void __launch_bounds__(BX * BY)
 fused_residual_kernel(const T* __restrict__ u, const T* __restrict__ dfw,
                       const T* __restrict__ dfe, const T* __restrict__ dfs,
                       const T* __restrict__ dfn, const T* __restrict__ uold,
                       const T* __restrict__ sc, const T* __restrict__ ops,
                       const uint8_t* __restrict__ mask, T* __restrict__ out,
-                      int ny, int nx) {
+                      int ny, int nx, SrcArgs<T> src) {
   constexpr int K = BDims<P, MODAL>::K;
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
@@ -365,9 +477,9 @@ fused_residual_kernel(const T* __restrict__ u, const T* __restrict__ dfw,
   const long cell = (long)y * nx + x;
 
   T R[4][K], w[4][K];
-  cell_residual<T, P, MODAL, false, FLUX>(u, nullptr, nullptr, T(0), dfw, dfe,
-                                          dfs, dfn, ops, x, y, ny, nx, R, w,
-                                          mask);
+  cell_residual<T, P, MODAL, false, FLUX, SRC>(u, nullptr, nullptr, T(0), dfw,
+                                               dfe, dfs, dfn, ops, x, y, ny,
+                                               nx, R, w, mask, src);
 
   // ---- write R, the SSP stage, or the forward-Euler update ---------------
   if (uold != nullptr) {
@@ -396,17 +508,61 @@ fused_residual_kernel(const T* __restrict__ u, const T* __restrict__ dfw,
   }
 }
 
-template <typename T, int P, bool MODAL, int FLUX>
-int launch_residual(const void* u, const void* dfw, const void* dfe,
-                    const void* dfs, const void* dfn, const void* uold,
-                    const void* sc, const void* ops, const void* mask,
-                    void* out, int ny, int nx, cudaStream_t stream) {
-  fused_residual_kernel<T, P, MODAL, FLUX>
-      <<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
-          (const T*)u, (const T*)dfw, (const T*)dfe, (const T*)dfs,
-          (const T*)dfn, (const T*)uold, (const T*)sc, (const T*)ops,
-          (const uint8_t*)mask, (T*)out, ny, nx);
+// The operands of one residual launch (the C entry points' pointers, as
+// void*; fx, fy, phi, gx, gy only for a source arm).
+struct ResArgs {
+  const void *u, *dfw, *dfe, *dfs, *dfn, *uold, *sc, *ops, *mask;
+  const void *fx, *fy, *phi;
+  double gx, gy;
+  void* out;
+  int ny, nx;
+};
+
+template <typename T, int P, bool MODAL, int FLUX, int SRC = SRC_NONE>
+int launch_residual(const ResArgs& a, cudaStream_t stream) {
+  SrcArgs<T> src;
+  src.fx = (const T*)a.fx;
+  src.fy = (const T*)a.fy;
+  src.phi = (const T*)a.phi;
+  src.gx = T(a.gx);
+  src.gy = T(a.gy);
+  fused_residual_kernel<T, P, MODAL, FLUX, SRC>
+      <<<grid_for(a.ny, a.nx), dim3(BX, BY), 0, stream>>>(
+          (const T*)a.u, (const T*)a.dfw, (const T*)a.dfe, (const T*)a.dfs,
+          (const T*)a.dfn, (const T*)a.uold, (const T*)a.sc,
+          (const T*)a.ops, (const uint8_t*)a.mask, (T*)a.out, a.ny, a.nx,
+          src);
   return (int)cudaGetLastError();
+}
+
+// The launch table of one flux and source arm over dtype (0 = float32,
+// 1 = float64), basis (modal) and degree p in {1, 2, 3}; -1 for a case it
+// does not take (a source arm's operands missing, WB_ISO on the modal
+// basis, u_old without sc).  Each source arm's table is instantiated in a
+// translation unit of its own (fused_residual_src*.cu), so nvcc builds them
+// side by side.
+template <int FLUX, int SRC>
+int launch_table(int dtype, int modal, int p, const ResArgs& a,
+                 cudaStream_t s) {
+  if (a.uold != nullptr && a.sc == nullptr) return -1;
+  if (SRC == FORCE_PLANES && (a.fx == nullptr || a.fy == nullptr)) return -1;
+  if (SRC == WB_ISO && (a.phi == nullptr || modal)) return -1;
+#define DFLO_DEGREES(T, M)                                                  \
+  if (p == 1) return launch_residual<T, 1, M, FLUX, SRC>(a, s);             \
+  if (p == 2) return launch_residual<T, 2, M, FLUX, SRC>(a, s);             \
+  if (p == 3) return launch_residual<T, 3, M, FLUX, SRC>(a, s);
+  if constexpr (SRC == WB_ISO) {
+    if (dtype == 0) { DFLO_DEGREES(float, false) }
+    if (dtype == 1) { DFLO_DEGREES(double, false) }
+  } else {
+    if (dtype == 0) {
+      if (modal) { DFLO_DEGREES(float, true) } else { DFLO_DEGREES(float, false) }
+    } else if (dtype == 1) {
+      if (modal) { DFLO_DEGREES(double, true) } else { DFLO_DEGREES(double, false) }
+    }
+  }
+#undef DFLO_DEGREES
+  return -1;
 }
 
 }  // namespace dflo

@@ -1,5 +1,6 @@
-"""Explicit solver driver on one device: RK on the nodal Qk and modal Pk
-bases, and the MOOD cascade on modal Pk.
+"""Explicit solver driver on one device: RK on the nodal Qk and GLL and the
+modal Pk bases, with body forces and well-balanced gravity, and the MOOD
+cascade on modal Pk.
 
 The torch counterpart of dflo_tpu/driver.py's ``Solver``:
 
@@ -8,13 +9,20 @@ The torch counterpart of dflo_tpu/driver.py's ``Solver``:
   limiter the post is one fused pass (averages -> shock indicator ->
   characteristic TVB -> positivity), and the final stage's post also
   yields the next step's CFL wave speed and the fatal-negativity minimum.
-  Everywhere else (the modal Pk basis, or limiter type "none") the post is
+  Everywhere else (the modal Pk and GLL bases, or limiter type "none")
+  the post is
   the plain stab chain {indicator -> TVB -> positivity}, each step present
   only where configured, and the diag kernel reads the wave speed and
   the negativity minimum off the step's result.  A solid-cell mask (the
   forward step's obstacle) pins solid cells to a benign state before
   every post and freezes their residual; the kernels mirror the fluid
   state at fluid|solid faces.
+- A source term (``source``: a body force; ``well_balanced`` with a
+  ``potential``: the src_gll gravity forms) goes to make_rhs; the fused
+  residual carries ``euler.GravitySource``, ``euler.ExternalForce`` and
+  isothermal well-balancing in its kernel, and any other source callable
+  and polytropic well-balancing resolve "auto" to the plain residual, as
+  the reference's vol_ok does (dflo_tpu/driver.py:104-122).
 - ``method="mood"``: each SSP stage runs the MOOD cascade (stab/mood.py)
   from the stage predictor, blends, and runs the fused Pk post (modal TVB on
   the cells the cascade marked, then positivity); the final stage's Pk post
@@ -48,9 +56,10 @@ per chunk.  The port's kernels take any block shape: a mesh needs only
 8 x 128-aligned blocks).
 
 Configurations outside the ported slices raise NotImplementedError: implicit
-stepping, masked MOOD, the minmax limiter, the other fluxes and indicators
-(the physics envelope); under a device mesh, MOOD, masks, the plain and
-volume_residual forms and the plain post chain (ROADMAP queue 1, item 10).
+stepping, masked MOOD, MOOD with a source term, the minmax limiter, the
+other fluxes and indicators (the physics envelope); under a device mesh,
+MOOD, masks, source terms, the plain and volume_residual forms and the plain
+post chain (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -96,18 +105,20 @@ def _where(cond, new, old):
 
 
 def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
-                  volume_kernel: str, post_kernel: str) -> tuple[str, str]:
+                  volume_kernel: str, post_kernel: str, source=None,
+                  well_balanced: str | None = None) -> tuple[str, str]:
     """Resolve "auto" (dflo_tpu/driver.py:104-138): the fused residual
     wherever the configuration is inside its envelope (collocated Qk or
-    modal Pk, hllc or lxf, degrees 1-3), the fused post on collocated Qk
-    with the TVB limiter (the reference's post_ok), else the plain
-    forms."""
+    GLL or modal Pk, hllc or lxf, degrees 1-3, no source term or one of
+    the kernel's source arms: a GravitySource, an ExternalForce or
+    isothermal well-balancing), the fused post on Gauss Qk with the TVB
+    limiter (the reference's post_ok), else the plain forms."""
     modal = basis.family == "Pk"
     vol_ok = (basis.degree in kernels.DEGREES
-              and (modal or (basis.family == "Qk"
-                             and basis.is_nodal_collocated))
-              and flux in ("hllc", "lxf"))
-    post_ok = vol_ok and not modal and limiter.type == "TVB"
+              and (modal or basis.is_nodal_collocated)
+              and flux in ("hllc", "lxf")
+              and kernels.carries_source(source, well_balanced))
+    post_ok = vol_ok and basis.family == "Qk" and limiter.type == "TVB"
     if volume_kernel == "auto":
         volume_kernel = "fused" if vol_ok else "xla"
     if post_kernel == "auto":
@@ -118,7 +129,8 @@ def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
         raise ValueError(f"unknown post kernel {post_kernel!r}")
     if method == "rk" and post_kernel == "fused" and not post_ok:
         raise ValueError("post_kernel='fused' covers the collocated Qk TVB "
-                         "chain only (dflo_tpu/driver.py:129-140)")
+                         "chain only, on Gauss nodes (dflo_tpu/driver.py:"
+                         "129-140)")
     if method == "mood" and volume_kernel != "fused":
         raise NotImplementedError("the port's MOOD cascade runs on the fused "
                                   "residual (volume_kernel='fused')")
@@ -133,9 +145,10 @@ def _mesh_later(what: str) -> NotImplementedError:
 
 class Solver:
     """Explicit DG solver on a Cartesian mesh, on one device or (RK/TVB on
-    collocated Qk, device_mesh) on a mesh of blocks: RK on nodal Qk or
-    modal Pk (method="rk") or the MOOD cascade on modal Pk
-    (method="mood")."""
+    collocated Qk, device_mesh) on a mesh of blocks: RK on nodal Qk or GLL
+    or modal Pk (method="rk") or the MOOD cascade on modal Pk
+    (method="mood"); source, well_balanced, potential and polytropic_nu as
+    make_rhs takes them."""
 
     def __init__(self, basis: basis_mod.Basis, mesh,
                  bcs: dict[str, BoundarySide], flux: str = "lxf",
@@ -144,6 +157,8 @@ class Solver:
                  method: str = "rk", mask=None,
                  solid_state=(0.0, 0.0, 1.0, 2.5),
                  volume_kernel: str = "auto", post_kernel: str = "auto",
+                 source=None, well_balanced: str | None = None,
+                 potential=None, polytropic_nu: float = 1.2,
                  device_mesh=None):
         if method not in ("rk", "mood"):
             raise NotImplementedError(f"method {method!r} is not ported yet")
@@ -154,11 +169,19 @@ class Solver:
         if mask is not None and method == "mood":
             raise NotImplementedError("masked MOOD comes with the physics "
                                       "envelope slice")
+        if method == "mood" and (source is not None
+                                 or well_balanced is not None):
+            raise NotImplementedError(
+                "MOOD with a body force or well-balanced gravity is not "
+                "ported yet (the reference's candidate refuses sources, "
+                "pallas_kernels.py:669-673; ROADMAP queue 1, item 3)")
         if device_mesh is not None:
             if method == "mood":
                 raise _mesh_later("the MOOD cascade")
             if mask is not None:
                 raise _mesh_later("a solid-cell mask")
+            if source is not None or well_balanced is not None:
+                raise _mesh_later("a body force or well-balanced gravity")
             if torch.device(device).type != device_mesh.flat[0].type:
                 raise ValueError(f"device {device} is not of the mesh's "
                                  f"type ({device_mesh.flat[0].type})")
@@ -182,7 +205,8 @@ class Solver:
                 "the MOOD path of the port carries the TVB limiter and "
                 "positivity on")
         volume_kernel, post_kernel = _kernel_forms(
-            basis, flux, method, cfg, volume_kernel, post_kernel)
+            basis, flux, method, cfg, volume_kernel, post_kernel, source,
+            well_balanced)
         if device_mesh is not None and (volume_kernel, post_kernel) != (
                 "fused", "fused"):
             raise _mesh_later(f"volume_kernel={volume_kernel!r} / "
@@ -210,7 +234,10 @@ class Solver:
 
         self.rhs = make_rhs(basis, mesh, bcs, flux=flux, dtype=dtype,
                             device=self.device, volume_kernel=volume_kernel,
-                            mask=self.mask, device_mesh=device_mesh)
+                            mask=self.mask, source=source,
+                            well_balanced=well_balanced, potential=potential,
+                            polytropic_nu=polytropic_nu,
+                            device_mesh=device_mesh)
 
         def diag_ops(dev):
             return kernels.diag_operators(basis, mesh, mask=self.mask,
@@ -223,9 +250,10 @@ class Solver:
                 per_x=per_x, per_y=per_y, mask=self.mask, dtype=dtype,
                 device=dev)
 
-        # the RK post on collocated Qk with TVB: the fused post (or its
-        # plain version) with its diag; every other post is the plain chain
-        self._fused_chain = method == "rk" and not modal and cfg.type == "TVB"
+        # the RK post on Gauss Qk with TVB: the fused post (or its plain
+        # version) with its diag; every other post is the plain chain
+        self._fused_chain = (method == "rk" and basis.family == "Qk"
+                             and cfg.type == "TVB")
         if device_mesh is None:
             self._diag_ops = diag_ops(self.device)
             if self._fused_chain:

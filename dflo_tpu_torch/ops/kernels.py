@@ -6,8 +6,10 @@ wrapper                TPU kernel it replaces                      CUDA source
                        (dflo_tpu/ops/pallas_kernels.py)
 =====================  ==========================================  ==========================
 fused_residual         make_fused_residual, dense (collocated Qk   csrc/fused_residual.cu
-                       and modal Pk, hllc and lxf; a solid-cell    csrc/fused_residual_lxf.cu
-                       mask on Qk)
+                       and GLL and modal Pk, hllc and lxf; a       csrc/fused_residual_lxf.cu
+                       solid-cell mask on the collocated bases;    csrc/fused_residual_src*.cu
+                       its ops["src"] and wb_iso source arms)      csrc/fused_residual_planes*.cu
+                                                                   csrc/fused_residual_wb.cu
 fused_mood_candidate   make_fused_residual(...).sparse (hllc,      csrc/fused_mood_candidate.cu
                        lxf)                                        csrc/fused_mood_candidate_lxf.cu
 fused_post             make_fused_post; with halo lines, the       csrc/fused_post.cu
@@ -52,6 +54,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
@@ -59,8 +62,9 @@ import torch
 import torch.nn.functional as F
 
 from dflo_tpu_torch.ops import basis as basis_mod
-from dflo_tpu_torch.ops.contract import (as_tensor, basis_apply_ordered,
-                                         basis_reduce, recip)
+from dflo_tpu_torch.ops.contract import (as_tensor, basis_apply1,
+                                         basis_apply_ordered, basis_reduce,
+                                         recip)
 from dflo_tpu_torch.parallel.sharding import (DeviceMesh, exchange_halos,
                                               reduce_max, reduce_min)
 from dflo_tpu_torch.physics import euler
@@ -136,16 +140,26 @@ def build(ptxas_info: bool = False) -> tuple[Path, str]:
     extra = ("-Xptxas", "-v") if ptxas_info else ()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *extra,
-                                   "-c", str(s), "-o", str(o)],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(srcs, objs)]
+        outs = [Path(tmp) / (s.stem + ".log") for s in srcs]
+        t0 = time.perf_counter()
+        procs = []
+        for s, o, log in zip(srcs, objs, outs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(o)],
+                    stdout=f, stderr=subprocess.STDOUT))
+        # each source's compile time, for the build's long pole
+        secs = {}
+        while len(secs) < len(procs):
+            for i, pr in enumerate(procs):
+                if i not in secs and pr.poll() is not None:
+                    secs[i] = time.perf_counter() - t0
+            time.sleep(0.05)
         logs = []
         failed = []
-        for s, pr in zip(srcs, procs):
-            out, _ = pr.communicate()
-            logs.append(f"== {s.name}\n{out}")
+        for i, (s, pr) in enumerate(zip(srcs, procs)):
+            logs.append(f"== {s.name} ({secs[i]:.1f} s)\n"
+                        + outs[i].read_text())
             if pr.returncode != 0:
                 failed.append(s.name)
         if failed:
@@ -171,6 +185,8 @@ def _load():
         "dflo_num_blocks": [ci, ci],
         "dflo_fused_residual": [ci, ci, ci] + [vp] * 10 + [ci, ci, vp],
         "dflo_fused_residual_lxf": [ci, ci, ci] + [vp] * 10 + [ci, ci, vp],
+        "dflo_fused_residual_src": [ci] * 5 + [vp] * 12 + [cd, cd, vp, ci, ci,
+                                                          vp],
         "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
         "dflo_fused_mood_candidate": [ci, ci] + [vp] * 11 + [cd, ci, ci, vp,
                                                              vp],
@@ -288,14 +304,21 @@ def launch_counts() -> dict[str, int]:
     return out
 
 
+#: the basis tags of the residual's launch-count keys
+_BASIS_TAG = {"Qk": "qk", "Qk_gll": "gll", "Pk": "pk"}
+#: the source arms of the residual kernel (csrc/residual.cuh SRC)
+_SRC_CODE = {"grav": 1, "force": 2, "wbiso": 3}
+
+
 def _residual_form(ops: "ResidualOps", u_old=None, dt=None) -> str:
     """The launch-count key of a residual call: "fused_residual[<basis>_
-    <flux>[_masked]_<form>]", form R, stage (u_old given) or step (dt
-    given)."""
+    <flux>[_masked][_<source>]_<form>]", basis qk, gll or pk, source grav,
+    force or wbiso, form R, stage (u_old given) or step (dt given)."""
     form = "stage" if u_old is not None else "step" if dt is not None else "R"
     masked = "_masked" if ops.mask is not None else ""
-    return (f"fused_residual[{'pk' if ops.modal else 'qk'}_{ops.flux}"
-            f"{masked}_{form}]")
+    src = f"_{ops.source}" if ops.source else ""
+    return (f"fused_residual[{_BASIS_TAG[ops.family]}_{ops.flux}{masked}{src}"
+            f"_{form}]")
 
 
 # ---------------------------------------------------------------------------
@@ -303,17 +326,18 @@ def _residual_form(ops: "ResidualOps", u_old=None, dt=None) -> str:
 # ---------------------------------------------------------------------------
 
 def _check_basis(basis: basis_mod.Basis, modal: bool | None = None) -> bool:
-    """True for the modal Pk basis, False for collocated nodal Qk; raises
-    for anything the kernels do not take (modal=True/False: only that
-    one)."""
+    """True for the modal Pk basis, False for a collocated nodal basis (Qk
+    on its Gauss nodes, Qk_gll on its Gauss-Lobatto nodes: the same kernels,
+    their operator values in the buffers); raises for anything the kernels
+    do not take (modal=True/False: only that one)."""
     if basis.family == "Pk":
         is_modal = True
-    elif basis.family == "Qk" and basis.is_nodal_collocated:
+    elif basis.is_nodal_collocated:
         is_modal = False
     else:
         raise NotImplementedError(
-            "the kernels take the collocated nodal Qk basis and the modal Pk "
-            f"basis, got {basis.family} with nq = {basis.nq}")
+            "the kernels take the collocated nodal Qk and GLL bases and the "
+            f"modal Pk basis, got {basis.family} with nq = {basis.nq}")
     if modal is not None and modal != is_modal:
         raise NotImplementedError(
             f"this kernel takes the {'modal Pk' if modal else 'nodal Qk'} "
@@ -354,12 +378,22 @@ class ResidualOps:
     kernel contracts the DoFs to point values before the fluxes), and
     avg [K], the cell-average row (LxF's dissipation speed reads the
     averages of both cells of a face).  flux: "hllc" or "lxf"; mask: the
-    bool [ny, nx] fluid flags of a masked domain, or None."""
+    bool [ny, nx] fluid flags of a masked domain, or None.
+
+    The source arm (pallas_kernels.py:573-593), source None or:
+    "grav" (euler.GravitySource, g = (gx, gy)) and "force"
+    (euler.ExternalForce: force_fn evaluated on the volume quadrature
+    points xq, yq [Q, ny, nx], force_planes) with src [K, Q] =
+    minv . (wq2 V)^T, the body force's projection (pallas_kernels.py:
+    687-689); "wbiso", isothermal well-balanced gravity on a collocated
+    basis, with the nodal derivative matrices Gxn, Gyn [K, K], inv_d =
+    [1/dx, 1/dy] and the nodal potential plane phi [K, ny, nx]."""
     p: int
     K: int
     nq: int
     Q: int
     modal: bool
+    family: str
     flux: str
     buf: torch.Tensor
     faceV: torch.Tensor
@@ -367,6 +401,16 @@ class ResidualOps:
     V: torch.Tensor | None
     avg: torch.Tensor
     mask: torch.Tensor | None
+    source: str | None = None
+    g: tuple[float, float] = (0.0, 0.0)
+    src: torch.Tensor | None = None
+    force_fn: object = None
+    xq: torch.Tensor | None = None
+    yq: torch.Tensor | None = None
+    Gxn: torch.Tensor | None = None
+    Gyn: torch.Tensor | None = None
+    inv_d: torch.Tensor | None = None
+    phi: torch.Tensor | None = None
 
 
 def _mask_tensor(mask, mesh, device) -> torch.Tensor | None:
@@ -379,8 +423,54 @@ def _mask_tensor(mask, mesh, device) -> torch.Tensor | None:
     return torch.as_tensor(np.ascontiguousarray(m), device=device)
 
 
+#: the body-force objects the residual kernel has an arm for
+_FORCE_ARMS = ((euler.GravitySource, "grav"), (euler.ExternalForce, "force"))
+
+
+def carries_source(source, well_balanced: str | None) -> bool:
+    """Whether the residual kernel has an arm for this source term: none,
+    a euler.GravitySource or euler.ExternalForce, or isothermal
+    well-balancing.  Not any other callable (a CUDA kernel cannot call it)
+    nor polytropic well-balancing, which the reference keeps on its plain
+    path too (pallas_kernels.py:702-704)."""
+    return (well_balanced in (None, "isothermal")
+            and (source is None
+                 or isinstance(source, tuple(c for c, _ in _FORCE_ARMS))))
+
+
+def source_kind(source, well_balanced: str | None) -> str | None:
+    """The residual kernel's source arm for a make_rhs source and
+    well-balanced form: None, "grav", "force" or "wbiso"; raises
+    NotImplementedError where the kernel has no arm (carries_source)."""
+    if well_balanced is not None and source is not None:
+        raise ValueError("source and well_balanced are mutually "
+                         "exclusive (the force would be applied twice)")
+    if not carries_source(source, well_balanced):
+        raise NotImplementedError(
+            "the fused residual carries euler.GravitySource, "
+            "euler.ExternalForce and well_balanced='isothermal'; any other "
+            "source callable and polytropic well-balancing run on the plain "
+            "path (volume_kernel='xla')")
+    if well_balanced is not None:
+        return "wbiso"
+    return next((k for c, k in _FORCE_ARMS if isinstance(source, c)), None)
+
+
+def nodal_points(basis: basis_mod.Basis, mesh) -> tuple[np.ndarray,
+                                                        np.ndarray]:
+    """The physical coordinates [Q, ny, nx] of the volume quadrature points
+    of every cell (the nodes of a collocated basis), x fastest."""
+    QX, QY = np.meshgrid(basis.xq, basis.xq, indexing="xy")
+    return mesh.point_coords(np.stack([QX.ravel(), QY.ravel()], axis=1))
+
+
 def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
-                       mask=None, dtype, device) -> ResidualOps:
+                       mask=None, source=None, well_balanced=None,
+                       potential=None, dtype, device) -> ResidualOps:
+    """The operators of the fused residual (ResidualOps) for the basis,
+    mesh, flux, mask and source arm (source_kind); potential phi(x, y) for
+    well_balanced="isothermal", evaluated with torch in dtype on device at
+    the nodes."""
     modal = _check_basis(basis)
     if flux not in ("hllc", "lxf"):
         raise NotImplementedError(
@@ -390,6 +480,14 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
         raise NotImplementedError(
             "the fused residual takes the modal Pk basis on an unmasked "
             "domain (masks on Pk come with the physics envelope slice)")
+    kind = source_kind(source, well_balanced)
+    if kind == "wbiso":
+        if modal:
+            raise ValueError("well-balanced gravity needs a nodal-collocated "
+                             "basis (GLL, src_gll/assemble_explicit.cc:66-72)")
+        if potential is None:
+            raise ValueError("well-balanced gravity needs a potential "
+                             "phi(x, y)")
     scale = (1.0 / basis.mass)[:, None] / (mesh.dx * mesh.dy)
     GxW = basis.wq2[:, None] * basis.Gx
     GyW = basis.wq2[:, None] * basis.Gy
@@ -400,11 +498,47 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
          mesh.dx * fvw[2].T * scale, -mesh.dx * fvw[3].T * scale], axis=1)
     parts = ([basis.faceV, lift] + ([basis.V] if modal else [])
              + [basis.wq2 @ basis.V])
+    if kind in ("grav", "force"):
+        # minv . (wq2 V)^T, baked as the reference bakes it (the identity up
+        # to rounding on a collocated basis)
+        parts.append((1.0 / np.asarray(basis.mass, float))[:, None]
+                     * (basis.wq2[None, :] * basis.V.T))
+    elif kind == "wbiso":
+        parts += [basis.Gx, basis.Gy, [1.0 / mesh.dx, 1.0 / mesh.dy]]
     buf, views = _flat(parts, dtype, device)
+    n0 = 3 if modal else 2
+    kw = {}
+    if kind is not None:
+        kw["source"] = kind
+    if kind == "grav":
+        kw.update(g=(float(source.gx), float(source.gy)), src=views[n0 + 1])
+    elif kind == "force":
+        xq, yq = nodal_points(basis, mesh)
+        kw.update(src=views[n0 + 1], force_fn=source.f,
+                  xq=as_tensor(xq, dtype, device),
+                  yq=as_tensor(yq, dtype, device))
+    elif kind == "wbiso":
+        xp, yp = nodal_points(basis, mesh)
+        phi = potential(as_tensor(xp, dtype, device),
+                        as_tensor(yp, dtype, device))
+        kw.update(Gxn=views[n0 + 1], Gyn=views[n0 + 2], inv_d=views[n0 + 3],
+                  phi=torch.as_tensor(phi).to(dtype=dtype, device=device)
+                  .expand(basis.K, mesh.ny, mesh.nx).contiguous())
     return ResidualOps(basis.degree, basis.K, basis.nq, len(basis.wq2), modal,
-                       flux, buf, views[0], views[1],
-                       views[2] if modal else None, views[-1],
-                       _mask_tensor(mask, mesh, device))
+                       basis.family, flux, buf, views[0], views[1],
+                       views[2] if modal else None, views[n0],
+                       _mask_tensor(mask, mesh, device), **kw)
+
+
+def force_planes(ops: ResidualOps, t) -> tuple[torch.Tensor, torch.Tensor]:
+    """The external force's planes (fx, fy) [Q, ny, nx] at time t (a 0-dim
+    tensor on the device, or a float): force_fn on the quadrature points,
+    torch ops with no host sync; the kernel and its plain version read
+    them alike."""
+    fx, fy = ops.force_fn(ops.xq, ops.yq, t)
+    return tuple(torch.as_tensor(f).to(dtype=ops.xq.dtype,
+                                       device=ops.xq.device)
+                 .expand(ops.xq.shape).contiguous() for f in (fx, fy))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -478,6 +612,10 @@ def post_operators(basis: basis_mod.Basis, mesh, *, indicator: str = "density",
                    pos_lim: bool = True, per_x: bool = False,
                    per_y: bool = False, mask=None, dtype, device) -> PostOps:
     _check_basis(basis, modal=False)
+    if basis.family != "Qk":
+        raise NotImplementedError(
+            f"the fused post takes the Gauss Qk basis, as the reference's "
+            f"post_ok (dflo_tpu/driver.py:126), not {basis.family}")
     if indicator not in ("density", "energy", "limiter"):
         raise NotImplementedError(
             f"the fused post carries the limiter, density and energy "
@@ -643,12 +781,36 @@ def _lift_ordered(lift, Fx, Fy, faces):
     return R
 
 
+def _source_plain(R, u, W, ub, ops: ResidualOps, force):
+    """R plus the source arm of ops (csrc/residual.cuh SRC), in the
+    kernel's order: a body force S(W) at the quadrature points added one
+    point column of src at a time, R + src[:, n] S[:, n] for n in order
+    (gravity from ops.g; an external force from its planes force = (fx,
+    fy)); or the isothermal well-balanced source on the nodes,
+    pallas_kernels.py:578-593: RT of the cell average ub, E = exp(-phi/RT),
+    (Gxn E) * (1/dx) and (Gyn E) * (1/dy) as ordered sums, S = rho RT / E
+    times them, R + [Sx, Sy, 0, SE]."""
+    if ops.source in ("grav", "force"):
+        S = (euler.forcing_gravity(W, ops.g) if ops.source == "grav"
+             else euler.forcing_external(W, *force))
+        sh = (1, ops.K) + (1,) * (S.dim() - 2)
+        for n in range(ops.Q):
+            R = R + ops.src[:, n].view(sh) * S[:, n:n + 1]
+        return R
+    RT = euler.pressure(ub) / ub[euler.RHO]                  # [ny, nx]
+    E = torch.exp(-ops.phi / RT)                             # [K, ny, nx]
+    dEx = basis_apply1(ops.Gxn, E) * ops.inv_d[0]
+    dEy = basis_apply1(ops.Gyn, E) * ops.inv_d[1]
+    return R + euler.well_balanced_source(u, u[euler.RHO] * RT / E, dEx, dEy)
+
+
 def fused_residual_plain(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
-                         sc=None, dt=None):
+                         sc=None, dt=None, force=None):
     """Plain version of the fused residual: the periodic-wrap residual
     everywhere (slip-wall mirrors at fluid|solid faces of a masked domain,
     the wrap faces included), plus the delta strips lifted into the edge
-    columns and rows, with solid cells' residual zeroed.  With
+    columns and rows, plus the source arm of ops (_source_plain; force: the
+    external force's planes), with solid cells' residual zeroed.  With
     (u_old, sc = [a, dt]) it returns the SSP stage a*u_old + (1-a)*(u + dt*R);
     with dt alone the forward-Euler update u + dt*R (the MOOD cascade's
     first candidate); else R = M^{-1} R(u).  Every contraction is an ordered
@@ -685,6 +847,8 @@ def fused_residual_plain(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
     Fs = torch.cat([Fs[..., :1, :] + dfs[:, :, None], Fs[..., 1:, :]], -2)
     Fn = torch.cat([Fn[..., :-1, :], Fn[..., -1:, :] + dfn[:, :, None]], -2)
     R = _lift_ordered(ops.lift, Fx, Fy, (Fw, Fe, Fs, Fn))
+    if ops.source is not None:
+        R = _source_plain(R, u, W, ub[:, 0], ops, force)
     if ops.mask is not None:
         R = R * ops.mask.to(R.dtype)                   # solid cells frozen
     if u_old is not None:
@@ -696,20 +860,28 @@ def fused_residual_plain(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
 
 
 def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
-                   sc=None, dt=None):
+                   sc=None, dt=None, force=None):
     """M^{-1} R(u) with the boundary delta strips (dfw/dfe [4, nq, ny],
     dfs/dfn [4, nq, nx]); with (u_old, sc = [a, dt] on u's device) the whole
     SSP stage; with dt (a 0-dim tensor on u's device) u + dt*R.  The flux
-    (hllc or lxf) and the mask come with ops.  CPU tensors: the plain
-    version; CUDA tensors: the kernel."""
+    (hllc or lxf), the mask and the source arm come with ops; an external
+    force (ops.source "force") takes its planes force = (fx, fy) [Q, ny, nx]
+    at the call's time (force_planes).  CPU tensors: the plain version;
+    CUDA tensors: the kernel."""
     ny, nx = _check_state(u, ops.K)
     if (u_old is None) != (sc is None):
         raise ValueError("u_old and sc go together")
     if dt is not None and u_old is not None:
         raise ValueError("dt is the forward-Euler form; the stage form "
                          "takes dt in sc")
-    if not _cuda_or_cpu(u, dfw, dfe, dfs, dfn, u_old, sc, dt, ops.buf):
-        return fused_residual_plain(u, dfw, dfe, dfs, dfn, ops, u_old, sc, dt)
+    if (force is not None) != (ops.source == "force"):
+        raise ValueError("the force planes go with an external force's "
+                         "operators, and only with them")
+    fx, fy = (None, None) if force is None else force
+    if not _cuda_or_cpu(u, dfw, dfe, dfs, dfn, u_old, sc, dt, ops.buf, fx, fy,
+                        ops.phi):
+        return fused_residual_plain(u, dfw, dfe, dfs, dfn, ops, u_old, sc, dt,
+                                    force)
     for s, n in ((dfw, ny), (dfe, ny), (dfs, nx), (dfn, nx)):
         if tuple(s.shape) != (4, ops.nq, n):
             raise ValueError(f"strip shape {tuple(s.shape)} != "
@@ -720,15 +892,27 @@ def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
         raise ValueError("dt must hold one value")
     if ops.mask is not None:
         _check_plane(ops.mask, u, torch.bool, (ny, nx), "mask")
+    for plane, n in ((fx, ops.Q), (fy, ops.Q), (ops.phi, ops.K)):
+        if plane is not None and tuple(plane.shape) != (n, ny, nx):
+            raise ValueError(f"source plane shape {tuple(plane.shape)} != "
+                             f"{(n, ny, nx)}")
     lib = _load()
     out = torch.empty_like(u)
-    args = (_ptr(u), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(u_old),
+    ptrs = (_ptr(u), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(u_old),
             _ptr(sc if sc is not None else dt), _ptr(ops.buf),
-            _ptr(ops.mask), _ptr(out), ny, nx, _stream(u.device))
-    entry = (lib.dflo_fused_residual_lxf if ops.flux == "lxf"
-             else lib.dflo_fused_residual)
-    rc = _call(u.device, entry, _DTYPE_CODE[u.dtype], int(ops.modal), ops.p,
-               *args)
+            _ptr(ops.mask))
+    code = _DTYPE_CODE[u.dtype]
+    if ops.source is None:
+        entry = (lib.dflo_fused_residual_lxf if ops.flux == "lxf"
+                 else lib.dflo_fused_residual)
+        rc = _call(u.device, entry, code, int(ops.modal), ops.p, *ptrs,
+                   _ptr(out), ny, nx, _stream(u.device))
+    else:
+        rc = _call(u.device, lib.dflo_fused_residual_src, code,
+                   int(ops.modal), ops.p, int(ops.flux == "lxf"),
+                   _SRC_CODE[ops.source], *ptrs, _ptr(fx), _ptr(fy),
+                   _ptr(ops.phi), *ops.g, _ptr(out), ny, nx,
+                   _stream(u.device))
     _check(rc, "fused_residual")
     fused_residual.launches += 1
     _count_form(_residual_form(ops, u_old, dt))

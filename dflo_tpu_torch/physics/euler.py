@@ -11,6 +11,9 @@ momentum first, then density, then energy.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 
 # component indices (dim = 2)
@@ -199,3 +202,61 @@ def compute_wminus(kind: int, nx: float, ny: float, Wplus, bvals):
         f"boundary kind {kind} is not ported yet (slice A covers inflow, "
         f"outflow, slip and farfield; the pressure kind comes with the "
         f"physics envelope slice)")
+
+
+def forcing_gravity(U, gvec=(0.0, -1.0)):
+    """Gravity source (g1*rho, g2*rho, 0, rho g.v)  (src/equation.h:829-850).
+
+    The operation order is the reference's (dflo_tpu/physics/euler.py:268),
+    a zero gx included, so that csrc/residual.cuh rounds alike."""
+    gx, gy = gvec
+    z = torch.zeros_like(U[RHO])
+    fx = gx * U[RHO]
+    fy = gy * U[RHO]
+    fe = gx * U[MX] + gy * U[MY]
+    return torch.stack([fx, fy, z, fe])
+
+
+def forcing_external(U, fx, fy):
+    """General body force f(x, y, t): (rho fx, rho fy, 0, f.m)
+    (src_mpi/equation.h:1186-1202)."""
+    z = torch.zeros_like(U[RHO])
+    return torch.stack([U[RHO] * fx, U[RHO] * fy, z,
+                        U[MX] * fx + U[MY] * fy])
+
+
+def well_balanced_source(W, fac, dEx, dEy):
+    """[Sx, Sy, 0, SE] of a well-balanced gravity source at the nodes:
+    S = fac grad_h E, SE = (m . S) / rho (src_gll/assemble_explicit.cc:
+    30-230; fac = p / E of the equilibrium profile E)."""
+    Sx = fac * dEx
+    Sy = fac * dEy
+    SE = (W[MX] * Sx + W[MY] * Sy) / W[RHO]
+    return torch.stack([Sx, Sy, torch.zeros_like(Sx), SE])
+
+
+@dataclasses.dataclass(frozen=True)
+class GravitySource:
+    """The constant body force g = (gx, gy) per unit mass (the CLI's
+    `gravity`, src/equation.h:829-850), callable as the reference's
+    source(x, y, t, W) -> [4, ...]; the fused residual applies it in its
+    kernel from the two scalars."""
+    gx: float
+    gy: float
+
+    def __call__(self, x, y, t, W):
+        return forcing_gravity(W, (self.gx, self.gy))
+
+
+@dataclasses.dataclass(frozen=True)
+class ExternalForce:
+    """A body force per unit mass f(x, y, t) -> (fx, fy) (the CLI's `f_0`,
+    `f_1` expressions, src_mpi/equation.h:1186-1202), callable as the
+    reference's source(x, y, t, W); the fused residual evaluates f on the
+    volume quadrature points at each call's t and its kernel applies
+    forcing_external."""
+    f: Callable
+
+    def __call__(self, x, y, t, W):
+        fx, fy = self.f(x, y, t)
+        return forcing_external(W, fx, fy)

@@ -3,9 +3,12 @@ delta-flux strips that feed the fused residual kernel, on one device or on
 a mesh of blocks.
 
 The torch counterpart of dflo_tpu/solver/spatial.py for the Cartesian
-path, on the collocated nodal Qk basis and the modal Pk basis,
+path, on the collocated nodal Qk and GLL bases and the modal Pk basis,
 optionally with a solid-cell mask (fluid-solid faces get slip-wall mirror
-states and solid cells a zero residual).  The state is ``u[4, K, ny, nx]``;
+states and solid cells a zero residual) and a source term: a body force
+(``source``, evaluated at the volume quadrature points) or well-balanced
+gravity on a potential (``well_balanced``, isothermal or polytropic, on a
+collocated basis).  The state is ``u[4, K, ny, nx]``;
 the residual is du/dt = M^{-1} R(u, t) with the diagonal mass solve folded
 in.  The fluxes get the cell averages of both cells (LxF's dissipation
 speed reads them; HLLC does not).
@@ -22,7 +25,11 @@ reference:
   residual everywhere and adds the delta strips (true boundary flux minus
   wrap flux) at the domain edges.  The strips stay in torch: the boundary
   states come from user callables (the inflow expression), which cannot run
-  inside a kernel.  ``.stage`` gives the whole SSP stage
+  inside a kernel.  The source rides the kernel's source arm: a
+  ``euler.GravitySource`` or ``euler.ExternalForce`` (whose planes torch
+  evaluates at each call's t) or isothermal well-balancing; any other
+  source callable and polytropic well-balancing run on the plain forms
+  only.  ``.stage`` gives the whole SSP stage
   ``a*u_old + (1-a)*(u + dt*R)`` in one kernel pass and ``.step`` the
   forward-Euler update ``u + dt*R``.  On the Pk basis ``.sparse_candidate``
   is the MOOD cascade's candidate on a set of cells
@@ -31,12 +38,12 @@ reference:
 
 With ``device_mesh`` (parallel/sharding) the state is a list of blocks and
 only the fused form exists (dflo_tpu/solver/spatial.py:267-490, without its
-source and MOOD-candidate arms): each block runs the residual kernel on its
-own block, which wraps within the block, and its delta strips carry the
-truth at all four borders: at an inner (or periodic) seam the flux between
-its edge trace and the neighbor's, traced from the exchanged halo line; at
-a true domain edge the boundary flux, its face coordinates sliced at the
-block's offset.
+source and MOOD-candidate arms, which raise): each block runs the residual
+kernel on its own block, which wraps within the block, and its delta strips
+carry the truth at all four borders: at an inner (or periodic) seam the flux
+between its edge trace and the neighbor's, traced from the exchanged halo
+line; at a true domain edge the boundary flux, its face coordinates sliced
+at the block's offset.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ import torch
 from dflo_tpu_torch.ops import basis as basis_mod
 from dflo_tpu_torch.ops import kernels
 from dflo_tpu_torch.ops.basis import EAST, NORTH, SOUTH, WEST
-from dflo_tpu_torch.ops.contract import as_tensor, basis_apply, basis_reduce
+from dflo_tpu_torch.ops.contract import (as_tensor, basis_apply,
+                                         basis_apply1, basis_reduce)
 from dflo_tpu_torch.parallel.sharding import block_shape, exchange_halos
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.physics.fluxes import get_flux
@@ -96,30 +104,64 @@ def _check_bcs(bcs) -> tuple[bool, bool]:
 
 def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
              flux: str = "lxf", *, dtype: torch.dtype, device,
-             volume_kernel: str = "xla", mask=None, device_mesh=None):
+             volume_kernel: str = "xla", mask=None, source=None,
+             well_balanced: str | None = None, potential=None,
+             polytropic_nu: float = 1.2, device_mesh=None):
     """Build du/dt = rhs(u, t) for a Cartesian mesh (see module docstring).
 
     bcs  : {'W','E','S','N'} -> BoundarySide; periodic sides come in opposite
            pairs.
     mask : optional bool [ny, nx], True = fluid cell.
+    source : optional (x, y, t, W) -> [4, Q, ny, nx] body force at the volume
+           quadrature points (src/equation.h:829-850, src_mpi/equation.h:
+           1186-1202); the fused form takes euler.GravitySource and
+           euler.ExternalForce.
+    well_balanced : None | 'isothermal' | 'polytropic' with `potential`
+           phi(x, y) (torch tensors in and out): the src_gll gravity source
+           p/E grad_h(E) that keeps the hydrostatic equilibrium E to
+           round-off (src_gll/assemble_explicit.cc:30-230); needs a
+           collocated basis and excludes `source`.  Polytropic (exponent
+           polytropic_nu) runs on the plain forms only, as in the reference.
     The fused form carries ``.strips(u, t)``, ``.stage(u, u_old, t, a, dt)``,
-    ``.step(u, t, dt)`` and ``.ops`` (the kernel operators); the plain forms
-    ``.lift_stack``, the [K, 2Q] volume lift [dy GxW^T | dx GyW^T].
+    ``.step(u, t, dt)``, ``.ops`` (the kernel operators) and
+    ``.force(t)`` (the external force's planes at t, or None); the plain
+    forms ``.lift_stack``, the [K, 2Q] volume lift [dy GxW^T | dx GyW^T].
     device_mesh: the sharded fused form over block lists
     (:func:`_make_rhs_sharded`); `device` is then unused.
     """
+    collocated = basis.is_nodal_collocated
+    if well_balanced is not None:
+        # dflo_tpu/solver/spatial.py:187-229
+        if well_balanced not in ("isothermal", "polytropic"):
+            raise ValueError(f"unknown well-balanced form {well_balanced!r}")
+        if source is not None:
+            raise ValueError("source and well_balanced are mutually "
+                             "exclusive (the force would be applied twice)")
+        if not collocated:
+            raise ValueError("well-balanced gravity needs a nodal-collocated "
+                             "basis (GLL, src_gll/assemble_explicit.cc:66-72)")
+        if potential is None:
+            raise ValueError("well-balanced gravity needs a potential "
+                             "phi(x, y)")
+    if volume_kernel == "fused" and well_balanced == "polytropic":
+        raise ValueError("volume_kernel='fused' carries no polytropic "
+                         "well-balanced source; use 'xla' or 'pallas'")
     if device_mesh is not None:
         if volume_kernel != "fused" or mask is not None:
             raise NotImplementedError(
                 "under a device mesh the port carries the fused residual on "
                 "an unmasked domain; the plain forms and masks come with the "
                 "rest of the multi-GPU slice (ROADMAP queue 1, item 10)")
+        if source is not None or well_balanced is not None:
+            raise NotImplementedError(
+                "a source term under a device mesh is not ported yet; it "
+                "comes with the rest of the multi-GPU slice (ROADMAP queue "
+                "1, item 10)")
         return _make_rhs_sharded(basis, mesh, bcs, flux, dtype, device_mesh)
     num_flux = get_flux(flux)
     per_x, per_y = _check_bcs(bcs)
     if volume_kernel not in ("xla", "pallas", "fused"):
         raise ValueError(f"unknown volume kernel {volume_kernel!r}")
-    collocated = basis.is_nodal_collocated
     if volume_kernel == "pallas" and not collocated:
         raise ValueError("volume_kernel='pallas' needs a collocated basis "
                          "(the fully-fused kernel handles modal bases)")
@@ -128,6 +170,13 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
 
     def cast(a):
         return as_tensor(a, dtype, device)
+
+    def as_time(t):
+        """t as a 0-dim tensor of dtype (a float through a fill): the
+        expressions of an external force take tensors."""
+        if isinstance(t, torch.Tensor):
+            return t.to(dtype=dtype)
+        return torch.full((), float(t), dtype=dtype, device=device)
 
     if mask is not None:
         mask = np.asarray(mask, bool)
@@ -273,12 +322,22 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
                 dfn.contiguous())
 
     if fused:
-        ops = kernels.residual_operators(basis, mesh, flux=flux, mask=mask,
-                                         dtype=dtype, device=device)
+        ops = kernels.residual_operators(
+            basis, mesh, flux=flux, mask=mask, source=source,
+            well_balanced=well_balanced, potential=potential, dtype=dtype,
+            device=device)
+
+        def force(t):
+            """The external force's planes at t (ops.source "force"), else
+            None."""
+            if ops.source != "force":
+                return None
+            return kernels.force_planes(ops, as_time(t))
 
         def rhs_fused(u, t):
             """du/dt through the fused residual kernel."""
-            return kernels.fused_residual(u, *strips(u, t), ops)
+            return kernels.fused_residual(u, *strips(u, t), ops,
+                                          force=force(t))
 
         def stage_fused(u, u_old, t, a, dt):
             """a*u_old + (1-a)*(u + dt*du/dt) in one kernel pass; a is a
@@ -286,18 +345,20 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
             dt = torch.as_tensor(dt, dtype=u.dtype, device=u.device)
             sc = torch.stack([torch.full_like(dt, a), dt])
             return kernels.fused_residual(u, *strips(u, t), ops,
-                                          u_old=u_old, sc=sc)
+                                          u_old=u_old, sc=sc, force=force(t))
 
         def step_fused(u, t, dt):
             """u + dt*du/dt in one kernel pass (dt a 0-dim tensor on u's
             device): the MOOD cascade's first candidate."""
-            return kernels.fused_residual(u, *strips(u, t), ops, dt=dt)
+            return kernels.fused_residual(u, *strips(u, t), ops, dt=dt,
+                                          force=force(t))
 
         rhs_fused.stage = stage_fused
         rhs_fused.step = step_fused
         rhs_fused.strips = strips
         rhs_fused.ops = ops
-        if modal:
+        rhs_fused.force = force
+        if modal and ops.source is None:
             def sparse_candidate(u, u_prev, deg, t, dt, cells):
                 """The MOOD candidate u_t + dt*R(u_t), u_t = {truncation to
                 deg -> positivity}(u), on the cells set in the bool plane
@@ -309,6 +370,44 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
             rhs_fused.sparse_candidate = sparse_candidate
             rhs_fused.modal_ops = mops
         return rhs_fused
+
+    if source is not None or well_balanced is not None:
+        # the source's points (the nodes of a collocated basis), and its
+        # projection Vw^T
+        xq2, yq2 = (cast(c) for c in kernels.nodal_points(basis, mesh))
+        Vw = cast(basis.wq2[:, None] * basis.V)
+    if well_balanced is not None:
+        phi = torch.as_tensor(potential(xq2, yq2)).to(dtype=dtype,
+                                                      device=device)
+        Gxn, Gyn = cast(basis.Gx), cast(basis.Gy)      # nodal derivatives
+
+    def source_term(u, W, ub, t):
+        """area * Vw^T S of the body force or the well-balanced source
+        (dflo_tpu/solver/spatial.py:662-692)."""
+        if source is not None:
+            S = source(xq2, yq2, as_time(t), W)
+        elif well_balanced == "isothermal":
+            # src_gll/assemble_explicit.cc:30-135: S_m = (rho RT / E)
+            # grad_h E with E = exp(-phi/RT), RT from the cell average
+            RT = euler.pressure(ub) / ub[euler.RHO]
+            E = torch.exp(-phi / RT[None])
+            fac = W[euler.RHO] * RT[None] / E
+            S = euler.well_balanced_source(
+                W, fac, basis_apply1(Gxn, E) / dx, basis_apply1(Gyn, E) / dy)
+        else:
+            # polytropic, src_gll/assemble_explicit.cc:138-230
+            nu = polytropic_nu
+            pq = euler.pressure(W)
+            ff = nu / (nu - 1.0) * pq / W[euler.RHO] + phi
+            beta, qstar = torch.max(ff, dim=0)
+            alpha_q = pq / W[euler.RHO] ** nu
+            alpha = torch.gather(alpha_q, 0, qstar[None])[0]
+            E = ((nu - 1.0) * (beta[None] - phi)
+                 / (nu * alpha[None])) ** (nu / (nu - 1.0))
+            fac = (nu - 1.0) / nu * W[euler.RHO] * (beta[None] - phi) / E
+            S = euler.well_balanced_source(
+                W, fac, basis_apply1(Gxn, E) / dx, basis_apply1(Gyn, E) / dy)
+        return area * basis_apply(Vw.T, S)
 
     def rhs(u, t):
         """du/dt for u[4, K, ny, nx] at time t (plain torch; with
@@ -326,6 +425,8 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         else:
             R = basis_apply(lift_stack, torch.cat([euler.flux_x(W),
                                                    euler.flux_y(W)], dim=1))
+        if source is not None or well_balanced is not None:
+            R = R + source_term(u, W, ub, t)
 
         # ---- x-direction interfaces (normal +x), nx+1 slots ---------------
         FL, FR = uE[..., :-1], uW[..., 1:]

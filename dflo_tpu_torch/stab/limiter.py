@@ -79,8 +79,8 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
                      per_x: bool = False, per_y: bool = False,
                      mask: np.ndarray | None = None, *,
                      dtype: torch.dtype, device):
-    """Build limit(u, ubar, marked, valid=None) -> u for the nodal Qk or the
-    modal Pk basis.  mask: optional bool [ny, nx] fluid flags; a solid
+    """Build limit(u, ubar, marked, valid=None) -> u for the nodal Qk and GLL
+    bases or the modal Pk basis.  mask: optional bool [ny, nx] fluid flags; a solid
     neighbor counts as a missing one (neighbor_valid).  valid: the call's
     own neighbor-exists flags (W, E, S, N), bool [ny, nx] each, in place of
     the mesh's (the post's block form passes those of a framed block).
@@ -92,9 +92,10 @@ def make_tvb_limiter(basis: basis_mod.Basis, mesh, M: float = 0.0,
     (1,0) and (0,1) Legendre coefficients times sqrt(3), beta is halved, and
     the rebuild keeps [mean, x-slope, y-slope] and zeroes the other modes.
     """
-    if basis.family not in ("Qk", "Pk"):
+    if basis.family not in ("Qk", "Qk_gll", "Pk"):
         raise NotImplementedError(
-            f"the TVB limiter of the port takes Qk or Pk, not {basis.family}")
+            f"the TVB limiter of the port takes Qk, GLL or Pk, not "
+            f"{basis.family}")
     modal = basis.family == "Pk"
     p = basis.degree
     h = mesh.diameter_h

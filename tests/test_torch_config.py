@@ -111,7 +111,8 @@ def test_unported_branches_raise(tmp_path):
         return AllParameters.from_prm_file(str(f))
 
     cases = {
-        "GLL": params("set degree = 1", "set degree = 1\nset basis = GLL"),
+        "full mass": params("set degree = 1",
+                            "set degree = 1\nset mass matrix = full"),
         "AMR": params("set refinement = false", "set refinement = true"),
         "implicit": params("set method = rk3", "set method = gmres"),
         "fluxes": params("set flux = lxf", "set flux = roe"),
@@ -127,13 +128,13 @@ def test_unported_branches_raise(tmp_path):
         cli.build_domain(gmsh)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         cli.run([PRMS[0], "--platform", "cpu", "--devices", "4"])
-    # the gravity ICs are ported as functions; their configs wait for the
-    # body forces
+    # body forces build (tests/test_torch_configs.py runs them); MOOD with
+    # a body force waits
     assert callable(ic.IC_FUNCTIONS["rt"]())
+    mood = AllParameters.from_prm_file("examples/sod_mood.prm")
+    mood.gravity = 1.0
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
-        cli.build_solver(AllParameters.from_prm_file(
-            "examples/rayleigh_taylor.prm"), dtype=torch.float64,
-            device="cpu")
+        cli.build_solver(mood, dtype=torch.float64, device="cpu")
     if not torch.cuda.is_available():
         # the default device is the card, with no fallback to the CPU
         with pytest.raises(RuntimeError, match="--platform cpu"):

@@ -5,7 +5,10 @@ post's block form and the sharded diag on a (2, 2) virtual mesh (and over
 distinct cards where there are two or more); the modal LxF residual in its
 three forms (p = 1, 2, 3) and the LxF candidate (p = 2, 3, bitwise) at the
 ragged ny = 4 and 10, and the Q1 post periodic on both axes (the vortex
-system's), with and without its diag.
+system's), with and without its diag; the residual's source arms (gravity
+and the force planes on Qk, GLL and Pk, isothermal well-balancing on GLL
+and Qk, hllc and lxf, p = 1, 2, 3, at the ragged 40 x 10), the diag on GLL
+and the f64 well-balance drift through the kernel at 64 x 64.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -559,3 +562,109 @@ def test_periodic_q1_post_matches_plain(cuda, dtype):
     assert flips <= (0 if dt == torch.float64 else 80 * 44 // 100)
     assert not torch.equal(pl, u)               # the limiter did act
     assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+
+
+# ---------------------------------------------------------------------------
+# the source arms of the residual: gravity, the force planes, isothermal
+# well-balancing
+# ---------------------------------------------------------------------------
+
+SRC_NX, SRC_NY = 40, 10          # ragged against the 32 x 4 block
+#: case -> (basis family, source arm, flux)
+SRC_CASES = {"qk-grav-hllc": ("Qk", "grav", "hllc"),
+             "pk-grav-lxf": ("Pk", "grav", "lxf"),
+             "qk-force-lxf": ("Qk", "force", "lxf"),
+             "pk-force-hllc": ("Pk", "force", "hllc"),
+             "gll-grav-hllc": ("Qk_gll", "grav", "hllc"),
+             "gll-wbiso-hllc": ("Qk_gll", "wbiso", "hllc"),
+             "gll-wbiso-lxf": ("Qk_gll", "wbiso", "lxf"),
+             "qk-wbiso-lxf": ("Qk", "wbiso", "lxf")}
+
+
+def force_fn(x, y, t):
+    return 0.3 * torch.sin(2.0 * np.pi * x) * torch.cos(t), -0.2 * y
+
+
+def setup_src(family, arm, flux, p, dtype, device, nx=SRC_NX, ny=SRC_NY):
+    """The fused rhs of a source arm on the unit square with outflow sides
+    and the isothermal hydrostatic state with a 2 % perturbation (numpy
+    seed p)."""
+    basis = make_basis(family, p)
+    mesh = CartesianMesh(nx, ny, 0.0, 1.0, 0.0, 1.0)
+    u = ic.set_initial_condition(basis, mesh, ic.isothermal_hydrostatic(),
+                                 dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(p)
+    u = (u * torch.from_numpy(1.0 + 0.02 * rng.uniform(-1.0, 1.0, u.shape))
+         ).to(dtype=dtype, device=device)
+    out = BoundarySide(euler.BC_OUTFLOW)
+    kw = {"grav": dict(source=euler.GravitySource(0.0, -1.21)),
+          "force": dict(source=euler.ExternalForce(force_fn)),
+          "wbiso": dict(well_balanced="isothermal",
+                        potential=lambda x, y: x + y)}[arm]
+    rhs = make_rhs(basis, mesh, dict(W=out, E=out, S=out, N=out), flux=flux,
+                   dtype=dtype, device=device, volume_kernel="fused", **kw)
+    return u, rhs
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3))
+@pytest.mark.parametrize("case", sorted(SRC_CASES))
+def test_source_residual_matches_plain(cuda, case, p, dtype):
+    """Each source arm in the residual's R, u + dt*R and SSP-stage forms
+    against its plain version, each counted under its own form."""
+    family, arm, flux = SRC_CASES[case]
+    dt = getattr(torch, dtype)
+    u, rhs = setup_src(family, arm, flux, p, dt, cuda)
+    t = torch.full((), 0.37, dtype=dt, device=cuda)
+    strips, force = rhs.strips(u, t), rhs.force(t)
+    h = torch.full((), 1e-4, dtype=dt, device=cuda)
+    sc = torch.tensor([0.75, 1e-4], dtype=dt, device=cuda)
+    u_old = u.flip(-1).contiguous()
+    kernels.reset_launch_counts()
+    for kw in ({}, {"dt": h}, {"u_old": u_old, "sc": sc}):
+        k = kernels.fused_residual(u, *strips, rhs.ops, force=force, **kw)
+        q = kernels.fused_residual_plain(u, *strips, rhs.ops, force=force,
+                                         **kw)
+        torch.cuda.synchronize()
+        assert rel(k, q) <= TOL[dt], kw.keys()
+    tag = {"Qk": "qk", "Pk": "pk", "Qk_gll": "gll"}[family]
+    counts = kernels.launch_counts()
+    assert all(counts[f"fused_residual[{tag}_{flux}_{arm}_{f}]"] == 1
+               for f in ("R", "step", "stage")), counts
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3))
+def test_gll_diag_matches_plain(cuda, p, dtype):
+    dt = getattr(torch, dtype)
+    u, _ = setup_src("Qk_gll", "wbiso", "lxf", p, dt, cuda)
+    diag = kernels.diag_operators(make_basis("Qk_gll", p),
+                                  CartesianMesh(SRC_NX, SRC_NY, 0.0, 1.0,
+                                                0.0, 1.0),
+                                  dtype=dt, device=cuda)
+    lam, minq = kernels.fused_diag(u, diag)
+    lam_p, minq_p = kernels.fused_diag_plain(u, diag)
+    assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+
+
+@pytest.mark.parametrize("flux", ("hllc", "lxf"))
+def test_well_balance_through_the_kernel(cuda, flux):
+    """The isothermal hydrostatic state on GLL2 at 64 x 64, 25 f64 steps
+    through the fused residual kernel: drift below 5e-13
+    (tests/test_gravity.py's oracle)."""
+    from dflo_tpu_torch.driver import Solver
+    basis = make_basis("Qk_gll", 2)
+    mesh = CartesianMesh(64, 64, 0.0, 1.0, 0.0, 1.0)
+    out = BoundarySide(euler.BC_OUTFLOW)
+    s = Solver(basis, mesh, dict(W=out, E=out, S=out, N=out), flux=flux,
+               cfl=0.5, dtype=torch.float64, device=cuda,
+               well_balanced="isothermal", potential=lambda x, y: x + y)
+    u0 = ic.set_initial_condition(basis, mesh, ic.isothermal_hydrostatic(),
+                                  dtype=torch.float64, device=cuda)
+    kernels.reset_launch_counts()
+    u, t, n, bad, _ = s._multi_step(25)(s.post_stage(u0), 0.0, 1e9)
+    assert int(n) == 25 and not bool(bad)
+    assert kernels.launch_counts()[f"fused_residual[gll_{flux}_wbiso_stage]"] \
+        == 75
+    drift = float((u - u0).abs().max())
+    assert drift < 5e-13, drift
