@@ -126,6 +126,40 @@ Phases (any failure raises, and the script then prints no result):
    steps each on rayleigh_taylor's solver with basis = Pk, degree = 2, and
    with the gravity replaced by the external force, at 1024 x 3072.
 
+19. the Roe, Steger-Warming, KFVS and KEP forms of the residual against
+   their plain versions, f32 and f64, in the R, u + dt*R and SSP-stage
+   forms, at 1024 x 1024 on Q1, Q2, Q3, GLL2 and P2 (the Gaussian bump of
+   tests/test_implicit.py:83-110 on the unit square, farfield W/E, slip
+   S/N, perturbed by a seeded 2 %) and masked Q1 (the forward step's
+   geometry and BCs on its inflow state): roe and sw bitwise, kfvs and kep
+   bitwise where the card's exp/log round as torch's, else within TOL;
+   CUDA-event times of each flux's stage and R forms on Q1 and of roe's
+   stage on P2 at 2048 x 2048; ptxas registers and spills per flux, dtype
+   and degree; the diag on the implicit vortex's Q1 state.  Each flux's
+   RK path: the periodic vortex on Q1 at 1024 x 1024, 10 steps, its stage
+   form launched, no plain version called.
+20. the implicit vortex: Q1, roe, limiter none, the periodic isentropic
+   vortex at 1024 x 1024 (512 x 512 if one step takes over 10 s), theta
+   1, cfl 5, two Newton iterations to 1e-4, block-Jacobi, f32: a warm-up
+   step, 5 steps in one chunk, one traced step;
+   isenvort_q1_roe_implicit_dof_updates_per_sec, ms/step, Newton
+   iterations, GMRES restarts, tangents and host reads per step, the roe
+   R-form launches (> 0), plain calls (0), busy/idle share and the
+   kernel's ms against the rest; not diverged, finite.
+21. the steady bump through cli.run: Q1, roe, `method = gmres`,
+   `stationary = true`, local dt, cfl 2, linear residual 1e-4 at 256 x 256
+   (the 128 x 128 companion first), --max-steps 20 per level (at cfl 2
+   the bump's disturbance crosses these grids in hundreds of PTC steps:
+   60 steps moved ||R|| from 66.8 to 45.4 on 128 x 128 and not at all on
+   256 x 256, PERF.md PR 8), f32: the PTC steps and first and last ||R||
+   of each level (both histories to chiprun_out/steady_history.json), the
+   CLI timer, roe R-form launches (> 0), plain calls (0), every linear
+   solve run, the histories finite.
+22. f64 kernel primal against plain primal: the implicit vortex at 64 x 64
+   (cfl 2, linear residual 1e-6, block-Jacobi), 10 steps with
+   volume_kernel="fused" and "xla" from the same state: within 1e-10
+   relative, equal Newton counts, every linear solve converged.
+
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
 dflo_tpu.
@@ -206,6 +240,20 @@ ISO_N = 2048
 SRC_STEPS, SRC_CHUNK = 50, 10
 VARIANT_STEPS = 10
 WB_N, WB_STEPS, WB_DRIFT = 512, 25, 5e-13
+#: the Roe, Steger-Warming, KFVS and KEP forms of the residual (phase 19)
+#: on these bases and masked Q1 at FLUX_N x FLUX_N, and each flux's RK
+#: path (FLUX_STEPS steps); the bump's free stream
+FLUX_NEW = ("roe", "sw", "kfvs", "kep")
+FLUX_N = 1024
+FLUX_CASES = (("Qk", 1), ("Qk", 2), ("Qk", 3), ("Qk_gll", 2), ("Pk", 2))
+FLUX_STEPS = 10
+BUMP_FAR = (0.5, 0.0, 1.0, 2.6)
+#: the implicit paths: the vortex (phase 20; IMPL_FALLBACK_N if one step
+#: takes over 10 s), the steady bump through the CLI (phase 21), the f64
+#: kernel primal against the plain one (phase 22)
+IMPL_N, IMPL_FALLBACK_N, IMPL_STEPS = 1024, 512, 5
+STEADY_N, STEADY_STEPS = 256, 20
+PRIMAL_N, PRIMAL_STEPS = 64, 10
 #: the external force of the force-plane form (f_0, f_1 expressions)
 FORCE_EXPR = ("0.01*sin(2*pi*x)*cos(t)", "-1.0")
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
@@ -292,6 +340,21 @@ SOURCES = {
                              "fused_residual[gll_hllc_wbiso_stage]", "iso"),
     "fused_diag_gll": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
                        f"{PK}:make_fused_diag (GLL)", "fused_diag", "iso"),
+    "fused_residual_roe": ("dflo_tpu_torch/csrc/fused_residual_roe.cu",
+                           f"{PK}:617", f"{PK}:make_fused_residual (roe)",
+                           "fused_residual[qk_roe_R]", "impl"),
+    "fused_residual_sw": ("dflo_tpu_torch/csrc/fused_residual_sw.cu",
+                          f"{PK}:617", f"{PK}:make_fused_residual (sw)",
+                          "fused_residual[qk_sw_stage]", "flux_sw"),
+    "fused_residual_kfvs": ("dflo_tpu_torch/csrc/fused_residual_kfvs.cu",
+                            f"{PK}:617", f"{PK}:make_fused_residual (kfvs)",
+                            "fused_residual[qk_kfvs_stage]", "flux_kfvs"),
+    "fused_residual_kep": ("dflo_tpu_torch/csrc/fused_residual_kep.cu",
+                           f"{PK}:617", f"{PK}:make_fused_residual (kep)",
+                           "fused_residual[qk_kep_stage]", "flux_kep"),
+    "fused_diag_impl": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
+                        f"{PK}:make_fused_diag (implicit)", "fused_diag",
+                        "impl"),
 }
 #: the grid each row is measured and bounded at, by path: the DMR's, the
 #: forward step's, the vortex's; the LxF candidate's launches come from
@@ -302,7 +365,9 @@ GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
          "pallas": (FS_NX, FS_NY), "shard": (NX, NY), "vortex": (VX_N, VX_N),
          "sod_mood": (NX, NY), "pbc": (VX_N, VX_N), "rt": (RT_NX, RT_NY),
          "rt_pk": (RT_NX, RT_NY), "rt_force": (RT_NX, RT_NY),
-         "iso": (ISO_N, ISO_N)}
+         "iso": (ISO_N, ISO_N), "impl": (IMPL_N, IMPL_N),
+         "flux_sw": (FLUX_N, FLUX_N), "flux_kfvs": (FLUX_N, FLUX_N),
+         "flux_kep": (FLUX_N, FLUX_N)}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
@@ -435,7 +500,11 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     minv (wq2 V)^T (the force planes add their 2Q values per cell); the
     isothermal arm reads phi (K per cell) and costs RT 10, exp and the
     division 3 per node, the nodal derivatives by Gxn's and Gyn's nonzero
-    entries and 14 per node for S and its adds."""
+    entries and 14 per node for S and its adds.  The fluxes per face
+    point: HLLC 100, LxF 70, Roe 150, Steger-Warming 110, KFVS 130 (exp
+    counted as one operation), KEP 250 (logs likewise) and KEP's averages
+    as LxF's; the roe row is its R form (u read, R written), the others
+    and "_stage" names the SSP-stage form."""
     from dflo_tpu_torch.stab.positivity import _pos_points
 
     def nnz(a):
@@ -450,6 +519,7 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     modal = basis.family == "Pk"
     state = 4 * K * S
     avg = basis.wq2 @ basis.V
+    FLUX_OPS = {"roe": 150, "sw": 110, "kfvs": 130, "kep": 250}
     res = (8 * nnz(basis.V) * modal                     # point values
            + 20 * basis.V.shape[0]                      # Euler fluxes
            + 8 * (nnz(basis.Gx) + nnz(basis.Gy))        # volume lift
@@ -461,6 +531,14 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     tvb = 300 + 32 * K
     if name == "fused_residual":             # SSP-stage form, main path
         return 3 * state * n, (res + 20 * K) * n
+    flux = name[len("fused_residual_"):].split("_")[0]
+    if name.startswith("fused_residual_") and flux in FLUX_OPS:
+        ops = res - 2 * nq * 100 + 2 * nq * FLUX_OPS[flux]
+        if flux == "kep":
+            ops += 8 * nnz(avg)
+        if flux == "roe" and not name.endswith("_stage"):
+            return 2 * state * n, ops * n
+        return 3 * state * n, (ops + 20 * K) * n
     Q = basis.V.shape[0]
     src = ((1.0 / basis.mass)[:, None] * basis.wq2[None, :] * basis.V.T)
     force = 6 * Q + 8 * nnz(src)            # S(W) and its lift
@@ -2014,6 +2092,459 @@ def phase_variant_path(kernels, plain_calls, name, edit, form):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 19-22: the Roe, Steger-Warming, KFVS and KEP forms of the residual
+# and the implicit path
+# ---------------------------------------------------------------------------
+
+def bump_fn(x, y, t=0.0):
+    """Free stream (0.5, 0, 1, 2.6) with a Gaussian bump
+    (tests/test_implicit.py:83-110)."""
+    b = 0.05 * torch.exp(-50.0 * ((x - 0.5) ** 2 + (y - 0.5) ** 2))
+    return torch.stack([0.5 + b, b, 1.0 + b, torch.full_like(x, 2.6)])
+
+
+def bump_bcs():
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.solver.spatial import BoundarySide
+
+    def far(x, y, t):
+        return torch.stack([torch.full_like(x, v) for v in BUMP_FAR])
+    return dict(W=BoundarySide(euler.BC_FARFIELD, far),
+                E=BoundarySide(euler.BC_FARFIELD, far),
+                S=BoundarySide(euler.BC_SLIP), N=BoundarySide(euler.BC_SLIP))
+
+
+def perturbed(u, seed: int):
+    """u times (1 + 0.02 U(-1, 1)), the noise from a seeded generator on
+    the card: every face carries a jump."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.rand(u.shape, generator=g, dtype=u.dtype, device="cuda")
+    return (u * (1.0 + 0.02 * (2.0 * noise - 1.0))).contiguous()
+
+
+class RhsOnly:
+    """A solver-like holder of a fused rhs, for check_forms."""
+
+    def __init__(self, rhs):
+        self.rhs = rhs
+
+
+def flux_case(family, p, flux, dtype, masked, seed):
+    """(holder of the fused rhs, state) of one new-flux case at FLUX_N x
+    FLUX_N: the bump on the unit square, or the forward step's masked
+    geometry (examples/forward_step_tpu.prm's mask and BCs) on its inflow
+    state, each perturbed by 2 %."""
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.mesh import CartesianMesh
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.solver.spatial import make_rhs
+    if masked:
+        _, s, u0 = prm_solver(FS_PRM, dtype, grid=(FLUX_N, FLUX_N),
+                              edit=lambda q: setattr(q.flux, "flux", flux))
+        return s, s.apply_mask(perturbed(u0, seed))
+    basis = make_basis(family, p)
+    mesh = CartesianMesh(FLUX_N, FLUX_N, 0.0, 1.0, 0.0, 1.0)
+    u = ic.set_initial_condition(basis, mesh, bump_fn, dtype=dtype,
+                                 device="cuda")
+    rhs = make_rhs(basis, mesh, bump_bcs(), flux=flux, dtype=dtype,
+                   device="cuda", volume_kernel="fused")
+    return RhsOnly(rhs), perturbed(u, seed)
+
+
+def ptxas_table(log: str) -> dict:
+    """{source: [(dtype, basis, p, registers, spill bytes)]} of the new
+    flux sources' residual kernels, from the build's ptxas lines."""
+    import re
+    out, src, fn, spill = {}, None, "", 0
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line.split()[1]
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        k = re.search(r"fused_residual_kernelI([fd])Li(\d)ELb(\d)E", fn)
+        if m and k and src in {f"fused_residual_{f}.cu" for f in FLUX_NEW}:
+            out.setdefault(src, []).append(
+                ("f32" if k.group(1) == "f" else "f64",
+                 "Pk" if k.group(3) == "1" else "Qk", int(k.group(2)),
+                 int(m.group(1)), spill))
+    return out
+
+
+def phase_flux_kernels(kernels, results, log):
+    """Phase 19: each new flux's residual forms against their plain
+    versions at 1024 x 1024, f32 and f64, and its times."""
+    regs = ptxas_table(log)
+    for src, rows in sorted(regs.items()):
+        print(f"ptxas {src}: " + ", ".join(
+            f"{d} {b}{p} {r} regs {sp} B spilled" for d, b, p, r, sp in rows))
+    results["flux_registers"] = regs
+    cases = [(f, p, False) for f, p in FLUX_CASES] + [("Qk", 1, True)]
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        for flux in FLUX_NEW:
+            name = f"fused_residual_{flux}"
+            for ci, (family, p, masked) in enumerate(cases):
+                s, u = flux_case(family, p, flux, dtype, masked, seed=ci)
+                label = f"{family}{p}{' masked' if masked else ''}"
+                fk, fp, e = check_forms(kernels, results, name, tag,
+                                        TOL[dtype]["fused_residual"], s, u,
+                                        0.25, bitwise=flux in ("roe", "sw"))
+                r = results[name]
+                r.setdefault(f"cases_{tag}", {})[label] = e
+                if (family, p, masked) == ("Qk", 1, False):
+                    # the stage form (RK) and the R form (the implicit
+                    # primal) on the main paths' basis
+                    time_pair(results, name, tag, fk, fp, (FLUX_N, FLUX_N))
+                    strips = s.rhs.strips(u, 0.25)
+                    ops = s.rhs.ops
+                    r[f"stage_ms_{tag}"] = r[f"ms_{tag}"]
+                    r[f"plain_stage_ms_{tag}"] = r[f"plain_ms_{tag}"]
+                    r[f"ms_R_{tag}"] = time_ms(
+                        lambda: kernels.fused_residual(u, *strips, ops))
+                    r[f"plain_ms_R_{tag}"] = time_ms(
+                        lambda: kernels.fused_residual_plain(u, *strips,
+                                                             ops))
+                    print(f"[{tag}] {name} R form: kernel "
+                          f"{r[f'ms_R_{tag}']:.4f} ms, plain "
+                          f"{r[f'plain_ms_R_{tag}']:.4f} ms")
+                    if flux == "roe":
+                        # the roe row is the implicit primal: its R form
+                        r[f"ms_{tag}"] = r[f"ms_R_{tag}"]
+                        r[f"plain_ms_{tag}"] = r[f"plain_ms_R_{tag}"]
+                del s, u
+            torch.cuda.empty_cache()
+    # roe's stage form on P2 at 2048 x 2048 (the vortex's size)
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.mesh import CartesianMesh
+    from dflo_tpu_torch.solver.spatial import make_rhs
+    basis = make_basis("Pk", 2)
+    mesh = CartesianMesh(VX_N, VX_N, 0.0, 1.0, 0.0, 1.0)
+    u = perturbed(ic.set_initial_condition(basis, mesh, bump_fn,
+                                           dtype=torch.float32,
+                                           device="cuda"), 7)
+    rhs = make_rhs(basis, mesh, bump_bcs(), flux="roe", dtype=torch.float32,
+                   device="cuda", volume_kernel="fused")
+    strips = rhs.strips(u, 0.25)
+    h = torch.full((), 1e-4, dtype=torch.float32, device="cuda")
+    sc = torch.stack([torch.full_like(h, 0.75), h])
+    u_old = torch.roll(u, 1, -1).contiguous()
+    ms = time_ms(lambda: kernels.fused_residual(u, *strips, rhs.ops,
+                                                u_old=u_old, sc=sc))
+    b_ms, b_by = bound("fused_residual_roe_stage", basis, torch.float32,
+                       VX_N * VX_N)
+    results["fused_residual_roe"]["stage_ms_p2_2048"] = ms
+    results["fused_residual_roe"]["stage_bound_ms_p2_2048"] = b_ms
+    print(f"[f32] fused_residual_roe stage P2 {VX_N}x{VX_N}: {ms:.4f} ms "
+          f"(bound {b_ms:.4f} ms by {b_by})")
+    # the diag on the implicit vortex's Q1 state (its dt, its `bad`)
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        s, u = impl_solver(FLUX_N, dtype)
+        fold(results, "fused_diag_impl", tag,
+             list(zip(kernels.fused_diag(u, s._diag_ops),
+                      kernels.fused_diag_plain(u, s._diag_ops))),
+             TOL[dtype]["fused_diag"])
+        time_pair(results, "fused_diag_impl", tag,
+                  lambda: kernels.fused_diag(u, s._diag_ops),
+                  lambda: kernels.fused_diag_plain(u, s._diag_ops),
+                  (FLUX_N, FLUX_N))
+        del s, u
+    for flux in FLUX_NEW:
+        r = results[f"fused_residual_{flux}"]
+        print(f"{flux}: bitwise f32 {r['bitwise_f32']}, f64 "
+              f"{r['bitwise_f64']}; max rel err f32 "
+              f"{r['max_rel_err_f32']:.3e}, f64 {r['max_rel_err_f64']:.3e}")
+
+
+def phase_flux_paths(kernels, plain_calls):
+    """The RK path of each new flux: the periodic isentropic vortex on Q1
+    at FLUX_N x FLUX_N (the reference's 10 x 10 box), limiter none, rk2,
+    FLUX_STEPS steps of the chunked loop in f32; returns {flux: launch
+    counts}."""
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.driver import Solver
+    from dflo_tpu_torch.mesh import CartesianMesh
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.solver.spatial import BoundarySide
+    per = BoundarySide(euler.BC_PERIODIC)
+    basis = make_basis("Qk", 1)
+    mesh = CartesianMesh(FLUX_N, FLUX_N, -5.0, 5.0, -5.0, 5.0)
+    out = {}
+    for flux in FLUX_NEW:
+        s = Solver(basis, mesh, dict(W=per, E=per, S=per, N=per), flux=flux,
+                   cfl=0.5, dtype=torch.float32, device="cuda")
+        u = ic.set_initial_condition(basis, mesh, ic.isentropic_vortex(),
+                                     dtype=torch.float32, device="cuda")
+        multi = s._multi_step(FLUX_STEPS)
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        u, t, n, bad, _ = multi(u, 0.0, 1e3)
+        counts = kernels.launch_counts()
+        n, bad, finite = int(n), bool(bad), bool(torch.isfinite(u).all())
+        print(f"{flux} RK path Q1 {FLUX_N}x{FLUX_N}: {n} steps to "
+              f"t={float(t)!r}, bad={bad}, finite={finite}, launches="
+              f"{ {k: v for k, v in counts.items() if v} }, plain calls="
+              f"{plain_calls['n']}")
+        assert n == FLUX_STEPS and not bad and finite
+        assert counts.get(f"fused_residual[qk_{flux}_stage]", 0) == 2 * FLUX_STEPS
+        assert plain_calls["n"] == 0, f"the {flux} path called a plain version"
+        out[flux] = counts
+    return out
+
+
+def impl_solver(n, dtype, **kw):
+    """The implicit vortex: Q1, roe, limiter none, the periodic isentropic
+    vortex on the reference's 10 x 10 box at n x n, theta 1, cfl 5, two
+    Newton iterations to 1e-4, block-Jacobi (tests/test_implicit.py:30)."""
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.driver import Solver
+    from dflo_tpu_torch.mesh import CartesianMesh
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.solver.spatial import BoundarySide
+    per = BoundarySide(euler.BC_PERIODIC)
+    basis = make_basis("Qk", 1)
+    mesh = CartesianMesh(n, n, -5.0, 5.0, -5.0, 5.0)
+    args = dict(flux="roe", cfl=5.0, method="implicit", theta=1.0,
+                max_nonlin_iter=2, linear_residual=1e-4,
+                precondition="block_jacobi")
+    args.update(kw)
+    s = Solver(basis, mesh, dict(W=per, E=per, S=per, N=per), dtype=dtype,
+               device="cuda", **args)
+    return s, ic.set_initial_condition(basis, mesh, ic.isentropic_vortex(),
+                                       dtype=dtype, device="cuda")
+
+
+def phase_main_implicit(kernels, plain_calls):
+    """Phase 20: the implicit vortex at IMPL_N x IMPL_N (IMPL_FALLBACK_N if
+    one step takes over 10 s), f32: a warm-up step, IMPL_STEPS steps in one
+    chunk, then one step under torch.profiler (the device's busy share,
+    the kernel's time against the rest: the tangents and GMRES); returns
+    (launch counts, ms/step, the summary dict)."""
+    n = IMPL_N
+    s, u = impl_solver(n, torch.float32)
+    t0 = time.perf_counter()
+    u1, _, bad, _, _ = s._step(u, 0.0, 1e3, pred=u)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if first_s > 10.0:
+        print(f"implicit vortex {n}x{n}: the first step took {first_s:.1f} s"
+              f" (> 10 s); the phase runs at {IMPL_FALLBACK_N} x "
+              f"{IMPL_FALLBACK_N}")
+        n = IMPL_FALLBACK_N
+        del s, u, u1
+        torch.cuda.empty_cache()
+        s, u = impl_solver(n, torch.float32)
+        s._step(u, 0.0, 1e3, pred=u)
+    multi = s._multi_step(IMPL_STEPS)
+    counts_k = s.krylov_counts
+    counts_k.reset()
+    kernels.reset_launch_counts()
+    plain_calls["n"] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, t, nd, bad, info = multi(u, 0.0, 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    kc = counts_k.as_dict()
+    nd, bad = int(nd), bool(bad)
+    finite = bool(torch.isfinite(u).all())
+    plain = plain_calls["n"]
+    ms = 1e3 * wall / IMPL_STEPS
+    one = s._multi_step(1)
+    trace = device_busy(lambda: one(u, t, 1e3))
+    per = {k: v / IMPL_STEPS for k, v in kc.items()}
+    out = {"isenvort_q1_roe_implicit_dof_updates_per_sec":
+               4 * s.basis.K * n * n * IMPL_STEPS / wall,
+           "unit": "DoF-updates/s", "dtype": "float32", "grid": [n, n],
+           "first_step_s": first_s, "steps": IMPL_STEPS,
+           "ms_per_step": ms, "t": float(t), "diverged": bool(info.diverged),
+           "lin_res_last": float(info.lin_res),
+           "newton_per_step": per["newton"],
+           "gmres_restarts_per_step": per["restarts"],
+           "tangents_per_step": per["tangents"],
+           "primals_per_step": per["primals"],
+           "host_reads_per_step": per["host_reads"],
+           "roe_R_launches_per_step":
+               counts.get("fused_residual[qk_roe_R]", 0) / IMPL_STEPS,
+           "diag_launches_per_step": counts["fused_diag"] / IMPL_STEPS,
+           "plain_twin_calls": plain, "card": card_line()}
+    if trace is not None:
+        busy = trace["busy_ms"]
+        out.update({"traced_step_wall_ms": trace["wall_ms"],
+                    "traced_busy_ms": busy,
+                    "traced_idle_share": 1.0 - busy / trace["wall_ms"],
+                    "idle_share_untraced": 1.0 - busy / ms,
+                    "kernel_ms_in_step": trace["port_kernel_ms"],
+                    "other_device_ms_in_step": busy - trace["port_kernel_ms"],
+                    "device_events": trace["device_events"],
+                    "top_ms": trace["top_ms"]})
+    else:
+        out["trace"] = "no device events: not measured"
+    print(json.dumps(out))
+    assert nd == IMPL_STEPS and not bad and finite, (nd, bad, finite)
+    assert not bool(info.diverged)
+    assert math.isfinite(out["lin_res_last"]) and kc["restarts"] > 0
+    assert counts.get("fused_residual[qk_roe_R]", 0) > 0, counts
+    assert counts["fused_diag"] > 0, counts
+    assert plain == 0, "the implicit path called a plain version"
+    return counts, ms, out
+
+
+STEADY_PRM = """# the bump relaxed to its free stream by pseudo-transient continuation
+# (geometry, BCs and IC of tests/test_implicit.py:83-110, solver settings of
+# examples/naca0012.prm)
+subsection cartesian mesh
+   set nx = {n}
+   set ny = {n}
+   set x0 = 0.0
+   set x1 = 1.0
+   set y0 = 0.0
+   set y1 = 1.0
+end
+set degree = 1
+subsection boundary_1
+   set type = slip
+end
+subsection boundary_3
+   set type = slip
+end
+subsection boundary_2
+   set type = farfield
+   set w_0 value = 0.5
+   set w_1 value = 0.0
+   set w_2 value = 1.0
+   set w_3 value = 2.6
+end
+subsection boundary_4
+   set type = farfield
+   set w_0 value = 0.5
+   set w_1 value = 0.0
+   set w_2 value = 1.0
+   set w_3 value = 2.6
+end
+subsection initial condition
+   set w_0 value = 0.5 + 0.05*exp(-50*((x-0.5)^2 + (y-0.5)^2))
+   set w_1 value = 0.05*exp(-50*((x-0.5)^2 + (y-0.5)^2))
+   set w_2 value = 1.0 + 0.05*exp(-50*((x-0.5)^2 + (y-0.5)^2))
+   set w_3 value = 2.6
+end
+subsection time stepping
+   set time step type = local
+   set cfl = 2.0
+   set stationary = true
+   set nonlinear iterations = 1
+   set min residual = 1.0e-10
+end
+subsection linear solver
+   set method = gmres
+   set residual = 1.0e-4
+end
+subsection refinement
+   set refinement = false
+end
+subsection flux
+   set flux = roe
+end
+subsection limiter
+   set type = none
+end
+"""
+
+
+def phase_main_steady(kernels, plain_calls):
+    """Phase 21: the steady bump through cli.run at STEADY_N x STEADY_N
+    (the STEADY_N / 2 companion first), f32, --max-steps STEADY_STEPS;
+    returns (launch counts, summary)."""
+    import contextlib
+    import io
+    import re
+    from dflo_tpu_torch import cli
+    with tempfile.TemporaryDirectory() as out:
+        prm = os.path.join(out, "steady.prm")
+        with open(prm, "w") as f:
+            f.write(STEADY_PRM.format(n=STEADY_N))
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            res = cli.run([prm, "--max-steps", str(STEADY_STEPS),
+                           "--output-dir", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    text = log.getvalue()
+    timer = {k: float(v) for k, v in re.findall(
+        r"^(Setup|Time loop|Output)\s+\d+\s+([0-9.]+)", text, re.M)}
+    coarse, fine = res.steady_levels
+    kc = res.solver.krylov_counts.as_dict()
+    kcc = res.solver.steady_coarse.krylov_counts.as_dict()
+    finite = bool(torch.isfinite(res.u).all())
+    out = {"grid": [STEADY_N, STEADY_N], "dtype": "float32",
+           "ptc_steps": [len(coarse), len(fine)],
+           "coarse_res_first_last": [coarse[0], coarse[-1]],
+           "fine_res_first_last": [fine[0], fine[-1]],
+           "cli_timer_s": timer, "cli_wall_s": wall,
+           "roe_R_launches": counts.get("fused_residual[qk_roe_R]", 0),
+           "plain_twin_calls": plain_calls["n"],
+           "krylov_fine": kc, "krylov_coarse": kcc,
+           "warnings": text.count("WARNING"), "card": card_line()}
+    print(json.dumps(out))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "steady_history.json"), "w") as f:
+        json.dump({"coarse": coarse, "fine": fine, **out}, f)
+    assert finite and len(coarse) == len(fine) == STEADY_STEPS
+    assert all(math.isfinite(r) for r in coarse + fine)
+    assert counts.get("fused_residual[qk_roe_R]", 0) > 0, counts
+    assert plain_calls["n"] == 0, "the steady path called a plain version"
+    assert kc["restarts"] > 0 and kcc["restarts"] > 0
+    return counts, out
+
+
+def phase_primal_f64(kernels):
+    """Phase 22: PRIMAL_STEPS f64 implicit steps at PRIMAL_N x PRIMAL_N
+    with the kernel primal (volume_kernel="fused") and the plain one
+    ("xla") from the same state: the states within 1e-10 relative, the
+    Newton iterations equal (the card's tests/test_implicit.py:287)."""
+    out = {}
+    for vk in ("fused", "xla"):
+        s, u0 = impl_solver(PRIMAL_N, torch.float64, cfl=2.0,
+                            linear_residual=1e-6, volume_kernel=vk)
+        iters = []
+        kernels.reset_launch_counts()
+        lin = []
+
+        def note(*_):
+            iters.append(int(s.last_stats.iters))
+            lin.append(float(s.last_stats.lin_res))
+        u, t, it = s.run(u0, 1e3, max_steps=PRIMAL_STEPS, callback=note)
+        torch.cuda.synchronize()
+        out[vk] = (u, iters, kernels.launch_counts())
+        # every linear solve converged and the vortex moved
+        assert max(lin) <= 1.001e-6, lin
+        assert rel_err(u, u0) > 1e-6
+    e = rel_err(out["fused"][0], out["xla"][0])
+    print(json.dumps({"implicit_f64_kernel_vs_plain_primal": {
+        "grid": [PRIMAL_N, PRIMAL_N], "steps": PRIMAL_STEPS, "rel_err": e,
+        "newton_iters_fused": out["fused"][1],
+        "newton_iters_plain": out["xla"][1],
+        "roe_R_launches": out["fused"][2].get("fused_residual[qk_roe_R]", 0)},
+        "card": card_line()}))
+    assert e <= 1e-10, e
+    assert out["fused"][1] == out["xla"][1]
+    assert out["fused"][2].get("fused_residual[qk_roe_R]", 0) > 0
+    assert out["xla"][2]["fused_residual"] == 0
+    return e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2041,6 +2572,7 @@ def main() -> int:
 
     # ---- phases 2, 5 and 9: kernels against plain versions ------------------
     results = {name: {} for name in SOURCES}
+    results["flux_registers"] = {}
     dmr_states = phase_kernels(entry, kernels, euler, results)
     phase_mood_kernels(entry, kernels, results)
     fwd_states = phase_fwd_kernels(kernels, results)
@@ -2055,6 +2587,9 @@ def main() -> int:
     # ---- phase 17: the source arms and the well-balance oracle --------------
     results["well_balance_drift"] = {}
     phase_source_kernels(kernels, results)
+
+    # ---- phase 19: the Roe, Steger-Warming, KFVS and KEP forms --------------
+    phase_flux_kernels(kernels, results, log)
 
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
     plain_calls = {"n": 0}
@@ -2102,6 +2637,16 @@ def main() -> int:
         kernels, plain_calls, "rt_force", rt_force,
         "fused_residual[qk_hllc_force_stage]")
 
+    # ---- phases 19-22: the new fluxes' RK paths, the implicit paths ---------
+    by_flux = phase_flux_paths(kernels, plain_calls)
+    for flux in ("sw", "kfvs", "kep"):
+        counts[f"flux_{flux}"] = by_flux[flux]
+    counts["impl"], ms_step["impl"], impl = phase_main_implicit(kernels,
+                                                                plain_calls)
+    GRIDS["impl"] = tuple(impl["grid"])
+    counts["steady"], steady = phase_main_steady(kernels, plain_calls)
+    primal_err = phase_primal_f64(kernels)
+
     # ---- phase 8: the device's busy share under torch.profiler --------------
     busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard,
                                         "vortex": vortex, "rt": rt,
@@ -2132,7 +2677,9 @@ def main() -> int:
              "sod_mood": make_basis("Pk", 2), "pbc": make_basis("Qk", 1),
              "rt": make_basis("Qk", 1), "rt_pk": make_basis("Pk", 2),
              "rt_force": make_basis("Qk", 1),
-             "iso": make_basis("Qk_gll", 2)}
+             "iso": make_basis("Qk_gll", 2), "impl": make_basis("Qk", 1),
+             "flux_sw": make_basis("Qk", 1), "flux_kfvs": make_basis("Qk", 1),
+             "flux_kep": make_basis("Qk", 1)}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
@@ -2165,7 +2712,8 @@ def main() -> int:
             **{k: v for k, v in r.items()
                if k.startswith(("block_ms", "sharded_", "stage_ms",
                                 "ms_source", "variants_", "ms_R_",
-                                "plain_ms_R_", "no_source_ms_"))}})
+                                "plain_ms_R_", "no_source_ms_", "cases_",
+                                "plain_stage_ms", "stage_bound"))}})
     assert all(math.isfinite(v) for row in table for v in row.values()
                if isinstance(v, float))
     total_s = time.perf_counter() - t_start
@@ -2176,6 +2724,9 @@ def main() -> int:
                       "device_busy": busy,
                       "fused_pk_post_with_diag_launches":
                           counts["mood"]["fused_pk_post_with_diag"],
+                      "implicit_vortex": impl, "steady": steady,
+                      "implicit_f64_primal_rel_err": primal_err,
+                      "flux_registers": results["flux_registers"],
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
                                           "mood_host", "shard_f64",

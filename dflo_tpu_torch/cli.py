@@ -5,8 +5,12 @@ The torch counterpart of dflo_tpu/cli.py for the explicit Cartesian path
 build the Cartesian mesh and its solid-cell mask from the `cartesian mesh`
 subsection, wire the boundary ids to the four sides, set the IC, march in
 time with the configured flux, limiter chain and body force
-(``method = rk3`` on Qk, GLL or Pk, ``mood`` on Pk; ``gravity``, the
-``f_0``/``f_1`` force or a ``potential`` for well-balanced gravity), write
+(``method = rk3`` on Qk, GLL or Pk, ``mood`` on Pk, ``gmres``, ``direct``
+or ``umfpack`` for implicit Newton-Krylov; a global, local or fixed time
+step; ``gravity``, the ``f_0``/``f_1`` force or a ``potential`` for
+well-balanced gravity), or with ``stationary = true`` and an implicit
+method solve to steady state by pseudo-transient continuation (grid-
+sequenced through a 2x-coarsened companion where the grid halves), write
 VTU snapshots and checkpoints on their cadence and report the wall time of
 each phase.
 
@@ -17,8 +21,8 @@ CPU by itself.  ``--devices N`` splits the domain over N devices (the
 most-square mesh that divides the grid, parallel/sharding): N distinct
 cards, or with ``--platform cpu`` N CPU blocks; snapshots and checkpoints
 gather the blocks first.  The reference's other branches (mesh files,
-unstructured meshes, AMR, implicit and steady solves, ``--slices``) raise
-NotImplementedError naming the ROADMAP item that brings them.
+unstructured meshes, AMR, ``--slices``) raise NotImplementedError naming
+the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from dflo_tpu_torch.mesh import CartesianMesh
 from dflo_tpu_torch.ops.basis import make_basis
 from dflo_tpu_torch.parallel.sharding import compatible_shape, device_mesh
 from dflo_tpu_torch.physics import euler
+from dflo_tpu_torch.solver.implicit import run_steady, run_steady_sequenced
 from dflo_tpu_torch.solver.spatial import BoundarySide
 from dflo_tpu_torch.utils.profiling import Timer, device_trace
 
@@ -51,8 +56,6 @@ _LATER = {
     "mesh files": "slices D and E (ROADMAP queue 1, items 7 and 8: .geo/"
                   ".msh/.struct meshes and unstructured meshes)",
     "envelope": "the physics envelope (ROADMAP queue 1, item 4)",
-    "implicit": "slice D (ROADMAP queue 1, item 6: implicit and steady "
-                "stepping)",
     "amr": "slice F (ROADMAP queue 1, item 9: AMR)",
     "devices": "slice G (ROADMAP queue 1, item 10: multi-GPU)",
 }
@@ -133,7 +136,9 @@ def build_source(params: AllParameters):
 def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
                  dtype: torch.dtype, device, **solver_kw):
     """(solver, mask) of the configuration; solver_kw go to Solver (e.g.
-    volume_kernel, post_kernel)."""
+    volume_kernel, post_kernel).  A steady implicit solve on an unmasked
+    single-device grid that halves gets its 2x-coarsened companion as
+    ``solver.steady_coarse`` (dflo_tpu/cli.py:298-320)."""
     mesh, mask, side_bids = (domain if domain is not None
                              else build_domain(params, prm_dir))
     if params.mass_matrix != "diagonal":
@@ -144,11 +149,6 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
         raise _later(f"output format {params.output.format!r}", "envelope")
     if params.refinement.do_refine:
         raise _later("refinement = true", "amr")
-    if params.solver.implicit or params.is_stationary:
-        raise _later(f"linear solver method = {params.solver.method}",
-                     "implicit")
-    if params.time_step_type != "global" or params.cfl <= 0:
-        raise _later("a fixed or local time step", "envelope")
     basis = make_basis({"Qk": "Qk", "Pk": "Pk", "GLL": "Qk_gll"}[params.basis],
                        params.degree)
     well_balanced = None
@@ -164,13 +164,34 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
         M=params.limiter.M, beta=params.limiter.beta,
         char_lim=params.limiter.char_lim, pos_lim=params.limiter.pos_lim,
         conserve_angular_momentum=params.limiter.conserve_angular_momentum)
-    solver = Solver(basis, mesh, build_bcs(params, side_bids),
-                    flux=params.flux.flux, limiter=lim, cfl=params.cfl,
-                    dtype=dtype, device=device,
-                    method="mood" if params.solver.method == "mood" else "rk",
-                    mask=mask, source=build_source(params),
-                    well_balanced=well_balanced, potential=params.potential,
-                    **solver_kw)
+    if params.solver.method == "mood":
+        method = "mood"
+    elif params.solver.implicit:
+        method = "implicit"
+    else:
+        method = "rk"
+    # `time step = ...` with cfl <= 0 (src/claw.cc:455-459)
+    fixed_dt = (params.time_step if (params.cfl <= 0 and params.time_step > 0
+                                     and not params.is_stationary) else None)
+    bcs = build_bcs(params, side_bids)
+    source = build_source(params)
+    common = dict(flux=params.flux.flux, limiter=lim, cfl=params.cfl,
+                  dtype=dtype, device=device, method=method, source=source,
+                  well_balanced=well_balanced, potential=params.potential,
+                  theta=params.theta, max_nonlin_iter=params.max_nonlin_iter,
+                  linear_residual=params.solver.linear_residual,
+                  time_step_type=params.time_step_type)
+    solver = Solver(basis, mesh, bcs, mask=mask, fixed_time_step=fixed_dt,
+                    **common, **solver_kw)
+    if (params.is_stationary and method == "implicit" and mask is None
+            and solver_kw.get("device_mesh") is None
+            and mesh.ny % 2 == 0 and mesh.nx % 2 == 0):
+        # the coarse companion of grid-sequenced steady solves
+        # (run_steady_sequenced)
+        cmesh = CartesianMesh(mesh.nx // 2, mesh.ny // 2, mesh.x0, mesh.x1,
+                              mesh.y0, mesh.y1)
+        kw = {k: v for k, v in solver_kw.items() if k != "device_mesh"}
+        solver.steady_coarse = Solver(basis, cmesh, bcs, **common, **kw)
     return solver, mask
 
 
@@ -230,6 +251,9 @@ class CliRun(NamedTuple):
     u: torch.Tensor
     t: float
     it: int
+    #: a steady solve's ||R|| histories, one per level (coarse, fine), or
+    #: None for a time-marching run
+    steady_levels: list | None = None
 
 
 def run(argv=None) -> CliRun:
@@ -306,6 +330,15 @@ def run(argv=None) -> CliRun:
                 line += (f"  mood: reduce={int(stats.n_reduce)}"
                          f" limit={int(stats.n_marked)}"
                          f" passes={int(stats.iters)}")
+            elif solver.method == "implicit" and stats is not None:
+                # Newton residual and the linear solve's residual
+                # (src/claw.cc:913-914, 1090)
+                lin_res = float(stats.lin_res)
+                line += (f"  newton: res={float(stats.res):.3e}"
+                         f" iters={int(stats.iters)} lin_res={lin_res:.1e}")
+                if lin_res > solver.linear_residual * 1.001:
+                    # tolerated non-convergence (src/claw.cc:677-687)
+                    line += "  WARNING: linear solver did not converge"
             elif verbose:
                 # explicit per-step rhs norm (src/claw.cc:749,768-769)
                 R = solver.rhs(u, t)
@@ -325,17 +358,34 @@ def run(argv=None) -> CliRun:
 
     trace = (device_trace(args.profile) if args.profile
              else contextlib.nullcontext())
+    levels = None
     with timer("Time loop"), trace:
-        u, t, it = solver.run(u, t_end, t0=t0, callback=callback,
-                              chunk=max(args.chunk, 1),
-                              max_steps=args.max_steps)
+        if params.is_stationary and solver.method == "implicit":
+            # pseudo-transient steady solve, grid-sequenced when a coarse
+            # companion exists (dflo_tpu/cli.py:579-596)
+            steady = dict(cfl0=params.cfl,
+                          min_residual=params.min_residual or 1e-10,
+                          max_steps=min(100000, args.max_steps), verbose=True)
+            coarse = getattr(solver, "steady_coarse", None)
+            if coarse is not None:
+                levels = []
+                u, hist = run_steady_sequenced(solver, coarse, u,
+                                               levels=levels, **steady)
+            else:
+                u, hist = run_steady(solver, u, **steady)
+                levels = [hist]
+            t, it = t0, len(hist)
+        else:
+            u, t, it = solver.run(u, t_end, t0=t0, callback=callback,
+                                  chunk=max(args.chunk, 1),
+                                  max_steps=args.max_steps)
         u = whole(u)
         if u.is_cuda:
             torch.cuda.synchronize()
     write_snapshot(u, t)
     print(timer.summary())
     print(f"steps={it}  final t={t:.6f}  wall={time.time() - t_wall:.1f}s")
-    return CliRun(solver, u, t, it)
+    return CliRun(solver, u, t, it, levels)
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,6 @@
 // Device functions shared by the kernels of the port: Euler pressure and
-// fluxes, the branchless HLLC and the local Lax-Friedrichs fluxes, the
+// fluxes, the branchless HLLC, local Lax-Friedrichs, Roe, Steger-Warming,
+// KFVS (with the A&S erf) and KEP numerical fluxes, the
 // slip-wall mirror of a masked domain, the characteristic eigen matrices and the
 // TVB slope limiter, NaN-propagating min/max, the per-degree dimensions of
 // the nodal Qk and modal Pk bases and the block reduction of the
@@ -181,6 +182,284 @@ __device__ __forceinline__ void lxf(const T UL[4], const T UR[4],
   F[RHO] = half * (UL[RHO] * vnl + UR[RHO] * vnr) + d * (UL[RHO] - UR[RHO]);
   F[ENE] = half * ((UL[ENE] + pl) * vnl + (UR[ENE] + pr) * vnr) +
            d * (UL[ENE] - UR[ENE]);
+}
+
+// The constant divisors of the fluxes as reciprocals rounded once in double
+// (physics/fluxes._INV_G1, _INV_GAMMA): both versions multiply by them.
+constexpr double INV_G1 = 1.0 / (GAMMA - 1.0);
+constexpr double INV_GAMMA = 1.0 / GAMMA;
+
+// IEEE log of the working dtype (logf for float; torch.log's on the card)
+__device__ __forceinline__ float ieee_log(float x) { return logf(x); }
+__device__ __forceinline__ double ieee_log(double x) { return ::log(x); }
+// IEEE exp of the working dtype (expf for float; torch.exp's on the card)
+__device__ __forceinline__ float ieee_exp(float x) { return expf(x); }
+__device__ __forceinline__ double ieee_exp(double x) { return ::exp(x); }
+
+// Steger-Warming flux-vector splitting (src/equation.h:382-464), as
+// physics/fluxes.steger_warming: the + split of UL plus the - split of UR.
+template <typename T>
+__device__ __forceinline__ void sw_split(const T U[4], bool plus, const T nx,
+                                         const T ny, T F[4]) {
+  const T rho = U[RHO];
+  const T vn = (U[MX] * nx + U[MY] * ny) / rho;
+  const T q2 = (U[MX] * U[MX] + U[MY] * U[MY]) / (rho * rho);
+  const T p = pressure(U);
+  const T c = sqrt(T(GAMMA) * pos_floor(p) / pos_floor(rho));
+  const T l1 = plus ? nmax(vn, T(0)) : nmin(vn, T(0));
+  const T l2 = plus ? nmax(vn + c, T(0)) : nmin(vn + c, T(0));
+  const T l3 = plus ? nmax(vn - c, T(0)) : nmin(vn - c, T(0));
+  const T a = T(2.0 * (GAMMA - 1.0)) * l1 + l2 + l3;
+  const T fscale = T(0.5) * rho * T(INV_GAMMA);
+  F[MX] = fscale * (a * U[MX] / rho + c * (l2 - l3) * nx);
+  F[MY] = fscale * (a * U[MY] / rho + c * (l2 - l3) * ny);
+  F[RHO] = fscale * a;
+  F[ENE] = fscale * (T(0.5) * a * q2 + c * vn * (l2 - l3) +
+                     c * c * (l2 + l3) * T(INV_G1));
+}
+
+template <typename T>
+__device__ __forceinline__ void steger_warming(const T UL[4], const T UR[4],
+                                               const T nx, const T ny,
+                                               T F[4]) {
+  T fp[4], fm[4];
+  sw_split(UL, true, nx, ny, fp);
+  sw_split(UR, false, nx, ny, fm);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) F[c] = fp[c] + fm[c];
+}
+
+// Roe flux with Harten's entropy fix delta = 0.1 c (src/equation.h:
+// 469-556), as physics/fluxes.roe.
+template <typename T>
+__device__ __forceinline__ void roe(const T UL[4], const T UR[4], const T nx,
+                                    const T ny, T F[4]) {
+  const T g1 = T(GAMMA - 1.0);
+  const T half = T(0.5);
+  const T rl = UL[RHO], rr = UR[RHO];
+  const T sl = sqrt(pos_floor(rl)), sr = sqrt(pos_floor(rr));
+  const T fl = sl / (sl + sr);
+  const T fr = T(1) - fl;
+
+  const T ul = UL[MX] / rl, vl = UL[MY] / rl;
+  const T ur = UR[MX] / rr, vr = UR[MY] / rr;
+  const T v2l = ul * ul + vl * vl;
+  const T v2r = ur * ur + vr * vr;
+  const T vnl = ul * nx + vl * ny;
+  const T vnr = ur * nx + vr * ny;
+  const T u = ul * fl + ur * fr;
+  const T v = vl * fl + vr * fr;
+  const T vn = u * nx + v * ny;
+  const T v2 = u * u + v * v;
+  const T du = ur - ul, dv = vr - vl;
+  const T v_dot_dv = u * du + v * dv;
+
+  const T pl = g1 * (UL[ENE] - half * rl * v2l);
+  const T pr = g1 * (UR[ENE] - half * rr * v2r);
+  const T hl = T(GAMMA) * pl / rl * T(INV_G1) + half * v2l;
+  const T hr = T(GAMMA) * pr / rr * T(INV_G1) + half * v2r;
+
+  const T rho = sl * sr;
+  const T h = hl * fl + hr * fr;
+  const T c = sqrt(pos_floor(g1 * (h - half * v2)));
+  const T drho = rr - rl;
+  const T dp = pr - pl;
+  const T dvn = vnr - vnl;
+
+  const T a1 = (dp - rho * c * dvn) / (T(2) * c * c);
+  const T a2 = drho - dp / (c * c);
+  const T a3 = (dp + rho * c * dvn) / (T(2) * c * c);
+
+  T l1 = fabs(vn - c);
+  const T l2 = fabs(vn);
+  T l3 = fabs(vn + c);
+  const T delta = T(0.1) * c;
+  l1 = l1 < delta ? half * (l1 * l1 / delta + delta) : l1;
+  l3 = l3 < delta ? half * (l3 * l3 / delta + delta) : l3;
+
+  const T d_rho = l1 * a1 + l2 * a2 + l3 * a3;
+  const T d_ene = l1 * a1 * (h - c * vn) + l2 * a2 * half * v2 +
+                  l2 * rho * (v_dot_dv - vn * dvn) + l3 * a3 * (h + c * vn);
+  const T p_avg = half * (pl + pr);
+  const T d_mx = (u - nx * c) * l1 * a1 + u * l2 * a2 +
+                 (du - nx * dvn) * l2 * rho + (u + nx * c) * l3 * a3;
+  const T d_my = (v - ny * c) * l1 * a1 + v * l2 * a2 +
+                 (dv - ny * dvn) * l2 * rho + (v + ny * c) * l3 * a3;
+
+  F[MX] = nx * p_avg + half * (UL[MX] * vnl + UR[MX] * vnr) - half * d_mx;
+  F[MY] = ny * p_avg + half * (UL[MY] * vnl + UR[MY] * vnr) - half * d_my;
+  F[RHO] = half * (rl * vnl + rr * vnr - d_rho);
+  F[ENE] = half * (rl * hl * vnl + rr * hr * vnr - d_ene);
+}
+
+// sign(x) as torch.sign (0 at 0)
+template <typename T>
+__device__ __forceinline__ T sign_of(T x) {
+  return x > T(0) ? T(1) : (x < T(0) ? T(-1) : T(0));
+}
+
+// Abramowitz-Stegun 7.1.26 rational erf (physics/fluxes.erf_approx)
+template <typename T>
+__device__ __forceinline__ T erf_approx(T x) {
+  const T s = sign_of(x);
+  const T a = fabs(x);
+  const T t = T(1) / (T(1) + T(0.3275911) * a);
+  const T poly =
+      t * (T(0.254829592) +
+           t * (T(-0.284496736) +
+                t * (T(1.421413741) +
+                     t * (T(-1.453152027) + t * T(1.061405429)))));
+  return s * (T(1) - poly * ieee_exp(-a * a));
+}
+
+// Kinetic split flux of Deshpande/Mandal (src/equation.h:714-751) with the
+// A&S erf, as physics/fluxes._kinetic_split(erf_fn=erf_approx); F += the
+// split of U (sign +1 for the left state, -1 for the right).
+template <typename T>
+__device__ __forceinline__ void kinetic_split(const T U[4], bool plus,
+                                              const T nx, const T ny,
+                                              T F[4]) {
+  const T sg = plus ? T(1) : T(-1);
+  const T vn = (U[MX] * nx + U[MY] * ny) / U[RHO];
+  const T p = pressure(U);
+  const T beta = T(0.5) * pos_floor(U[RHO]) / pos_floor(p);
+  const T s = vn * sqrt(beta);
+  const T A = T(0.5) * (T(1) + sg * erf_approx(s));
+  const T B = T(plus ? 0.5 : -0.5) * ieee_exp(-s * s) /
+              sqrt(T(3.141592653589793) * beta);
+  const T ufact = vn * A + B;
+  F[MX] = p * nx * A + U[MX] * ufact;
+  F[MY] = p * ny * A + U[MY] * ufact;
+  F[RHO] = U[RHO] * ufact;
+  F[ENE] = (U[ENE] + p) * vn * A + (U[ENE] + T(0.5) * p) * B;
+}
+
+// KFVS (src/equation.h:756-782) in its kernel form (physics/fluxes.
+// kfvs_kernel): the + split of UL plus the - split of UR.
+template <typename T>
+__device__ __forceinline__ void kfvs(const T UL[4], const T UR[4], const T nx,
+                                     const T ny, T F[4]) {
+  T fp[4], fm[4];
+  kinetic_split(UL, true, nx, ny, fp);
+  kinetic_split(UR, false, nx, ny, fm);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) F[c] = fp[c] + fm[c];
+}
+
+// Logarithmic mean with the series guard (src_mpi/equation.h:26-45), as
+// physics/fluxes.logavg.
+template <typename T>
+__device__ __forceinline__ T logavg(T a, T b) {
+  const T xi = b / a;
+  const T f = (xi - T(1)) / (xi + T(1));
+  const T u = f * f;
+  const T u2 = u * u;
+  const bool small = u < T(1.0e-2);
+  if (small)
+    return T(0.5) * (a + b) /
+           (T(1) + u * T(1.0 / 3.0) + u2 * T(1.0 / 5.0) +
+            u2 * u * T(1.0 / 7.0));
+  return T(0.5) * (a + b) / (ieee_log(xi) / (T(2) * f));
+}
+
+// Chandrashekar-style kinetic-energy-preserving, entropy-stable flux with
+// the eigen-decomposed entropy-variable dissipation on the cell averages
+// AL, AR (kep_flux + kep_diff_matrix, src_mpi/equation.h:748-920), as
+// physics/fluxes.kep.  Both cells sharing a face call it with the same
+// operands in the same order.
+template <typename T>
+__device__ __forceinline__ void kep(const T UL[4], const T UR[4],
+                                    const T AL[4], const T AR[4], const T nx,
+                                    const T ny, T F[4]) {
+  const T g1 = T(GAMMA - 1.0);
+  const T half = T(0.5);
+  const T inv_gamma = T(INV_GAMMA);
+  const T rl = UL[RHO], rr = UR[RHO];
+  const T rho = logavg(rl, rr);
+  const T ul = UL[MX] / rl, vl = UL[MY] / rl;
+  const T ur = UR[MX] / rr, vr = UR[MY] / rr;
+  const T v2l = ul * ul + vl * vl;
+  const T v2r = ur * ur + vr * vr;
+  const T u = half * (ul + ur);
+  const T v = half * (vl + vr);
+  const T vn = u * nx + v * ny;
+  const T vel2 = half * (v2l + v2r);
+
+  const T pl = g1 * (UL[ENE] - half * rl * v2l);
+  const T pr = g1 * (UR[ENE] - half * rr * v2r);
+  const T betal = half * pos_floor(rl) / pos_floor(pl);
+  const T betar = half * pos_floor(rr) / pos_floor(pr);
+  const T beta = logavg(betal, betar);
+  const T p = half * (rl + rr) / (betal + betar);
+
+  // central entropy-conservative part (src_mpi/equation.h:891-897)
+  const T f_rho = rho * vn;
+  const T f_mx = nx * p + u * f_rho;
+  const T f_my = ny * p + v * f_rho;
+  const T f_ene = half * (T(1) / (g1 * beta) - vel2) * f_rho + f_mx * u +
+                  f_my * v;
+
+  // dissipation matrix on the average states (kep_diff_matrix)
+  const T arl = AL[RHO], arr = AR[RHO];
+  const T arho = logavg(arl, arr);
+  const T aul = AL[MX] / arl, avl = AL[MY] / arl;
+  const T aur = AR[MX] / arr, avr = AR[MY] / arr;
+  const T av2l = aul * aul + avl * avl;
+  const T av2r = aur * aur + avr * avr;
+  const T avnl = aul * nx + avl * ny;
+  const T avnr = aur * nx + avr * ny;
+  const T au = half * (aul + aur);
+  const T av = half * (avl + avr);
+  const T avn = au * nx + av * ny;
+  const T av2 = au * au + av * av;
+
+  const T apl = g1 * (AL[ENE] - half * arl * av2l);
+  const T apr = g1 * (AR[ENE] - half * arr * av2r);
+  const T abetal = half * pos_floor(arl) / pos_floor(apl);
+  const T abetar = half * pos_floor(arr) / pos_floor(apr);
+  const T abeta = logavg(abetal, abetar);
+  const T aa = sqrt(T(0.5 * GAMMA) * (T(1) / abeta));
+  const T ap = half * (arl + arr) / (abetal + abetar);
+
+  const T H = aa * aa * T(INV_G1) + half * av2;
+  const T v1 = au * ny - av * nx;
+  const T one = T(1), zero = T(0);
+  // R columns: eigenvectors in (rho, mx, my, E) internal ordering
+  const T R[4][4] = {{one, au - aa * nx, av - aa * ny, H - aa * avn},
+                     {one, au, av, half * av2},
+                     {zero, ny * one, -nx * one, v1},
+                     {one, au + aa * nx, av + aa * ny, H + aa * avn}};
+  const T al_ = sqrt(T(GAMMA) * pos_floor(apl) / pos_floor(arl));
+  const T ar_ = sqrt(T(GAMMA) * pos_floor(apr) / pos_floor(arr));
+  const T bump = T(1.0 / 6.0);
+  const T lam[4] = {
+      fabs(avn - aa) + bump * fabs((avnl - al_) - (avnr - ar_)), fabs(avn),
+      fabs(avn), fabs(avn + aa) + bump * fabs((avnl + al_) - (avnr + ar_))};
+  const T S[4] = {half * arho * inv_gamma, g1 * arho * inv_gamma, ap,
+                  half * arho * inv_gamma};
+
+  // jump in entropy variables (src_mpi/equation.h:902-908)
+  const T ds = ieee_log(pr / pl) - T(GAMMA) * ieee_log(rr / rl);
+  const T dV[4] = {-ds * T(INV_G1) - (betar * v2r - betal * v2l),
+                   T(2) * (betar * ur - betal * ul),
+                   T(2) * (betar * vr - betal * vl),
+                   T(-2) * (betar - betal)};
+
+  // Diff = sum_k R_k (lam_k S_k) (R_k . dV), the terms in k order
+  T diff[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const T proj =
+        ((R[k][0] * dV[0] + R[k][1] * dV[1]) + R[k][2] * dV[2]) +
+        R[k][3] * dV[3];
+    const T w = lam[k] * S[k] * proj;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) diff[c] = k == 0 ? R[k][c] * w : diff[c] + R[k][c] * w;
+  }
+  F[MX] = f_mx - half * diff[1];
+  F[MY] = f_my - half * diff[2];
+  F[RHO] = f_rho - half * diff[0];
+  F[ENE] = f_ene - half * diff[3];
 }
 
 // Left/right eigenvector matrices along x (dir 0) or y (dir 1) of state ub,

@@ -1,0 +1,39 @@
+// Fused DG residual with the Roe flux, hand-written for Hopper.
+//
+// Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_residual with
+// flux_name="roe" (kernel body _fused_kernel, :268), on the collocated
+// nodal Qk and GLL bases, masked (pallas_kernels.py:287-292, :472-533,
+// :598-599) or not, and on the modal Pk basis (the V contraction first,
+// :450-459): the kernel of fused_residual.cu (residual.cuh) instantiated with
+// FLUX = ROE, in its R, SSP-stage and u + dt*R forms.  The flux is
+// the Roe flux with Harten's entropy fix (src/equation.h:469-556).
+//
+// What bounds it on the H100: bytes, as fused_residual.cu (each cell reads
+// its own 4K values and its four neighbors', about 5x the state through
+// L1/L2, and writes 4K), unless the flux's operations do: Roe carries more
+// live values per face point than HLLC (the Roe averages, three wave
+// strengths and the four dissipation sums), so registers, not bytes, may
+// bound it at p >= 2.  Its own source so that nvcc builds it beside the
+// others.
+#include <stdint.h>
+
+#include "residual.cuh"
+
+// dtype: 0 = float32, 1 = float64; modal: 0 = collocated Qk, 1 = Pk;
+// p in {1, 2, 3}.  Forms and mask (collocated Qk only) as
+// dflo_fused_residual.  Returns the cudaGetLastError() code after the launch
+// (0 = launched), -1 for an unsupported case.
+extern "C" int dflo_fused_residual_roe(int dtype, int modal, int p,
+                                   const void* u, const void* dfw,
+                                   const void* dfe, const void* dfs,
+                                   const void* dfn, const void* uold,
+                                   const void* sc, const void* ops,
+                                   const void* mask, void* out, int ny,
+                                   int nx, void* stream) {
+  if (modal && mask != nullptr) return -1;
+  // no source arm: no planes, no potential, no gravity
+  const dflo::ResArgs a{u,   dfw, dfe, dfs, dfn, uold, sc, ops, mask,
+                        nullptr, nullptr, nullptr, 0.0, 0.0, out, ny, nx};
+  return dflo::launch_table<dflo::ROE, dflo::SRC_NONE>(
+      dtype, modal, p, a, (cudaStream_t)stream);
+}

@@ -47,7 +47,14 @@
 namespace dflo {
 
 // the numerical flux of the residual (template argument FLUX)
-enum { HLLC = 0, LXF = 1 };
+enum { HLLC = 0, LXF = 1, ROE = 2, SW = 3, KFVS = 4, KEP = 5 };
+
+// whether the flux reads the cell averages of the face's two cells (LxF's
+// dissipation speed, KEP's dissipation matrix)
+template <int FLUX>
+__host__ __device__ constexpr bool reads_averages() {
+  return FLUX == LXF || FLUX == KEP;
+}
 
 // the source arm of the residual (template argument SRC)
 enum { SRC_NONE = 0, FORCE_CONST = 1, FORCE_PLANES = 2, WB_ISO = 3 };
@@ -78,10 +85,6 @@ struct SrcArgs {
   T gx = T(0);             // constant gravity (FORCE_CONST)
   T gy = T(0);
 };
-
-// IEEE exp of the working dtype (expf for float; torch.exp's on the card)
-__device__ __forceinline__ float ieee_exp(float x) { return expf(x); }
-__device__ __forceinline__ double ieee_exp(double x) { return ::exp(x); }
 
 // the state at volume quadrature point n: the streamed nodal values
 // (collocated: the nodes are the quadrature points), or V[n] . w of the
@@ -174,7 +177,7 @@ __device__ __forceinline__ void trace_reg(const T w[4][BDims<P, MODAL>::K],
 
 // the numerical flux at the nq points of one face, FL/FR the left/right
 // traces along the +x (nx=1) or +y (ny=1) normal, AL/AR the left/right cell
-// averages (read by LxF only); F[c][q]
+// averages (read by LxF and KEP only); F[c][q]
 template <typename T, int P, int FLUX>
 __device__ __forceinline__ void face_flux(const T FL[4][P + 1],
                                           const T FR[4][P + 1],
@@ -186,6 +189,10 @@ __device__ __forceinline__ void face_flux(const T FL[4][P + 1],
     const T r[4] = {FR[0][q], FR[1][q], FR[2][q], FR[3][q]};
     T f[4];
     if constexpr (FLUX == LXF) lxf(l, r, AL, AR, nx, ny, f);
+    else if constexpr (FLUX == KEP) kep(l, r, AL, AR, nx, ny, f);
+    else if constexpr (FLUX == ROE) roe(l, r, nx, ny, f);
+    else if constexpr (FLUX == SW) steger_warming(l, r, nx, ny, f);
+    else if constexpr (FLUX == KFVS) kfvs(l, r, nx, ny, f);
     else hllc(l, r, nx, ny, f);
 #pragma unroll
     for (int c = 0; c < 4; ++c) F[c][q] = f[c];
@@ -278,8 +285,9 @@ __device__ __forceinline__ void neighbor_trace(
 // DoFs are held in w[4][K] (always for the modal basis, which contracts
 // them with V; with TP they are {truncated -> positivity-limited} first,
 // and so is every neighbor before its trace); otherwise (collocated Qk)
-// they are streamed from memory and w is not written.  FLUX: HLLC, or LXF,
-// which also reads the cell averages of the cell and of each face neighbor
+// they are streamed from memory and w is not written.  FLUX: HLLC, ROE, SW,
+// KFVS, or LXF and KEP, which also read the cell averages of the cell and
+// of each face neighbor
 // (of the register-held DoFs where they are held, so with TP the averages
 // of the tp'd states).  mask: the uint8 fluid flags of a masked domain, or
 // nullptr.
@@ -302,7 +310,7 @@ __device__ __forceinline__ void cell_residual(
   using O = ResOps<P, MODAL>;
   constexpr int K = D::K, NQ = D::NQ, Q = D::Q;
   constexpr bool REG = MODAL || TP;
-  constexpr bool AVG = FLUX == LXF;
+  constexpr bool AVG = reads_averages<FLUX>();
   const long plane = (long)ny * nx;
   const long cell = (long)y * nx + x;
   const int xw = x == 0 ? nx - 1 : x - 1;
@@ -333,7 +341,7 @@ __device__ __forceinline__ void cell_residual(
     lift_volume<T, P, MODAL>(lift, n, wq, R);
   }
 
-  // the cell's own average (LxF; the isothermal source's RT)
+  // the cell's own average (LxF, KEP; the isothermal source's RT)
   T ub[4] = {T(0), T(0), T(0), T(0)};
   if constexpr (AVG && REG) {
     avg_reg<T, K>(w, avg, ub);

@@ -1,6 +1,6 @@
-"""Explicit solver driver on one device: RK on the nodal Qk and GLL and the
-modal Pk bases, with body forces and well-balanced gravity, and the MOOD
-cascade on modal Pk.
+"""Solver driver: RK on the nodal Qk and GLL and the modal Pk bases, with
+body forces and well-balanced gravity, the MOOD cascade on modal Pk, and
+implicit (Newton-Krylov) stepping, time-accurate or pseudo-transient.
 
 The torch counterpart of dflo_tpu/driver.py's ``Solver``:
 
@@ -23,6 +23,18 @@ The torch counterpart of dflo_tpu/driver.py's ``Solver``:
   isothermal well-balancing in its kernel, and any other source callable
   and polytropic well-balancing resolve "auto" to the plain residual, as
   the reference's vol_ok does (dflo_tpu/driver.py:104-122).
+- ``method="implicit"``: the theta-scheme through Newton-Krylov
+  (solver/implicit.py): each Newton residual through the residual
+  kernel's R form, each GMRES tangent a Jacobian-vector product of the
+  plain residual (implicit.FusedPrimalRhs, the reference's fused_primal_rhs,
+  dflo_tpu/driver.py:179-192), the post after every Newton update (the
+  fused post on Gauss Qk with TVB, without its diag), dt from the diag
+  kernel, and the predictor 2u - u_old carried from step to step on a
+  global dt (src/claw.cc:1063-1065, 1101-1108).
+- ``time_step_type="local"`` gives each cell its own dt (rk.local_dt; for
+  RK each stage is then R and a torch blend), ``fixed_time_step`` a
+  constant dt (`cfl <= 0` with a `time step`); the step's scalar dt (the
+  global CFL value, or the fixed one) advances t.
 - ``method="mood"``: each SSP stage runs the MOOD cascade (stab/mood.py)
   from the stage predictor, blends, and runs the fused Pk post (modal TVB on
   the cells the cascade marked, then positivity); the final stage's Pk post
@@ -55,11 +67,12 @@ per chunk.  The port's kernels take any block shape: a mesh needs only
 ``ny % DY == nx % DX == 0`` (the JAX package's sharded kernels also want
 8 x 128-aligned blocks).
 
-Configurations outside the ported slices raise NotImplementedError: implicit
-stepping, masked MOOD, MOOD with a source term, the minmax limiter, the
-other fluxes and indicators (the physics envelope); under a device mesh,
-MOOD, masks, source terms, the plain and volume_residual forms and the plain
-post chain (ROADMAP queue 1, item 10).
+Configurations outside the ported slices raise NotImplementedError: masked
+MOOD, MOOD with a source term, MOOD or a source term with a flux other than
+hllc and lxf (ROADMAP queue 2, items 8-9), the minmax limiter and the other
+indicators (the physics envelope); under a device mesh, MOOD, implicit and
+local stepping, masks, source terms, the plain and volume_residual forms and
+the plain post chain (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -75,6 +88,7 @@ from dflo_tpu_torch.ops import kernels
 from dflo_tpu_torch.ops.contract import basis_reduce
 from dflo_tpu_torch.parallel.sharding import (block_shape, gather_state,
                                               shard_state)
+from dflo_tpu_torch.solver import implicit as implicit_mod
 from dflo_tpu_torch.solver import rk as rk_mod
 from dflo_tpu_torch.solver.spatial import BoundarySide, _check_bcs, make_rhs
 from dflo_tpu_torch.stab.indicator import make_shock_indicator
@@ -109,14 +123,22 @@ def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
                   well_balanced: str | None = None) -> tuple[str, str]:
     """Resolve "auto" (dflo_tpu/driver.py:104-138): the fused residual
     wherever the configuration is inside its envelope (collocated Qk or
-    GLL or modal Pk, hllc or lxf, degrees 1-3, no source term or one of
-    the kernel's source arms: a GravitySource, an ExternalForce or
-    isothermal well-balancing), the fused post on Gauss Qk with the TVB
-    limiter (the reference's post_ok), else the plain forms."""
+    GLL or modal Pk, any of the six fluxes, degrees 1-3, no source term or
+    one of the kernel's source arms, with hllc or lxf: a GravitySource, an
+    ExternalForce or isothermal well-balancing), the fused post on Gauss Qk
+    with the TVB limiter (the reference's post_ok), else the plain forms.
+    MOOD or a source term with another flux raises on every device: no
+    kernel carries them yet, and no device runs them on the plain path."""
     modal = basis.family == "Pk"
+    has_source = source is not None or well_balanced is not None
+    if flux not in kernels.ARM_FLUXES:
+        if method == "mood":
+            raise kernels.arm_later(flux, "the MOOD candidate")
+        if has_source:
+            raise kernels.arm_later(flux, "a source term")
     vol_ok = (basis.degree in kernels.DEGREES
               and (modal or basis.is_nodal_collocated)
-              and flux in ("hllc", "lxf")
+              and flux in kernels.FLUXES
               and kernels.carries_source(source, well_balanced))
     post_ok = vol_ok and basis.family == "Qk" and limiter.type == "TVB"
     if volume_kernel == "auto":
@@ -127,7 +149,7 @@ def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
         raise ValueError(f"unknown volume kernel {volume_kernel!r}")
     if post_kernel not in ("fused", "xla"):
         raise ValueError(f"unknown post kernel {post_kernel!r}")
-    if method == "rk" and post_kernel == "fused" and not post_ok:
+    if method in ("rk", "implicit") and post_kernel == "fused" and not post_ok:
         raise ValueError("post_kernel='fused' covers the collocated Qk TVB "
                          "chain only, on Gauss nodes (dflo_tpu/driver.py:"
                          "129-140)")
@@ -144,11 +166,15 @@ def _mesh_later(what: str) -> NotImplementedError:
 
 
 class Solver:
-    """Explicit DG solver on a Cartesian mesh, on one device or (RK/TVB on
+    """DG solver on a Cartesian mesh, on one device or (RK/TVB on
     collocated Qk, device_mesh) on a mesh of blocks: RK on nodal Qk or GLL
-    or modal Pk (method="rk") or the MOOD cascade on modal Pk
-    (method="mood"); source, well_balanced, potential and polytropic_nu as
-    make_rhs takes them."""
+    or modal Pk (method="rk"), the MOOD cascade on modal Pk
+    (method="mood") or the implicit theta-scheme (method="implicit":
+    theta, max_nonlin_iter, linear_residual, gmres_restart,
+    gmres_maxiter, precondition None or "block_jacobi", as
+    dflo_tpu/driver.py:43-67); fixed_time_step and time_step_type
+    ("global" or "local") for every method but MOOD's global dt; source,
+    well_balanced, potential and polytropic_nu as make_rhs takes them."""
 
     def __init__(self, basis: basis_mod.Basis, mesh,
                  bcs: dict[str, BoundarySide], flux: str = "lxf",
@@ -159,9 +185,21 @@ class Solver:
                  volume_kernel: str = "auto", post_kernel: str = "auto",
                  source=None, well_balanced: str | None = None,
                  potential=None, polytropic_nu: float = 1.2,
-                 device_mesh=None):
-        if method not in ("rk", "mood"):
-            raise NotImplementedError(f"method {method!r} is not ported yet")
+                 device_mesh=None, theta: float = 1.0,
+                 max_nonlin_iter: int = 1, linear_residual: float = 1e-4,
+                 gmres_restart: int = 30, gmres_maxiter: int = 10,
+                 precondition: str | None = None,
+                 fixed_time_step: float | None = None,
+                 time_step_type: str = "global"):
+        if method not in ("rk", "mood", "implicit"):
+            raise ValueError(f"unknown solver method {method!r}")
+        if time_step_type not in ("global", "local"):
+            raise ValueError(f"unknown time step type {time_step_type!r}")
+        if time_step_type == "local" and method == "mood":
+            raise ValueError("MOOD requires global time stepping "
+                             "(src/parameters.cc:536-544)")
+        if precondition not in (None, "block_jacobi"):
+            raise ValueError(f"unknown preconditioner {precondition!r}")
         modal = basis.family == "Pk"
         if method == "mood" and not modal:
             raise ValueError("MOOD requires the Pk basis "
@@ -182,6 +220,10 @@ class Solver:
                 raise _mesh_later("a solid-cell mask")
             if source is not None or well_balanced is not None:
                 raise _mesh_later("a body force or well-balanced gravity")
+            if method == "implicit":
+                raise _mesh_later("implicit stepping")
+            if time_step_type == "local":
+                raise _mesh_later("local time stepping")
             if torch.device(device).type != device_mesh.flat[0].type:
                 raise ValueError(f"device {device} is not of the mesh's "
                                  f"type ({device_mesh.flat[0].type})")
@@ -216,6 +258,8 @@ class Solver:
         self.bcs = bcs
         self.flux = flux
         self.cfl = cfl
+        self.fixed_time_step = fixed_time_step
+        self.time_step_type = time_step_type
         self.dtype = dtype
         self.device_mesh = device_mesh
         # under a mesh the step's scalars live on the first block's device
@@ -238,6 +282,15 @@ class Solver:
                             well_balanced=well_balanced, potential=potential,
                             polytropic_nu=polytropic_nu,
                             device_mesh=device_mesh)
+        if method == "implicit" and volume_kernel == "fused":
+            # Newton-Krylov on the kernel: its R form for the primal, the
+            # plain residual's Jacobian-vector products for the tangent
+            # (dflo_tpu/driver.py:179-192)
+            self.rhs = implicit_mod.FusedPrimalRhs(self.rhs, make_rhs(
+                basis, mesh, bcs, flux=flux, dtype=dtype, device=self.device,
+                volume_kernel="xla", mask=self.mask, source=source,
+                well_balanced=well_balanced, potential=potential,
+                polytropic_nu=polytropic_nu))
 
         def diag_ops(dev):
             return kernels.diag_operators(basis, mesh, mask=self.mask,
@@ -250,10 +303,11 @@ class Solver:
                 per_x=per_x, per_y=per_y, mask=self.mask, dtype=dtype,
                 device=dev)
 
-        # the RK post on Gauss Qk with TVB: the fused post (or its plain
-        # version) with its diag; every other post is the plain chain
-        self._fused_chain = (method == "rk" and basis.family == "Qk"
-                             and cfg.type == "TVB")
+        # the RK and implicit post on Gauss Qk with TVB: the fused post (or
+        # its plain version; RK takes its diag form); every other post is
+        # the plain chain
+        self._fused_chain = (method in ("rk", "implicit")
+                             and basis.family == "Qk" and cfg.type == "TVB")
         if device_mesh is None:
             self._diag_ops = diag_ops(self.device)
             if self._fused_chain:
@@ -288,6 +342,21 @@ class Solver:
             self._mood_stage = make_mood(basis, mesh, self.rhs, per_x, per_y)
         self.ark, self.stage_times = rk_mod.rk_coeffs(
             scheme or rk_mod.default_scheme(basis.degree))
+        self.precondition = precondition
+        self.linear_residual = linear_residual
+        if method == "implicit":
+            # the stabilization chain after EVERY Newton update, where the
+            # reference limits (src/claw.cc:905-911)
+            self._implicit_step = implicit_mod.make_implicit_step(
+                self.rhs, theta=theta, max_newton=max_nonlin_iter,
+                lin_tol=linear_residual, gmres_restart=gmres_restart,
+                gmres_maxiter=gmres_maxiter, precondition=precondition,
+                post_update=self.post_stage)
+        # global-dt implicit stepping seeds Newton with the predictor
+        # 2u - u_old carried across steps (src/claw.cc:1063-1065,
+        # 1101-1108); local (pseudo-transient) stepping does not
+        self._carry_pred = (method == "implicit"
+                            and time_step_type == "global")
         self._step = self._make_step()
         self._multi_cache: dict[int, Callable] = {}
         # the most recent step's summed MoodStats and its final stage's
@@ -372,8 +441,26 @@ class Solver:
     @property
     def host_syncs(self) -> int:
         """Host reads of device values inside steps so far: the MOOD
-        cascade's one ``bool(chg.any())`` per pass (0 for RK)."""
+        cascade's one ``bool(chg.any())`` per pass (0 for RK; the implicit
+        path counts its own in krylov_counts)."""
         return self._mood_stage.host_syncs if self.method == "mood" else 0
+
+    @property
+    def krylov_counts(self):
+        """The implicit path's KrylovCounts (Newton iterations, restarts,
+        tangents, primals, host reads), or None."""
+        if self.method != "implicit":
+            return None
+        return self._implicit_step.counts
+
+    def _local_dt(self, u):
+        """The per-cell dt of `time step type = local` (rk.local_dt at the
+        solver's CFL), zero on solid cells (dflo_tpu/driver.py:523-530)."""
+        dt = rk_mod.local_dt(self.cell_averages(u), self.mesh,
+                             self.basis.degree, self.cfl)
+        if self.mask is not None:
+            dt = torch.where(self._fmask, dt, torch.zeros_like(dt))
+        return dt
 
     def _mood_rk_step(self, u, t, dt, live=None):
         """SSP stages with the MOOD cascade replacing plain forward-Euler
@@ -412,32 +499,58 @@ class Solver:
         instead of a whole-state diag pass at the start of every step
         (dflo_tpu/driver.py:469-489).
         Nothing in it waits for the device, except the MOOD cascade's one
-        read per pass; live (a 0-dim bool tensor) stops the cascade of a
-        step the chunked loop discards."""
+        read per pass and the implicit path's reads (per GMRES restart and
+        Newton iteration); live (a 0-dim bool tensor) stops the cascade of a
+        step the chunked loop discards.  dt is the fixed time step, or the
+        global CFL dt; with a local time step each cell takes its own
+        (rk.local_dt) and the global one advances t.  Implicit:
+        step(u, t, t_end, pred=None) -> (u, dt, bad, NewtonInfo) with the
+        Newton seed pred, and with a global dt also the next step's seed
+        2u - u_old as a fifth value."""
         denom = 2.0 * self.basis.degree + 1.0
 
-        def step(u, t, t_end, lam_prev=None, live=None):
+        def step(u, t, t_end, lam_prev=None, live=None, pred=None):
+            u_in = u
             t = self._scalar(t)
             t_end = self._scalar(t_end)
-            if carry_lam:
-                lam = lam_prev
+            if self.fixed_time_step is not None:
+                # `time step = ...` with cfl <= 0 (src/claw.cc:455-459)
+                dt = self._scalar(self.fixed_time_step)
             else:
-                lam, _ = self._diag(u)
-            dt = torch.minimum(self.cfl / lam / denom, t_end - t)
+                lam = lam_prev if carry_lam else self._diag(u)[0]
+                dt = self.cfl / lam / denom
+            dt = torch.minimum(dt, t_end - t)
+            dt_field = (self._local_dt(u) if self.time_step_type == "local"
+                        else None)
             stats = ()
+            if self.method == "implicit":
+                u, info = self._implicit_step(
+                    u, t, dt if dt_field is None else dt_field,
+                    u_guess=pred if self._carry_pred else None)
+                _, minq = self._diag(u)
+                # Newton divergence aborts the run like the reference's
+                # AssertThrow (src/claw.cc:919-923)
+                bad = ~(minq >= EPS) | info.diverged
+                out = (u, dt, bad, info)
+                if self._carry_pred:
+                    # the next step's Newton seed (src/claw.cc:1104-1108)
+                    out = out + (2.0 * u - u_in,)
+                return out
             if self.method == "mood":
                 u, stats, (lam_new, minq) = self._mood_rk_step(u, t, dt, live)
                 self.last_stats = stats
             elif self._fused_chain:
                 u, lam_new, minq = rk_mod.ssp_rk_step(
                     self.rhs, u, t, dt, self.ark, self.stage_times,
-                    post_stage=self._post_diag, post_diag=True)
+                    post_stage=self._post_diag, post_diag=True,
+                    dt_field=dt_field)
             else:
                 # the plain chain preserves cell means too: one diag of the
                 # step's result gives the next wave speed and the flag
                 u = rk_mod.ssp_rk_step(self.rhs, u, t, dt, self.ark,
                                        self.stage_times,
-                                       post_stage=self.post_stage)
+                                       post_stage=self.post_stage,
+                                       dt_field=dt_field)
                 lam_new, minq = self._diag(u)
             bad = ~(minq >= EPS)            # NaN-safe
             if carry_lam:
@@ -453,7 +566,13 @@ class Solver:
         multi(u, t, t_end) -> (u, t, n_done, bad, stats).  stats (MOOD):
         MoodStats summed over the chunk, the counts over the steps that took
         effect and the passes over every step dispatched (the JAX loop
-        returns the last step's); () for RK."""
+        returns the last step's); () for RK.  Implicit: the steps' own host
+        reads make a device-only loop moot, so the loop reads `live` before
+        each step and stops there; stats is the last step's NewtonInfo,
+        and the predictor starts from the chunk's first state
+        (dflo_tpu/driver.py:595-599)."""
+        if chunk not in self._multi_cache and self.method == "implicit":
+            self._multi_cache[chunk] = self._multi_implicit(chunk)
         if chunk not in self._multi_cache:
             step = self._make_step(carry_lam=True)
 
@@ -488,6 +607,35 @@ class Solver:
             self._multi_cache[chunk] = multi
         return self._multi_cache[chunk]
 
+    def _multi_implicit(self, chunk: int):
+        """_multi_step's implicit loop (see there)."""
+        step = self._step
+
+        def multi(u, t, t_end):
+            t = self._scalar(t)
+            t_end = self._scalar(t_end)
+            comp = torch.zeros_like(t)
+            it = torch.zeros((), dtype=torch.int64, device=self.device)
+            bad = torch.zeros((), dtype=torch.bool, device=self.device)
+            pred = u
+            stats = ()
+            for _ in range(chunk):
+                self._implicit_step.counts.host_reads += 1
+                if not bool((t < t_end - 1e-12) & ~bad):
+                    break
+                if self._carry_pred:
+                    u, dt, bad, stats, pred = step(u, t, t_end, pred=pred)
+                else:
+                    u, dt, bad, stats = step(u, t, t_end)
+                y = dt - comp
+                t2 = t + y
+                comp = (t2 - t) - y
+                t = t2
+                it = it + 1
+            return u, t, it, bad, stats
+
+        return multi
+
     # ------------------------------------------------------------------
     def run(self, u, t_end: float, t0: float = 0.0,
             callback: Callable | None = None, max_steps: int = 10**7,
@@ -507,9 +655,9 @@ class Solver:
                 self.last_stats = stats or None
                 if bool(bad):
                     raise FloatingPointError(
-                        f"negative density/pressure cell average near "
-                        f"t={float(tdev)!r} (src/positivity.cc:26-39 fatal "
-                        f"condition)")
+                        f"negative density/pressure cell average (or Newton "
+                        f"divergence) near t={float(tdev)!r} "
+                        f"(src/positivity.cc:26-39 fatal condition)")
                 t = float(tdev)
                 it += int(n)
                 if callback is not None:
@@ -521,12 +669,19 @@ class Solver:
                     # zero-step chunks forever
                     break
             return u, t, it
+        pred = u if self._carry_pred else None
         while t < t_end - 1e-12 and it < max_steps:
-            u, dt, bad, _stats = self._step(u, t, t_end)
+            if self._carry_pred:
+                u, dt, bad, stats, pred = self._step(u, t, t_end, pred=pred)
+            else:
+                u, dt, bad, stats = self._step(u, t, t_end)
+            if self.method == "implicit":
+                self.last_stats = stats
             if bool(bad):
                 raise FloatingPointError(
-                    f"negative density/pressure cell average at t={t!r} "
-                    f"(src/positivity.cc:26-39 fatal condition)")
+                    f"negative density/pressure cell average (or Newton "
+                    f"divergence) at t={t!r} (src/positivity.cc:26-39 "
+                    f"fatal condition)")
             t += float(dt)
             it += 1
             if callback is not None:

@@ -6,9 +6,11 @@ wrapper                TPU kernel it replaces                      CUDA source
                        (dflo_tpu/ops/pallas_kernels.py)
 =====================  ==========================================  ==========================
 fused_residual         make_fused_residual, dense (collocated Qk   csrc/fused_residual.cu
-                       and GLL and modal Pk, hllc and lxf; a       csrc/fused_residual_lxf.cu
-                       solid-cell mask on the collocated bases;    csrc/fused_residual_src*.cu
-                       its ops["src"] and wb_iso source arms)      csrc/fused_residual_planes*.cu
+                       and GLL and modal Pk; hllc, lxf, roe, sw,   csrc/fused_residual_lxf.cu
+                       kfvs and kep; a solid-cell mask on the      csrc/fused_residual_{roe,
+                       collocated bases; its ops["src"] and        sw,kfvs,kep}.cu
+                       wb_iso source arms, with hllc and lxf)      csrc/fused_residual_src*.cu
+                                                                   csrc/fused_residual_planes*.cu
                                                                    csrc/fused_residual_wb.cu
 fused_mood_candidate   make_fused_residual(...).sparse (hllc,      csrc/fused_mood_candidate.cu
                        lxf)                                        csrc/fused_mood_candidate_lxf.cu
@@ -94,6 +96,18 @@ TILE_Y, TILE_X = 4, 32
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _lib = None
+
+#: the fluxes of the residual kernel and the C entry point of each (one
+#: source per flux, csrc/fused_residual*.cu)
+_RESIDUAL_ENTRY = {"hllc": "dflo_fused_residual",
+                   "lxf": "dflo_fused_residual_lxf",
+                   "roe": "dflo_fused_residual_roe",
+                   "sw": "dflo_fused_residual_sw",
+                   "kfvs": "dflo_fused_residual_kfvs",
+                   "kep": "dflo_fused_residual_kep"}
+FLUXES = tuple(_RESIDUAL_ENTRY)
+#: the fluxes of the MOOD candidate and of the residual's source arms
+ARM_FLUXES = ("hllc", "lxf")
 
 
 # ---------------------------------------------------------------------------
@@ -184,7 +198,8 @@ def _load():
     sig = {
         "dflo_num_blocks": [ci, ci],
         "dflo_fused_residual": [ci, ci, ci] + [vp] * 10 + [ci, ci, vp],
-        "dflo_fused_residual_lxf": [ci, ci, ci] + [vp] * 10 + [ci, ci, vp],
+        **{_RESIDUAL_ENTRY[f]: [ci, ci, ci] + [vp] * 10 + [ci, ci, vp]
+           for f in FLUXES},
         "dflo_fused_residual_src": [ci] * 5 + [vp] * 12 + [cd, cd, vp, ci, ci,
                                                           vp],
         "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
@@ -377,7 +392,8 @@ class ResidualOps:
     modal basis V [Q, K], the basis at the Q volume quadrature points (the
     kernel contracts the DoFs to point values before the fluxes), and
     avg [K], the cell-average row (LxF's dissipation speed reads the
-    averages of both cells of a face).  flux: "hllc" or "lxf"; mask: the
+    averages of both cells of a face; so does KEP's dissipation matrix).
+    flux: one of FLUXES (kfvs in its kernel form); mask: the
     bool [ny, nx] fluid flags of a masked domain, or None.
 
     The source arm (pallas_kernels.py:573-593), source None or:
@@ -456,6 +472,17 @@ def source_kind(source, well_balanced: str | None) -> str | None:
     return next((k for c, k in _FORCE_ARMS if isinstance(source, c)), None)
 
 
+def arm_later(flux: str, what: str) -> NotImplementedError:
+    """The error of a flux beyond hllc and lxf with the MOOD candidate or a
+    source arm: neither kernel carries it yet, and no device runs it on
+    the plain path instead."""
+    item = ("queue 2, item 8" if what == "the MOOD candidate"
+            else "queue 2, item 9")
+    return NotImplementedError(
+        f"{what} with the {flux!r} flux is not ported yet: the kernel "
+        f"carries {ARM_FLUXES} there (ROADMAP {item})")
+
+
 def nodal_points(basis: basis_mod.Basis, mesh) -> tuple[np.ndarray,
                                                         np.ndarray]:
     """The physical coordinates [Q, ny, nx] of the volume quadrature points
@@ -472,15 +499,16 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
     well_balanced="isothermal", evaluated with torch in dtype on device at
     the nodes."""
     modal = _check_basis(basis)
-    if flux not in ("hllc", "lxf"):
-        raise NotImplementedError(
-            f"the fused residual kernel carries hllc and lxf, not {flux!r} "
-            f"(the other fluxes come with the physics envelope slice)")
+    if flux not in FLUXES:
+        raise ValueError(f"unknown numerical flux {flux!r}; the fused "
+                         f"residual carries {FLUXES}")
     if modal and mask is not None:
         raise NotImplementedError(
             "the fused residual takes the modal Pk basis on an unmasked "
             "domain (masks on Pk come with the physics envelope slice)")
     kind = source_kind(source, well_balanced)
+    if kind is not None and flux not in ARM_FLUXES:
+        raise arm_later(flux, "a source term")
     if kind == "wbiso":
         if modal:
             raise ValueError("well-balanced gravity needs a nodal-collocated "
@@ -815,7 +843,7 @@ def fused_residual_plain(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
     with dt alone the forward-Euler update u + dt*R (the MOOD cascade's
     first candidate); else R = M^{-1} R(u).  Every contraction is an ordered
     sum in the kernel's order."""
-    num_flux = get_flux(ops.flux)
+    num_flux = get_flux(ops.flux, kernel_safe=True)
     faceV = ops.faceV
     # collocated: nodes = quadrature points; modal: point values W = V u
     W = basis_apply_ordered(ops.V, u) if ops.modal else u
@@ -864,7 +892,8 @@ def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
     """M^{-1} R(u) with the boundary delta strips (dfw/dfe [4, nq, ny],
     dfs/dfn [4, nq, nx]); with (u_old, sc = [a, dt] on u's device) the whole
     SSP stage; with dt (a 0-dim tensor on u's device) u + dt*R.  The flux
-    (hllc or lxf), the mask and the source arm come with ops; an external
+    (FLUXES; kfvs in its kernel form), the mask and the source arm come
+    with ops; an external
     force (ops.source "force") takes its planes force = (fx, fy) [Q, ny, nx]
     at the call's time (force_planes).  CPU tensors: the plain version;
     CUDA tensors: the kernel."""
@@ -903,8 +932,7 @@ def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
             _ptr(ops.mask))
     code = _DTYPE_CODE[u.dtype]
     if ops.source is None:
-        entry = (lib.dflo_fused_residual_lxf if ops.flux == "lxf"
-                 else lib.dflo_fused_residual)
+        entry = getattr(lib, _RESIDUAL_ENTRY[ops.flux])
         rc = _call(u.device, entry, code, int(ops.modal), ops.p, *ptrs,
                    _ptr(out), ny, nx, _stream(u.device))
     else:
@@ -974,6 +1002,8 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
     if not rops.modal:
         raise NotImplementedError("the MOOD candidate takes the modal Pk "
                                   "basis")
+    if rops.flux not in ARM_FLUXES:
+        raise arm_later(rops.flux, "the MOOD candidate")
     if tuple(u_prev.shape) != tuple(u_pre.shape):
         raise ValueError("u_prev must have u_pre's shape")
     if not _cuda_or_cpu(u_pre, u_prev, dfw, dfe, dfs, dfn, dt, rops.buf,

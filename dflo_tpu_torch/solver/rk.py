@@ -35,18 +35,24 @@ def default_scheme(degree: int) -> str:
 
 
 def ssp_rk_step(rhs: Callable, u, t, dt, ark, stage_times,
-                post_stage: Callable | None = None, post_diag: bool = False):
+                post_stage: Callable | None = None, post_diag: bool = False,
+                dt_field=None):
     """One SSP-RK step u(t) -> u(t + dt); t and dt are 0-dim tensors on u's
     device (or Python floats on the CPU).
 
     If `rhs` has a ``.stage(u, u_old, t, a, dt)`` attribute (the fused
-    residual kernel) the residual and the SSP blend run as one pass per stage.
-    post_diag=True: ``post_stage`` returns (u, lam_max, minq) and the step
+    residual kernel) and dt is a scalar, the residual and the SSP blend run
+    as one pass per stage.  dt_field: a per-cell [ny, nx] dt for `time step
+    type = local` pseudo-transient marching (src/claw.cc:444-481): each
+    stage is then R (the kernel's R form on the fused path) and a torch
+    blend, as the reference's, while the stage times still advance by the
+    scalar dt.  post_diag=True: ``post_stage`` returns (u, lam_max, minq) and the step
     returns the FINAL stage's triple; the chain preserves cell means, so that
     lam/minq are the diagnostics of the step's result."""
     if post_diag and post_stage is None:
         raise ValueError("post_diag requires a post_stage")
-    stage_fn = getattr(rhs, "stage", None)
+    stage_fn = getattr(rhs, "stage", None) if dt_field is None else None
+    dtu = dt if dt_field is None else dt_field
     u_old = u
     diag = None
     for a, c in zip(ark, stage_times):
@@ -54,7 +60,7 @@ def ssp_rk_step(rhs: Callable, u, t, dt, ark, stage_times,
         if stage_fn is not None:
             u = stage_fn(u, u_old, tc, a, dt)
         else:
-            u = u + dt * rhs(u, tc)
+            u = u + dtu * rhs(u, tc)
             u = a * u_old + (1.0 - a) * u
         if post_stage is not None:
             if post_diag:
@@ -80,3 +86,15 @@ def compute_dt(ubar, mesh, degree: int, cfl: float, mask=None):
         dt_cells = torch.where(mask, dt_cells,
                                torch.full_like(dt_cells, float("inf")))
     return torch.amin(dt_cells)
+
+
+def local_dt(ubar, mesh, degree: int, cfl: float):
+    """The per-cell dt field [ny, nx] of local (steady pseudo-transient)
+    stepping, `time step type = local` (src/claw.cc:444-481): compute_dt's
+    cell values without the min."""
+    h = mesh.diameter_h
+    c = euler.sound_speed(ubar)
+    vx = torch.abs(ubar[euler.MX] / ubar[euler.RHO])
+    vy = torch.abs(ubar[euler.MY] / ubar[euler.RHO])
+    max_eig = (c + vx) / h + (c + vy) / h
+    return cfl / max_eig / (2.0 * degree + 1.0)

@@ -11,7 +11,10 @@ gravity on a potential (``well_balanced``, isothermal or polytropic, on a
 collocated basis).  The state is ``u[4, K, ny, nx]``;
 the residual is du/dt = M^{-1} R(u, t) with the diagonal mass solve folded
 in.  The fluxes get the cell averages of both cells (LxF's dissipation
-speed reads them; HLLC does not).
+speed and KEP's dissipation matrix read them; HLLC, Roe, Steger-Warming
+and KFVS do not).  The fused form evaluates kfvs in its kernel form, with
+the A&S erf, as the reference's kernel does; its strips and the plain
+forms take torch's erf.
 
 Three forms, selected by ``make_rhs(..., volume_kernel=...)`` as in the
 reference:

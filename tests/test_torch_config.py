@@ -114,12 +114,18 @@ def test_unported_branches_raise(tmp_path):
         "full mass": params("set degree = 1",
                             "set degree = 1\nset mass matrix = full"),
         "AMR": params("set refinement = false", "set refinement = true"),
-        "implicit": params("set method = rk3", "set method = gmres"),
-        "fluxes": params("set flux = lxf", "set flux = roe"),
     }
     for what, p in cases.items():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.build_solver(p, dtype=torch.float64, device="cpu")
+    # implicit stepping and the Roe flux build now (tests/
+    # test_torch_implicit.py and test_torch_fluxes.py run them)
+    s, _ = cli.build_solver(params("set method = rk3", "set method = gmres"),
+                            dtype=torch.float64, device="cpu")
+    assert s.method == "implicit"
+    s, _ = cli.build_solver(params("set flux = lxf", "set flux = roe"),
+                            dtype=torch.float64, device="cpu")
+    assert s.flux == "roe"
     gmsh = params("set mesh type = cartesian",
                   "set mesh type = gmsh\nset mesh file = a.msh")
     gmsh.cartesian_mesh.nx = 0

@@ -8,7 +8,10 @@ ragged ny = 4 and 10, and the Q1 post periodic on both axes (the vortex
 system's), with and without its diag; the residual's source arms (gravity
 and the force planes on Qk, GLL and Pk, isothermal well-balancing on GLL
 and Qk, hllc and lxf, p = 1, 2, 3, at the ragged 40 x 10), the diag on GLL
-and the f64 well-balance drift through the kernel at 64 x 64.
+and the f64 well-balance drift through the kernel at 64 x 64; the Roe,
+Steger-Warming, KFVS and KEP forms of the residual (Qk, GLL and Pk, p = 1
+and 2, and masked Q1) and their refusal of MOOD and the source arms; one
+f64 implicit step with the kernel primal against the plain primal.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -668,3 +671,134 @@ def test_well_balance_through_the_kernel(cuda, flux):
         == 75
     drift = float((u - u0).abs().max())
     assert drift < 5e-13, drift
+
+
+# ---------------------------------------------------------------------------
+# the Roe, Steger-Warming, KFVS and KEP forms of the residual, and one
+# implicit step with the kernel primal against the plain primal
+# ---------------------------------------------------------------------------
+
+NEW_FLUXES = ("roe", "sw", "kfvs", "kep")
+
+
+def bump_state(x, y, t=0.0):
+    """Free stream (0.5, 0, 1, 2.6) with a Gaussian bump
+    (tests/test_implicit.py:83-110)."""
+    b = 0.05 * torch.exp(-50.0 * ((x - 0.5) ** 2 + (y - 0.5) ** 2))
+    return torch.stack([0.5 + b, b, 1.0 + b, torch.full_like(x, 2.6)])
+
+
+def far_values(x, y, t):
+    return torch.stack([torch.full_like(x, v) for v in (0.5, 0.0, 1.0, 2.6)])
+
+
+BUMP_BCS = dict(W=BoundarySide(euler.BC_FARFIELD, far_values),
+                E=BoundarySide(euler.BC_FARFIELD, far_values),
+                S=BoundarySide(euler.BC_SLIP), N=BoundarySide(euler.BC_SLIP))
+
+
+def setup_bump(family, p, flux, dtype, device, nx=SRC_NX, ny=SRC_NY):
+    """The fused rhs of `flux` on the unit square (farfield W/E, slip S/N)
+    and the bump state with a 2 % perturbation (numpy seed p)."""
+    basis = make_basis(family, p)
+    mesh = CartesianMesh(nx, ny, 0.0, 1.0, 0.0, 1.0)
+    u = ic.set_initial_condition(basis, mesh, bump_state,
+                                 dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(p)
+    u = (u * torch.from_numpy(1.0 + 0.02 * rng.uniform(-1.0, 1.0, u.shape))
+         ).to(dtype=dtype, device=device)
+    rhs = make_rhs(basis, mesh, BUMP_BCS, flux=flux, dtype=dtype,
+                   device=device, volume_kernel="fused")
+    return u, rhs
+
+
+def check_three_forms(cuda, u, rhs, dt, tag):
+    """R, u + dt*R and the SSP stage against the plain version, each
+    launched once under its own form key."""
+    t = torch.full((), 0.25, dtype=dt, device=cuda)
+    strips = rhs.strips(u, t)
+    h = torch.full((), 1e-3, dtype=dt, device=cuda)
+    sc = torch.tensor([0.75, 1e-3], dtype=dt, device=cuda)
+    u_old = u.flip(-1).contiguous()
+    kernels.reset_launch_counts()
+    for kw in ({}, {"dt": h}, {"u_old": u_old, "sc": sc}):
+        k = kernels.fused_residual(u, *strips, rhs.ops, **kw)
+        q = kernels.fused_residual_plain(u, *strips, rhs.ops, **kw)
+        torch.cuda.synchronize()
+        assert rel(k, q) <= TOL[dt], kw.keys()
+    counts = kernels.launch_counts()
+    assert all(counts[f"fused_residual[{tag}_{f}]"] == 1
+               for f in ("R", "step", "stage")), counts
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2))
+@pytest.mark.parametrize("family", ("Qk", "Qk_gll", "Pk"))
+@pytest.mark.parametrize("flux", NEW_FLUXES)
+def test_new_flux_residual_matches_plain(cuda, flux, family, p, dtype):
+    dt = getattr(torch, dtype)
+    u, rhs = setup_bump(family, p, flux, dt, cuda)
+    tag = {"Qk": "qk", "Pk": "pk", "Qk_gll": "gll"}[family]
+    check_three_forms(cuda, u, rhs, dt, f"{tag}_{flux}")
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("flux", NEW_FLUXES)
+def test_new_flux_masked_residual_matches_plain(cuda, flux, dtype):
+    dt = getattr(torch, dtype)
+    basis, mesh, u, _, _, _ = setup_fs(1, dt, cuda, seed=40)
+    rhs = make_rhs(basis, mesh, FS_BCS, flux=flux, dtype=dt, device=cuda,
+                   volume_kernel="fused", mask=mesh_mask(mesh))
+    check_three_forms(cuda, u, rhs, dt, f"qk_{flux}_masked")
+
+
+def mesh_mask(mesh):
+    """The forward step's solid block of setup_fs."""
+    xc, yc = mesh.cell_centers()
+    return ~((xc > 0.6) & (yc < 0.2))
+
+
+def test_new_fluxes_refuse_mood_and_source_arms(cuda):
+    u, rhs = setup_bump("Pk", 2, "roe", torch.float64, cuda)
+    basis = make_basis("Qk", 1)
+    mesh = CartesianMesh(SRC_NX, SRC_NY, 0.0, 1.0, 0.0, 1.0)
+    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
+        make_rhs(basis, mesh, BUMP_BCS, flux="kep", dtype=torch.float64,
+                 device=cuda, volume_kernel="fused",
+                 source=euler.GravitySource(0.0, -1.0))
+    deg = torch.full(u.shape[2:], 2, dtype=torch.int32, device=cuda)
+    cells = torch.ones(u.shape[2:], dtype=torch.bool, device=cuda)
+    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
+        rhs.sparse_candidate(u, u.clone(), deg, 0.0,
+                             torch.full((), 1e-3, dtype=u.dtype,
+                                        device=cuda), cells)
+
+
+def test_implicit_step_kernel_primal_matches_plain_primal(cuda):
+    """One f64 implicit step (Q1, roe, block-Jacobi, two Newton
+    iterations) with the residual kernel's primal against the plain
+    residual's: the same state to 1e-10 and the same Newton count, the
+    kernel launched in its R form, no plain twin called."""
+    from dflo_tpu_torch.driver import Solver
+    basis = make_basis("Qk", 1)
+    mesh = CartesianMesh(24, 16, 0.0, 1.0, 0.0, 1.0)
+    out = {}
+    for vk in ("fused", "xla"):
+        s = Solver(basis, mesh, BUMP_BCS, flux="roe", cfl=5.0,
+                   method="implicit", max_nonlin_iter=2,
+                   linear_residual=1e-6, precondition="block_jacobi",
+                   volume_kernel=vk, dtype=torch.float64, device=cuda)
+        u0 = ic.set_initial_condition(basis, mesh, bump_state,
+                                      dtype=torch.float64, device=cuda)
+        kernels.reset_launch_counts()
+        u, dt, bad, info, _ = s._step(u0, 0.0, 1.0, pred=u0)
+        torch.cuda.synchronize()
+        assert not bool(bad)
+        # the linear solves converged and Newton reduced ||F||
+        assert float(info.lin_res) <= 1.001e-6
+        assert float(info.res) < float(info.res0)
+        out[vk] = (u, int(info.iters), kernels.launch_counts())
+    assert rel(out["fused"][0], out["xla"][0]) <= 1e-10
+    assert out["fused"][1] == out["xla"][1]
+    assert out["fused"][2]["fused_residual[qk_roe_R]"] > 0
+    assert out["xla"][2]["fused_residual"] == 0
