@@ -39,7 +39,8 @@ Phases (any failure raises, and the script then prints no result):
    limiter maps, equal MoodStats.
 8. the device's busy share: each main path's chunk (RK 5 steps, MOOD 3,
    forward step 3, sharded RK 3, the vortex 10, rayleigh_taylor 10,
-   iso_xing_shu 10) under torch.profiler; busy time is the union of the
+   iso_xing_shu 10, the forward step on P2 under MOOD 3) under
+   torch.profiler; busy time is the union of the
    device events' intervals; idle shares of the traced wall and of the
    untraced ms/step of phases 3, 6 and 10.
 9. forward-step kernels against their plain versions, on the Mach-3
@@ -148,10 +149,11 @@ Phases (any failure raises, and the script then prints no result):
    kernel's ms against the rest; not diverged, finite.
 21. the steady bump through cli.run: Q1, roe, `method = gmres`,
    `stationary = true`, local dt, cfl 2, linear residual 1e-4 at 256 x 256
-   (the 128 x 128 companion first), --max-steps 20 per level (at cfl 2
+   (the 128 x 128 companion first), --max-steps 10 per level (at cfl 2
    the bump's disturbance crosses these grids in hundreds of PTC steps:
    60 steps moved ||R|| from 66.8 to 45.4 on 128 x 128 and not at all on
-   256 x 256, PERF.md PR 8), f32: the PTC steps and first and last ||R||
+   256 x 256, see PERF.md; 20 per level before phase 24's paths came, cut
+   to keep the script near its earlier length), f32: the PTC steps and first and last ||R||
    of each level (both histories to chiprun_out/steady_history.json), the
    CLI timer, roe R-form launches (> 0), plain calls (0), every linear
    solve run, the histories finite.
@@ -159,6 +161,40 @@ Phases (any failure raises, and the script then prints no result):
    (cfl 2, linear residual 1e-6, block-Jacobi), 10 steps with
    volume_kernel="fused" and "xla" from the same state: within 1e-10
    relative, equal Newton counts, every linear solve converged.
+23. the masked modal residual against its plain version, f32 and f64, in
+   its R, u + dt*R and SSP-stage forms with all six fluxes at P1, P2 and
+   P3, on examples/forward_step_tpu.prm on the modal basis at its full 1920
+   x 640 (IC perturbed on every mode by a seeded generator, solid cells
+   pinned, plain positivity), a solid cell's R exactly 0; and the MOOD
+   candidate with roe, sw, kfvs and kep on the 1152 x 288 P2 DMR run with
+   each flux (kep from a contact, phase 24) after 3 plain MOOD steps, on a
+   realistic cell set and on every cell; whether each case is bitwise;
+   CUDA-event times of the P2 forms (kernel median of 20, plain of 5) and
+   of each candidate; ptxas registers and spills of the modal residual and
+   the candidate per flux.  Then the other kernels of phase 24's paths at
+   their sizes, f32 and f64: on the forward step's P2 MOOD solver at 1920
+   x 640 the masked Pk diag and the modal positivity with and without
+   truncation (degree map from the pass-1 candidate's masked check) and
+   in its diag form; on rayleigh_taylor's P2 MOOD solver at 1024 x 3072
+   after 2 plain steps the check (pass 1 and the dense route's pass 2,
+   bitwise), the Pk post with and without diag (0 flipped cells in f64)
+   and the modal positivity; CUDA-event times of each.
+24.the new paths, f32, no plain version called, finite, on the card:
+   forward_step_tpu.prm on P2 (`basis = Pk`, `degree = 2`) under MOOD
+   through cli.run at 1920 x 640, 20 steps in chunks of 10 (the masked
+   modal u + dt*R form, the modal positivity kernel and the masked diag
+   launched), then timed apart from output over 20 steps:
+   fwdstep_p2_mood_dof_updates_per_sec with ms/step, MoodStats, host
+   syncs and launches per step (its chunk traced in phase 8); the same
+   under rk3, 10 steps (fwdstep_p2_rk_tvb_dof_updates_per_sec, the masked
+   modal stage form); rayleigh_taylor.prm on P2 under MOOD with
+   positivity at 1024 x 3072, 10 steps (rt_p2_mood_gravity_dof_updates_
+   per_sec: the gravity arm's u + dt*R form, the check kernel, the Pk
+   post); the DMR MOOD path with each of roe, sw, kfvs and kep at 1152 x
+   288, 10 steps (dmr_p2_mood_<flux>_dof_updates_per_sec, the flux's
+   candidate launched; kep from a contact discontinuity in the DMR box:
+   from the Mach-10 shock the reference's KEP cascade, and the port's,
+   give NaN in the first step).
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -252,8 +288,18 @@ BUMP_FAR = (0.5, 0.0, 1.0, 2.6)
 #: takes over 10 s), the steady bump through the CLI (phase 21), the f64
 #: kernel primal against the plain one (phase 22)
 IMPL_N, IMPL_FALLBACK_N, IMPL_STEPS = 1024, 512, 5
-STEADY_N, STEADY_STEPS = 256, 20
+STEADY_N, STEADY_STEPS = 256, 10
 PRIMAL_N, PRIMAL_STEPS = 64, 10
+#: masked modal Pk and MOOD with every flux and a body force (phases
+#: 23-24): the residual's fluxes; the forward step on P2 under MOOD
+#: (FWD_MOOD_STEPS in chunks of FWD_MOOD_CHUNK) and RK; rayleigh_taylor on
+#: P2 MOOD at RT_NX x RT_NY; the DMR MOOD path with each new flux
+ALL_FLUXES = ("hllc", "lxf") + FLUX_NEW
+FWD_MOOD_STEPS, FWD_MOOD_CHUNK = 20, 10
+FWD_RK_STEPS = 10
+RT_MOOD_STEPS = 10
+RT_PLAIN_STEPS = 2                # steps that make phase 23's rt input
+DMR_FLUX_STEPS = 10
 #: the external force of the force-plane form (f_0, f_1 expressions)
 FORCE_EXPR = ("0.01*sin(2*pi*x)*cos(t)", "-1.0")
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
@@ -355,6 +401,39 @@ SOURCES = {
     "fused_diag_impl": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
                         f"{PK}:make_fused_diag (implicit)", "fused_diag",
                         "impl"),
+    "fused_residual_pk_masked": ("dflo_tpu_torch/csrc/fused_residual_lxf.cu",
+                                 f"{PK}:617",
+                                 f"{PK}:make_fused_residual (modal Pk, "
+                                 f"masked, lxf; u + dt*R)",
+                                 "fused_residual[pk_lxf_masked_step]",
+                                 "fwd_mood"),
+    "fused_residual_pk_masked_rk": ("dflo_tpu_torch/csrc/"
+                                    "fused_residual_lxf.cu", f"{PK}:617",
+                                    f"{PK}:make_fused_residual (modal Pk, "
+                                    f"masked, lxf; SSP stage)",
+                                    "fused_residual[pk_lxf_masked_stage]",
+                                    "fwd_rk"),
+    **{f"fused_mood_candidate_{f}": (
+        f"dflo_tpu_torch/csrc/fused_mood_candidate_{f}.cu", f"{PK}:955",
+        f"{PK}:make_fused_residual(...).sparse ({f})",
+        f"fused_mood_candidate[{f}]", f"dmr_{f}") for f in FLUX_NEW},
+    "fused_diag_pk_masked": ("dflo_tpu_torch/csrc/fused_diag.cu",
+                             f"{PK}:1663", f"{PK}:make_fused_diag (masked Pk)",
+                             "fused_diag", "fwd_mood"),
+    "fused_modal_pos_fwd": ("dflo_tpu_torch/csrc/fused_modal_pos.cu",
+                            f"{PK}:1805", f"{PK}:make_fused_modal_pos "
+                            f"(masked Pk, truncation)", "fused_modal_pos",
+                            "fwd_mood"),
+    "fused_mood_check_rt": ("dflo_tpu_torch/csrc/fused_mood_check.cu",
+                            f"{PK}:2222", f"{PK}:make_fused_mood_check "
+                            f"(gravity)", "fused_mood_check", "rt_mood"),
+    "fused_pk_post_rt": ("dflo_tpu_torch/csrc/fused_pk_post.cu",
+                         f"{PK}:1997", f"{PK}:make_fused_pk_post (gravity)",
+                         "fused_pk_post", "rt_mood"),
+    "fused_modal_pos_rt": ("dflo_tpu_torch/csrc/fused_modal_pos.cu",
+                           f"{PK}:1805", f"{PK}:make_fused_modal_pos "
+                           f"(gravity, truncation)", "fused_modal_pos",
+                           "rt_mood"),
 }
 #: the grid each row is measured and bounded at, by path: the DMR's, the
 #: forward step's, the vortex's; the LxF candidate's launches come from
@@ -367,7 +446,9 @@ GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
          "rt_pk": (RT_NX, RT_NY), "rt_force": (RT_NX, RT_NY),
          "iso": (ISO_N, ISO_N), "impl": (IMPL_N, IMPL_N),
          "flux_sw": (FLUX_N, FLUX_N), "flux_kfvs": (FLUX_N, FLUX_N),
-         "flux_kep": (FLUX_N, FLUX_N)}
+         "flux_kep": (FLUX_N, FLUX_N), "fwd_mood": (FS_NX, FS_NY),
+         "fwd_rk": (FS_NX, FS_NY), "rt_mood": (RT_NX, RT_NY),
+         **{f"dmr_{f}": (NX, NY) for f in FLUX_NEW}}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
@@ -475,7 +556,7 @@ def plain_versions(kernels):
 
 
 def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
-         halo: int = 0, fluid: int = 0):
+         halo: int = 0, fluid: int = 0, flux: str = "lxf"):
     """(bytes, operations) that the kernel's function needs on n cells of
     `basis`: each input read once and each output written once.  Operations
     count a multiply-add as 2 and a division, square root or comparison as
@@ -504,8 +585,17 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     point: HLLC 100, LxF 70, Roe 150, Steger-Warming 110, KFVS 130 (exp
     counted as one operation), KEP 250 (logs likewise) and KEP's averages
     as LxF's; the roe row is its R form (u read, R written), the others
-    and "_stage" names the SSP-stage form."""
+    and "_stage" names the SSP-stage form.  The candidates with the new
+    fluxes count as the hllc candidate with their flux's cost; the masked
+    modal rows as the modal residual with `flux` (LxF unless named) plus a
+    mask byte per cell, in the u + dt*R form (MOOD's pass 1) and the
+    SSP-stage form (RK).  The rows of phase 24's masked and gravity paths
+    count as their DMR or forward-step rows, the positivity with
+    truncation (the cascade's form) reading the degree map besides."""
     from dflo_tpu_torch.stab.positivity import _pos_points
+    name = {"fused_diag_pk_masked": "fused_diag_fwd",
+            "fused_pk_post_rt": "fused_pk_post",
+            "fused_mood_check_rt": "fused_mood_check"}.get(name, name)
 
     def nnz(a):
         """nonzero entries; an entry within 1e-12 of the largest is a zero
@@ -531,12 +621,12 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     tvb = 300 + 32 * K
     if name == "fused_residual":             # SSP-stage form, main path
         return 3 * state * n, (res + 20 * K) * n
-    flux = name[len("fused_residual_"):].split("_")[0]
-    if name.startswith("fused_residual_") and flux in FLUX_OPS:
-        ops = res - 2 * nq * 100 + 2 * nq * FLUX_OPS[flux]
-        if flux == "kep":
+    nflux = name[len("fused_residual_"):].split("_")[0]
+    if name.startswith("fused_residual_") and nflux in FLUX_OPS:
+        ops = res - 2 * nq * 100 + 2 * nq * FLUX_OPS[nflux]
+        if nflux == "kep":
             ops += 8 * nnz(avg)
-        if flux == "roe" and not name.endswith("_stage"):
+        if nflux == "roe" and not name.endswith("_stage"):
             return 2 * state * n, ops * n
         return 3 * state * n, (ops + 20 * K) * n
     Q = basis.V.shape[0]
@@ -558,6 +648,20 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     if name == "fused_mood_candidate_lxf":
         return (halo * (state + 4) + cells * state + n,
                 (lxf + 8 * K) * cells + pos * halo)
+    cflux = name[len("fused_mood_candidate_"):]
+    if name.startswith("fused_mood_candidate_") and cflux in FLUX_OPS:
+        ops = res - 2 * nq * 100 + 2 * nq * FLUX_OPS[cflux]
+        if cflux == "kep":
+            ops += 8 * nnz(avg)
+        return (halo * (state + 4) + cells * state + n,
+                (ops + 8 * K) * cells + pos * halo)
+    if name.startswith("fused_residual_pk_masked"):
+        ops = (res - 2 * nq * 100
+               + 2 * nq * {"hllc": 100, "lxf": 70, **FLUX_OPS}[flux]
+               + (8 * nnz(avg) if flux in ("lxf", "kep") else 0))
+        if name.endswith("_rk"):                # SSP stage
+            return 3 * state * n + n, (ops + 20 * K) * n
+        return 2 * state * n + n, (ops + 8 * K) * n    # u + dt*R
     if name == "fused_post_pbc":             # mark-all, no positivity, diag
         return 2 * state * n, (8 * K + 40) * n + tvb * marked
     if name == "volume_residual":
@@ -575,6 +679,8 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
                 (res + 8 * K) * cells + pos * halo)
     if name == "fused_modal_pos":            # main-path form: no truncation
         return 2 * state * n, pos * n
+    if name in ("fused_modal_pos_fwd", "fused_modal_pos_rt"):
+        return 2 * state * n + 4 * n, pos * n
     if name == "fused_pk_post":              # with diag
         return (2 * state + S) * n, (4 + pos + 40) * n + tvb * marked
     if name in ("fused_post", "fused_post_block"):     # with diag
@@ -787,7 +893,7 @@ def cascade_pass1(kernels, s, u, tt, h) -> dict:
     from dflo_tpu_torch.physics import euler
     from dflo_tpu_torch.stab import mood as mood_mod
     stage = s._mood_stage
-    mops, cops = stage.mops, stage.cops
+    mops = stage.mops
     ny, nx = u.shape[-2:]
     rho0 = mops.avg0 * u[euler.RHO, 0]
     out = {"bmin": mood_mod.neighborhood_min(rho0, stage.valid),
@@ -798,14 +904,15 @@ def cascade_pass1(kernels, s, u, tt, h) -> dict:
            "strips": s.rhs.strips(u, tt)}
     out["u_c"] = kernels.fused_residual_plain(u, *out["strips"], s.rhs.ops,
                                               dt=h)
-    out["deg1"], out["lim1"], out["chg1"] = kernels.fused_mood_check_plain(
-        out["u_c"], out["bmin"], out["bmax"], out["deg0"], out["lim0"], cops)
+    with plain_versions(kernels):       # on a masked domain the plain check
+        out["deg1"], out["lim1"], out["chg1"] = stage._check(
+            out["u_c"], out["bmin"], out["bmax"], out["deg0"], out["lim0"])
     moved = (kernels.fused_modal_pos_plain(u, mops) != u).flatten(0, 1).any(0)
-    aff = (out["chg1"] | mood_mod.dilate4_valid(out["chg1"], stage.valid)
-           | mood_mod.dilate4_valid(moved, stage.valid))
+    aff = (out["chg1"] | mood_mod.dilate4(out["chg1"])
+           | mood_mod.dilate4(moved))
     out["aff"] = aff
     out["data"] = {"cells": int(aff.sum()),
-                   "halo": int(mood_mod.dilate4_valid(aff, stage.valid).sum())}
+                   "halo": int(mood_mod.dilate4(aff).sum())}
     return out
 
 
@@ -1326,7 +1433,8 @@ def phase_trace(entry, ms_per_step, built):
     solver at 1920 x 640, the sharded RK path 3 steps on the (2, 2) virtual
     mesh, the vortex 10 steps at 2048 x 2048, rayleigh_taylor 10 steps at
     1024 x 3072 and iso_xing_shu 10 steps at 2048 x 2048 on their CLI's
-    solvers; built[method] = (solver, state) for all but the first two;
+    solvers, the forward step on P2 under MOOD 3 steps on its CLI's solver;
+    built[method] = (solver, state) for all but the first two;
     f32, after a warm-up):
     device busy time, and the idle share of the traced wall and of the
     untraced ms/step of the main-path phase (ms_per_step[method]; tracing
@@ -1336,7 +1444,7 @@ def phase_trace(entry, ms_per_step, built):
     out = {}
     for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3), ("shard", 3),
                           ("vortex", VX_CHUNK), ("rt", SRC_CHUNK),
-                          ("iso", SRC_CHUNK)):
+                          ("iso", SRC_CHUNK), ("fwd_mood", 3)):
         if method in built:
             s, u = built[method]
         else:
@@ -2152,10 +2260,18 @@ def flux_case(family, p, flux, dtype, masked, seed):
     return RhsOnly(rhs), perturbed(u, seed)
 
 
-def ptxas_table(log: str) -> dict:
-    """{source: [(dtype, basis, p, registers, spill bytes)]} of the new
-    flux sources' residual kernels, from the build's ptxas lines."""
+def ptxas_table(log: str, sources=None,
+                kernel: str = "fused_residual_kernel") -> dict:
+    """{source: [(dtype, basis, p, registers, spill bytes)]} of one kernel
+    template's instantiations (the residual kernel's, or the candidate
+    kernel's, always modal) in `sources` (default: the new flux sources),
+    from the build's ptxas lines."""
     import re
+    if sources is None:
+        sources = {f"fused_residual_{f}.cu" for f in FLUX_NEW}
+    pat = (r"fused_residual_kernelI([fd])Li(\d)ELb(\d)ELi\d+ELi0E"
+           if kernel == "fused_residual_kernel"
+           else r"fused_mood_candidate_kernelI([fd])Li(\d)E()")
     out, src, fn, spill = {}, None, "", 0
     for line in log.splitlines():
         if line.startswith("== "):
@@ -2167,11 +2283,11 @@ def ptxas_table(log: str) -> dict:
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
-        k = re.search(r"fused_residual_kernelI([fd])Li(\d)ELb(\d)E", fn)
-        if m and k and src in {f"fused_residual_{f}.cu" for f in FLUX_NEW}:
+        k = re.search(pat, fn)
+        if m and k and src in sources:
             out.setdefault(src, []).append(
                 ("f32" if k.group(1) == "f" else "f64",
-                 "Pk" if k.group(3) == "1" else "Qk", int(k.group(2)),
+                 "Qk" if k.group(3) == "0" else "Pk", int(k.group(2)),
                  int(m.group(1)), spill))
     return out
 
@@ -2545,6 +2661,463 @@ def phase_primal_f64(kernels):
     return e
 
 
+# ---------------------------------------------------------------------------
+# phases 23-24: masked modal Pk, MOOD with a body force and with every flux
+# ---------------------------------------------------------------------------
+
+def edit_prm(src: str, out: str, nx: int, ny: int, *edits) -> str:
+    """cut_prm(src, out, nx, ny) with each (old, new) text edit made."""
+    cut_prm(src, out, nx, ny)
+    text = open(out).read()
+    for old, new in edits:
+        assert old in text, old
+        text = text.replace(old, new)
+    with open(out, "w") as f:
+        f.write(text)
+    return out
+
+
+def pk_edits(p: int, method: str):
+    """The forward step's edits to the modal P_p basis and `method`."""
+    return (("set degree = 1", f"set degree = {p}\nset basis = Pk"),
+            ("set method = rk3", f"set method = {method}"))
+
+
+#: rayleigh_taylor's edits to P2 MOOD with positivity
+RT_MOOD_EDITS = (("set degree = 1", "set degree = 2"),
+                 ("set basis = Qk", "set basis = Pk"),
+                 ("set method = rk3", "set method = mood"),
+                 ("set positivity limiter = false",
+                  "set positivity limiter = true"))
+
+
+def dmr_mood(entry, flux: str, dtype):
+    """(solver, IC) of the 1152 x 288 DMR MOOD configuration with `flux`.
+    With kep the IC is entry.contact_ic: from the Mach-10 shock the
+    cascade with KEP gives NaN in its first step, in the reference as in
+    the port (dflo_tpu's Solver at 32 x 8 and 64 x 16 on the CPU; KEP's
+    logarithmic means of a state the shock drives non-positive)."""
+    from dflo_tpu_torch import ic
+    s, u0 = entry._build(NX, NY, dtype=dtype, device="cuda", method="mood",
+                         flux=flux)
+    if flux == "kep":
+        u0 = ic.set_initial_condition(s.basis, s.mesh, entry.contact_ic,
+                                      dtype=dtype, device="cuda")
+    return s, u0
+
+
+def fwd_pk_solver(kernels, p: int, dtype, method: str = "rk3"):
+    """(solver, state) of the forward step on P_p (`method`) at its full
+    1920 x
+    640: the IC with 2 % noise on every DoF and 0.3 % of the mean on the
+    higher modes (a seeded generator on the card), solid cells pinned in
+    every mode (Solver.apply_mask), then the plain modal positivity, as
+    every state the paths hand the residual has had."""
+    from dflo_tpu_torch import cli
+    from dflo_tpu_torch.config.params import AllParameters
+    with tempfile.TemporaryDirectory() as out:
+        prm = edit_prm(FS_PRM, os.path.join(out, "fs_pk.prm"), FS_NX, FS_NY,
+                       *pk_edits(p, method))
+        params = AllParameters.from_prm_file(prm)
+    s, _ = cli.build_solver(params, dtype=dtype, device="cuda")
+    u = perturbed(cli.set_ic(params, s), 100 + p)
+    g = torch.Generator(device="cuda").manual_seed(200 + p)
+    noise = torch.rand(u[:, 1:].shape, generator=g, dtype=dtype,
+                       device="cuda")
+    u[:, 1:] += 0.003 * u[:, :1] * (2.0 * noise - 1.0)
+    return s, kernels.fused_modal_pos_plain(s.apply_mask(u),
+                                            s.rhs.modal_ops)
+
+
+def phase_masked_pk_kernels(entry, kernels, results, log):
+    """Phase 23: the masked modal residual (R, u + dt*R and SSP stage, all
+    six fluxes, P1-P3) on the forward step at 1920 x 640, and the candidate
+    with roe, sw, kfvs and kep on the DMR run with each (a realistic cell
+    set and every cell), against their plain versions, f32 and f64, with
+    whether each is bitwise; a solid cell's R exactly 0; CUDA-event times
+    (kernel: median of 20, plain: of 5) of the P2 forms beside each
+    form's bound; ptxas registers and spills of the Pk residual and of the
+    candidate per flux."""
+    from dflo_tpu_torch.solver.spatial import make_rhs
+    res_src = {"fused_residual.cu"} | {f"fused_residual_{f}.cu"
+                                       for f in ALL_FLUXES[1:]}
+    cand_src = {"fused_mood_candidate.cu"} | {
+        f"fused_mood_candidate_{f}.cu" for f in ALL_FLUXES[1:]}
+    regs = {src: [r for r in rows if r[1] == "Pk"]
+            for src, rows in ptxas_table(log, res_src).items()}
+    regs.update(ptxas_table(log, cand_src, "fused_mood_candidate_kernel"))
+    for src, rows in sorted(regs.items()):
+        print(f"ptxas {src} (Pk): " + ", ".join(
+            f"{d} P{p} {r} regs {sp} B spilled" for d, _, p, r, sp in rows))
+    results["masked_pk_registers"] = regs
+    name, rk = "fused_residual_pk_masked", "fused_residual_pk_masked_rk"
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        tol = TOL[dtype]
+        cases, times = {}, {}
+        for p in (1, 2, 3):
+            s, u = fwd_pk_solver(kernels, p, dtype)
+            t = s._scalar(0.25)
+            h = torch.full((), 1e-4, dtype=dtype, device="cuda")
+            sc = torch.stack([torch.full_like(h, 0.75), h])
+            u_old = torch.roll(u, 1, -1).contiguous()
+            for flux in ALL_FLUXES:
+                rhs = make_rhs(s.basis, s.mesh, s.bcs, flux=flux, dtype=dtype,
+                               device="cuda", volume_kernel="fused",
+                               mask=s.mask)
+                assert not hasattr(rhs, "sparse_candidate")
+                strips = rhs.strips(u, t)
+                forms = ({}, {"dt": h}, {"u_old": u_old, "sc": sc})
+                pairs = [(kernels.fused_residual(u, *strips, rhs.ops, **kw),
+                          kernels.fused_residual_plain(u, *strips, rhs.ops,
+                                                       **kw)) for kw in forms]
+                torch.cuda.synchronize()
+                e = fold(results, name, tag, pairs, tol["fused_residual"])
+                assert float(pairs[0][0][..., ~rhs.ops.mask].abs().max()) \
+                    == 0.0, f"{flux} P{p} {tag}: a solid cell's R is not 0"
+                cases[f"{flux} P{p}"] = {
+                    "rel_err": e,
+                    "bitwise": all(torch.equal(k, q) for k, q in pairs)}
+                del pairs
+                if p == 2:
+                    # the three forms; the plain step (MOOD's pass 1) and
+                    # stage (RK) beside them
+                    tm = {"R": time_ms(lambda: kernels.fused_residual(
+                              u, *strips, rhs.ops)),
+                          "step": time_ms(lambda: kernels.fused_residual(
+                              u, *strips, rhs.ops, dt=h)),
+                          "stage": time_ms(lambda: kernels.fused_residual(
+                              u, *strips, rhs.ops, **forms[2])),
+                          "plain_step": time_ms(
+                              lambda: kernels.fused_residual_plain(
+                                  u, *strips, rhs.ops, dt=h), reps=5, warm=1),
+                          "plain_stage": time_ms(
+                              lambda: kernels.fused_residual_plain(
+                                  u, *strips, rhs.ops, **forms[2]), reps=5,
+                              warm=1)}
+                    n = FS_NX * FS_NY
+                    for form, row in (("step", name), ("stage", rk)):
+                        tm[f"bound_{form}"] = bound(row, s.basis, dtype, n,
+                                                    flux=flux)[0]
+                    times[flux] = tm
+                    print(f"[{tag}] masked P2 {flux} {FS_NX}x{FS_NY}: "
+                          + ", ".join(f"{k} {v:.4f} ms"
+                                      for k, v in tm.items()))
+                del rhs, strips
+            del s, u, u_old
+            torch.cuda.empty_cache()
+        r = results[name]
+        r[f"cases_{tag}"] = cases
+        r[f"forms_ms_{tag}"] = times
+        r[f"ms_{tag}"] = times["lxf"]["step"]
+        r[f"plain_ms_{tag}"] = times["lxf"]["plain_step"]
+        for k in ("max_rel_err", "max_abs_err", "bitwise"):
+            results[rk][f"{k}_{tag}"] = r[f"{k}_{tag}"]
+        results[rk][f"ms_{tag}"] = times["lxf"]["stage"]
+        results[rk][f"plain_ms_{tag}"] = times["lxf"]["plain_stage"]
+        print(f"[{tag}] masked modal residual not bitwise in: "
+              f"{sorted(k for k, v in cases.items() if not v['bitwise'])}")
+
+        # ---- the candidate with each new flux on the DMR run with it -----
+        for flux in FLUX_NEW:
+            cname = f"fused_mood_candidate_{flux}"
+            s, u = dmr_mood(entry, flux, dtype)
+            u, t = s.post_stage(u), 0.0
+            with plain_versions(kernels):
+                for _ in range(MOOD_PLAIN_STEPS):
+                    u, dtt, bad, _ = s._step(u, t, 1.0)
+                    t += float(dtt)
+                    assert not bool(bad), f"{tag}: plain {flux} MOOD: bad"
+            tt = s._scalar(t)
+            c1 = cascade_pass1(kernels, s, u, tt, dtt)
+            results[cname][f"data_{tag}"] = c1["data"]
+            assert int(c1["chg1"].sum()) > 0, f"the {flux} cascade is idle"
+            tp_strips = s.rhs.strips(u, tt, c1["deg1"])
+            rops, mops = s.rhs.ops, s.rhs.modal_ops
+
+            def cand(fn, cells):
+                return fn(u, c1["u_c"].clone(), c1["deg1"], cells,
+                          *tp_strips, rops, mops, dtt)
+
+            e = fold(results, cname, tag,
+                     [(cand(kernels.fused_mood_candidate, c),
+                       cand(kernels.fused_mood_candidate_plain, c))
+                      for c in (c1["aff"], torch.ones_like(c1["aff"]))],
+                     tol["fused_mood_candidate"])
+            u_prev = c1["u_c"].clone()
+            time_pair(results, cname, tag,
+                      lambda: kernels.fused_mood_candidate(
+                          u, u_prev, c1["deg1"], c1["aff"], *tp_strips, rops,
+                          mops, dtt),
+                      lambda: kernels.fused_mood_candidate_plain(
+                          u, u_prev, c1["deg1"], c1["aff"], *tp_strips, rops,
+                          mops, dtt), (NX, NY))
+            print(f"[{tag}] {cname}: after {MOOD_PLAIN_STEPS} plain steps, "
+                  f"pass 1 reduces {int(c1['chg1'].sum())} cells, set "
+                  f"{c1['data']}, rel err {e:.3e}")
+            del s, u, c1, u_prev
+            torch.cuda.empty_cache()
+
+
+def modal_pos_pairs(kernels, s, u, deg, states):
+    """(kernel, plain) pairs of fused_modal_pos on each of `states` without
+    and with the degree map `deg`, each also in its diag form."""
+    mops = s.rhs.modal_ops
+    return [pair for v in states for d in (None, deg)
+            for pair in [(kernels.fused_modal_pos(v, mops, d),
+                          kernels.fused_modal_pos_plain(v, mops, d)),
+                         *zip(kernels.fused_modal_pos(v, mops, d,
+                                                      with_diag=True),
+                              kernels.fused_modal_pos_plain(
+                                  v, mops, d, with_diag=True))]]
+
+
+def phase_pk_path_kernels(kernels, results):
+    """Phase 23, the other kernels of phase 24's masked and gravity MOOD
+    paths at their sizes, f32 and f64, against their plain versions: on
+    the forward step's P2 MOOD solver at 1920 x 640 (fwd_pk_solver's
+    state, the degree map of its pass-1 candidate's masked check) the
+    masked Pk diag and the modal positivity with and without truncation
+    (and their diag forms), on that state and on the candidate pinned; on
+    rayleigh_taylor's P2 MOOD solver at 1024 x 3072 after RT_PLAIN_STEPS
+    plain steps the check (pass 1 and the dense route's pass 2, bitwise),
+    the Pk post (with and without diag, on the marks of a plain stage) and
+    the modal positivity; CUDA-event times of each main-path form."""
+    from dflo_tpu_torch.physics import euler
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        tol = TOL[dtype]
+        # ---- the masked forward step on P2 --------------------------------
+        s, u = fwd_pk_solver(kernels, 2, dtype, "mood")
+        assert s.mask is not None and s._mood_stage.mask is not None
+        lam, _ = kernels.fused_diag_plain(u, s._diag_ops)
+        h = s.cfl / lam / (2.0 * s.basis.degree + 1.0)
+        c1 = cascade_pass1(kernels, s, u, s._scalar(0.0), h)
+        deg1 = c1["deg1"]
+        assert int(c1["chg1"].sum()) > 0, "the masked check reduces nothing"
+        pinned = s.apply_mask(c1["u_c"])
+        fold(results, "fused_diag_pk_masked", tag,
+             [pair for v in (u, pinned)
+              for pair in zip(kernels.fused_diag(v, s._diag_ops),
+                              kernels.fused_diag_plain(v, s._diag_ops))],
+             tol["fused_diag"])
+        fold(results, "fused_modal_pos_fwd", tag,
+             modal_pos_pairs(kernels, s, u, deg1, (u, pinned)),
+             tol["fused_modal_pos"])
+        mops = s.rhs.modal_ops
+        grid = (FS_NX, FS_NY)
+        time_pair(results, "fused_diag_pk_masked", tag,
+                  lambda: kernels.fused_diag(u, s._diag_ops),
+                  lambda: kernels.fused_diag_plain(u, s._diag_ops), grid)
+        time_pair(results, "fused_modal_pos_fwd", tag,
+                  lambda: kernels.fused_modal_pos(u, mops, deg1),
+                  lambda: kernels.fused_modal_pos_plain(u, mops, deg1), grid)
+        print(f"[{tag}] masked P2 {FS_NX}x{FS_NY}: pass 1 reduces "
+              f"{int(c1['chg1'].sum())} cells")
+        del s, u, c1, pinned, deg1
+        torch.cuda.empty_cache()
+
+        # ---- rayleigh_taylor on P2 under MOOD ------------------------------
+        with tempfile.TemporaryDirectory() as out:
+            prm = edit_prm(RT_PRM, os.path.join(out, "rt_mood.prm"), RT_NX,
+                           RT_NY, *RT_MOOD_EDITS)
+            _, s, u0 = prm_solver(prm, dtype)
+        assert s.method == "mood" and s.mask is None
+        u, t = s.post_stage(u0), 0.0
+        del u0
+        with plain_versions(kernels):
+            for _ in range(RT_PLAIN_STEPS):
+                u, dtt, bad, _ = s._step(u, t, 1.0)
+                t += float(dtt)
+                assert not bool(bad), f"{tag}: plain rt MOOD steps: bad"
+            _, marked, _, _ = s._mood_stage(u, s._scalar(t), dtt)
+        tt = s._scalar(t)
+        c1 = cascade_pass1(kernels, s, u, tt, dtt)
+        deg1, lim1 = c1["deg1"], c1["lim1"]
+        assert int(c1["chg1"].sum()) > 0, "the rt cascade is idle"
+        mops, cops, pops = s.rhs.modal_ops, s._mood_stage.cops, \
+            s._pk_post_ops
+        # the dense route's pass 2: truncated predictor, forward Euler
+        u_t = kernels.fused_modal_pos_plain(u, mops, deg1)
+        u_c2 = kernels.fused_residual_plain(u_t, *s.rhs.strips(u_t, tt),
+                                            s.rhs.ops, dt=dtt)
+        del u_t
+        fold(results, "fused_mood_check_rt", tag,
+             [pair for uc, dg, lm in ((c1["u_c"], c1["deg0"], c1["lim0"]),
+                                      (u_c2, deg1, lim1))
+              for pair in zip(
+                  kernels.fused_mood_check(uc, c1["bmin"], c1["bmax"], dg,
+                                           lm, cops),
+                  kernels.fused_mood_check_plain(uc, c1["bmin"],
+                                                 c1["bmax"], dg, lm, cops))],
+             0.0, bitwise=True)
+        shock = marked.to(dtype) * 2.0
+        results["fused_pk_post_rt"][f"data_{tag}"] = {
+            "marked": int(marked.sum())}
+        for v in (u, c1["u_c"]):
+            e, nflip, e_diag = check_post(
+                results, "fused_pk_post_rt", tag, tol["fused_pk_post"],
+                kernels.fused_pk_post(v, shock, pops, with_diag=True),
+                kernels.fused_pk_post(v, shock, pops),
+                kernels.fused_pk_post_plain(v, shock, pops, with_diag=True))
+            print(f"[{tag}] fused_pk_post_rt rel err {e:.3e} outside "
+                  f"{nflip} flipped cells of {int(marked.sum())} marked; "
+                  f"diag rel err {e_diag:.3e}")
+            assert e <= tol["fused_pk_post"], f"fused_pk_post_rt {tag}: {e}"
+            assert (nflip == 0 if dtype == torch.float64
+                    else nflip <= MAX_FLIP_FRACTION * RT_NX * RT_NY)
+        fold(results, "fused_modal_pos_rt", tag,
+             modal_pos_pairs(kernels, s, u, deg1, (u, c1["u_c"])),
+             tol["fused_modal_pos"])
+        grid = (RT_NX, RT_NY)
+        u_c, bmin, bmax = c1["u_c"], c1["bmin"], c1["bmax"]
+        deg0, lim0 = c1["deg0"], c1["lim0"]
+        time_pair(results, "fused_mood_check_rt", tag,
+                  lambda: kernels.fused_mood_check(u_c, bmin, bmax, deg0,
+                                                   lim0, cops),
+                  lambda: kernels.fused_mood_check_plain(u_c, bmin, bmax,
+                                                         deg0, lim0, cops),
+                  grid)
+        time_pair(results, "fused_pk_post_rt", tag,
+                  lambda: kernels.fused_pk_post(u, shock, pops,
+                                                with_diag=True),
+                  lambda: kernels.fused_pk_post_plain(u, shock, pops,
+                                                      with_diag=True), grid)
+        time_pair(results, "fused_modal_pos_rt", tag,
+                  lambda: kernels.fused_modal_pos(u, mops, deg1),
+                  lambda: kernels.fused_modal_pos_plain(u, mops, deg1), grid)
+        print(f"[{tag}] rt P2 MOOD {RT_NX}x{RT_NY} after {RT_PLAIN_STEPS} "
+              f"plain steps: pass 1 reduces {int(c1['chg1'].sum())} cells, "
+              f"{int(marked.sum())} marked; rho min "
+              f"{float(u[euler.RHO, 0].min())!r}")
+        del s, u, c1, u_c2, shock, marked, u_c
+        torch.cuda.empty_cache()
+
+
+def mood_summary(s, counts, stats, syncs, steps):
+    """The per-step MOOD numbers of a path's run."""
+    n_st = steps * len(s.ark)
+    return {"mood_stats_per_step": {"n_reduce": int(stats.n_reduce) / steps,
+                                    "n_marked": int(stats.n_marked) / steps,
+                                    "passes": stats.iters / steps},
+            "cascade_passes_per_stage": stats.iters / n_st,
+            "host_syncs_per_step": syncs / steps,
+            "strips_per_step": (counts["fused_residual"]
+                                + counts["fused_mood_candidate"]) / steps}
+
+
+def phase_main_pk(kernels, plain_calls, name, metric, prm, grid, edits,
+                  steps, chunk, forms):
+    """Phase 24: one new path through cli.run (the prm edited and cut to
+    grid), `steps` steps in chunks of `chunk`, f32: finite, no fatal flag,
+    on the card, no plain version called, each of `forms` launched; then
+    the CLI's solver timed apart from output over as many steps; returns
+    launch counts, ms/step and (solver, state) for the trace."""
+    from dflo_tpu_torch import cli
+    nx, ny = grid
+    with tempfile.TemporaryDirectory() as out:
+        cut = edit_prm(prm, os.path.join(out, f"{name}.prm"), nx, ny, *edits)
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        t0 = time.perf_counter()
+        res = cli.run([cut, "--max-steps", str(steps), "--chunk", str(chunk),
+                       "--output-dir", out])
+        torch.cuda.synchronize()
+        wall_cli = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    s = res.solver
+    finite = bool(torch.isfinite(res.u).all())
+    used = {k: v for k, v in counts.items() if v}
+    print(f"{name} CLI {nx}x{ny}: {res.it} steps to t={res.t!r} in "
+          f"{wall_cli:.2f} s with set-up and output, finite={finite}, "
+          f"launches={used}, plain calls={plain_calls['n']}")
+    assert res.it == steps and finite
+    assert res.u.dtype == torch.float32 and res.u.is_cuda
+    assert all(counts.get(f, 0) > 0 for f in forms), (forms, used)
+    assert plain_calls["n"] == 0, f"{name} called a plain version"
+
+    multi = s._multi_step(chunk)
+    multi(res.u, res.t, 1e3)                       # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    syncs0 = s.host_syncs
+    u, t, n, bad, stats = res.u, res.t, 0, False, None
+    t0 = time.perf_counter()
+    for _ in range(steps // chunk):
+        u, t, nd, bad_c, st = multi(u, t, 1e3)
+        n, bad = n + nd, bad | bad_c
+        stats = st if not stats else type(st)(*(a + b
+                                                for a, b in zip(stats, st)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = kernels.launch_counts()
+    n, bad = int(n), bool(bad)
+    assert n == steps and not bad and bool(torch.isfinite(u).all())
+    ms = 1e3 * wall / steps
+    line = {metric: 4 * s.basis.K * nx * ny * steps / wall,
+            "unit": "DoF-updates/s", "dtype": "float32", "grid": [nx, ny],
+            "steps": steps, "chunk": chunk, "ms_per_step": ms,
+            "cli_wall_s": wall_cli, "t": float(t),
+            "launches_per_step": {k: v / steps for k, v in timed.items()
+                                  if v},
+            "card": card_line()}
+    if s.method == "mood":
+        line.update(mood_summary(s, timed, stats, s.host_syncs - syncs0,
+                                 steps))
+    print(json.dumps(line))
+    return counts, ms, (s, u)
+
+
+def phase_dmr_flux_mood(entry, kernels, plain_calls):
+    """Phase 24: the DMR MOOD path with roe, sw, kfvs and kep (dmr_mood:
+    entry._build(1152, 288, float32, cuda, "mood", flux=...); kep from the
+    contact), post_stage,
+    a 2-step warm-up, DMR_FLUX_STEPS steps in one chunk: finite, no fatal
+    flag, no plain version called, the flux's candidate launched;
+    dmr_p2_mood_<flux>_dof_updates_per_sec; returns {flux: launch
+    counts}."""
+    out = {}
+    for flux in FLUX_NEW:
+        s, u0 = dmr_mood(entry, flux, torch.float32)
+        u = s.post_stage(u0)
+        s._multi_step(2)(u, 0.0, 1.0e3)            # warm-up
+        multi = s._multi_step(DMR_FLUX_STEPS)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        syncs0 = s.host_syncs
+        t0 = time.perf_counter()
+        u1, t1, n, bad, stats = multi(u, 0.0, 1.0e3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        n, bad = int(n), bool(bad)
+        finite = bool(torch.isfinite(u1).all())
+        print(f"DMR MOOD {flux}: {n} steps to t={float(t1)!r}, bad={bad}, "
+              f"finite={finite}, plain calls={plain_calls['n']}")
+        assert n == DMR_FLUX_STEPS and not bad and finite and u1.is_cuda
+        assert counts.get(f"fused_mood_candidate[{flux}]", 0) > 0, counts
+        assert plain_calls["n"] == 0, f"the {flux} MOOD path: plain calls"
+        print(json.dumps({
+            f"dmr_p2_mood_{flux}_dof_updates_per_sec":
+                4 * s.basis.K * NX * NY * DMR_FLUX_STEPS / wall,
+            "unit": "DoF-updates/s", "dtype": "float32", "grid": [NX, NY],
+            "steps": DMR_FLUX_STEPS, "ic": "contact" if flux == "kep"
+            else "dmr", "ms_per_step": 1e3 * wall / DMR_FLUX_STEPS,
+            **mood_summary(s, counts, stats, s.host_syncs - syncs0,
+                           DMR_FLUX_STEPS),
+            "launches_per_step": {k: v / DMR_FLUX_STEPS
+                                  for k, v in counts.items() if v},
+            "card": card_line()}))
+        out[flux] = counts
+        del s, u, u1
+    return out
+
+
+def clock(t_start: float, what: str) -> None:
+    """The script's elapsed time before the phases `what`."""
+    print(f"chip_smoke: at {time.perf_counter() - t_start:.1f} s, next: "
+          f"{what}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2570,27 +3143,39 @@ def main() -> int:
         if "Used" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
 
+    clock(t_start, "phases 2, 5 and 9")
     # ---- phases 2, 5 and 9: kernels against plain versions ------------------
     results = {name: {} for name in SOURCES}
     results["flux_registers"] = {}
+    results["masked_pk_registers"] = {}
     dmr_states = phase_kernels(entry, kernels, euler, results)
     phase_mood_kernels(entry, kernels, results)
     fwd_states = phase_fwd_kernels(kernels, results)
 
+    clock(t_start, "phase 12")
     # ---- phase 12: the sharded path's block kernels -------------------------
     phase_shard_kernels(entry, kernels, results, dmr_states)
     del dmr_states
 
+    clock(t_start, "phase 14")
     # ---- phase 14: the modal LxF forms and the periodic post ---------------
     phase_lxf_kernels(entry, kernels, results)
 
+    clock(t_start, "phase 17")
     # ---- phase 17: the source arms and the well-balance oracle --------------
     results["well_balance_drift"] = {}
     phase_source_kernels(kernels, results)
 
+    clock(t_start, "phase 19")
     # ---- phase 19: the Roe, Steger-Warming, KFVS and KEP forms --------------
     phase_flux_kernels(kernels, results, log)
 
+    clock(t_start, "phase 23")
+    # ---- phase 23: the masked modal residual, the candidate's four fluxes --
+    phase_masked_pk_kernels(entry, kernels, results, log)
+    phase_pk_path_kernels(kernels, results)
+
+    clock(t_start, "phases 3 and 6")
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
     plain_calls = {"n": 0}
     for name in WRAPPERS:
@@ -2605,16 +3190,19 @@ def main() -> int:
     counts["mood"], ms_step["mood"] = phase_main_mood(entry, kernels,
                                                       plain_calls)
 
+    clock(t_start, "phases 10 and 11")
     # ---- phases 10 and 11: the forward step, through the CLI and with the
     # volume_kernel="pallas" path --------------------------------------------
     counts["fwd"], ms_step["fwd"], fwd = phase_main_fwd(kernels, plain_calls)
     counts["pallas"] = phase_pallas(kernels, plain_calls, fwd_states)
     del fwd_states
 
+    clock(t_start, "phase 13")
     # ---- phase 13: the sharded main path and the 1-vs-N check --------------
     counts["shard"], ms_step["shard"], shard = phase_main_shard(
         entry, kernels, plain_calls, results)
 
+    clock(t_start, "phases 15 and 16")
     # ---- phases 15 and 16: the vortex main path, the seven configs ---------
     counts["vortex"], ms_step["vortex"], vortex = phase_main_vortex(
         kernels, plain_calls)
@@ -2622,6 +3210,7 @@ def main() -> int:
     counts["sod_mood"] = by_config["sod_mood"]
     counts["pbc"] = by_config["vortex_system_pbc"]
 
+    clock(t_start, "phase 18")
     # ---- phase 18: the body-force main paths --------------------------------
     counts["rt"], ms_step["rt"], rt = phase_main_source(
         kernels, plain_calls, "rayleigh_taylor",
@@ -2637,6 +3226,7 @@ def main() -> int:
         kernels, plain_calls, "rt_force", rt_force,
         "fused_residual[qk_hllc_force_stage]")
 
+    clock(t_start, "phases 19-22")
     # ---- phases 19-22: the new fluxes' RK paths, the implicit paths ---------
     by_flux = phase_flux_paths(kernels, plain_calls)
     for flux in ("sw", "kfvs", "kep"):
@@ -2647,15 +3237,41 @@ def main() -> int:
     counts["steady"], steady = phase_main_steady(kernels, plain_calls)
     primal_err = phase_primal_f64(kernels)
 
+    clock(t_start, "phase 24")
+    # ---- phase 24: masked P2 (MOOD and RK), MOOD with gravity, the DMR
+    # MOOD path with each new flux ------------------------------------------
+    counts["fwd_mood"], ms_step["fwd_mood"], fwd_mood = phase_main_pk(
+        kernels, plain_calls, "fwd_p2_mood",
+        "fwdstep_p2_mood_dof_updates_per_sec", FS_PRM, (FS_NX, FS_NY),
+        pk_edits(2, "mood"), FWD_MOOD_STEPS, FWD_MOOD_CHUNK,
+        ("fused_residual[pk_lxf_masked_step]", "fused_modal_pos",
+         "fused_diag"))
+    counts["fwd_rk"], _, _ = phase_main_pk(
+        kernels, plain_calls, "fwd_p2_rk",
+        "fwdstep_p2_rk_tvb_dof_updates_per_sec", FS_PRM, (FS_NX, FS_NY),
+        pk_edits(2, "rk3"), FWD_RK_STEPS, FWD_RK_STEPS,
+        ("fused_residual[pk_lxf_masked_stage]", "fused_diag"))
+    counts["rt_mood"], _, _ = phase_main_pk(
+        kernels, plain_calls, "rt_p2_mood",
+        "rt_p2_mood_gravity_dof_updates_per_sec", RT_PRM, (RT_NX, RT_NY),
+        RT_MOOD_EDITS, RT_MOOD_STEPS, RT_MOOD_STEPS,
+        ("fused_residual[pk_hllc_grav_step]", "fused_mood_check",
+         "fused_pk_post", "fused_modal_pos"))
+    for flux, c in phase_dmr_flux_mood(entry, kernels, plain_calls).items():
+        counts[f"dmr_{flux}"] = c
+
+    clock(t_start, "phase 8")
     # ---- phase 8: the device's busy share under torch.profiler --------------
     busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard,
                                         "vortex": vortex, "rt": rt,
-                                        "iso": iso})
-    del vortex, rt, iso
+                                        "iso": iso, "fwd_mood": fwd_mood})
+    del vortex, rt, iso, fwd_mood
 
+    clock(t_start, "phase 7")
     # ---- phase 7: sparse against dense ---------------------------------------
     phase_sparse_dense(entry, kernels, results)
 
+    clock(t_start, "phase 4")
     # ---- phase 4: entry() analog, one f64 step ------------------------------
     fn, (ue, te, tend) = entry.entry(dtype=torch.float64, device="cuda")
     uk = fn(ue, te, tend)
@@ -2679,7 +3295,10 @@ def main() -> int:
              "rt_force": make_basis("Qk", 1),
              "iso": make_basis("Qk_gll", 2), "impl": make_basis("Qk", 1),
              "flux_sw": make_basis("Qk", 1), "flux_kfvs": make_basis("Qk", 1),
-             "flux_kep": make_basis("Qk", 1)}
+             "flux_kep": make_basis("Qk", 1),
+             **{k: make_basis("Pk", 2) for k in
+                ("fwd_mood", "fwd_rk", "rt_mood",
+                 *(f"dmr_{f}" for f in FLUX_NEW))}}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
@@ -2713,7 +3332,8 @@ def main() -> int:
                if k.startswith(("block_ms", "sharded_", "stage_ms",
                                 "ms_source", "variants_", "ms_R_",
                                 "plain_ms_R_", "no_source_ms_", "cases_",
-                                "plain_stage_ms", "stage_bound"))}})
+                                "plain_stage_ms", "stage_bound",
+                                "forms_ms_"))}})
     assert all(math.isfinite(v) for row in table for v in row.values()
                if isinstance(v, float))
     total_s = time.perf_counter() - t_start
@@ -2727,6 +3347,7 @@ def main() -> int:
                       "implicit_vortex": impl, "steady": steady,
                       "implicit_f64_primal_rel_err": primal_err,
                       "flux_registers": results["flux_registers"],
+                      "masked_pk_registers": results["masked_pk_registers"],
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
                                           "mood_host", "shard_f64",

@@ -1,7 +1,7 @@
 // The MOOD candidate kernel, shared by fused_mood_candidate.cu (hllc) and
-// fused_mood_candidate_lxf.cu (lxf): two sources so that nvcc builds the
-// two fluxes' instantiations side by side (see fused_mood_candidate.cu for
-// what it computes and what bounds it).
+// fused_mood_candidate_{lxf,roe,sw,kfvs,kep}.cu: one source per flux so
+// that nvcc builds the six fluxes' instantiations side by side (see
+// fused_mood_candidate.cu for what it computes and what bounds it).
 #pragma once
 
 #include <stdint.h>

@@ -3,14 +3,17 @@
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_residual(...).sparse
 // (the sparse MOOD re-update, :945-1056, a dynamic pallas grid over a list
 // of 8 x 128 tiles), and with every cell set its one-pass dense candidate
-// (`fused(..., deg, dt_tp)` with modal_tp), with the hllc or the lxf flux.
+// (`fused(..., deg, dt_tp)` with modal_tp), with any of the six fluxes
+// (this source: hllc; fused_mood_candidate_{lxf,roe,sw,kfvs,kep}.cu the
+// others).
 // Per cell: u_t + dt*R(u_t) with u_t = {Pk truncation to the cell's degree
 // -> Zhang-Shu positivity}(u_pre) (modal.cuh modal_tp), applied to the cell
 // AND to each face neighbor with the neighbor's own degree before its trace;
 // the residual is residual.cuh's with the caller's strips computed from the
-// same u_t edge lines.  LxF's dissipation speed reads the averages of the
-// tp'd cell and neighbor, as the plain version averages the tp'd state
-// (positivity keeps the mean only up to rounding).
+// same u_t edge lines.  LxF's dissipation speed and KEP's dissipation
+// matrix read the averages of the tp'd cell and neighbor, as the plain
+// version averages the tp'd state (positivity keeps the mean only up to
+// rounding).
 //
 // Sparse form: the grid covers every 32 x 4 tile; a block reads its tile's
 // flag (one byte of a device-side plane built by ops/kernels.tile_flags) and
@@ -33,8 +36,7 @@
 // version does.
 #include "candidate.cuh"
 
-// The hllc candidate (fused_mood_candidate_lxf.cu: lxf); arguments as
-// dflo::candidate_entry.
+// The hllc candidate; arguments as dflo::candidate_entry.
 extern "C" int dflo_fused_mood_candidate(
     int dtype, int p, const void* u, const void* deg, const void* cells,
     const void* flags, const void* dfw, const void* dfe, const void* dfs,

@@ -55,8 +55,8 @@ template DFLO_TABLE(HLLC, FORCE_CONST);
 // dtype: 0 = float32, 1 = float64; modal: 0 = collocated (Qk, GLL), 1 = Pk;
 // p in {1, 2, 3}; flux: 0 = hllc, 1 = lxf; src: 1 = FORCE_CONST (gx, gy),
 // 2 = FORCE_PLANES (fx, fy [Q, ny, nx]), 3 = WB_ISO (phi [K, ny, nx],
-// collocated only).  Forms and mask as dflo_fused_residual (the mask on the
-// collocated basis only).  Returns the cudaGetLastError() code after the
+// collocated only).  Forms and mask as dflo_fused_residual (the mask on
+// either basis).  Returns the cudaGetLastError() code after the
 // launch (0 = launched), -1 for an unsupported case.
 extern "C" int dflo_fused_residual_src(int dtype, int modal, int p, int flux,
                                        int src, const void* u,
@@ -69,7 +69,6 @@ extern "C" int dflo_fused_residual_src(int dtype, int modal, int p, int flux,
                                        void* out, int ny, int nx,
                                        void* stream) {
   using namespace dflo;
-  if (modal && mask != nullptr) return -1;
   const ResArgs a{u,  dfw, dfe, dfs, dfn, uold, sc, ops, mask,
                   fx, fy,  phi, gx,  gy,  out,  ny, nx};
   cudaStream_t s = (cudaStream_t)stream;

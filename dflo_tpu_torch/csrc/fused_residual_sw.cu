@@ -2,9 +2,9 @@
 //
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_residual with
 // flux_name="sw" (kernel body _fused_kernel, :268), on the collocated
-// nodal Qk and GLL bases, masked (pallas_kernels.py:287-292, :472-533,
-// :598-599) or not, and on the modal Pk basis (the V contraction first,
-// :450-459): the kernel of fused_residual.cu (residual.cuh) instantiated with
+// nodal Qk and GLL bases and on the modal Pk basis (the V contraction first,
+// :450-459), masked (pallas_kernels.py:287-292, :472-533, :598-599) or
+// not: the kernel of fused_residual.cu (residual.cuh) instantiated with
 // FLUX = SW, in its R, SSP-stage and u + dt*R forms.  The flux is
 // the Steger-Warming flux-vector splitting (src/equation.h:382-464).
 //
@@ -18,7 +18,7 @@
 #include "residual.cuh"
 
 // dtype: 0 = float32, 1 = float64; modal: 0 = collocated Qk, 1 = Pk;
-// p in {1, 2, 3}.  Forms and mask (collocated Qk only) as
+// p in {1, 2, 3}.  Forms and mask (on either basis) as
 // dflo_fused_residual.  Returns the cudaGetLastError() code after the launch
 // (0 = launched), -1 for an unsupported case.
 extern "C" int dflo_fused_residual_sw(int dtype, int modal, int p,
@@ -28,7 +28,6 @@ extern "C" int dflo_fused_residual_sw(int dtype, int modal, int p,
                                    const void* sc, const void* ops,
                                    const void* mask, void* out, int ny,
                                    int nx, void* stream) {
-  if (modal && mask != nullptr) return -1;
   // no source arm: no planes, no potential, no gravity
   const dflo::ResArgs a{u,   dfw, dfe, dfs, dfn, uold, sc, ops, mask,
                         nullptr, nullptr, nullptr, 0.0, 0.0, out, ny, nx};

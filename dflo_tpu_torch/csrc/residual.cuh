@@ -13,11 +13,13 @@
 // solver/spatial.strips) are added at global column 0 / nx-1 and row
 // 0 / ny-1.  On a masked domain (a uint8 fluid-flag plane) a fluid|solid
 // face, the wrap faces included, takes the slip-wall mirror of the fluid
-// side's trace and average (pallas_kernels.py:472-533), and a solid cell's
-// residual is zeroed (:598-599).  Each cell recomputes the shared face flux
-// from the same operands in the same order as its neighbor ("canonical
-// recompute", pallas_kernels.py:184-193), so no face buffer goes through
-// memory.
+// side's trace and average (pallas_kernels.py:472-533; on the modal basis
+// the cell's own trace and average come from its register-held DoFs, a
+// neighbor's from the loads of its trace), and a solid cell's residual is
+// zeroed (:598-599), so a solid cell's u + dt*R is its u.  Each cell
+// recomputes the shared face flux from the same operands in the same order
+// as its neighbor ("canonical recompute", pallas_kernels.py:184-193), so no
+// face buffer goes through memory.
 //
 // Source arms (template argument SRC, pallas_kernels.py:573-593), added
 // after the lifts and before the mask: a body force S(W) at the Q volume

@@ -36,12 +36,19 @@ The torch counterpart of dflo_tpu/driver.py's ``Solver``:
   constant dt (`cfl <= 0` with a `time step`); the step's scalar dt (the
   global CFL value, or the fixed one) advances t.
 - ``method="mood"``: each SSP stage runs the MOOD cascade (stab/mood.py)
-  from the stage predictor, blends, and runs the fused Pk post (modal TVB on
-  the cells the cascade marked, then positivity); the final stage's Pk post
-  yields the wave speed and the negativity minimum.  The state before the
-  first step goes through the plain stab chain (KXRCF -> modal TVB -> modal
-  positivity), as the JAX package's post_stage does for Pk.  MOOD needs
-  the Pk basis and a global dt (dflo_tpu/driver.py:64-66).
+  from the stage predictor, blends, pins solid cells, and runs the fused Pk
+  post (modal TVB on the cells the cascade marked, then positivity); the
+  final stage's Pk post yields the wave speed and the negativity minimum.
+  On a masked domain, where the reference has no fused Pk post either
+  (dflo_tpu/driver.py:323-326), the stage's post is the plain modal TVB on
+  the marked cells with the mask, then the modal positivity kernel, and the
+  diag kernel reads the wave speed and the negativity minimum off the
+  step's result.  A body force (``euler.GravitySource`` or
+  ``euler.ExternalForce``) rides the residual's source arm; such a cascade
+  and a masked one take the dense route (stab/mood.MoodStage).  The state
+  before the first step goes through the plain stab chain (KXRCF -> modal
+  TVB -> modal positivity), as the JAX package's post_stage does for Pk.
+  MOOD needs the Pk basis and a global dt (dflo_tpu/driver.py:64-66).
 
 ``volume_kernel`` and ``post_kernel`` select the forms as the reference's
 Solver does (dflo_tpu/driver.py:104-138): "auto" takes the fused kernels
@@ -67,12 +74,13 @@ per chunk.  The port's kernels take any block shape: a mesh needs only
 ``ny % DY == nx % DX == 0`` (the JAX package's sharded kernels also want
 8 x 128-aligned blocks).
 
-Configurations outside the ported slices raise NotImplementedError: masked
-MOOD, MOOD with a source term, MOOD or a source term with a flux other than
-hllc and lxf (ROADMAP queue 2, items 8-9), the minmax limiter and the other
-indicators (the physics envelope); under a device mesh, MOOD, implicit and
-local stepping, masks, source terms, the plain and volume_residual forms and
-the plain post chain (ROADMAP queue 1, item 10).
+Configurations outside the ported slices raise NotImplementedError: MOOD
+off the fused residual (with a source callable its source arm does not
+carry), a source term with a flux other than hllc and lxf (ROADMAP queue
+2, item 9), the minmax limiter and the other indicators (the physics
+envelope); under a device mesh, MOOD, implicit and local stepping, masks,
+source terms, the plain and volume_residual forms and the plain post chain
+(ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -127,15 +135,12 @@ def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
     one of the kernel's source arms, with hllc or lxf: a GravitySource, an
     ExternalForce or isothermal well-balancing), the fused post on Gauss Qk
     with the TVB limiter (the reference's post_ok), else the plain forms.
-    MOOD or a source term with another flux raises on every device: no
-    kernel carries them yet, and no device runs them on the plain path."""
+    A source term with another flux raises on every device: no kernel
+    carries it yet, and no device runs it on the plain path."""
     modal = basis.family == "Pk"
     has_source = source is not None or well_balanced is not None
-    if flux not in kernels.ARM_FLUXES:
-        if method == "mood":
-            raise kernels.arm_later(flux, "the MOOD candidate")
-        if has_source:
-            raise kernels.arm_later(flux, "a source term")
+    if flux not in kernels.ARM_FLUXES and has_source:
+        raise kernels.arm_later(flux)
     vol_ok = (basis.degree in kernels.DEGREES
               and (modal or basis.is_nodal_collocated)
               and flux in kernels.FLUXES
@@ -154,8 +159,12 @@ def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
                          "chain only, on Gauss nodes (dflo_tpu/driver.py:"
                          "129-140)")
     if method == "mood" and volume_kernel != "fused":
-        raise NotImplementedError("the port's MOOD cascade runs on the fused "
-                                  "residual (volume_kernel='fused')")
+        raise NotImplementedError(
+            "the port's MOOD cascade runs on the fused residual "
+            "(volume_kernel='fused'), whose source arm carries "
+            "euler.GravitySource and euler.ExternalForce, not other source "
+            "callables (the reference runs such a cascade on its XLA "
+            "residual)")
     return volume_kernel, post_kernel
 
 
@@ -204,15 +213,6 @@ class Solver:
         if method == "mood" and not modal:
             raise ValueError("MOOD requires the Pk basis "
                              "(src/parameters.cc:541-544)")
-        if mask is not None and method == "mood":
-            raise NotImplementedError("masked MOOD comes with the physics "
-                                      "envelope slice")
-        if method == "mood" and (source is not None
-                                 or well_balanced is not None):
-            raise NotImplementedError(
-                "MOOD with a body force or well-balanced gravity is not "
-                "ported yet (the reference's candidate refuses sources, "
-                "pallas_kernels.py:669-673; ROADMAP queue 1, item 3)")
         if device_mesh is not None:
             if method == "mood":
                 raise _mesh_later("the MOOD cascade")
@@ -336,10 +336,13 @@ class Solver:
             self._positivity = make_positivity_limiter(basis, dtype=dtype,
                                                        device=dev)
         if method == "mood":
-            self._pk_post_ops = kernels.pk_post_operators(
-                basis, mesh, M=cfg.M, beta=cfg.beta, char_lim=cfg.char_lim,
-                per_x=per_x, per_y=per_y, dtype=dtype, device=dev)
-            self._mood_stage = make_mood(basis, mesh, self.rhs, per_x, per_y)
+            if self.mask is None:
+                self._pk_post_ops = kernels.pk_post_operators(
+                    basis, mesh, M=cfg.M, beta=cfg.beta,
+                    char_lim=cfg.char_lim, per_x=per_x, per_y=per_y,
+                    dtype=dtype, device=dev)
+            self._mood_stage = make_mood(basis, mesh, self.rhs, per_x, per_y,
+                                         mask=self.mask)
         self.ark, self.stage_times = rk_mod.rk_coeffs(
             scheme or rk_mod.default_scheme(basis.degree))
         self.precondition = precondition
@@ -465,10 +468,13 @@ class Solver:
     def _mood_rk_step(self, u, t, dt, live=None):
         """SSP stages with the MOOD cascade replacing plain forward-Euler
         updates (iterate_mood, src/claw.cc:777-871): each stage re-cascades
-        from degree p, blends, then runs the Pk post with the TVB limiter
-        only on the cells the cascade marked (src/mood.cc:335-340) and
-        positivity (src/claw.cc:866-869).  Returns (u, summed MoodStats,
-        (lam, minq) of the final stage's post)."""
+        from degree p, blends, pins solid cells, then runs the Pk post with
+        the TVB limiter only on the cells the cascade marked
+        (src/mood.cc:335-340) and positivity (src/claw.cc:866-869); on a
+        masked domain that post is the plain modal TVB with the mask and the
+        modal positivity kernel (dflo_tpu/driver.py:443-466).  Returns (u,
+        summed MoodStats, (lam, minq) of the step's result: from the final
+        stage's Pk post, or on a masked domain from the diag)."""
         u_old = u
         n_red = n_mark = None
         iters = 0
@@ -479,15 +485,22 @@ class Solver:
             n_red = st.n_reduce if n_red is None else n_red + st.n_reduce
             n_mark = st.n_marked if n_mark is None else n_mark + st.n_marked
             iters += st.iters
-            u = a * u_old + (1.0 - a) * u_cand
+            u = self.apply_mask(a * u_old + (1.0 - a) * u_cand)
             shock = marked.to(u.dtype) * 2.0
-            if si == n_st - 1:
+            last = si == n_st - 1
+            if self.mask is not None:
+                u = self._limit(u, self.cell_averages(u), shock)
+                u = kernels.fused_modal_pos(u, self.rhs.modal_ops)
+                if last:
+                    lam, minq = self._diag(u)
+            elif last:
                 u, lam, minq = kernels.fused_pk_post(u, shock,
                                                      self._pk_post_ops,
                                                      with_diag=True)
-                self.last_lim, self.last_deg = marked, deg
             else:
                 u = kernels.fused_pk_post(u, shock, self._pk_post_ops)
+            if last:
+                self.last_lim, self.last_deg = marked, deg
         return u, MoodStats(n_red, n_mark, iters), (lam, minq)
 
     def _make_step(self, carry_lam: bool = False):

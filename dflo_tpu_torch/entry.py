@@ -56,12 +56,24 @@ def dmr_ic(x, y, t=0.0):
                         p / (euler.GAMMA - 1.0) + 0.5 * rho * (vx**2 + vy**2)])
 
 
+def contact_ic(x, y, t=0.0):
+    """The post-shock state everywhere, its density halved for x >= 2: a
+    contact discontinuity carried by the Mach-10 flow (no cell comes near
+    the pressure floor)."""
+    rho0, vx, vy, p = POST_SHOCK
+    rho = torch.where(x < 2.0, rho0, 0.5 * rho0).to(x.dtype)
+    return torch.stack([rho * vx, rho * vy, rho,
+                        torch.full_like(x, p / (euler.GAMMA - 1.0))
+                        + 0.5 * rho * (vx * vx + vy * vy)])
+
+
 def _build(nx: int, ny: int, dtype: torch.dtype = torch.float64,
-           device="cuda", method: str = "rk", device_mesh=None):
-    """(solver, u0) of the DMR configuration on an nx x ny mesh; u0 is the
-    nodal interpolant (Qk) or the L2 projection (Pk) of the IC, a whole
-    state on `device` (under a device mesh, ``solver.shard(u0)`` splits
-    it)."""
+           device="cuda", method: str = "rk", device_mesh=None,
+           flux: str = "hllc"):
+    """(solver, u0) of the DMR configuration on an nx x ny mesh, with the
+    HLLC flux unless `flux` names another; u0 is the nodal interpolant (Qk)
+    or the L2 projection (Pk) of the IC, a whole state on `device` (under a
+    device mesh, ``solver.shard(u0)`` splits it)."""
     basis = make_basis("Pk" if method == "mood" else "Qk", 2)
     mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
     bcs = dict(W=BoundarySide(euler.BC_INFLOW, dmr_inflow),
@@ -70,7 +82,7 @@ def _build(nx: int, ny: int, dtype: torch.dtype = torch.float64,
                N=BoundarySide(euler.BC_FARFIELD, dmr_inflow))
     lim = LimiterConfig(type="TVB", shock_indicator="density", beta=2.0,
                         char_lim=True, pos_lim=True)
-    solver = Solver(basis, mesh, bcs, flux="hllc", limiter=lim, cfl=0.5,
+    solver = Solver(basis, mesh, bcs, flux=flux, limiter=lim, cfl=0.5,
                     dtype=dtype, device=device, method=method,
                     device_mesh=device_mesh)
     u0 = ic.set_initial_condition(basis, mesh, dmr_ic, dtype=dtype,

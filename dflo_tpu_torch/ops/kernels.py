@@ -7,13 +7,14 @@ wrapper                TPU kernel it replaces                      CUDA source
 =====================  ==========================================  ==========================
 fused_residual         make_fused_residual, dense (collocated Qk   csrc/fused_residual.cu
                        and GLL and modal Pk; hllc, lxf, roe, sw,   csrc/fused_residual_lxf.cu
-                       kfvs and kep; a solid-cell mask on the      csrc/fused_residual_{roe,
-                       collocated bases; its ops["src"] and        sw,kfvs,kep}.cu
-                       wb_iso source arms, with hllc and lxf)      csrc/fused_residual_src*.cu
+                       kfvs and kep; a solid-cell mask on every    csrc/fused_residual_{roe,
+                       basis; its ops["src"] and wb_iso source     sw,kfvs,kep}.cu
+                       arms, with hllc and lxf)                    csrc/fused_residual_src*.cu
                                                                    csrc/fused_residual_planes*.cu
                                                                    csrc/fused_residual_wb.cu
 fused_mood_candidate   make_fused_residual(...).sparse (hllc,      csrc/fused_mood_candidate.cu
-                       lxf)                                        csrc/fused_mood_candidate_lxf.cu
+                       lxf, roe, sw, kfvs and kep)                 csrc/fused_mood_candidate_{lxf,
+                                                                   roe,sw,kfvs,kep}.cu
 fused_post             make_fused_post; with halo lines, the       csrc/fused_post.cu
                        per-device kernel of
                        make_fused_post_sharded
@@ -106,7 +107,11 @@ _RESIDUAL_ENTRY = {"hllc": "dflo_fused_residual",
                    "kfvs": "dflo_fused_residual_kfvs",
                    "kep": "dflo_fused_residual_kep"}
 FLUXES = tuple(_RESIDUAL_ENTRY)
-#: the fluxes of the MOOD candidate and of the residual's source arms
+#: the C entry point of the MOOD candidate per flux (one source per flux,
+#: csrc/fused_mood_candidate*.cu)
+_CANDIDATE_ENTRY = {f: "dflo_fused_mood_candidate"
+                    + ("" if f == "hllc" else f"_{f}") for f in FLUXES}
+#: the fluxes of the residual's source arms
 ARM_FLUXES = ("hllc", "lxf")
 
 
@@ -203,10 +208,8 @@ def _load():
         "dflo_fused_residual_src": [ci] * 5 + [vp] * 12 + [cd, cd, vp, ci, ci,
                                                           vp],
         "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
-        "dflo_fused_mood_candidate": [ci, ci] + [vp] * 11 + [cd, ci, ci, vp,
-                                                             vp],
-        "dflo_fused_mood_candidate_lxf": [ci, ci] + [vp] * 11
-                                         + [cd, ci, ci, vp, vp],
+        **{e: [ci, ci] + [vp] * 11 + [cd, ci, ci, vp, vp]
+           for e in _CANDIDATE_ENTRY.values()},
         "dflo_fused_post": [ci, ci] + [vp] * 10 + [ci] * 10 + [cd] * 9
                            + [vp],
         "dflo_fused_diag": [ci, ci] + [vp] * 5 + [ci, ci, cd, vp],
@@ -472,15 +475,13 @@ def source_kind(source, well_balanced: str | None) -> str | None:
     return next((k for c, k in _FORCE_ARMS if isinstance(source, c)), None)
 
 
-def arm_later(flux: str, what: str) -> NotImplementedError:
-    """The error of a flux beyond hllc and lxf with the MOOD candidate or a
-    source arm: neither kernel carries it yet, and no device runs it on
-    the plain path instead."""
-    item = ("queue 2, item 8" if what == "the MOOD candidate"
-            else "queue 2, item 9")
+def arm_later(flux: str) -> NotImplementedError:
+    """The error of a source term with a flux beyond hllc and lxf: the
+    kernel's source arms do not carry it yet, and no device runs it on the
+    plain path instead."""
     return NotImplementedError(
-        f"{what} with the {flux!r} flux is not ported yet: the kernel "
-        f"carries {ARM_FLUXES} there (ROADMAP {item})")
+        f"a source term with the {flux!r} flux is not ported yet: the "
+        f"kernel's source arms carry {ARM_FLUXES} (ROADMAP queue 2, item 9)")
 
 
 def nodal_points(basis: basis_mod.Basis, mesh) -> tuple[np.ndarray,
@@ -502,13 +503,9 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
     if flux not in FLUXES:
         raise ValueError(f"unknown numerical flux {flux!r}; the fused "
                          f"residual carries {FLUXES}")
-    if modal and mask is not None:
-        raise NotImplementedError(
-            "the fused residual takes the modal Pk basis on an unmasked "
-            "domain (masks on Pk come with the physics envelope slice)")
     kind = source_kind(source, well_balanced)
     if kind is not None and flux not in ARM_FLUXES:
-        raise arm_later(flux, "a source term")
+        raise arm_later(flux)
     if kind == "wbiso":
         if modal:
             raise ValueError("well-balanced gravity needs a nodal-collocated "
@@ -1002,8 +999,12 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
     if not rops.modal:
         raise NotImplementedError("the MOOD candidate takes the modal Pk "
                                   "basis")
-    if rops.flux not in ARM_FLUXES:
-        raise arm_later(rops.flux, "the MOOD candidate")
+    if rops.mask is not None or rops.source is not None:
+        raise ValueError("the MOOD candidate takes no mask and no source "
+                         "arm, as the reference's sparse pass "
+                         "(dflo_tpu/stab/mood.py:272-274, dflo_tpu/solver/"
+                         "spatial.py:498-499); such a cascade takes the "
+                         "dense route (stab/mood.MoodStage)")
     if tuple(u_prev.shape) != tuple(u_pre.shape):
         raise ValueError("u_prev must have u_pre's shape")
     if not _cuda_or_cpu(u_pre, u_prev, dfw, dfe, dfs, dfn, dt, rops.buf,
@@ -1018,8 +1019,7 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
                              f"{(4, rops.nq, n)}")
     flags = tile_flags(cells)
     lib = _load()
-    entry = (lib.dflo_fused_mood_candidate_lxf if rops.flux == "lxf"
-             else lib.dflo_fused_mood_candidate)
+    entry = getattr(lib, _CANDIDATE_ENTRY[rops.flux])
     rc = _call(u_pre.device, entry, _DTYPE_CODE[u_pre.dtype], rops.p,
         _ptr(u_pre), _ptr(deg), _ptr(cells), _ptr(flags), _ptr(dfw),
         _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(dt), _ptr(rops.buf),

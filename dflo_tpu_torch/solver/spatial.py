@@ -34,8 +34,11 @@ reference:
   source callable and polytropic well-balancing run on the plain forms
   only.  ``.stage`` gives the whole SSP stage
   ``a*u_old + (1-a)*(u + dt*R)`` in one kernel pass and ``.step`` the
-  forward-Euler update ``u + dt*R``.  On the Pk basis ``.sparse_candidate``
-  is the MOOD cascade's candidate on a set of cells
+  forward-Euler update ``u + dt*R``.  On the Pk basis ``.modal_ops`` holds
+  the {truncation -> positivity} operators and, on an unmasked domain
+  without a source term (the reference's sparse envelope,
+  dflo_tpu/stab/mood.py:272-274, dflo_tpu/solver/spatial.py:498-499),
+  ``.sparse_candidate`` is the MOOD cascade's candidate on a set of cells
   (``kernels.fused_mood_candidate``), with strips from the same
   {truncated -> positivity-limited} edge lines (``strips(u, t, deg)``).
 
@@ -361,7 +364,9 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         rhs_fused.strips = strips
         rhs_fused.ops = ops
         rhs_fused.force = force
-        if modal and ops.source is None:
+        if modal:
+            rhs_fused.modal_ops = mops
+        if modal and ops.source is None and mask is None:
             def sparse_candidate(u, u_prev, deg, t, dt, cells):
                 """The MOOD candidate u_t + dt*R(u_t), u_t = {truncation to
                 deg -> positivity}(u), on the cells set in the bool plane
@@ -371,7 +376,6 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
                     u, u_prev, deg, cells, *strips(u, t, deg), ops, mops, dt)
 
             rhs_fused.sparse_candidate = sparse_candidate
-            rhs_fused.modal_ops = mops
         return rhs_fused
 
     if source is not None or well_balanced is not None:

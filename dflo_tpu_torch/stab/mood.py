@@ -9,12 +9,16 @@ candidate can change (the sparse re-update of src/claw.cc:806-852), each
 pass ending in the acceptance check.
 
 Which cells can change: a cell whose degree changed, or a face neighbor of
-one, and -- unlike the JAX package's TPU path -- every cell where applying
-the {truncation -> positivity} chain to the predictor at full degree is not
-the identity, with its face neighbors.  Zhang-Shu positivity is not
-idempotent: on a cell it limited to the pressure floor, a second application
-can take the reference's round-off branch (|1 - t| < 1e-14 -> t = 0) and
-flatten the cell to its mean.  The dense cascade (and the JAX package's CPU
+one in the kernel's periodic-wrap stencil (on a side that is not periodic
+the edge cells' candidates still take their delta strips' wrap flux, which
+reads the opposite edge: it cancels the kernel's only up to rounding, and
+with kfvs only up to its kernel-form erf), and -- unlike the JAX package's
+TPU path -- every cell where applying the {truncation -> positivity} chain
+to the predictor at full degree is not the identity, with its face
+neighbors.  Zhang-Shu positivity is not idempotent: on a cell it limited
+to the pressure floor, a second application can take the reference's
+round-off branch (|1 - t| < 1e-14 -> t = 0) and flatten the cell to its
+mean.  The dense cascade (and the JAX package's CPU
 path) re-applies it to every cell from pass 2 on; a sparse pass that skips
 such a cell keeps its pass-1 value and disagrees.  Recomputing those cells
 too makes the sparse cascade equal to the dense one, whatever the tiles.
@@ -32,12 +36,23 @@ Per check (apply_mood, src/mood.cc:290-400):
 The fixed point runs on the host, one ``bool(chg.any())`` per pass (up to
 ``max_iters``); everything else stays on the device.  MOOD requires the Pk
 basis and global time stepping (src/parameters.cc:536-544).
+
+Two routes, as the reference's make_mood on its TPU path: the sparse route
+above where the residual carries the one-pass candidate (an unmasked domain
+without a source term); else the dense route, every pass after the first
+the {truncation -> positivity} of the predictor followed by the
+forward-Euler residual on every cell (dflo_tpu/stab/mood.py:320-332).  On a
+masked domain solid cells count as missing neighbors of the plane ops and
+never fail the check; the check is then this module's plain check_update,
+as the reference's masked cascade runs its XLA check
+(dflo_tpu/stab/mood.py:280-291, :348); unmasked it is the check kernel.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from dflo_tpu_torch.physics import euler
@@ -74,6 +89,13 @@ def neighborhood_max(a, valid):
     return m
 
 
+def dilate4(flag):
+    """4-neighborhood dilation of a bool plane, wrapped at every edge (the
+    residual kernel's stencil: a candidate reads its wrapped neighbors)."""
+    out = flag | torch.roll(flag, 1, -1) | torch.roll(flag, -1, -1)
+    return out | torch.roll(flag, 1, -2) | torch.roll(flag, -1, -2)
+
+
 def dilate4_valid(flag, valid):
     """Validity-masked 4-neighborhood dilation of a bool plane: the spread
     reaches only existing face neighbors (src/mood.cc:341-394)."""
@@ -99,14 +121,18 @@ def u2_ok(d2xx, d2yy, valid):
     return ok
 
 
-def check_update(rho, d2xx, d2yy, dmp_min, dmp_max, deg, lim, valid):
+def check_update(rho, d2xx, d2yy, dmp_min, dmp_max, deg, lim, valid,
+                 mask=None):
     """DMP acceptance + degree-reduction / limiter-mark bookkeeping on a
     candidate (apply_mood, src/mood.cc:290-491).  rho is the candidate's
-    density mean, d2xx/d2yy its density D2 modes; deg int32, lim bool.
-    Returns (deg_new, lim_new, chg): chg marks the cells whose degree
-    dropped."""
+    density mean, d2xx/d2yy its density D2 modes; deg int32, lim bool;
+    mask: the bool fluid flags of a masked domain (a solid cell never
+    fails, dflo_tpu/stab/mood.py:348), or None.  Returns (deg_new, lim_new,
+    chg): chg marks the cells whose degree dropped."""
     dmp = (rho - dmp_min > -DMP_EPS) & (rho - dmp_max < DMP_EPS)
     fail = ~(dmp | u2_ok(d2xx, d2yy, valid))
+    if mask is not None:
+        fail = fail & mask
     red_self = fail & (deg > 1)
     mark_self = fail & (deg == 1) & ~lim
     spread = fail & (deg == 1) & lim
@@ -130,19 +156,22 @@ class MoodStage:
     """mood_stage(u_pre, t, dt) -> (u_candidate, limiter_marked, MoodStats,
     degree) for one SSP stage (dflo_tpu/stab/mood.py make_mood, the TPU form).
     rhs is the fused modal residual of solver/spatial.make_rhs(...,
-    volume_kernel="fused") (its ``.step``, ``.sparse_candidate`` and
-    ``.modal_ops``).
+    volume_kernel="fused") (its ``.step``, ``.modal_ops`` and, where it has
+    one, ``.sparse_candidate``); mask the bool [ny, nx] fluid flags of a
+    masked domain, or None.
 
     Each pass's candidate goes through the port's kernels (their plain
     versions on CPU tensors): pass 1 is the dense modal residual's
     forward-Euler form u + dt*R(u); later passes are the sparse candidate on
-    the cells that can change (sparse_mode="auto"; see the module
-    docstring), or with sparse_mode="off" the dense fused_modal_pos(u_pre,
-    deg) followed by the dense forward-Euler residual on every cell.
-    host_syncs counts the ``bool(chg.any())`` reads."""
+    the cells that can change (sparse_mode="auto" with a residual that has
+    one; see the module docstring), else the dense fused_modal_pos(u_pre,
+    deg) followed by the dense forward-Euler residual on every cell.  Each
+    pass ends in the check: the check kernel, or on a masked domain the
+    plain check_update with the mask.  host_syncs counts the
+    ``bool(chg.any())`` reads."""
 
     def __init__(self, basis, mesh, rhs, per_x: bool = False,
-                 per_y: bool = False, *, max_iters: int = 20,
+                 per_y: bool = False, *, mask=None, max_iters: int = 20,
                  dmp_bounds: str = "neighborhood", sparse_mode: str = "auto"):
         from dflo_tpu_torch.ops import kernels
         if basis.family != "Pk":
@@ -160,14 +189,30 @@ class MoodStage:
         self.p = basis.degree
         self.rhs = rhs
         self.max_iters = max_iters
-        self.sparse = sparse_mode == "auto"
+        self.sparse = (sparse_mode == "auto"
+                       and hasattr(rhs, "sparse_candidate"))
         self.mops = rhs.modal_ops
         device = self.mops.P.device
+        self.mask = (None if mask is None
+                     else torch.as_tensor(np.asarray(mask, bool),
+                                          device=device))
         self.valid = tuple(torch.as_tensor(v, device=device) for v in
-                           neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
+                           neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
+                                          mask))
         self.cops = kernels.mood_check_operators(basis, mesh, per_x=per_x,
                                                  per_y=per_y, device=device)
         self.host_syncs = 0
+
+    def _check(self, u_c, dmp_min, dmp_max, deg, lim):
+        """One acceptance pass: the check kernel, or on a masked domain the
+        plain check with the mask (the reference's XLA check)."""
+        if self.mask is None:
+            return self.kernels.fused_mood_check(u_c, dmp_min, dmp_max, deg,
+                                                 lim, self.cops)
+        rho = u_c[euler.RHO]
+        return check_update(self.mops.avg0 * rho[0], rho[2],
+                            rho[2 * self.p + 1], dmp_min, dmp_max, deg, lim,
+                            self.valid, self.mask)
 
     def __call__(self, u_pre, t, dt, deg_in=None, live=None):
         """live: optional 0-dim bool tensor; when false the cascade stops
@@ -189,8 +234,7 @@ class MoodStage:
 
         # ---- pass 1, peeled: the unmodified predictor's forward Euler ----
         u_c = self.rhs.step(u_pre, t, dt)
-        deg, lim, chg = k.fused_mood_check(u_c, dmp_min, dmp_max, deg, lim,
-                                           self.cops)
+        deg, lim, chg = self._check(u_c, dmp_min, dmp_max, deg, lim)
         it = 1
         moved = None
         while it < self.max_iters:
@@ -205,17 +249,15 @@ class MoodStage:
                     # chain changes: the dense cascade's candidate differs
                     # from pass 1 there even where no degree changed
                     u_pos = k.fused_modal_pos(u_pre, self.mops)
-                    moved = dilate4_valid(
-                        (u_pos != u_pre).flatten(0, 1).any(0), self.valid)
+                    moved = dilate4((u_pos != u_pre).flatten(0, 1).any(0))
                 # candidates change only where a degree changed or a face
                 # neighbor's did, or where the chain moved the predictor
-                aff = chg | dilate4_valid(chg, self.valid) | moved
+                aff = chg | dilate4(chg) | moved
                 u_c = self.rhs.sparse_candidate(u_pre, u_c, deg, t, dt, aff)
             else:
                 u_t = k.fused_modal_pos(u_pre, self.mops, deg)
                 u_c = self.rhs.step(u_t, t, dt)
-            deg, lim, chg = k.fused_mood_check(u_c, dmp_min, dmp_max, deg,
-                                               lim, self.cops)
+            deg, lim, chg = self._check(u_c, dmp_min, dmp_max, deg, lim)
             it += 1
         stats = MoodStats(torch.sum(self.p - deg), torch.sum(lim), it)
         return u_c, lim, stats, deg

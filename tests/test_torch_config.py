@@ -7,7 +7,9 @@ give the same values, the mask bit for bit on the full-size mesh.  The
 expression compilers agree on a set of expressions covering the
 whitelisted syntax to 1e-13 relative (elementary functions may round the
 last bit differently).  The CLI's branches that are not ported raise
-NotImplementedError naming their ROADMAP item.
+NotImplementedError naming their ROADMAP item.  sod_mood.prm with `gravity
+= 1` (MOOD with the residual's gravity arm) runs through both CLIs to the
+same checkpoints and MoodStats (tests/test_torch_configs.check_cli_pair).
 """
 
 import dataclasses
@@ -134,15 +136,62 @@ def test_unported_branches_raise(tmp_path):
         cli.build_domain(gmsh)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
         cli.run([PRMS[0], "--platform", "cpu", "--devices", "4"])
-    # body forces build (tests/test_torch_configs.py runs them); MOOD with
-    # a body force waits
+    # body forces build (tests/test_torch_configs.py runs them), MOOD with
+    # one too (test_mood_with_gravity_matches_jax_cli); MOOD with
+    # well-balanced gravity does not, as in the reference: it needs a
+    # collocated basis, and MOOD the modal one
     assert callable(ic.IC_FUNCTIONS["rt"]())
     mood = AllParameters.from_prm_file("examples/sod_mood.prm")
-    mood.gravity = 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 3"):
+    mood.potential = lambda x, y: y
+    with pytest.raises(ValueError, match="collocated"):
         cli.build_solver(mood, dtype=torch.float64, device="cpu")
+    jmood = JParams.from_prm_file("examples/sod_mood.prm")
+    jmood.potential = lambda x, y: y
+    with pytest.raises(ValueError, match="collocated"):
+        jcli.build_solver(jmood)
     if not torch.cuda.is_available():
         # the default device is the card, with no fallback to the CPU
         with pytest.raises(RuntimeError, match="--platform cpu"):
             cli.run([PRMS[0], "--max-steps", "0"])
 
+
+
+def test_mood_with_gravity_matches_jax_cli(tmp_path):
+    """sod_mood.prm with `gravity = 1` (a body force along -y in the tube:
+    MOOD's dense route on the residual's gravity arm), 48 x 4, 8 steps
+    through both CLIs: every checkpoint within 1e-10 (they agree to 1e-13),
+    and per step equal degree reductions and cascade passes and equal
+    limiter marks but in step 5.  There one mark differs, cell (y, x) =
+    (2, 12) in the first stage: the two packages' states after step 4
+    differ by 1.3e-15 (the JAX package's XLA post averages through its
+    whole average row, the port's Pk post through mode 0, as the
+    reference's TPU kernels), and from the JAX package's own state the
+    port's step 5 marks 394 cells as it does (checked here: one port step
+    from the JAX package's checkpoint 4 gives its step 5's dt and MOOD
+    counters); the TVB limiter leaves the cell unchanged, so the states
+    stay equal."""
+    from test_torch_configs import check_cli_pair, ckpt, edited
+    text = edited("sod_mood", 48, 4, ("set basis = Pk",
+                                      "set basis = Pk\nset gravity = 1.0"))
+    res, jm, tm = check_cli_pair(text, tmp_path, "Pk", 48, steps=8,
+                                 equal_moods=False)
+    assert res.solver.rhs.ops.source == "grav"
+    assert not hasattr(res.solver.rhs, "sparse_candidate")
+
+    def counts(line):
+        return [int(f.split("=")[1]) for f in line.split()]
+    assert [m[0] for m in jm] == [m[0] for m in tm] == [str(i)
+                                                        for i in range(1, 9)]
+    for i, (a, b) in enumerate(zip(jm, tm)):
+        (ra, la, pa), (rb, lb, pb) = counts(a[1]), counts(b[1])
+        assert ra == rb and pa == pb, i
+        assert la == lb or (i == 4 and abs(la - lb) == 1), i
+    assert sum(counts(m[1])[0] for m in tm) > 0
+    # step 5 from the JAX package's own state: the port marks as it does
+    c4, c5 = ckpt(tmp_path / "jax", 4), ckpt(tmp_path / "jax", 5)
+    t4, t5 = float(c4["t"]), float(c5["t"])
+    _, dt, bad, st = res.solver._step(torch.from_numpy(c4["u"]), t4, 1e3)
+    assert not bool(bad)
+    assert abs(float(dt) - (t5 - t4)) <= 1e-13 * (t5 - t4)
+    assert [int(st.n_reduce), int(st.n_marked), int(st.iters)] \
+        == counts(jm[4][1])

@@ -16,6 +16,18 @@ u + dt*R and SSP-stage forms against dflo_tpu's residual: make_rhs "xla"
 for roe, sw and kep (equal to the kernel's function up to round-off) and
 the fused residual (the Pallas kernel in interpret mode) for kfvs, whose
 kernel form takes the A&S erf.  1e-12 relative to max|R| per component.
+
+MOOD with each new flux (the candidate kernel's plain twin on the sparse
+route): a stage of the port's cascade on P2 (the stage predictor's
+candidates with the flux, the check, the degree and mark bookkeeping)
+against dflo_tpu's jitted mood_stage on the same predictor, at 32 x 8,
+from a contact discontinuity in the Mach-10 DMR flow and from the port's
+states after one and two steps (the cascade fires, no cell near the
+pressure floor): the candidate within 1e-10 relative, equal limiter marks
+and MoodStats.  dflo_tpu runs its XLA path for roe, sw and kep and its fused
+path (the Pallas kernels in interpret mode) for kfvs, whose kernel form
+takes the A&S erf, as the port's.  And the port's sparse cascade equals
+its dense one (sparse_mode="off") bitwise, with equal MoodStats.
 """
 
 import jax
@@ -29,7 +41,7 @@ from dflo_tpu.ops.basis import make_basis as jax_make_basis
 from dflo_tpu.physics import euler as jeuler
 from dflo_tpu.physics import fluxes as jfluxes
 from dflo_tpu.solver import spatial as jspatial
-from dflo_tpu_torch import ic
+from dflo_tpu_torch import entry, ic
 from dflo_tpu_torch.mesh import CartesianMesh
 from dflo_tpu_torch.ops import kernels
 from dflo_tpu_torch.ops.basis import make_basis
@@ -250,16 +262,80 @@ def test_residual_forms_match_jax(jax_residuals, flux, case):
 
 
 def test_new_fluxes_refuse_mood_and_source_arms():
-    """MOOD and the source arms keep to hllc and lxf, on every device."""
+    """The source arms keep to hllc and lxf, on every device, MOOD's
+    included; MOOD itself takes the four fluxes (the MOOD tests below)."""
     from dflo_tpu_torch.driver import LimiterConfig, Solver
     basis = make_basis("Pk", 2)
     mesh = CartesianMesh(NX, NY, 0.0, 1.0, 0.0, 1.0)
     lim = LimiterConfig(type="TVB", pos_lim=True)
-    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
-        Solver(basis, mesh, torch_bcs(), flux="roe", limiter=lim,
+    s = Solver(basis, mesh, torch_bcs(), flux="roe", limiter=lim,
                method="mood", dtype=F64, device="cpu")
+    assert s._mood_stage.sparse and s.rhs.ops.flux == "roe"
+    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
+        Solver(basis, mesh, torch_bcs(), flux="roe", limiter=lim,
+               method="mood", source=euler.GravitySource(0.0, -1.0),
+               dtype=F64, device="cpu")
     for vk in ("auto", "xla", "fused"):
         with pytest.raises(NotImplementedError, match="queue 2, item 9"):
             Solver(make_basis("Qk", 1), mesh, torch_bcs(), flux="kep",
                    source=euler.GravitySource(0.0, -1.0), dtype=F64,
                    device="cpu", volume_kernel=vk)
+
+
+# ---------------------------------------------------------------------------
+# MOOD with the new fluxes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("flux", NEW)
+def test_mood_with_new_fluxes_matches_jax(flux):
+    import __graft_entry__ as graft
+    from dflo_tpu.driver import LimiterConfig as JLim
+    from dflo_tpu.driver import Solver as JSolver
+    from dflo_tpu_torch import interop
+    from dflo_tpu_torch.driver import LimiterConfig, Solver
+    from dflo_tpu_torch.stab.mood import make_mood
+    nx, ny = 32, 8
+    lim = dict(type="TVB", shock_indicator="density", beta=2.0,
+               char_lim=True, pos_lim=True)
+    mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
+    js = JSolver(jax_make_basis("Pk", 2), mesh,
+                 graft._build(nx, ny, method="mood")[0].bcs, flux=flux,
+                 limiter=JLim(**lim), cfl=0.5, dtype=jnp.float64,
+                 method="mood",
+                 volume_kernel="fused" if flux == "kfvs" else "xla",
+                 post_kernel="xla")
+    ts = Solver(make_basis("Pk", 2), mesh,
+                entry._build(nx, ny, device="cpu", method="mood")[0].bcs,
+                flux=flux, limiter=LimiterConfig(**lim), cfl=0.5,
+                dtype=F64, device="cpu", method="mood")
+    assert ts.rhs.ops.flux == flux and ts._mood_stage.sparse
+    u = ts.post_stage(ic.set_initial_condition(
+        ts.basis, mesh, entry.contact_ic, dtype=F64, device="cpu"))
+    # the cascade of one stage (candidate with the flux, check, degree and
+    # mark bookkeeping) from the contact and from the port's states after
+    # one and two steps, each at the step's own t and dt
+    stage = jax.jit(js._mood_stage)
+    v, t, fired = u, 0.0, 0
+    for k in range(3):
+        dt = float(ts.cfl / ts._diag(v)[0] / 5.0)
+        ref = stage(jnp.asarray(v.numpy()), jnp.asarray(t), jnp.asarray(dt))
+        got = ts._mood_stage(v, torch.tensor(t, dtype=F64),
+                             torch.tensor(dt, dtype=F64))
+        assert rel(np.asarray(ref[0]), got[0].numpy()) <= 1e-10, k
+        assert np.array_equal(np.asarray(ref[1]), got[1].numpy()), k
+        assert np.array_equal(interop.stats_as_numpy(ref[2]),
+                              interop.stats_as_numpy(got[2])), k
+        fired += int(got[2].n_reduce)
+        v, dtt, bad, _ = ts._step(v, t, 1.0)
+        t += float(dtt)
+        assert not bool(bad)
+    assert fired > 0
+    # sparse against dense, one step from the same state
+    dense = make_mood(ts.basis, mesh, ts.rhs, sparse_mode="off")
+    assert not dense.sparse
+    a = ts._mood_stage(u, torch.tensor(0.0, dtype=F64),
+                       torch.tensor(1e-3, dtype=F64))
+    b = dense(u, torch.tensor(0.0, dtype=F64), torch.tensor(1e-3, dtype=F64))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[3], b[3]) and a[2].iters == b[2].iters
+    assert int(a[2].n_reduce) == int(b[2].n_reduce) > 0

@@ -10,8 +10,13 @@ and the force planes on Qk, GLL and Pk, isothermal well-balancing on GLL
 and Qk, hllc and lxf, p = 1, 2, 3, at the ragged 40 x 10), the diag on GLL
 and the f64 well-balance drift through the kernel at 64 x 64; the Roe,
 Steger-Warming, KFVS and KEP forms of the residual (Qk, GLL and Pk, p = 1
-and 2, and masked Q1) and their refusal of MOOD and the source arms; one
-f64 implicit step with the kernel primal against the plain primal.
+and 2, and masked Q1) and the source arms' refusal of them; one f64
+implicit step with the kernel primal against the plain primal; the masked
+modal residual (the forward step on P1-P3, all six fluxes, three forms,
+its launch keys, a solid cell's R exactly 0), the MOOD candidate with roe,
+sw, kfvs and kep (p = 2, 3, bitwise, on a cell set and on every cell), and
+three f64 MOOD steps through the kernels against the same steps through
+the plain versions on the masked P2 forward step and with gravity.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -766,12 +771,20 @@ def test_new_fluxes_refuse_mood_and_source_arms(cuda):
         make_rhs(basis, mesh, BUMP_BCS, flux="kep", dtype=torch.float64,
                  device=cuda, volume_kernel="fused",
                  source=euler.GravitySource(0.0, -1.0))
+    # the candidate takes roe (test_mood_candidate_new_fluxes_bitwise);
+    # a masked residual has none, and its operators refuse the kernel
     deg = torch.full(u.shape[2:], 2, dtype=torch.int32, device=cuda)
     cells = torch.ones(u.shape[2:], dtype=torch.bool, device=cuda)
-    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
-        rhs.sparse_candidate(u, u.clone(), deg, 0.0,
-                             torch.full((), 1e-3, dtype=u.dtype,
-                                        device=cuda), cells)
+    masked = kernels.residual_operators(
+        make_basis("Pk", 2), CartesianMesh(u.shape[3], u.shape[2], 0.0, 1.0,
+                                           0.0, 1.0),
+        flux="roe", mask=np.ones(u.shape[2:], bool), dtype=u.dtype,
+        device=cuda)
+    strips = rhs.strips(u, 0.0, deg)
+    with pytest.raises(ValueError, match="no mask"):
+        kernels.fused_mood_candidate(
+            u, u.clone(), deg, cells, *strips, masked, rhs.modal_ops,
+            torch.full((), 1e-3, dtype=u.dtype, device=cuda))
 
 
 def test_implicit_step_kernel_primal_matches_plain_primal(cuda):
@@ -802,3 +815,131 @@ def test_implicit_step_kernel_primal_matches_plain_primal(cuda):
     assert out["fused"][1] == out["xla"][1]
     assert out["fused"][2]["fused_residual[qk_roe_R]"] > 0
     assert out["xla"][2]["fused_residual"] == 0
+
+
+# ---------------------------------------------------------------------------
+# masked modal Pk, the candidate with every flux, masked and gravity MOOD
+# ---------------------------------------------------------------------------
+
+ALL_FLUXES = ("hllc", "lxf") + NEW_FLUXES
+
+
+def setup_fs_pk(p, flux, dtype, device, seed=0):
+    """The masked forward-step residual on P_p and a perturbed modal inflow
+    state (numpy seed: 2 % on mode 0, 0.3 % of it on the higher modes),
+    solid cells at the benign state as a constant."""
+    basis = make_basis("Pk", p)
+    mesh = CartesianMesh(FS_NX, FS_NY, 0.0, 3.0, 0.0, 1.0)
+    mask = mesh_mask(mesh)
+    rng = np.random.default_rng(seed)
+    base = np.array(INFLOW)[:, None, None, None]
+    u = np.zeros((4, basis.K, FS_NY, FS_NX))
+    u[:, :1] = base * (1.0 + 0.02 * rng.uniform(-1.0, 1.0,
+                                                (4, 1, FS_NY, FS_NX)))
+    u[:, 1:] = 0.003 * base * rng.uniform(-1.0, 1.0,
+                                          (4, basis.K - 1, FS_NY, FS_NX))
+    u[1, 1:] = 0.01 * rng.uniform(-1.0, 1.0, (basis.K - 1, FS_NY, FS_NX))
+    solid = np.zeros((4, basis.K, 1, 1))
+    solid[:, 0, 0, 0] = 0.0, 0.0, 1.0, 2.5
+    u = np.where(mask, u, solid)
+    rhs = make_rhs(basis, mesh, FS_BCS, flux=flux, dtype=dtype,
+                   device=device, volume_kernel="fused", mask=mask)
+    return torch.from_numpy(u).to(dtype=dtype, device=device), rhs
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3))
+@pytest.mark.parametrize("flux", ALL_FLUXES)
+def test_masked_modal_residual_matches_plain(cuda, flux, p, dtype):
+    dt = getattr(torch, dtype)
+    u, rhs = setup_fs_pk(p, flux, dt, cuda, seed=50 + p)
+    assert not hasattr(rhs, "sparse_candidate")
+    check_three_forms(cuda, u, rhs, dt, f"pk_{flux}_masked")
+    strips = rhs.strips(u, 0.25)
+    R = kernels.fused_residual(u, *strips, rhs.ops)
+    torch.cuda.synchronize()
+    assert float(R[..., ~rhs.ops.mask].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (2, 3))
+@pytest.mark.parametrize("flux", NEW_FLUXES)
+def test_mood_candidate_new_fluxes_bitwise(cuda, flux, p, dtype):
+    """The candidate with each new flux on a random cell set and on every
+    cell, bitwise equal to its plain version."""
+    dt = getattr(torch, dtype)
+    _, _, u, rhs, pl = setup_pk(p, dt, cuda, seed=20 + p, flux=flux)
+    h = torch.full((), 1e-4, dtype=dt, device=cuda)
+    tp_strips = rhs.strips(u, 0.0, pl["deg"])
+    prev = u.flip(-1).contiguous()
+    kernels.reset_launch_counts()
+    for cells in (pl["cells"], torch.ones_like(pl["cells"])):
+        k = kernels.fused_mood_candidate(u, prev.clone(), pl["deg"], cells,
+                                         *tp_strips, rhs.ops, rhs.modal_ops,
+                                         h)
+        q = kernels.fused_mood_candidate_plain(u, prev.clone(), pl["deg"],
+                                               cells, *tp_strips, rhs.ops,
+                                               rhs.modal_ops, h)
+        torch.cuda.synchronize()
+        assert torch.equal(k, q)
+        assert torch.equal(k[..., ~cells], prev[..., ~cells])
+    assert kernels.launch_counts()[f"fused_mood_candidate[{flux}]"] == 2
+
+
+def _plain_wrappers():
+    """Every kernel wrapper of the MOOD step replaced by its plain
+    version (restored by the caller)."""
+    names = ("fused_residual", "fused_mood_candidate", "fused_modal_pos",
+             "fused_pk_post", "fused_mood_check", "fused_diag")
+    saved = {n: getattr(kernels, n) for n in names}
+    for n in names:
+        setattr(kernels, n, getattr(kernels, n + "_plain"))
+    return saved
+
+
+@pytest.mark.parametrize("case", ("masked", "gravity"))
+def test_mood_steps_match_plain(cuda, case):
+    """Three f64 MOOD steps on P2 through the kernels against the same
+    steps through the plain versions on the card: the masked forward step
+    (the dense route, the plain masked check, the modal positivity kernel
+    and the masked diag) and the DMR with a GravitySource (the dense route
+    on the gravity arm, the check kernel, the Pk post)."""
+    from dflo_tpu_torch.driver import LimiterConfig, Solver
+    lim = LimiterConfig(type="TVB", shock_indicator="limiter", beta=2.0,
+                        char_lim=True, pos_lim=True)
+    basis = make_basis("Pk", 2)
+    if case == "masked":
+        mesh = CartesianMesh(FS_NX, FS_NY, 0.0, 3.0, 0.0, 1.0)
+        kw = dict(flux="lxf", mask=mesh_mask(mesh))
+        bcs, fn = FS_BCS, fs_inflow
+        forms = ("fused_residual[pk_lxf_masked_step]", "fused_modal_pos",
+                 "fused_diag")
+    else:
+        mesh = CartesianMesh(PK_NX, PK_NY, 0.0, 4.0, 0.0, 1.0)
+        kw = dict(flux="hllc", source=euler.GravitySource(0.0, -1.0))
+        bcs, fn = BCS, dmr_ic
+        forms = ("fused_residual[pk_hllc_grav_step]", "fused_mood_check",
+                 "fused_pk_post", "fused_modal_pos")
+    s = Solver(basis, mesh, bcs, limiter=lim, cfl=0.5, dtype=torch.float64,
+               device=cuda, method="mood", **kw)
+    u0 = s.post_stage(s.apply_mask(ic.set_initial_condition(
+        basis, mesh, fn, dtype=torch.float64, device=cuda)))
+    out = []
+    for plain in (False, True):
+        saved = _plain_wrappers() if plain else {}
+        try:
+            kernels.reset_launch_counts()
+            u, t, stats = u0, 0.0, []
+            for _ in range(3):
+                u, dt, bad, st = s._step(u, t, 1.0)
+                t += float(dt)
+                assert not bool(bad)
+                stats.append((int(st.n_reduce), int(st.n_marked), st.iters))
+            out.append((u, t, stats, kernels.launch_counts()))
+        finally:
+            for n, f in saved.items():
+                setattr(kernels, n, f)
+    (uk, tk, sk, ck), (up, tp, sp, _) = out
+    assert rel(uk, up) <= 1e-10 and abs(tk - tp) <= 1e-13 * tp
+    assert sk == sp and sum(r for r, _, _ in sk) > 0
+    assert all(ck.get(f, 0) > 0 for f in forms), ck

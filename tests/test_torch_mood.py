@@ -31,6 +31,11 @@
   ragged ny (4 and 10), 1e-12 relative (its dissipation speed reads the
   averages of the tp'd states on both sides of each face); and three MOOD
   steps on the contact discontinuity as above, 1e-10.
+- With a body force (euler.GravitySource, g = (0, -1)): the residual's
+  gravity arm, so the dense route (no sparse candidate, as the reference's
+  candidate takes no source, dflo_tpu/solver/spatial.py:498-499): three
+  MOOD steps on the contact discontinuity against dflo_tpu's jitted
+  Solver._step with the same force, 1e-10, equal MoodStats.
 """
 
 import jax
@@ -207,15 +212,7 @@ def test_tile_flags():
 # three steps on a contact discontinuity
 # ---------------------------------------------------------------------------
 
-def contact(x, y, t=0.0):
-    """The DMR inflow state everywhere, its density halved for x >= 2: a
-    contact discontinuity carried by the Mach-10 flow, against the slip
-    wall; no cell comes near the pressure floor."""
-    rho0, vx, vy, p = entry.POST_SHOCK
-    rho = torch.where(x < 2.0, rho0, 0.5 * rho0).to(x.dtype)
-    return torch.stack([rho * vx, rho * vy, rho,
-                        torch.full_like(x, p / (euler.GAMMA - 1.0))
-                        + 0.5 * rho * (vx * vx + vy * vy)])
+contact = entry.contact_ic
 
 
 def jax_steps(js, u, n):
@@ -343,6 +340,45 @@ def test_three_lxf_mood_steps_match_jax():
                 flux="lxf", limiter=LimiterConfig(**lim), cfl=0.5,
                 dtype=F64, device="cpu", method="mood")
     assert ts.rhs.ops.flux == "lxf"
+    u = ts.post_stage(ic.set_initial_condition(ts.basis, mesh, contact,
+                                               dtype=F64, device="cpu"))
+    ref = jax_steps(js, u.numpy(), 3)
+    v, t = u, 0.0
+    for r in ref:
+        v, dt, b, st = ts._step(v, t, 1.0)
+        t += float(dt)
+        assert abs(float(dt) - r[1]) <= 1e-13 * r[1]
+        assert rel(r[0], v) <= TOL and not bool(b) and not r[2]
+        assert np.array_equal(r[3], interop.stats_as_numpy(st))
+    assert sum(int(r[3][0]) for r in ref) > 0      # the cascade fired
+
+
+def test_mood_with_gravity_matches_jax():
+    """MOOD on P2 with euler.GravitySource(0, -1): the dense cascade on the
+    residual's gravity arm, three steps against dflo_tpu's Solver with the
+    same body force, state within 1e-10, equal dt and MoodStats."""
+    from dflo_tpu.driver import LimiterConfig as JLim
+    from dflo_tpu.driver import Solver as JSolver
+    from dflo_tpu.physics import euler as jeuler
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.driver import LimiterConfig, Solver
+    lim = dict(type="TVB", shock_indicator="density", beta=2.0,
+               char_lim=True, pos_lim=True)
+    mesh = CartesianMesh(NX, NY, 0.0, 4.0, 0.0, 1.0)
+    js = JSolver(jax_make_basis("Pk", 2), mesh,
+                 graft._build(NX, NY, method="mood")[0].bcs, flux="hllc",
+                 limiter=JLim(**lim), cfl=0.5, dtype=jnp.float64,
+                 method="mood",
+                 source=lambda x, y, t, W: jeuler.forcing_gravity(
+                     W, (0.0, -1.0)))
+    ts = Solver(make_basis("Pk", 2), mesh,
+                entry._build(NX, NY, device="cpu", method="mood")[0].bcs,
+                flux="hllc", limiter=LimiterConfig(**lim), cfl=0.5,
+                dtype=F64, device="cpu", method="mood",
+                source=euler.GravitySource(0.0, -1.0))
+    assert ts.rhs.ops.source == "grav"
+    assert not hasattr(ts.rhs, "sparse_candidate")
+    assert not ts._mood_stage.sparse
     u = ts.post_stage(ic.set_initial_condition(ts.basis, mesh, contact,
                                                dtype=F64, device="cpu"))
     ref = jax_steps(js, u.numpy(), 3)
