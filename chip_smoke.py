@@ -115,7 +115,7 @@ Phases (any failure raises, and the script then prints no result):
    well-balance oracle through the fused path: GLL2, 512 x 512, outflow
    sides, the hydrostatic IC, 25 f64 steps with lxf and with hllc: drift
    max|u - u0| below 5e-13 (tests/test_gravity.py's bound).
-18. the two main paths through cli.run, f32, 50 steps in chunks of 10:
+18. the two main paths through cli.run, f32, 20 steps in chunks of 10:
    rayleigh_taylor.prm at 1024 x 3072 (Q1, hllc, gravity, characteristic
    TVB) and iso_xing_shu.prm at 2048 x 2048 (GLL2, hllc, isothermal
    well-balancing, limiter none): finite, no fatal flag, no plain version
@@ -137,28 +137,28 @@ Phases (any failure raises, and the script then prints no result):
    CUDA-event times of each flux's stage and R forms on Q1 and of roe's
    stage on P2 at 2048 x 2048; ptxas registers and spills per flux, dtype
    and degree; the diag on the implicit vortex's Q1 state.  Each flux's
-   RK path: the periodic vortex on Q1 at 1024 x 1024, 10 steps, its stage
+   RK path: the periodic vortex on Q1 at 1024 x 1024, 4 steps, its stage
    form launched, no plain version called.
 20. the implicit vortex: Q1, roe, limiter none, the periodic isentropic
    vortex at 1024 x 1024 (512 x 512 if one step takes over 10 s), theta
    1, cfl 5, two Newton iterations to 1e-4, block-Jacobi, f32: a warm-up
-   step, 5 steps in one chunk, one traced step;
+   step, 2 steps in one chunk, one traced step;
    isenvort_q1_roe_implicit_dof_updates_per_sec, ms/step, Newton
    iterations, GMRES restarts, tangents and host reads per step, the roe
    R-form launches (> 0), plain calls (0), busy/idle share and the
    kernel's ms against the rest; not diverged, finite.
 21. the steady bump through cli.run: Q1, roe, `method = gmres`,
    `stationary = true`, local dt, cfl 2, linear residual 1e-4 at 256 x 256
-   (the 128 x 128 companion first), --max-steps 10 per level (at cfl 2
+   (the 128 x 128 companion first), --max-steps 5 per level (at cfl 2
    the bump's disturbance crosses these grids in hundreds of PTC steps:
    60 steps moved ||R|| from 66.8 to 45.4 on 128 x 128 and not at all on
-   256 x 256, see PERF.md; 20 per level before phase 24's paths came, cut
-   to keep the script near its earlier length), f32: the PTC steps and first and last ||R||
+   256 x 256, see PERF.md; cut from 20 and then 10 per level to keep the
+   script within its time limit), f32: the PTC steps and first and last ||R||
    of each level (both histories to chiprun_out/steady_history.json), the
    CLI timer, roe R-form launches (> 0), plain calls (0), every linear
    solve run, the histories finite.
 22. f64 kernel primal against plain primal: the implicit vortex at 64 x 64
-   (cfl 2, linear residual 1e-6, block-Jacobi), 10 steps with
+   (cfl 2, linear residual 1e-6, block-Jacobi), 5 steps with
    volume_kernel="fused" and "xla" from the same state: within 1e-10
    relative, equal Newton counts, every linear solve converged.
 23. the masked modal residual against its plain version, f32 and f64, in
@@ -181,20 +181,51 @@ Phases (any failure raises, and the script then prints no result):
    and the modal positivity; CUDA-event times of each.
 24.the new paths, f32, no plain version called, finite, on the card:
    forward_step_tpu.prm on P2 (`basis = Pk`, `degree = 2`) under MOOD
-   through cli.run at 1920 x 640, 20 steps in chunks of 10 (the masked
+   through cli.run at 1920 x 640, 10 steps in one chunk (the masked
    modal u + dt*R form, the modal positivity kernel and the masked diag
-   launched), then timed apart from output over 20 steps:
+   launched), then timed apart from output over 10 steps:
    fwdstep_p2_mood_dof_updates_per_sec with ms/step, MoodStats, host
    syncs and launches per step (its chunk traced in phase 8); the same
    under rk3, 10 steps (fwdstep_p2_rk_tvb_dof_updates_per_sec, the masked
    modal stage form); rayleigh_taylor.prm on P2 under MOOD with
-   positivity at 1024 x 3072, 10 steps (rt_p2_mood_gravity_dof_updates_
+   positivity at 1024 x 3072, 5 steps (rt_p2_mood_gravity_dof_updates_
    per_sec: the gravity arm's u + dt*R form, the check kernel, the Pk
    post); the DMR MOOD path with each of roe, sw, kfvs and kep at 1152 x
-   288, 10 steps (dmr_p2_mood_<flux>_dof_updates_per_sec, the flux's
+   288, 5 steps (dmr_p2_mood_<flux>_dof_updates_per_sec, the flux's
    candidate launched; kep from a contact discontinuity in the DMR box:
    from the Mach-10 shock the reference's KEP cascade, and the port's,
    give NaN in the first step).
+
+25. the fused residual's single-card envelope against the plain versions,
+   f32 and f64: at 384 x 128 (the phase-19 bump, 2 % noise) every flux at
+   p 4 and p 6 on Qk, GLL and Pk (R), all three forms for one flux per
+   basis, masked for one flux per basis, p 5 with lxf, nq = p + 2 on Qk,
+   GLL and Pk; the source arms with roe, sw, kfvs and kep (gravity on Q1
+   and P2, the force planes on Q1, isothermal on GLL2) on
+   rayleigh_taylor's and iso_xing_shu's configs, and each arm on the
+   general dims (Q4, P4, GLL4, Q2 on 4 x 4 points); the post on Q4-Q6 masked
+   and not, with and without diag; the diag on every new basis kind,
+   masked and not; volume_residual at K = 25, 36, 49; whether each case is
+   bitwise; ptxas registers, spills and stack of the general-dims
+   instantiations.  Then the table's new rows at their paths' shapes,
+   timed (kernel median of 20, plain of 5): the P4 and P6 lxf stages and
+   diags on the vortex at 2048 x 2048 and 1024 x 1024, the over-integrated
+   Q2 stage and diag on the vortex at 2048 x 2048, the Q4 hllc stage, post
+   (with diag, flipped cells bounded) and diag on the DMR at 1152 x 288,
+   volume_residual on the Q4 DMR, the roe gravity stage on rayleigh_taylor
+   at 1024 x 3072 and the roe isothermal stage on iso_xing_shu at
+   2048 x 2048.  Phase 17's well-balance oracle also runs roe.
+26. the envelope's paths, f32, 10 steps in chunks of 5 after a warm-up,
+   no plain version called, finite, no fatal flag, each with ms/step and
+   DoF-updates/s: isentropic_vortex.prm at degree 4 (2048 x 2048) and
+   degree 6 (1024 x 1024) through prm_solver (the P4/P6 lxf stage and the
+   diag; the density l2_error against the IC), the DMR box of
+   entry._build on Q4 (the Q4 hllc stage, the post with diag, the diag)
+   and with volume_kernel="pallas" (volume_residual at K = 25, 5 steps),
+   the vortex on the over-integrated Q2 through Solver (its non-collocated
+   stage, the diag), rayleigh_taylor.prm with flux = roe at 1024 x 3072 and
+   iso_xing_shu.prm with flux = roe at 2048 x 2048 through cli.run (the roe
+   gravity and isothermal stages).
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -273,7 +304,7 @@ RT_PRM = "examples/rayleigh_taylor.prm"
 ISO_PRM = "examples/iso_xing_shu.prm"
 RT_NX, RT_NY = 1024, 3072
 ISO_N = 2048
-SRC_STEPS, SRC_CHUNK = 50, 10
+SRC_STEPS, SRC_CHUNK = 20, 10
 VARIANT_STEPS = 10
 WB_N, WB_STEPS, WB_DRIFT = 512, 25, 5e-13
 #: the Roe, Steger-Warming, KFVS and KEP forms of the residual (phase 19)
@@ -282,24 +313,30 @@ WB_N, WB_STEPS, WB_DRIFT = 512, 25, 5e-13
 FLUX_NEW = ("roe", "sw", "kfvs", "kep")
 FLUX_N = 1024
 FLUX_CASES = (("Qk", 1), ("Qk", 2), ("Qk", 3), ("Qk_gll", 2), ("Pk", 2))
-FLUX_STEPS = 10
+FLUX_STEPS = 4
 BUMP_FAR = (0.5, 0.0, 1.0, 2.6)
 #: the implicit paths: the vortex (phase 20; IMPL_FALLBACK_N if one step
 #: takes over 10 s), the steady bump through the CLI (phase 21), the f64
 #: kernel primal against the plain one (phase 22)
-IMPL_N, IMPL_FALLBACK_N, IMPL_STEPS = 1024, 512, 5
-STEADY_N, STEADY_STEPS = 256, 10
-PRIMAL_N, PRIMAL_STEPS = 64, 10
+IMPL_N, IMPL_FALLBACK_N, IMPL_STEPS = 1024, 512, 2
+STEADY_N, STEADY_STEPS = 256, 5
+PRIMAL_N, PRIMAL_STEPS = 64, 5
 #: masked modal Pk and MOOD with every flux and a body force (phases
 #: 23-24): the residual's fluxes; the forward step on P2 under MOOD
 #: (FWD_MOOD_STEPS in chunks of FWD_MOOD_CHUNK) and RK; rayleigh_taylor on
 #: P2 MOOD at RT_NX x RT_NY; the DMR MOOD path with each new flux
 ALL_FLUXES = ("hllc", "lxf") + FLUX_NEW
-FWD_MOOD_STEPS, FWD_MOOD_CHUNK = 20, 10
+FWD_MOOD_STEPS, FWD_MOOD_CHUNK = 10, 10
 FWD_RK_STEPS = 10
-RT_MOOD_STEPS = 10
+RT_MOOD_STEPS = 5
 RT_PLAIN_STEPS = 2                # steps that make phase 23's rt input
-DMR_FLUX_STEPS = 10
+DMR_FLUX_STEPS = 5
+#: the envelope (phases 25-26): the coverage grid of the new forms; the
+#: vortex on P4 and P6, the over-integrated vortex (Q2 on 4 x 4 points);
+#: each new path's steps and chunk
+ENV_GRID = (384, 128)
+P4_N, P6_N, Q2OI_N = 2048, 1024, 2048
+ENV_STEPS, ENV_CHUNK = 10, 5
 #: the external force of the force-plane form (f_0, f_1 expressions)
 FORCE_EXPR = ("0.01*sin(2*pi*x)*cos(t)", "-1.0")
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
@@ -434,6 +471,45 @@ SOURCES = {
                            f"{PK}:1805", f"{PK}:make_fused_modal_pos "
                            f"(gravity, truncation)", "fused_modal_pos",
                            "rt_mood"),
+    **{f"fused_residual_pk{p}_lxf": (
+        "dflo_tpu_torch/csrc/fused_residual_lxf.cu", f"{PK}:617",
+        f"{PK}:make_fused_residual (modal P{p}, lxf; general dims)",
+        "fused_residual[pk_lxf_stage]", f"vortex_p{p}") for p in (4, 6)},
+    **{f"fused_diag_pk{p}": (
+        "dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
+        f"{PK}:make_fused_diag (P{p})", "fused_diag", f"vortex_p{p}")
+       for p in (4, 6)},
+    "fused_residual_q4_hllc": ("dflo_tpu_torch/csrc/fused_residual.cu",
+                               f"{PK}:617", f"{PK}:make_fused_residual "
+                               f"(Q4, hllc; general dims)",
+                               "fused_residual[qk_hllc_stage]", "dmr_q4"),
+    "fused_post_q4": ("dflo_tpu_torch/csrc/fused_post.cu", f"{PK}:1075",
+                      f"{PK}:make_fused_post (Q4; general dims)",
+                      "fused_post", "dmr_q4"),
+    "fused_diag_q4": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
+                      f"{PK}:make_fused_diag (Q4)", "fused_diag", "dmr_q4"),
+    "volume_residual_q4": ("dflo_tpu_torch/csrc/volume_residual.cu",
+                           f"{PK}:166", f"{PK}:volume_residual (Q4; K at "
+                           f"run time)", "volume_residual", "pallas_q4"),
+    "fused_residual_q2oi_lxf": ("dflo_tpu_torch/csrc/fused_residual_lxf.cu",
+                                f"{PK}:617", f"{PK}:make_fused_residual "
+                                f"(over-integrated Q2 on 4 x 4 points, lxf; "
+                                f"the V contraction, :450-459)",
+                                "fused_residual[qk_lxf_stage]", "q2oi"),
+    "fused_diag_q2oi": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
+                        f"{PK}:make_fused_diag (over-integrated Q2)",
+                        "fused_diag", "q2oi"),
+    "fused_residual_roe_grav": ("dflo_tpu_torch/csrc/"
+                                "fused_residual_src_roe.cu", f"{PK}:617",
+                                f"{PK}:make_fused_residual (source, :573; "
+                                f"roe)", "fused_residual[qk_roe_grav_stage]",
+                                "rt_roe"),
+    "fused_residual_roe_wbiso": ("dflo_tpu_torch/csrc/"
+                                 "fused_residual_wb_roe.cu", f"{PK}:617",
+                                 f"{PK}:make_fused_residual (wb_iso, :578; "
+                                 f"roe)",
+                                 "fused_residual[gll_roe_wbiso_stage]",
+                                 "iso_roe"),
 }
 #: the grid each row is measured and bounded at, by path: the DMR's, the
 #: forward step's, the vortex's; the LxF candidate's launches come from
@@ -448,7 +524,11 @@ GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
          "flux_sw": (FLUX_N, FLUX_N), "flux_kfvs": (FLUX_N, FLUX_N),
          "flux_kep": (FLUX_N, FLUX_N), "fwd_mood": (FS_NX, FS_NY),
          "fwd_rk": (FS_NX, FS_NY), "rt_mood": (RT_NX, RT_NY),
-         **{f"dmr_{f}": (NX, NY) for f in FLUX_NEW}}
+         **{f"dmr_{f}": (NX, NY) for f in FLUX_NEW},
+         "vortex_p4": (P4_N, P4_N), "vortex_p6": (P6_N, P6_N),
+         "dmr_q4": (NX, NY), "pallas_q4": (NX, NY),
+         "q2oi": (Q2OI_N, Q2OI_N), "rt_roe": (RT_NX, RT_NY),
+         "iso_roe": (ISO_N, ISO_N)}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
@@ -595,7 +675,15 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     from dflo_tpu_torch.stab.positivity import _pos_points
     name = {"fused_diag_pk_masked": "fused_diag_fwd",
             "fused_pk_post_rt": "fused_pk_post",
-            "fused_mood_check_rt": "fused_mood_check"}.get(name, name)
+            "fused_mood_check_rt": "fused_mood_check",
+            "fused_residual_q4_hllc": "fused_residual",
+            "fused_residual_pk4_lxf": "fused_residual_pk_lxf",
+            "fused_residual_pk6_lxf": "fused_residual_pk_lxf",
+            "fused_residual_q2oi_lxf": "fused_residual_pk_lxf",
+            "fused_post_q4": "fused_post", "fused_diag_q4": "fused_diag",
+            "fused_diag_pk4": "fused_diag", "fused_diag_pk6": "fused_diag",
+            "fused_diag_q2oi": "fused_diag",
+            "volume_residual_q4": "volume_residual"}.get(name, name)
 
     def nnz(a):
         """nonzero entries; an entry within 1e-12 of the largest is a zero
@@ -606,11 +694,13 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     S = 4 if dtype == torch.float32 else 8
     K = basis.K
     nq = basis.faceV.shape[1]
-    modal = basis.family == "Pk"
+    # the DoFs go through V to the points: modal Pk, and a nodal basis off
+    # its nodes (over-integrated)
+    contract = not basis.is_nodal_collocated
     state = 4 * K * S
     avg = basis.wq2 @ basis.V
     FLUX_OPS = {"roe": 150, "sw": 110, "kfvs": 130, "kep": 250}
-    res = (8 * nnz(basis.V) * modal                     # point values
+    res = (8 * nnz(basis.V) * contract                  # point values
            + 20 * basis.V.shape[0]                      # Euler fluxes
            + 8 * (nnz(basis.Gx) + nnz(basis.Gy))        # volume lift
            + 8 * nnz(basis.faceV)                       # face traces
@@ -621,6 +711,15 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
     tvb = 300 + 32 * K
     if name == "fused_residual":             # SSP-stage form, main path
         return 3 * state * n, (res + 20 * K) * n
+    Q = basis.V.shape[0]
+    src = ((1.0 / basis.mass)[:, None] * basis.wq2[None, :] * basis.V.T)
+    force = 6 * Q + 8 * nnz(src)            # S(W) and its lift
+    wbiso = 10 + 17 * K + 2 * (nnz(basis.Gx) + nnz(basis.Gy))
+    roe = res - 2 * nq * 100 + 2 * nq * FLUX_OPS["roe"]
+    if name == "fused_residual_roe_grav":    # the arms with roe, stage form
+        return 3 * state * n, (roe + 20 * K + force) * n
+    if name == "fused_residual_roe_wbiso":
+        return 3 * state * n + K * S * n, (roe + 20 * K + wbiso) * n
     nflux = name[len("fused_residual_"):].split("_")[0]
     if name.startswith("fused_residual_") and nflux in FLUX_OPS:
         ops = res - 2 * nq * 100 + 2 * nq * FLUX_OPS[nflux]
@@ -629,17 +728,12 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
         if nflux == "roe" and not name.endswith("_stage"):
             return 2 * state * n, ops * n
         return 3 * state * n, (ops + 20 * K) * n
-    Q = basis.V.shape[0]
-    src = ((1.0 / basis.mass)[:, None] * basis.wq2[None, :] * basis.V.T)
-    force = 6 * Q + 8 * nnz(src)            # S(W) and its lift
     if name in ("fused_residual_grav", "fused_residual_pk_grav"):
         return 3 * state * n, (res + 20 * K + force) * n
     if name == "fused_residual_force":       # + the planes fx, fy
         return 3 * state * n + 2 * Q * S * n, (res + 20 * K + force) * n
     if name == "fused_residual_wbiso":       # + phi; RT, exp, grad E, S
-        return (3 * state * n + K * S * n,
-                (res + 20 * K + 10 + 17 * K
-                 + 2 * (nnz(basis.Gx) + nnz(basis.Gy))) * n)
+        return 3 * state * n + K * S * n, (res + 20 * K + wbiso) * n
     lxf = res - 2 * nq * 100 + 2 * nq * 70 + 8 * nnz(avg)
     if name == "fused_residual_fwd":         # masked LxF, SSP-stage form
         return 3 * state * n + n, (lxf + 20 * K) * n
@@ -1762,8 +1856,10 @@ def fold(results, name, tag, pairs, tol, bitwise: bool = False):
 
 
 def time_pair(results, name, tag, fk, fp, grid):
-    """CUDA-event times of a kernel call and its plain version."""
-    ms_k, ms_p = time_ms(fk), time_ms(fp)
+    """CUDA-event times of a kernel call (median of 20) and its plain
+    version (median of 5: it repeats the kernel's arithmetic in many
+    small torch kernels and is no yardstick of speed)."""
+    ms_k, ms_p = time_ms(fk), time_ms(fp, reps=5, warm=1)
     results[name][f"ms_{tag}"] = ms_k
     results[name][f"plain_ms_{tag}"] = ms_p
     print(f"[{tag}] {name}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms at "
@@ -2081,7 +2177,8 @@ def phase_source_kernels(kernels, results):
                                             s, u, tt)
                     v = results[name].setdefault(f"variants_{tag}", {})
                     v[f"gll{p}_{flux}"] = {"ms": time_ms(fk),
-                                           "plain_ms": time_ms(fp),
+                                           "plain_ms": time_ms(fp, reps=5,
+                                                               warm=1),
                                            "max_rel_err": e}
                     print(f"[{tag}] {name} GLL{p} {flux}: kernel "
                           f"{v[f'gll{p}_{flux}']['ms']:.4f} ms, plain "
@@ -2090,7 +2187,7 @@ def phase_source_kernels(kernels, results):
                 torch.cuda.empty_cache()
 
     # ---- the well-balance oracle through the fused path, f64 ------------
-    for flux in ("lxf", "hllc"):
+    for flux in ("lxf", "hllc", "roe"):
         _, s, u0 = prm_solver(ISO_PRM, torch.float64, WB_N,
                               edit=iso_variant(2, flux))
         kernels.reset_launch_counts()
@@ -3005,12 +3102,14 @@ def mood_summary(s, counts, stats, syncs, steps):
 
 
 def phase_main_pk(kernels, plain_calls, name, metric, prm, grid, edits,
-                  steps, chunk, forms):
-    """Phase 24: one new path through cli.run (the prm edited and cut to
-    grid), `steps` steps in chunks of `chunk`, f32: finite, no fatal flag,
-    on the card, no plain version called, each of `forms` launched; then
-    the CLI's solver timed apart from output over as many steps; returns
-    launch counts, ms/step and (solver, state) for the trace."""
+                  steps, chunk, forms, extra=None):
+    """Phase 24 (and 26): one new path through cli.run (the prm edited and
+    cut to grid), `steps` steps in chunks of `chunk`, f32: finite, no fatal
+    flag, on the card, no plain version called, each of `forms` launched;
+    then the CLI's solver timed apart from output over as many steps, still
+    with no plain version called; extra(solver, u, t) adds entries to the
+    metric's line; returns launch counts, ms/step and (solver, state) for
+    the trace."""
     from dflo_tpu_torch import cli
     nx, ny = grid
     with tempfile.TemporaryDirectory() as out:
@@ -3051,6 +3150,8 @@ def phase_main_pk(kernels, plain_calls, name, metric, prm, grid, edits,
     timed = kernels.launch_counts()
     n, bad = int(n), bool(bad)
     assert n == steps and not bad and bool(torch.isfinite(u).all())
+    assert all(timed.get(f, 0) > 0 for f in forms), (forms, timed)
+    assert plain_calls["n"] == 0, f"{name} called a plain version"
     ms = 1e3 * wall / steps
     line = {metric: 4 * s.basis.K * nx * ny * steps / wall,
             "unit": "DoF-updates/s", "dtype": "float32", "grid": [nx, ny],
@@ -3062,6 +3163,8 @@ def phase_main_pk(kernels, plain_calls, name, metric, prm, grid, edits,
     if s.method == "mood":
         line.update(mood_summary(s, timed, stats, s.host_syncs - syncs0,
                                  steps))
+    if extra is not None:
+        line.update(extra(s, u, t))
     print(json.dumps(line))
     return counts, ms, (s, u)
 
@@ -3112,6 +3215,469 @@ def phase_dmr_flux_mood(entry, kernels, plain_calls):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 25-26: the fused residual's single-card envelope (degrees 4-6,
+# over-integrated quadrature, the source arms with every flux)
+# ---------------------------------------------------------------------------
+
+def ptxas_general(log: str) -> dict:
+    """{source: [(kernel, dtype, dims, registers, spill bytes, stack
+    bytes)]} of the general-dims instantiations (csrc/euler.cuh GDims) of
+    the residual and the post, from the build's ptxas lines."""
+    import re
+    out, src, fn, spill, stack = {}, None, "", 0, 0
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line.split()[1]
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        k = re.search(r"(fused_residual|fused_post)_kernelI([fd])NS_5GDims"
+                      r"ILb([01])E", fn)
+        if m and k:
+            out.setdefault(src, []).append(
+                (k.group(1), "f32" if k.group(2) == "f" else "f64",
+                 "contract" if k.group(3) == "1" else "collocated",
+                 int(m.group(1)), spill, stack))
+    return out
+
+
+def env_state(basis, grid, dtype, seed: int, mask=None):
+    """The bump of phase 19 on the unit square at grid = (nx, ny), 2 %
+    noise on every DoF (perturbed)."""
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.mesh import CartesianMesh
+    mesh = CartesianMesh(grid[0], grid[1], 0.0, 1.0, 0.0, 1.0)
+    u = ic.set_initial_condition(basis, mesh, bump_fn, dtype=dtype,
+                                 device="cuda")
+    return mesh, perturbed(u, seed)
+
+
+def pairs_err(pairs):
+    """(largest relative error, all bitwise) of (kernel, plain) pairs."""
+    torch.cuda.synchronize()
+    return (max(rel_err(k, p) for k, p in pairs),
+            all(torch.equal(k, p) for k, p in pairs))
+
+
+def residual_pairs(kernels, rhs, u, t, forms=("R",)):
+    """(kernel, plain) pairs of the fused rhs on u in `forms` (R, step,
+    stage)."""
+    strips, force = rhs.strips(u, t), rhs.force(t)
+    h = torch.full((), 1e-4, dtype=u.dtype, device="cuda")
+    kw = {"R": {}, "step": {"dt": h},
+          "stage": {"u_old": torch.roll(u, 1, -1).contiguous(),
+                    "sc": torch.stack([torch.full_like(h, 0.75), h])}}
+    return [(kernels.fused_residual(u, *strips, rhs.ops, force=force,
+                                    **kw[f]),
+             kernels.fused_residual_plain(u, *strips, rhs.ops, force=force,
+                                          **kw[f])) for f in forms]
+
+
+#: the coverage cases of phase 25 at ENV_GRID: (family, p, nq or None,
+#: flux, forms, masked)
+ENV_CASES = tuple(
+    [(fam, p, None, f, ("R",), False) for fam in ("Qk", "Qk_gll", "Pk")
+     for p in (4, 6) for f in ("hllc", "lxf", "roe", "sw", "kfvs", "kep")]
+    + [("Qk", 4, None, "hllc", ("R", "step", "stage"), False),
+       ("Qk_gll", 5, None, "roe", ("R", "step", "stage"), False),
+       ("Pk", 4, None, "kep", ("R", "step", "stage"), False),
+       ("Qk", 4, None, "lxf", ("R", "stage"), True),
+       ("Qk_gll", 6, None, "kep", ("R", "stage"), True),
+       ("Pk", 5, None, "roe", ("R", "step"), True),
+       ("Qk", 5, None, "lxf", ("R",), False),
+       ("Qk_gll", 5, None, "lxf", ("R",), False),
+       ("Pk", 5, None, "lxf", ("R",), False),
+       ("Qk", 2, 4, "lxf", ("R", "step", "stage"), False),
+       ("Qk_gll", 2, 4, "hllc", ("R", "step", "stage"), False),
+       ("Pk", 2, 4, "roe", ("R", "step", "stage"), False),
+       ("Qk", 4, 6, "kep", ("R", "stage"), True),
+       ("Pk", 6, 8, "sw", ("R",), False)])
+
+
+def phase_envelope_kernels(entry, kernels, results, log):
+    """Phase 25 for both dtypes: the new forms against their plain versions.
+    Coverage at ENV_GRID (ENV_CASES; the twelve flux x arm pairs on
+    rayleigh_taylor's and iso_xing_shu's configs; the post on Q4-Q6 masked
+    and not, with and without diag; the diag on every new basis kind;
+    volume_residual at K = 25, 36, 49), then each row of the kernel table
+    at its path's shapes, timed (kernel median of 20, plain of 5)."""
+    import numpy as np
+    from dflo_tpu_torch.driver import Solver
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.ops.contract import basis_reduce
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.solver.spatial import make_rhs
+    regs = ptxas_general(log)
+    for src, rows in sorted(regs.items()):
+        print(f"ptxas {src} (general dims): " + ", ".join(
+            f"{k[len('fused_'):]} {d} {dims} {r} regs {sp} B spilled "
+            f"{st} B stack" for k, d, dims, r, sp, st in rows))
+    results["envelope_registers"] = regs
+    gx, gy = ENV_GRID
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        tol = TOL[dtype]
+        cases = {}
+
+        def note(key, pairs, tol_key="fused_residual"):
+            e, eq = pairs_err(pairs)
+            cases[key] = {"rel_err": e, "bitwise": eq}
+            assert e <= tol[tol_key], f"{key} {tag}: {e}"
+
+        # ---- the residual: degrees 4-6, over-integrated, masked ----------
+        for fam, p, nq, flux, forms, masked in ENV_CASES:
+            basis = make_basis(fam, p, nq)
+            mesh, u = env_state(basis, ENV_GRID, dtype, 300 + p)
+            mask = None
+            if masked:
+                mask = np.ones((gy, gx), bool)
+                mask[gy // 4:gy // 2, gx // 3:gx // 2] = False
+            rhs = make_rhs(basis, mesh, bump_bcs(), flux=flux, dtype=dtype,
+                           device="cuda", volume_kernel="fused", mask=mask)
+            note(f"{fam}{p} nq{basis.nq} {flux}"
+                 + (" masked" if masked else "") + " " + "/".join(forms),
+                 residual_pairs(kernels, rhs, u, rhs_time(dtype), forms))
+            del rhs, u
+        # ---- the twelve flux x arm pairs at p 1-2 -------------------------
+        for flux in FLUX_NEW:
+            for arm, prm, edit in (("grav", RT_PRM, None),
+                                   ("grav", RT_PRM, rt_pk),
+                                   ("force", RT_PRM, rt_force),
+                                   ("wbiso", ISO_PRM, iso_variant(2, flux))):
+                def with_flux(params, _e=edit, _f=flux):
+                    if _e is not None:
+                        _e(params)
+                    params.flux.flux = _f
+                _, s, u0 = prm_solver(prm, dtype, grid=ENV_GRID,
+                                      edit=with_flux)
+                assert (s.rhs.ops.flux, s.rhs.ops.source) == (flux, arm)
+                u = perturbed(s.post_stage(u0), 400)
+                note(f"{arm} {s.basis.family}{s.basis.degree} {flux} "
+                     "R/step/stage",
+                     residual_pairs(kernels, s.rhs, u, rhs_time(dtype),
+                                    ("R", "step", "stage")))
+                del s, u, u0
+        # ---- the arms on the general dims (the arm read at run time) ----
+        for fam, p, nq, flux, kw in (
+                ("Qk", 4, None, "hllc",
+                 dict(source=euler.GravitySource(0.0, -1.0))),
+                ("Pk", 4, None, "roe", dict(source=euler.ExternalForce(
+                    lambda x, y, t: (0.01 * x * torch.cos(t),
+                                     -1.0 + 0.0 * y)))),
+                ("Qk_gll", 4, None, "kep",
+                 dict(well_balanced="isothermal",
+                      potential=lambda x, y: x + y)),
+                ("Qk", 2, 4, "sw", dict(source=euler.GravitySource(0.0,
+                                                                   -1.0)))):
+            basis = make_basis(fam, p, nq)
+            mesh, u = env_state(basis, ENV_GRID, dtype, 450 + p)
+            rhs = make_rhs(basis, mesh, bump_bcs(), flux=flux, dtype=dtype,
+                           device="cuda", volume_kernel="fused", **kw)
+            note(f"{rhs.ops.source} {fam}{p} nq{basis.nq} {flux} "
+                 "R/step/stage",
+                 residual_pairs(kernels, rhs, u, rhs_time(dtype),
+                                ("R", "step", "stage")))
+            del rhs, u
+        # ---- the post Q4-Q6 (masked and not), the diag, volume_residual --
+        for p in (4, 5, 6):
+            basis = make_basis("Qk", p)
+            mesh, u = env_state(basis, ENV_GRID, dtype, 500 + p)
+            for masked in (False, True):
+                mask = None
+                if masked:
+                    mask = np.ones((gy, gx), bool)
+                    mask[gy // 4:gy // 2, gx // 3:gx // 2] = False
+                po = kernels.post_operators(
+                    basis, mesh, indicator="density", beta=2.0,
+                    char_lim=True, pos_lim=True, mask=mask, dtype=dtype,
+                    device="cuda")
+                pk = kernels.fused_post(u, po, with_diag=True)
+                pp = kernels.fused_post_plain(u, po, with_diag=True)
+                pk0 = kernels.fused_post(u, po)
+                torch.cuda.synchronize()
+                e_in, nflip = post_err(pk[0], pp[0], tol["fused_post"])
+                e0, nflip0 = post_err(pk0, pp[0], tol["fused_post"])
+                e_d = max(rel_err(pk[1], pp[1]), rel_err(pk[2], pp[2]))
+                cases[f"post Q{p}" + (" masked" if masked else "")] = {
+                    "rel_err": max(e_in, e0, e_d),
+                    "flipped_cells": max(nflip, nflip0),
+                    "bitwise": bool(torch.equal(pk[0], pp[0])
+                                    and torch.equal(pk0, pp[0])
+                                    and torch.equal(pk[1], pp[1])
+                                    and torch.equal(pk[2], pp[2]))}
+                assert max(e_in, e0, e_d) <= tol["fused_post"], p
+                assert max(nflip, nflip0) <= (
+                    0 if dtype == torch.float64
+                    else MAX_FLIP_FRACTION * gx * gy), (p, nflip)
+            vrhs = make_rhs(basis, mesh, bump_bcs(), dtype=dtype,
+                            device="cuda", volume_kernel="pallas")
+            note(f"volume_residual K={basis.K}",
+                 [(kernels.volume_residual(vrhs.lift_stack, u),
+                   kernels.volume_residual_plain(vrhs.lift_stack, u))],
+                 "volume_residual")
+            del u, vrhs
+        for fam, p, nq in (("Qk", 4, None), ("Qk", 6, 8), ("Qk_gll", 5, 7),
+                           ("Pk", 4, None), ("Pk", 6, 8), ("Qk", 2, 4),
+                           ("Pk", 5, None)):
+            basis = make_basis(fam, p, nq)
+            mesh, u = env_state(basis, ENV_GRID, dtype, 600 + p)
+            mask = np.ones((gy, gx), bool)
+            mask[gy // 4:gy // 2, gx // 3:gx // 2] = False
+            for m in (None, mask):
+                d = kernels.diag_operators(basis, mesh, mask=m, dtype=dtype,
+                                           device="cuda")
+                note(f"diag {fam}{p} nq{basis.nq}"
+                     + (" masked" if m is not None else ""),
+                     list(zip(kernels.fused_diag(u, d),
+                              kernels.fused_diag_plain(u, d))), "fused_diag")
+            del u
+        results["envelope_cases"][tag] = cases
+        nb = sorted(k for k, v in cases.items() if not v["bitwise"])
+        print(f"[{tag}] envelope coverage at {gx}x{gy}: {len(cases)} cases, "
+              f"largest rel err {max(v['rel_err'] for v in cases.values()):.3e}"
+              f"; not bitwise: {nb}")
+        torch.cuda.empty_cache()
+
+        # ---- the table's rows at their paths' shapes -----------------------
+        def row(name, fk, fp, grid, pairs, tol_key="fused_residual"):
+            fold(results, name, tag, pairs, tol[tol_key])
+            time_pair(results, name, tag, fk, fp, grid)
+
+        def stage_row(name, s, u, grid):
+            pairs = residual_pairs(kernels, s.rhs, u, s._scalar(0.25),
+                                   ("R", "step", "stage"))
+            strips = s.rhs.strips(u, s._scalar(0.25))
+            force = s.rhs.force(s._scalar(0.25))
+            h = torch.full((), 1e-4, dtype=dtype, device="cuda")
+            kw = {"u_old": torch.roll(u, 1, -1).contiguous(),
+                  "sc": torch.stack([torch.full_like(h, 0.75), h]),
+                  "force": force}
+            row(name, lambda: kernels.fused_residual(u, *strips, s.rhs.ops,
+                                                     **kw),
+                lambda: kernels.fused_residual_plain(u, *strips, s.rhs.ops,
+                                                     **kw), grid, pairs)
+
+        def diag_row(name, s, u, grid):
+            row(name, lambda: kernels.fused_diag(u, s._diag_ops),
+                lambda: kernels.fused_diag_plain(u, s._diag_ops), grid,
+                list(zip(kernels.fused_diag(u, s._diag_ops),
+                         kernels.fused_diag_plain(u, s._diag_ops))),
+                "fused_diag")
+
+        for p, n, rname, dname in ((4, P4_N, "fused_residual_pk4_lxf",
+                                    "fused_diag_pk4"),
+                                   (6, P6_N, "fused_residual_pk6_lxf",
+                                    "fused_diag_pk6")):
+            _, s, u0 = prm_solver(VORTEX_PRM, dtype, n,
+                                  edit=lambda q, _p=p: setattr(q, "degree",
+                                                               _p))
+            assert (s.basis.degree, s.rhs.ops.flux) == (p, "lxf")
+            u = perturbed(u0, 700 + p)
+            del u0
+            stage_row(rname, s, u, (n, n))
+            diag_row(dname, s, u, (n, n))
+            del s, u
+            torch.cuda.empty_cache()
+        # the over-integrated vortex: Q2 on 4 x 4 Gauss points
+        params, s, u0 = oi_vortex(dtype)
+        u = perturbed(u0, 710)
+        del u0
+        stage_row("fused_residual_q2oi_lxf", s, u, (Q2OI_N, Q2OI_N))
+        diag_row("fused_diag_q2oi", s, u, (Q2OI_N, Q2OI_N))
+        del s, u
+        torch.cuda.empty_cache()
+        # the DMR on Q4: after post_stage and after 2 plain steps
+        s, u0 = entry._build(NX, NY, dtype=dtype, device="cuda", degree=4)
+        u_a = s.post_stage(u0)
+        u_b, t = u_a, 0.0
+        for _ in range(2):
+            u_b, dtt, bad = plain_step(s, u_b, t, 1.0)
+            t += float(dtt)
+            assert not bool(bad), f"{tag}: plain Q4 DMR steps tripped bad"
+        stage_row("fused_residual_q4_hllc", s, u_b, (NX, NY))
+        diag_row("fused_diag_q4", s, u_b, (NX, NY))
+        po = s._post_ops
+        for label, v in (("the IC", u0), ("2 steps", u_b)):
+            pk = kernels.fused_post(v, po, with_diag=True)
+            pp = kernels.fused_post_plain(v, po, with_diag=True)
+            pk0 = kernels.fused_post(v, po)
+            torch.cuda.synchronize()
+            e, nflip, e_diag = check_post(results, "fused_post_q4", tag,
+                                          tol["fused_post"], pk, pk0, pp)
+            print(f"[{tag}] DMR Q4 {label}: fused_post_q4 rel err {e:.3e} "
+                  f"outside {nflip} flipped cells; diag rel err "
+                  f"{e_diag:.3e}")
+            assert e <= tol["fused_post"], e
+            assert nflip <= (0 if dtype == torch.float64
+                             else MAX_FLIP_FRACTION * NX * NY), nflip
+        # the cells the TVB limiter sees (the bound's data)
+        shock, _ = po.indicator(u_b, basis_reduce(po.avg, u_b))
+        results["fused_post_q4"][f"data_{tag}"] = {
+            "marked": int((shock > 1.0).sum())}
+        time_pair(results, "fused_post_q4", tag,
+                  lambda: kernels.fused_post(u_b, po, with_diag=True),
+                  lambda: kernels.fused_post_plain(u_b, po, with_diag=True),
+                  (NX, NY))
+        sv = Solver(s.basis, s.mesh, s.bcs, flux=s.flux,
+                    limiter=s.limiter_cfg, cfl=s.cfl, dtype=dtype,
+                    device="cuda", volume_kernel="pallas",
+                    post_kernel="fused")
+        L = sv.rhs.lift_stack
+        row("volume_residual_q4", lambda: kernels.volume_residual(L, u_b),
+            lambda: kernels.volume_residual_plain(L, u_b), (NX, NY),
+            [(kernels.volume_residual(L, u_b),
+              kernels.volume_residual_plain(L, u_b))], "volume_residual")
+        del s, sv, u0, u_a, u_b
+        torch.cuda.empty_cache()
+        # the source arms with roe on their paths' configs
+        _, s, u0 = prm_solver(RT_PRM, dtype, grid=(RT_NX, RT_NY),
+                              edit=lambda q: setattr(q.flux, "flux", "roe"))
+        assert (s.rhs.ops.flux, s.rhs.ops.source) == ("roe", "grav")
+        stage_row("fused_residual_roe_grav", s, s.post_stage(u0),
+                  (RT_NX, RT_NY))
+        del s, u0
+        _, s, u0 = prm_solver(ISO_PRM, dtype, ISO_N,
+                              edit=iso_variant(2, "roe"))
+        assert (s.rhs.ops.flux, s.rhs.ops.source) == ("roe", "wbiso")
+        u = perturbed(u0, 720)
+        del u0
+        stage_row("fused_residual_roe_wbiso", s, u, (ISO_N, ISO_N))
+        del s, u
+        torch.cuda.empty_cache()
+
+
+def rhs_time(dtype):
+    return torch.full((), 0.25, dtype=dtype, device="cuda")
+
+
+def oi_vortex(dtype):
+    """(params, solver, IC) of examples/isentropic_vortex.prm at Q2OI_N x
+    Q2OI_N on the over-integrated Q2 basis (4 x 4 Gauss points), built
+    through Solver: the prm has no quadrature setting."""
+    from dflo_tpu_torch import cli
+    from dflo_tpu_torch.driver import Solver
+    from dflo_tpu_torch.ops.basis import make_basis
+    params, s0, _ = prm_solver(VORTEX_PRM, dtype, Q2OI_N)
+    s = Solver(make_basis("Qk", 2, 4), s0.mesh, s0.bcs, flux=s0.flux,
+               limiter=s0.limiter_cfg, cfl=s0.cfl, dtype=dtype,
+               device="cuda")
+    assert s.volume_kernel == "fused" and s.rhs.ops.V is not None
+    return params, s, cli.set_ic(params, s)
+
+
+def vortex_error(s, u, t) -> dict:
+    """The density l2_error of the vortex against its IC (stationary:
+    information, not a gate)."""
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.physics import euler
+    err = ic.l2_error(s.basis, s.mesh, u, ic.IC_FUNCTIONS["isenvort"](),
+                      float(t))
+    return {"t": float(t), "rho_l2_error_vs_ic": float(err[euler.RHO])}
+
+
+def phase_solver_path(kernels, plain_calls, name, metric, s, u, steps,
+                      chunk, forms, grid, extra=None):
+    """Phase 26: a path driven through Solver._multi_step (after post_stage
+    and a warm-up chunk), `steps` steps in chunks of `chunk`, f32: finite,
+    no fatal flag, no plain version called, each of `forms` launched;
+    returns launch counts and ms/step."""
+    u = s.post_stage(u)
+    multi = s._multi_step(chunk)
+    multi(u, 0.0, 1e3)                              # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    plain_calls["n"] = 0
+    n, bad, t = 0, False, 0.0
+    t0 = time.perf_counter()
+    for _ in range(steps // chunk):
+        u, t, nd, bad_c, _ = multi(u, t, 1e3)
+        n, bad = n + nd, bad | bad_c
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n, bad, finite = int(n), bool(bad), bool(torch.isfinite(u).all())
+    used = {k: v for k, v in counts.items() if v}
+    print(f"{name} {grid[0]}x{grid[1]}: {n} steps to t={float(t)!r}, "
+          f"bad={bad}, finite={finite}, launches={used}, plain calls="
+          f"{plain_calls['n']}")
+    assert n == steps and not bad and finite and u.is_cuda
+    assert all(counts.get(f, 0) > 0 for f in forms), (forms, used)
+    assert plain_calls["n"] == 0, f"{name} called a plain version"
+    ms = 1e3 * wall / steps
+    line = {metric: 4 * s.basis.K * grid[0] * grid[1] * steps / wall,
+            "unit": "DoF-updates/s", "dtype": "float32",
+            "grid": list(grid), "steps": steps, "chunk": chunk,
+            "ms_per_step": ms,
+            "launches_per_step": {k: v / steps for k, v in used.items()},
+            "card": card_line()}
+    if extra is not None:
+        line.update(extra(s, u, t))
+    print(json.dumps(line))
+    return counts, ms
+
+
+def phase_envelope_paths(entry, kernels, plain_calls):
+    """Phase 26: the six new paths, f32, ENV_STEPS steps each; returns
+    {path: launch counts}."""
+    from dflo_tpu_torch.driver import Solver
+    out = {}
+    for p, n in ((4, P4_N), (6, P6_N)):
+        _, s, u0 = prm_solver(VORTEX_PRM, torch.float32, n,
+                              edit=lambda q, _p=p: setattr(q, "degree", _p))
+        assert s.basis.degree == p and s.limiter_cfg.type == "none"
+        out[f"vortex_p{p}"], _ = phase_solver_path(
+            kernels, plain_calls, f"isenvort_p{p}",
+            f"isenvort_p{p}_lxf_rk_dof_updates_per_sec", s, u0, ENV_STEPS,
+            ENV_CHUNK, ("fused_residual[pk_lxf_stage]", "fused_diag"),
+            (n, n), extra=vortex_error)
+        del s, u0
+        torch.cuda.empty_cache()
+    s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
+                         degree=4)
+    assert s.basis.degree == 4 and s.post_kernel == "fused"
+    out["dmr_q4"], _ = phase_solver_path(
+        kernels, plain_calls, "dmr_q4", "dmr_q4_rk_tvb_dof_updates_per_sec",
+        s, u0, ENV_STEPS, ENV_CHUNK,
+        ("fused_residual[qk_hllc_stage]", "fused_post", "fused_diag"),
+        (NX, NY))
+    # one post per stage, the last stage's in its diag form
+    assert out["dmr_q4"]["fused_post"] == len(s.ark) * ENV_STEPS
+    sv = Solver(s.basis, s.mesh, s.bcs, flux=s.flux, limiter=s.limiter_cfg,
+                cfl=s.cfl, dtype=torch.float32, device="cuda",
+                volume_kernel="pallas", post_kernel="fused")
+    out["pallas_q4"], _ = phase_solver_path(
+        kernels, plain_calls, "dmr_q4_pallas",
+        "dmr_q4_pallas_rk_tvb_dof_updates_per_sec", sv, u0, PALLAS_STEPS,
+        PALLAS_STEPS, ("volume_residual", "fused_post"), (NX, NY))
+    del s, sv, u0
+    _, s, u0 = oi_vortex(torch.float32)
+    out["q2oi"], _ = phase_solver_path(
+        kernels, plain_calls, "isenvort_q2oi",
+        "isenvort_q2oi_lxf_rk_dof_updates_per_sec", s, u0, ENV_STEPS,
+        ENV_CHUNK, ("fused_residual[qk_lxf_stage]", "fused_diag"),
+        (Q2OI_N, Q2OI_N), extra=vortex_error)
+    del s, u0
+    out["rt_roe"], _, _ = phase_main_pk(
+        kernels, plain_calls, "rt_q1_roe",
+        "rt_q1_roe_rk_tvb_gravity_dof_updates_per_sec", RT_PRM,
+        (RT_NX, RT_NY), (("set flux = hllc", "set flux = roe"),),
+        ENV_STEPS, ENV_CHUNK, ("fused_residual[qk_roe_grav_stage]",
+                               "fused_post", "fused_diag"))
+    out["iso_roe"], _, _ = phase_main_pk(
+        kernels, plain_calls, "iso_gll2_roe",
+        "isohydro_gll2_wb_roe_rk_dof_updates_per_sec", ISO_PRM,
+        (ISO_N, ISO_N), (("set flux = hllc", "set flux = roe"),),
+        ENV_STEPS, ENV_CHUNK, ("fused_residual[gll_roe_wbiso_stage]",
+                               "fused_diag"))
+    torch.cuda.empty_cache()
+    return out
+
+
 def clock(t_start: float, what: str) -> None:
     """The script's elapsed time before the phases `what`."""
     print(f"chip_smoke: at {time.perf_counter() - t_start:.1f} s, next: "
@@ -3138,7 +3704,11 @@ def main() -> int:
     t0 = time.perf_counter()
     so, log = kernels.build(ptxas_info=True)
     build_s = time.perf_counter() - t0
-    print(f"build: {so.name} in {build_s:.1f} s")
+    times = {ln.split()[1]: float(ln.split("(")[1].split()[0])
+             for ln in log.splitlines() if ln.startswith("== ")}
+    pole = max(times, key=times.get)
+    print(f"build: {so.name} in {build_s:.1f} s, {len(times)} sources, "
+          f"long pole {pole} ({times[pole]:.1f} s)")
     for line in log.splitlines():
         if "Used" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
@@ -3174,6 +3744,11 @@ def main() -> int:
     # ---- phase 23: the masked modal residual, the candidate's four fluxes --
     phase_masked_pk_kernels(entry, kernels, results, log)
     phase_pk_path_kernels(kernels, results)
+
+    clock(t_start, "phase 25")
+    # ---- phase 25: the envelope's new forms against their plain versions ---
+    results["envelope_cases"] = {}
+    phase_envelope_kernels(entry, kernels, results, log)
 
     clock(t_start, "phases 3 and 6")
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
@@ -3260,6 +3835,10 @@ def main() -> int:
     for flux, c in phase_dmr_flux_mood(entry, kernels, plain_calls).items():
         counts[f"dmr_{flux}"] = c
 
+    clock(t_start, "phase 26")
+    # ---- phase 26: the envelope's paths ------------------------------------
+    counts.update(phase_envelope_paths(entry, kernels, plain_calls))
+
     clock(t_start, "phase 8")
     # ---- phase 8: the device's busy share under torch.profiler --------------
     busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard,
@@ -3298,7 +3877,12 @@ def main() -> int:
              "flux_kep": make_basis("Qk", 1),
              **{k: make_basis("Pk", 2) for k in
                 ("fwd_mood", "fwd_rk", "rt_mood",
-                 *(f"dmr_{f}" for f in FLUX_NEW))}}
+                 *(f"dmr_{f}" for f in FLUX_NEW))},
+             "vortex_p4": make_basis("Pk", 4),
+             "vortex_p6": make_basis("Pk", 6),
+             "dmr_q4": make_basis("Qk", 4), "pallas_q4": make_basis("Qk", 4),
+             "q2oi": make_basis("Qk", 2, 4), "rt_roe": make_basis("Qk", 1),
+             "iso_roe": make_basis("Qk_gll", 2)}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
@@ -3339,8 +3923,9 @@ def main() -> int:
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: every phase passed in {total_s:.1f} s (build "
           f"{build_s:.1f} s)")
-    print(json.dumps({"build_s": build_s, "card": card,
-                      "total_s": total_s,
+    print(json.dumps({"build_s": build_s, "build_long_pole": [pole,
+                                                              times[pole]],
+                      "card": card, "total_s": total_s,
                       "device_busy": busy,
                       "fused_pk_post_with_diag_launches":
                           counts["mood"]["fused_pk_post_with_diag"],
@@ -3348,6 +3933,8 @@ def main() -> int:
                       "implicit_f64_primal_rel_err": primal_err,
                       "flux_registers": results["flux_registers"],
                       "masked_pk_registers": results["masked_pk_registers"],
+                      "envelope_registers": results["envelope_registers"],
+                      "envelope_cases": results["envelope_cases"],
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
                                           "mood_host", "shard_f64",

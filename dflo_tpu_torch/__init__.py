@@ -4,10 +4,12 @@ solver for the 2-D compressible Euler equations on Cartesian meshes.
 The JAX package ``dflo_tpu`` is the reference; this package imports ``torch``
 and never ``jax``.  It keeps the reference's state layout ``U[4, K, ny, nx]``
 with components (x-momentum, y-momentum, density, energy), so the two packages
-compare array to array.  Its hot paths (RK on nodal Qk, GLL and modal Pk,
-masked or not, with the HLLC, LxF, Roe, Steger-Warming, KFVS or KEP flux;
-MOOD on modal Pk; the implicit Newton-Krylov step, whose primal residuals
-run the residual kernel) run through hand-written CUDA kernels
+compare array to array.  Its hot paths (RK on nodal Qk, GLL and modal Pk
+at degrees 1-6 on any quadrature up to ``ops.kernels.NQ_MAX`` points per
+direction, masked or not, with the HLLC, LxF, Roe, Steger-Warming, KFVS or
+KEP flux and any source arm; MOOD on modal P1-P3; the implicit
+Newton-Krylov step, whose primal residuals run the residual kernel) run
+through hand-written CUDA kernels
 (``dflo_tpu_torch/csrc``, loaded by
 ``dflo_tpu_torch.ops.kernels``); each has a plain PyTorch version beside it
 that runs on CPU tensors.  ``python -m dflo_tpu_torch input.prm`` runs a

@@ -30,8 +30,9 @@ fused_mood_candidate_kernel(const T* __restrict__ u, const int* __restrict__ deg
   if (cells[cell] == 0) return;
 
   T R[4][K], w[4][K];
-  cell_residual<T, P, true, true, FLUX>(u, deg, Pm, avg0, dfw, dfe, dfs, dfn,
-                                        ops, x, y, ny, nx, R, w);
+  cell_residual<T, BDims<P, true>, true, FLUX>(BDims<P, true>{}, u, deg, Pm,
+                                               avg0, dfw, dfe, dfs, dfn, ops,
+                                               x, y, ny, nx, R, w);
   const T h = dt[0];
 #pragma unroll
   for (int c = 0; c < 4; ++c)

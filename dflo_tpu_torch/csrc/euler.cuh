@@ -28,11 +28,19 @@ constexpr int BX = 32;
 constexpr int BY = 4;
 constexpr int NWARP = BX * BY / 32;
 
-// Degree-P dimensions: MODAL = false is the collocated nodal Qk basis (the
-// DoFs are the values at the Q Gauss points), MODAL = true the modal Pk
-// Legendre basis (total degree <= P, K = (P+1)(P+2)/2 modes).
-template <int P, bool MODAL>
+// Basis dimensions, in two kinds.  A kernel body reads them as d.K, d.NQ,
+// d.Q, d.NL and d.QP of a dims object d and sizes its per-thread arrays
+// by D::KMAX and D::NQMAX.
+//
+// BDims<P, MODAL>: degree P = 1..3 on its default quadrature (nq = P + 1),
+// every size a compile-time constant (the loops unroll, the arrays live in
+// registers).  MODAL = false is the collocated nodal Qk or GLL basis (the
+// DoFs are the values at the Q quadrature points), MODAL = true the modal
+// Pk Legendre basis (total degree <= P, K = (P+1)(P+2)/2 modes).
+template <int P_, bool MODAL_>
 struct BDims {
+  static constexpr int P = P_;
+  static constexpr bool MODAL = MODAL_;
   static constexpr int NQ = P + 1;                  // 1-D Gauss points
   static constexpr int Q = NQ * NQ;                 // volume quadrature points
   static constexpr int K = MODAL ? (P + 1) * (P + 2) / 2 : Q;  // DoFs per cell
@@ -40,10 +48,37 @@ struct BDims {
   // positivity points: GLL(N) x Gauss(p+1), twice (stab/positivity._pos_points)
   static constexpr int NG = ((P + 3) % 2 == 0) ? (P + 3) / 2 : (P + 4) / 2;
   static constexpr int QP = 2 * NG * NQ;
+  static constexpr int KMAX = K, NQMAX = NQ;        // array bounds
 };
 
 template <int P>
 using Dims = BDims<P, false>;
+
+// the bounds of the general dims: Q6 (K = 49 DoFs) and p + 2 = 8 points
+// per face at p = 6 (ops/kernels.NQ_MAX)
+constexpr int K_MAX = 49;
+constexpr int NQ_MAX = 8;
+
+// GDims<MODAL>: the general dims, read at run time: degrees 4-6 on any
+// basis, and any basis off its default quadrature (nq != p + 1).  MODAL =
+// true contracts the DoFs to the quadrature points first, W = V u (the
+// modal Pk basis, and a nodal Qk or GLL basis whose nodes are not its
+// quadrature points); MODAL = false is a collocated nodal basis.  The
+// per-thread arrays are sized for K_MAX and NQ_MAX and live in local
+// memory where the loops index them at run time.
+template <bool MODAL_>
+struct GDims {
+  static constexpr bool MODAL = MODAL_;
+  static constexpr int KMAX = K_MAX, NQMAX = NQ_MAX;
+  int K, NQ, Q, NL, QP;
+};
+
+// the general dims of K DoFs on nq x nq quadrature points; qp positivity
+// points (the post's; 0 where unused)
+template <bool MODAL>
+inline GDims<MODAL> general_dims(int K, int nq, int qp = 0) {
+  return GDims<MODAL>{K, nq, nq * nq, 2 * nq * nq + 4 * nq, qp};
+}
 
 // jnp.maximum / jnp.minimum semantics: NaN in either operand gives NaN.
 // (fmax/fmin drop a NaN and return the other operand, which would hide a
@@ -586,7 +621,7 @@ __device__ __forceinline__ T tvb_slopes(const T ub[4], T Dx[4], T Dy[4],
 
 // Zhang-Shu scale factors of one cell (stab/positivity, src/positivity.cc:
 // 16-208) with the dtype-aware floors (absolute EPS in f64, relative
-// REL_F32 floors in f32): theta1 from the density at the QP positivity
+// REL_F32 floors in f32): theta1 from the density at the d.QP positivity
 // points Pm [QP][K], theta2 from the pressure there after the density
 // squeeze.  w holds the cell's DoFs before either scaling and ub its mean;
 // the caller applies the scaling (nodal: every DoF about the mean; modal:
@@ -596,10 +631,12 @@ __device__ __forceinline__ T tvb_slopes(const T ub[4], T Dx[4], T Dy[4],
 // so with contraction off (-fmad=false) the branches at the pressure floor
 // (pre < eps_p, |1 - t| < 1e-14, decided by rounding there) go the same way
 // in the kernel and in the plain version, at any shape.
-template <typename T, int K, int QP>
-__device__ __forceinline__ void zs_thetas(const T w[4][K], const T ub[4],
+template <typename T, class D>
+__device__ __forceinline__ void zs_thetas(const D& d, const T w[4][D::KMAX],
+                                          const T ub[4],
                                           const T* __restrict__ Pm,
                                           T& theta1, T& theta2) {
+  const int K = d.K, QP = d.QP;
   const T inv_g1 = T(1) / T(GAMMA - 1.0);   // the plain version's 1/g1
   T eps_r = T(EPS), eps_p = T(EPS);
   if (sizeof(T) < sizeof(double)) {   // f32: relative floors

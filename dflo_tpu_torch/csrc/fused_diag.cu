@@ -3,7 +3,8 @@
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_diag (single chip),
 // masked or not, for any basis: the cell average is the mean-weight row
 // avg = wq2 @ V (K entries) against the cell's K DoFs, so the kernel is
-// instantiated on K alone (nodal Q1-Q3: 4, 9, 16; modal P1-P3: 3, 6, 10).
+// instantiated on K alone (nodal Q1-Q6: 4, 9, 16, 25, 36, 49; modal P1-P6:
+// 3, 6, 10, 15, 21, 28), whatever quadrature the row came from.
 // Per cell, from its cell average: the CFL wave speed
 // (c + |vx|)/h + (c + |vy|)/h (compute_time_step_cartesian,
 // src/claw.cc:483-512) and min(rho, p) for the fatal-negativity flag
@@ -60,8 +61,9 @@ static int launch(const void* u, const void* avg, const void* mask,
 
 }  // namespace dflo
 
-// dtype: 0 = float32, 1 = float64; K in {3, 4, 6, 9, 10, 16} (the DoFs per
-// cell of Pk / Qk, p = 1..3); mask: uint8 [ny, nx] fluid flags, or NULL;
+// dtype: 0 = float32, 1 = float64; K in {3, 4, 6, 9, 10, 15, 16, 21, 25,
+// 28, 36, 49} (the DoFs per cell of Pk / Qk and GLL, p = 1..6, on any
+// quadrature); mask: uint8 [ny, nx] fluid flags, or NULL;
 // lam_part/minq_part hold dflo_num_blocks(ny, nx) entries.  Returns
 // cudaGetLastError() after the launch, -1 for an unsupported case.
 extern "C" int dflo_fused_diag(int dtype, int K, const void* u, const void* avg,
@@ -78,7 +80,13 @@ extern "C" int dflo_fused_diag(int dtype, int K, const void* u, const void* avg,
     case 6: DFLO_CASE(T, 6);                                      \
     case 9: DFLO_CASE(T, 9);                                      \
     case 10: DFLO_CASE(T, 10);                                    \
+    case 15: DFLO_CASE(T, 15);                                    \
     case 16: DFLO_CASE(T, 16);                                    \
+    case 21: DFLO_CASE(T, 21);                                    \
+    case 25: DFLO_CASE(T, 25);                                    \
+    case 28: DFLO_CASE(T, 28);                                    \
+    case 36: DFLO_CASE(T, 36);                                    \
+    case 49: DFLO_CASE(T, 49);                                    \
     default: return -1;                                           \
   }
   if (dtype == 0) DFLO_SIZES(float)

@@ -42,6 +42,11 @@
 // modest.  The simple design relies on the 32 x 4 block for L1 reuse of the
 // neighbor rows; a later version stages a shared-memory tile with a one-cell
 // halo so each cell's average and traces are computed once per block.
+// Degrees 1-3 have an instantiation each (every size a constant, the
+// loops unrolled); degrees 4-6 share one general instantiation per dtype
+// (euler.cuh GDims: the sizes read at run time, the per-cell arrays sized
+// for Q6 and held in local memory), which keeps the build short at the
+// cost of local-memory traffic.
 #include <stdint.h>
 
 #include "euler.cuh"
@@ -53,24 +58,38 @@ struct PostParams {
   double dx, dy, h, hdx, hdy, inv_h, diam_pow, Mdx2, beta;
 };
 
-// operator buffer layout (ops/kernels.post_operators), all [.][K] rows
-template <int P>
+// operator buffer layout (ops/kernels.post_operators), all [.][K] rows:
+// faceV [4][NQ][K] face traces first, then the offsets below
+template <class D>
 struct PostOps {
-  static constexpr int K = Dims<P>::K, NQ = Dims<P>::NQ;
-  static constexpr int FACEV = 0;                // [4][NQ][K] face traces
-  static constexpr int WQ = FACEV + 4 * NQ * K;  // [NQ] face weights
-  static constexpr int AVG = WQ + NQ;            // [K] cell average
-  static constexpr int GX = AVG + K;             // [K] mean d/dx
-  static constexpr int GY = GX + K;              // [K] mean d/dy
-  static constexpr int DRX = GY + K;             // [K] node x - centre
-  static constexpr int DRY = DRX + K;            // [K] node y - centre
-  static constexpr int PM = DRY + K;             // [QP][K] positivity points
+  int WQ, AVG, GX, GY, DRX, DRY, PM;
+  __device__ __forceinline__ explicit PostOps(const D& d)
+      : WQ(4 * d.NQ * d.K),   // [NQ] face weights
+        AVG(WQ + d.NQ),       // [K] cell average
+        GX(AVG + d.K),        // [K] mean d/dx
+        GY(GX + d.K),         // [K] mean d/dy
+        DRX(GY + d.K),        // [K] node x - centre
+        DRY(DRX + d.K),       // [K] node y - centre
+        PM(DRY + d.K) {}      // [QP][K] positivity points
 };
 
+// sum_k op[k] * v[k] for k < n, one multiply and one add per term in k
+// order (dot_seq with the length of the dims)
+template <typename T>
+__device__ __forceinline__ T dot_len(const T* __restrict__ op, const T* v,
+                                     int n) {
+  T acc = op[0] * v[0];
+#pragma unroll
+  for (int k = 1; k < n; ++k) acc = acc + op[k] * v[k];
+  return acc;
+}
+
 // load one cell's component c
-template <typename T, int K>
-__device__ __forceinline__ void load_comp(const T* __restrict__ u, int c,
-                                          long plane, long cell, T v[K]) {
+template <typename T, class D>
+__device__ __forceinline__ void load_comp(const D& d, const T* __restrict__ u,
+                                          int c, long plane, long cell,
+                                          T v[D::KMAX]) {
+  const int K = d.K;
 #pragma unroll
   for (int k = 0; k < K; ++k) v[k] = __ldg(u + (long)(c * K + k) * plane + cell);
 }
@@ -78,32 +97,35 @@ __device__ __forceinline__ void load_comp(const T* __restrict__ u, int c,
 // a neighbor's cell average and its trace of component comp on face f; u is
 // the state (plane = ny * nx, cell its index) or a halo line (plane = its
 // length, cell the index along it)
-template <typename T, int P>
-__device__ __forceinline__ void avg_and_trace(const T* __restrict__ u,
+template <typename T, class D>
+__device__ __forceinline__ void avg_and_trace(const D& d,
+                                              const T* __restrict__ u,
                                               const T* __restrict__ ops, int f,
                                               int comp, long plane, long cell,
-                                              T ub[4], T tr[P + 1]) {
-  constexpr int K = Dims<P>::K, NQ = Dims<P>::NQ;
-  T v[K];
+                                              T ub[4], T tr[D::NQMAX]) {
+  const int K = d.K, NQ = d.NQ;
+  const PostOps<D> O(d);
+  T v[D::KMAX];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    load_comp<T, K>(u, c, plane, cell, v);
-    ub[c] = dot_seq<T, K>(ops + PostOps<P>::AVG, v);
+    load_comp<T>(d, u, c, plane, cell, v);
+    ub[c] = dot_len<T>(ops + O.AVG, v, K);
   }
-  load_comp<T, K>(u, comp, plane, cell, v);
+  load_comp<T>(d, u, comp, plane, cell, v);
 #pragma unroll
-  for (int q = 0; q < NQ; ++q)
-    tr[q] = dot_seq<T, K>(ops + PostOps<P>::FACEV + (f * NQ + q) * K, v);
+  for (int q = 0; q < NQ; ++q) tr[q] = dot_len<T>(ops + (f * NQ + q) * K, v, K);
 }
 
 // face integral of the indicator jump: sum_q wq[q] * (t[q] - tn[q]) * valid
-template <typename T, int NQ>
-__device__ __forceinline__ T face_jump(const T* __restrict__ wq, const T t[NQ],
-                                       const T tn[NQ], T valid) {
-  T j[NQ];
+template <typename T, class D>
+__device__ __forceinline__ T face_jump(const D& d, const T* __restrict__ wq,
+                                       const T t[D::NQMAX],
+                                       const T tn[D::NQMAX], T valid) {
+  const int NQ = d.NQ;
+  T j[D::NQMAX];
 #pragma unroll
   for (int q = 0; q < NQ; ++q) j[q] = (t[q] - tn[q]) * valid;
-  return dot_seq<T, NQ>(wq, j);
+  return dot_len<T>(wq, j, NQ);
 }
 
 // The chain follows stab/indicator, stab/limiter and stab/positivity
@@ -112,20 +134,22 @@ __device__ __forceinline__ T face_jump(const T* __restrict__ wq, const T t[NQ],
 // torch version in the same order (ordered sums, no contraction: every
 // source is built with -fmad=false), so in float32 the kernel and the plain
 // version take the same limiter decisions.
-template <typename T, int P>
+template <typename T, class D>
 __global__ void __launch_bounds__(BX * BY)
 fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
                   const uint8_t* __restrict__ vflags,
                   const T* __restrict__ hW, const T* __restrict__ hE,
                   const T* __restrict__ hS, const T* __restrict__ hN,
                   T* __restrict__ out, T* __restrict__ lam_part,
-                  T* __restrict__ minq_part, int ny, int nx, PostParams prm) {
-  constexpr int K = Dims<P>::K, NQ = Dims<P>::NQ, QP = Dims<P>::QP;
-  using O = PostOps<P>;
-  const T* faceV = ops + O::FACEV;
-  const T* wq = ops + O::WQ;
-  const T* avg = ops + O::AVG;
-  const T* Pm = ops + O::PM;
+                  T* __restrict__ minq_part, int ny, int nx, PostParams prm,
+                  D d) {
+  const int K = d.K, NQ = d.NQ;
+  constexpr int KA = D::KMAX, NA = D::NQMAX;
+  const PostOps<D> O(d);
+  const T* faceV = ops;
+  const T* wq = ops + O.WQ;
+  const T* avg = ops + O.AVG;
+  const T* Pm = ops + O.PM;
 
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
@@ -154,52 +178,52 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
 
     // ---- neighbor averages and their facing indicator traces (from a halo
     // line where the neighbor lies across the block's border) -------------
-    T ubW[4], ubE[4], ubS[4], ubN[4], tEw[NQ], tWe[NQ], tNs[NQ], tSn[NQ];
+    T ubW[4], ubE[4], ubS[4], ubN[4], tEw[NA], tWe[NA], tNs[NA], tSn[NA];
     if (x == 0 && hW != nullptr)
-      avg_and_trace<T, P>(hW, ops, 1, comp, ny, y, ubW, tEw);
+      avg_and_trace<T>(d, hW, ops, 1, comp, ny, y, ubW, tEw);
     else
-      avg_and_trace<T, P>(u, ops, 1, comp, plane, (long)y * nx + xw, ubW, tEw);
+      avg_and_trace<T>(d, u, ops, 1, comp, plane, (long)y * nx + xw, ubW, tEw);
     if (x == nx - 1 && hE != nullptr)
-      avg_and_trace<T, P>(hE, ops, 0, comp, ny, y, ubE, tWe);
+      avg_and_trace<T>(d, hE, ops, 0, comp, ny, y, ubE, tWe);
     else
-      avg_and_trace<T, P>(u, ops, 0, comp, plane, (long)y * nx + xe, ubE, tWe);
+      avg_and_trace<T>(d, u, ops, 0, comp, plane, (long)y * nx + xe, ubE, tWe);
     if (y == 0 && hS != nullptr)
-      avg_and_trace<T, P>(hS, ops, 3, comp, nx, x, ubS, tNs);
+      avg_and_trace<T>(d, hS, ops, 3, comp, nx, x, ubS, tNs);
     else
-      avg_and_trace<T, P>(u, ops, 3, comp, plane, (long)ys * nx + x, ubS, tNs);
+      avg_and_trace<T>(d, u, ops, 3, comp, plane, (long)ys * nx + x, ubS, tNs);
     if (y == ny - 1 && hN != nullptr)
-      avg_and_trace<T, P>(hN, ops, 2, comp, nx, x, ubN, tSn);
+      avg_and_trace<T>(d, hN, ops, 2, comp, nx, x, ubN, tSn);
     else
-      avg_and_trace<T, P>(u, ops, 2, comp, plane, (long)yn * nx + x, ubN, tSn);
+      avg_and_trace<T>(d, u, ops, 2, comp, plane, (long)yn * nx + x, ubN, tSn);
 
     // ---- own state and average ------------------------------------------
-    T w[4][K], ub[4];
+    T w[4][KA], ub[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      load_comp<T, K>(u, c, plane, cell, w[c]);
-      ub[c] = dot_seq<T, K>(avg, w[c]);
+      load_comp<T>(d, u, c, plane, cell, w[c]);
+      ub[c] = dot_len<T>(avg, w[c], K);
     }
 
     // ---- KXRCF shock indicator (src/indicator.cc:48-198), or every cell
     // marked (the `limiter` indicator, src/indicator.cc:19-22) -------------
     // the indicator variable's DoFs, selected without a runtime index into
     // the register array
-    T wi[K];
+    T wi[KA];
 #pragma unroll
     for (int k = 0; k < K; ++k) wi[k] = comp == ENE ? w[ENE][k] : w[RHO][k];
     const T ubi = comp == ENE ? ub[ENE] : ub[RHO];
-    T tW[NQ], tE[NQ], tS[NQ], tN[NQ];
+    T tW[NA], tE[NA], tS[NA], tN[NA];
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
-      tW[q] = dot_seq<T, K>(faceV + (0 * NQ + q) * K, wi);
-      tE[q] = dot_seq<T, K>(faceV + (1 * NQ + q) * K, wi);
-      tS[q] = dot_seq<T, K>(faceV + (2 * NQ + q) * K, wi);
-      tN[q] = dot_seq<T, K>(faceV + (3 * NQ + q) * K, wi);
+      tW[q] = dot_len<T>(faceV + (0 * NQ + q) * K, wi, K);
+      tE[q] = dot_len<T>(faceV + (1 * NQ + q) * K, wi, K);
+      tS[q] = dot_len<T>(faceV + (2 * NQ + q) * K, wi, K);
+      tN[q] = dot_len<T>(faceV + (3 * NQ + q) * K, wi, K);
     }
-    const T fW = face_jump<T, NQ>(wq, tW, tEw, T(vW));
-    const T fE = face_jump<T, NQ>(wq, tE, tWe, T(vE));
-    const T fS = face_jump<T, NQ>(wq, tS, tNs, T(vS));
-    const T fN = face_jump<T, NQ>(wq, tN, tSn, T(vN));
+    const T fW = face_jump<T>(d, wq, tW, tEw, T(vW));
+    const T fE = face_jump<T>(d, wq, tE, tWe, T(vE));
+    const T fS = face_jump<T>(d, wq, tS, tNs, T(vS));
+    const T fN = face_jump<T>(d, wq, tN, tSn, T(vN));
     const T vx = ub[MX] / ub[RHO];
     const T vy = ub[MY] / ub[RHO];
     const T inW = T(-vx < T(0)) * T(vW);
@@ -218,8 +242,8 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
     T Dx[4], Dy[4], dbx[4], dfx[4], dby[4], dfy[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      Dx[c] = T(prm.hdx) * dot_seq<T, K>(ops + O::GX, w[c]);
-      Dy[c] = T(prm.hdy) * dot_seq<T, K>(ops + O::GY, w[c]);
+      Dx[c] = T(prm.hdx) * dot_len<T>(ops + O.GX, w[c], K);
+      Dy[c] = T(prm.hdy) * dot_len<T>(ops + O.GY, w[c], K);
       dbx[c] = vW ? ub[c] - ubW[c] : Dx[c];
       dfx[c] = vE ? ubE[c] - ub[c] : Dx[c];
       dby[c] = vS ? ub[c] - ubS[c] : Dy[c];
@@ -237,14 +261,14 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
         const T sx = Dxn[c] * inv_h, sy = Dyn[c] * inv_h;
 #pragma unroll
         for (int k = 0; k < K; ++k)
-          w[c][k] = ub[c] + ops[O::DRX + k] * sx + ops[O::DRY + k] * sy;
+          w[c][k] = ub[c] + ops[O.DRX + k] * sx + ops[O.DRY + k] * sy;
       }
     }
 
     // ---- Zhang-Shu positivity (src/positivity.cc:16-208) -----------------
     if (prm.pos_lim) {
       T theta1, theta2;
-      zs_thetas<T, K, QP>(w, ub, Pm, theta1, theta2);
+      zs_thetas<T>(d, w, ub, Pm, theta1, theta2);
 #pragma unroll
       for (int k = 0; k < K; ++k)
         w[RHO][k] = w[RHO][k] * theta1 + ub[RHO] * (T(1) - theta1);
@@ -271,21 +295,23 @@ fused_post_kernel(const T* __restrict__ u, const T* __restrict__ ops,
   if (lam_part != nullptr) block_diag(lam, mq, lam_part, minq_part);
 }
 
-template <typename T, int P>
-static int launch(const void* u, const void* ops, const void* vflags,
-                  const void* const h[4], void* out, void* lam_part,
-                  void* minq_part, int ny, int nx, const PostParams& prm,
-                  cudaStream_t stream) {
-  fused_post_kernel<T, P><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
+template <typename T, class D>
+static int launch(const D& d, const void* u, const void* ops,
+                  const void* vflags, const void* const h[4], void* out,
+                  void* lam_part, void* minq_part, int ny, int nx,
+                  const PostParams& prm, cudaStream_t stream) {
+  fused_post_kernel<T, D><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
       (const T*)u, (const T*)ops, (const uint8_t*)vflags, (const T*)h[0],
       (const T*)h[1], (const T*)h[2], (const T*)h[3], (T*)out,
-      (T*)lam_part, (T*)minq_part, ny, nx, prm);
+      (T*)lam_part, (T*)minq_part, ny, nx, prm, d);
   return (int)cudaGetLastError();
 }
 
 }  // namespace dflo
 
-// dtype: 0 = float32, 1 = float64; p in {1, 2, 3}.  vflags: uint8
+// dtype: 0 = float32, 1 = float64; p in 1..6 (1-3 on their own
+// instantiations, 4-6 on the general dims of one instantiation per dtype:
+// its per-cell arrays sized for Q6 live in local memory).  vflags: uint8
 // [5, ny, nx] flag plane of a masked domain, or NULL.  hW, hE ([4, K, ny])
 // and hS, hN ([4, K, nx]): the block form's halo lines, each NULL for the
 // block wrap (the single-device form passes four NULLs); not with vflags.
@@ -311,18 +337,25 @@ extern "C" int dflo_fused_post(int dtype, int p, const void* u, const void* ops,
                              h,        hdx,      hdy,     inv_h, diam_pow,
                              Mdx2,     beta};
   cudaStream_t s = (cudaStream_t)stream;
-#define DFLO_CASE(T, P)                                                     \
-  return dflo::launch<T, P>(u, ops, vflags, halo, out, lam_part,           \
-                            minq_part, ny, nx, prm, s)
+#define DFLO_CASE(T, D)                                                     \
+  return dflo::launch<T>(D, u, ops, vflags, halo, out, lam_part, minq_part, \
+                         ny, nx, prm, s)
   if (dtype == 0) {
-    if (p == 1) DFLO_CASE(float, 1);
-    if (p == 2) DFLO_CASE(float, 2);
-    if (p == 3) DFLO_CASE(float, 3);
+    if (p == 1) DFLO_CASE(float, dflo::Dims<1>{});
+    if (p == 2) DFLO_CASE(float, dflo::Dims<2>{});
+    if (p == 3) DFLO_CASE(float, dflo::Dims<3>{});
   } else if (dtype == 1) {
-    if (p == 1) DFLO_CASE(double, 1);
-    if (p == 2) DFLO_CASE(double, 2);
-    if (p == 3) DFLO_CASE(double, 3);
+    if (p == 1) DFLO_CASE(double, dflo::Dims<1>{});
+    if (p == 2) DFLO_CASE(double, dflo::Dims<2>{});
+    if (p == 3) DFLO_CASE(double, dflo::Dims<3>{});
   }
+  // degrees 4-6: the general dims of Q_p on its p + 1 Gauss points, with
+  // the positivity points of stab/positivity._pos_points(p)
+  if (p < 4 || p > 6) return -1;
+  const int nq = p + 1, ng = (p + 3) % 2 == 0 ? (p + 3) / 2 : (p + 4) / 2;
+  const auto g = dflo::general_dims<false>(nq * nq, nq, 2 * ng * nq);
+  if (dtype == 0) DFLO_CASE(float, g);
+  if (dtype == 1) DFLO_CASE(double, g);
 #undef DFLO_CASE
   return -1;
 }

@@ -20,20 +20,27 @@
 
 #include "residual.cuh"
 
-// dtype: 0 = float32, 1 = float64; modal: 0 = collocated Qk, 1 = Pk;
-// p in {1, 2, 3}.  Forms and mask (on either basis) as
-// dflo_fused_residual.  Returns the cudaGetLastError() code after the launch
-// (0 = launched), -1 for an unsupported case.
-extern "C" int dflo_fused_residual_kep(int dtype, int modal, int p,
-                                   const void* u, const void* dfw,
-                                   const void* dfe, const void* dfs,
-                                   const void* dfn, const void* uold,
-                                   const void* sc, const void* ops,
-                                   const void* mask, void* out, int ny,
-                                   int nx, void* stream) {
+namespace dflo {
+// this flux's general kernels (degrees 4-6 and any nq != p + 1), for every
+// source arm: compiled here alone (residual.cuh launch_general)
+template DFLO_GENERAL(KEP);
+}  // namespace dflo
+
+// dtype: 0 = float32, 1 = float64; modal: 1 where the DoFs are contracted
+// with V (modal Pk, or a nodal basis off its nodes), 0 for a collocated Qk or
+// GLL basis; p the degree, K the DoFs per cell and nq the quadrature points
+// per direction (dflo::launch_table: degrees 1-6, nq up to NQ_MAX).  Forms
+// and mask (on either basis) as dflo_fused_residual.  Returns the
+// cudaGetLastError() code after the launch (0 = launched), -1 for an
+// unsupported case.
+extern "C" int dflo_fused_residual_kep(
+    int dtype, int modal, int p, int K, int nq, const void* u,
+    const void* dfw, const void* dfe, const void* dfs, const void* dfn,
+    const void* uold, const void* sc, const void* ops, const void* mask,
+    void* out, int ny, int nx, void* stream) {
   // no source arm: no planes, no potential, no gravity
   const dflo::ResArgs a{u,   dfw, dfe, dfs, dfn, uold, sc, ops, mask,
                         nullptr, nullptr, nullptr, 0.0, 0.0, out, ny, nx};
   return dflo::launch_table<dflo::KEP, dflo::SRC_NONE>(
-      dtype, modal, p, a, (cudaStream_t)stream);
+      dtype, modal, p, K, nq, a, (cudaStream_t)stream);
 }

@@ -7,6 +7,6 @@
 #include "residual.cuh"
 
 namespace dflo {
-template int launch_table<LXF, FORCE_PLANES>(
-    int, int, int, const ResArgs&, cudaStream_t);
+template int launch_table<LXF, FORCE_PLANES>(int, int, int, int, int,
+                                             const ResArgs&, cudaStream_t);
 }  // namespace dflo

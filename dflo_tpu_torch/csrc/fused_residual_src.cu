@@ -30,59 +30,72 @@
 // 10 operations per node.  The design keeps the source in the same pass:
 // nothing of S goes through memory.
 //
-// The arms' launch tables live in five sources built side by side
-// (launch_table in residual.cuh): this one (gravity, hllc),
-// fused_residual_src_lxf.cu (gravity, lxf), fused_residual_planes.cu and
-// fused_residual_planes_lxf.cu (the force planes) and fused_residual_wb.cu
-// (isothermal, both fluxes).
+// The arms' launch tables live in sources built side by side (launch_table
+// in residual.cuh): this one (gravity, hllc), fused_residual_src_<flux>.cu
+// (gravity with lxf, roe, sw, kfvs and kep), fused_residual_planes.cu and
+// fused_residual_planes_<flux>.cu (the force planes), fused_residual_wb.cu
+// (isothermal, hllc and lxf) and fused_residual_wb_<flux>.cu (isothermal,
+// roe, sw, kfvs and kep): every arm with each of the six fluxes, as the
+// reference's arms take any flux (get_flux(flux_name, kernel_safe=True),
+// pallas_kernels.py:273).
 #include <stdint.h>
 
 #include "residual.cuh"
 
 namespace dflo {
 // the other arms' tables are instantiated in their own sources
-#define DFLO_TABLE(FLUX, SRC) \
-  int launch_table<FLUX, SRC>(int, int, int, const ResArgs&, cudaStream_t)
-extern template DFLO_TABLE(LXF, FORCE_CONST);
+#define DFLO_TABLE(FLUX, SRC)                                               \
+  int launch_table<FLUX, SRC>(int, int, int, int, int, const ResArgs&,      \
+                              cudaStream_t)
+#define DFLO_EXTERN(FLUX)                                                   \
+  extern template DFLO_TABLE(FLUX, FORCE_CONST);                            \
+  extern template DFLO_TABLE(FLUX, FORCE_PLANES);                           \
+  extern template DFLO_TABLE(FLUX, WB_ISO)
+DFLO_EXTERN(LXF);
+DFLO_EXTERN(ROE);
+DFLO_EXTERN(SW);
+DFLO_EXTERN(KFVS);
+DFLO_EXTERN(KEP);
 extern template DFLO_TABLE(HLLC, FORCE_PLANES);
-extern template DFLO_TABLE(LXF, FORCE_PLANES);
 extern template DFLO_TABLE(HLLC, WB_ISO);
-extern template DFLO_TABLE(LXF, WB_ISO);
 template DFLO_TABLE(HLLC, FORCE_CONST);
+#undef DFLO_EXTERN
 #undef DFLO_TABLE
 }  // namespace dflo
 
-// dtype: 0 = float32, 1 = float64; modal: 0 = collocated (Qk, GLL), 1 = Pk;
-// p in {1, 2, 3}; flux: 0 = hllc, 1 = lxf; src: 1 = FORCE_CONST (gx, gy),
-// 2 = FORCE_PLANES (fx, fy [Q, ny, nx]), 3 = WB_ISO (phi [K, ny, nx],
-// collocated only).  Forms and mask as dflo_fused_residual (the mask on
-// either basis).  Returns the cudaGetLastError() code after the
-// launch (0 = launched), -1 for an unsupported case.
-extern "C" int dflo_fused_residual_src(int dtype, int modal, int p, int flux,
-                                       int src, const void* u,
-                                       const void* dfw, const void* dfe,
-                                       const void* dfs, const void* dfn,
-                                       const void* uold, const void* sc,
-                                       const void* ops, const void* mask,
-                                       const void* fx, const void* fy,
-                                       const void* phi, double gx, double gy,
-                                       void* out, int ny, int nx,
-                                       void* stream) {
+// dtype: 0 = float32, 1 = float64; modal: 1 where the DoFs are contracted
+// with V (modal Pk, or a nodal basis off its nodes), 0 for a collocated
+// basis; p the degree, K the DoFs per cell, nq the quadrature points per
+// direction (degrees 1-6, nq up to NQ_MAX); flux: 0 = hllc, 1 = lxf,
+// 2 = roe, 3 = sw, 4 = kfvs, 5 = kep (residual.cuh); src: 1 = FORCE_CONST
+// (gx, gy), 2 = FORCE_PLANES (fx, fy [Q, ny, nx]), 3 = WB_ISO (phi
+// [K, ny, nx], collocated only).  Forms and mask as dflo_fused_residual
+// (the mask on either basis).  Returns the cudaGetLastError() code after
+// the launch (0 = launched), -1 for an unsupported case.
+extern "C" int dflo_fused_residual_src(
+    int dtype, int modal, int p, int K, int nq, int flux, int src,
+    const void* u, const void* dfw, const void* dfe, const void* dfs,
+    const void* dfn, const void* uold, const void* sc, const void* ops,
+    const void* mask, const void* fx, const void* fy, const void* phi,
+    double gx, double gy, void* out, int ny, int nx, void* stream) {
   using namespace dflo;
   const ResArgs a{u,  dfw, dfe, dfs, dfn, uold, sc, ops, mask,
                   fx, fy,  phi, gx,  gy,  out,  ny, nx};
   cudaStream_t s = (cudaStream_t)stream;
-#define DFLO_ARM(FLUX, SRC) \
-  if (src == SRC) return launch_table<FLUX, SRC>(dtype, modal, p, a, s)
-  if (flux == HLLC) {
-    DFLO_ARM(HLLC, FORCE_CONST);
-    DFLO_ARM(HLLC, FORCE_PLANES);
-    DFLO_ARM(HLLC, WB_ISO);
-  } else if (flux == LXF) {
-    DFLO_ARM(LXF, FORCE_CONST);
-    DFLO_ARM(LXF, FORCE_PLANES);
-    DFLO_ARM(LXF, WB_ISO);
-  }
+#define DFLO_ARM(FLUX, SRC)                                                 \
+  if (flux == FLUX && src == SRC)                                           \
+  return launch_table<FLUX, SRC>(dtype, modal, p, K, nq, a, s)
+#define DFLO_ARMS(FLUX)                                                     \
+  DFLO_ARM(FLUX, FORCE_CONST);                                              \
+  DFLO_ARM(FLUX, FORCE_PLANES);                                             \
+  DFLO_ARM(FLUX, WB_ISO)
+  DFLO_ARMS(HLLC);
+  DFLO_ARMS(LXF);
+  DFLO_ARMS(ROE);
+  DFLO_ARMS(SW);
+  DFLO_ARMS(KFVS);
+  DFLO_ARMS(KEP);
+#undef DFLO_ARMS
 #undef DFLO_ARM
   return -1;
 }

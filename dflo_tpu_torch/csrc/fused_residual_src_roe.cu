@@ -1,0 +1,12 @@
+// Fused DG residual with a source term, hand-written for Hopper: gravity
+// (FORCE_CONST) with the Roe flux, the launch table of one source arm, built
+// beside the others (see fused_residual_src.cu for what it replaces, what it
+// computes and what bounds it).
+#include <stdint.h>
+
+#include "residual.cuh"
+
+namespace dflo {
+template int launch_table<ROE, FORCE_CONST>(int, int, int, int, int,
+                                            const ResArgs&, cudaStream_t);
+}  // namespace dflo

@@ -8,8 +8,8 @@
 #include "residual.cuh"
 
 namespace dflo {
-template int launch_table<HLLC, WB_ISO>(int, int, int, const ResArgs&,
-                                        cudaStream_t);
-template int launch_table<LXF, WB_ISO>(int, int, int, const ResArgs&,
-                                       cudaStream_t);
+template int launch_table<HLLC, WB_ISO>(int, int, int, int, int,
+                                        const ResArgs&, cudaStream_t);
+template int launch_table<LXF, WB_ISO>(int, int, int, int, int,
+                                       const ResArgs&, cudaStream_t);
 }  // namespace dflo

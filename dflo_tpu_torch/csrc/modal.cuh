@@ -32,9 +32,9 @@ template <typename T, int P>
 __device__ __forceinline__ void modal_pos(T w[4][BDims<P, true>::K],
                                           const T ub[4],
                                           const T* __restrict__ Pm) {
-  constexpr int K = BDims<P, true>::K, QP = BDims<P, true>::QP;
+  constexpr int K = BDims<P, true>::K;
   T theta1, theta2;
-  zs_thetas<T, K, QP>(w, ub, Pm, theta1, theta2);
+  zs_thetas<T>(BDims<P, true>{}, w, ub, Pm, theta1, theta2);
   w[RHO][0] = w[RHO][0] * theta1 + ub[RHO] * (T(1) - theta1);
 #pragma unroll
   for (int k = 1; k < K; ++k) w[RHO][k] = w[RHO][k] * theta1;

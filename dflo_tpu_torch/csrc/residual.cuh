@@ -4,11 +4,20 @@
 // positivity-limited} states).
 //
 // Per cell: the volume flux at the Q quadrature points (collocated Qk and
-// GLL: the DoFs are the point values; modal Pk: W = V u first,
+// GLL: the DoFs are the point values; modal Pk, and a nodal basis off its
+// nodes (over-integrated, nq != p + 1): W = V u first,
 // pallas_kernels.py:450-459), the four face traces of the cell and of each
-// face neighbor, one numerical flux per face (HLLC, or LxF with the cell
-// averages of both cells) and the volume and face lifts with minv/area
-// folded into the lift rows.  Neighbors wrap periodically, as on the TPU;
+// face neighbor, one numerical flux per face (HLLC, Roe, Steger-Warming,
+// KFVS, or LxF and KEP with the cell averages of both cells) and the
+// volume and face lifts with minv/area folded into the lift rows.
+//
+// Every function takes the basis dims d (euler.cuh): BDims for degrees 1-3
+// on their default quadrature, whose sizes are constants (the loops unroll
+// and the per-cell arrays stay in registers), or GDims for degrees 4-6 and
+// any nq != p + 1 up to K_MAX and NQ_MAX, whose sizes are read at run time:
+// one general instantiation per dtype, kind of dims and flux (its source
+// arm read at run time too), its per-cell arrays in local memory, and the
+// same operations in the same order.  Neighbors wrap periodically, as on the TPU;
 // the caller's delta strips (true boundary flux minus wrap flux,
 // solver/spatial.strips) are added at global column 0 / nx-1 and row
 // 0 / ny-1.  On a masked domain (a uint8 fluid-flag plane) a fluid|solid
@@ -58,24 +67,27 @@ __host__ __device__ constexpr bool reads_averages() {
   return FLUX == LXF || FLUX == KEP;
 }
 
-// the source arm of the residual (template argument SRC)
-enum { SRC_NONE = 0, FORCE_CONST = 1, FORCE_PLANES = 2, WB_ISO = 3 };
+// the source arm of the residual (template argument SRC); SRC_ANY: the
+// general dims' kernels, whose arm is read at run time (SrcArgs::kind)
+enum { SRC_ANY = -1, SRC_NONE = 0, FORCE_CONST = 1, FORCE_PLANES = 2,
+       WB_ISO = 3 };
 
-// operator buffer layout (ops/kernels.residual_operators); after the cell
-// average row, by source arm: the force arms' projection src [K][Q], or the
-// isothermal arm's nodal derivative matrices Gxn, Gyn [K][K] and
-// [1/dx, 1/dy]
-template <int P, bool MODAL>
+// operator buffer layout (ops/kernels.residual_operators): faceV [4][NQ][K]
+// first, then the lift [K][NL], V [Q][K] (MODAL dims only) and the cell
+// average row [K]; after it, by source arm: the force arms' projection src
+// [K][Q], or the isothermal arm's nodal derivative matrices Gxn, Gyn [K][K]
+// and [1/dx, 1/dy]
+template <class D>
 struct ResOps {
-  using D = BDims<P, MODAL>;
-  static constexpr int FACEV = 0;                       // [4][NQ][K]
-  static constexpr int LIFT = 4 * D::NQ * D::K;         // [K][NL]
-  static constexpr int VOL = LIFT + D::K * D::NL;       // [Q][K] (modal)
-  static constexpr int AVG = VOL + (MODAL ? D::Q * D::K : 0);  // [K]
-  static constexpr int SRCOP = AVG + D::K;              // [K][Q] (force)
-  static constexpr int GXN = AVG + D::K;                // [K][K] (WB_ISO)
-  static constexpr int GYN = GXN + D::K * D::K;         // [K][K]
-  static constexpr int INVD = GYN + D::K * D::K;        // [2]
+  int LIFT, VOL, AVG, SRCOP, GXN, GYN, INVD;
+  __device__ __forceinline__ explicit ResOps(const D& d)
+      : LIFT(4 * d.NQ * d.K),
+        VOL(LIFT + d.K * d.NL),
+        AVG(VOL + (D::MODAL ? d.Q * d.K : 0)),
+        SRCOP(AVG + d.K),
+        GXN(AVG + d.K),
+        GYN(GXN + d.K * d.K),
+        INVD(GYN + d.K * d.K) {}
 };
 
 // the per-call operands of the source arms (unused members stay null / 0)
@@ -86,21 +98,23 @@ struct SrcArgs {
   const T* phi = nullptr;  // [K, ny, nx] nodal potential (WB_ISO)
   T gx = T(0);             // constant gravity (FORCE_CONST)
   T gy = T(0);
+  int kind = SRC_NONE;     // the arm (read by the SRC_ANY kernels only)
 };
 
 // the state at volume quadrature point n: the streamed nodal values
 // (collocated: the nodes are the quadrature points), or V[n] . w of the
-// register-held DoFs (modal), each an ordered sum over k
-template <typename T, int P, bool MODAL>
-__device__ __forceinline__ void point_state(const T* __restrict__ u,
+// register-held DoFs (MODAL), each an ordered sum over k
+template <typename T, class D>
+__device__ __forceinline__ void point_state(const D& d,
+                                            const T* __restrict__ u,
                                             long plane, long cell,
                                             const T* __restrict__ V,
-                                            const T w[4][BDims<P, MODAL>::K],
-                                            int n, T wq[4]) {
-  constexpr int K = BDims<P, MODAL>::K;
+                                            const T w[4][D::KMAX], int n,
+                                            T wq[4]) {
+  const int K = d.K;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    if constexpr (MODAL) {
+    if constexpr (D::MODAL) {
       T acc = V[n * K] * w[c][0];
 #pragma unroll
       for (int k = 1; k < K; ++k) acc = acc + V[n * K + k] * w[c][k];
@@ -114,17 +128,17 @@ __device__ __forceinline__ void point_state(const T* __restrict__ u,
 // face trace (NQ points) of one cell streamed from memory, for face f; with
 // AVG also its cell average ub[c] = sum_k avg[k] u[c][k] (an ordered sum, as
 // contract.basis_reduce), from the same loads
-template <typename T, int P, bool MODAL, bool AVG = false>
-__device__ __forceinline__ void trace_mem(const T* __restrict__ u,
+template <typename T, class D, bool AVG = false>
+__device__ __forceinline__ void trace_mem(const D& d, const T* __restrict__ u,
                                           const T* __restrict__ faceVf,
                                           long plane, long cell,
-                                          T tr[4][P + 1],
+                                          T tr[4][D::NQMAX],
                                           const T* __restrict__ avg = nullptr,
                                           T* ub = nullptr) {
-  constexpr int K = BDims<P, MODAL>::K, NQ = P + 1;
+  const int K = d.K, NQ = d.NQ;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    T acc[NQ];
+    T acc[D::NQMAX];
     T v = __ldg(u + (long)(c * K) * plane + cell);
 #pragma unroll
     for (int q = 0; q < NQ; ++q) acc[q] = faceVf[q * K] * v;
@@ -145,9 +159,10 @@ __device__ __forceinline__ void trace_mem(const T* __restrict__ u,
 
 // the cell average ub[c] = sum_k avg[k] w[c][k] of register-held DoFs (an
 // ordered sum, as contract.basis_reduce and trace_mem)
-template <typename T, int K>
-__device__ __forceinline__ void avg_reg(const T w[4][K],
+template <typename T, class D>
+__device__ __forceinline__ void avg_reg(const D& d, const T w[4][D::KMAX],
                                         const T* __restrict__ avg, T ub[4]) {
+  const int K = d.K;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     T a = avg[0] * w[c][0];
@@ -158,14 +173,14 @@ __device__ __forceinline__ void avg_reg(const T w[4][K],
 }
 
 // face trace of register-held DoFs w[4][K] (the same operations)
-template <typename T, int P, bool MODAL>
-__device__ __forceinline__ void trace_reg(const T w[4][BDims<P, MODAL>::K],
+template <typename T, class D>
+__device__ __forceinline__ void trace_reg(const D& d, const T w[4][D::KMAX],
                                           const T* __restrict__ faceVf,
-                                          T tr[4][P + 1]) {
-  constexpr int K = BDims<P, MODAL>::K, NQ = P + 1;
+                                          T tr[4][D::NQMAX]) {
+  const int K = d.K, NQ = d.NQ;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    T acc[NQ];
+    T acc[D::NQMAX];
 #pragma unroll
     for (int q = 0; q < NQ; ++q) acc[q] = faceVf[q * K] * w[c][0];
 #pragma unroll
@@ -180,13 +195,14 @@ __device__ __forceinline__ void trace_reg(const T w[4][BDims<P, MODAL>::K],
 // the numerical flux at the nq points of one face, FL/FR the left/right
 // traces along the +x (nx=1) or +y (ny=1) normal, AL/AR the left/right cell
 // averages (read by LxF and KEP only); F[c][q]
-template <typename T, int P, int FLUX>
-__device__ __forceinline__ void face_flux(const T FL[4][P + 1],
-                                          const T FR[4][P + 1],
+template <typename T, class D, int FLUX>
+__device__ __forceinline__ void face_flux(const D& d, const T FL[4][D::NQMAX],
+                                          const T FR[4][D::NQMAX],
                                           const T AL[4], const T AR[4], T nx,
-                                          T ny, T F[4][P + 1]) {
+                                          T ny, T F[4][D::NQMAX]) {
+  const int NQ = d.NQ;
 #pragma unroll
-  for (int q = 0; q < P + 1; ++q) {
+  for (int q = 0; q < NQ; ++q) {
     const T l[4] = {FL[0][q], FL[1][q], FL[2][q], FL[3][q]};
     const T r[4] = {FR[0][q], FR[1][q], FR[2][q], FR[3][q]};
     T f[4];
@@ -205,9 +221,11 @@ __device__ __forceinline__ void face_flux(const T FL[4][P + 1],
 // left solid, right fluid -> the left trace and average become the right
 // ones with the normal momentum (component MX for an x face, MY for a y
 // face) negated; left fluid, right solid -> the other way round.
-template <typename T, int NQ>
-__device__ __forceinline__ void wall_fix(T FL[4][NQ], T FR[4][NQ], T AL[4],
-                                         T AR[4], bool mL, bool mR, int nc) {
+template <typename T, class D>
+__device__ __forceinline__ void wall_fix(const D& d, T FL[4][D::NQMAX],
+                                         T FR[4][D::NQMAX], T AL[4], T AR[4],
+                                         bool mL, bool mR, int nc) {
+  const int NQ = d.NQ;
   if (!mL && mR) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -226,11 +244,12 @@ __device__ __forceinline__ void wall_fix(T FL[4][NQ], T FR[4][NQ], T AL[4],
 }
 
 // R[c][k] += lift[k][col0 + q] * F[c][q]
-template <typename T, int P, bool MODAL>
-__device__ __forceinline__ void lift_face(const T* __restrict__ lift, int col0,
-                                          const T F[4][P + 1],
-                                          T R[4][BDims<P, MODAL>::K]) {
-  constexpr int K = BDims<P, MODAL>::K, NQ = P + 1, NL = BDims<P, MODAL>::NL;
+template <typename T, class D>
+__device__ __forceinline__ void lift_face(const D& d,
+                                          const T* __restrict__ lift, int col0,
+                                          const T F[4][D::NQMAX],
+                                          T R[4][D::KMAX]) {
+  const int K = d.K, NQ = d.NQ, NL = d.NL;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
 #pragma unroll
@@ -243,12 +262,11 @@ __device__ __forceinline__ void lift_face(const T* __restrict__ lift, int col0,
 }
 
 // R[c][k] += lift[k][n] fx[c] + lift[k][Q + n] fy[c] for quadrature point n
-template <typename T, int P, bool MODAL>
-__device__ __forceinline__ void lift_volume(const T* __restrict__ lift, int n,
-                                            const T wq[4],
-                                            T R[4][BDims<P, MODAL>::K]) {
-  constexpr int K = BDims<P, MODAL>::K, Q = BDims<P, MODAL>::Q,
-                NL = BDims<P, MODAL>::NL;
+template <typename T, class D>
+__device__ __forceinline__ void lift_volume(const D& d,
+                                            const T* __restrict__ lift, int n,
+                                            const T wq[4], T R[4][D::KMAX]) {
+  const int K = d.K, Q = d.Q, NL = d.NL;
   T fx[4], fy[4];
   flux_xy(wq, fx, fy);
 #pragma unroll
@@ -265,63 +283,139 @@ __device__ __forceinline__ void lift_volume(const T* __restrict__ lift, int n,
 // A face neighbor's trace on face f (with AVG also its cell average):
 // streamed, or (TP) from its DoFs after truncation to its own degree and
 // positivity, the average then of those DoFs (the plain candidate averages
-// the tp'd state, pallas_kernels.py:340, :368, :380).
-template <typename T, int P, bool MODAL, bool TP, bool AVG>
+// the tp'd state, pallas_kernels.py:340, :368, :380).  TP takes the modal
+// BDims of degree D::P.
+template <typename T, class D, bool TP, bool AVG>
 __device__ __forceinline__ void neighbor_trace(
-    const T* __restrict__ u, const int* __restrict__ deg,
+    const D& d, const T* __restrict__ u, const int* __restrict__ deg,
     const T* __restrict__ Pm, T avg0, const T* __restrict__ faceVf,
-    long plane, long ncell, T tr[4][P + 1], const T* __restrict__ avg,
+    long plane, long ncell, T tr[4][D::NQMAX], const T* __restrict__ avg,
     T ub[4]) {
   if constexpr (TP) {
-    T v[4][BDims<P, MODAL>::K];
-    load_cell<T, BDims<P, MODAL>::K>(u, plane, ncell, v);
-    modal_tp<T, P>(v, __ldg(deg + ncell), Pm, avg0);
-    trace_reg<T, P, MODAL>(v, faceVf, tr);
-    if constexpr (AVG) avg_reg<T, BDims<P, MODAL>::K>(v, avg, ub);
+    T v[4][D::KMAX];
+    load_cell<T, D::K>(u, plane, ncell, v);
+    modal_tp<T, D::P>(v, __ldg(deg + ncell), Pm, avg0);
+    trace_reg<T>(d, v, faceVf, tr);
+    if constexpr (AVG) avg_reg<T>(d, v, avg, ub);
   } else {
-    trace_mem<T, P, MODAL, AVG>(u, faceVf, plane, ncell, tr, avg, ub);
+    trace_mem<T, D, AVG>(d, u, faceVf, plane, ncell, tr, avg, ub);
   }
 }
 
-// The residual R = M^{-1} R(u) of cell (x, y), in R[4][K].  REG: the cell's
-// DoFs are held in w[4][K] (always for the modal basis, which contracts
-// them with V; with TP they are {truncated -> positivity-limited} first,
-// and so is every neighbor before its trace); otherwise (collocated Qk)
-// they are streamed from memory and w is not written.  FLUX: HLLC, ROE, SW,
-// KFVS, or LXF and KEP, which also read the cell averages of the cell and
-// of each face neighbor
-// (of the register-held DoFs where they are held, so with TP the averages
-// of the tp'd states).  mask: the uint8 fluid flags of a masked domain, or
+// R += src[:, n] S(W(n)) point by point (ops/kernels._source_plain): the
+// body force at the Q quadrature points, gravity with the constant g
+// (CONST) or an external force from the caller's planes fx, fy
+template <typename T, class D, bool CONST>
+__device__ __forceinline__ void add_body_force(
+    const D& d, const T* __restrict__ u, long plane, long cell,
+    const T* __restrict__ V, const T w[4][D::KMAX],
+    const T* __restrict__ sop, const SrcArgs<T>& src, T R[4][D::KMAX]) {
+  const int K = d.K, Q = d.Q;
+#pragma unroll
+  for (int n = 0; n < Q; ++n) {
+    T wq[4], s[4];
+    point_state<T>(d, u, plane, cell, V, w, n, wq);
+    if constexpr (CONST) {
+      // physics/euler.forcing_gravity
+      s[MX] = src.gx * wq[RHO];
+      s[MY] = src.gy * wq[RHO];
+      s[RHO] = T(0);
+      s[ENE] = src.gx * wq[MX] + src.gy * wq[MY];
+    } else {
+      // physics/euler.forcing_external
+      const T fx = __ldg(src.fx + (long)n * plane + cell);
+      const T fy = __ldg(src.fy + (long)n * plane + cell);
+      s[MX] = wq[RHO] * fx;
+      s[MY] = wq[RHO] * fy;
+      s[RHO] = T(0);
+      s[ENE] = wq[MX] * fx + wq[MY] * fy;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const T l = sop[k * Q + n];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) R[c][k] = R[c][k] + l * s[c];
+    }
+  }
+}
+
+// isothermal well-balanced gravity on the nodes of a collocated basis
+// (pallas_kernels.py:578-593): RT of the cell average ub, E = exp(-phi/RT),
+// the nodal derivatives of E times the baked 1/dx, 1/dy, then
+// S = rho RT / E grad E added node by node
+template <typename T, class D>
+__device__ __forceinline__ void add_wb_iso(
+    const D& d, const T* __restrict__ u, long plane, long cell,
+    const T* __restrict__ V, const T w[4][D::KMAX],
+    const T* __restrict__ ops, const ResOps<D>& O, const T ub[4],
+    const SrcArgs<T>& src, T R[4][D::KMAX]) {
+  const int K = d.K;
+  const T* gxn = ops + O.GXN;
+  const T* gyn = ops + O.GYN;
+  const T inv_dx = ops[O.INVD], inv_dy = ops[O.INVD + 1];
+  const T rt = pressure(ub) / ub[RHO];
+  T E[D::KMAX];
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    E[k] = ieee_exp(-__ldg(src.phi + (long)k * plane + cell) / rt);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    T dex = gxn[k * K] * E[0], dey = gyn[k * K] * E[0];
+#pragma unroll
+    for (int j = 1; j < K; ++j) {
+      dex = dex + gxn[k * K + j] * E[j];
+      dey = dey + gyn[k * K + j] * E[j];
+    }
+    dex = dex * inv_dx;
+    dey = dey * inv_dy;
+    T wk[4];
+    point_state<T>(d, u, plane, cell, V, w, k, wk);
+    const T fac = wk[RHO] * rt / E[k];
+    const T sx = fac * dex, sy = fac * dey;
+    R[MX][k] = R[MX][k] + sx;
+    R[MY][k] = R[MY][k] + sy;
+    R[RHO][k] = R[RHO][k] + T(0);
+    R[ENE][k] = R[ENE][k] + (wk[MX] * sx + wk[MY] * sy) / wk[RHO];
+  }
+}
+
+// The residual R = M^{-1} R(u) of cell (x, y), in R[4][K], on the basis
+// dims d (BDims or GDims).  REG: the cell's DoFs are held in w[4][K]
+// (always on MODAL dims, which contract them with V; with TP they are
+// {truncated -> positivity-limited} first, and so is every neighbor before
+// its trace); otherwise (a collocated basis) they are streamed from memory
+// and w is not written.  FLUX: HLLC, ROE, SW, KFVS, or LXF and KEP, which
+// also read the cell averages of the cell and of each face neighbor (of
+// the register-held DoFs where they are held, so with TP the averages of
+// the tp'd states).  mask: the uint8 fluid flags of a masked domain, or
 // nullptr.
-template <typename T, int P, bool MODAL, bool TP, int FLUX = HLLC,
-          int SRC = SRC_NONE>
+template <typename T, class D, bool TP, int FLUX = HLLC, int SRC = SRC_NONE>
 __device__ __forceinline__ void cell_residual(
-    const T* __restrict__ u, const int* __restrict__ deg,
+    const D& d, const T* __restrict__ u, const int* __restrict__ deg,
     const T* __restrict__ Pm, T avg0, const T* __restrict__ dfw,
     const T* __restrict__ dfe, const T* __restrict__ dfs,
     const T* __restrict__ dfn, const T* __restrict__ ops, int x, int y,
-    int ny, int nx, T R[4][BDims<P, MODAL>::K],
-    T w[4][BDims<P, MODAL>::K],
+    int ny, int nx, T R[4][D::KMAX], T w[4][D::KMAX],
     const uint8_t* __restrict__ mask = nullptr,
     const SrcArgs<T>& src = SrcArgs<T>()) {
-  static_assert(MODAL || !TP, "truncation needs the modal basis");
+  static_assert(D::MODAL || !TP, "truncation needs the modal basis");
   static_assert(SRC == SRC_NONE || !TP, "the candidate takes no source");
-  static_assert(SRC != WB_ISO || !MODAL,
+  static_assert(SRC != WB_ISO || !D::MODAL,
                 "well-balanced gravity needs a collocated basis");
-  using D = BDims<P, MODAL>;
-  using O = ResOps<P, MODAL>;
-  constexpr int K = D::K, NQ = D::NQ, Q = D::Q;
-  constexpr bool REG = MODAL || TP;
+  const int K = d.K, NQ = d.NQ, Q = d.Q;
+  constexpr int NA = D::NQMAX;
+  constexpr bool REG = D::MODAL || TP;
   constexpr bool AVG = reads_averages<FLUX>();
+  const ResOps<D> O(d);
   const long plane = (long)ny * nx;
   const long cell = (long)y * nx + x;
   const int xw = x == 0 ? nx - 1 : x - 1;
   const int xe = x == nx - 1 ? 0 : x + 1;
   const int ys = y == 0 ? ny - 1 : y - 1;
   const int yn = y == ny - 1 ? 0 : y + 1;
-  const T* faceV = ops + O::FACEV;
-  const T* lift = ops + O::LIFT;
-  const T* avg = ops + O::AVG;
+  const T* faceV = ops;
+  const T* lift = ops + O.LIFT;
+  const T* avg = ops + O.AVG;
   const bool masked = mask != nullptr;
   const bool m_own = masked ? __ldg(mask + cell) != 0 : true;
 
@@ -332,27 +426,43 @@ __device__ __forceinline__ void cell_residual(
 
   // ---- volume term --------------------------------------------------------
   if constexpr (REG) {
-    load_cell<T, K>(u, plane, cell, w);
-    if constexpr (TP) modal_tp<T, P>(w, __ldg(deg + cell), Pm, avg0);
+    if constexpr (TP) {
+      load_cell<T, D::K>(u, plane, cell, w);
+      modal_tp<T, D::P>(w, __ldg(deg + cell), Pm, avg0);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          w[c][k] = __ldg(u + (long)(c * K + k) * plane + cell);
+    }
   }
-  const T* V = ops + O::VOL;
+  const T* V = ops + O.VOL;
 #pragma unroll
   for (int n = 0; n < Q; ++n) {
     T wq[4];
-    point_state<T, P, MODAL>(u, plane, cell, V, w, n, wq);
-    lift_volume<T, P, MODAL>(lift, n, wq, R);
+    point_state<T>(d, u, plane, cell, V, w, n, wq);
+    lift_volume<T>(d, lift, n, wq, R);
   }
 
   // the cell's own average (LxF, KEP; the isothermal source's RT)
   T ub[4] = {T(0), T(0), T(0), T(0)};
   if constexpr (AVG && REG) {
-    avg_reg<T, K>(w, avg, ub);
-  } else if constexpr (AVG || SRC == WB_ISO) {
+    avg_reg<T>(d, w, avg, ub);
+  } else if constexpr (AVG || SRC == WB_ISO || SRC == SRC_ANY) {
+    if (AVG || SRC != SRC_ANY || src.kind == WB_ISO) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) ub[c] = dot_cell<T, K>(avg, u, c, plane, cell);
+      for (int c = 0; c < 4; ++c) {
+        T a = avg[0] * __ldg(u + (long)(c * K) * plane + cell);
+#pragma unroll
+        for (int k = 1; k < K; ++k)
+          a = a + avg[k] * __ldg(u + (long)(c * K + k) * plane + cell);
+        ub[c] = a;
+      }
+    }
   }
 
-  T own[4][NQ], nb[4][NQ], F[4][NQ], a_own[4], a_nb[4];
+  T own[4][NA], nb[4][NA], F[4][NA], a_own[4], a_nb[4];
   // One face: the cell's trace on face f_own, the neighbor ncell's trace on
   // the facing face f_nb; left = the neighbor on the W and S faces.  nc is
   // the normal momentum component a wall mirror negates; strip/stride/sidx
@@ -361,27 +471,27 @@ __device__ __forceinline__ void cell_residual(
   auto face = [&](int f_own, int f_nb, long ncell, bool nb_left, T nxv, T nyv,
                   int nc, bool edge, const T* __restrict__ strip, int stride,
                   int sidx, int col0) {
-    if constexpr (REG) trace_reg<T, P, MODAL>(w, faceV + f_own * NQ * K, own);
-    else trace_mem<T, P, MODAL>(u, faceV + f_own * NQ * K, plane, cell, own);
-    neighbor_trace<T, P, MODAL, TP, AVG>(u, deg, Pm, avg0,
-                                         faceV + f_nb * NQ * K, plane, ncell,
-                                         nb, avg, a_nb);
+    if constexpr (REG) trace_reg<T>(d, w, faceV + f_own * NQ * K, own);
+    else trace_mem<T, D>(d, u, faceV + f_own * NQ * K, plane, cell, own);
+    neighbor_trace<T, D, TP, AVG>(d, u, deg, Pm, avg0,
+                                  faceV + f_nb * NQ * K, plane, ncell, nb,
+                                  avg, a_nb);
 #pragma unroll
     for (int c = 0; c < 4; ++c) a_own[c] = ub[c];
     const bool m_nb = masked ? __ldg(mask + ncell) != 0 : true;
     if (nb_left) {
-      if (masked) wall_fix<T, NQ>(nb, own, a_nb, a_own, m_nb, m_own, nc);
-      face_flux<T, P, FLUX>(nb, own, a_nb, a_own, nxv, nyv, F);
+      if (masked) wall_fix<T>(d, nb, own, a_nb, a_own, m_nb, m_own, nc);
+      face_flux<T, D, FLUX>(d, nb, own, a_nb, a_own, nxv, nyv, F);
     } else {
-      if (masked) wall_fix<T, NQ>(own, nb, a_own, a_nb, m_own, m_nb, nc);
-      face_flux<T, P, FLUX>(own, nb, a_own, a_nb, nxv, nyv, F);
+      if (masked) wall_fix<T>(d, own, nb, a_own, a_nb, m_own, m_nb, nc);
+      face_flux<T, D, FLUX>(d, own, nb, a_own, a_nb, nxv, nyv, F);
     }
     if (edge)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
 #pragma unroll
         for (int q = 0; q < NQ; ++q) F[c][q] += strip[(c * NQ + q) * stride + sidx];
-    lift_face<T, P, MODAL>(lift, col0, F, R);
+    lift_face<T>(d, lift, col0, F, R);
   };
   // west: left = west neighbor's east trace; east: right = east neighbor's
   // west trace; south / north likewise along y
@@ -396,64 +506,21 @@ __device__ __forceinline__ void cell_residual(
 
   // ---- source arms, after the lifts --------------------------------------
   if constexpr (SRC == FORCE_CONST || SRC == FORCE_PLANES) {
-    // R += src[:, n] S(W(n)) point by point (ops/kernels._lift_source)
-    const T* sop = ops + O::SRCOP;
-#pragma unroll
-    for (int n = 0; n < Q; ++n) {
-      T wq[4], s[4];
-      point_state<T, P, MODAL>(u, plane, cell, V, w, n, wq);
-      if constexpr (SRC == FORCE_CONST) {
-        // physics/euler.forcing_gravity
-        s[MX] = src.gx * wq[RHO];
-        s[MY] = src.gy * wq[RHO];
-        s[RHO] = T(0);
-        s[ENE] = src.gx * wq[MX] + src.gy * wq[MY];
-      } else {
-        // physics/euler.forcing_external
-        const T fx = __ldg(src.fx + (long)n * plane + cell);
-        const T fy = __ldg(src.fy + (long)n * plane + cell);
-        s[MX] = wq[RHO] * fx;
-        s[MY] = wq[RHO] * fy;
-        s[RHO] = T(0);
-        s[ENE] = wq[MX] * fx + wq[MY] * fy;
-      }
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const T l = sop[k * Q + n];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) R[c][k] = R[c][k] + l * s[c];
-      }
-    }
+    add_body_force<T, D, SRC == FORCE_CONST>(d, u, plane, cell, V, w,
+                                             ops + O.SRCOP, src, R);
   } else if constexpr (SRC == WB_ISO) {
-    // isothermal well-balanced gravity on the nodes (pallas_kernels.py:
-    // 578-593): RT of the cell average, E = exp(-phi/RT), the nodal
-    // derivatives of E times the baked 1/dx, 1/dy, then S = rho RT / E grad E
-    const T* gxn = ops + O::GXN;
-    const T* gyn = ops + O::GYN;
-    const T inv_dx = ops[O::INVD], inv_dy = ops[O::INVD + 1];
-    const T rt = pressure(ub) / ub[RHO];
-    T E[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      E[k] = ieee_exp(-__ldg(src.phi + (long)k * plane + cell) / rt);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      T dex = gxn[k * K] * E[0], dey = gyn[k * K] * E[0];
-#pragma unroll
-      for (int j = 1; j < K; ++j) {
-        dex = dex + gxn[k * K + j] * E[j];
-        dey = dey + gyn[k * K + j] * E[j];
-      }
-      dex = dex * inv_dx;
-      dey = dey * inv_dy;
-      T wk[4];
-      point_state<T, P, MODAL>(u, plane, cell, V, w, k, wk);
-      const T fac = wk[RHO] * rt / E[k];
-      const T sx = fac * dex, sy = fac * dey;
-      R[MX][k] = R[MX][k] + sx;
-      R[MY][k] = R[MY][k] + sy;
-      R[RHO][k] = R[RHO][k] + T(0);
-      R[ENE][k] = R[ENE][k] + (wk[MX] * sx + wk[MY] * sy) / wk[RHO];
+    add_wb_iso<T>(d, u, plane, cell, V, w, ops, O, ub, src, R);
+  } else if constexpr (SRC == SRC_ANY) {
+    // the general dims: the arm read at run time
+    if (src.kind == FORCE_CONST) {
+      add_body_force<T, D, true>(d, u, plane, cell, V, w, ops + O.SRCOP, src,
+                                 R);
+    } else if (src.kind == FORCE_PLANES) {
+      add_body_force<T, D, false>(d, u, plane, cell, V, w, ops + O.SRCOP,
+                                  src, R);
+    } else if constexpr (!D::MODAL) {
+      if (src.kind == WB_ISO)
+        add_wb_iso<T>(d, u, plane, cell, V, w, ops, O, ub, src, R);
     }
   }
 
@@ -471,25 +538,25 @@ __device__ __forceinline__ void cell_residual(
 // a*u_old + (1-a)*(u + dt*R) with [a, dt] read from a device pointer so the
 // host never waits on dt, or the forward-Euler update u + dt*R (sc = [dt]);
 // SRC adds a source arm with its operands in src.
-template <typename T, int P, bool MODAL, int FLUX, int SRC = SRC_NONE>
+template <typename T, class D, int FLUX, int SRC = SRC_NONE>
 __global__ void __launch_bounds__(BX * BY)
 fused_residual_kernel(const T* __restrict__ u, const T* __restrict__ dfw,
                       const T* __restrict__ dfe, const T* __restrict__ dfs,
                       const T* __restrict__ dfn, const T* __restrict__ uold,
                       const T* __restrict__ sc, const T* __restrict__ ops,
                       const uint8_t* __restrict__ mask, T* __restrict__ out,
-                      int ny, int nx, SrcArgs<T> src) {
-  constexpr int K = BDims<P, MODAL>::K;
+                      int ny, int nx, SrcArgs<T> src, D d) {
+  const int K = d.K;
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   if (x >= nx || y >= ny) return;
   const long plane = (long)ny * nx;
   const long cell = (long)y * nx + x;
 
-  T R[4][K], w[4][K];
-  cell_residual<T, P, MODAL, false, FLUX, SRC>(u, nullptr, nullptr, T(0), dfw,
-                                               dfe, dfs, dfn, ops, x, y, ny,
-                                               nx, R, w, mask, src);
+  T R[4][D::KMAX], w[4][D::KMAX];
+  cell_residual<T, D, false, FLUX, SRC>(d, u, nullptr, nullptr, T(0), dfw,
+                                        dfe, dfs, dfn, ops, x, y, ny, nx, R,
+                                        w, mask, src);
 
   // ---- write R, the SSP stage, or the forward-Euler update ---------------
   if (uold != nullptr) {
@@ -528,50 +595,95 @@ struct ResArgs {
   int ny, nx;
 };
 
-template <typename T, int P, bool MODAL, int FLUX, int SRC = SRC_NONE>
-int launch_residual(const ResArgs& a, cudaStream_t stream) {
+template <typename T, int FLUX, int SRC, class D>
+int launch_residual(const D& d, const ResArgs& a, cudaStream_t stream,
+                    int kind = SRC) {
   SrcArgs<T> src;
+  src.kind = kind;
   src.fx = (const T*)a.fx;
   src.fy = (const T*)a.fy;
   src.phi = (const T*)a.phi;
   src.gx = T(a.gx);
   src.gy = T(a.gy);
-  fused_residual_kernel<T, P, MODAL, FLUX, SRC>
+  fused_residual_kernel<T, D, FLUX, SRC>
       <<<grid_for(a.ny, a.nx), dim3(BX, BY), 0, stream>>>(
           (const T*)a.u, (const T*)a.dfw, (const T*)a.dfe, (const T*)a.dfs,
           (const T*)a.dfn, (const T*)a.uold, (const T*)a.sc,
           (const T*)a.ops, (const uint8_t*)a.mask, (T*)a.out, a.ny, a.nx,
-          src);
+          src, d);
   return (int)cudaGetLastError();
 }
 
+// The general dims of one flux, every source arm read at run time (src, as
+// SRC): degrees 4-6 and any nq != p + 1, within K_MAX and NQ_MAX.  Defined
+// here and instantiated once per flux, in fused_residual<_flux>.cu (the
+// extern declarations below keep the arms' sources from compiling it
+// again): one kernel per dtype and kind of dims for all of a flux's arms.
+template <int FLUX>
+int launch_general(int dtype, int modal, int K, int nq, int src,
+                   const ResArgs& a, cudaStream_t s) {
+  if (K < 1 || K > K_MAX || nq < 1 || nq > NQ_MAX) return -1;
+  if (!modal && K != nq * nq) return -1;   // collocated: the nodes are the points
+  if (src == WB_ISO && modal) return -1;
+#define DFLO_RUN(T, M)                                                      \
+  return launch_residual<T, FLUX, SRC_ANY>(general_dims<M>(K, nq), a, s, src)
+  if (dtype == 0) {
+    if (modal) DFLO_RUN(float, true);
+    DFLO_RUN(float, false);
+  }
+  if (modal) DFLO_RUN(double, true);
+  DFLO_RUN(double, false);
+#undef DFLO_RUN
+}
+
+#define DFLO_GENERAL(FLUX)                                                  \
+  int launch_general<FLUX>(int, int, int, int, int, const ResArgs&,         \
+                           cudaStream_t)
+extern template DFLO_GENERAL(HLLC);
+extern template DFLO_GENERAL(LXF);
+extern template DFLO_GENERAL(ROE);
+extern template DFLO_GENERAL(SW);
+extern template DFLO_GENERAL(KFVS);
+extern template DFLO_GENERAL(KEP);
+
 // The launch table of one flux and source arm over dtype (0 = float32,
-// 1 = float64), basis (modal) and degree p in {1, 2, 3}; -1 for a case it
-// does not take (a source arm's operands missing, WB_ISO on the modal
-// basis, u_old without sc).  Each source arm's table is instantiated in a
-// translation unit of its own (fused_residual_src*.cu), so nvcc builds them
-// side by side.
+// 1 = float64), the basis dims and the degree: modal = 1 where the kernel
+// contracts the DoFs with V (the modal Pk basis, or a nodal basis off its
+// nodes), K DoFs and nq quadrature points per direction.  Degrees 1-3 on
+// their default quadrature (nq = p + 1) take their own instantiations
+// (BDims); every other basis within K_MAX and NQ_MAX the flux's general
+// kernels (launch_general).  -1 for a case it does not take (a source
+// arm's operands missing, WB_ISO on a MODAL basis, u_old without sc, a
+// basis beyond the bounds).  Each source arm's table is instantiated in a
+// translation unit of its own (fused_residual_src*.cu, _planes*.cu,
+// _wb*.cu), so nvcc builds them side by side.
 template <int FLUX, int SRC>
-int launch_table(int dtype, int modal, int p, const ResArgs& a,
-                 cudaStream_t s) {
+int launch_table(int dtype, int modal, int p, int K, int nq,
+                 const ResArgs& a, cudaStream_t s) {
   if (a.uold != nullptr && a.sc == nullptr) return -1;
   if (SRC == FORCE_PLANES && (a.fx == nullptr || a.fy == nullptr)) return -1;
   if (SRC == WB_ISO && (a.phi == nullptr || modal)) return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  const bool fixed = p >= 1 && p <= 3 && nq == p + 1 &&
+                     K == (modal ? (p + 1) * (p + 2) / 2 : (p + 1) * (p + 1));
+  if (!fixed) return launch_general<FLUX>(dtype, modal, K, nq, SRC, a, s);
+#define DFLO_RUN(T, D) return launch_residual<T, FLUX, SRC>(D, a, s)
 #define DFLO_DEGREES(T, M)                                                  \
-  if (p == 1) return launch_residual<T, 1, M, FLUX, SRC>(a, s);             \
-  if (p == 2) return launch_residual<T, 2, M, FLUX, SRC>(a, s);             \
-  if (p == 3) return launch_residual<T, 3, M, FLUX, SRC>(a, s);
+  if (p == 1) DFLO_RUN(T, (BDims<1, M>{}));                                 \
+  if (p == 2) DFLO_RUN(T, (BDims<2, M>{}));                                 \
+  if (p == 3) DFLO_RUN(T, (BDims<3, M>{}));
   if constexpr (SRC == WB_ISO) {
     if (dtype == 0) { DFLO_DEGREES(float, false) }
     if (dtype == 1) { DFLO_DEGREES(double, false) }
   } else {
     if (dtype == 0) {
       if (modal) { DFLO_DEGREES(float, true) } else { DFLO_DEGREES(float, false) }
-    } else if (dtype == 1) {
+    } else {
       if (modal) { DFLO_DEGREES(double, true) } else { DFLO_DEGREES(double, false) }
     }
   }
 #undef DFLO_DEGREES
+#undef DFLO_RUN
   return -1;
 }
 

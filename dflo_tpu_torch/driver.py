@@ -9,8 +9,8 @@ The torch counterpart of dflo_tpu/driver.py's ``Solver``:
   limiter the post is one fused pass (averages -> shock indicator ->
   characteristic TVB -> positivity), and the final stage's post also
   yields the next step's CFL wave speed and the fatal-negativity minimum.
-  Everywhere else (the modal Pk and GLL bases, or limiter type "none")
-  the post is
+  Everywhere else (the modal Pk and GLL bases, a Qk basis off its nodes,
+  or limiter type "none") the post is
   the plain stab chain {indicator -> TVB -> positivity}, each step present
   only where configured, and the diag kernel reads the wave speed and
   the negativity minimum off the step's result.  A solid-cell mask (the
@@ -74,11 +74,13 @@ per chunk.  The port's kernels take any block shape: a mesh needs only
 ``ny % DY == nx % DX == 0`` (the JAX package's sharded kernels also want
 8 x 128-aligned blocks).
 
-Configurations outside the ported slices raise NotImplementedError: MOOD
-off the fused residual (with a source callable its source arm does not
-carry), a source term with a flux other than hllc and lxf (ROADMAP queue
-2, item 9), the minmax limiter and the other indicators (the physics
-envelope); under a device mesh, MOOD, implicit and local stepping, masks,
+Configurations outside the ported slices raise NotImplementedError on
+every device: MOOD off the fused residual (with a source callable its
+source arm does not carry), MOOD at degrees 4-6 (ROADMAP queue 2, item 10),
+a basis beyond the kernels' bounds (degree above 6 or more than
+kernels.NQ_MAX quadrature points per direction, queue 2, item 11), the
+minmax limiter and the other indicators (the physics envelope); under a
+device mesh, MOOD, implicit and local stepping, masks,
 source terms, the plain and volume_residual forms and the plain post chain
 (ROADMAP queue 1, item 10).
 """
@@ -129,23 +131,20 @@ def _where(cond, new, old):
 def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
                   volume_kernel: str, post_kernel: str, source=None,
                   well_balanced: str | None = None) -> tuple[str, str]:
-    """Resolve "auto" (dflo_tpu/driver.py:104-138): the fused residual
-    wherever the configuration is inside its envelope (collocated Qk or
-    GLL or modal Pk, any of the six fluxes, degrees 1-3, no source term or
-    one of the kernel's source arms, with hllc or lxf: a GravitySource, an
-    ExternalForce or isothermal well-balancing), the fused post on Gauss Qk
-    with the TVB limiter (the reference's post_ok), else the plain forms.
-    A source term with another flux raises on every device: no kernel
-    carries it yet, and no device runs it on the plain path."""
-    modal = basis.family == "Pk"
-    has_source = source is not None or well_balanced is not None
-    if flux not in kernels.ARM_FLUXES and has_source:
-        raise kernels.arm_later(flux)
-    vol_ok = (basis.degree in kernels.DEGREES
-              and (modal or basis.is_nodal_collocated)
-              and flux in kernels.FLUXES
+    """Resolve "auto" as the reference does (dflo_tpu/driver.py:104-138):
+    the fused residual wherever the configuration is inside its envelope
+    (any Qk, GLL or Pk basis of degree 1-6 on any quadrature, any of the
+    six fluxes, no source term or one of the kernel's source arms: a
+    GravitySource, an ExternalForce or isothermal well-balancing), the
+    fused post on collocated Gauss Qk with the TVB limiter (the reference's
+    post_ok), else the plain forms.  A basis beyond the kernels' bounds
+    raises where the Solver builds its operators (kernels.beyond_caps), on
+    every device: the reference runs its kernels there, and no device runs
+    it on the plain path instead."""
+    vol_ok = (flux in kernels.FLUXES
               and kernels.carries_source(source, well_balanced))
-    post_ok = vol_ok and basis.family == "Qk" and limiter.type == "TVB"
+    post_ok = (vol_ok and basis.family == "Qk" and basis.is_nodal_collocated
+               and limiter.type == "TVB")
     if volume_kernel == "auto":
         volume_kernel = "fused" if vol_ok else "xla"
     if post_kernel == "auto":
@@ -213,6 +212,8 @@ class Solver:
         if method == "mood" and not modal:
             raise ValueError("MOOD requires the Pk basis "
                              "(src/parameters.cc:541-544)")
+        if method == "mood" and basis.degree not in kernels.MOOD_DEGREES:
+            raise kernels.mood_later(basis.degree)
         if device_mesh is not None:
             if method == "mood":
                 raise _mesh_later("the MOOD cascade")
@@ -303,11 +304,13 @@ class Solver:
                 per_x=per_x, per_y=per_y, mask=self.mask, dtype=dtype,
                 device=dev)
 
-        # the RK and implicit post on Gauss Qk with TVB: the fused post (or
-        # its plain version; RK takes its diag form); every other post is
-        # the plain chain
+        # the RK and implicit post on collocated Gauss Qk with TVB: the
+        # fused post (or its plain version; RK takes its diag form); every
+        # other post is the plain chain
         self._fused_chain = (method in ("rk", "implicit")
-                             and basis.family == "Qk" and cfg.type == "TVB")
+                             and basis.family == "Qk"
+                             and basis.is_nodal_collocated
+                             and cfg.type == "TVB")
         if device_mesh is None:
             self._diag_ops = diag_ops(self.device)
             if self._fused_chain:

@@ -69,12 +69,13 @@ def contact_ic(x, y, t=0.0):
 
 def _build(nx: int, ny: int, dtype: torch.dtype = torch.float64,
            device="cuda", method: str = "rk", device_mesh=None,
-           flux: str = "hllc"):
+           flux: str = "hllc", degree: int = 2):
     """(solver, u0) of the DMR configuration on an nx x ny mesh, with the
-    HLLC flux unless `flux` names another; u0 is the nodal interpolant (Qk)
-    or the L2 projection (Pk) of the IC, a whole state on `device` (under a
-    device mesh, ``solver.shard(u0)`` splits it)."""
-    basis = make_basis("Pk" if method == "mood" else "Qk", 2)
+    HLLC flux unless `flux` names another, on Q2 (P2 for MOOD) unless
+    `degree` names another; u0 is the nodal interpolant (Qk) or the L2
+    projection (Pk) of the IC, a whole state on `device` (under a device
+    mesh, ``solver.shard(u0)`` splits it)."""
+    basis = make_basis("Pk" if method == "mood" else "Qk", degree)
     mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
     bcs = dict(W=BoundarySide(euler.BC_INFLOW, dmr_inflow),
                E=BoundarySide(euler.BC_OUTFLOW),

@@ -6,12 +6,12 @@ wrapper                TPU kernel it replaces                      CUDA source
                        (dflo_tpu/ops/pallas_kernels.py)
 =====================  ==========================================  ==========================
 fused_residual         make_fused_residual, dense (collocated Qk   csrc/fused_residual.cu
-                       and GLL and modal Pk; hllc, lxf, roe, sw,   csrc/fused_residual_lxf.cu
-                       kfvs and kep; a solid-cell mask on every    csrc/fused_residual_{roe,
-                       basis; its ops["src"] and wb_iso source     sw,kfvs,kep}.cu
-                       arms, with hllc and lxf)                    csrc/fused_residual_src*.cu
-                                                                   csrc/fused_residual_planes*.cu
-                                                                   csrc/fused_residual_wb.cu
+                       and GLL, modal Pk and over-integrated       csrc/fused_residual_lxf.cu
+                       nodal bases, degrees 1-6; hllc, lxf, roe,   csrc/fused_residual_{roe,
+                       sw, kfvs and kep; a solid-cell mask on      sw,kfvs,kep}.cu
+                       every basis; its ops["src"] and wb_iso      csrc/fused_residual_src*.cu
+                       source arms, with every flux)               csrc/fused_residual_planes*.cu
+                                                                   csrc/fused_residual_wb*.cu
 fused_mood_candidate   make_fused_residual(...).sparse (hllc,      csrc/fused_mood_candidate.cu
                        lxf, roe, sw, kfvs and kep)                 csrc/fused_mood_candidate_{lxf,
                                                                    roe,sw,kfvs,kep}.cu
@@ -89,8 +89,16 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
-#: degrees the kernels are instantiated for (the MOOD check needs p >= 2)
-DEGREES = (1, 2, 3)
+#: degrees the residual, post, diag and volume_residual kernels take: 1-3
+#: with an instantiation each, 4-6 on the general dims (csrc/euler.cuh
+#: GDims), as the reference's bases run to degree 6
+DEGREES = (1, 2, 3, 4, 5, 6)
+#: degrees of the MOOD kernels (candidate, modal positivity, Pk post,
+#: check; the check needs p >= 2)
+MOOD_DEGREES = (1, 2, 3)
+#: the quadrature bound of the general dims (csrc/euler.cuh NQ_MAX, beside
+#: K_MAX = 49, Q6's DoFs): nq = p + 2 at p = 6
+NQ_MAX = 8
 #: the thread block of every kernel, 32 cells along x by 4 rows (csrc/
 #: euler.cuh BX, BY); the sparse MOOD candidate reads one flag per block
 TILE_Y, TILE_X = 4, 32
@@ -111,8 +119,6 @@ FLUXES = tuple(_RESIDUAL_ENTRY)
 #: csrc/fused_mood_candidate*.cu)
 _CANDIDATE_ENTRY = {f: "dflo_fused_mood_candidate"
                     + ("" if f == "hllc" else f"_{f}") for f in FLUXES}
-#: the fluxes of the residual's source arms
-ARM_FLUXES = ("hllc", "lxf")
 
 
 # ---------------------------------------------------------------------------
@@ -202,10 +208,9 @@ def _load():
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     sig = {
         "dflo_num_blocks": [ci, ci],
-        "dflo_fused_residual": [ci, ci, ci] + [vp] * 10 + [ci, ci, vp],
-        **{_RESIDUAL_ENTRY[f]: [ci, ci, ci] + [vp] * 10 + [ci, ci, vp]
+        **{_RESIDUAL_ENTRY[f]: [ci] * 5 + [vp] * 10 + [ci, ci, vp]
            for f in FLUXES},
-        "dflo_fused_residual_src": [ci] * 5 + [vp] * 12 + [cd, cd, vp, ci, ci,
+        "dflo_fused_residual_src": [ci] * 7 + [vp] * 12 + [cd, cd, vp, ci, ci,
                                                           vp],
         "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
         **{e: [ci, ci] + [vp] * 11 + [cd, ci, ci, vp, vp]
@@ -343,28 +348,45 @@ def _residual_form(ops: "ResidualOps", u_old=None, dt=None) -> str:
 # operator buffers
 # ---------------------------------------------------------------------------
 
+def beyond_caps(basis: basis_mod.Basis) -> NotImplementedError:
+    """The error of a basis beyond the kernels' bounds (a degree above 6,
+    or more than NQ_MAX quadrature points per direction), raised on every
+    device: no device runs it on the plain path instead."""
+    return NotImplementedError(
+        f"the kernels take degrees {DEGREES[0]}-{DEGREES[-1]} with at most "
+        f"NQ_MAX = {NQ_MAX} quadrature points per direction; got "
+        f"{basis.family} p = {basis.degree}, nq = {basis.nq} (ROADMAP "
+        f"queue 2, item 11)")
+
+
+def mood_later(p: int) -> NotImplementedError:
+    """The error of MOOD at a degree its kernels do not take yet, raised on
+    every device."""
+    return NotImplementedError(
+        f"MOOD at degree {p} is not ported yet: its kernels (the candidate, "
+        f"the modal positivity, the Pk post and the check) take degrees "
+        f"{MOOD_DEGREES} (ROADMAP queue 2, item 10)")
+
+
 def _check_basis(basis: basis_mod.Basis, modal: bool | None = None) -> bool:
-    """True for the modal Pk basis, False for a collocated nodal basis (Qk
-    on its Gauss nodes, Qk_gll on its Gauss-Lobatto nodes: the same kernels,
-    their operator values in the buffers); raises for anything the kernels
-    do not take (modal=True/False: only that one)."""
-    if basis.family == "Pk":
-        is_modal = True
-    elif basis.is_nodal_collocated:
-        is_modal = False
-    else:
-        raise NotImplementedError(
-            "the kernels take the collocated nodal Qk and GLL bases and the "
-            f"modal Pk basis, got {basis.family} with nq = {basis.nq}")
+    """True for the modal Pk basis, False for a nodal basis (Qk on its
+    Gauss nodes, Qk_gll on its Gauss-Lobatto nodes, or either off its
+    nodes, nq != p + 1: the same kernels, their operator values in the
+    buffers); raises for a basis beyond the kernels' bounds (beyond_caps)
+    and, with modal=True/False, for the other kind."""
+    is_modal = basis.family == "Pk"
     if modal is not None and modal != is_modal:
         raise NotImplementedError(
             f"this kernel takes the {'modal Pk' if modal else 'nodal Qk'} "
             f"basis, got {basis.family}")
-    if basis.degree not in DEGREES:
-        raise NotImplementedError(
-            f"the kernels are instantiated for degrees {DEGREES}, "
-            f"got {basis.degree}")
+    if basis.degree not in DEGREES or basis.nq > NQ_MAX:
+        raise beyond_caps(basis)
     return is_modal
+
+
+def _check_mood_degree(p: int) -> None:
+    if p not in MOOD_DEGREES:
+        raise mood_later(p)
 
 
 def _flat(parts, dtype, device) -> tuple[torch.Tensor, list[torch.Tensor]]:
@@ -392,8 +414,10 @@ class ResidualOps:
     """Operators of the fused residual: faceV [4, nq, K],
     lift [K, 2Q + 4nq] = [dy*GxW^T | dx*GyW^T | +W | -E | +S | -N face lifts],
     rows pre-scaled by minv/area (pallas_kernels.py:642-660), for the
-    modal basis V [Q, K], the basis at the Q volume quadrature points (the
-    kernel contracts the DoFs to point values before the fluxes), and
+    modal basis and a nodal basis off its nodes (nq != p + 1) V [Q, K],
+    the basis at the Q volume quadrature points (the kernel contracts the
+    DoFs to point values before the fluxes; None on a collocated basis),
+    and
     avg [K], the cell-average row (LxF's dissipation speed reads the
     averages of both cells of a face; so does KEP's dissipation matrix).
     flux: one of FLUXES (kfvs in its kernel form); mask: the
@@ -475,15 +499,6 @@ def source_kind(source, well_balanced: str | None) -> str | None:
     return next((k for c, k in _FORCE_ARMS if isinstance(source, c)), None)
 
 
-def arm_later(flux: str) -> NotImplementedError:
-    """The error of a source term with a flux beyond hllc and lxf: the
-    kernel's source arms do not carry it yet, and no device runs it on the
-    plain path instead."""
-    return NotImplementedError(
-        f"a source term with the {flux!r} flux is not ported yet: the "
-        f"kernel's source arms carry {ARM_FLUXES} (ROADMAP queue 2, item 9)")
-
-
 def nodal_points(basis: basis_mod.Basis, mesh) -> tuple[np.ndarray,
                                                         np.ndarray]:
     """The physical coordinates [Q, ny, nx] of the volume quadrature points
@@ -500,14 +515,15 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
     well_balanced="isothermal", evaluated with torch in dtype on device at
     the nodes."""
     modal = _check_basis(basis)
+    # the DoFs go through V to the quadrature points (pallas_kernels.py:
+    # 661-662): the modal basis and a nodal one off its nodes
+    contract = not basis.is_nodal_collocated
     if flux not in FLUXES:
         raise ValueError(f"unknown numerical flux {flux!r}; the fused "
                          f"residual carries {FLUXES}")
     kind = source_kind(source, well_balanced)
-    if kind is not None and flux not in ARM_FLUXES:
-        raise arm_later(flux)
     if kind == "wbiso":
-        if modal:
+        if contract:
             raise ValueError("well-balanced gravity needs a nodal-collocated "
                              "basis (GLL, src_gll/assemble_explicit.cc:66-72)")
         if potential is None:
@@ -521,7 +537,7 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
         [mesh.dy * GxW.T * scale, mesh.dx * GyW.T * scale,
          mesh.dy * fvw[0].T * scale, -mesh.dy * fvw[1].T * scale,
          mesh.dx * fvw[2].T * scale, -mesh.dx * fvw[3].T * scale], axis=1)
-    parts = ([basis.faceV, lift] + ([basis.V] if modal else [])
+    parts = ([basis.faceV, lift] + ([basis.V] if contract else [])
              + [basis.wq2 @ basis.V])
     if kind in ("grav", "force"):
         # minv . (wq2 V)^T, baked as the reference bakes it (the identity up
@@ -531,7 +547,7 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
     elif kind == "wbiso":
         parts += [basis.Gx, basis.Gy, [1.0 / mesh.dx, 1.0 / mesh.dy]]
     buf, views = _flat(parts, dtype, device)
-    n0 = 3 if modal else 2
+    n0 = 3 if contract else 2
     kw = {}
     if kind is not None:
         kw["source"] = kind
@@ -551,7 +567,7 @@ def residual_operators(basis: basis_mod.Basis, mesh, *, flux: str = "lxf",
                   .expand(basis.K, mesh.ny, mesh.nx).contiguous())
     return ResidualOps(basis.degree, basis.K, basis.nq, len(basis.wq2), modal,
                        basis.family, flux, buf, views[0], views[1],
-                       views[2] if modal else None, views[n0],
+                       views[2] if contract else None, views[n0],
                        _mask_tensor(mask, mesh, device), **kw)
 
 
@@ -637,10 +653,11 @@ def post_operators(basis: basis_mod.Basis, mesh, *, indicator: str = "density",
                    pos_lim: bool = True, per_x: bool = False,
                    per_y: bool = False, mask=None, dtype, device) -> PostOps:
     _check_basis(basis, modal=False)
-    if basis.family != "Qk":
+    if basis.family != "Qk" or not basis.is_nodal_collocated:
         raise NotImplementedError(
-            f"the fused post takes the Gauss Qk basis, as the reference's "
-            f"post_ok (dflo_tpu/driver.py:126), not {basis.family}")
+            f"the fused post takes the collocated Gauss Qk basis, as the "
+            f"reference's post_ok (dflo_tpu/driver.py:126-127), not "
+            f"{basis.family} with nq = {basis.nq}")
     if indicator not in ("density", "energy", "limiter"):
         raise NotImplementedError(
             f"the fused post carries the limiter, density and energy "
@@ -698,6 +715,7 @@ def pk_post_operators(basis: basis_mod.Basis, mesh, *, M: float = 0.0,
                       per_x: bool = False, per_y: bool = False, dtype,
                       device) -> PkPostOps:
     _check_basis(basis, modal=True)
+    _check_mood_degree(basis.degree)
     h = mesh.diameter_h
     P = as_tensor(basis.eval_at(_pos_points(basis.degree)), dtype, device)
     return PkPostOps(
@@ -745,6 +763,7 @@ class MoodCheckOps:
 def mood_check_operators(basis: basis_mod.Basis, mesh, *, per_x: bool = False,
                          per_y: bool = False, device) -> MoodCheckOps:
     _check_basis(basis, modal=True)
+    _check_mood_degree(basis.degree)
     if basis.degree < 2:
         raise NotImplementedError("the MOOD check needs p >= 2 (the u2 "
                                   "smoothness test reads the D2 modes)")
@@ -842,8 +861,8 @@ def fused_residual_plain(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
     sum in the kernel's order."""
     num_flux = get_flux(ops.flux, kernel_safe=True)
     faceV = ops.faceV
-    # collocated: nodes = quadrature points; modal: point values W = V u
-    W = basis_apply_ordered(ops.V, u) if ops.modal else u
+    # collocated: nodes = quadrature points; else point values W = V u
+    W = basis_apply_ordered(ops.V, u) if ops.V is not None else u
     Fx = euler.flux_x(W)
     Fy = euler.flux_y(W)
     uW, uE, uS, uN = (basis_apply_ordered(faceV[f], u) for f in range(4))
@@ -927,17 +946,19 @@ def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
     ptrs = (_ptr(u), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(u_old),
             _ptr(sc if sc is not None else dt), _ptr(ops.buf),
             _ptr(ops.mask))
-    code = _DTYPE_CODE[u.dtype]
+    # the basis dims: whether the DoFs go through V, the degree, K and nq
+    # (csrc/residual.cuh launch_table)
+    dims = (_DTYPE_CODE[u.dtype], int(ops.V is not None), ops.p, ops.K,
+            ops.nq)
     if ops.source is None:
         entry = getattr(lib, _RESIDUAL_ENTRY[ops.flux])
-        rc = _call(u.device, entry, code, int(ops.modal), ops.p, *ptrs,
-                   _ptr(out), ny, nx, _stream(u.device))
-    else:
-        rc = _call(u.device, lib.dflo_fused_residual_src, code,
-                   int(ops.modal), ops.p, int(ops.flux == "lxf"),
-                   _SRC_CODE[ops.source], *ptrs, _ptr(fx), _ptr(fy),
-                   _ptr(ops.phi), *ops.g, _ptr(out), ny, nx,
+        rc = _call(u.device, entry, *dims, *ptrs, _ptr(out), ny, nx,
                    _stream(u.device))
+    else:
+        rc = _call(u.device, lib.dflo_fused_residual_src, *dims,
+                   FLUXES.index(ops.flux), _SRC_CODE[ops.source], *ptrs,
+                   _ptr(fx), _ptr(fy), _ptr(ops.phi), *ops.g, _ptr(out), ny,
+                   nx, _stream(u.device))
     _check(rc, "fused_residual")
     fused_residual.launches += 1
     _count_form(_residual_form(ops, u_old, dt))
@@ -1017,6 +1038,7 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
         if tuple(s.shape) != (4, rops.nq, n):
             raise ValueError(f"strip shape {tuple(s.shape)} != "
                              f"{(4, rops.nq, n)}")
+    _check_mood_degree(rops.p)
     flags = tile_flags(cells)
     lib = _load()
     entry = getattr(lib, _CANDIDATE_ENTRY[rops.flux])
@@ -1051,6 +1073,7 @@ def fused_modal_pos(u, ops: ModalOps, deg=None, with_diag: bool = False):
     ny, nx = _check_state(u, ops.K)
     if not _cuda_or_cpu(u, ops.P):
         return fused_modal_pos_plain(u, ops, deg, with_diag)
+    _check_mood_degree(ops.p)
     if deg is not None:
         _check_plane(deg, u, torch.int32, (ny, nx), "deg")
     lib = _load()
@@ -1419,9 +1442,9 @@ def volume_residual(lift, u):
         raise ValueError(f"lift shape {tuple(lift.shape)} != {(K, 2 * K)}")
     if not _cuda_or_cpu(u, lift):
         return volume_residual_plain(lift, u)
-    if K not in (4, 9, 16):
-        raise NotImplementedError(f"volume_residual is instantiated for the "
-                                  f"collocated Q1-Q3 (K = 4, 9, 16), got {K}")
+    if K not in [(p + 1) ** 2 for p in DEGREES]:
+        raise NotImplementedError(f"volume_residual takes the collocated "
+                                  f"Q1-Q6 (K = 4, 9, ..., 49), got {K}")
     lib = _load()
     out = torch.empty_like(u)
     rc = _call(u.device, lib.dflo_volume_residual, _DTYPE_CODE[u.dtype], K,

@@ -161,37 +161,47 @@ def test_mood_with_gravity_matches_jax_cli(tmp_path):
     MOOD's dense route on the residual's gravity arm), 48 x 4, 8 steps
     through both CLIs: every checkpoint within 1e-10 (they agree to 1e-13),
     and per step equal degree reductions and cascade passes and equal
-    limiter marks but in step 5.  There one mark differs, cell (y, x) =
-    (2, 12) in the first stage: the two packages' states after step 4
-    differ by 1.3e-15 (the JAX package's XLA post averages through its
-    whole average row, the port's Pk post through mode 0, as the
-    reference's TPU kernels), and from the JAX package's own state the
-    port's step 5 marks 394 cells as it does (checked here: one port step
-    from the JAX package's checkpoint 4 gives its step 5's dt and MOOD
-    counters); the TVB limiter leaves the cell unchanged, so the states
-    stay equal."""
-    from test_torch_configs import check_cli_pair, ckpt, edited
+    limiter marks but where the check below explains a difference of one
+    mark.  The two packages' states after a step differ by round-off (the
+    JAX package's XLA post averages through its whole average row, the
+    port's Pk post through mode 0, as the reference's TPU kernels), and a
+    limiter mark can flip on it: cell (y, x) = (2, 12) in step 5's first
+    stage, which the TVB limiter then leaves unchanged.  So the test runs
+    one port step from the JAX package's own checkpoint before every step
+    and requires the JAX package's dt and MOOD counters there, marks
+    included; a step whose marks differ in the CLI runs is allowed only
+    where that holds and the two packages' states before it agree to
+    1e-13."""
+    from test_torch_configs import check_cli_pair, ckpt, edited, rel
+    steps = 8
     text = edited("sod_mood", 48, 4, ("set basis = Pk",
                                       "set basis = Pk\nset gravity = 1.0"))
-    res, jm, tm = check_cli_pair(text, tmp_path, "Pk", 48, steps=8,
+    res, jm, tm = check_cli_pair(text, tmp_path, "Pk", 48, steps=steps,
                                  equal_moods=False)
     assert res.solver.rhs.ops.source == "grav"
     assert not hasattr(res.solver.rhs, "sparse_candidate")
 
     def counts(line):
         return [int(f.split("=")[1]) for f in line.split()]
-    assert [m[0] for m in jm] == [m[0] for m in tm] == [str(i)
-                                                        for i in range(1, 9)]
+    assert [m[0] for m in jm] == [m[0] for m in tm] == [
+        str(i) for i in range(1, steps + 1)]
+    assert sum(counts(m[1])[0] for m in tm) > 0
+    flips = []
     for i, (a, b) in enumerate(zip(jm, tm)):
         (ra, la, pa), (rb, lb, pb) = counts(a[1]), counts(b[1])
         assert ra == rb and pa == pb, i
-        assert la == lb or (i == 4 and abs(la - lb) == 1), i
-    assert sum(counts(m[1])[0] for m in tm) > 0
-    # step 5 from the JAX package's own state: the port marks as it does
-    c4, c5 = ckpt(tmp_path / "jax", 4), ckpt(tmp_path / "jax", 5)
-    t4, t5 = float(c4["t"]), float(c5["t"])
-    _, dt, bad, st = res.solver._step(torch.from_numpy(c4["u"]), t4, 1e3)
-    assert not bool(bad)
-    assert abs(float(dt) - (t5 - t4)) <= 1e-13 * (t5 - t4)
-    assert [int(st.n_reduce), int(st.n_marked), int(st.iters)] \
-        == counts(jm[4][1])
+        if la != lb:
+            assert abs(la - lb) == 1, i
+            flips.append(i)
+        # step i + 1 from the JAX package's own state after step i
+        ca, cn = ckpt(tmp_path / "jax", i), ckpt(tmp_path / "jax", i + 1)
+        ta, tn = float(ca["t"]), float(cn["t"])
+        _, dt, bad, st = res.solver._step(torch.from_numpy(ca["u"]), ta, 1e3)
+        assert not bool(bad)
+        assert abs(float(dt) - (tn - ta)) <= 1e-13 * (tn - ta), i
+        assert [int(st.n_reduce), int(st.n_marked), int(st.iters)] \
+            == counts(a[1]), i
+    assert len(flips) <= 1, flips
+    for i in flips:
+        assert rel(ckpt(tmp_path / "jax", i)["u"],
+                   ckpt(tmp_path / "port", i)["u"]) <= 1e-13, i

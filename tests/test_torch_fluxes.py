@@ -262,8 +262,13 @@ def test_residual_forms_match_jax(jax_residuals, flux, case):
 
 
 def test_new_fluxes_refuse_mood_and_source_arms():
-    """The source arms keep to hllc and lxf, on every device, MOOD's
-    included; MOOD itself takes the four fluxes (the MOOD tests below)."""
+    """The source arms take the four new fluxes too, as the reference's do
+    (its arms call get_flux(flux_name, kernel_safe=True),
+    pallas_kernels.py:273): a MOOD Solver with roe and gravity builds on
+    the residual's gravity arm (the dense route, no sparse candidate), and
+    kep with gravity on Q1 resolves "auto" to the fused residual's gravity
+    arm, on every device; "xla" stays the plain residual.  The tests of
+    tests/test_torch_envelope.py hold these arms against dflo_tpu."""
     from dflo_tpu_torch.driver import LimiterConfig, Solver
     basis = make_basis("Pk", 2)
     mesh = CartesianMesh(NX, NY, 0.0, 1.0, 0.0, 1.0)
@@ -271,15 +276,18 @@ def test_new_fluxes_refuse_mood_and_source_arms():
     s = Solver(basis, mesh, torch_bcs(), flux="roe", limiter=lim,
                method="mood", dtype=F64, device="cpu")
     assert s._mood_stage.sparse and s.rhs.ops.flux == "roe"
-    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
-        Solver(basis, mesh, torch_bcs(), flux="roe", limiter=lim,
+    s = Solver(basis, mesh, torch_bcs(), flux="roe", limiter=lim,
                method="mood", source=euler.GravitySource(0.0, -1.0),
                dtype=F64, device="cpu")
+    assert not s._mood_stage.sparse
+    assert (s.rhs.ops.flux, s.rhs.ops.source) == ("roe", "grav")
     for vk in ("auto", "xla", "fused"):
-        with pytest.raises(NotImplementedError, match="queue 2, item 9"):
-            Solver(make_basis("Qk", 1), mesh, torch_bcs(), flux="kep",
+        s = Solver(make_basis("Qk", 1), mesh, torch_bcs(), flux="kep",
                    source=euler.GravitySource(0.0, -1.0), dtype=F64,
                    device="cpu", volume_kernel=vk)
+        assert s.volume_kernel == ("xla" if vk == "xla" else "fused")
+        if vk != "xla":
+            assert (s.rhs.ops.flux, s.rhs.ops.source) == ("kep", "grav")
 
 
 # ---------------------------------------------------------------------------

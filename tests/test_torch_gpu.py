@@ -16,7 +16,12 @@ modal residual (the forward step on P1-P3, all six fluxes, three forms,
 its launch keys, a solid cell's R exactly 0), the MOOD candidate with roe,
 sw, kfvs and kep (p = 2, 3, bitwise, on a cell set and on every cell), and
 three f64 MOOD steps through the kernels against the same steps through
-the plain versions on the masked P2 forward step and with gravity.
+the plain versions on the masked P2 forward step and with gravity; the
+envelope of the residual (every flux at p = 4-6 on Qk, GLL and Pk, the
+over-integrated bases, masked forms, the source arms with roe, sw, kfvs
+and kep), the post on Q4-Q6 masked and not, the diag on every new basis
+kind, volume_residual at K = 25, 36, 49, and the refusals of MOOD at
+p >= 4 and of a basis beyond NQ_MAX on the card.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -702,10 +707,12 @@ BUMP_BCS = dict(W=BoundarySide(euler.BC_FARFIELD, far_values),
                 S=BoundarySide(euler.BC_SLIP), N=BoundarySide(euler.BC_SLIP))
 
 
-def setup_bump(family, p, flux, dtype, device, nx=SRC_NX, ny=SRC_NY):
+def setup_bump(family, p, flux, dtype, device, nx=SRC_NX, ny=SRC_NY,
+               nq=None, mask=None):
     """The fused rhs of `flux` on the unit square (farfield W/E, slip S/N)
-    and the bump state with a 2 % perturbation (numpy seed p)."""
-    basis = make_basis(family, p)
+    and the bump state with a 2 % perturbation (numpy seed p); nq
+    quadrature points per direction (None: p + 1), a solid-cell mask."""
+    basis = make_basis(family, p, nq)
     mesh = CartesianMesh(nx, ny, 0.0, 1.0, 0.0, 1.0)
     u = ic.set_initial_condition(basis, mesh, bump_state,
                                  dtype=torch.float64, device="cpu")
@@ -713,7 +720,8 @@ def setup_bump(family, p, flux, dtype, device, nx=SRC_NX, ny=SRC_NY):
     u = (u * torch.from_numpy(1.0 + 0.02 * rng.uniform(-1.0, 1.0, u.shape))
          ).to(dtype=dtype, device=device)
     rhs = make_rhs(basis, mesh, BUMP_BCS, flux=flux, dtype=dtype,
-                   device=device, volume_kernel="fused")
+                   device=device, volume_kernel="fused",
+                   mask=None if mask is None else mask(mesh))
     return u, rhs
 
 
@@ -767,10 +775,12 @@ def test_new_fluxes_refuse_mood_and_source_arms(cuda):
     u, rhs = setup_bump("Pk", 2, "roe", torch.float64, cuda)
     basis = make_basis("Qk", 1)
     mesh = CartesianMesh(SRC_NX, SRC_NY, 0.0, 1.0, 0.0, 1.0)
-    with pytest.raises(NotImplementedError, match="queue 2, item 9"):
-        make_rhs(basis, mesh, BUMP_BCS, flux="kep", dtype=torch.float64,
-                 device=cuda, volume_kernel="fused",
-                 source=euler.GravitySource(0.0, -1.0))
+    # the source arms take the new fluxes (test_new_flux_source_arm_matches_
+    # plain): kep with gravity builds its kernel form on the card
+    grav = make_rhs(basis, mesh, BUMP_BCS, flux="kep", dtype=torch.float64,
+                    device=cuda, volume_kernel="fused",
+                    source=euler.GravitySource(0.0, -1.0))
+    assert (grav.ops.flux, grav.ops.source) == ("kep", "grav")
     # the candidate takes roe (test_mood_candidate_new_fluxes_bitwise);
     # a masked residual has none, and its operators refuse the kernel
     deg = torch.full(u.shape[2:], 2, dtype=torch.int32, device=cuda)
@@ -943,3 +953,161 @@ def test_mood_steps_match_plain(cuda, case):
     assert rel(uk, up) <= 1e-10 and abs(tk - tp) <= 1e-13 * tp
     assert sk == sp and sum(r for r, _, _ in sk) > 0
     assert all(ck.get(f, 0) > 0 for f in forms), ck
+
+
+# ---------------------------------------------------------------------------
+# the envelope: degrees 4-6, over-integrated quadrature, the source arms
+# with roe, sw, kfvs and kep
+# ---------------------------------------------------------------------------
+
+TAGS = {"Qk": "qk", "Pk": "pk", "Qk_gll": "gll"}
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (4, 5, 6))
+@pytest.mark.parametrize("family", ("Qk", "Qk_gll", "Pk"))
+@pytest.mark.parametrize("flux", ALL_FLUXES)
+def test_high_degree_residual_matches_plain(cuda, flux, family, p, dtype):
+    dt = getattr(torch, dtype)
+    u, rhs = setup_bump(family, p, flux, dt, cuda)
+    check_three_forms(cuda, u, rhs, dt, f"{TAGS[family]}_{flux}")
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("case", (("Qk", 2, 4), ("Qk_gll", 2, 4),
+                                  ("Pk", 2, 4), ("Qk", 4, 6), ("Qk", 6, 8),
+                                  ("Pk", 6, 8)))
+@pytest.mark.parametrize("flux", ("lxf", "roe", "kep"))
+def test_over_integrated_residual_matches_plain(cuda, flux, case, dtype):
+    """A basis off its default quadrature (nq = p + 2): the kernel's
+    general dims contract the DoFs with V, as the modal basis does."""
+    family, p, nq = case
+    dt = getattr(torch, dtype)
+    u, rhs = setup_bump(family, p, flux, dt, cuda, nq=nq)
+    assert rhs.ops.V is not None and rhs.ops.nq == nq
+    check_three_forms(cuda, u, rhs, dt, f"{TAGS[family]}_{flux}")
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("case", (("Qk", 4, None, "lxf"),
+                                  ("Qk_gll", 5, None, "kep"),
+                                  ("Pk", 4, None, "roe"),
+                                  ("Qk", 2, 4, "hllc")))
+def test_high_degree_masked_residual_matches_plain(cuda, case, dtype):
+    family, p, nq, flux = case
+    dt = getattr(torch, dtype)
+    u, rhs = setup_bump(family, p, flux, dt, cuda, nq=nq, mask=mesh_mask)
+    check_three_forms(cuda, u, rhs, dt, f"{TAGS[family]}_{flux}_masked")
+    R = kernels.fused_residual(u, *rhs.strips(u, 0.0), rhs.ops)
+    assert float(R[..., ~rhs.ops.mask].abs().max()) == 0.0
+
+
+#: case -> (basis family, source arm); with each new flux
+NEW_SRC_CASES = {"qk-grav": ("Qk", "grav"), "pk-force": ("Pk", "force"),
+                 "gll-wbiso": ("Qk_gll", "wbiso"), "pk-grav": ("Pk", "grav")}
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 4))
+@pytest.mark.parametrize("case", sorted(NEW_SRC_CASES))
+@pytest.mark.parametrize("flux", NEW_FLUXES)
+def test_new_flux_source_arm_matches_plain(cuda, flux, case, p, dtype):
+    """The twelve (flux, arm) pairs the kernel gained, in the R, u + dt*R
+    and SSP-stage forms, each counted under its own form; p = 4 runs the
+    general dims."""
+    family, arm = NEW_SRC_CASES[case]
+    dt = getattr(torch, dtype)
+    u, rhs = setup_src(family, arm, flux, p, dt, cuda)
+    t = torch.full((), 0.37, dtype=dt, device=cuda)
+    strips, force = rhs.strips(u, t), rhs.force(t)
+    h = torch.full((), 1e-4, dtype=dt, device=cuda)
+    sc = torch.tensor([0.75, 1e-4], dtype=dt, device=cuda)
+    u_old = u.flip(-1).contiguous()
+    kernels.reset_launch_counts()
+    for kw in ({}, {"dt": h}, {"u_old": u_old, "sc": sc}):
+        k = kernels.fused_residual(u, *strips, rhs.ops, force=force, **kw)
+        q = kernels.fused_residual_plain(u, *strips, rhs.ops, force=force,
+                                         **kw)
+        torch.cuda.synchronize()
+        assert rel(k, q) <= TOL[dt], kw.keys()
+    counts = kernels.launch_counts()
+    assert all(counts[f"fused_residual[{TAGS[family]}_{flux}_{arm}_{f}]"]
+               == 1 for f in ("R", "step", "stage")), counts
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("p", (4, 5, 6))
+def test_high_degree_post_matches_plain(cuda, p, masked, dtype):
+    """The post on Q4-Q6 (the general dims), masked and not, with and
+    without its diag."""
+    dt = getattr(torch, dtype)
+    u, post, _, _ = setup(p, dt, cuda)
+    if masked:
+        post = kernels.post_operators(
+            make_basis("Qk", p), CartesianMesh(NX, NY, 0.0, 4.0, 0.0, 1.0),
+            indicator="density", beta=2.0, char_lim=True, pos_lim=True,
+            mask=mesh_mask(CartesianMesh(NX, NY, 0.0, 1.0, 0.0, 1.0)),
+            dtype=dt, device=cuda)
+    k0 = kernels.fused_post(u, post)
+    k, lam, minq = kernels.fused_post(u, post, with_diag=True)
+    pl, lam_p, minq_p = kernels.fused_post_plain(u, post, with_diag=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k, k0)
+    err, flipped = cell_flips(k, pl, POST_TOL[dt])
+    assert flipped <= (0 if dt == torch.float64 else NX * NY // 100)
+    assert err <= POST_TOL[dt]
+    assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("case", (("Qk", 4, None), ("Qk", 6, 8),
+                                  ("Qk_gll", 5, 7), ("Pk", 4, None),
+                                  ("Pk", 6, 8), ("Qk", 2, 4)))
+def test_envelope_diag_matches_plain(cuda, case, dtype):
+    family, p, nq = case
+    dt = getattr(torch, dtype)
+    u, rhs = setup_bump(family, p, "lxf", dt, cuda, nq=nq)
+    mesh = CartesianMesh(SRC_NX, SRC_NY, 0.0, 1.0, 0.0, 1.0)
+    for mask in (None, mesh_mask(mesh)):
+        diag = kernels.diag_operators(make_basis(family, p, nq), mesh,
+                                      mask=mask, dtype=dt, device=cuda)
+        before = kernels.fused_diag.launches
+        lam, minq = kernels.fused_diag(u, diag)
+        lam_p, minq_p = kernels.fused_diag_plain(u, diag)
+        assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+        assert kernels.fused_diag.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (4, 5, 6))
+def test_volume_residual_q4_q6_matches_plain(cuda, p, dtype):
+    dt = getattr(torch, dtype)
+    u, _, _, _ = setup(p, dt, cuda)
+    rhs = make_rhs(make_basis("Qk", p), CartesianMesh(NX, NY, 0.0, 4.0, 0.0,
+                                                      1.0),
+                   BCS, dtype=dt, device=cuda, volume_kernel="pallas")
+    before = kernels.volume_residual.launches
+    k = kernels.volume_residual(rhs.lift_stack, u)
+    q = kernels.volume_residual_plain(rhs.lift_stack, u)
+    torch.cuda.synchronize()
+    assert rel(k, q) <= TOL[dt]
+    assert kernels.volume_residual.launches == before + 1
+
+
+def test_mood_above_p3_and_quadrature_beyond_cap_raise(cuda):
+    """MOOD at p >= 4 and a basis beyond NQ_MAX raise at Solver
+    construction on the card too, and the MOOD kernels' wrappers refuse
+    P4 operators rather than launch."""
+    from dflo_tpu_torch.driver import LimiterConfig, Solver
+    mesh = CartesianMesh(SRC_NX, SRC_NY, 0.0, 1.0, 0.0, 1.0)
+    lim = LimiterConfig(type="TVB", beta=2.0, pos_lim=True)
+    with pytest.raises(NotImplementedError, match="queue 2, item 10"):
+        Solver(make_basis("Pk", 4), mesh, BUMP_BCS, limiter=lim,
+               dtype=torch.float32, device=cuda, method="mood")
+    with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+        Solver(make_basis("Qk", 2, kernels.NQ_MAX + 1), mesh, BUMP_BCS,
+               dtype=torch.float32, device=cuda)
+    u, rhs = setup_bump("Pk", 4, "lxf", torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="queue 2, item 10"):
+        kernels.fused_modal_pos(u, rhs.modal_ops)

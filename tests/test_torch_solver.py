@@ -193,9 +193,13 @@ def test_out_of_slice_configurations_raise():
     with pytest.raises(NotImplementedError, match="minmax"):
         Solver(*args, limiter=LimiterConfig(type="minmax"), dtype=F64,
                device="cpu")
-    with pytest.raises(NotImplementedError, match="degrees"):
-        kernels.residual_operators(make_basis("Qk", 4), s.mesh, dtype=F64,
-                                   device="cpu")
+    # degrees 1-6 on any quadrature up to NQ_MAX run through the kernels
+    # (tests/test_torch_envelope.py); beyond those bounds nothing does
+    for basis in (make_basis("Qk", 2, kernels.NQ_MAX + 1),
+                  make_basis("Pk", 7)):
+        with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+            kernels.residual_operators(basis, s.mesh, dtype=F64,
+                                       device="cpu")
 
 
 def test_port_never_imports_jax():
