@@ -39,7 +39,8 @@ Phases (any failure raises, and the script then prints no result):
    limiter maps, equal MoodStats.
 8. the device's busy share: each main path's chunk (RK 5 steps, MOOD 3,
    forward step 3, sharded RK 3, the vortex 10, rayleigh_taylor 10,
-   iso_xing_shu 10, the forward step on P2 under MOOD 3) under
+   iso_xing_shu 10, the forward step on P2 under MOOD 3, the DMR on P4
+   under MOOD 3) under
    torch.profiler; busy time is the union of the
    device events' intervals; idle shares of the traced wall and of the
    untraced ms/step of phases 3, 6 and 10.
@@ -226,6 +227,31 @@ Phases (any failure raises, and the script then prints no result):
    stage, the diag), rayleigh_taylor.prm with flux = roe at 1024 x 3072 and
    iso_xing_shu.prm with flux = roe at 2048 x 2048 through cli.run (the roe
    gravity and isothermal stages).
+27. the MOOD kernels over their degree range against their plain
+   versions, f32 and f64, bitwise: at 160 x 96 on the DMR box (its IC with
+   2 % noise, positivity-limited; seeded degree map, cell set, limiter
+   marks and shock plane) the candidate with all six fluxes at p 4, with
+   hllc and lxf at p 5, 6 and 1 and on the over-integrated P2 (4 x 4
+   points), on a cell set and on every cell; the modal positivity in its
+   four forms, the Pk post with and without diag at p 4, 5, 6 and 1, the
+   check (periodic and not) at p 4, 5 and 6; the masked forward step's
+   modal positivity at p 4 (cut to 240 x 80); ptxas registers, spills and
+   stack of the general MOOD kernels.  Then the table's P4 rows on the P4
+   DMR MOOD state at 1152 x 288 after a plain step (pass 1's degree map
+   and cell set): bitwise, timed (kernel median of 20, plain of 5).
+28. the MOOD paths over the degree range, f32, no plain version called,
+   finite, no fatal flag: the DMR MOOD path on P4 (entry._build(1152, 288,
+   "mood", degree=4)), 10 steps, the candidate, the modal positivity, the
+   Pk post and the check launched, dmr_p4_mood_dof_updates_per_sec with
+   ms/step, MoodStats, passes and host syncs per step; the same on P1, 5
+   steps: the forward-Euler residual and the Pk post launched, its check
+   the plain stab/mood.check_update (counted per step); no degree can drop
+   on P1, so its cascade ends after pass 1, as the reference's, and the
+   candidate, the modal positivity and the check kernel are never
+   launched there (phase 27 holds the P1 candidate and modal positivity);
+   examples/sod_mood.prm at degree 1 and 4 as shipped, 20 steps through
+   cli.run (launches counted) and through `python -m dflo_tpu_torch` in a
+   subprocess.
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -337,6 +363,19 @@ DMR_FLUX_STEPS = 5
 ENV_GRID = (384, 128)
 P4_N, P6_N, Q2OI_N = 2048, 1024, 2048
 ENV_STEPS, ENV_CHUNK = 10, 5
+#: the MOOD cascade over its degree range (phases 27-28): the coverage grid
+#: (the DMR box), its cases (degree, the candidate's fluxes, nq or None),
+#: the masked forward step's cut grid, the plain steps that make the P4
+#: rows' state, the P4 and P1 DMR paths' steps; sod_mood.prm as shipped
+MD_GRID = (160, 96)
+MD_CASES = ((4, ALL_FLUXES, None), (5, ("hllc", "lxf"), None),
+            (6, ("hllc", "lxf"), None), (1, ("hllc", "lxf"), None),
+            (2, ("hllc",), 4))
+MD_FWD_GRID = (240, 80)
+MD_PLAIN_STEPS = 1
+MD_P4_STEPS, MD_P1_STEPS = 10, 5
+SOD_MOOD_PRM = "examples/sod_mood.prm"
+SOD_GRID = (100, 4)
 #: the external force of the force-plane form (f_0, f_1 expressions)
 FORCE_EXPR = ("0.01*sin(2*pi*x)*cos(t)", "-1.0")
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
@@ -510,6 +549,21 @@ SOURCES = {
                                  f"roe)",
                                  "fused_residual[gll_roe_wbiso_stage]",
                                  "iso_roe"),
+    "fused_mood_candidate_p4": ("dflo_tpu_torch/csrc/fused_mood_candidate.cu",
+                                f"{PK}:955",
+                                f"{PK}:make_fused_residual(...).sparse (P4; "
+                                f"general dims)",
+                                "fused_mood_candidate[hllc]", "dmr_p4_mood"),
+    "fused_modal_pos_p4": ("dflo_tpu_torch/csrc/fused_modal_pos.cu",
+                           f"{PK}:1805", f"{PK}:make_fused_modal_pos (P4; "
+                           f"general dims)", "fused_modal_pos",
+                           "dmr_p4_mood"),
+    "fused_pk_post_p4": ("dflo_tpu_torch/csrc/fused_pk_post.cu", f"{PK}:1997",
+                         f"{PK}:make_fused_pk_post (P4; general dims)",
+                         "fused_pk_post", "dmr_p4_mood"),
+    "fused_mood_check_p4": ("dflo_tpu_torch/csrc/fused_mood_check.cu",
+                            f"{PK}:2222", f"{PK}:make_fused_mood_check (P4)",
+                            "fused_mood_check", "dmr_p4_mood"),
 }
 #: the grid each row is measured and bounded at, by path: the DMR's, the
 #: forward step's, the vortex's; the LxF candidate's launches come from
@@ -528,7 +582,9 @@ GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
          "vortex_p4": (P4_N, P4_N), "vortex_p6": (P6_N, P6_N),
          "dmr_q4": (NX, NY), "pallas_q4": (NX, NY),
          "q2oi": (Q2OI_N, Q2OI_N), "rt_roe": (RT_NX, RT_NY),
-         "iso_roe": (ISO_N, ISO_N)}
+         "iso_roe": (ISO_N, ISO_N), "dmr_p4_mood": (NX, NY)}
+#: the steps of each path whose rows carry launches per step
+PATH_STEPS = {"dmr_p4_mood": MD_P4_STEPS}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
@@ -683,7 +739,11 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
             "fused_post_q4": "fused_post", "fused_diag_q4": "fused_diag",
             "fused_diag_pk4": "fused_diag", "fused_diag_pk6": "fused_diag",
             "fused_diag_q2oi": "fused_diag",
-            "volume_residual_q4": "volume_residual"}.get(name, name)
+            "volume_residual_q4": "volume_residual",
+            "fused_mood_candidate_p4": "fused_mood_candidate",
+            "fused_modal_pos_p4": "fused_modal_pos",
+            "fused_pk_post_p4": "fused_pk_post",
+            "fused_mood_check_p4": "fused_mood_check"}.get(name, name)
 
     def nnz(a):
         """nonzero entries; an entry within 1e-12 of the largest is a zero
@@ -1527,7 +1587,8 @@ def phase_trace(entry, ms_per_step, built):
     solver at 1920 x 640, the sharded RK path 3 steps on the (2, 2) virtual
     mesh, the vortex 10 steps at 2048 x 2048, rayleigh_taylor 10 steps at
     1024 x 3072 and iso_xing_shu 10 steps at 2048 x 2048 on their CLI's
-    solvers, the forward step on P2 under MOOD 3 steps on its CLI's solver;
+    solvers, the forward step on P2 under MOOD 3 steps on its CLI's solver,
+    the DMR on P4 under MOOD 3 steps (phase 28's solver);
     built[method] = (solver, state) for all but the first two;
     f32, after a warm-up):
     device busy time, and the idle share of the traced wall and of the
@@ -1538,7 +1599,8 @@ def phase_trace(entry, ms_per_step, built):
     out = {}
     for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3), ("shard", 3),
                           ("vortex", VX_CHUNK), ("rt", SRC_CHUNK),
-                          ("iso", SRC_CHUNK), ("fwd_mood", 3)):
+                          ("iso", SRC_CHUNK), ("fwd_mood", 3),
+                          ("dmr_p4_mood", 3)):
         if method in built:
             s, u = built[method]
         else:
@@ -2803,17 +2865,17 @@ def dmr_mood(entry, flux: str, dtype):
     return s, u0
 
 
-def fwd_pk_solver(kernels, p: int, dtype, method: str = "rk3"):
+def fwd_pk_solver(kernels, p: int, dtype, method: str = "rk3",
+                  grid=(FS_NX, FS_NY)):
     """(solver, state) of the forward step on P_p (`method`) at its full
-    1920 x
-    640: the IC with 2 % noise on every DoF and 0.3 % of the mean on the
-    higher modes (a seeded generator on the card), solid cells pinned in
-    every mode (Solver.apply_mask), then the plain modal positivity, as
-    every state the paths hand the residual has had."""
+    1920 x 640 (or at `grid`): the IC with 2 % noise on every DoF and 0.3 %
+    of the mean on the higher modes (a seeded generator on the card), solid
+    cells pinned in every mode (Solver.apply_mask), then the plain modal
+    positivity, as every state the paths hand the residual has had."""
     from dflo_tpu_torch import cli
     from dflo_tpu_torch.config.params import AllParameters
     with tempfile.TemporaryDirectory() as out:
-        prm = edit_prm(FS_PRM, os.path.join(out, "fs_pk.prm"), FS_NX, FS_NY,
+        prm = edit_prm(FS_PRM, os.path.join(out, "fs_pk.prm"), *grid,
                        *pk_edits(p, method))
         params = AllParameters.from_prm_file(prm)
     s, _ = cli.build_solver(params, dtype=dtype, device="cuda")
@@ -3223,7 +3285,8 @@ def phase_dmr_flux_mood(entry, kernels, plain_calls):
 def ptxas_general(log: str) -> dict:
     """{source: [(kernel, dtype, dims, registers, spill bytes, stack
     bytes)]} of the general-dims instantiations (csrc/euler.cuh GDims) of
-    the residual and the post, from the build's ptxas lines."""
+    the residual, the post and the MOOD kernels (the candidate, the modal
+    positivity, the Pk post), from the build's ptxas lines."""
     import re
     out, src, fn, spill, stack = {}, None, "", 0, 0
     for line in log.splitlines():
@@ -3237,7 +3300,8 @@ def ptxas_general(log: str) -> dict:
         if m:
             stack, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
-        k = re.search(r"(fused_residual|fused_post)_kernelI([fd])NS_5GDims"
+        k = re.search(r"(fused_residual|fused_post|fused_mood_candidate|"
+                      r"fused_modal_pos|fused_pk_post)_kernelI([fd])NS_5GDims"
                       r"ILb([01])E", fn)
         if m and k:
             out.setdefault(src, []).append(
@@ -3678,6 +3742,374 @@ def phase_envelope_paths(entry, kernels, plain_calls):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 27-28: the MOOD cascade over its whole degree range (the candidate,
+# the modal positivity, the Pk post and the check at p 4-6; P1's plain
+# check)
+# ---------------------------------------------------------------------------
+
+def same(k: torch.Tensor, q: torch.Tensor) -> bool:
+    """Bitwise equal, NaN where the other is NaN (KEP's cascade on the
+    perturbed DMR can leave NaN in both versions alike)."""
+    return (torch.equal(k.isnan(), q.isnan())
+            and torch.equal(k.nan_to_num(), q.nan_to_num()))
+
+
+def md_case(p: int, dtype, seed: int, flux: str = "hllc", nq=None):
+    """(solver-like holder, state, planes) of one coverage case of phase
+    27 on the DMR box at MD_GRID, P_p on nq x nq points: the DMR IC with 2 %
+    noise on every mode (perturbed), positivity-limited; a degree map, a
+    cell set (30 %), limiter marks (20 %) and a shock plane (50 % marked)
+    from a seeded generator on the card."""
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.mesh import CartesianMesh
+    from dflo_tpu_torch.ops import kernels
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.solver.spatial import make_rhs
+    from dflo_tpu_torch.entry import _build, dmr_ic
+    nx, ny = MD_GRID
+    basis = make_basis("Pk", p, nq)
+    mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
+    bcs = _build(8, 8, dtype=dtype, device="cuda", method="mood")[0].bcs
+    rhs = make_rhs(basis, mesh, bcs, flux=flux, dtype=dtype, device="cuda",
+                   volume_kernel="fused")
+    u = perturbed(ic.set_initial_condition(basis, mesh, dmr_ic, dtype=dtype,
+                                           device="cuda"), seed)
+    u = kernels.fused_modal_pos_plain(u, rhs.modal_ops)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd():
+        return torch.rand((ny, nx), generator=g, device="cuda")
+    planes = {"deg": 1 + (rnd() * p).to(torch.int32).clamp(max=p - 1),
+              "cells": rnd() < 0.3, "lim": rnd() < 0.2,
+              "shock": (rnd() < 0.5).to(dtype) * 2.0}
+    return basis, mesh, rhs, u, planes
+
+
+def candidate_cases(kernels, rhs, u, pl):
+    """(kernel, plain) pairs of the candidate on the case's cell set and
+    on every cell (in place into a reversed copy of u); cells off the set
+    keep it."""
+    h = torch.full((), 1e-4, dtype=u.dtype, device="cuda")
+    strips = rhs.strips(u, 0.0, pl["deg"])
+    prev = u.flip(-1).contiguous()
+    pairs = []
+    for cells in (pl["cells"], torch.ones_like(pl["cells"])):
+        k = kernels.fused_mood_candidate(u, prev.clone(), pl["deg"], cells,
+                                         *strips, rhs.ops, rhs.modal_ops, h)
+        q = kernels.fused_mood_candidate_plain(u, prev.clone(), pl["deg"],
+                                               cells, *strips, rhs.ops,
+                                               rhs.modal_ops, h)
+        assert torch.equal(k[..., ~cells], prev[..., ~cells])
+        pairs.append((k, q))
+    return pairs
+
+
+def mood_check_pairs(kernels, basis, mesh, u, pl):
+    """(kernel, plain) output triples of the check on a candidate near u
+    (1e-6 noise, so DMP goes both ways), non-periodic and periodic."""
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.stab import mood as mood_mod
+    g = torch.Generator(device="cuda").manual_seed(basis.degree)
+    cand = (u * (1.0 + 1e-6 * (2.0 * torch.rand(
+        u.shape, generator=g, dtype=u.dtype, device="cuda") - 1.0)))
+    cand = cand.contiguous()
+    out = []
+    for per in (False, True):
+        ops = kernels.mood_check_operators(basis, mesh, per_x=per,
+                                           per_y=per, device="cuda")
+        rho0 = ops.avg0 * u[euler.RHO, 0]
+        bmin = mood_mod.neighborhood_min(rho0, ops.valid)
+        bmax = mood_mod.neighborhood_max(rho0, ops.valid)
+        k = kernels.fused_mood_check(cand, bmin, bmax, pl["deg"], pl["lim"],
+                                     ops)
+        q = kernels.fused_mood_check_plain(cand, bmin, bmax, pl["deg"],
+                                           pl["lim"], ops)
+        out += list(zip(k, q))
+    return out
+
+
+def phase_mood_degree_kernels(entry, kernels, results, log):
+    """Phase 27 for both dtypes: rows 3, 8, 9 and 10 over the degree range
+    against their plain versions, bitwise.  Coverage at MD_GRID (MD_CASES:
+    the candidate with all six fluxes at p 4, with hllc and lxf at p 5, 6
+    and 1, and on the over-integrated P2 (4 x 4 points), on a cell set and
+    on every cell; the modal positivity in its four forms and the Pk post
+    with and without diag at p 4, 5, 6 and 1, the check, periodic and not,
+    at p 4, 5 and 6; the
+    masked forward step's modal positivity at p 4, cut to MD_FWD_GRID).
+    Then the P4 rows at the P4 DMR MOOD path's state (1152 x 288 after
+    MD_PLAIN_STEPS plain MOOD steps; pass 1's degree map and cell set),
+    timed: kernel median of 20, plain of 5."""
+    regs = {src: [r for r in rows if r[0] in (
+        "fused_mood_candidate", "fused_modal_pos", "fused_pk_post")]
+        for src, rows in ptxas_general(log).items()}
+    regs = {k: v for k, v in regs.items() if v}
+    for src, rows in sorted(regs.items()):
+        print(f"ptxas {src} (general modal dims): " + ", ".join(
+            f"{k[len('fused_'):]} {d} {r} regs {sp} B spilled {st} B stack"
+            for k, d, _, r, sp, st in rows))
+    results["mood_degree_registers"] = regs
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        cases = {}
+
+        def note(key, pairs):
+            torch.cuda.synchronize()
+            eq = all(same(k, q) for k, q in pairs)
+            cases[key] = eq
+            assert eq, f"{key} {tag} is not bitwise"
+
+        for p, fluxes, nq in MD_CASES:
+            for flux in fluxes:
+                basis, mesh, rhs, u, pl = md_case(p, dtype, 800 + p, flux, nq)
+                note(f"candidate P{p} nq{basis.nq} {flux}",
+                     candidate_cases(kernels, rhs, u, pl))
+            if nq is not None:
+                continue
+            mops = rhs.modal_ops
+            note(f"modal_pos P{p}", [
+                pair for d in (None, pl["deg"])
+                for pair in [(kernels.fused_modal_pos(u, mops, d),
+                              kernels.fused_modal_pos_plain(u, mops, d)),
+                             *zip(kernels.fused_modal_pos(
+                                 u, mops, d, with_diag=True),
+                                 kernels.fused_modal_pos_plain(
+                                     u, mops, d, with_diag=True))]])
+            pops = kernels.pk_post_operators(basis, mesh, beta=2.0,
+                                             char_lim=True, dtype=dtype,
+                                             device="cuda")
+            note(f"pk_post P{p}", [
+                (kernels.fused_pk_post(u, pl["shock"], pops),
+                 kernels.fused_pk_post_plain(u, pl["shock"], pops)),
+                *zip(kernels.fused_pk_post(u, pl["shock"], pops,
+                                           with_diag=True),
+                     kernels.fused_pk_post_plain(u, pl["shock"], pops,
+                                                 with_diag=True))])
+            if p >= 2:
+                note(f"check P{p}", mood_check_pairs(kernels, basis, mesh, u,
+                                                     pl))
+            del rhs, u
+        # the masked forward step's modal positivity at p 4
+        s, u = fwd_pk_solver(kernels, 4, dtype, "mood", grid=MD_FWD_GRID)
+        assert s.mask is not None and s._mood_stage.mask is not None
+        g = torch.Generator(device="cuda").manual_seed(4)
+        deg = 1 + (torch.rand(u.shape[-2:], generator=g, device="cuda")
+                   * 4).to(torch.int32).clamp(max=3)
+        note("modal_pos P4 masked fwd",
+             modal_pos_pairs(kernels, s, u, deg, (u, s.apply_mask(u))))
+        del s, u
+        results["mood_degree_cases"][tag] = cases
+        print(f"[{tag}] MOOD kernels over the degree range at "
+              f"{MD_GRID[0]}x{MD_GRID[1]}: {len(cases)} cases, all bitwise")
+        torch.cuda.empty_cache()
+
+        # ---- the P4 rows at the P4 DMR path's state ------------------------
+        s, u0 = entry._build(NX, NY, dtype=dtype, device="cuda",
+                             method="mood", degree=4)
+        u, t = s.post_stage(u0), 0.0
+        del u0
+        with plain_versions(kernels):
+            for _ in range(MD_PLAIN_STEPS):
+                u, dtt, bad, _ = s._step(u, t, 1.0)
+                t += float(dtt)
+                assert not bool(bad), f"{tag}: plain P4 MOOD steps: bad"
+            _, marked, st_plain, _ = s._mood_stage(u, s._scalar(t), dtt)
+        tt, h = s._scalar(t), dtt
+        c1 = cascade_pass1(kernels, s, u, tt, h)
+        aff, deg1, u_c = c1["aff"], c1["deg1"], c1["u_c"]
+        assert int(c1["chg1"].sum()) > 0, "the P4 cascade is idle"
+        rops, mops = s.rhs.ops, s._mood_stage.mops
+        cops, pops = s._mood_stage.cops, s._pk_post_ops
+        tp_strips = s.rhs.strips(u, tt, deg1)
+        shock = marked.to(dtype) * 2.0
+        results["fused_mood_candidate_p4"][f"data_{tag}"] = c1["data"]
+        results["fused_pk_post_p4"][f"data_{tag}"] = {
+            "marked": int(marked.sum())}
+
+        def cand(fn):
+            return fn(u, u_c.clone(), deg1, aff, *tp_strips, rops, mops, h)
+        fold(results, "fused_mood_candidate_p4", tag,
+             [(cand(kernels.fused_mood_candidate),
+               cand(kernels.fused_mood_candidate_plain))], 0.0,
+             bitwise=True)
+        fold(results, "fused_modal_pos_p4", tag,
+             modal_pos_pairs(kernels, s, u, deg1, (u,)), 0.0, bitwise=True)
+        fold(results, "fused_pk_post_p4", tag,
+             [(kernels.fused_pk_post(u, shock, pops),
+               kernels.fused_pk_post_plain(u, shock, pops)),
+              *zip(kernels.fused_pk_post(u, shock, pops, with_diag=True),
+                   kernels.fused_pk_post_plain(u, shock, pops,
+                                               with_diag=True))],
+             0.0, bitwise=True)
+        candk = cand(kernels.fused_mood_candidate)
+        fold(results, "fused_mood_check_p4", tag,
+             [pair for uc, dg, lm in ((u_c, c1["deg0"], c1["lim0"]),
+                                      (candk, deg1, c1["lim1"]))
+              for pair in zip(
+                  kernels.fused_mood_check(uc, c1["bmin"], c1["bmax"], dg,
+                                           lm, cops),
+                  kernels.fused_mood_check_plain(uc, c1["bmin"],
+                                                 c1["bmax"], dg, lm, cops))],
+             0.0, bitwise=True)
+        print(f"[{tag}] P4 DMR MOOD state after {MD_PLAIN_STEPS} plain "
+              f"steps: t={t!r}; a plain stage: n_reduce="
+              f"{int(st_plain.n_reduce)}, n_marked={int(st_plain.n_marked)}"
+              f", passes={st_plain.iters}; pass 1 reduces "
+              f"{int(c1['chg1'].sum())} cells, the candidate's set "
+              f"{c1['data']['cells']} cells")
+        u_prev = u_c.clone()
+        bmin, bmax, deg0, lim0 = (c1["bmin"], c1["bmax"], c1["deg0"],
+                                  c1["lim0"])
+        timings = {
+            "fused_mood_candidate_p4": (
+                lambda: kernels.fused_mood_candidate(
+                    u, u_prev, deg1, aff, *tp_strips, rops, mops, h),
+                lambda: kernels.fused_mood_candidate_plain(
+                    u, u_prev, deg1, aff, *tp_strips, rops, mops, h)),
+            "fused_modal_pos_p4": (
+                lambda: kernels.fused_modal_pos(u, mops),
+                lambda: kernels.fused_modal_pos_plain(u, mops)),
+            "fused_pk_post_p4": (
+                lambda: kernels.fused_pk_post(u, shock, pops,
+                                              with_diag=True),
+                lambda: kernels.fused_pk_post_plain(u, shock, pops,
+                                                    with_diag=True)),
+            "fused_mood_check_p4": (
+                lambda: kernels.fused_mood_check(u_c, bmin, bmax, deg0, lim0,
+                                                 cops),
+                lambda: kernels.fused_mood_check_plain(u_c, bmin, bmax, deg0,
+                                                       lim0, cops)),
+        }
+        for name, (fk, fp) in timings.items():
+            time_pair(results, name, tag, fk, fp, (NX, NY))
+        # the path's other kernel: pass 1's forward Euler u + dt*R of the
+        # P4 hllc residual on the general dims (row 2, ported in PR 10)
+        strips = c1["strips"]
+        results[f"mood_p4_step_ms_{tag}"] = time_ms(
+            lambda: kernels.fused_residual(u, *strips, rops, dt=h))
+        print(f"[{tag}] fused_residual[pk_hllc_step] P4: kernel "
+              f"{results[f'mood_p4_step_ms_{tag}']:.4f} ms at {NX}x{NY}")
+        del s, u, c1, u_c, u_prev, candk, tp_strips, strips
+        torch.cuda.empty_cache()
+
+
+def phase_mood_path(kernels, plain_calls, name, metric, s, u, steps, forms,
+                    checks=None):
+    """Phase 28: a MOOD path through Solver._multi_step(steps) after
+    post_stage and a 2-step warm-up, f32, on the card: finite, no fatal
+    flag, no plain version called, each of `forms` launched;
+    checks: a counter of stab/mood.check_update calls (the plain check,
+    P1's), printed per step; returns launch counts, ms/step and (solver,
+    state) for the trace."""
+    u = s.post_stage(u)
+    s._multi_step(2)(u, 0.0, 1.0e3)                # warm-up
+    multi = s._multi_step(steps)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    plain_calls["n"] = 0
+    n_check = checks["n"] if checks is not None else 0
+    syncs0 = s.host_syncs
+    t0 = time.perf_counter()
+    u1, t1, n, bad, stats = multi(u, 0.0, 1.0e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n, bad, finite = int(n), bool(bad), bool(torch.isfinite(u1).all())
+    used = {k: v for k, v in counts.items() if v}
+    print(f"{name} {NX}x{NY}: {n} steps to t={float(t1)!r}, bad={bad}, "
+          f"finite={finite}, launches={used}, plain calls="
+          f"{plain_calls['n']}")
+    assert n == steps and not bad and finite and u1.is_cuda
+    assert all(counts.get(f, 0) > 0 for f in forms), (forms, used)
+    assert plain_calls["n"] == 0, f"{name} called a plain version"
+    ms = 1e3 * wall / steps
+    line = {metric: 4 * s.basis.K * NX * NY * steps / wall,
+            "unit": "DoF-updates/s", "dtype": "float32", "grid": [NX, NY],
+            "steps": steps, "ms_per_step": ms, "t": float(t1),
+            **mood_summary(s, counts, stats, s.host_syncs - syncs0, steps),
+            "launches_per_step": {k: v / steps for k, v in used.items()},
+            "plain_calls": plain_calls["n"], "card": card_line()}
+    if checks is not None:
+        line["plain_checks_per_step"] = (checks["n"] - n_check) / steps
+    print(json.dumps(line))
+    return counts, ms, (s, u1)
+
+
+def phase_mood_degree_paths(entry, kernels, plain_calls):
+    """Phase 28: the P4 DMR MOOD path (entry._build(1152, 288, float32,
+    cuda, "mood", degree=4), MD_P4_STEPS steps: rows 3, 8, 9 and 10
+    launched, no plain call), the P1 one (MD_P1_STEPS steps: rows 3, 8 and
+    9 launched, the check the plain stab/mood.check_update with the u2 test
+    off and no other plain call), and examples/sod_mood.prm at degree 1 and
+    4 as shipped, CONFIG_STEPS steps through cli.run (launches, no plain
+    call) and through `python -m dflo_tpu_torch` in a subprocess; returns
+    {path: launch counts}, the P4 path's ms/step and (solver, state) for
+    the trace."""
+    from dflo_tpu_torch.stab import mood as mood_mod
+    out = {}
+    rows = ("fused_residual[pk_hllc_step]", "fused_pk_post",
+            "fused_mood_candidate[hllc]", "fused_modal_pos",
+            "fused_mood_check")
+    s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
+                         method="mood", degree=4)
+    assert s._mood_stage.sparse and s._mood_stage.cops is not None
+    out["dmr_p4_mood"], ms_p4, p4 = phase_mood_path(
+        kernels, plain_calls, "dmr_p4_mood",
+        "dmr_p4_mood_dof_updates_per_sec", s, u0, MD_P4_STEPS, rows)
+    del s, u0
+    s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
+                         method="mood", degree=1)
+    assert s._mood_stage.cops is None
+    checks = {"n": 0}
+    plain_check = mood_mod.check_update
+
+    def counted(*a, **k):
+        checks["n"] += 1
+        return plain_check(*a, **k)
+    mood_mod.check_update = counted
+    try:
+        out["dmr_p1_mood"], _, _ = phase_mood_path(
+            kernels, plain_calls, "dmr_p1_mood",
+            "dmr_p1_mood_dof_updates_per_sec", s, u0, MD_P1_STEPS, rows[:2],
+            checks)
+    finally:
+        mood_mod.check_update = plain_check
+    # on P1 no degree can drop: every cascade ends after pass 1, as the
+    # reference's (dflo_tpu/stab/mood.py:357-361), so neither the
+    # candidate nor the modal positivity runs, and the check is the plain
+    # one
+    c1 = out["dmr_p1_mood"]
+    assert c1["fused_mood_check"] == c1["fused_mood_candidate"] == \
+        c1["fused_modal_pos"] == 0 and checks["n"] > 0
+    del s, u0
+    for p in (1, 4):
+        edits = (("set degree = 2", f"set degree = {p}"),)
+        out[f"sod_mood_p{p}"], _, _ = phase_main_pk(
+            kernels, plain_calls, f"sod_mood_p{p}",
+            f"sod_p{p}_mood_dof_updates_per_sec", SOD_MOOD_PRM, SOD_GRID,
+            edits, CONFIG_STEPS, CONFIG_CHUNK,
+            ("fused_residual[pk_lxf_step]", "fused_pk_post", "fused_diag")
+            + (("fused_mood_candidate[lxf]", "fused_modal_pos",
+                "fused_mood_check") if p > 1 else ()))
+        with tempfile.TemporaryDirectory() as tmp:
+            prm = edit_prm(SOD_MOOD_PRM, os.path.join(tmp, "sod.prm"),
+                           *SOD_GRID, *edits)
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "dflo_tpu_torch", prm, "--max-steps",
+                 str(CONFIG_STEPS), "--chunk", str(CONFIG_CHUNK),
+                 "--output-dir", tmp], capture_output=True, text=True,
+                timeout=600)
+            written = sorted(f for f in os.listdir(tmp) if f.endswith(".vtu"))
+        print(f"python -m dflo_tpu_torch sod_mood.prm (degree = {p}): rc "
+              f"{r.returncode} in {time.perf_counter() - t0:.1f} s, "
+              f"{len(written)} snapshots; last line: "
+              f"{(r.stdout.strip().splitlines() or [''])[-1][:200]}")
+        assert r.returncode == 0 and written, r.stderr[-2000:]
+    torch.cuda.empty_cache()
+    return out, ms_p4, p4
+
+
 def clock(t_start: float, what: str) -> None:
     """The script's elapsed time before the phases `what`."""
     print(f"chip_smoke: at {time.perf_counter() - t_start:.1f} s, next: "
@@ -3749,6 +4181,11 @@ def main() -> int:
     # ---- phase 25: the envelope's new forms against their plain versions ---
     results["envelope_cases"] = {}
     phase_envelope_kernels(entry, kernels, results, log)
+
+    clock(t_start, "phase 27")
+    # ---- phase 27: the MOOD kernels over their degree range -----------------
+    results["mood_degree_cases"] = {}
+    phase_mood_degree_kernels(entry, kernels, results, log)
 
     clock(t_start, "phases 3 and 6")
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
@@ -3839,12 +4276,19 @@ def main() -> int:
     # ---- phase 26: the envelope's paths ------------------------------------
     counts.update(phase_envelope_paths(entry, kernels, plain_calls))
 
+    clock(t_start, "phase 28")
+    # ---- phase 28: the P4 and P1 MOOD paths, sod_mood at degree 1 and 4 ----
+    counts_md, ms_step["dmr_p4_mood"], p4_mood = phase_mood_degree_paths(
+        entry, kernels, plain_calls)
+    counts.update(counts_md)
+
     clock(t_start, "phase 8")
     # ---- phase 8: the device's busy share under torch.profiler --------------
     busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard,
                                         "vortex": vortex, "rt": rt,
-                                        "iso": iso, "fwd_mood": fwd_mood})
-    del vortex, rt, iso, fwd_mood
+                                        "iso": iso, "fwd_mood": fwd_mood,
+                                        "dmr_p4_mood": p4_mood})
+    del vortex, rt, iso, fwd_mood, p4_mood
 
     clock(t_start, "phase 7")
     # ---- phase 7: sparse against dense ---------------------------------------
@@ -3882,7 +4326,8 @@ def main() -> int:
              "vortex_p6": make_basis("Pk", 6),
              "dmr_q4": make_basis("Qk", 4), "pallas_q4": make_basis("Qk", 4),
              "q2oi": make_basis("Qk", 2, 4), "rt_roe": make_basis("Qk", 1),
-             "iso_roe": make_basis("Qk_gll", 2)}
+             "iso_roe": make_basis("Qk_gll", 2),
+             "dmr_p4_mood": make_basis("Pk", 4)}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
@@ -3895,6 +4340,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": line,
             "tpu_kernel": tpu, "path": path,
             "launches": counts[path][wrapper],
+            **({"launches_per_step": counts[path][wrapper]
+                / PATH_STEPS[path]} if path in PATH_STEPS else {}),
             "max_abs_err": r["max_abs_err_f32"],
             "ms": r["ms_f32"], "plain_ms": r["plain_ms_f32"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -3935,9 +4382,13 @@ def main() -> int:
                       "masked_pk_registers": results["masked_pk_registers"],
                       "envelope_registers": results["envelope_registers"],
                       "envelope_cases": results["envelope_cases"],
+                      "mood_degree_registers":
+                          results["mood_degree_registers"],
+                      "mood_degree_cases": results["mood_degree_cases"],
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
-                                          "mood_host", "shard_f64",
+                                          "mood_host", "mood_p4",
+                                          "shard_f64",
                                           "well_balance"))}}))
     print(json.dumps({"kernels": table}))
     print(card)

@@ -7,7 +7,7 @@ with components (x-momentum, y-momentum, density, energy), so the two packages
 compare array to array.  Its hot paths (RK on nodal Qk, GLL and modal Pk
 at degrees 1-6 on any quadrature up to ``ops.kernels.NQ_MAX`` points per
 direction, masked or not, with the HLLC, LxF, Roe, Steger-Warming, KFVS or
-KEP flux and any source arm; MOOD on modal P1-P3; the implicit
+KEP flux and any source arm; MOOD on modal P1-P6; the implicit
 Newton-Krylov step, whose primal residuals run the residual kernel) run
 through hand-written CUDA kernels
 (``dflo_tpu_torch/csrc``, loaded by

@@ -65,19 +65,21 @@ constexpr int NQ_MAX = 8;
 // modal Pk basis, and a nodal Qk or GLL basis whose nodes are not its
 // quadrature points); MODAL = false is a collocated nodal basis.  The
 // per-thread arrays are sized for K_MAX and NQ_MAX and live in local
-// memory where the loops index them at run time.
+// memory where the loops index them at run time.  P, the degree, is read
+// only by the modal Pk chain (modal.cuh: each mode's total degree).
 template <bool MODAL_>
 struct GDims {
   static constexpr bool MODAL = MODAL_;
   static constexpr int KMAX = K_MAX, NQMAX = NQ_MAX;
-  int K, NQ, Q, NL, QP;
+  int K, NQ, Q, NL, QP, P;
 };
 
 // the general dims of K DoFs on nq x nq quadrature points; qp positivity
-// points (the post's; 0 where unused)
+// points (the posts' and the modal Pk chain's; 0 where unused) and the
+// degree p (the modal Pk chain's; 0 where unused)
 template <bool MODAL>
-inline GDims<MODAL> general_dims(int K, int nq, int qp = 0) {
-  return GDims<MODAL>{K, nq, nq * nq, 2 * nq * nq + 4 * nq, qp};
+inline GDims<MODAL> general_dims(int K, int nq, int qp = 0, int p = 0) {
+  return GDims<MODAL>{K, nq, nq * nq, 2 * nq * nq + 4 * nq, qp, p};
 }
 
 // jnp.maximum / jnp.minimum semantics: NaN in either operand gives NaN.

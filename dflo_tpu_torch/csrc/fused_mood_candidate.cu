@@ -5,7 +5,9 @@
 // of 8 x 128 tiles), and with every cell set its one-pass dense candidate
 // (`fused(..., deg, dt_tp)` with modal_tp), with any of the six fluxes
 // (this source: hllc; fused_mood_candidate_{lxf,roe,sw,kfvs,kep}.cu the
-// others).
+// others), on any modal Pk basis the residual takes: degrees 1-3 on their
+// default quadrature with an instantiation each, degrees 4-6 and the
+// over-integrated bases on the flux's general candidate (candidate.cuh).
 // Per cell: u_t + dt*R(u_t) with u_t = {Pk truncation to the cell's degree
 // -> Zhang-Shu positivity}(u_pre) (modal.cuh modal_tp), applied to the cell
 // AND to each face neighbor with the neighbor's own degree before its trace;
@@ -38,11 +40,11 @@
 
 // The hllc candidate; arguments as dflo::candidate_entry.
 extern "C" int dflo_fused_mood_candidate(
-    int dtype, int p, const void* u, const void* deg, const void* cells,
-    const void* flags, const void* dfw, const void* dfe, const void* dfs,
-    const void* dfn, const void* dt, const void* ops, const void* Pm,
-    double avg0, int ny, int nx, void* out, void* stream) {
-  return dflo::candidate_entry<dflo::HLLC>(dtype, p, u, deg, cells, flags,
-                                           dfw, dfe, dfs, dfn, dt, ops, Pm,
-                                           avg0, ny, nx, out, stream);
+    int dtype, int p, int K, int nq, int qp, const void* u, const void* deg,
+    const void* cells, const void* flags, const void* dfw, const void* dfe,
+    const void* dfs, const void* dfn, const void* dt, const void* ops,
+    const void* Pm, double avg0, int ny, int nx, void* out, void* stream) {
+  return dflo::candidate_entry<dflo::HLLC>(
+      dtype, p, K, nq, qp, u, deg, cells, flags, dfw, dfe, dfs, dfn, dt, ops,
+      Pm, avg0, ny, nx, out, stream);
 }

@@ -16,11 +16,11 @@
 
 // Arguments as dflo::candidate_entry.
 extern "C" int dflo_fused_mood_candidate_lxf(
-    int dtype, int p, const void* u, const void* deg, const void* cells,
-    const void* flags, const void* dfw, const void* dfe, const void* dfs,
-    const void* dfn, const void* dt, const void* ops, const void* Pm,
-    double avg0, int ny, int nx, void* out, void* stream) {
-  return dflo::candidate_entry<dflo::LXF>(dtype, p, u, deg, cells, flags,
-                                          dfw, dfe, dfs, dfn, dt, ops, Pm,
-                                          avg0, ny, nx, out, stream);
+    int dtype, int p, int K, int nq, int qp, const void* u, const void* deg,
+    const void* cells, const void* flags, const void* dfw, const void* dfe,
+    const void* dfs, const void* dfn, const void* dt, const void* ops,
+    const void* Pm, double avg0, int ny, int nx, void* out, void* stream) {
+  return dflo::candidate_entry<dflo::LXF>(
+      dtype, p, K, nq, qp, u, deg, cells, flags, dfw, dfe, dfs, dfn, dt, ops,
+      Pm, avg0, ny, nx, out, stream);
 }

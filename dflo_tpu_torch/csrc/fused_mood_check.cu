@@ -152,8 +152,10 @@ static int launch(const void* u, int K, int p, const void* dmin,
 
 }  // namespace dflo
 
-// dtype: 0 = float32, 1 = float64; p in {2, 3} (the u2 test reads the D2
-// modes).  lim, lim_out and chg_out hold one byte (0/1) per cell.  Returns
+// dtype: 0 = float32, 1 = float64; p in 2..6 (the u2 test reads the D2
+// modes 2 and 2p+1 of the K = (p+1)(p+2)/2; below p = 2 the reference has
+// no check kernel and runs its plain check with the u2 test off).  lim,
+// lim_out and chg_out hold one byte (0/1) per cell.  Returns
 // cudaGetLastError() after the launch, -1 for an unsupported case.
 extern "C" int dflo_fused_mood_check(int dtype, int p, const void* u,
                                      const void* dmin, const void* dmax,
@@ -161,7 +163,7 @@ extern "C" int dflo_fused_mood_check(int dtype, int p, const void* u,
                                      void* deg_out, void* lim_out,
                                      void* chg_out, int ny, int nx, int per_x,
                                      int per_y, double avg0, void* stream) {
-  if (p != 2 && p != 3) return -1;
+  if (p < 2 || p > 6) return -1;
   const int K = (p + 1) * (p + 2) / 2;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)

@@ -14,6 +14,9 @@
 // What bounds it on the H100: bytes at f32 (the state read and written once,
 // four mode-0 values of each neighbor, the shock plane), with ~2,000
 // operations per P2 cell (two 4x4 eigen systems, 18 positivity points).
+// Degrees 4-6 run on the general modal dims (K, the positivity points and
+// the (0,1) mode p + 1 read at run time; the per-cell arrays in local
+// memory): the rebuild zeroes every mode but the three it keeps, at any K.
 // Built with -fmad=false, and every quantity that feeds the TVB gate is
 // computed with the plain version's IEEE operations in its order, so in
 // float32 kernel and plain version take the same limiter decisions (the
@@ -29,14 +32,14 @@ struct PkPostParams {
   double avg0, beta, Mdx2, h;
 };
 
-template <typename T, int P>
+template <typename T, class D>
 __global__ void __launch_bounds__(BX * BY)
 fused_pk_post_kernel(const T* __restrict__ u, const T* __restrict__ shock,
                      const T* __restrict__ Pm, T* __restrict__ out,
                      T* __restrict__ lam_part, T* __restrict__ minq_part,
-                     int ny, int nx, PkPostParams prm) {
-  constexpr int K = BDims<P, true>::K;
-  constexpr int IX = 1, IY = P + 1;     // (1,0) and (0,1) modes
+                     int ny, int nx, PkPostParams prm, D d) {
+  const int K = d.K;
+  const int IX = 1, IY = d.P + 1;       // (1,0) and (0,1) modes
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   T lam = T(-INFINITY), mq = T(INFINITY);   // identities of the reductions
@@ -54,8 +57,8 @@ fused_pk_post_kernel(const T* __restrict__ u, const T* __restrict__ shock,
     const T sqrt3 = T(1.7320508075688772);   // float(np.sqrt(3.0))
     const T inv_sqrt3 = T(1) / sqrt3;        // stab/limiter's inv_sqrt3
 
-    T w[4][K], ub[4], ubW[4], ubE[4], ubS[4], ubN[4];
-    load_cell<T, K>(u, plane, cell, w);
+    T w[4][D::KMAX], ub[4], ubW[4], ubE[4], ubS[4], ubN[4];
+    load_cell<T>(d, u, plane, cell, w);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const T* m0 = u + (long)(c * K) * plane;
@@ -95,7 +98,7 @@ fused_pk_post_kernel(const T* __restrict__ u, const T* __restrict__ shock,
     }
 
     // ---- Zhang-Shu positivity about the pre-limit mean -------------------
-    modal_pos<T, P>(w, ub, Pm);
+    modal_pos<T>(d, w, ub, Pm);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
@@ -106,42 +109,42 @@ fused_pk_post_kernel(const T* __restrict__ u, const T* __restrict__ shock,
   if (lam_part != nullptr) block_diag(lam, mq, lam_part, minq_part);
 }
 
-template <typename T, int P>
-static int launch(const void* u, const void* shock, const void* Pm, void* out,
-                  void* lam_part, void* minq_part, int ny, int nx,
-                  const PkPostParams& prm, cudaStream_t stream) {
-  fused_pk_post_kernel<T, P><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
+template <typename T, class D>
+static int launch(const D& d, const void* u, const void* shock,
+                  const void* Pm, void* out, void* lam_part, void* minq_part,
+                  int ny, int nx, const PkPostParams& prm,
+                  cudaStream_t stream) {
+  fused_pk_post_kernel<T, D><<<grid_for(ny, nx), dim3(BX, BY), 0, stream>>>(
       (const T*)u, (const T*)shock, (const T*)Pm, (T*)out, (T*)lam_part,
-      (T*)minq_part, ny, nx, prm);
+      (T*)minq_part, ny, nx, prm, d);
   return (int)cudaGetLastError();
 }
 
 }  // namespace dflo
 
-// dtype: 0 = float32, 1 = float64; p in {1, 2, 3}.  beta is the Pk limiter's
-// effective beta (half the configured one).  lam_part/minq_part NULL for
-// the form without diag, else dflo_num_blocks(ny, nx) entries each.
-// Returns cudaGetLastError() after the launch, -1 for an unsupported case.
-extern "C" int dflo_fused_pk_post(int dtype, int p, const void* u,
-                                  const void* shock, const void* Pm, void* out,
-                                  void* lam_part, void* minq_part, int ny,
-                                  int nx, int per_x, int per_y, int char_lim,
-                                  double avg0, double beta, double Mdx2,
-                                  double h, void* stream) {
+// dtype: 0 = float32, 1 = float64; p in 1..6 with K = (p+1)(p+2)/2 modes
+// and qp positivity points (the rows of Pm): p 1-3 take their own
+// instantiations (BDims), p 4-6 the general modal dims (GDims, one
+// instantiation per dtype; modal.cuh modal_dims_case).  beta is the Pk
+// limiter's effective beta (half the configured one).  lam_part/minq_part
+// NULL for the form without diag, else dflo_num_blocks(ny, nx) entries
+// each.  Returns cudaGetLastError() after the launch, -1 for an
+// unsupported case.
+extern "C" int dflo_fused_pk_post(int dtype, int p, int K, int qp,
+                                  const void* u, const void* shock,
+                                  const void* Pm, void* out, void* lam_part,
+                                  void* minq_part, int ny, int nx, int per_x,
+                                  int per_y, int char_lim, double avg0,
+                                  double beta, double Mdx2, double h,
+                                  void* stream) {
   if ((lam_part == nullptr) != (minq_part == nullptr)) return -1;
   const dflo::PkPostParams prm{per_x, per_y, char_lim, avg0, beta, Mdx2, h};
   cudaStream_t s = (cudaStream_t)stream;
-#define DFLO_CASE(T, P) \
-  return dflo::launch<T, P>(u, shock, Pm, out, lam_part, minq_part, ny, nx, prm, s)
-  if (dtype == 0) {
-    if (p == 1) DFLO_CASE(float, 1);
-    if (p == 2) DFLO_CASE(float, 2);
-    if (p == 3) DFLO_CASE(float, 3);
-  } else if (dtype == 1) {
-    if (p == 1) DFLO_CASE(double, 1);
-    if (p == 2) DFLO_CASE(double, 2);
-    if (p == 3) DFLO_CASE(double, 3);
-  }
-#undef DFLO_CASE
-  return -1;
+  const auto run = [&](auto zero, const auto& d) {
+    using T = decltype(zero);
+    return dflo::launch<T>(d, u, shock, Pm, out, lam_part, minq_part, ny, nx,
+                           prm, s);
+  };
+  // no quadrature is read: nq = p + 1 picks the fixed dims of P1-P3
+  return dflo::modal_dims_case(dtype, p, K, p + 1, qp, run);
 }

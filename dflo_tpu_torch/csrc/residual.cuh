@@ -284,7 +284,8 @@ __device__ __forceinline__ void lift_volume(const D& d,
 // streamed, or (TP) from its DoFs after truncation to its own degree and
 // positivity, the average then of those DoFs (the plain candidate averages
 // the tp'd state, pallas_kernels.py:340, :368, :380).  TP takes the modal
-// BDims of degree D::P.
+// dims: BDims<P, true>, or GDims<true> with its degree d.P and its d.QP
+// positivity points.
 template <typename T, class D, bool TP, bool AVG>
 __device__ __forceinline__ void neighbor_trace(
     const D& d, const T* __restrict__ u, const int* __restrict__ deg,
@@ -293,8 +294,8 @@ __device__ __forceinline__ void neighbor_trace(
     T ub[4]) {
   if constexpr (TP) {
     T v[4][D::KMAX];
-    load_cell<T, D::K>(u, plane, ncell, v);
-    modal_tp<T, D::P>(v, __ldg(deg + ncell), Pm, avg0);
+    load_cell<T>(d, u, plane, ncell, v);
+    modal_tp<T>(d, v, __ldg(deg + ncell), Pm, avg0);
     trace_reg<T>(d, v, faceVf, tr);
     if constexpr (AVG) avg_reg<T>(d, v, avg, ub);
   } else {
@@ -427,8 +428,8 @@ __device__ __forceinline__ void cell_residual(
   // ---- volume term --------------------------------------------------------
   if constexpr (REG) {
     if constexpr (TP) {
-      load_cell<T, D::K>(u, plane, cell, w);
-      modal_tp<T, D::P>(w, __ldg(deg + cell), Pm, avg0);
+      load_cell<T>(d, u, plane, cell, w);
+      modal_tp<T>(d, w, __ldg(deg + cell), Pm, avg0);
     } else {
 #pragma unroll
       for (int c = 0; c < 4; ++c)

@@ -48,7 +48,9 @@ The torch counterpart of dflo_tpu/driver.py's ``Solver``:
   and a masked one take the dense route (stab/mood.MoodStage).  The state
   before the first step goes through the plain stab chain (KXRCF -> modal
   TVB -> modal positivity), as the JAX package's post_stage does for Pk.
-  MOOD needs the Pk basis and a global dt (dflo_tpu/driver.py:64-66).
+  MOOD needs the Pk basis and a global dt (dflo_tpu/driver.py:64-66), and
+  runs at every degree 1-6 the residual takes (on P1 its check is the
+  plain one, as the reference's).
 
 ``volume_kernel`` and ``post_kernel`` select the forms as the reference's
 Solver does (dflo_tpu/driver.py:104-138): "auto" takes the fused kernels
@@ -76,11 +78,10 @@ per chunk.  The port's kernels take any block shape: a mesh needs only
 
 Configurations outside the ported slices raise NotImplementedError on
 every device: MOOD off the fused residual (with a source callable its
-source arm does not carry), MOOD at degrees 4-6 (ROADMAP queue 2, item 10),
-a basis beyond the kernels' bounds (degree above 6 or more than
-kernels.NQ_MAX quadrature points per direction, queue 2, item 11), the
-minmax limiter and the other indicators (the physics envelope); under a
-device mesh, MOOD, implicit and local stepping, masks,
+source arm does not carry), a basis beyond the kernels' bounds (degree
+above 6 or more than kernels.NQ_MAX quadrature points per direction, queue
+2, item 11), the minmax limiter and the other indicators (the physics
+envelope); under a device mesh, MOOD, implicit and local stepping, masks,
 source terms, the plain and volume_residual forms and the plain post chain
 (ROADMAP queue 1, item 10).
 """
@@ -212,8 +213,6 @@ class Solver:
         if method == "mood" and not modal:
             raise ValueError("MOOD requires the Pk basis "
                              "(src/parameters.cc:541-544)")
-        if method == "mood" and basis.degree not in kernels.MOOD_DEGREES:
-            raise kernels.mood_later(basis.degree)
         if device_mesh is not None:
             if method == "mood":
                 raise _mesh_later("the MOOD cascade")

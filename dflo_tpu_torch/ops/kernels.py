@@ -13,8 +13,8 @@ fused_residual         make_fused_residual, dense (collocated Qk   csrc/fused_re
                        source arms, with every flux)               csrc/fused_residual_planes*.cu
                                                                    csrc/fused_residual_wb*.cu
 fused_mood_candidate   make_fused_residual(...).sparse (hllc,      csrc/fused_mood_candidate.cu
-                       lxf, roe, sw, kfvs and kep)                 csrc/fused_mood_candidate_{lxf,
-                                                                   roe,sw,kfvs,kep}.cu
+                       lxf, roe, sw, kfvs and kep; any modal Pk    csrc/fused_mood_candidate_{lxf,
+                       basis of degree 1-6, over-integrated too)   roe,sw,kfvs,kep}.cu
 fused_post             make_fused_post; with halo lines, the       csrc/fused_post.cu
                        per-device kernel of
                        make_fused_post_sharded
@@ -89,13 +89,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
-#: degrees the residual, post, diag and volume_residual kernels take: 1-3
-#: with an instantiation each, 4-6 on the general dims (csrc/euler.cuh
-#: GDims), as the reference's bases run to degree 6
+#: degrees every kernel takes (the residual, post, diag, volume_residual
+#: and the MOOD kernels: the candidate, modal positivity, Pk post and, from
+#: p = 2, the check): 1-3 with an instantiation each, 4-6 on the general
+#: dims (csrc/euler.cuh GDims), as the reference's bases run to degree 6
 DEGREES = (1, 2, 3, 4, 5, 6)
-#: degrees of the MOOD kernels (candidate, modal positivity, Pk post,
-#: check; the check needs p >= 2)
-MOOD_DEGREES = (1, 2, 3)
 #: the quadrature bound of the general dims (csrc/euler.cuh NQ_MAX, beside
 #: K_MAX = 49, Q6's DoFs): nq = p + 2 at p = 6
 NQ_MAX = 8
@@ -213,13 +211,13 @@ def _load():
         "dflo_fused_residual_src": [ci] * 7 + [vp] * 12 + [cd, cd, vp, ci, ci,
                                                           vp],
         "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
-        **{e: [ci, ci] + [vp] * 11 + [cd, ci, ci, vp, vp]
+        **{e: [ci] * 5 + [vp] * 11 + [cd, ci, ci, vp, vp]
            for e in _CANDIDATE_ENTRY.values()},
         "dflo_fused_post": [ci, ci] + [vp] * 10 + [ci] * 10 + [cd] * 9
                            + [vp],
         "dflo_fused_diag": [ci, ci] + [vp] * 5 + [ci, ci, cd, vp],
-        "dflo_fused_modal_pos": [ci, ci] + [vp] * 6 + [ci, ci, cd, cd, vp],
-        "dflo_fused_pk_post": [ci, ci] + [vp] * 6 + [ci] * 5 + [cd] * 4
+        "dflo_fused_modal_pos": [ci] * 4 + [vp] * 6 + [ci, ci, cd, cd, vp],
+        "dflo_fused_pk_post": [ci] * 4 + [vp] * 6 + [ci] * 5 + [cd] * 4
                               + [vp],
         "dflo_fused_mood_check": [ci, ci] + [vp] * 8 + [ci] * 4 + [cd, vp],
     }
@@ -359,15 +357,6 @@ def beyond_caps(basis: basis_mod.Basis) -> NotImplementedError:
         f"queue 2, item 11)")
 
 
-def mood_later(p: int) -> NotImplementedError:
-    """The error of MOOD at a degree its kernels do not take yet, raised on
-    every device."""
-    return NotImplementedError(
-        f"MOOD at degree {p} is not ported yet: its kernels (the candidate, "
-        f"the modal positivity, the Pk post and the check) take degrees "
-        f"{MOOD_DEGREES} (ROADMAP queue 2, item 10)")
-
-
 def _check_basis(basis: basis_mod.Basis, modal: bool | None = None) -> bool:
     """True for the modal Pk basis, False for a nodal basis (Qk on its
     Gauss nodes, Qk_gll on its Gauss-Lobatto nodes, or either off its
@@ -382,11 +371,6 @@ def _check_basis(basis: basis_mod.Basis, modal: bool | None = None) -> bool:
     if basis.degree not in DEGREES or basis.nq > NQ_MAX:
         raise beyond_caps(basis)
     return is_modal
-
-
-def _check_mood_degree(p: int) -> None:
-    if p not in MOOD_DEGREES:
-        raise mood_later(p)
 
 
 def _flat(parts, dtype, device) -> tuple[torch.Tensor, list[torch.Tensor]]:
@@ -715,7 +699,6 @@ def pk_post_operators(basis: basis_mod.Basis, mesh, *, M: float = 0.0,
                       per_x: bool = False, per_y: bool = False, dtype,
                       device) -> PkPostOps:
     _check_basis(basis, modal=True)
-    _check_mood_degree(basis.degree)
     h = mesh.diameter_h
     P = as_tensor(basis.eval_at(_pos_points(basis.degree)), dtype, device)
     return PkPostOps(
@@ -763,10 +746,11 @@ class MoodCheckOps:
 def mood_check_operators(basis: basis_mod.Basis, mesh, *, per_x: bool = False,
                          per_y: bool = False, device) -> MoodCheckOps:
     _check_basis(basis, modal=True)
-    _check_mood_degree(basis.degree)
     if basis.degree < 2:
-        raise NotImplementedError("the MOOD check needs p >= 2 (the u2 "
-                                  "smoothness test reads the D2 modes)")
+        raise NotImplementedError(
+            "the MOOD check kernel needs p >= 2 (the u2 smoothness test "
+            "reads the D2 modes); below it stab/mood.MoodStage runs the "
+            "plain check with the u2 test off, as the reference does")
     valid = tuple(torch.as_tensor(v, device=device) for v in
                   neighbor_valid((mesh.ny, mesh.nx), per_x, per_y))
     return MoodCheckOps(basis.degree, basis.K, mode0_mean(basis), per_x,
@@ -1038,14 +1022,21 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
         if tuple(s.shape) != (4, rops.nq, n):
             raise ValueError(f"strip shape {tuple(s.shape)} != "
                              f"{(4, rops.nq, n)}")
-    _check_mood_degree(rops.p)
+    if tuple(mops.P.shape[1:]) != (rops.K,):
+        raise ValueError("the modal operators' K differs from the "
+                         "residual's")
     flags = tile_flags(cells)
     lib = _load()
     entry = getattr(lib, _CANDIDATE_ENTRY[rops.flux])
+    # the basis dims: degree, modes, quadrature points per direction and
+    # positivity points (csrc/candidate.cuh candidate_entry: P1-P3 on
+    # nq = p + 1 their own instantiations, every other basis the general
+    # candidate)
     rc = _call(u_pre.device, entry, _DTYPE_CODE[u_pre.dtype], rops.p,
-        _ptr(u_pre), _ptr(deg), _ptr(cells), _ptr(flags), _ptr(dfw),
-        _ptr(dfe), _ptr(dfs), _ptr(dfn), _ptr(dt), _ptr(rops.buf),
-        _ptr(mops.P), mops.avg0, ny, nx, _ptr(u_prev), _stream(u_pre.device))
+        rops.K, rops.nq, mops.P.shape[0], _ptr(u_pre), _ptr(deg),
+        _ptr(cells), _ptr(flags), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn),
+        _ptr(dt), _ptr(rops.buf), _ptr(mops.P), mops.avg0, ny, nx,
+        _ptr(u_prev), _stream(u_pre.device))
     _check(rc, "fused_mood_candidate")
     fused_mood_candidate.launches += 1
     _count_form(f"fused_mood_candidate[{rops.flux}]")
@@ -1073,7 +1064,6 @@ def fused_modal_pos(u, ops: ModalOps, deg=None, with_diag: bool = False):
     ny, nx = _check_state(u, ops.K)
     if not _cuda_or_cpu(u, ops.P):
         return fused_modal_pos_plain(u, ops, deg, with_diag)
-    _check_mood_degree(ops.p)
     if deg is not None:
         _check_plane(deg, u, torch.int32, (ny, nx), "deg")
     lib = _load()
@@ -1082,9 +1072,9 @@ def fused_modal_pos(u, ops: ModalOps, deg=None, with_diag: bool = False):
     if with_diag:
         lam_p, minq_p = _partials(lib, u, ny, nx)
     rc = _call(u.device, lib.dflo_fused_modal_pos,
-        _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(deg), _ptr(ops.P),
-        _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx, ops.avg0, ops.h,
-        _stream(u.device))
+        _DTYPE_CODE[u.dtype], ops.p, ops.K, ops.P.shape[0], _ptr(u),
+        _ptr(deg), _ptr(ops.P), _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx,
+        ops.avg0, ops.h, _stream(u.device))
     _check(rc, "fused_modal_pos")
     fused_modal_pos.launches += 1
     if not with_diag:
@@ -1276,10 +1266,10 @@ def fused_pk_post(u, shock, ops: PkPostOps, with_diag: bool = False):
     if with_diag:
         lam_p, minq_p = _partials(lib, u, ny, nx)
     rc = _call(u.device, lib.dflo_fused_pk_post,
-        _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(shock), _ptr(ops.P),
-        _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx, int(ops.per_x),
-        int(ops.per_y), int(ops.char_lim), ops.avg0, 0.5 * ops.beta, ops.Mdx2,
-        ops.h, _stream(u.device))
+        _DTYPE_CODE[u.dtype], ops.p, ops.K, ops.P.shape[0], _ptr(u),
+        _ptr(shock), _ptr(ops.P), _ptr(out), _ptr(lam_p), _ptr(minq_p), ny,
+        nx, int(ops.per_x), int(ops.per_y), int(ops.char_lim), ops.avg0,
+        0.5 * ops.beta, ops.Mdx2, ops.h, _stream(u.device))
     _check(rc, "fused_pk_post")
     fused_pk_post.launches += 1
     if not with_diag:

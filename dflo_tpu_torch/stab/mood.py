@@ -46,6 +46,10 @@ masked domain solid cells count as missing neighbors of the plane ops and
 never fail the check; the check is then this module's plain check_update,
 as the reference's masked cascade runs its XLA check
 (dflo_tpu/stab/mood.py:280-291, :348); unmasked it is the check kernel.
+On P1 the check is the plain check_update with the u2 exemption off on
+every device: the basis has no D2 modes and the reference has no check
+kernel below p = 2 (dflo_tpu/stab/mood.py:244-246, :284).  The candidate,
+the modal positivity and the Pk post take every degree 1-6.
 """
 
 from __future__ import annotations
@@ -125,12 +129,17 @@ def check_update(rho, d2xx, d2yy, dmp_min, dmp_max, deg, lim, valid,
                  mask=None):
     """DMP acceptance + degree-reduction / limiter-mark bookkeeping on a
     candidate (apply_mood, src/mood.cc:290-491).  rho is the candidate's
-    density mean, d2xx/d2yy its density D2 modes; deg int32, lim bool;
-    mask: the bool fluid flags of a masked domain (a solid cell never
-    fails, dflo_tpu/stab/mood.py:348), or None.  Returns (deg_new, lim_new,
-    chg): chg marks the cells whose degree dropped."""
+    density mean, d2xx/d2yy its density D2 modes, or None for a basis
+    below p = 2, which has none: the u2 exemption is then off, every
+    DMP-violating cell fails (dflo_tpu/stab/mood.py:244-246); deg int32,
+    lim bool; mask: the bool fluid flags of a masked domain (a solid cell
+    never fails, dflo_tpu/stab/mood.py:348), or None.  Returns (deg_new,
+    lim_new, chg): chg marks the cells whose degree dropped."""
     dmp = (rho - dmp_min > -DMP_EPS) & (rho - dmp_max < DMP_EPS)
-    fail = ~(dmp | u2_ok(d2xx, d2yy, valid))
+    if d2xx is None:
+        fail = ~dmp
+    else:
+        fail = ~(dmp | u2_ok(d2xx, d2yy, valid))
     if mask is not None:
         fail = fail & mask
     red_self = fail & (deg > 1)
@@ -158,7 +167,7 @@ class MoodStage:
     rhs is the fused modal residual of solver/spatial.make_rhs(...,
     volume_kernel="fused") (its ``.step``, ``.modal_ops`` and, where it has
     one, ``.sparse_candidate``); mask the bool [ny, nx] fluid flags of a
-    masked domain, or None.
+    masked domain, or None.  Any degree 1-6 the residual takes.
 
     Each pass's candidate goes through the port's kernels (their plain
     versions on CPU tensors): pass 1 is the dense modal residual's
@@ -166,9 +175,9 @@ class MoodStage:
     the cells that can change (sparse_mode="auto" with a residual that has
     one; see the module docstring), else the dense fused_modal_pos(u_pre,
     deg) followed by the dense forward-Euler residual on every cell.  Each
-    pass ends in the check: the check kernel, or on a masked domain the
-    plain check_update with the mask.  host_syncs counts the
-    ``bool(chg.any())`` reads."""
+    pass ends in the check: the check kernel, or on a masked domain or
+    below p = 2 the plain check_update (with the mask; on P1 with the u2
+    test off).  host_syncs counts the ``bool(chg.any())`` reads."""
 
     def __init__(self, basis, mesh, rhs, per_x: bool = False,
                  per_y: bool = False, *, mask=None, max_iters: int = 20,
@@ -199,20 +208,25 @@ class MoodStage:
         self.valid = tuple(torch.as_tensor(v, device=device) for v in
                            neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
                                           mask))
-        self.cops = kernels.mood_check_operators(basis, mesh, per_x=per_x,
-                                                 per_y=per_y, device=device)
+        # the check kernel's operators; None below p = 2, where the check
+        # is the plain one (the reference builds no check kernel there)
+        self.cops = (kernels.mood_check_operators(basis, mesh, per_x=per_x,
+                                                  per_y=per_y, device=device)
+                     if self.p >= 2 else None)
         self.host_syncs = 0
 
     def _check(self, u_c, dmp_min, dmp_max, deg, lim):
-        """One acceptance pass: the check kernel, or on a masked domain the
-        plain check with the mask (the reference's XLA check)."""
-        if self.mask is None:
+        """One acceptance pass: the check kernel, or on a masked domain or
+        below p = 2 the plain check (the reference's XLA check: with the
+        mask; on P1 with the u2 test off)."""
+        if self.mask is None and self.cops is not None:
             return self.kernels.fused_mood_check(u_c, dmp_min, dmp_max, deg,
                                                  lim, self.cops)
         rho = u_c[euler.RHO]
-        return check_update(self.mops.avg0 * rho[0], rho[2],
-                            rho[2 * self.p + 1], dmp_min, dmp_max, deg, lim,
-                            self.valid, self.mask)
+        d2 = ((rho[2], rho[2 * self.p + 1]) if self.p >= 2
+              else (None, None))
+        return check_update(self.mops.avg0 * rho[0], *d2, dmp_min, dmp_max,
+                            deg, lim, self.valid, self.mask)
 
     def __call__(self, u_pre, t, dt, deg_in=None, live=None):
         """live: optional 0-dim bool tensor; when false the cascade stops

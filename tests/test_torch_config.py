@@ -205,3 +205,19 @@ def test_mood_with_gravity_matches_jax_cli(tmp_path):
     for i in flips:
         assert rel(ckpt(tmp_path / "jax", i)["u"],
                    ckpt(tmp_path / "port", i)["u"]) <= 1e-13, i
+
+
+@pytest.mark.parametrize("degree", (1, 4))
+def test_sod_mood_at_degree_matches_jax_cli(tmp_path, degree):
+    """sod_mood.prm with `degree = 1` (the plain check with the u2 test
+    off, as the reference's) and `degree = 4` (the MOOD kernels' general
+    forms), 48 x 4, 5 steps through both CLIs: every checkpoint within
+    1e-10 and every step's MoodStats equal."""
+    from test_torch_configs import check_cli_pair, edited
+    text = edited("sod_mood", 48, 4,
+                  ("set degree = 2", f"set degree = {degree}"))
+    res, jm, tm = check_cli_pair(text, tmp_path, "Pk", 48, steps=5)
+    assert res.solver.basis.degree == degree
+    assert res.solver._mood_stage.sparse
+    assert (res.solver._mood_stage.cops is None) == (degree == 1)
+    assert len(tm) == 5

@@ -23,9 +23,10 @@ on the CPU in float64.
 - The routing: "auto" resolves the residual to the kernel for p = 4 and
   for nq = p + 2 (the parent resolved both to the plain residual), the
   post to the kernel on collocated Q4 with TVB and to the plain chain on
-  over-integrated Qk (the reference's post_ok); MOOD at p >= 4 and a basis
+  over-integrated Qk (the reference's post_ok); MOOD at p = 7 and a basis
   with more than NQ_MAX points per direction raise NotImplementedError
-  naming their ROADMAP item (on the card as well, tests/test_torch_gpu.py).
+  naming their ROADMAP item (on the card as well, tests/test_torch_gpu.py);
+  MOOD at p 4-6 builds (its steps: tests/test_torch_mood_degrees.py).
 - Two configs through both CLIs (tests/test_torch_configs.check_cli_pair,
   every checkpoint within 1e-10): isentropic_vortex.prm at `degree = 4`
   (P4, lxf, limiter none, periodic) at 16 x 16 and rayleigh_taylor.prm
@@ -229,23 +230,37 @@ def test_auto_routes_the_envelope_to_the_kernels():
 
 
 def test_mood_above_p3_and_quadrature_beyond_cap_raise():
-    """MOOD at p >= 4 (its kernels take P1-P3) and a basis beyond NQ_MAX
-    raise at Solver construction, on the CPU as on the card: neither runs
-    on the plain path instead."""
+    """MOOD above the kernels' degrees (p = 7) and a basis beyond NQ_MAX
+    raise at Solver construction (beyond_caps, queue 2, item 11), on the
+    CPU as on the card: neither runs on the plain path instead."""
     mesh = CartesianMesh(NX, NY, 0.0, 2.0, 0.0, 1.0)
     bcs, _ = sides(PER_X_SLIP_Y)
     tvb = LimiterConfig(type="TVB", beta=2.0, pos_lim=True)
-    for p in (4, 5, 6):
-        with pytest.raises(NotImplementedError, match="queue 2, item 10"):
-            Solver(make_basis("Pk", p), mesh, bcs, limiter=tvb, dtype=F64,
-                   device="cpu", method="mood")
-    with pytest.raises(NotImplementedError, match="queue 2, item 10"):
-        kernels.pk_post_operators(make_basis("Pk", 4), mesh, dtype=F64,
+    with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+        Solver(make_basis("Pk", 7), mesh, bcs, limiter=tvb, dtype=F64,
+               device="cpu", method="mood")
+    with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+        kernels.pk_post_operators(make_basis("Pk", 7), mesh, dtype=F64,
                                   device="cpu")
     for vk in ("auto", "fused"):
         with pytest.raises(NotImplementedError, match="queue 2, item 11"):
             Solver(make_basis("Qk", 2, kernels.NQ_MAX + 1), mesh, bcs,
                    dtype=F64, device="cpu", volume_kernel=vk)
+
+
+def test_mood_builds_at_p4_to_p6():
+    """MOOD at p 4-6 builds on the CPU, on the fused residual with the
+    sparse candidate and the check kernel's operators, as the reference's
+    Solver builds its four MOOD kernels at any degree (dflo_tpu/driver.py:
+    280-336)."""
+    mesh = CartesianMesh(NX, NY, 0.0, 2.0, 0.0, 1.0)
+    bcs, _ = sides(PER_X_SLIP_Y)
+    tvb = LimiterConfig(type="TVB", beta=2.0, pos_lim=True)
+    for p in (4, 5, 6):
+        s = Solver(make_basis("Pk", p), mesh, bcs, limiter=tvb, dtype=F64,
+                   device="cpu", method="mood")
+        assert s.volume_kernel == "fused" and s._mood_stage.sparse
+        assert s._mood_stage.cops.p == s._pk_post_ops.p == p
 
 
 def test_cli_vortex_p4_matches_jax(tmp_path):

@@ -1,8 +1,9 @@
 """Each CUDA kernel of dflo_tpu_torch against its plain PyTorch version, on
 the card: the RK/TVB kernels for every instantiated degree (p = 1, 2, 3),
-the MOOD kernels for p = 2 and 3 (96 x 24, modal Pk), in both dtypes; the
-post's block form and the sharded diag on a (2, 2) virtual mesh (and over
-distinct cards where there are two or more); the modal LxF residual in its
+the MOOD kernels for p = 2 and 3 (96 x 24, modal Pk; the check p = 2-6),
+in both dtypes; the post's block form and the sharded diag on a (2, 2)
+virtual mesh (and over distinct cards where there are two or more); the
+modal LxF residual in its
 three forms (p = 1, 2, 3) and the LxF candidate (p = 2, 3, bitwise) at the
 ragged ny = 4 and 10, and the Q1 post periodic on both axes (the vortex
 system's), with and without its diag; the residual's source arms (gravity
@@ -21,7 +22,12 @@ envelope of the residual (every flux at p = 4-6 on Qk, GLL and Pk, the
 over-integrated bases, masked forms, the source arms with roe, sw, kfvs
 and kep), the post on Q4-Q6 masked and not, the diag on every new basis
 kind, volume_residual at K = 25, 36, 49, and the refusals of MOOD at
-p >= 4 and of a basis beyond NQ_MAX on the card.
+p = 7 and of a basis beyond NQ_MAX on the card; the MOOD kernels over the
+whole degree range (the general candidate at p 4-6 with every flux and on
+the over-integrated P2, the modal positivity in its four forms, the Pk
+post with and without diag and the check at p 4-6, all bitwise) and three
+f64 MOOD steps on P4 and on P1 through the kernels against the plain
+versions.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -167,10 +173,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
 PK_NX, PK_NY = 96, 24
 
 
-def setup_pk(p, dtype, device, seed=0, ny=PK_NY, flux="hllc"):
-    """Operators and a positivity-limited, perturbed DMR state on P_p, a
-    mixed degree map and random cell/limiter planes (numpy seed)."""
-    basis = make_basis("Pk", p)
+def setup_pk(p, dtype, device, seed=0, ny=PK_NY, flux="hllc", nq=None):
+    """Operators and a positivity-limited, perturbed DMR state on P_p (on
+    nq x nq quadrature points, p + 1 unless given), a mixed degree map and
+    random cell/limiter planes (numpy seed)."""
+    basis = make_basis("Pk", p, nq)
     mesh = CartesianMesh(PK_NX, ny, 0.0, 4.0, 0.0, 1.0)
     rng = np.random.default_rng(seed)
     u = ic.set_initial_condition(basis, mesh, dmr_ic, dtype=torch.float64,
@@ -266,7 +273,7 @@ def test_modal_pos_pk_post_and_diag_match_plain(cuda, p, dtype):
 
 @pytest.mark.parametrize("per", ((False, False), (True, True)))
 @pytest.mark.parametrize("dtype", ("float32", "float64"))
-@pytest.mark.parametrize("p", (2, 3))
+@pytest.mark.parametrize("p", (2, 3, 4, 5, 6))
 def test_mood_check_is_bitwise_plain(cuda, p, dtype, per):
     dt = getattr(torch, dtype)
     basis, mesh, u, rhs, pl = setup_pk(p, dt, cuda, seed=20 + p)
@@ -907,18 +914,35 @@ def _plain_wrappers():
     return saved
 
 
-@pytest.mark.parametrize("case", ("masked", "gravity"))
+@pytest.mark.parametrize("case", ("masked", "gravity", "p4", "p1",
+                                  "p4_masked", "p4_gravity"))
 def test_mood_steps_match_plain(cuda, case):
-    """Three f64 MOOD steps on P2 through the kernels against the same
-    steps through the plain versions on the card: the masked forward step
-    (the dense route, the plain masked check, the modal positivity kernel
-    and the masked diag) and the DMR with a GravitySource (the dense route
-    on the gravity arm, the check kernel, the Pk post)."""
+    """Three f64 MOOD steps through the kernels against the same steps
+    through the plain versions on the card: on P2 (and P4) the masked
+    forward step (the dense route, the plain masked check, the modal
+    positivity kernel and the masked diag) and the DMR with a GravitySource
+    (the dense route on the gravity arm, the check kernel, the Pk post);
+    the DMR box from the contact on P4 (the sparse route on the general
+    candidate, the check kernel, the general modal positivity and Pk post)
+    and on P1 (the plain check with the u2 test off, the P1 kernels)."""
     from dflo_tpu_torch.driver import LimiterConfig, Solver
+    from dflo_tpu_torch.entry import contact_ic
     lim = LimiterConfig(type="TVB", shock_indicator="limiter", beta=2.0,
                         char_lim=True, pos_lim=True)
-    basis = make_basis("Pk", 2)
-    if case == "masked":
+    p = 4 if case.startswith("p4") else 1 if case == "p1" else 2
+    basis = make_basis("Pk", p)
+    if case in ("p4", "p1"):
+        mesh = CartesianMesh(PK_NX, PK_NY, 0.0, 4.0, 0.0, 1.0)
+        kw = dict(flux="hllc")
+        bcs, fn = BCS, contact_ic
+        # on P1 no degree can drop, so every cascade ends after pass 1 (as
+        # the reference's: dflo_tpu/stab/mood.py:357-361): no candidate,
+        # no modal positivity, and the check is the plain one
+        forms = ("fused_residual[pk_hllc_step]", "fused_pk_post")
+        if case == "p4":
+            forms += ("fused_mood_candidate[hllc]", "fused_modal_pos",
+                      "fused_mood_check")
+    elif case.endswith("masked"):
         mesh = CartesianMesh(FS_NX, FS_NY, 0.0, 3.0, 0.0, 1.0)
         kw = dict(flux="lxf", mask=mesh_mask(mesh))
         bcs, fn = FS_BCS, fs_inflow
@@ -951,8 +975,13 @@ def test_mood_steps_match_plain(cuda, case):
                 setattr(kernels, n, f)
     (uk, tk, sk, ck), (up, tp, sp, _) = out
     assert rel(uk, up) <= 1e-10 and abs(tk - tp) <= 1e-13 * tp
-    assert sk == sp and sum(r for r, _, _ in sk) > 0
+    assert sk == sp
+    # the cascade fired: degrees dropped (on P1: cells marked instead)
+    assert sum(r[1 if case == "p1" else 0] for r in sk) > 0
     assert all(ck.get(f, 0) > 0 for f in forms), ck
+    if case == "p1":
+        assert ck["fused_mood_check"] == ck["fused_mood_candidate"] == \
+            ck["fused_modal_pos"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -1096,18 +1125,107 @@ def test_volume_residual_q4_q6_matches_plain(cuda, p, dtype):
 
 
 def test_mood_above_p3_and_quadrature_beyond_cap_raise(cuda):
-    """MOOD at p >= 4 and a basis beyond NQ_MAX raise at Solver
-    construction on the card too, and the MOOD kernels' wrappers refuse
-    P4 operators rather than launch."""
+    """MOOD above the kernels' degrees (p = 7) and a basis beyond NQ_MAX
+    raise at Solver construction on the card too; MOOD at p 4-6 builds
+    there, with its check kernel's operators."""
     from dflo_tpu_torch.driver import LimiterConfig, Solver
     mesh = CartesianMesh(SRC_NX, SRC_NY, 0.0, 1.0, 0.0, 1.0)
     lim = LimiterConfig(type="TVB", beta=2.0, pos_lim=True)
-    with pytest.raises(NotImplementedError, match="queue 2, item 10"):
-        Solver(make_basis("Pk", 4), mesh, BUMP_BCS, limiter=lim,
+    with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+        Solver(make_basis("Pk", 7), mesh, BUMP_BCS, limiter=lim,
                dtype=torch.float32, device=cuda, method="mood")
     with pytest.raises(NotImplementedError, match="queue 2, item 11"):
         Solver(make_basis("Qk", 2, kernels.NQ_MAX + 1), mesh, BUMP_BCS,
                dtype=torch.float32, device=cuda)
-    u, rhs = setup_bump("Pk", 4, "lxf", torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="queue 2, item 10"):
-        kernels.fused_modal_pos(u, rhs.modal_ops)
+    for p in (4, 5, 6):
+        s = Solver(make_basis("Pk", p), mesh, BUMP_BCS, limiter=lim,
+                   dtype=torch.float32, device=cuda, method="mood")
+        assert s._mood_stage.cops.p == p and s._mood_stage.sparse
+
+
+# ---------------------------------------------------------------------------
+# the MOOD kernels over the whole degree range: the candidate (every flux,
+# and the over-integrated P2), the modal positivity, the Pk post and the
+# check at p 4-6, each bitwise equal to its plain version
+# ---------------------------------------------------------------------------
+
+def candidate_pairs(u, rhs, pl, dt, cuda):
+    """(kernel, plain, cells) of the candidate on a random cell set and on
+    every cell, with the launches counted."""
+    h = torch.full((), 1e-4, dtype=dt, device=cuda)
+    tp_strips = rhs.strips(u, 0.0, pl["deg"])
+    prev = u.flip(-1).contiguous()
+    out = []
+    for cells in (pl["cells"], torch.ones_like(pl["cells"])):
+        k = kernels.fused_mood_candidate(u, prev.clone(), pl["deg"], cells,
+                                         *tp_strips, rhs.ops, rhs.modal_ops,
+                                         h)
+        q = kernels.fused_mood_candidate_plain(u, prev.clone(), pl["deg"],
+                                               cells, *tp_strips, rhs.ops,
+                                               rhs.modal_ops, h)
+        out.append((k, q, cells, prev))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (4, 5, 6))
+@pytest.mark.parametrize("flux", ALL_FLUXES)
+def test_high_degree_mood_candidate_is_bitwise_plain(cuda, flux, p, dtype):
+    """The general candidate (csrc/candidate.cuh, GDims) at p 4-6 with
+    every flux, on a random cell set and on every cell, bitwise equal to
+    its plain version; cells off the set keep u_prev."""
+    dt = getattr(torch, dtype)
+    _, _, u, rhs, pl = setup_pk(p, dt, cuda, seed=40 + p, flux=flux)
+    kernels.reset_launch_counts()
+    for k, q, cells, prev in candidate_pairs(u, rhs, pl, dt, cuda):
+        assert torch.equal(k.nan_to_num(), q.nan_to_num())
+        assert torch.equal(k.isnan(), q.isnan())
+        assert torch.equal(k[..., ~cells], prev[..., ~cells])
+    assert kernels.launch_counts()[f"fused_mood_candidate[{flux}]"] == 2
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("flux", ("hllc", "lxf"))
+def test_over_integrated_mood_candidate_is_bitwise_plain(cuda, flux, dtype):
+    """The candidate on P2 with 4 x 4 quadrature points: its operator
+    buffer and strips are laid out for nq = 4, so the wrapper passes K, nq
+    and the positivity points and the launch table takes the general
+    candidate (the P2 instantiation assumes nq = 3).  Bitwise equal to its
+    plain version."""
+    dt = getattr(torch, dtype)
+    _, _, u, rhs, pl = setup_pk(2, dt, cuda, seed=47, flux=flux, nq=4)
+    assert (rhs.ops.p, rhs.ops.nq, rhs.ops.K) == (2, 4, 6)
+    for k, q, cells, prev in candidate_pairs(u, rhs, pl, dt, cuda):
+        assert torch.equal(k, q)
+        assert torch.equal(k[..., ~cells], prev[..., ~cells])
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (4, 5, 6))
+def test_high_degree_modal_pos_and_pk_post_are_bitwise_plain(cuda, p,
+                                                             dtype):
+    """The modal positivity in its four forms and the Pk post with and
+    without its diag at p 4-6 (the general modal dims), bitwise equal to
+    their plain versions."""
+    dt = getattr(torch, dtype)
+    basis, mesh, u, rhs, pl = setup_pk(p, dt, cuda, seed=50 + p)
+    mops = rhs.modal_ops
+    kernels.reset_launch_counts()
+    for deg in (None, pl["deg"]):
+        k = kernels.fused_modal_pos(u, mops, deg, with_diag=True)
+        q = kernels.fused_modal_pos_plain(u, mops, deg, with_diag=True)
+        k0 = kernels.fused_modal_pos(u, mops, deg)
+        torch.cuda.synchronize()
+        assert torch.equal(k0, q[0])
+        assert all(torch.equal(a, b) for a, b in zip(k, q))
+    post = kernels.pk_post_operators(basis, mesh, beta=2.0, char_lim=True,
+                                     dtype=dt, device=cuda)
+    k = kernels.fused_pk_post(u, pl["shock"], post, with_diag=True)
+    q = kernels.fused_pk_post_plain(u, pl["shock"], post, with_diag=True)
+    k0 = kernels.fused_pk_post(u, pl["shock"], post)
+    torch.cuda.synchronize()
+    assert torch.equal(k0, q[0])
+    assert all(torch.equal(a, b) for a, b in zip(k, q))
+    counts = kernels.launch_counts()
+    assert counts["fused_modal_pos"] == 4 and counts["fused_pk_post"] == 2
