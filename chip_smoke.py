@@ -6,8 +6,10 @@ versions.
 Phases (any failure raises, and the script then prints no result):
 
 1. card and build: the card's name and power limit; nvcc builds
-   dflo_tpu_torch/csrc/*.cu (one process per source, timed) and prints
-   ptxas' registers and spills.
+   dflo_tpu_torch/csrc/*.cu (one process per source, timed); the tile
+   kernel of the residual and the candidate (csrc/residual.cuh): each
+   instantiation's registers, stack and spill from ptxas, and the tile and
+   dynamic shared memory per block of its main forms.
 2. RK/TVB kernels against their plain PyTorch versions on the card, on the
    1152 x 288 Q2 double-Mach-reflection (DMR) state after the initial
    post_stage and after 10 plain steps, in float32 and float64: both forms of
@@ -40,7 +42,7 @@ Phases (any failure raises, and the script then prints no result):
 8. the device's busy share: each main path's chunk (RK 5 steps, MOOD 3,
    forward step 3, sharded RK 3, the vortex 10, rayleigh_taylor 10,
    iso_xing_shu 10, the forward step on P2 under MOOD 3, the DMR on P4
-   under MOOD 3) under
+   under MOOD 3, the vortex on P4 5) under
    torch.profiler; busy time is the union of the
    device events' intervals; idle shares of the traced wall and of the
    untraced ms/step of phases 3, 6 and 10.
@@ -1572,7 +1574,7 @@ def device_busy(fn) -> dict | None:
     for e in evs:
         key = e.name.split("(")[0][:90]
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
-    port = [e for e in evs if "dflo::fused_" in e.name]
+    port = [e for e in evs if "dflo::" in e.name]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": 1e3 * wall, "busy_ms": 1e-3 * busy,
             "device_events": len(evs), "port_kernel_events": len(port),
@@ -1588,7 +1590,8 @@ def phase_trace(entry, ms_per_step, built):
     mesh, the vortex 10 steps at 2048 x 2048, rayleigh_taylor 10 steps at
     1024 x 3072 and iso_xing_shu 10 steps at 2048 x 2048 on their CLI's
     solvers, the forward step on P2 under MOOD 3 steps on its CLI's solver,
-    the DMR on P4 under MOOD 3 steps (phase 28's solver);
+    the DMR on P4 under MOOD 3 steps (phase 28's solver), the vortex on P4
+    ENV_CHUNK steps at P4_N x P4_N (phase 26's solver);
     built[method] = (solver, state) for all but the first two;
     f32, after a warm-up):
     device busy time, and the idle share of the traced wall and of the
@@ -1600,7 +1603,7 @@ def phase_trace(entry, ms_per_step, built):
     for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3), ("shard", 3),
                           ("vortex", VX_CHUNK), ("rt", SRC_CHUNK),
                           ("iso", SRC_CHUNK), ("fwd_mood", 3),
-                          ("dmr_p4_mood", 3)):
+                          ("dmr_p4_mood", 3), ("vortex_p4", ENV_CHUNK)):
         if method in built:
             s, u = built[method]
         else:
@@ -2428,9 +2431,11 @@ def ptxas_table(log: str, sources=None,
     import re
     if sources is None:
         sources = {f"fused_residual_{f}.cu" for f in FLUX_NEW}
-    pat = (r"fused_residual_kernelI([fd])Li(\d)ELb(\d)ELi\d+ELi0E"
-           if kernel == "fused_residual_kernel"
-           else r"fused_mood_candidate_kernelI([fd])Li(\d)E()")
+    # the tile kernel (csrc/residual.cuh) on the fixed dims, no source arm:
+    # the residual (TP false) or the candidate (TP true, modal)
+    tp = "0" if kernel == "fused_residual_kernel" else "1"
+    pat = (r"tile_residual_kernel(?:_wide)?I([fd])NS_5BDimsILi(\d)ELb([01])EEELi\d+"
+           r"ELi0ELb" + tp + "E")
     out, src, fn, spill = {}, None, "", 0
     for line in log.splitlines():
         if line.startswith("== "):
@@ -2449,6 +2454,97 @@ def ptxas_table(log: str, sources=None,
                  "Qk" if k.group(3) == "0" else "Pk", int(k.group(2)),
                  int(m.group(1)), spill))
     return out
+
+
+def ptxas_tiles(log: str) -> list:
+    """[(source, dtype, dims, flux, source arm, candidate, registers, stack
+    bytes, spill bytes)] of every instantiation of the residual's and the
+    candidate's tile kernel (csrc/residual.cuh tile_residual_kernel, in
+    float64 tile_residual_kernel_wide), from
+    the build's ptxas lines; dims "P<p>" / "Q<p>" for the fixed dims (modal
+    / collocated), "G-contract" / "G-collocated" for the general ones."""
+    import re
+    out, src, fn, stack, spill = [], None, "", 0, 0
+    pat = (r"tile_residual_kernel(?:_wide)?I([fd])NS_5(?:BDimsILi(\d)ELb([01])|"
+           r"GDimsILb([01]))EEELi(\d)ELi(n?\d)ELb([01])E")
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line.split()[1]
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        k = re.search(pat, fn)
+        if m and k:
+            dims = (f"{'P' if k.group(3) == '1' else 'Q'}{k.group(2)}"
+                    if k.group(2) else
+                    f"G-{'contract' if k.group(4) == '1' else 'collocated'}")
+            out.append((src, "f32" if k.group(1) == "f" else "f64", dims,
+                        ALL_FLUXES[int(k.group(5))],
+                        int(k.group(6).replace("n", "-")), k.group(7) == "1",
+                        int(m.group(1)), stack, spill))
+    return out
+
+
+#: the tile kernel's main forms whose shared memory per block phase 1
+#: prints: (label, family, p, nq, flux, source arm code, masked, candidate)
+TILE_FORMS = (("Q2 hllc stage (DMR)", "Qk", 2, None, "hllc", 0, 0, 0),
+              ("P2 hllc u+dt*R / candidate (MOOD)", "Pk", 2, None, "hllc",
+               0, 0, 1),
+              ("P2 lxf stage (vortex)", "Pk", 2, None, "lxf", 0, 0, 0),
+              ("P4 lxf stage (vortex)", "Pk", 4, None, "lxf", 0, 0, 0),
+              ("P4 hllc candidate (MOOD)", "Pk", 4, None, "hllc", 0, 0, 1),
+              ("P6 lxf stage (vortex)", "Pk", 6, None, "lxf", 0, 0, 0),
+              ("Q4 hllc stage (DMR)", "Qk", 4, None, "hllc", 0, 0, 0),
+              ("Q2 on 4x4 lxf stage", "Qk", 2, 4, "lxf", 0, 0, 0),
+              ("GLL2 roe isothermal", "Qk_gll", 2, None, "roe", 3, 0, 0),
+              ("Q1 lxf masked (fwd)", "Qk", 1, None, "lxf", 0, 1, 0),
+              ("Q6 kep", "Qk", 6, None, "kep", 0, 0, 0))
+
+
+def phase_tile_report(kernels, log, results):
+    """Phase 1, the tile kernels: each instantiation's registers, stack and
+    spill (ptxas), and the dynamic shared memory per block and the tile of
+    the main forms (csrc/fused_residual.cu dflo_tile_smem)."""
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.stab.positivity import _pos_points
+    rows = ptxas_tiles(log)
+    assert rows, "no tile kernel in the build's ptxas lines"
+    local = [r for r in rows if r[7] or r[8]]
+    regs = [r[6] for r in rows]
+    print(f"ptxas tile_residual_kernel(_wide): {len(rows)} instantiations, "
+          f"{min(regs)}-{max(regs)} registers, {len(local)} with a stack "
+          f"frame or spills")
+    for src in sorted({r[0] for r in rows}):
+        print(f"  {src}: " + ", ".join(
+            f"{d} {dims} {fl}{'' if a == 0 else f' src{a}'}"
+            f"{' TP' if tp else ''} {rg} regs {st} B stack {sp} B spill"
+            for _, d, dims, fl, a, tp, rg, st, sp in
+            (r for r in rows if r[0] == src)))
+    lib = kernels._load()
+    smem = {}
+    for label, fam, p, nq, flux, arm, masked, tp in TILE_FORMS:
+        b = make_basis(fam, p, nq)
+        qp = len(_pos_points(p)) if fam == "Pk" else 0
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            tile = kernels.residual_tile(b.K, dtype)
+            n = lib.dflo_tile_smem(int(dtype == torch.float64),
+                                   int(not b.is_nodal_collocated), b.K, b.nq,
+                                   qp, ALL_FLUXES.index(flux), arm, masked,
+                                   tp, *tile)
+            assert n > 0, (label, tag)
+            smem[f"{label} {tag}"] = {"tile": list(tile), "smem_bytes": n}
+    print("tile shared memory per block: " + "; ".join(
+        f"{k} {v['tile'][0]}x{v['tile'][1]} {v['smem_bytes']} B"
+        for k, v in smem.items()))
+    results["tile_kernels"] = {
+        "instantiations": len(rows), "registers": [min(regs), max(regs)],
+        "with_stack_or_spill": [list(r) for r in local],
+        "smem_per_block": smem}
 
 
 def phase_flux_kernels(kernels, results, log):
@@ -3300,13 +3396,20 @@ def ptxas_general(log: str) -> dict:
         if m:
             stack, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
-        k = re.search(r"(fused_residual|fused_post|fused_mood_candidate|"
-                      r"fused_modal_pos|fused_pk_post)_kernelI([fd])NS_5GDims"
-                      r"ILb([01])E", fn)
+        k = re.search(r"(fused_post|fused_modal_pos|fused_pk_post)_kernelI"
+                      r"([fd])NS_5GDimsILb([01])E", fn)
+        # the tile kernel of the residual (TP false) and the candidate
+        t = re.search(r"tile_residual_kernel(?:_wide)?I([fd])NS_5GDimsILb([01])EEE"
+                      r"Li\d+ELin?\d+ELb([01])E", fn)
+        if m and t:
+            k = ("fused_mood_candidate" if t.group(3) == "1"
+                 else "fused_residual", t.group(1), t.group(2))
+        elif m and k:
+            k = k.groups()
         if m and k:
             out.setdefault(src, []).append(
-                (k.group(1), "f32" if k.group(2) == "f" else "f64",
-                 "contract" if k.group(3) == "1" else "collocated",
+                (k[0], "f32" if k[1] == "f" else "f64",
+                 "contract" if k[2] == "1" else "collocated",
                  int(m.group(1)), spill, stack))
     return out
 
@@ -3687,18 +3790,21 @@ def phase_solver_path(kernels, plain_calls, name, metric, s, u, steps,
 
 def phase_envelope_paths(entry, kernels, plain_calls):
     """Phase 26: the six new paths, f32, ENV_STEPS steps each; returns
-    {path: launch counts}."""
+    ({path: launch counts}, the P4 vortex's ms/step, its (solver, state)
+    for phase 8)."""
     from dflo_tpu_torch.driver import Solver
     out = {}
     for p, n in ((4, P4_N), (6, P6_N)):
         _, s, u0 = prm_solver(VORTEX_PRM, torch.float32, n,
                               edit=lambda q, _p=p: setattr(q, "degree", _p))
         assert s.basis.degree == p and s.limiter_cfg.type == "none"
-        out[f"vortex_p{p}"], _ = phase_solver_path(
+        out[f"vortex_p{p}"], ms = phase_solver_path(
             kernels, plain_calls, f"isenvort_p{p}",
             f"isenvort_p{p}_lxf_rk_dof_updates_per_sec", s, u0, ENV_STEPS,
             ENV_CHUNK, ("fused_residual[pk_lxf_stage]", "fused_diag"),
             (n, n), extra=vortex_error)
+        if p == 4:
+            vortex_p4 = (ms, (s, s.post_stage(u0)))
         del s, u0
         torch.cuda.empty_cache()
     s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
@@ -3739,7 +3845,7 @@ def phase_envelope_paths(entry, kernels, plain_calls):
         ENV_STEPS, ENV_CHUNK, ("fused_residual[gll_roe_wbiso_stage]",
                                "fused_diag"))
     torch.cuda.empty_cache()
-    return out
+    return out, *vortex_p4
 
 
 # ---------------------------------------------------------------------------
@@ -3987,8 +4093,12 @@ def phase_mood_degree_kernels(entry, kernels, results, log):
         strips = c1["strips"]
         results[f"mood_p4_step_ms_{tag}"] = time_ms(
             lambda: kernels.fused_residual(u, *strips, rops, dt=h))
+        results[f"mood_p4_step_bound_ms_{tag}"], by = bound(
+            "fused_residual_pk", s.basis, dtype, NX * NY)
         print(f"[{tag}] fused_residual[pk_hllc_step] P4: kernel "
-              f"{results[f'mood_p4_step_ms_{tag}']:.4f} ms at {NX}x{NY}")
+              f"{results[f'mood_p4_step_ms_{tag}']:.4f} ms at {NX}x{NY}, "
+              f"bound {results[f'mood_p4_step_bound_ms_{tag}']:.4f} ms "
+              f"({by})")
         del s, u, c1, u_c, u_prev, candk, tp_strips, strips
         torch.cuda.empty_cache()
 
@@ -4142,12 +4252,13 @@ def main() -> int:
     print(f"build: {so.name} in {build_s:.1f} s, {len(times)} sources, "
           f"long pole {pole} ({times[pole]:.1f} s)")
     for line in log.splitlines():
-        if "Used" in line or "spill" in line or line.startswith("=="):
+        if line.startswith("=="):
             print("  " + line.strip())
+    results = {name: {} for name in SOURCES}
+    phase_tile_report(kernels, log, results)
 
     clock(t_start, "phases 2, 5 and 9")
     # ---- phases 2, 5 and 9: kernels against plain versions ------------------
-    results = {name: {} for name in SOURCES}
     results["flux_registers"] = {}
     results["masked_pk_registers"] = {}
     dmr_states = phase_kernels(entry, kernels, euler, results)
@@ -4274,7 +4385,9 @@ def main() -> int:
 
     clock(t_start, "phase 26")
     # ---- phase 26: the envelope's paths ------------------------------------
-    counts.update(phase_envelope_paths(entry, kernels, plain_calls))
+    counts_env, ms_step["vortex_p4"], vortex_p4 = phase_envelope_paths(
+        entry, kernels, plain_calls)
+    counts.update(counts_env)
 
     clock(t_start, "phase 28")
     # ---- phase 28: the P4 and P1 MOOD paths, sod_mood at degree 1 and 4 ----
@@ -4287,8 +4400,9 @@ def main() -> int:
     busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard,
                                         "vortex": vortex, "rt": rt,
                                         "iso": iso, "fwd_mood": fwd_mood,
-                                        "dmr_p4_mood": p4_mood})
-    del vortex, rt, iso, fwd_mood, p4_mood
+                                        "dmr_p4_mood": p4_mood,
+                                        "vortex_p4": vortex_p4})
+    del vortex, rt, iso, fwd_mood, p4_mood, vortex_p4
 
     clock(t_start, "phase 7")
     # ---- phase 7: sparse against dense ---------------------------------------
@@ -4373,6 +4487,7 @@ def main() -> int:
     print(json.dumps({"build_s": build_s, "build_long_pole": [pole,
                                                               times[pole]],
                       "card": card, "total_s": total_s,
+                      "tile_kernels": results["tile_kernels"],
                       "device_busy": busy,
                       "fused_pk_post_with_diag_launches":
                           counts["mood"]["fused_pk_post_with_diag"],

@@ -633,19 +633,64 @@ __device__ __forceinline__ T tvb_slopes(const T ub[4], T Dx[4], T Dy[4],
 // so with contraction off (-fmad=false) the branches at the pressure floor
 // (pre < eps_p, |1 - t| < 1e-14, decided by rounding there) go the same way
 // in the kernel and in the plain version, at any shape.
+//
+// The chain is split into its per-cell and per-point parts (zs_floors,
+// zs_theta1, zs_point_t) so that the MOOD candidate's tile kernel runs the
+// points of its staged cells on separate threads with the same operations.
+template <typename T>
+__device__ __forceinline__ void zs_floors(const T ub[4], T& eps_r, T& eps_p) {
+  eps_r = T(EPS);
+  eps_p = T(EPS);
+  if (sizeof(T) < sizeof(double)) {   // f32: relative floors
+    eps_r = nmax(T(EPS), T(REL_F32) * ub[RHO]);
+    eps_p = nmax(T(EPS), T(REL_F32) * pressure(ub));
+  }
+}
+
+// theta1 from the smallest density rho_min at the positivity points
+template <typename T>
+__device__ __forceinline__ T zs_theta1(T rho_avg, T eps_r, T rho_min) {
+  const T rat = fabs(rho_avg - eps_r) / (fabs(rho_avg - rho_min) + T(1.0e-13));
+  return nmin(rat, T(1));
+}
+
+// the pressure factor t of one positivity point whose values are Wq (the
+// density squeezed by theta1 here), about the cell mean ub
+template <typename T>
+__device__ __forceinline__ T zs_point_t(T Wq[4], const T ub[4], T theta1,
+                                        T eps_p) {
+  const T inv_g1 = T(1) / T(GAMMA - 1.0);   // the plain version's 1/g1
+  const T rho_avg = ub[RHO];
+  const T mavg_x = ub[MX], mavg_y = ub[MY], ravg = ub[RHO], Eavg = ub[ENE];
+  Wq[RHO] = Wq[RHO] * theta1 + rho_avg * (T(1) - theta1);
+  const T pre = pressure(Wq);
+  const T drho = Wq[RHO] - ub[RHO], dE = Wq[ENE] - ub[ENE];
+  const T dmx = Wq[MX] - ub[MX], dmy = Wq[MY] - ub[MY];
+  const T a1 = T(2) * drho * dE - (dmx * dmx + dmy * dmy);
+  const T b1 = T(2) * drho * (Eavg - eps_p * inv_g1) + T(2) * ravg * dE -
+               T(2) * (mavg_x * dmx + mavg_y * dmy);
+  const T c1 = T(2) * ravg * Eavg - (mavg_x * mavg_x + mavg_y * mavg_y) -
+               T(2) * eps_p * ravg * inv_g1;
+  const T a1s = a1 == T(0) ? T(1) : a1;
+  const T b1n = b1 / a1s, c1n = c1 / a1s;
+  const T Dq = sqrt(fabs(b1n * b1n - T(4) * c1n));
+  const T t1 = T(0.5) * (-b1n - Dq);
+  const T t2 = T(0.5) * (-b1n + Dq);
+  const bool t1_ok = (t1 > T(-1.0e-12)) && (t1 < T(1) + T(1.0e-12));
+  T t = t1_ok ? t1 : t2;
+  t = t < T(0) ? T(0) : (t > T(1) ? T(1) : t);   // clip, NaN kept
+  t = fabs(T(1) - t) < T(1.0e-14) ? T(0) : t;
+  return pre < eps_p ? t : T(1);
+}
+
 template <typename T, class D>
 __device__ __forceinline__ void zs_thetas(const D& d, const T w[4][D::KMAX],
                                           const T ub[4],
                                           const T* __restrict__ Pm,
                                           T& theta1, T& theta2) {
   const int K = d.K, QP = d.QP;
-  const T inv_g1 = T(1) / T(GAMMA - 1.0);   // the plain version's 1/g1
-  T eps_r = T(EPS), eps_p = T(EPS);
-  if (sizeof(T) < sizeof(double)) {   // f32: relative floors
-    eps_r = nmax(T(EPS), T(REL_F32) * ub[RHO]);
-    eps_p = nmax(T(EPS), T(REL_F32) * pressure(ub));
-  }
-  const T rho_avg = ub[RHO];
+  T eps_r, eps_p;
+  zs_floors(ub, eps_r, eps_p);
   T rho_min = T(INFINITY);
 #pragma unroll
   for (int q = 0; q < QP; ++q) {
@@ -654,9 +699,7 @@ __device__ __forceinline__ void zs_thetas(const D& d, const T w[4][D::KMAX],
     for (int k = 1; k < K; ++k) r = r + Pm[q * K + k] * w[RHO][k];
     rho_min = nmin(rho_min, r);
   }
-  const T rat = fabs(rho_avg - eps_r) / (fabs(rho_avg - rho_min) + T(1.0e-13));
-  theta1 = nmin(rat, T(1));
-  const T mavg_x = ub[MX], mavg_y = ub[MY], ravg = ub[RHO], Eavg = ub[ENE];
+  theta1 = zs_theta1(ub[RHO], eps_r, rho_min);
   theta2 = T(INFINITY);
 #pragma unroll
   for (int q = 0; q < QP; ++q) {
@@ -668,26 +711,7 @@ __device__ __forceinline__ void zs_thetas(const D& d, const T w[4][D::KMAX],
       for (int k = 1; k < K; ++k) s = s + Pm[q * K + k] * w[c][k];
       Wq[c] = s;
     }
-    Wq[RHO] = Wq[RHO] * theta1 + rho_avg * (T(1) - theta1);
-    const T pre = pressure(Wq);
-    const T drho = Wq[RHO] - ub[RHO], dE = Wq[ENE] - ub[ENE];
-    const T dmx = Wq[MX] - ub[MX], dmy = Wq[MY] - ub[MY];
-    const T a1 = T(2) * drho * dE - (dmx * dmx + dmy * dmy);
-    const T b1 = T(2) * drho * (Eavg - eps_p * inv_g1) + T(2) * ravg * dE -
-                 T(2) * (mavg_x * dmx + mavg_y * dmy);
-    const T c1 = T(2) * ravg * Eavg - (mavg_x * mavg_x + mavg_y * mavg_y) -
-                 T(2) * eps_p * ravg * inv_g1;
-    const T a1s = a1 == T(0) ? T(1) : a1;
-    const T b1n = b1 / a1s, c1n = c1 / a1s;
-    const T Dq = sqrt(fabs(b1n * b1n - T(4) * c1n));
-    const T t1 = T(0.5) * (-b1n - Dq);
-    const T t2 = T(0.5) * (-b1n + Dq);
-    const bool t1_ok = (t1 > T(-1.0e-12)) && (t1 < T(1) + T(1.0e-12));
-    T t = t1_ok ? t1 : t2;
-    t = t < T(0) ? T(0) : (t > T(1) ? T(1) : t);   // clip, NaN kept
-    t = fabs(T(1) - t) < T(1.0e-14) ? T(0) : t;
-    t = pre < eps_p ? t : T(1);
-    theta2 = nmin(theta2, t);
+    theta2 = nmin(theta2, zs_point_t(Wq, ub, theta1, eps_p));
   }
 }
 

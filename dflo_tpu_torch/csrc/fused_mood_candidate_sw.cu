@@ -2,23 +2,13 @@
 // Hopper.
 //
 // Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_residual(...).sparse
-// (:945-1056) with flux_name="sw": the kernel of fused_mood_candidate.cu
-// (candidate.cuh) instantiated with FLUX = SW.
-// The flux is the Steger-Warming flux-vector splitting
-// (src/equation.h:382-464).
+// (:945-1056) with flux_name="sw": the tile kernel of candidate.cuh
+// instantiated with FLUX = SW.  The flux is the Steger-Warming flux-vector
+// splitting (src/equation.h:382-464).
 //
-// What bounds it on the H100: as fused_mood_candidate.cu, operations on the
-// recomputed cells; the two splits cost about one HLLC evaluation.
-// Its own source so that nvcc builds it beside the other candidates.
+// What bounds it and what the design does about it: as
+// fused_mood_candidate.cu.  Its own source so that nvcc builds it beside
+// the other candidates.
 #include "candidate.cuh"
 
-// Arguments as dflo::candidate_entry.
-extern "C" int dflo_fused_mood_candidate_sw(
-    int dtype, int p, int K, int nq, int qp, const void* u, const void* deg,
-    const void* cells, const void* flags, const void* dfw, const void* dfe,
-    const void* dfs, const void* dfn, const void* dt, const void* ops,
-    const void* Pm, double avg0, int ny, int nx, void* out, void* stream) {
-  return dflo::candidate_entry<dflo::SW>(
-      dtype, p, K, nq, qp, u, deg, cells, flags, dfw, dfe, dfs, dfn, dt, ops,
-      Pm, avg0, ny, nx, out, stream);
-}
+DFLO_CANDIDATE_ENTRY(dflo_fused_mood_candidate_sw, dflo::SW)

@@ -16,20 +16,17 @@
 // u + dt*R (the MOOD cascade's first candidate, whose [dt] is read the same
 // way).
 //
-// What bounds it on the H100: at f32 roughly bytes and operations alike.
-// One thread per cell, adjacent threads on adjacent x, so every (c, k)
-// plane of the [4, K, ny, nx] state loads coalesced; each cell reads its own
-// 4K values and the 4K values of each of its four neighbors (roughly 5x the
-// state through L1/L2 per call) and writes 4K values (a mask adds one byte
-// for the cell and each neighbor).  The arithmetic (the
-// V contraction and fluxes at Q points, two traces and one HLLC flux per
-// face point, the lifts) is about 4,000 operations per P2 cell.
+// What bounds it on the H100: operations (residual.cuh): the V
+// contraction, the traces, one flux per volume and face point and the lift,
+// each multiply and add a separate IEEE operation (-fmad=false); at p 1-2
+// the state's bytes come close (about 48 bytes per DoF read and written).
 //
-// What the simple design does about it: a 32 x 4 block keeps a warp on 32
-// contiguous cells and puts the north/south neighbor rows of most cells in
-// the same block, so those re-reads hit L1.  A later version stages a shared-
-// memory tile with a one-cell halo (one read of the state per block) and
-// bakes the sparse operator constants into the source.
+// What the tile design does about it (residual.cuh): one block per tile,
+// the tile's DoFs and a one-cell ring staged once in shared memory, each
+// trace, face flux and volume flux computed once, and the lift as a
+// register-tiled product, so no thread holds a cell's arrays (no local
+// memory at any degree).  The thread-per-cell kernel it replaced streamed
+// every DoF about nine times and computed each face flux twice.
 #include <stdint.h>
 
 #include "residual.cuh"
@@ -47,17 +44,46 @@ template DFLO_GENERAL(HLLC);
 // uold and sc = [a, dt] -> the SSP stage; uold NULL and sc = [dt] -> u +
 // dt*R; both NULL -> R.  mask: uint8 [ny, nx] fluid flags, or NULL.  Returns
 // the cudaGetLastError() code after the launch (0 = launched), -1 for an
-// unsupported case.
+// unsupported case (a tile the kernel does not take included): ty x tx is
+// the tile, ops/kernels.residual_tile.
 extern "C" int dflo_fused_residual(
     int dtype, int modal, int p, int K, int nq, const void* u,
     const void* dfw, const void* dfe, const void* dfs, const void* dfn,
     const void* uold, const void* sc, const void* ops, const void* mask,
-    void* out, int ny, int nx, void* stream) {
+    void* out, int ny, int nx, int ty, int tx, void* stream) {
   // no source arm: no planes, no potential, no gravity
   const dflo::ResArgs a{u,   dfw, dfe, dfs, dfn, uold, sc, ops, mask,
-                        nullptr, nullptr, nullptr, 0.0, 0.0, out, ny, nx};
+                        nullptr, nullptr, nullptr, 0.0, 0.0, out,
+                        ny,  nx,  ty,  tx};
   return dflo::launch_table<dflo::HLLC, dflo::SRC_NONE>(
       dtype, modal, p, K, nq, a, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory in bytes of one residual (tp = 0) or candidate
+// (tp = 1) block: dtype and the basis dims as above, qp positivity points,
+// flux and src (0 for none) as dflo_fused_residual_src, masked 0/1, and the
+// ty x tx tile; -1 for a tile the kernel does not take.  For the build's
+// report (chip_smoke.py phase 1).
+extern "C" int dflo_tile_smem(int dtype, int modal, int K, int nq, int qp,
+                              int flux, int src, int masked, int tp, int ty,
+                              int tx) {
+  using namespace dflo;
+  if (K < 1 || K > K_MAX || nq < 1 || nq > NQ_MAX || ty < 1 || tx < 1 ||
+      (ty * tx) % CB != 0)
+    return -1;
+  const bool wb = !modal && src == WB_ISO;
+  const bool avg = flux == LXF || flux == KEP || wb;
+  const bool body = src == FORCE_CONST || src == FORCE_PLANES;
+  const TileGeo g =
+      modal ? (dtype ? tile_geo<double>(general_dims<true>(K, nq, qp), avg,
+                                        masked, tp, body, wb, ty, tx, 1, 1)
+                     : tile_geo<float>(general_dims<true>(K, nq, qp), avg,
+                                       masked, tp, body, wb, ty, tx, 1, 1))
+            : (dtype ? tile_geo<double>(general_dims<false>(K, nq, qp), avg,
+                                        masked, tp, body, wb, ty, tx, 1, 1)
+                     : tile_geo<float>(general_dims<false>(K, nq, qp), avg,
+                                       masked, tp, body, wb, ty, tx, 1, 1));
+  return g.bytes;
 }
 
 // number of thread blocks (= diagnostic partials) for an ny x nx grid

@@ -10,11 +10,9 @@
 // Abramowitz-Stegun erf, as the reference's kernel (get_flux(kernel_safe=True),
 // pallas_kernels.py:272-273).
 //
-// What bounds it on the H100: bytes, as fused_residual.cu (each cell reads
-// its own 4K values and its four neighbors', about 5x the state through
-// L1/L2, and writes 4K), unless the flux's operations do: each split costs
-// one exp in the erf and one in B (IEEE expf / exp).  Its own source so that
-// nvcc builds it beside the others.
+// What bounds it and what the tile design does about it: as
+// fused_residual.cu (residual.cuh), the flux computed once per face
+// point.  Its own source so that nvcc builds it beside the others.
 #include <stdint.h>
 
 #include "residual.cuh"
@@ -31,15 +29,17 @@ template DFLO_GENERAL(KFVS);
 // per direction (dflo::launch_table: degrees 1-6, nq up to NQ_MAX).  Forms
 // and mask (on either basis) as dflo_fused_residual.  Returns the
 // cudaGetLastError() code after the launch (0 = launched), -1 for an
-// unsupported case.
+// unsupported case (a tile the kernel does not take included): ty x tx is
+// the tile, ops/kernels.residual_tile.
 extern "C" int dflo_fused_residual_kfvs(
     int dtype, int modal, int p, int K, int nq, const void* u,
     const void* dfw, const void* dfe, const void* dfs, const void* dfn,
     const void* uold, const void* sc, const void* ops, const void* mask,
-    void* out, int ny, int nx, void* stream) {
+    void* out, int ny, int nx, int ty, int tx, void* stream) {
   // no source arm: no planes, no potential, no gravity
   const dflo::ResArgs a{u,   dfw, dfe, dfs, dfn, uold, sc, ops, mask,
-                        nullptr, nullptr, nullptr, 0.0, 0.0, out, ny, nx};
+                        nullptr, nullptr, nullptr, 0.0, 0.0, out,
+                        ny,  nx,  ty,  tx};
   return dflo::launch_table<dflo::KFVS, dflo::SRC_NONE>(
       dtype, modal, p, K, nq, a, (cudaStream_t)stream);
 }

@@ -10,16 +10,13 @@
 // its R, SSP-stage and u + dt*R forms.  Each face's dissipation speed is the
 // larger |v.n| + c of the two cells' averages (src/assemble_explicit.cc:
 // 335-340), the averages being the avg row applied to each cell's DoFs
-// (pallas_kernels.py:340, :368, :380): on Qk from the loads its traces make
-// anyway, on Pk from the DoFs the cell holds in registers and, for each
-// neighbor, from the loads of its trace.  At a fluid|solid face the solid
-// side's trace and average are the slip-wall mirror of the fluid side's.
+// (pallas_kernels.py:340, :368, :380), once per staged cell of a tile.
+// At a fluid|solid face the solid side's trace and average are the
+// slip-wall mirror of the fluid side's.
 //
-// What bounds it on the H100: bytes, as fused_residual.cu (each cell reads
-// its own 4K values and its four neighbors', about 5x the state through
-// L1/L2, and writes 4K); LxF costs fewer operations per face point than
-// HLLC, and the averages add 8K per cell and neighbor.  Its own source so
-// that nvcc builds it beside fused_residual.cu.
+// What bounds it and what the tile design does about it: as
+// fused_residual.cu (residual.cuh), the flux computed once per face
+// point.  Its own source so that nvcc builds it beside the others.
 #include <stdint.h>
 
 #include "residual.cuh"
@@ -36,15 +33,17 @@ template DFLO_GENERAL(LXF);
 // per direction (dflo::launch_table: degrees 1-6, nq up to NQ_MAX).  Forms
 // and mask (on either basis) as dflo_fused_residual.  Returns the
 // cudaGetLastError() code after the launch (0 = launched), -1 for an
-// unsupported case.
+// unsupported case (a tile the kernel does not take included): ty x tx is
+// the tile, ops/kernels.residual_tile.
 extern "C" int dflo_fused_residual_lxf(
     int dtype, int modal, int p, int K, int nq, const void* u,
     const void* dfw, const void* dfe, const void* dfs, const void* dfn,
     const void* uold, const void* sc, const void* ops, const void* mask,
-    void* out, int ny, int nx, void* stream) {
+    void* out, int ny, int nx, int ty, int tx, void* stream) {
   // no source arm: no planes, no potential, no gravity
   const dflo::ResArgs a{u,   dfw, dfe, dfs, dfn, uold, sc, ops, mask,
-                        nullptr, nullptr, nullptr, 0.0, 0.0, out, ny, nx};
+                        nullptr, nullptr, nullptr, 0.0, 0.0, out,
+                        ny,  nx,  ty,  tx};
   return dflo::launch_table<dflo::LXF, dflo::SRC_NONE>(
       dtype, modal, p, K, nq, a, (cudaStream_t)stream);
 }

@@ -22,13 +22,12 @@
 //   derivatives through the baked Gxn, Gyn and 1/dx, 1/dy (IEEE exp, no
 //   contraction: -fmad=false, so the plain twin rounds alike up to exp).
 //
-// What bounds it on the H100: bytes, as fused_residual.cu: the state's
-// reads (its own 4K values and four neighbors', about 5x through L1/L2)
-// and writes; gravity adds no bytes and 10 operations per point plus the
-// K x Q lift of S, the planes 2Q values per cell, the isothermal arm K
-// values of phi and K exp, 2K^2 multiply-adds of the derivatives and about
-// 10 operations per node.  The design keeps the source in the same pass:
-// nothing of S goes through memory.
+// What bounds it on the H100: operations, as fused_residual.cu; gravity
+// adds no bytes and 10 operations per point plus the K x Q lift of S, the
+// planes 2Q values per cell, the isothermal arm K values of phi and K exp,
+// 2K^2 multiply-adds of the derivatives and about 10 operations per node.
+// The tile design (residual.cuh) keeps the source in the same pass: S, E
+// and the additions stay in shared memory, a chunk of points at a time.
 //
 // The arms' launch tables live in sources built side by side (launch_table
 // in residual.cuh): this one (gravity, hllc), fused_residual_src_<flux>.cu
@@ -71,16 +70,17 @@ template DFLO_TABLE(HLLC, FORCE_CONST);
 // (gx, gy), 2 = FORCE_PLANES (fx, fy [Q, ny, nx]), 3 = WB_ISO (phi
 // [K, ny, nx], collocated only).  Forms and mask as dflo_fused_residual
 // (the mask on either basis).  Returns the cudaGetLastError() code after
-// the launch (0 = launched), -1 for an unsupported case.
+// the launch (0 = launched), -1 for an unsupported case; ty x tx is the
+// tile, ops/kernels.residual_tile.
 extern "C" int dflo_fused_residual_src(
     int dtype, int modal, int p, int K, int nq, int flux, int src,
     const void* u, const void* dfw, const void* dfe, const void* dfs,
     const void* dfn, const void* uold, const void* sc, const void* ops,
     const void* mask, const void* fx, const void* fy, const void* phi,
-    double gx, double gy, void* out, int ny, int nx, void* stream) {
+    double gx, double gy, void* out, int ny, int nx, int ty, int tx, void* stream) {
   using namespace dflo;
   const ResArgs a{u,  dfw, dfe, dfs, dfn, uold, sc, ops, mask,
-                  fx, fy,  phi, gx,  gy,  out,  ny, nx};
+                  fx, fy,  phi, gx,  gy,  out,  ny, nx, ty, tx};
   cudaStream_t s = (cudaStream_t)stream;
 #define DFLO_ARM(FLUX, SRC)                                                 \
   if (flux == FLUX && src == SRC)                                           \

@@ -1,7 +1,8 @@
 // The {Pk degree truncation -> Zhang-Shu positivity} chain on one cell of
-// the modal Pk basis, shared by fused_modal_pos.cu, fused_mood_candidate.cu
-// (applied to a cell and to each of its face neighbors before tracing) and
-// fused_pk_post.cu (positivity only), so all three round alike.
+// the modal Pk basis, shared by fused_modal_pos.cu and fused_pk_post.cu
+// (positivity only); the MOOD candidate's tile kernel (residual.cuh) runs
+// the same operations on its staged cells, a positivity point per thread
+// (euler.cuh zs_floors, zs_theta1, zs_point_t), so all three round alike.
 //
 // The mirror of dflo_tpu/ops/pallas_kernels.py _modal_tp_slabs and
 // _modal_pos_slabs (:196-265): truncation zeroes every mode whose total
@@ -25,6 +26,17 @@ __host__ __device__ constexpr int pk_mode_degree(int k) {
     for (int i = 0; i <= P - j; ++i, ++n)
       if (n == k) return i + j;
   return -1;
+}
+
+// the same at run time, for a degree P read at run time too (the
+// candidate's tile kernel)
+__device__ __forceinline__ int mode_degree(int P, int k) {
+  for (int j = 0; j <= P; ++j) {
+    const int row = P - j + 1;
+    if (k < row) return j + k;
+    k -= row;
+  }
+  return P + 1;
 }
 
 // whether the dims are the fixed BDims (sizes known at compile time)

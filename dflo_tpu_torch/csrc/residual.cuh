@@ -1,34 +1,46 @@
-// The DG residual of one cell, shared by fused_residual.cu (the dense
-// residual, its SSP-stage and forward-Euler forms) and
-// fused_mood_candidate.cu (the MOOD candidate on {truncated ->
-// positivity-limited} states).
+// The DG residual as a tile kernel, shared by fused_residual*.cu (the dense
+// residual, its SSP-stage and forward-Euler forms, every source arm) and
+// fused_mood_candidate*.cu (the MOOD candidate on {truncated ->
+// positivity-limited} states, TP = true).
 //
-// Per cell: the volume flux at the Q quadrature points (collocated Qk and
-// GLL: the DoFs are the point values; modal Pk, and a nodal basis off its
-// nodes (over-integrated, nq != p + 1): W = V u first,
-// pallas_kernels.py:450-459), the four face traces of the cell and of each
-// face neighbor, one numerical flux per face (HLLC, Roe, Steger-Warming,
-// KFVS, or LxF and KEP with the cell averages of both cells) and the
-// volume and face lifts with minv/area folded into the lift rows.
+// Replaces: dflo_tpu/ops/pallas_kernels.py make_fused_residual, kernel body
+// _fused_kernel (:268), whose row bands are loaded once and whose traces and
+// face fluxes are computed once per tile in VMEM (:180-193), and its sparse
+// pass (:945-1056).
 //
-// Every function takes the basis dims d (euler.cuh): BDims for degrees 1-3
-// on their default quadrature, whose sizes are constants (the loops unroll
-// and the per-cell arrays stay in registers), or GDims for degrees 4-6 and
-// any nq != p + 1 up to K_MAX and NQ_MAX, whose sizes are read at run time:
-// one general instantiation per dtype, kind of dims and flux (its source
-// arm read at run time too), its per-cell arrays in local memory, and the
-// same operations in the same order.  Neighbors wrap periodically, as on the TPU;
-// the caller's delta strips (true boundary flux minus wrap flux,
-// solver/spatial.strips) are added at global column 0 / nx-1 and row
-// 0 / ny-1.  On a masked domain (a uint8 fluid-flag plane) a fluid|solid
-// face, the wrap faces included, takes the slip-wall mirror of the fluid
-// side's trace and average (pallas_kernels.py:472-533; on the modal basis
-// the cell's own trace and average come from its register-held DoFs, a
-// neighbor's from the loads of its trace), and a solid cell's residual is
-// zeroed (:598-599), so a solid cell's u + dt*R is its u.  Each cell
-// recomputes the shared face flux from the same operands in the same order
-// as its neighbor ("canonical recompute", pallas_kernels.py:184-193), so no
-// face buffer goes through memory.
+// What bounds it on the H100: operations.  A cell's residual is a handful
+// of small matrix products over its K DoFs (the V contraction to the Q
+// volume points on a modal basis, the four face traces, the lift of 2Q + 4nq
+// flux columns into K rows) plus one physical flux per volume point and one
+// numerical flux per face point: P2 about 4,000 operations per cell
+// against 48 bytes of state per DoF read and written, P4-P6 15,000-50,000.
+// Every multiply and add is a separate IEEE operation (-fmad=false, below),
+// so the bound is the card's f32 rate without FMA; the state's bytes bound
+// only the low degrees.
+//
+// What the tile design does about it: one block of TNT threads per tile of
+// TY x TX cells (ops/kernels.residual_tile sizes it from K and the dtype).
+//  1. Stage once: the tile's DoFs and a one-cell ring (wrapped periodically
+//     at the domain edge, by index) go from U[4, K, ny, nx] to shared memory
+//     with cp.async, with the mask bytes and, for the candidate, the degrees.
+//     The candidate applies the {truncation -> positivity} chain to every
+//     staged cell there once (its positivity points on separate threads).
+//  2. Traces and averages once: the W/E traces of the x faces' two sides
+//     and the S/N traces of the y faces', the ring cells only the one that
+//     faces the tile; each is the ordered sum over k of trace_mem.
+//  3. Each face flux once, from the same operands in the same order as
+//     before, the slip-wall mirror applied per face; a face's flux is stored
+//     before any strip, and each cell adds its own strip when it lifts (the
+//     wrap face's two cells add different strips).
+//  4. Volume fluxes once per (cell, point), a chunk of points at a time
+//     (W = V u first on a modal basis).
+//  5. The lift is a register-tiled product: each thread owns RB modes x CB
+//     cells of one component and accumulates R[c][k] in the old order (the
+//     volume points, each its x then its y column; the faces W, E, S, N,
+//     each by q; then the source arm; then the mask), so no thread holds a
+//     cell's arrays: no local memory at any degree.  It writes R, the stage
+//     or u + dt*R coalesced along x.
+// The operator buffer stays behind the read-only cache (__ldg).
 //
 // Source arms (template argument SRC, pallas_kernels.py:573-593), added
 // after the lifts and before the mask: a body force S(W) at the Q volume
@@ -41,14 +53,23 @@
 // phi [K, ny, nx], its nodal derivatives Gxn E / dx and Gyn E / dy, and
 // rho RT / E times them added node by node (src_gll/assemble_explicit.cc:
 // 30-135).  A source adds nothing at a face, so the delta strips do not
-// change.
+// change.  On a masked domain (a uint8 fluid-flag plane) a fluid|solid face,
+// the wrap faces included, takes the slip-wall mirror of the fluid side's
+// trace and average (pallas_kernels.py:472-533) and a solid cell's residual
+// is zeroed (:598-599).
+//
+// Basis dims d (euler.cuh): BDims for degrees 1-3 on their default
+// quadrature (sizes constant), GDims for degrees 4-6 and any nq != p + 1 up
+// to K_MAX and NQ_MAX (sizes read at run time, one instantiation per dtype,
+// kind of dims and flux, its source arm read at run time too).  Both run
+// the same code: nothing is sized by the dims but shared memory.
 //
 // Every contraction is an ordered sum (one multiply and one add per term,
 // in the order of ops/kernels.fused_residual_plain) and the .cu files are
 // built with -fmad=false, so kernel and plain version round alike: the
 // MOOD cascade re-applies positivity to the stage predictor, whose branch at
 // the pressure floor rounding decides, so an ulp in a residual would change
-// later stages.
+// later stages.  No tensor cores for that reason.
 #pragma once
 
 #include <stdint.h>
@@ -71,6 +92,14 @@ __host__ __device__ constexpr bool reads_averages() {
 // general dims' kernels, whose arm is read at run time (SrcArgs::kind)
 enum { SRC_ANY = -1, SRC_NONE = 0, FORCE_CONST = 1, FORCE_PLANES = 2,
        WB_ISO = 3 };
+
+// threads per block of the tile kernels (ops/kernels.TILE_THREADS), and the
+// register tile of their products: RB rows (modes or points) by CB cells
+constexpr int TNT = 256;
+constexpr int RB = 4;
+constexpr int CB = 4;
+// the dynamic shared memory a block may take on the H100 (227 kB)
+constexpr int MAX_SMEM = 232448;
 
 // operator buffer layout (ops/kernels.residual_operators): faceV [4][NQ][K]
 // first, then the lift [K][NL], V [Q][K] (MODAL dims only) and the cell
@@ -101,518 +130,827 @@ struct SrcArgs {
   int kind = SRC_NONE;     // the arm (read by the SRC_ANY kernels only)
 };
 
-// the state at volume quadrature point n: the streamed nodal values
-// (collocated: the nodes are the quadrature points), or V[n] . w of the
-// register-held DoFs (MODAL), each an ordered sum over k
+// the operands of one tile launch; the candidate's (TP) degrees, cell set,
+// tile list and its count, positivity points and mode-0 mean weight
+template <typename T>
+struct TileArgs {
+  const T *u, *dfw, *dfe, *dfs, *dfn, *uold, *sc, *ops, *Pm;
+  const uint8_t *mask, *cells;
+  const int *deg, *list, *count;
+  T avg0;
+  T* out;
+  int ny, nx;
+  SrcArgs<T> src;
+};
+
+// The geometry of a tile and the layout of its dynamic shared memory:
+// offsets in elements of T for the staged DoFs U [4][K][SS], the averages
+// AVG [4][SS], the traces TR [4][4 NQ][SS] of every staged cell on its four
+// faces (after the flux phase a cell's E rows hold the flux of the x face
+// it shares with its east neighbour, its N rows that of the y face it
+// shares with its north neighbour), the scratch SCR (a chunk of NCH volume
+// points, the isothermal arm's E and its additions, the candidate's
+// positivity points) and the candidate's per-cell chain values TPS [7][SS];
+// byte offsets of the mask and degree planes after them.
+struct TileGeo {
+  int TY, TX, NC, SX, SS, NCH, ntx, nty;
+  int oU, oAVG, oTR, oSCR, oTPS, bMSK, bDEG, bytes;
+};
+
 template <typename T, class D>
-__device__ __forceinline__ void point_state(const D& d,
-                                            const T* __restrict__ u,
-                                            long plane, long cell,
-                                            const T* __restrict__ V,
-                                            const T w[4][D::KMAX], int n,
-                                            T wq[4]) {
+TileGeo tile_geo(const D& d, bool avg, bool masked, bool tp, bool body,
+                 bool wb, int ty, int tx, int ny, int nx) {
+  TileGeo g{};
+  g.TY = ty;
+  g.TX = tx;
+  g.NC = ty * tx;
+  g.SX = tx + 2;
+  g.SS = (ty + 2) * (tx + 2);
+  g.ntx = (nx + tx - 1) / tx;
+  g.nty = (ny + ty - 1) / ty;
+  const int K = d.K, NQ = d.NQ, NC = g.NC;
+  // the regions but the scratch, in elements of T, and the bytes after them
+  const int fixed = 4 * K * g.SS + (avg ? 4 * g.SS : 0) + 16 * NQ * g.SS +
+                    (tp ? 7 * g.SS : 0);
+  const int tail = (masked ? g.SS : 0) + 4 + (tp ? 4 * g.SS : 0) + 16;
+  // volume points per chunk: a multiple of RB (the products' row tile); on
+  // a modal basis 1024 point-cells (the W product then gives every thread a
+  // register tile), else 512; no more than a budget of shared memory allows
+  // (106 kB in float32: two blocks per SM; 220 kB in float64), nor than Q
+  // rounded up
+  const int per = (D::MODAL ? 12 : 8) * NC;    // scratch per chunk point
+  const int budget = (sizeof(T) > 4 ? 220 : 106) * 1024;
+  int nch = (D::MODAL ? 1024 : 512) / NC;
+  const int fit = ((budget - tail) / (int)sizeof(T) - fixed) / per;
+  nch = fit < nch ? fit : nch;
+  const int q4 = (d.Q + RB - 1) / RB * RB;
+  nch = nch < q4 ? nch : q4;
+  nch = nch / RB * RB;
+  g.NCH = nch < RB ? RB : nch;
+  const int NCH = g.NCH;
+  const int w = D::MODAL ? 4 * NCH * NC : 0;
+  int scr = w + 8 * NCH * NC;                    // W and the volume fluxes
+  if (body && w + 4 * NCH * NC > scr) scr = w + 4 * NCH * NC;
+  if (wb && 5 * K * NC > scr) scr = 5 * K * NC;  // E and the additions
+  if (tp && d.QP * g.SS > scr) scr = d.QP * g.SS;
+  int off = 0;
+  g.oU = off;   off += 4 * K * g.SS;
+  g.oAVG = off; off += avg ? 4 * g.SS : 0;
+  g.oTR = off;  off += 16 * NQ * g.SS;
+  g.oSCR = off; off += scr;
+  g.oTPS = off; off += tp ? 7 * g.SS : 0;
+  int b = off * (int)sizeof(T);
+  g.bMSK = b;   b += masked ? g.SS : 0;
+  b = (b + 3) & ~3;
+  g.bDEG = b;   b += tp ? 4 * g.SS : 0;
+  g.bytes = (b + 15) & ~15;
+  return g;
+}
+
+// i / d for 0 <= i < 2^22 through a float reciprocal: (i + 1/2) r is within
+// a relative 2^-23 of (i + 1/2) / d, which lies at least 1/(2d) from an
+// integer, so the truncation is exact (cheaper than an integer division by
+// a divisor known only at run time)
+struct FDiv {
+  int d;
+  float r;
+  __device__ __forceinline__ explicit FDiv(int d_)
+      : d(d_), r(1.0f / (float)d_) {}
+  __device__ __forceinline__ int q(int i) const {
+    return (int)(((float)i + 0.5f) * r);
+  }
+};
+
+// v in [-1, n + tile) wrapped periodically into [0, n)
+__device__ __forceinline__ int wrap_index(int v, int n) {
+  v = v < 0 ? v + n : v;
+  return v < n ? v : v % n;
+}
+
+// one element from global to shared memory without a register round trip
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(d), "l"(src), "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+#endif
+}
+
+// One register tile of a product with the staged DoFs: acc[i][j] = sum_k
+// M[r_i][k] Uc[k][s_j], rows r_i = min(r0 + i, NR - 1), Uc = one
+// component's staged planes; one multiply and one add per term in k order,
+// the first term a product (trace_mem, point_state, contract._ordered_sum)
+template <int RT, int CT, typename T, class D>
+__device__ __forceinline__ void row_tile(const D& d, const T* __restrict__ M,
+                                         int r0, int NR, const T* Uc, int SS,
+                                         const int s[CT], T acc[RT][CT]) {
   const int K = d.K;
+  const T* m[RT];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if constexpr (D::MODAL) {
-      T acc = V[n * K] * w[c][0];
+  for (int i = 0; i < RT; ++i) m[i] = M + (r0 + i < NR ? r0 + i : NR - 1) * K;
+  T a[RT], b[CT];
 #pragma unroll
-      for (int k = 1; k < K; ++k) acc = acc + V[n * K + k] * w[c][k];
-      wq[c] = acc;
-    } else {
-      wq[c] = __ldg(u + (long)(c * K + n) * plane + cell);
-    }
+  for (int j = 0; j < CT; ++j) b[j] = Uc[s[j]];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) a[i] = __ldg(m[i]);
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = a[i] * b[j];
+  // unrolled by 4: the next terms' loads issue before this term's
+  // products
+#pragma unroll 4
+  for (int k = 1; k < K; ++k) {
+#pragma unroll
+    for (int j = 0; j < CT; ++j) b[j] = Uc[k * SS + s[j]];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) a[i] = __ldg(m[i] + k);
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < CT; ++j) acc[i][j] = acc[i][j] + a[i] * b[j];
   }
 }
 
-// face trace (NQ points) of one cell streamed from memory, for face f; with
-// AVG also its cell average ub[c] = sum_k avg[k] u[c][k] (an ordered sum, as
-// contract.basis_reduce), from the same loads
-template <typename T, class D, bool AVG = false>
-__device__ __forceinline__ void trace_mem(const D& d, const T* __restrict__ u,
-                                          const T* __restrict__ faceVf,
-                                          long plane, long cell,
-                                          T tr[4][D::NQMAX],
-                                          const T* __restrict__ avg = nullptr,
-                                          T* ub = nullptr) {
-  const int K = d.K, NQ = d.NQ;
+// Group g of the product sum_k M[r][k] U[c][k][sidx(i)] over the NR rows
+// of M, the four components and NCELL cells, stored at out[oidx(c, r, i,
+// s)] (s = sidx(i)): the register tile of component c, rows rb*RT.. and
+// cells cb + j*ncb (strided, so that neighbouring threads take
+// neighbouring cells)
+template <int RT, int CT, typename T, class D, class SIdx, class OIdx>
+__device__ __forceinline__ void row_group(const D& d, const T* __restrict__ M,
+                                          int NR, const T* Us, int SS,
+                                          int NCELL, SIdx sidx, OIdx oidx,
+                                          T* out, int g) {
+  const int nrb = (NR + RT - 1) / RT, ncb = (NCELL + CT - 1) / CT;
+  const int cb = g % ncb, rb = (g / ncb) % nrb, c = g / (ncb * nrb);
+  int s[CT], cell[CT];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    T acc[D::NQMAX];
-    T v = __ldg(u + (long)(c * K) * plane + cell);
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) acc[q] = faceVf[q * K] * v;
-    T a = T(0);
-    if constexpr (AVG) a = avg[0] * v;
-#pragma unroll
-    for (int k = 1; k < K; ++k) {
-      v = __ldg(u + (long)(c * K + k) * plane + cell);
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) acc[q] = acc[q] + faceVf[q * K + k] * v;
-      if constexpr (AVG) a = a + avg[k] * v;
-    }
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) tr[c][q] = acc[q];
-    if constexpr (AVG) ub[c] = a;
+  for (int j = 0; j < CT; ++j) {
+    cell[j] = cb + j * ncb;
+    s[j] = sidx(cell[j] < NCELL ? cell[j] : NCELL - 1);
   }
+  T acc[RT][CT];
+  row_tile<RT, CT, T>(d, M, rb * RT, NR, Us + c * d.K * SS, SS, s, acc);
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      if (rb * RT + i < NR && cell[j] < NCELL)
+        out[oidx(c, rb * RT + i, cell[j], s[j])] = acc[i][j];
 }
 
-// the cell average ub[c] = sum_k avg[k] w[c][k] of register-held DoFs (an
-// ordered sum, as contract.basis_reduce and trace_mem)
-template <typename T, class D>
-__device__ __forceinline__ void avg_reg(const D& d, const T w[4][D::KMAX],
-                                        const T* __restrict__ avg, T ub[4]) {
-  const int K = d.K;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    T a = avg[0] * w[c][0];
-#pragma unroll
-    for (int k = 1; k < K; ++k) a = a + avg[k] * w[c][k];
-    ub[c] = a;
-  }
+// the register tiles of that product
+template <int RT, int CT>
+__device__ __forceinline__ int row_groups(int NR, int NCELL) {
+  return 4 * ((NR + RT - 1) / RT) * ((NCELL + CT - 1) / CT);
 }
 
-// face trace of register-held DoFs w[4][K] (the same operations)
-template <typename T, class D>
-__device__ __forceinline__ void trace_reg(const D& d, const T w[4][D::KMAX],
-                                          const T* __restrict__ faceVf,
-                                          T tr[4][D::NQMAX]) {
-  const int K = d.K, NQ = d.NQ;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    T acc[D::NQMAX];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) acc[q] = faceVf[q * K] * w[c][0];
-#pragma unroll
-    for (int k = 1; k < K; ++k)
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) acc[q] = acc[q] + faceVf[q * K + k] * w[c][k];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) tr[c][q] = acc[q];
-  }
+// The product out[(c NR + r) NCELL + i] over all its groups, the block's
+// threads in turn; the caller synchronises
+template <int RT, int CT, typename T, class D, class SIdx>
+__device__ __forceinline__ void apply_rows(const D& d, const T* __restrict__ M,
+                                           int NR, const T* Us, int SS,
+                                           int NCELL, SIdx sidx, T* out) {
+  for (int g = threadIdx.x; g < row_groups<RT, CT>(NR, NCELL); g += TNT)
+    row_group<RT, CT, T>(
+        d, M, NR, Us, SS, NCELL, sidx,
+        [=](int c, int r, int i, int) { return (c * NR + r) * NCELL + i; },
+        out, g);
 }
 
-// the numerical flux at the nq points of one face, FL/FR the left/right
-// traces along the +x (nx=1) or +y (ny=1) normal, AL/AR the left/right cell
-// averages (read by LxF and KEP only); F[c][q]
-template <typename T, class D, int FLUX>
-__device__ __forceinline__ void face_flux(const D& d, const T FL[4][D::NQMAX],
-                                          const T FR[4][D::NQMAX],
-                                          const T AL[4], const T AR[4], T nx,
-                                          T ny, T F[4][D::NQMAX]) {
-  const int NQ = d.NQ;
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    const T l[4] = {FL[0][q], FL[1][q], FL[2][q], FL[3][q]};
-    const T r[4] = {FR[0][q], FR[1][q], FR[2][q], FR[3][q]};
-    T f[4];
-    if constexpr (FLUX == LXF) lxf(l, r, AL, AR, nx, ny, f);
-    else if constexpr (FLUX == KEP) kep(l, r, AL, AR, nx, ny, f);
-    else if constexpr (FLUX == ROE) roe(l, r, nx, ny, f);
-    else if constexpr (FLUX == SW) steger_warming(l, r, nx, ny, f);
-    else if constexpr (FLUX == KFVS) kfvs(l, r, nx, ny, f);
-    else hllc(l, r, nx, ny, f);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) F[c][q] = f[c];
-  }
+// the numerical flux at one face point, l/r the left/right states along the
+// +x (nx=1) or +y (ny=1) normal, AL/AR the left/right cell averages (read by
+// LxF and KEP only)
+template <typename T, int FLUX>
+__device__ __forceinline__ void point_flux(const T l[4], const T r[4],
+                                           const T AL[4], const T AR[4], T nx,
+                                           T ny, T f[4]) {
+  if constexpr (FLUX == LXF) lxf(l, r, AL, AR, nx, ny, f);
+  else if constexpr (FLUX == KEP) kep(l, r, AL, AR, nx, ny, f);
+  else if constexpr (FLUX == ROE) roe(l, r, nx, ny, f);
+  else if constexpr (FLUX == SW) steger_warming(l, r, nx, ny, f);
+  else if constexpr (FLUX == KFVS) kfvs(l, r, nx, ny, f);
+  else hllc(l, r, nx, ny, f);
 }
 
-// Slip-wall mirror operands at a fluid|solid face (physics/euler.wall_fix):
-// left solid, right fluid -> the left trace and average become the right
-// ones with the normal momentum (component MX for an x face, MY for a y
-// face) negated; left fluid, right solid -> the other way round.
-template <typename T, class D>
-__device__ __forceinline__ void wall_fix(const D& d, T FL[4][D::NQMAX],
-                                         T FR[4][D::NQMAX], T AL[4], T AR[4],
+// Slip-wall mirror operands at a fluid|solid face point (physics/euler.
+// wall_fix): left solid, right fluid -> the left state and average become
+// the right ones with the normal momentum (component MX for an x face, MY
+// for a y face) negated; left fluid, right solid -> the other way round.
+template <typename T>
+__device__ __forceinline__ void wall_fix(T l[4], T r[4], T AL[4], T AR[4],
                                          bool mL, bool mR, int nc) {
-  const int NQ = d.NQ;
   if (!mL && mR) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) FL[c][q] = c == nc ? -FR[c][q] : FR[c][q];
+      l[c] = c == nc ? -r[c] : r[c];
       AL[c] = c == nc ? -AR[c] : AR[c];
     }
   } else if (mL && !mR) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) FR[c][q] = c == nc ? -FL[c][q] : FL[c][q];
+      r[c] = c == nc ? -l[c] : l[c];
       AR[c] = c == nc ? -AL[c] : AL[c];
     }
   }
 }
 
-// R[c][k] += lift[k][col0 + q] * F[c][q]
-template <typename T, class D>
-__device__ __forceinline__ void lift_face(const D& d,
-                                          const T* __restrict__ lift, int col0,
-                                          const T F[4][D::NQMAX],
-                                          T R[4][D::KMAX]) {
-  const int K = d.K, NQ = d.NQ, NL = d.NL;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) {
-      const T l = lift[k * NL + col0 + q];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) R[c][k] = R[c][k] + l * F[c][q];
-    }
-  }
-}
-
-// R[c][k] += lift[k][n] fx[c] + lift[k][Q + n] fy[c] for quadrature point n
-template <typename T, class D>
-__device__ __forceinline__ void lift_volume(const D& d,
-                                            const T* __restrict__ lift, int n,
-                                            const T wq[4], T R[4][D::KMAX]) {
-  const int K = d.K, Q = d.Q, NL = d.NL;
-  T fx[4], fy[4];
-  flux_xy(wq, fx, fy);
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const T lx = lift[k * NL + n], ly = lift[k * NL + Q + n];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      R[c][k] = R[c][k] + lx * fx[c];
-      R[c][k] = R[c][k] + ly * fy[c];
-    }
-  }
-}
-
-// A face neighbor's trace on face f (with AVG also its cell average):
-// streamed, or (TP) from its DoFs after truncation to its own degree and
-// positivity, the average then of those DoFs (the plain candidate averages
-// the tp'd state, pallas_kernels.py:340, :368, :380).  TP takes the modal
-// dims: BDims<P, true>, or GDims<true> with its degree d.P and its d.QP
-// positivity points.
-template <typename T, class D, bool TP, bool AVG>
-__device__ __forceinline__ void neighbor_trace(
-    const D& d, const T* __restrict__ u, const int* __restrict__ deg,
-    const T* __restrict__ Pm, T avg0, const T* __restrict__ faceVf,
-    long plane, long ncell, T tr[4][D::NQMAX], const T* __restrict__ avg,
-    T ub[4]) {
-  if constexpr (TP) {
-    T v[4][D::KMAX];
-    load_cell<T>(d, u, plane, ncell, v);
-    modal_tp<T>(d, v, __ldg(deg + ncell), Pm, avg0);
-    trace_reg<T>(d, v, faceVf, tr);
-    if constexpr (AVG) avg_reg<T>(d, v, avg, ub);
-  } else {
-    trace_mem<T, D, AVG>(d, u, faceVf, plane, ncell, tr, avg, ub);
-  }
-}
-
-// R += src[:, n] S(W(n)) point by point (ops/kernels._source_plain): the
-// body force at the Q quadrature points, gravity with the constant g
-// (CONST) or an external force from the caller's planes fx, fy
-template <typename T, class D, bool CONST>
-__device__ __forceinline__ void add_body_force(
-    const D& d, const T* __restrict__ u, long plane, long cell,
-    const T* __restrict__ V, const T w[4][D::KMAX],
-    const T* __restrict__ sop, const SrcArgs<T>& src, T R[4][D::KMAX]) {
-  const int K = d.K, Q = d.Q;
-#pragma unroll
-  for (int n = 0; n < Q; ++n) {
-    T wq[4], s[4];
-    point_state<T>(d, u, plane, cell, V, w, n, wq);
-    if constexpr (CONST) {
-      // physics/euler.forcing_gravity
-      s[MX] = src.gx * wq[RHO];
-      s[MY] = src.gy * wq[RHO];
-      s[RHO] = T(0);
-      s[ENE] = src.gx * wq[MX] + src.gy * wq[MY];
-    } else {
-      // physics/euler.forcing_external
-      const T fx = __ldg(src.fx + (long)n * plane + cell);
-      const T fy = __ldg(src.fy + (long)n * plane + cell);
-      s[MX] = wq[RHO] * fx;
-      s[MY] = wq[RHO] * fy;
-      s[RHO] = T(0);
-      s[ENE] = wq[MX] * fx + wq[MY] * fy;
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const T l = sop[k * Q + n];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) R[c][k] = R[c][k] + l * s[c];
-    }
-  }
-}
-
-// isothermal well-balanced gravity on the nodes of a collocated basis
-// (pallas_kernels.py:578-593): RT of the cell average ub, E = exp(-phi/RT),
-// the nodal derivatives of E times the baked 1/dx, 1/dy, then
-// S = rho RT / E grad E added node by node
-template <typename T, class D>
-__device__ __forceinline__ void add_wb_iso(
-    const D& d, const T* __restrict__ u, long plane, long cell,
-    const T* __restrict__ V, const T w[4][D::KMAX],
-    const T* __restrict__ ops, const ResOps<D>& O, const T ub[4],
-    const SrcArgs<T>& src, T R[4][D::KMAX]) {
-  const int K = d.K;
-  const T* gxn = ops + O.GXN;
-  const T* gyn = ops + O.GYN;
-  const T inv_dx = ops[O.INVD], inv_dy = ops[O.INVD + 1];
-  const T rt = pressure(ub) / ub[RHO];
-  T E[D::KMAX];
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-    E[k] = ieee_exp(-__ldg(src.phi + (long)k * plane + cell) / rt);
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    T dex = gxn[k * K] * E[0], dey = gyn[k * K] * E[0];
-#pragma unroll
-    for (int j = 1; j < K; ++j) {
-      dex = dex + gxn[k * K + j] * E[j];
-      dey = dey + gyn[k * K + j] * E[j];
-    }
-    dex = dex * inv_dx;
-    dey = dey * inv_dy;
-    T wk[4];
-    point_state<T>(d, u, plane, cell, V, w, k, wk);
-    const T fac = wk[RHO] * rt / E[k];
-    const T sx = fac * dex, sy = fac * dey;
-    R[MX][k] = R[MX][k] + sx;
-    R[MY][k] = R[MY][k] + sy;
-    R[RHO][k] = R[RHO][k] + T(0);
-    R[ENE][k] = R[ENE][k] + (wk[MX] * sx + wk[MY] * sy) / wk[RHO];
-  }
-}
-
-// The residual R = M^{-1} R(u) of cell (x, y), in R[4][K], on the basis
-// dims d (BDims or GDims).  REG: the cell's DoFs are held in w[4][K]
-// (always on MODAL dims, which contract them with V; with TP they are
-// {truncated -> positivity-limited} first, and so is every neighbor before
-// its trace); otherwise (a collocated basis) they are streamed from memory
-// and w is not written.  FLUX: HLLC, ROE, SW, KFVS, or LXF and KEP, which
-// also read the cell averages of the cell and of each face neighbor (of
-// the register-held DoFs where they are held, so with TP the averages of
-// the tp'd states).  mask: the uint8 fluid flags of a masked domain, or
-// nullptr.
-template <typename T, class D, bool TP, int FLUX = HLLC, int SRC = SRC_NONE>
-__device__ __forceinline__ void cell_residual(
-    const D& d, const T* __restrict__ u, const int* __restrict__ deg,
-    const T* __restrict__ Pm, T avg0, const T* __restrict__ dfw,
-    const T* __restrict__ dfe, const T* __restrict__ dfs,
-    const T* __restrict__ dfn, const T* __restrict__ ops, int x, int y,
-    int ny, int nx, T R[4][D::KMAX], T w[4][D::KMAX],
-    const uint8_t* __restrict__ mask = nullptr,
-    const SrcArgs<T>& src = SrcArgs<T>()) {
+// The tile kernel's body: one block per tile of TY x TX cells (TP: per
+// entry of the tile list, blocks past its count exit).  Forms, by the
+// pointers: uold and sc = [a, dt] -> the SSP stage a*u_old + (1-a)*(u +
+// dt*R); sc = [dt] alone -> u + dt*R (TP: u_t + dt*R(u_t), written in place
+// on the set cells only); neither -> R.  [a, dt] are read on the device:
+// the host never waits on dt.
+template <typename T, class D, int FLUX, int SRC, bool TP>
+__device__ __forceinline__ void tile_residual(const TileArgs<T>& a,
+                                              const D& d, const TileGeo& g) {
   static_assert(D::MODAL || !TP, "truncation needs the modal basis");
   static_assert(SRC == SRC_NONE || !TP, "the candidate takes no source");
   static_assert(SRC != WB_ISO || !D::MODAL,
                 "well-balanced gravity needs a collocated basis");
-  const int K = d.K, NQ = d.NQ, Q = d.Q;
-  constexpr int NA = D::NQMAX;
-  constexpr bool REG = D::MODAL || TP;
-  constexpr bool AVG = reads_averages<FLUX>();
-  const ResOps<D> O(d);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sm = reinterpret_cast<T*>(smem);
+  const int K = d.K, NQ = d.NQ, Q = d.Q, NL = d.NL;
+  const int TY = g.TY, TX = g.TX, NC = g.NC, SX = g.SX, SS = g.SS;
+  const int tid = threadIdx.x;
+  int tile = blockIdx.x;
+  if constexpr (TP) {
+    if (tile >= __ldg(a.count)) return;
+    tile = __ldg(a.list + tile);
+  }
+  const int ny = a.ny, nx = a.nx;
+  const int y0 = (tile / g.ntx) * TY, x0 = (tile % g.ntx) * TX;
   const long plane = (long)ny * nx;
-  const long cell = (long)y * nx + x;
-  const int xw = x == 0 ? nx - 1 : x - 1;
-  const int xe = x == nx - 1 ? 0 : x + 1;
-  const int ys = y == 0 ? ny - 1 : y - 1;
-  const int yn = y == ny - 1 ? 0 : y + 1;
-  const T* faceV = ops;
-  const T* lift = ops + O.LIFT;
-  const T* avg = ops + O.AVG;
-  const bool masked = mask != nullptr;
-  const bool m_own = masked ? __ldg(mask + cell) != 0 : true;
+  const ResOps<D> O(d);
+  const T* ops = a.ops;
+  const bool masked = a.mask != nullptr;
+  const int kind = SRC == SRC_ANY ? a.src.kind : SRC;
+  const bool body = kind == FORCE_CONST || kind == FORCE_PLANES;
+  const bool wb = !D::MODAL && kind == WB_ISO;
+  const bool need_avg = reads_averages<FLUX>() || wb;
+  const FDiv dSS(SS), dSX(SX), dNC(NC), dTX(TX);
+  T* Us = sm + g.oU;
+  T* Av = sm + g.oAVG;
+  T* TR = sm + g.oTR;
+  T* scr = sm + g.oSCR;
+  uint8_t* Ms = smem + g.bMSK;
+  int* Ds = reinterpret_cast<int*>(smem + g.bDEG);
+  // staged index and global cell (wrapped) of tile cell i
+  auto tile_s = [=](int i) {
+    const int ly = dTX.q(i);
+    return (ly + 1) * SX + i - ly * TX + 1;
+  };
+  auto gcell = [=](int i) {
+    const int ly = dTX.q(i);
+    return (long)wrap_index(y0 + ly, ny) * nx + wrap_index(x0 + i - ly * TX, nx);
+  };
 
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-#pragma unroll
-    for (int k = 0; k < K; ++k) R[c][k] = T(0);
-
-  // ---- volume term --------------------------------------------------------
-  if constexpr (REG) {
-    if constexpr (TP) {
-      load_cell<T>(d, u, plane, cell, w);
-      modal_tp<T>(d, w, __ldg(deg + cell), Pm, avg0);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          w[c][k] = __ldg(u + (long)(c * K + k) * plane + cell);
+  // ---- 1. stage the tile and its ring: np threads per staged cell, each
+  // taking every np-th of its 4K planes
+  {
+    const int np = TNT >= SS ? TNT / SS : 1;
+    for (int t = tid; t < np * SS; t += TNT) {
+      const int p = dSS.q(t), s = t - p * SS, sy = dSX.q(s);
+      const long gc = (long)wrap_index(y0 + sy - 1, ny) * nx +
+                      wrap_index(x0 + s - sy * SX - 1, nx);
+      for (int ck = p; ck < 4 * K; ck += np)
+        copy_async(Us + ck * SS + s, a.u + ck * plane + gc);
+      if (p == 0) {
+        if (masked) Ms[s] = __ldg(a.mask + gc);
+        if constexpr (TP) Ds[s] = __ldg(a.deg + gc);
+      }
     }
   }
-  const T* V = ops + O.VOL;
-#pragma unroll
-  for (int n = 0; n < Q; ++n) {
-    T wq[4];
-    point_state<T>(d, u, plane, cell, V, w, n, wq);
-    lift_volume<T>(d, lift, n, wq, R);
-  }
+  copy_async_wait();
+  __syncthreads();
 
-  // the cell's own average (LxF, KEP; the isothermal source's RT)
-  T ub[4] = {T(0), T(0), T(0), T(0)};
-  if constexpr (AVG && REG) {
-    avg_reg<T>(d, w, avg, ub);
-  } else if constexpr (AVG || SRC == WB_ISO || SRC == SRC_ANY) {
-    if (AVG || SRC != SRC_ANY || src.kind == WB_ISO) {
+  // ---- 1b. the candidate: {truncation -> positivity} of every staged cell
+  if constexpr (TP) {
+    const int QP = d.QP;
+    T* tps = sm + g.oTPS;   // ub[4], eps_p, theta1, theta2 per staged cell
+    for (int i = tid; i < K * SS; i += TNT) {
+      const int k = dSS.q(i), s = i - k * SS;
+      if (Ds[s] < mode_degree(d.P, k))
+#pragma unroll
+        for (int c = 0; c < 4; ++c) Us[(c * K + k) * SS + s] = T(0);
+    }
+    __syncthreads();
+    // the density at each positivity point (zs_thetas' first loop)
+    for (int i = tid; i < QP * SS; i += TNT) {
+      const int q = dSS.q(i), s = i - q * SS;
+      const T* P = a.Pm + q * K;
+      const T* w = Us + RHO * K * SS + s;
+      T r = __ldg(P) * w[0];
+      for (int k = 1; k < K; ++k) r = r + __ldg(P + k) * w[k * SS];
+      scr[i] = r;
+    }
+    __syncthreads();
+    for (int s = tid; s < SS; s += TNT) {
+      T ub[4], eps_r, eps_p;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ub[c] = a.avg0 * Us[c * K * SS + s];
+      zs_floors(ub, eps_r, eps_p);
+      T rho_min = T(INFINITY);
+      for (int q = 0; q < QP; ++q) rho_min = nmin(rho_min, scr[q * SS + s]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) tps[c * SS + s] = ub[c];
+      tps[4 * SS + s] = eps_p;
+      tps[5 * SS + s] = zs_theta1(ub[RHO], eps_r, rho_min);
+    }
+    __syncthreads();
+    // the pressure factor at each positivity point (its second loop)
+    for (int i = tid; i < QP * SS; i += TNT) {
+      const int q = dSS.q(i), s = i - q * SS;
+      const T* P = a.Pm + q * K;
+      T ub[4], Wq[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        T a = avg[0] * __ldg(u + (long)(c * K) * plane + cell);
+        ub[c] = tps[c * SS + s];
+        const T* w = Us + c * K * SS + s;
+        T v = __ldg(P) * w[0];
+        for (int k = 1; k < K; ++k) v = v + __ldg(P + k) * w[k * SS];
+        Wq[c] = v;
+      }
+      scr[i] = zs_point_t(Wq, ub, tps[5 * SS + s], tps[4 * SS + s]);
+    }
+    __syncthreads();
+    for (int s = tid; s < SS; s += TNT) {
+      T theta2 = T(INFINITY);
+      for (int q = 0; q < QP; ++q) theta2 = nmin(theta2, scr[q * SS + s]);
+      tps[6 * SS + s] = theta2;
+    }
+    __syncthreads();
+    // the scaling of modal_pos: mode 0 about the mean, the others toward 0
+    const FDiv dK(K);
+    for (int i = tid; i < 4 * K * SS; i += TNT) {
+      const int ck = dSS.q(i), s = i - ck * SS, c = dK.q(ck), k = ck - c * K;
+      const T ubc = tps[c * SS + s];
+      const T theta1 = tps[5 * SS + s], theta2 = tps[6 * SS + s];
+      T v = Us[i];
+      if (c == RHO)
+        v = k == 0 ? v * theta1 + ubc * (T(1) - theta1) : v * theta1;
+      v = k == 0 ? v * theta2 + ubc * (T(1) - theta2) : v * theta2;
+      Us[i] = v;
+    }
+    __syncthreads();
+  }
+
+  // ---- 2. averages (LxF, KEP; the isothermal source's RT) and the traces:
+  // each tile cell on its four faces (faceV as one [4 NQ][K] matrix), each
+  // ring cell on the face it shares with the tile (the W ring's E trace,
+  // the E ring's W, the S ring's N, the N ring's S), into TR[c][f NQ + q][s]
+  if (need_avg) {
+    const T* avg = ops + O.AVG;
+    for (int i = tid; i < 4 * SS; i += TNT) {
+      const int c = dSS.q(i);
+      const T* w = Us + c * K * SS + i - c * SS;
+      T v = __ldg(avg) * w[0];
+      for (int k = 1; k < K; ++k) v = v + __ldg(avg + k) * w[k * SS];
+      Av[i] = v;
+    }
+  }
+  {
+    const int gt = row_groups<RB, CB>(4 * NQ, NC);
+    const int gx = row_groups<RB, CB>(NQ, TY), gy = row_groups<RB, CB>(NQ, TX);
+    for (int g0 = tid; g0 < gt + 2 * gx + 2 * gy; g0 += TNT) {
+      if (g0 < gt) {
+        row_group<RB, CB, T>(
+            d, ops, 4 * NQ, Us, SS, NC, tile_s,
+            [=](int c, int r, int, int s) { return (c * 4 * NQ + r) * SS + s; },
+            TR, g0);
+        continue;
+      }
+      // ring side h: 0 W (column 0), 1 E (column TX + 1), 2 S (row 0), 3 N
+      // (row TY + 1); its face f (the one facing the tile) and first cell
+      int h = g0 - gt, side = 0;
+      while (side < 4 && h >= (side < 2 ? gx : gy)) h -= side++ < 2 ? gx : gy;
+      const int f = side ^ 1;   // W ring: E face, E: W, S: N, N: S
+      const int s0 = side == 0 ? SX : side == 1 ? SX + TX + 1
+                   : side == 2 ? 1 : (TY + 1) * SX + 1;
+      const int step = side < 2 ? SX : 1;
+      row_group<RB, CB, T>(
+          d, ops + f * NQ * K, NQ, Us, SS, side < 2 ? TY : TX,
+          [=](int i) { return s0 + i * step; },
+          [=](int c, int r, int, int s) {
+            return (c * 4 * NQ + f * NQ + r) * SS + s;
+          },
+          TR, h);
+    }
+  }
+  __syncthreads();
+
+  // ---- 3. one numerical flux per face point, into the left cell's E (x
+  // face) or N (y face) trace rows
+  const int NFX = TY * (TX + 1), NFY = (TY + 1) * TX;
+  {
+    const FDiv dX(NFX), dY(NFY), dTX1(TX + 1);
+    for (int i = tid; i < NQ * (NFX + NFY); i += TNT) {
+      const bool xf = i < NQ * NFX;
+      const int j = xf ? i : i - NQ * NFX;
+      const int q = xf ? dX.q(j) : dY.q(j), f = j - q * (xf ? NFX : NFY);
+      int sL, sR;
+      if (xf) {
+        const int ly = dTX1.q(f);
+        sL = (ly + 1) * SX + f - ly * (TX + 1);
+        sR = sL + 1;
+      } else {
+        const int fy = dTX.q(f);
+        sL = fy * SX + f - fy * TX + 1;
+        sR = sL + SX;
+      }
+      // the left cell's E (N) trace, the right cell's W (S) trace
+      T* L = TR + ((xf ? 1 : 3) * NQ + q) * SS + sL;
+      const T* Rt = TR + ((xf ? 0 : 2) * NQ + q) * SS + sR;
+      T l[4], r[4], AL[4] = {T(0), T(0), T(0), T(0)},
+                    AR[4] = {T(0), T(0), T(0), T(0)};
 #pragma unroll
-        for (int k = 1; k < K; ++k)
-          a = a + avg[k] * __ldg(u + (long)(c * K + k) * plane + cell);
-        ub[c] = a;
+      for (int c = 0; c < 4; ++c) {
+        l[c] = L[c * 4 * NQ * SS];
+        r[c] = Rt[c * 4 * NQ * SS];
+      }
+      if constexpr (reads_averages<FLUX>()) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          AL[c] = Av[c * SS + sL];
+          AR[c] = Av[c * SS + sR];
+        }
+      }
+      if (masked)
+        wall_fix(l, r, AL, AR, Ms[sL] != 0, Ms[sR] != 0, xf ? MX : MY);
+      T F[4];
+      point_flux<T, FLUX>(l, r, AL, AR, xf ? T(1) : T(0), xf ? T(0) : T(1),
+                          F);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) L[c * 4 * NQ * SS] = F[c];
+    }
+  }
+  __syncthreads();
+
+  // ---- 3b. the delta strips of a tile on the domain's edge, added to the
+  // flux of each edge face (F + strip, as each cell added it before it
+  // lifted): such a face's slot is read by one valid tile cell only (the
+  // other cell sharing it is a ring cell or lies past the domain)
+  if (x0 == 0 || x0 + TX >= nx || y0 == 0 || y0 + TY >= ny) {
+    const int lxe = nx - 1 - x0, lyn = ny - 1 - y0;
+    const FDiv dTY(TY);
+    for (int i = tid; i < 8 * NQ * (TY + TX); i += TNT) {
+      const bool xs = i < 8 * NQ * TY;   // a W or E strip (else S or N)
+      const int j = xs ? i : i - 8 * NQ * TY;
+      const int cqe = xs ? dTY.q(j) : dTX.q(j);
+      const int t = j - cqe * (xs ? TY : TX);   // the row (W/E), column (S/N)
+      const int e = cqe & 1, cq = cqe >> 1, c = cq / NQ, q = cq - c * NQ;
+      int ls, slot;
+      const T* strip;
+      if (xs) {
+        ls = e == 0 ? (x0 == 0 ? 0 : -1) : lxe;
+        slot = (t + 1) * SX + (e == 0 ? 0 : lxe + 1);
+        strip = (e == 0 ? a.dfw : a.dfe) + (long)cq * ny + y0 + t;
+        if (y0 + t >= ny) continue;
+      } else {
+        ls = e == 0 ? (y0 == 0 ? 0 : -1) : lyn;
+        slot = (e == 0 ? 0 : lyn + 1) * SX + t + 1;
+        strip = (e == 0 ? a.dfs : a.dfn) + (long)cq * nx + x0 + t;
+        if (x0 + t >= nx) continue;
+      }
+      if (ls < 0 || ls >= (xs ? TX : TY)) continue;
+      T* F = TR + (c * 4 * NQ + (xs ? 1 : 3) * NQ + q) * SS + slot;
+      *F = *F + __ldg(strip);
+    }
+  }
+
+  // ---- 4. the lift: thread (c, kb, cb) owns modes kb*RB.. and tile cells
+  // cb + j*ncb; threads past the groups only help the other phases
+  const int nkb = (K + RB - 1) / RB, ncb = NC / CB;
+  const bool lifter = tid < 4 * nkb * ncb;
+  const int cb = tid % ncb, kb = (tid / ncb) % nkb, c = tid / (ncb * nkb);
+  const T* lift = ops + O.LIFT;
+  int kk[RB], lo[RB];   // the thread's modes and their lift rows' offsets
+#pragma unroll
+  for (int i = 0; i < RB; ++i) {
+    kk[i] = kb * RB + i;
+    lo[i] = (kk[i] < K ? kk[i] : K - 1) * NL;
+  }
+  int cl[CB], st[CB];   // the thread's tile cells and their staged indices
+#pragma unroll
+  for (int j = 0; j < CB; ++j) {
+    cl[j] = cb + j * ncb;
+    st[j] = tile_s(cl[j]);
+  }
+  T R[RB][CB];
+#pragma unroll
+  for (int i = 0; i < RB; ++i)
+#pragma unroll
+    for (int j = 0; j < CB; ++j) R[i][j] = T(0);
+
+  const T* V = ops + O.VOL;
+  T* W = scr;                                      // [4][nch][NC], modal
+  T* VF = scr + (D::MODAL ? 4 * g.NCH * NC : 0);   // [8][nch][NC]
+  // the point states of a chunk: W = V u (modal) or the nodal values
+  auto point_state = [&](int n0, int nch, int i, T wq[4]) {
+    const int n = dNC.q(i), cc = i - n * NC;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      wq[e] = D::MODAL ? W[(e * nch + n) * NC + cc]
+                       : Us[(e * K + n0 + n) * SS + tile_s(cc)];
+  };
+  for (int n0 = 0; n0 < Q; n0 += g.NCH) {
+    const int nch = Q - n0 < g.NCH ? Q - n0 : g.NCH;
+    if (n0 > 0) __syncthreads();
+    if constexpr (D::MODAL) {
+      apply_rows<RB, CB, T>(d, V + n0 * K, nch, Us, SS, NC, tile_s, W);
+      __syncthreads();
+    }
+    for (int i = tid; i < nch * NC; i += TNT) {
+      T wq[4], fx[4], fy[4];
+      point_state(n0, nch, i, wq);
+      flux_xy(wq, fx, fy);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        VF[(e * nch) * NC + i] = fx[e];
+        VF[((4 + e) * nch) * NC + i] = fy[e];
+      }
+    }
+    __syncthreads();
+    if (lifter) {
+#pragma unroll 2   // the next point's loads ahead of this one's products
+      for (int n = 0; n < nch; ++n) {
+        const T* fxp = VF + (c * nch + n) * NC;
+        const T* fyp = VF + ((4 + c) * nch + n) * NC;
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          const T lx = __ldg(lift + lo[i] + n0 + n);
+          const T ly = __ldg(lift + lo[i] + Q + n0 + n);
+#pragma unroll
+          for (int j = 0; j < CB; ++j) {
+            R[i][j] = R[i][j] + lx * fxp[cl[j]];
+            R[i][j] = R[i][j] + ly * fyp[cl[j]];
+          }
+        }
       }
     }
   }
 
-  T own[4][NA], nb[4][NA], F[4][NA], a_own[4], a_nb[4];
-  // One face: the cell's trace on face f_own, the neighbor ncell's trace on
-  // the facing face f_nb; left = the neighbor on the W and S faces.  nc is
-  // the normal momentum component a wall mirror negates; strip/stride/sidx
-  // address the delta strip added where `edge` holds; col0 is the face's
-  // first lift column.
-  auto face = [&](int f_own, int f_nb, long ncell, bool nb_left, T nxv, T nyv,
-                  int nc, bool edge, const T* __restrict__ strip, int stride,
-                  int sidx, int col0) {
-    if constexpr (REG) trace_reg<T>(d, w, faceV + f_own * NQ * K, own);
-    else trace_mem<T, D>(d, u, faceV + f_own * NQ * K, plane, cell, own);
-    neighbor_trace<T, D, TP, AVG>(d, u, deg, Pm, avg0,
-                                  faceV + f_nb * NQ * K, plane, ncell, nb,
-                                  avg, a_nb);
+  // faces W, E, S, N, each by q (the strips already in the edge faces)
+  if (lifter) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) a_own[c] = ub[c];
-    const bool m_nb = masked ? __ldg(mask + ncell) != 0 : true;
-    if (nb_left) {
-      if (masked) wall_fix<T>(d, nb, own, a_nb, a_own, m_nb, m_own, nc);
-      face_flux<T, D, FLUX>(d, nb, own, a_nb, a_own, nxv, nyv, F);
-    } else {
-      if (masked) wall_fix<T>(d, own, nb, a_own, a_nb, m_own, m_nb, nc);
-      face_flux<T, D, FLUX>(d, own, nb, a_own, a_nb, nxv, nyv, F);
-    }
-    if (edge)
+    for (int f = 0; f < 4; ++f) {
+      // the face's flux: the E (x) or N (y) rows of the cell on its left
+      const int rows = (f < 2 ? 1 : 3) * NQ, shift = f == 0 ? 1 : f == 2 ? SX : 0;
+      const T* Ff = TR + (c * 4 * NQ + rows) * SS - shift;
+      for (int q = 0; q < NQ; ++q) {
+        T F[CB];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+        for (int j = 0; j < CB; ++j) F[j] = Ff[q * SS + st[j]];
 #pragma unroll
-        for (int q = 0; q < NQ; ++q) F[c][q] += strip[(c * NQ + q) * stride + sidx];
-    lift_face<T>(d, lift, col0, F, R);
-  };
-  // west: left = west neighbor's east trace; east: right = east neighbor's
-  // west trace; south / north likewise along y
-  face(0, 1, (long)y * nx + xw, true, T(1), T(0), MX, x == 0, dfw, ny, y,
-       2 * Q + 0 * NQ);
-  face(1, 0, (long)y * nx + xe, false, T(1), T(0), MX, x == nx - 1, dfe, ny,
-       y, 2 * Q + 1 * NQ);
-  face(2, 3, (long)ys * nx + x, true, T(0), T(1), MY, y == 0, dfs, nx, x,
-       2 * Q + 2 * NQ);
-  face(3, 2, (long)yn * nx + x, false, T(0), T(1), MY, y == ny - 1, dfn, nx,
-       x, 2 * Q + 3 * NQ);
-
-  // ---- source arms, after the lifts --------------------------------------
-  if constexpr (SRC == FORCE_CONST || SRC == FORCE_PLANES) {
-    add_body_force<T, D, SRC == FORCE_CONST>(d, u, plane, cell, V, w,
-                                             ops + O.SRCOP, src, R);
-  } else if constexpr (SRC == WB_ISO) {
-    add_wb_iso<T>(d, u, plane, cell, V, w, ops, O, ub, src, R);
-  } else if constexpr (SRC == SRC_ANY) {
-    // the general dims: the arm read at run time
-    if (src.kind == FORCE_CONST) {
-      add_body_force<T, D, true>(d, u, plane, cell, V, w, ops + O.SRCOP, src,
-                                 R);
-    } else if (src.kind == FORCE_PLANES) {
-      add_body_force<T, D, false>(d, u, plane, cell, V, w, ops + O.SRCOP,
-                                  src, R);
-    } else if constexpr (!D::MODAL) {
-      if (src.kind == WB_ISO)
-        add_wb_iso<T>(d, u, plane, cell, V, w, ops, O, ub, src, R);
+        for (int i = 0; i < RB; ++i) {
+          const T l = __ldg(lift + lo[i] + 2 * Q + f * NQ + q);
+#pragma unroll
+          for (int j = 0; j < CB; ++j) R[i][j] = R[i][j] + l * F[j];
+        }
+      }
     }
   }
 
-  if (masked) {
-    // solid cells are frozen (R * mask, as the plain version multiplies)
-    const T m = m_own ? T(1) : T(0);
+  // ---- 5. source arms, after the lifts -----------------------------------
+  if (body) {
+    // R += src[:, n] S(W(n)), point by point (ops/kernels._source_plain)
+    const T* sop = ops + O.SRCOP;
+    T* S = VF;   // [4][nch][NC]
+    for (int n0 = 0; n0 < Q; n0 += g.NCH) {
+      const int nch = Q - n0 < g.NCH ? Q - n0 : g.NCH;
+      __syncthreads();
+      if constexpr (D::MODAL) {
+        apply_rows<RB, CB, T>(d, V + n0 * K, nch, Us, SS, NC, tile_s, W);
+        __syncthreads();
+      }
+      for (int i = tid; i < nch * NC; i += TNT) {
+        T wq[4], s[4];
+        point_state(n0, nch, i, wq);
+        if (kind == FORCE_CONST) {
+          // physics/euler.forcing_gravity
+          s[MX] = a.src.gx * wq[RHO];
+          s[MY] = a.src.gy * wq[RHO];
+          s[RHO] = T(0);
+          s[ENE] = a.src.gx * wq[MX] + a.src.gy * wq[MY];
+        } else {
+          // physics/euler.forcing_external
+          const int n = dNC.q(i);
+          const long pi = (long)(n0 + n) * plane + gcell(i - n * NC);
+          const T fx = __ldg(a.src.fx + pi), fy = __ldg(a.src.fy + pi);
+          s[MX] = wq[RHO] * fx;
+          s[MY] = wq[RHO] * fy;
+          s[RHO] = T(0);
+          s[ENE] = wq[MX] * fx + wq[MY] * fy;
+        }
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
+        for (int e = 0; e < 4; ++e) S[e * nch * NC + i] = s[e];
+      }
+      __syncthreads();
+      if (lifter) {
+        for (int n = 0; n < nch; ++n) {
+          const T* sp = S + (c * nch + n) * NC;
 #pragma unroll
-      for (int k = 0; k < K; ++k) R[c][k] = R[c][k] * m;
+          for (int i = 0; i < RB; ++i) {
+            const T l = __ldg(sop + (kk[i] < K ? kk[i] : K - 1) * Q + n0 + n);
+#pragma unroll
+            for (int j = 0; j < CB; ++j) R[i][j] = R[i][j] + l * sp[cl[j]];
+          }
+        }
+      }
+    }
+  } else if (wb) {
+    // isothermal well-balanced gravity on the nodes (pallas_kernels.py:
+    // 578-593): RT of the cell average, E = exp(-phi/RT), the nodal
+    // derivatives of E times the baked 1/dx, 1/dy, then S = rho RT / E grad
+    // E added node by node
+    const T* gxn = ops + O.GXN;
+    const T* gyn = ops + O.GYN;
+    const T inv_dx = __ldg(ops + O.INVD), inv_dy = __ldg(ops + O.INVD + 1);
+    T* E = scr;             // [K][NC]
+    T* add = scr + K * NC;  // [4][K][NC]
+    auto rt_of = [&](int cc) {
+      T ub[4];
+      const int s = tile_s(cc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ub[e] = Av[e * SS + s];
+      return pressure(ub) / ub[RHO];
+    };
+    __syncthreads();
+    for (int i = tid; i < K * NC; i += TNT) {
+      const int k = dNC.q(i), cc = i - k * NC;
+      E[i] = ieee_exp(-__ldg(a.src.phi + (long)k * plane + gcell(cc)) /
+                      rt_of(cc));
+    }
+    __syncthreads();
+    for (int i = tid; i < K * NC; i += TNT) {
+      const int k = dNC.q(i), cc = i - k * NC, s = tile_s(cc);
+      T dex = __ldg(gxn + k * K) * E[cc], dey = __ldg(gyn + k * K) * E[cc];
+      for (int jn = 1; jn < K; ++jn) {
+        dex = dex + __ldg(gxn + k * K + jn) * E[jn * NC + cc];
+        dey = dey + __ldg(gyn + k * K + jn) * E[jn * NC + cc];
+      }
+      dex = dex * inv_dx;
+      dey = dey * inv_dy;
+      T wk[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) wk[e] = Us[(e * K + k) * SS + s];
+      const T fac = wk[RHO] * rt_of(cc) / E[i];
+      const T sx = fac * dex, sy = fac * dey;
+      add[(MX * K + k) * NC + cc] = sx;
+      add[(MY * K + k) * NC + cc] = sy;
+      add[(RHO * K + k) * NC + cc] = T(0);
+      add[(ENE * K + k) * NC + cc] = (wk[MX] * sx + wk[MY] * sy) / wk[RHO];
+    }
+    __syncthreads();
+    if (lifter) {
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+        if (kk[i] < K)
+#pragma unroll
+          for (int j = 0; j < CB; ++j)
+            R[i][j] = R[i][j] + add[(c * K + kk[i]) * NC + cl[j]];
+    }
+  }
+  if (!lifter) return;
+
+  // ---- 6. the mask, then R, the SSP stage, u + dt*R or the candidate -----
+  const int form = a.uold != nullptr ? 2 : a.sc != nullptr ? 1 : 0;
+  const T av = form == 2 ? a.sc[0] : T(0);
+  const T dt = form == 2 ? a.sc[1] : form == 1 ? a.sc[0] : T(0);
+  long cell[CB];   // the global cell of each of the thread's cells, or -1
+#pragma unroll
+  for (int j = 0; j < CB; ++j) {
+    const int ly = dTX.q(cl[j]), lx = cl[j] - ly * TX;
+    const int gy = y0 + ly, gxc = x0 + lx;
+    cell[j] = gy < ny && gxc < nx ? (long)gy * nx + gxc : -1;
+    if constexpr (TP) {
+      if (cell[j] >= 0 && __ldg(a.cells + cell[j]) == 0) cell[j] = -1;
+    }
+  }
+  // the stage's u_old, every load issued before the first store (out and
+  // u_old are not known apart)
+  T uo[RB][CB];
+  if (form == 2) {
+#pragma unroll
+    for (int j = 0; j < CB; ++j)
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+        uo[i][j] = cell[j] >= 0 && kk[i] < K
+                       ? __ldg(a.uold + (long)(c * K + kk[i]) * plane + cell[j])
+                       : T(0);
+  }
+#pragma unroll
+  for (int j = 0; j < CB; ++j) {
+    if (cell[j] < 0) continue;
+    const T m = masked && Ms[st[j]] == 0 ? T(0) : T(1);
+#pragma unroll
+    for (int i = 0; i < RB; ++i) {
+      if (kk[i] >= K) continue;
+      T r = R[i][j];
+      if (masked) r = r * m;   // solid cells are frozen (R * mask)
+      const long o = (long)(c * K + kk[i]) * plane + cell[j];
+      const T uv = Us[(c * K + kk[i]) * SS + st[j]];
+      if (form == 2)
+        a.out[o] = av * uo[i][j] + (T(1) - av) * (uv + dt * r);
+      else if (form == 1)
+        a.out[o] = uv + dt * r;
+      else
+        a.out[o] = r;
+    }
   }
 }
 
-// The dense fused residual of one cell per thread: R, the SSP stage
-// a*u_old + (1-a)*(u + dt*R) with [a, dt] read from a device pointer so the
-// host never waits on dt, or the forward-Euler update u + dt*R (sc = [dt]);
-// SRC adds a source arm with its operands in src.
-template <typename T, class D, int FLUX, int SRC = SRC_NONE>
-__global__ void __launch_bounds__(BX * BY)
-fused_residual_kernel(const T* __restrict__ u, const T* __restrict__ dfw,
-                      const T* __restrict__ dfe, const T* __restrict__ dfs,
-                      const T* __restrict__ dfn, const T* __restrict__ uold,
-                      const T* __restrict__ sc, const T* __restrict__ ops,
-                      const uint8_t* __restrict__ mask, T* __restrict__ out,
-                      int ny, int nx, SrcArgs<T> src, D d) {
-  const int K = d.K;
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= nx || y >= ny) return;
-  const long plane = (long)ny * nx;
-  const long cell = (long)y * nx + x;
+// The kernels.  float32 under the block size alone: ptxas then holds most
+// forms to 64-80 registers a thread (a bound of 80 or 128 of our own spilled
+// more, as it unrolled and hoisted further).  float64 with one block per SM,
+// up to 255 registers: its fluxes' temporaries then stay out of local
+// memory, and shared memory holds most f64 tiles to one or two blocks per SM
+// anyway.
+template <typename T, class D, int FLUX, int SRC, bool TP>
+__global__ void __launch_bounds__(TNT)
+tile_residual_kernel(const TileArgs<T> a, const D d, const TileGeo g) {
+  tile_residual<T, D, FLUX, SRC, TP>(a, d, g);
+}
 
-  T R[4][D::KMAX], w[4][D::KMAX];
-  cell_residual<T, D, false, FLUX, SRC>(d, u, nullptr, nullptr, T(0), dfw,
-                                        dfe, dfs, dfn, ops, x, y, ny, nx, R,
-                                        w, mask, src);
-
-  // ---- write R, the SSP stage, or the forward-Euler update ---------------
-  if (uold != nullptr) {
-    const T a = sc[0], dt = sc[1];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const long i = (long)(c * K + k) * plane + cell;
-        out[i] = a * __ldg(uold + i) + (T(1) - a) * (__ldg(u + i) + dt * R[c][k]);
-      }
-  } else if (sc != nullptr) {
-    const T dt = sc[0];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const long i = (long)(c * K + k) * plane + cell;
-        out[i] = __ldg(u + i) + dt * R[c][k];
-      }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int k = 0; k < K; ++k) out[(long)(c * K + k) * plane + cell] = R[c][k];
-  }
+template <typename T, class D, int FLUX, int SRC, bool TP>
+__global__ void __launch_bounds__(TNT, 1)
+tile_residual_kernel_wide(const TileArgs<T> a, const D d, const TileGeo g) {
+  tile_residual<T, D, FLUX, SRC, TP>(a, d, g);
 }
 
 // The operands of one residual launch (the C entry points' pointers, as
-// void*; fx, fy, phi, gx, gy only for a source arm).
+// void*; fx, fy, phi, gx, gy only for a source arm) and the tile.
 struct ResArgs {
   const void *u, *dfw, *dfe, *dfs, *dfn, *uold, *sc, *ops, *mask;
   const void *fx, *fy, *phi;
   double gx, gy;
   void* out;
-  int ny, nx;
+  int ny, nx, ty, tx;
 };
 
-template <typename T, int FLUX, int SRC, class D>
-int launch_residual(const D& d, const ResArgs& a, cudaStream_t stream,
-                    int kind = SRC) {
-  SrcArgs<T> src;
-  src.kind = kind;
-  src.fx = (const T*)a.fx;
-  src.fy = (const T*)a.fy;
-  src.phi = (const T*)a.phi;
-  src.gx = T(a.gx);
-  src.gy = T(a.gy);
-  fused_residual_kernel<T, D, FLUX, SRC>
-      <<<grid_for(a.ny, a.nx), dim3(BX, BY), 0, stream>>>(
-          (const T*)a.u, (const T*)a.dfw, (const T*)a.dfe, (const T*)a.dfs,
-          (const T*)a.dfn, (const T*)a.uold, (const T*)a.sc,
-          (const T*)a.ops, (const uint8_t*)a.mask, (T*)a.out, a.ny, a.nx,
-          src, d);
+// Launch one tile kernel: checks the tile against the block (every
+// register tile of the lift on a thread) and shared memory, sizes the
+// block's dynamic shared memory and launches one block per tile (TP: per
+// possible entry of the tile list).  Returns cudaGetLastError(), -1 for a
+// tile the kernel does not take.
+template <typename T, int FLUX, int SRC, bool TP, class D>
+int launch_tiles(const D& d, const TileArgs<T>& a, int kind, int ty, int tx,
+                 cudaStream_t stream) {
+  if (ty < 1 || tx < 1 || (ty * tx) % CB != 0) return -1;
+  if (4 * ((d.K + RB - 1) / RB) * (ty * tx / CB) > TNT) return -1;
+  const bool wb = !D::MODAL && kind == WB_ISO;
+  const TileGeo g = tile_geo<T>(
+      d, reads_averages<FLUX>() || wb, a.mask != nullptr, TP,
+      kind == FORCE_CONST || kind == FORCE_PLANES, wb, ty, tx, a.ny, a.nx);
+  if (g.bytes > MAX_SMEM) return -1;
+  if (a.ny < 1 || a.nx < 1) return 0;
+  void (*kern)(const TileArgs<T>, const D, const TileGeo);
+  if constexpr (sizeof(T) > 4)
+    kern = tile_residual_kernel_wide<T, D, FLUX, SRC, TP>;
+  else
+    kern = tile_residual_kernel<T, D, FLUX, SRC, TP>;
+  if (g.bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<g.ntx * g.nty, TNT, g.bytes, stream>>>(a, d, g);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int FLUX, int SRC, class D>
+int launch_residual(const D& d, const ResArgs& r, cudaStream_t stream,
+                    int kind = SRC) {
+  TileArgs<T> a{};
+  a.u = (const T*)r.u;
+  a.dfw = (const T*)r.dfw;
+  a.dfe = (const T*)r.dfe;
+  a.dfs = (const T*)r.dfs;
+  a.dfn = (const T*)r.dfn;
+  a.uold = (const T*)r.uold;
+  a.sc = (const T*)r.sc;
+  a.ops = (const T*)r.ops;
+  a.mask = (const uint8_t*)r.mask;
+  a.out = (T*)r.out;
+  a.ny = r.ny;
+  a.nx = r.nx;
+  a.src.kind = kind;
+  a.src.fx = (const T*)r.fx;
+  a.src.fy = (const T*)r.fy;
+  a.src.phi = (const T*)r.phi;
+  a.src.gx = T(r.gx);
+  a.src.gy = T(r.gy);
+  return launch_tiles<T, FLUX, SRC, false>(d, a, kind, r.ty, r.tx, stream);
 }
 
 // The general dims of one flux, every source arm read at run time (src, as
@@ -655,9 +993,10 @@ extern template DFLO_GENERAL(KEP);
 // (BDims); every other basis within K_MAX and NQ_MAX the flux's general
 // kernels (launch_general).  -1 for a case it does not take (a source
 // arm's operands missing, WB_ISO on a MODAL basis, u_old without sc, a
-// basis beyond the bounds).  Each source arm's table is instantiated in a
-// translation unit of its own (fused_residual_src*.cu, _planes*.cu,
-// _wb*.cu), so nvcc builds them side by side.
+// basis beyond the bounds, a tile the kernel does not take).  Each source
+// arm's table is instantiated in a translation unit of its own
+// (fused_residual_src*.cu, _planes*.cu, _wb*.cu), so nvcc builds them side
+// by side.
 template <int FLUX, int SRC>
 int launch_table(int dtype, int modal, int p, int K, int nq,
                  const ResArgs& a, cudaStream_t s) {

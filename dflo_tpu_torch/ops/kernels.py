@@ -97,9 +97,10 @@ DEGREES = (1, 2, 3, 4, 5, 6)
 #: the quadrature bound of the general dims (csrc/euler.cuh NQ_MAX, beside
 #: K_MAX = 49, Q6's DoFs): nq = p + 2 at p = 6
 NQ_MAX = 8
-#: the thread block of every kernel, 32 cells along x by 4 rows (csrc/
-#: euler.cuh BX, BY); the sparse MOOD candidate reads one flag per block
-TILE_Y, TILE_X = 4, 32
+#: threads per block of the residual's and the candidate's tile kernels
+#: (csrc/residual.cuh TNT); each thread of the lift owns 4 modes x 4 cells
+#: of one component (RB x CB)
+TILE_THREADS = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _lib = None
@@ -206,12 +207,14 @@ def _load():
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     sig = {
         "dflo_num_blocks": [ci, ci],
-        **{_RESIDUAL_ENTRY[f]: [ci] * 5 + [vp] * 10 + [ci, ci, vp]
+        **{_RESIDUAL_ENTRY[f]: [ci] * 5 + [vp] * 10 + [ci] * 4 + [vp]
            for f in FLUXES},
-        "dflo_fused_residual_src": [ci] * 7 + [vp] * 12 + [cd, cd, vp, ci, ci,
-                                                          vp],
+        "dflo_fused_residual_src": [ci] * 7 + [vp] * 12 + [cd, cd, vp]
+                                   + [ci] * 4 + [vp],
+        "dflo_tile_smem": [ci] * 11,
+        "dflo_tile_list": [vp] + [ci] * 4 + [vp] * 3,
         "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
-        **{e: [ci] * 5 + [vp] * 11 + [cd, ci, ci, vp, vp]
+        **{e: [ci] * 5 + [vp] * 12 + [cd] + [ci] * 4 + [vp, vp]
            for e in _CANDIDATE_ENTRY.values()},
         "dflo_fused_post": [ci, ci] + [vp] * 10 + [ci] * 10 + [cd] * 9
                            + [vp],
@@ -309,6 +312,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     fused_pk_post.launches_with_diag = 0
     fused_post.launches_block = 0
+    tile_list.launches = 0
     _FORM_LAUNCHES.clear()
 
 
@@ -340,6 +344,22 @@ def _residual_form(ops: "ResidualOps", u_old=None, dt=None) -> str:
     src = f"_{ops.source}" if ops.source else ""
     return (f"fused_residual[{_BASIS_TAG[ops.family]}_{ops.flux}{masked}{src}"
             f"_{form}]")
+
+
+def residual_tile(K: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(TY, TX), the tile of cells one block of the residual's and the
+    candidate's tile kernels takes for K DoFs per cell (csrc/residual.cuh):
+    the largest of 8 x 16, 8 x 8, 4 x 8 and 4 x 4 whose lift gives every
+    thread at most one register tile (4 components x ceil(K/4) mode blocks
+    x TY*TX/4 cell blocks <= TILE_THREADS), at most 64 cells in float64
+    (shared memory): 8 x 16 for up to 8 DoFs in float32, 8 x 8 for 9-16
+    (Q2, Q3, P3, P4), 4 x 8 for 17-32 (Q4, P5, P6), 4 x 4 beyond."""
+    mode_blocks = -(-K // 4)
+    cap = 64 if dtype == torch.float64 else 128
+    for ty, tx in ((8, 16), (8, 8), (4, 8), (4, 4)):
+        if ty * tx <= cap and mode_blocks * ty * tx <= TILE_THREADS:
+            return ty, tx
+    raise NotImplementedError(f"no tile takes K = {K} DoFs per cell")
 
 
 # ---------------------------------------------------------------------------
@@ -934,15 +954,16 @@ def fused_residual(u, dfw, dfe, dfs, dfn, ops: ResidualOps, u_old=None,
     # (csrc/residual.cuh launch_table)
     dims = (_DTYPE_CODE[u.dtype], int(ops.V is not None), ops.p, ops.K,
             ops.nq)
+    tile = residual_tile(ops.K, u.dtype)
     if ops.source is None:
         entry = getattr(lib, _RESIDUAL_ENTRY[ops.flux])
-        rc = _call(u.device, entry, *dims, *ptrs, _ptr(out), ny, nx,
+        rc = _call(u.device, entry, *dims, *ptrs, _ptr(out), ny, nx, *tile,
                    _stream(u.device))
     else:
         rc = _call(u.device, lib.dflo_fused_residual_src, *dims,
                    FLUXES.index(ops.flux), _SRC_CODE[ops.source], *ptrs,
                    _ptr(fx), _ptr(fy), _ptr(ops.phi), *ops.g, _ptr(out), ny,
-                   nx, _stream(u.device))
+                   nx, *tile, _stream(u.device))
     _check(rc, "fused_residual")
     fused_residual.launches += 1
     _count_form(_residual_form(ops, u_old, dt))
@@ -967,15 +988,60 @@ def modal_tp_plain(u, deg, ops: ModalOps):
     return ops.positivity(u, ops.avg0 * u[:, 0])
 
 
-def tile_flags(cells: torch.Tensor) -> torch.Tensor:
-    """uint8 [ceil(ny/TILE_Y), ceil(nx/TILE_X)]: 1 for each tile (thread
-    block of the candidate kernel) that holds a set cell of the bool plane
-    `cells`.  Plane ops on the device: no host sync, no nonzero()."""
+def tile_flags(cells: torch.Tensor, ty: int, tx: int) -> torch.Tensor:
+    """uint8 [ceil(ny/ty), ceil(nx/tx)]: 1 for each ty x tx tile that holds
+    a set cell of the bool plane `cells`.  Plane ops on the device: no host
+    sync, no nonzero()."""
     ny, nx = cells.shape
-    nty, ntx = -(-ny // TILE_Y), -(-nx // TILE_X)
-    c = F.pad(cells.to(torch.uint8), (0, ntx * TILE_X - nx,
-                                      0, nty * TILE_Y - ny))
-    return c.view(nty, TILE_Y, ntx, TILE_X).amax(dim=(1, 3)).contiguous()
+    nty, ntx = -(-ny // ty), -(-nx // tx)
+    c = F.pad(cells.to(torch.uint8), (0, ntx * tx - nx, 0, nty * ty - ny))
+    return c.view(nty, ty, ntx, tx).amax(dim=(1, 3)).contiguous()
+
+
+def tile_list_plain(cells: torch.Tensor, ty: int, tx: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The compact list of the ty x tx tiles that hold a set cell of the
+    bool plane `cells`: (int32 [ntiles], the flagged tiles' row-major
+    indices in increasing order first, the rest unspecified; int32 [1],
+    their count).  Plane ops (a prefix sum and a scatter): no host sync, no
+    nonzero().  The plain twin of the candidate's list kernel (csrc/
+    candidate.cuh tile_list_kernel), which fills the same slots in no fixed
+    order."""
+    flags = tile_flags(cells, ty, tx).view(-1)
+    n = flags.numel()
+    pos = torch.cumsum(flags, 0, dtype=torch.int32)
+    count = pos[-1:].clone() if n else pos.new_zeros(1)
+    # flagged tile i goes to slot pos[i] - 1, the others to a spare slot n
+    slot = torch.where(flags.bool(), pos - 1, n).long()
+    lst = torch.zeros(n + 1, dtype=torch.int32, device=cells.device)
+    lst.scatter_(0, slot, torch.arange(n, dtype=torch.int32,
+                                       device=cells.device))
+    return lst[:n], count
+
+
+def tile_list(cells: torch.Tensor, ty: int, tx: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tile_list_plain for a CPU plane; for a CUDA plane the candidate's
+    list kernel (one launch after zeroing the count; the flagged tiles in
+    no fixed order).  The candidate's entry points build their list with
+    the same kernel themselves."""
+    if cells.device.type == "cpu":
+        return tile_list_plain(cells, ty, tx)
+    if cells.device.type != "cuda":
+        raise ValueError(f"tensors on {cells.device} are not supported")
+    _check_plane(cells, cells, torch.bool, tuple(cells.shape), "cells")
+    ny, nx = cells.shape
+    lst = torch.empty(-(-ny // ty) * -(-nx // tx), dtype=torch.int32,
+                      device=cells.device)
+    count = torch.empty(1, dtype=torch.int32, device=cells.device)
+    _check(_call(cells.device, _load().dflo_tile_list, _ptr(cells), ny, nx,
+                 ty, tx, _ptr(lst), _ptr(count), _stream(cells.device)),
+           "tile_list")
+    tile_list.launches += 1
+    return lst, count
+
+
+tile_list.launches = 0
 
 
 def fused_mood_candidate_plain(u_pre, u_prev, deg, cells, dfw, dfe, dfs,
@@ -997,9 +1063,9 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
     plane `cells` and written IN PLACE into u_prev; the other cells keep
     u_prev.  Returns u_prev.  With every cell set it is the dense
     candidate.  CPU tensors: the plain version; CUDA tensors: the kernel,
-    over a grid of TILE_Y x TILE_X tiles with a per-tile flag plane
-    (tile_flags(cells), built here on the device): a block whose tile holds
-    no set cell returns at once."""
+    over the compact list of the residual_tile tiles that hold a set cell,
+    which its entry point builds on the device first (tile_list): no block
+    works on a tile without one."""
     ny, nx = _check_state(u_pre, rops.K)
     if not rops.modal:
         raise NotImplementedError("the MOOD candidate takes the modal Pk "
@@ -1025,7 +1091,11 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
     if tuple(mops.P.shape[1:]) != (rops.K,):
         raise ValueError("the modal operators' K differs from the "
                          "residual's")
-    flags = tile_flags(cells)
+    tile = residual_tile(rops.K, u_pre.dtype)
+    # the tile list's scratch: the entry point builds the list there first
+    tiles = torch.empty(-(-ny // tile[0]) * -(-nx // tile[1]),
+                        dtype=torch.int32, device=u_pre.device)
+    count = torch.empty(1, dtype=torch.int32, device=u_pre.device)
     lib = _load()
     entry = getattr(lib, _CANDIDATE_ENTRY[rops.flux])
     # the basis dims: degree, modes, quadrature points per direction and
@@ -1034,9 +1104,9 @@ def fused_mood_candidate(u_pre, u_prev, deg, cells, dfw, dfe, dfs, dfn,
     # candidate)
     rc = _call(u_pre.device, entry, _DTYPE_CODE[u_pre.dtype], rops.p,
         rops.K, rops.nq, mops.P.shape[0], _ptr(u_pre), _ptr(deg),
-        _ptr(cells), _ptr(flags), _ptr(dfw), _ptr(dfe), _ptr(dfs), _ptr(dfn),
-        _ptr(dt), _ptr(rops.buf), _ptr(mops.P), mops.avg0, ny, nx,
-        _ptr(u_prev), _stream(u_pre.device))
+        _ptr(cells), _ptr(tiles), _ptr(count), _ptr(dfw), _ptr(dfe),
+        _ptr(dfs), _ptr(dfn), _ptr(dt), _ptr(rops.buf), _ptr(mops.P),
+        mops.avg0, ny, nx, *tile, _ptr(u_prev), _stream(u_pre.device))
     _check(rc, "fused_mood_candidate")
     fused_mood_candidate.launches += 1
     _count_form(f"fused_mood_candidate[{rops.flux}]")

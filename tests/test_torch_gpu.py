@@ -27,7 +27,11 @@ whole degree range (the general candidate at p 4-6 with every flux and on
 the over-integrated P2, the modal positivity in its four forms, the Pk
 post with and without diag and the check at p 4-6, all bitwise) and three
 f64 MOOD steps on P4 and on P1 through the kernels against the plain
-versions.
+versions; the tile kernels' edges (the residual and the candidate share one
+tile kernel, csrc/residual.cuh): grids cut against every tile and smaller
+than one, periodic wrap faces, solid cells on tile and domain edges, every
+source arm, the candidate on the four corners, an empty and a full set, and
+the candidate's tile-list kernel against its plain twin, all bitwise.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -58,7 +62,7 @@ from dflo_tpu_torch.stab.positivity import EPS
 
 pytestmark = pytest.mark.gpu
 
-NX, NY = 96, 20          # ragged against the 32 x 4 block on both axes
+NX, NY = 96, 20          # 20 rows: ragged against the 8-row tiles
 TOL = {torch.float64: 1e-11, torch.float32: 1e-5}
 POST_TOL = {torch.float64: 1e-11, torch.float32: 1e-4}
 BCS = dict(W=BoundarySide(euler.BC_INFLOW, dmr_inflow),
@@ -173,12 +177,13 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
 PK_NX, PK_NY = 96, 24
 
 
-def setup_pk(p, dtype, device, seed=0, ny=PK_NY, flux="hllc", nq=None):
+def setup_pk(p, dtype, device, seed=0, ny=PK_NY, flux="hllc", nq=None,
+             nx=PK_NX):
     """Operators and a positivity-limited, perturbed DMR state on P_p (on
     nq x nq quadrature points, p + 1 unless given), a mixed degree map and
     random cell/limiter planes (numpy seed)."""
     basis = make_basis("Pk", p, nq)
-    mesh = CartesianMesh(PK_NX, ny, 0.0, 4.0, 0.0, 1.0)
+    mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
     rng = np.random.default_rng(seed)
     u = ic.set_initial_condition(basis, mesh, dmr_ic, dtype=torch.float64,
                                  device="cpu")
@@ -189,13 +194,13 @@ def setup_pk(p, dtype, device, seed=0, ny=PK_NY, flux="hllc", nq=None):
     rhs = make_rhs(basis, mesh, BCS, flux=flux, dtype=dtype, device=device,
                    volume_kernel="fused")
     planes = dict(
-        deg=torch.from_numpy(rng.integers(1, p + 1, (ny, PK_NX),
+        deg=torch.from_numpy(rng.integers(1, p + 1, (ny, nx),
                                           dtype=np.int32)).to(device),
-        cells=torch.from_numpy(rng.uniform(size=(ny, PK_NX)) < 0.3
+        cells=torch.from_numpy(rng.uniform(size=(ny, nx)) < 0.3
                                ).to(device),
-        lim=torch.from_numpy(rng.uniform(size=(ny, PK_NX)) < 0.2
+        lim=torch.from_numpy(rng.uniform(size=(ny, nx)) < 0.2
                              ).to(device),
-        shock=torch.from_numpy(np.where(rng.uniform(size=(ny, PK_NX))
+        shock=torch.from_numpy(np.where(rng.uniform(size=(ny, nx))
                                         < 0.5, 2.0, 0.0)).to(dtype=dtype,
                                                              device=device))
     return basis, mesh, u, rhs, planes
@@ -301,7 +306,7 @@ def test_mood_check_is_bitwise_plain(cuda, p, dtype, per):
 # `limiter` indicator, the masked diag, and volume_residual
 # ---------------------------------------------------------------------------
 
-FS_NX, FS_NY = 90, 30      # the 3 x 1 box; ragged against the 32 x 4 block
+FS_NX, FS_NY = 90, 30      # the 3 x 1 box; ragged against every tile
 INFLOW = (4.2, 0.0, 1.4, 8.8)
 
 
@@ -589,7 +594,7 @@ def test_periodic_q1_post_matches_plain(cuda, dtype):
 # well-balancing
 # ---------------------------------------------------------------------------
 
-SRC_NX, SRC_NY = 40, 10          # ragged against the 32 x 4 block
+SRC_NX, SRC_NY = 40, 10          # ragged against the 16-wide tiles
 #: case -> (basis family, source arm, flux)
 SRC_CASES = {"qk-grav-hllc": ("Qk", "grav", "hllc"),
              "pk-grav-lxf": ("Pk", "grav", "lxf"),
@@ -1229,3 +1234,182 @@ def test_high_degree_modal_pos_and_pk_post_are_bitwise_plain(cuda, p,
     assert all(torch.equal(a, b) for a, b in zip(k, q))
     counts = kernels.launch_counts()
     assert counts["fused_modal_pos"] == 4 and counts["fused_pk_post"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the tile kernels' edges (csrc/residual.cuh, kernels.residual_tile): tiles
+# cut by the grid's edge, grids smaller than one tile, the wrap faces on
+# both sides, solid cells on tile and domain edges, every basis kind and
+# source arm, and the candidate over its tile list; each bitwise equal to
+# its plain version
+# ---------------------------------------------------------------------------
+
+#: (nx, ny): ragged against every tile (4, 8 and 16 wide), and smaller than
+#: one tile on either axis
+TILE_GRIDS = ((37, 11), (3, 2), (1, 5), (2, 1), (19, 3))
+#: (family, p, nq or None, flux): P1, P2, P4, P6, Q2, Q5, GLL3 and the
+#: over-integrated Q2 and P2 (4 x 4 points)
+TILE_BASES = (("Pk", 1, None, "hllc"), ("Pk", 2, None, "lxf"),
+              ("Pk", 4, None, "kep"), ("Pk", 6, None, "roe"),
+              ("Qk", 2, None, "hllc"), ("Qk", 5, None, "sw"),
+              ("Qk_gll", 3, None, "kfvs"), ("Qk", 2, 4, "lxf"),
+              ("Pk", 2, 4, "hllc"))
+PERIODIC = {side: BoundarySide(euler.BC_PERIODIC) for side in "WESN"}
+
+
+def same_bits(k, q) -> bool:
+    return (torch.equal(k.nan_to_num(), q.nan_to_num())
+            and torch.equal(k.isnan(), q.isnan()))
+
+
+def forms_bitwise(cuda, u, rhs, dt, t=0.25):
+    """R, u + dt*R and the SSP stage, each bitwise equal to the plain
+    version (an external force with its planes at t)."""
+    t = torch.full((), t, dtype=dt, device=cuda)
+    strips = rhs.strips(u, t)
+    force = rhs.force(t) if rhs.ops.source == "force" else None
+    h = torch.full((), 1e-3, dtype=dt, device=cuda)
+    sc = torch.tensor([0.75, 1e-3], dtype=dt, device=cuda)
+    u_old = u.flip(-1).contiguous()
+    for kw in ({}, {"dt": h}, {"u_old": u_old, "sc": sc}):
+        k = kernels.fused_residual(u, *strips, rhs.ops, force=force, **kw)
+        q = kernels.fused_residual_plain(u, *strips, rhs.ops, force=force,
+                                         **kw)
+        torch.cuda.synchronize()
+        assert same_bits(k, q), (kw.keys(), rel(k, q))
+
+
+def edge_mask(mesh):
+    """Solid cells on the domain's four edges and on the tiles' edges
+    (columns 7, 8, 15, 16 and rows 3, 4, 7, 8), fluid elsewhere."""
+    m = np.ones((mesh.ny, mesh.nx), bool)
+    m[::3, 0] = m[1::4, -1] = False
+    m[0, 1::5] = m[-1, ::4] = False
+    for x in (7, 8, 15, 16):
+        if x < mesh.nx:
+            m[1::2, x] = False
+    for y in (3, 4, 7, 8):
+        if y < mesh.ny:
+            m[y, 2::3] = False
+    return m
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("grid", TILE_GRIDS)
+@pytest.mark.parametrize("case", TILE_BASES)
+def test_tile_edges_residual_is_bitwise_plain(cuda, case, grid, dtype):
+    """The three forms on grids cut against the tile and smaller than one,
+    with the bump's farfield and slip strips on the wrap faces."""
+    family, p, nq, flux = case
+    dt = getattr(torch, dtype)
+    u, rhs = setup_bump(family, p, flux, dt, cuda, nx=grid[0], ny=grid[1],
+                        nq=nq)
+    forms_bitwise(cuda, u, rhs, dt)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("grid", ((37, 11), (2, 3)))
+@pytest.mark.parametrize("case", TILE_BASES)
+def test_tile_edges_periodic_residual_is_bitwise_plain(cuda, case, grid,
+                                                       dtype):
+    """Periodic on both axes: the wrap faces carry the flux between the
+    first and the last column (row) with no strip."""
+    family, p, nq, flux = case
+    dt = getattr(torch, dtype)
+    basis = make_basis(family, p, nq)
+    mesh = CartesianMesh(grid[0], grid[1], 0.0, 1.0, 0.0, 1.0)
+    u, _ = setup_bump(family, p, flux, dt, cuda, nx=grid[0], ny=grid[1],
+                      nq=nq)
+    rhs = make_rhs(basis, mesh, PERIODIC, flux=flux, dtype=dt, device=cuda,
+                   volume_kernel="fused")
+    forms_bitwise(cuda, u, rhs, dt)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("grid", ((37, 11), (17, 9), (3, 2)))
+@pytest.mark.parametrize("case", (("Qk", 1, None, "lxf"),
+                                  ("Pk", 2, None, "hllc"),
+                                  ("Pk", 4, None, "kep"),
+                                  ("Qk_gll", 2, None, "roe"),
+                                  ("Qk", 2, 4, "sw")))
+def test_tile_edges_masked_residual_is_bitwise_plain(cuda, case, grid,
+                                                     dtype):
+    """Solid cells on the domain's edges and on the tiles' edges: the
+    slip-wall mirror per face, the wrap faces included; a solid cell's R
+    exactly 0."""
+    family, p, nq, flux = case
+    dt = getattr(torch, dtype)
+    u, rhs = setup_bump(family, p, flux, dt, cuda, nx=grid[0], ny=grid[1],
+                        nq=nq, mask=edge_mask)
+    forms_bitwise(cuda, u, rhs, dt)
+    R = kernels.fused_residual(u, *rhs.strips(u, 0.0), rhs.ops)
+    torch.cuda.synchronize()
+    assert bool((R[..., ~rhs.ops.mask] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("grid", ((37, 11), (3, 2)))
+@pytest.mark.parametrize("p", (1, 2, 4))
+@pytest.mark.parametrize("case", sorted(SRC_CASES))
+def test_tile_edges_source_arm_is_bitwise_plain(cuda, case, p, grid, dtype):
+    """Every source arm (gravity, the force planes, isothermal
+    well-balancing) on tiles cut by the grid's edge."""
+    family, arm, flux = SRC_CASES[case]
+    dt = getattr(torch, dtype)
+    u, rhs = setup_src(family, arm, flux, p, dt, cuda, nx=grid[0],
+                       ny=grid[1])
+    forms_bitwise(cuda, u, rhs, dt, t=0.37)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("grid", ((37, 11), (3, 2), (96, 24)))
+@pytest.mark.parametrize("case", ((1, None, "hllc"), (2, None, "lxf"),
+                                  (4, None, "kep"), (6, None, "roe"),
+                                  (2, 4, "sw")))
+def test_tile_edges_candidate_is_bitwise_plain(cuda, case, grid, dtype):
+    """The candidate over its tile list: set cells at the four corners
+    (the wrap faces' tiles), an empty set (the output is u_prev: no tile
+    launches work) and a full set (the dense candidate u_t + dt*R(u_t))."""
+    p, nq, flux = case
+    dt = getattr(torch, dtype)
+    _, _, u, rhs, pl = setup_pk(p, dt, cuda, seed=60 + p, ny=grid[1],
+                                flux=flux, nq=nq, nx=grid[0])
+    mops, deg = rhs.modal_ops, pl["deg"]
+    h = torch.full((), 1e-4, dtype=dt, device=cuda)
+    strips = rhs.strips(u, 0.0, deg)
+    prev = u.flip(-1).contiguous()
+    corners = torch.zeros_like(pl["cells"])
+    corners[0, 0] = corners[0, -1] = corners[-1, 0] = corners[-1, -1] = True
+    for cells in (corners, torch.zeros_like(corners)):
+        k = kernels.fused_mood_candidate(u, prev.clone(), deg, cells,
+                                         *strips, rhs.ops, mops, h)
+        q = kernels.fused_mood_candidate_plain(u, prev.clone(), deg, cells,
+                                               *strips, rhs.ops, mops, h)
+        torch.cuda.synchronize()
+        assert same_bits(k, q)
+        assert torch.equal(k[..., ~cells], prev[..., ~cells])
+    full = torch.ones_like(corners)
+    k = kernels.fused_mood_candidate(u, prev.clone(), deg, full, *strips,
+                                     rhs.ops, mops, h)
+    dense = kernels.fused_residual_plain(kernels.modal_tp_plain(u, deg, mops),
+                                         *strips, rhs.ops, dt=h)
+    torch.cuda.synchronize()
+    assert same_bits(k, dense)
+
+
+@pytest.mark.parametrize("shape", ((288, 1152), (11, 37), (2, 3)))
+def test_tile_list_kernel_matches_plain(cuda, shape):
+    """The candidate's list kernel lists the same tiles as its plain twin
+    (in no fixed order) and counts them, on random, empty and full planes;
+    one launch each."""
+    g = torch.Generator(device="cuda").manual_seed(shape[1])
+    for density in (0.003, 0.3, 0.0, 1.0):
+        cells = torch.rand(shape, generator=g, device=cuda) < density
+        for tile in ((8, 16), (8, 8), (4, 8), (4, 4)):
+            before = kernels.tile_list.launches
+            lst, cnt = kernels.tile_list(cells, *tile)
+            ref, rcnt = kernels.tile_list_plain(cells, *tile)
+            torch.cuda.synchronize()
+            n = int(rcnt)
+            assert int(cnt) == n and kernels.tile_list.launches == before + 1
+            assert torch.equal(lst[:n].sort().values, ref[:n])

@@ -203,7 +203,7 @@ def test_mood_stage_options():
 def test_tile_flags():
     cells = torch.zeros((10, 70), dtype=torch.bool)
     cells[0, 0] = cells[9, 69] = cells[5, 33] = True
-    flags = kernels.tile_flags(cells)
+    flags = kernels.tile_flags(cells, 4, 32)
     assert flags.dtype == torch.uint8 and tuple(flags.shape) == (3, 3)
     assert flags.nonzero().tolist() == [[0, 0], [1, 1], [2, 2]]
 
