@@ -7,9 +7,13 @@ Phases (any failure raises, and the script then prints no result):
 
 1. card and build: the card's name and power limit; nvcc builds
    dflo_tpu_torch/csrc/*.cu (one process per source, timed); the tile
-   kernel of the residual and the candidate (csrc/residual.cuh): each
-   instantiation's registers, stack and spill from ptxas, and the tile and
-   dynamic shared memory per block of its main forms.
+   kernel of the residual and the candidate (csrc/residual.cuh), and the
+   tile kernels of the post and the modal positivity (csrc/fused_post.cu,
+   csrc/fused_modal_pos.cu): each instantiation's registers, stack and
+   spill from ptxas, and the tile and dynamic shared memory per block of
+   the main forms (the post's and the modal positivity's equal to
+   ops/kernels.post_smem at every degree, the per-cell kernels' thread
+   block equal to ops/kernels.BLOCK).
 2. RK/TVB kernels against their plain PyTorch versions on the card, on the
    1152 x 288 Q2 double-Mach-reflection (DMR) state after the initial
    post_stage and after 10 plain steps, in float32 and float64: both forms of
@@ -254,6 +258,18 @@ Phases (any failure raises, and the script then prints no result):
    examples/sod_mood.prm at degree 1 and 4 as shipped, 20 steps through
    cli.run (launches counted) and through `python -m dflo_tpu_torch` in a
    subprocess.
+29. the tile post (row 4), its block form (row 5) and the tile modal
+   positivity (row 8) against their plain versions, f32 and f64, bitwise,
+   with and without diag: the post at Q1-Q6 on grids cut against every
+   tile and smaller than one (1 x 1, 3 x 2, 2 x 37, 40 x 1, 37 x 11,
+   96 x 40, one cell past the degree's tile), periodic in x, y and both,
+   the density, energy and `limiter` indicators, char_lim on and off,
+   pos_lim off, masked with solid cells on tile and domain edges; a NaN
+   cell reaching lam_max and the fatal flag; the block form on a (2, 2)
+   virtual mesh of ragged blocks with each halo line present and absent,
+   against its plain block form and the sharded post against the
+   single-device post; the modal positivity at P1-P6 on the same grids
+   with and without a degree map holding every degree 0..p.
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -1792,7 +1808,7 @@ def phase_shard_kernels(entry, kernels, results, states):
         for r, fn, kname in (
                 (rb, lambda: kernels.fused_post_sharded(blocks, pops, dm,
                                                         True),
-                 "fused_post_kernel"),
+                 "post_kernel"),
                 (rd, lambda: kernels.fused_diag_sharded(blocks, dops, dm),
                  "fused_diag_kernel")):
             r[f"sharded_call_ms_{tag}"] = time_ms(fn)
@@ -2490,6 +2506,91 @@ def ptxas_tiles(log: str) -> list:
     return out
 
 
+def ptxas_post_tiles(log: str) -> list:
+    """[(kernel, dtype, dims, registers, stack bytes, spill bytes)] of every
+    instantiation of the post's and the modal positivity's tile kernels
+    (csrc/fused_post.cu tile_post_kernel, csrc/fused_modal_pos.cu
+    tile_modal_pos_kernel; in float64 their _wide entries) and of the
+    post's per-cell kernel (cell_post_kernel, "fused_post_cell"), from the
+    build's ptxas lines; dims "Q<p>" / "P<p>" for the fixed dims, "G" for
+    the general ones."""
+    import re
+    out, fn, stack, spill = [], "", 0, 0
+    pat = (r"(tile_post|tile_modal_pos|cell_post)_kernel(?:_wide)?I([fd])"
+           r"NS_5(?:BDimsILi(\d)ELb[01]|GDimsILb[01])E")
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        k = re.search(pat, fn)
+        if m and k:
+            kind = {"tile_post": "fused_post", "cell_post": "fused_post_cell",
+                    "tile_modal_pos": "fused_modal_pos"}[k.group(1)]
+            dims = ("G" if k.group(3) is None else
+                    f"{'P' if kind == 'fused_modal_pos' else 'Q'}{k.group(3)}")
+            out.append((kind, "f32" if k.group(2) == "f" else "f64", dims,
+                        int(m.group(1)), stack, spill))
+    return out
+
+
+def post_tile_report(kernels, log) -> dict:
+    """Phase 1, the post's and the modal positivity's tile kernels: each
+    instantiation's registers, stack and spill (ptxas), and each degree's
+    tile and dynamic shared memory per block (csrc dflo_post_smem,
+    dflo_modal_pos_smem), which must equal ops/kernels.post_smem; the
+    per-cell kernels' block (dflo_block_dims), which must equal
+    ops/kernels.BLOCK."""
+    from dflo_tpu_torch.stab.positivity import _pos_points
+    rows = ptxas_post_tiles(log)
+    assert rows, "no post tile kernel in the build's ptxas lines"
+    print("ptxas tile_post_kernel / cell_post_kernel / tile_modal_pos_kernel"
+          "(_wide): " + ", ".join(
+        f"{k[len('fused_'):]} {d} {dims} {r} regs {st} B stack {sp} B spill"
+        for k, d, dims, r, st, sp in rows))
+    lib = kernels._load()
+    # the per-cell kernels' thread block, whose diag partials Python sizes
+    block = (lib.dflo_block_dims(0), lib.dflo_block_dims(1))
+    assert block == kernels.BLOCK, (block, kernels.BLOCK)
+    smem = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        code = int(dtype == torch.float64)
+        for p in range(1, 7):
+            for modal in (False, True):
+                tile = kernels.post_tile(p, modal, dtype)
+                if modal:
+                    K = (p + 1) * (p + 2) // 2
+                    qp = len(_pos_points(p))
+                    forms = {"": lib.dflo_modal_pos_smem(code, K, qp, *tile)}
+                    want = {"": kernels.post_smem(p, True, dtype, tile)}
+                else:
+                    forms = {f"{'m' if m else ''}{'' if z else 'n'}":
+                             lib.dflo_post_smem(code, p, m, z, *tile)
+                             for m in (0, 1) for z in (0, 1)}
+                    want = {f"{'m' if m else ''}{'' if z else 'n'}":
+                            kernels.post_smem(p, False, dtype, tile, bool(m),
+                                              bool(z))
+                            for m in (0, 1) for z in (0, 1)}
+                assert forms == want, (tag, p, modal, forms, want)
+                smem[f"{'P' if modal else 'Q'}{p} {tag}"] = {
+                    "tile": list(tile), "smem_bytes": forms[""] if modal
+                    else forms["m"]}
+    print("post / modal positivity tile shared memory per block (masked "
+          "post): " + "; ".join(
+              f"{k} {v['tile'][0]}x{v['tile'][1]} {v['smem_bytes']} B"
+              for k, v in smem.items()))
+    big = [r for r in rows if r[4] > 16 or (r[1] == "f64" and r[4] > 0)]
+    print(f"post and modal positivity kernels: {len(rows)} instantiations, "
+          f"{min(r[3] for r in rows)}-{max(r[3] for r in rows)} registers, "
+          f"stack above 16 B (or any in f64): {big or 'none'}")
+    return {"instantiations": [list(r) for r in rows],
+            "smem_per_block": smem, "stack_over_bound": [list(r) for r in big]}
+
+
 #: the tile kernel's main forms whose shared memory per block phase 1
 #: prints: (label, family, p, nq, flux, source arm code, masked, candidate)
 TILE_FORMS = (("Q2 hllc stage (DMR)", "Qk", 2, None, "hllc", 0, 0, 0),
@@ -2544,7 +2645,8 @@ def phase_tile_report(kernels, log, results):
     results["tile_kernels"] = {
         "instantiations": len(rows), "registers": [min(regs), max(regs)],
         "with_stack_or_spill": [list(r) for r in local],
-        "smem_per_block": smem}
+        "smem_per_block": smem,
+        "post_and_modal_pos": post_tile_report(kernels, log)}
 
 
 def phase_flux_kernels(kernels, results, log):
@@ -3396,8 +3498,8 @@ def ptxas_general(log: str) -> dict:
         if m:
             stack, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
-        k = re.search(r"(fused_post|fused_modal_pos|fused_pk_post)_kernelI"
-                      r"([fd])NS_5GDimsILb([01])E", fn)
+        k = re.search(r"(tile_post|tile_modal_pos|fused_pk_post)_kernel"
+                      r"(?:_wide)?I([fd])NS_5GDimsILb([01])E", fn)
         # the tile kernel of the residual (TP false) and the candidate
         t = re.search(r"tile_residual_kernel(?:_wide)?I([fd])NS_5GDimsILb([01])EEE"
                       r"Li\d+ELin?\d+ELb([01])E", fn)
@@ -3405,7 +3507,7 @@ def ptxas_general(log: str) -> dict:
             k = ("fused_mood_candidate" if t.group(3) == "1"
                  else "fused_residual", t.group(1), t.group(2))
         elif m and k:
-            k = k.groups()
+            k = (k.group(1).replace("tile_", "fused_"), *k.groups()[1:])
         if m and k:
             out.setdefault(src, []).append(
                 (k[0], "f32" if k[1] == "f" else "f64",
@@ -4220,6 +4322,161 @@ def phase_mood_degree_paths(entry, kernels, plain_calls):
     return out, ms_p4, p4
 
 
+#: the tile post's and the modal positivity's coverage grids (phase 29):
+#: (nx, ny), cut against every tile and smaller than one; each degree also
+#: runs the grid one cell past its own tile on both axes
+TP_GRIDS = ((1, 1), (3, 2), (2, 37), (40, 1), (37, 11), (96, 40))
+#: the post's forms there: (per_x, per_y, indicator, char_lim, pos_lim,
+#: masked)
+TP_FORMS = ((False, False, "density", True, True, False),
+            (True, False, "energy", False, True, False),
+            (False, True, "limiter", True, True, False),
+            (True, True, "density", False, False, False),
+            (True, True, "limiter", True, True, False),
+            (False, False, "density", True, True, True),
+            (True, True, "energy", True, True, True))
+
+
+def tile_edge_mask(nx: int, ny: int):
+    """Fluid flags with solid cells on the domain's four edges and on the
+    tiles' edges (columns 7, 8, 15, 16 and rows 3, 4, 7, 8, 15, 16)."""
+    import numpy as np
+    m = np.ones((ny, nx), bool)
+    m[::3, 0] = m[1::4, -1] = False
+    m[0, 1::5] = m[-1, ::4] = False
+    for x in (7, 8, 15, 16):
+        if x < nx:
+            m[1::2, x] = False
+    for y in (3, 4, 7, 8, 15, 16):
+        if y < ny:
+            m[y, 2::3] = False
+    return m
+
+
+def tp_state(family: str, p: int, nx: int, ny: int, dtype, seed: int,
+             scale: float = 0.3):
+    """(mesh, state) of a phase-29 case: the DMR IC on the 4 x 1 box with
+    `scale` relative noise on every DoF (numpy seed), so the limiter marks
+    cells and positivity moves some."""
+    import numpy as np
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.entry import dmr_ic
+    from dflo_tpu_torch.mesh import CartesianMesh
+    from dflo_tpu_torch.ops.basis import make_basis
+    mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
+    u = ic.set_initial_condition(make_basis(family, p), mesh, dmr_ic,
+                                 dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(seed)
+    u = u * torch.from_numpy(1.0 + scale * rng.uniform(-1.0, 1.0, u.shape))
+    return mesh, u.to(dtype=dtype, device="cuda").contiguous()
+
+
+def phase_tile_post_kernels(kernels, results):
+    """Phase 29 for both dtypes: the tile post (row 4), its block form (row
+    5) and the tile modal positivity (row 8) against their plain versions,
+    bitwise (NaN where the plain version has NaN), with and without diag.
+    The post at Q1-Q6 on TP_GRIDS and the grid one cell past its tile, in
+    TP_FORMS (periodic x, y and both; the three indicators; char_lim on and
+    off; pos_lim off; masked with solid cells on tile and domain edges), a
+    NaN cell reaching lam_max and the fatal flag; the block form on a (2, 2)
+    virtual mesh of ragged blocks, periodic on neither, one and both axes
+    (each halo line present and absent), equal to its plain block form and
+    the sharded post equal to the single-device post; the modal positivity
+    at P1-P6 on the same grids with and without a degree map holding every
+    degree 0..p."""
+    import numpy as np
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.parallel import (exchange_halos, gather_state,
+                                         shard_state)
+    from dflo_tpu_torch.stab.positivity import EPS
+    dm = virtual_mesh()
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        n_cases = 0
+
+        def note(key, pairs):
+            nonlocal n_cases
+            torch.cuda.synchronize()
+            assert all(same(k, q) for k, q in pairs), \
+                f"{key} {tag} is not bitwise"
+            n_cases += 1
+
+        for p in range(1, 7):
+            basis = make_basis("Qk", p)
+            ty, tx = kernels.post_tile(p, False, dtype)
+            for gi, (nx, ny) in enumerate(TP_GRIDS + ((tx + 1, ty + 1),)):
+                mesh, u = tp_state("Qk", p, nx, ny, dtype, 10 * p + gi)
+                for per_x, per_y, ind, char, pos, masked in TP_FORMS:
+                    po = kernels.post_operators(
+                        basis, mesh, indicator=ind, beta=2.0, char_lim=char,
+                        pos_lim=pos, per_x=per_x, per_y=per_y,
+                        mask=tile_edge_mask(nx, ny) if masked else None,
+                        dtype=dtype, device="cuda")
+                    note(f"post Q{p} {nx}x{ny} {per_x}{per_y} {ind} {char} "
+                         f"{pos} {masked}",
+                         [(kernels.fused_post(u, po),
+                           kernels.fused_post_plain(u, po)),
+                          *zip(kernels.fused_post(u, po, with_diag=True),
+                               kernels.fused_post_plain(u, po,
+                                                        with_diag=True))])
+            # a NaN cell reaches lam_max and the fatal flag, alike
+            mesh, u = tp_state("Qk", p, 37, 11, dtype, 90 + p)
+            u[:, :, 5, 17] = float("nan")
+            po = kernels.post_operators(basis, mesh, indicator="density",
+                                        beta=2.0, char_lim=True, dtype=dtype,
+                                        device="cuda")
+            k = kernels.fused_post(u, po, with_diag=True)
+            note(f"post Q{p} NaN cell",
+                 zip(k, kernels.fused_post_plain(u, po, with_diag=True)))
+            assert bool(k[1].isnan()) and bool(~(k[2] >= EPS))
+            # the block form: four ragged blocks, periodic on neither, one
+            # and both axes (each halo line present and absent)
+            for nx, ny in ((34, 18), (6, 4), (2, 2)):
+                mesh, u = tp_state("Qk", p, nx, ny, dtype, 70 + p)
+                for per_x, per_y in ((False, False), (True, False),
+                                     (False, True), (True, True)):
+                    po = kernels.post_operators(
+                        basis, mesh, indicator="density", beta=2.0,
+                        char_lim=True, per_x=per_x, per_y=per_y, dtype=dtype,
+                        device="cuda")
+                    blocks = shard_state(u, dm)
+                    halos = exchange_halos(blocks, dm, per_x, per_y)
+                    note(f"block post Q{p} {nx}x{ny} {per_x}{per_y}", [
+                        pair for b, h in zip(blocks, halos)
+                        for pair in zip(
+                            kernels.fused_post(b, po, True, halos=h),
+                            kernels.fused_post_plain(b, po, True,
+                                                     halos=h))])
+                    ks, lam, mq = kernels.fused_post_sharded(
+                        blocks, [po] * 4, dm, True)
+                    note(f"sharded post Q{p} {nx}x{ny} {per_x}{per_y}",
+                         zip((gather_state(ks, dm), lam, mq),
+                             kernels.fused_post(u, po, with_diag=True)))
+        for p in range(1, 7):
+            basis = make_basis("Pk", p)
+            ty, tx = kernels.post_tile(p, True, dtype)
+            for gi, (nx, ny) in enumerate(TP_GRIDS + ((tx + 1, ty + 1),)):
+                mesh, u = tp_state("Pk", p, nx, ny, dtype, 100 + 10 * p + gi)
+                mops = kernels.modal_operators(basis, mesh, dtype=dtype,
+                                               device="cuda")
+                rng = np.random.default_rng(p + gi)
+                deg = rng.integers(0, p + 1, (ny, nx), dtype=np.int32)
+                deg.flat[:min(p + 1, deg.size)] = np.arange(p + 1)[:deg.size]
+                deg = torch.from_numpy(deg).to("cuda")
+                note(f"modal_pos P{p} {nx}x{ny}", [
+                    pair for d in (None, deg)
+                    for pair in [(kernels.fused_modal_pos(u, mops, d),
+                                  kernels.fused_modal_pos_plain(u, mops, d)),
+                                 *zip(kernels.fused_modal_pos(
+                                     u, mops, d, with_diag=True),
+                                     kernels.fused_modal_pos_plain(
+                                         u, mops, d, with_diag=True))]])
+        out[tag] = n_cases
+        print(f"[{tag}] tile post and modal positivity: {n_cases} cases "
+              f"bitwise (rows 4, 5 and 8; every form, Q1-Q6 / P1-P6)")
+    results["tile_post_cases"] = out
+
+
 def clock(t_start: float, what: str) -> None:
     """The script's elapsed time before the phases `what`."""
     print(f"chip_smoke: at {time.perf_counter() - t_start:.1f} s, next: "
@@ -4297,6 +4554,10 @@ def main() -> int:
     # ---- phase 27: the MOOD kernels over their degree range -----------------
     results["mood_degree_cases"] = {}
     phase_mood_degree_kernels(entry, kernels, results, log)
+
+    clock(t_start, "phase 29")
+    # ---- phase 29: the tile post and modal positivity over their forms --
+    phase_tile_post_kernels(kernels, results)
 
     clock(t_start, "phases 3 and 6")
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
@@ -4500,6 +4761,7 @@ def main() -> int:
                       "mood_degree_registers":
                           results["mood_degree_registers"],
                       "mood_degree_cases": results["mood_degree_cases"],
+                      "tile_post_cases": results["tile_post_cases"],
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
                                           "mood_host", "mood_p4",

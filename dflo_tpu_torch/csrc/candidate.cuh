@@ -18,7 +18,8 @@
 // ops/kernels.tile_list_plain).  Block b takes list entry b and exits past
 // the count, so the work scales with the flagged tiles and an empty set
 // does no tile work.  Each staged cell's chain runs once per tile (not once
-// per cell and neighbour), its positivity points on separate threads.
+// per cell and neighbour), its positivity points spread over the threads
+// (tile.cuh tile_thetas).
 // Unset cells keep u_prev: the kernel writes in place and reads only u_pre
 // (the analogue of the TPU's input_output_aliases, :1044).  Each flux's
 // source instantiates its fixed P1-P3 candidates and its one general

@@ -576,48 +576,53 @@ __device__ __forceinline__ T minmod(T a, T b, T c, T Mdx2) {
   return fabs(a) < Mdx2 ? a : (samesign ? m : T(0));
 }
 
-// TVB slope limiting of one cell (stab/limiter.make_tvb_limiter, shared by
-// fused_post.cu and fused_pk_post.cu): the slopes Dx, Dy and the backward /
-// forward mean differences, optionally in characteristic variables of the
-// cell mean ub, through minmod with beta and Mdx2; returns the change
-// measure mean|Dxn - Dx| + mean|Dyn - Dy| (in the limited variables) and
-// writes the limited slopes, back in conserved variables, to Dxn, Dyn.
+// TVB slope limiting of one direction of one cell (stab/limiter.
+// make_tvb_limiter): the slope D and the backward / forward mean
+// differences db, df along x (dir 0) or y (dir 1), optionally in
+// characteristic variables of the cell mean ub, through minmod with beta and
+// Mdx2; writes the limited slope, back in conserved variables, to Dn and
+// returns the direction's change measure mean|Dn - D| * 0.25 (in the
+// limited variables).
+template <typename T>
+__device__ __forceinline__ T tvb_dir(const T ub[4], int dir, T D[4], T db[4],
+                                     T df[4], bool char_lim, T beta, T Mdx2,
+                                     T Dn[4]) {
+  T Rm[4][4], Lm[4][4], cD[4], cdb[4], cdf[4], cDn[4];
+  if (char_lim) {
+    eigen(ub, dir, Rm, Lm);
+    to_char(Lm, D, cD);
+    to_char(Lm, db, cdb);
+    to_char(Lm, df, cdf);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) { cD[c] = D[c]; cdb[c] = db[c]; cdf[c] = df[c]; }
+  }
+  T s = T(0);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    cDn[c] = minmod(cD[c], beta * cdb[c], beta * cdf[c], Mdx2);
+    s = c == 0 ? fabs(cDn[c] - cD[c]) : s + fabs(cDn[c] - cD[c]);
+  }
+  if (char_lim) {
+    to_cons(Rm, cDn, Dn);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) Dn[c] = cDn[c];
+  }
+  return s * T(0.25);
+}
+
+// TVB slope limiting of one cell (shared by fused_post.cu and
+// fused_pk_post.cu): both directions, x then y; returns the change measure
+// mean|Dxn - Dx| + mean|Dyn - Dy| and writes the limited slopes to Dxn, Dyn.
 template <typename T>
 __device__ __forceinline__ T tvb_slopes(const T ub[4], T Dx[4], T Dy[4],
                                         T dbx[4], T dfx[4], T dby[4],
                                         T dfy[4], bool char_lim, T beta,
                                         T Mdx2, T Dxn[4], T Dyn[4]) {
   T change = T(0);
-#pragma unroll
-  for (int dir = 0; dir < 2; ++dir) {
-    T* D = dir == 0 ? Dx : Dy;
-    T* db = dir == 0 ? dbx : dby;
-    T* df = dir == 0 ? dfx : dfy;
-    T* Dn = dir == 0 ? Dxn : Dyn;
-    T Rm[4][4], Lm[4][4], cD[4], cdb[4], cdf[4], cDn[4];
-    if (char_lim) {
-      eigen(ub, dir, Rm, Lm);
-      to_char(Lm, D, cD);
-      to_char(Lm, db, cdb);
-      to_char(Lm, df, cdf);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) { cD[c] = D[c]; cdb[c] = db[c]; cdf[c] = df[c]; }
-    }
-    T s = T(0);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      cDn[c] = minmod(cD[c], beta * cdb[c], beta * cdf[c], Mdx2);
-      s = c == 0 ? fabs(cDn[c] - cD[c]) : s + fabs(cDn[c] - cD[c]);
-    }
-    change = change + s * T(0.25);
-    if (char_lim) {
-      to_cons(Rm, cDn, Dn);
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) Dn[c] = cDn[c];
-    }
-  }
+  change = change + tvb_dir(ub, 0, Dx, dbx, dfx, char_lim, beta, Mdx2, Dxn);
+  change = change + tvb_dir(ub, 1, Dy, dby, dfy, char_lim, beta, Mdx2, Dyn);
   return change;
 }
 
@@ -636,7 +641,8 @@ __device__ __forceinline__ T tvb_slopes(const T ub[4], T Dx[4], T Dy[4],
 //
 // The chain is split into its per-cell and per-point parts (zs_floors,
 // zs_theta1, zs_point_t) so that the MOOD candidate's tile kernel runs the
-// points of its staged cells on separate threads with the same operations.
+// points of its staged cells spread over the threads with the same
+// operations (tile.cuh tile_thetas).
 template <typename T>
 __device__ __forceinline__ void zs_floors(const T ub[4], T& eps_r, T& eps_p) {
   eps_r = T(EPS);
@@ -655,7 +661,9 @@ __device__ __forceinline__ T zs_theta1(T rho_avg, T eps_r, T rho_min) {
 }
 
 // the pressure factor t of one positivity point whose values are Wq (the
-// density squeezed by theta1 here), about the cell mean ub
+// density squeezed by theta1 here), about the cell mean ub; 1 where the
+// squeezed pressure is not below eps_p (NaN included), as the plain
+// version's select, whose other operand is then never computed
 template <typename T>
 __device__ __forceinline__ T zs_point_t(T Wq[4], const T ub[4], T theta1,
                                         T eps_p) {
@@ -664,6 +672,7 @@ __device__ __forceinline__ T zs_point_t(T Wq[4], const T ub[4], T theta1,
   const T mavg_x = ub[MX], mavg_y = ub[MY], ravg = ub[RHO], Eavg = ub[ENE];
   Wq[RHO] = Wq[RHO] * theta1 + rho_avg * (T(1) - theta1);
   const T pre = pressure(Wq);
+  if (!(pre < eps_p)) return T(1);
   const T drho = Wq[RHO] - ub[RHO], dE = Wq[ENE] - ub[ENE];
   const T dmx = Wq[MX] - ub[MX], dmy = Wq[MY] - ub[MY];
   const T a1 = T(2) * drho * dE - (dmx * dmx + dmy * dmy);
@@ -679,8 +688,7 @@ __device__ __forceinline__ T zs_point_t(T Wq[4], const T ub[4], T theta1,
   const bool t1_ok = (t1 > T(-1.0e-12)) && (t1 < T(1) + T(1.0e-12));
   T t = t1_ok ? t1 : t2;
   t = t < T(0) ? T(0) : (t > T(1) ? T(1) : t);   // clip, NaN kept
-  t = fabs(T(1) - t) < T(1.0e-14) ? T(0) : t;
-  return pre < eps_p ? t : T(1);
+  return fabs(T(1) - t) < T(1.0e-14) ? T(0) : t;
 }
 
 template <typename T, class D>

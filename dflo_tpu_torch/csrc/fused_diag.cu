@@ -64,7 +64,8 @@ static int launch(const void* u, const void* avg, const void* mask,
 // dtype: 0 = float32, 1 = float64; K in {3, 4, 6, 9, 10, 15, 16, 21, 25,
 // 28, 36, 49} (the DoFs per cell of Pk / Qk and GLL, p = 1..6, on any
 // quadrature); mask: uint8 [ny, nx] fluid flags, or NULL;
-// lam_part/minq_part hold dflo_num_blocks(ny, nx) entries.  Returns
+// lam_part/minq_part hold one entry per 4 x 32 block (BY x BX;
+// ops/kernels.tile_count of kernels.BLOCK).  Returns
 // cudaGetLastError() after the launch, -1 for an unsupported case.
 extern "C" int dflo_fused_diag(int dtype, int K, const void* u, const void* avg,
                                const void* mask, void* lam_part,
@@ -94,4 +95,12 @@ extern "C" int dflo_fused_diag(int dtype, int K, const void* u, const void* avg,
 #undef DFLO_SIZES
 #undef DFLO_CASE
   return -1;
+}
+
+// The thread block of the per-cell kernels (the diag, the Pk post, the
+// check and the per-cell post), axis 0 its rows (BY), 1 its columns (BX):
+// their diag partials number these blocks, which ops/kernels.BLOCK mirrors
+// (checked in chip_smoke.py phase 1).
+extern "C" int dflo_block_dims(int axis) {
+  return axis == 0 ? dflo::BY : dflo::BX;
 }

@@ -127,8 +127,8 @@ static int launch(const D& d, const void* u, const void* shock,
 // instantiations (BDims), p 4-6 the general modal dims (GDims, one
 // instantiation per dtype; modal.cuh modal_dims_case).  beta is the Pk
 // limiter's effective beta (half the configured one).  lam_part/minq_part
-// NULL for the form without diag, else dflo_num_blocks(ny, nx) entries
-// each.  Returns cudaGetLastError() after the launch, -1 for an
+// NULL for the form without diag, else one entry per 4 x 32 block (BY x BX;
+// ops/kernels.tile_count of kernels.BLOCK) each.  Returns cudaGetLastError() after the launch, -1 for an
 // unsupported case.
 extern "C" int dflo_fused_pk_post(int dtype, int p, int K, int qp,
                                   const void* u, const void* shock,

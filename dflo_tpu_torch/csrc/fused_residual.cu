@@ -85,9 +85,3 @@ extern "C" int dflo_tile_smem(int dtype, int modal, int K, int nq, int qp,
                                        masked, tp, body, wb, ty, tx, 1, 1));
   return g.bytes;
 }
-
-// number of thread blocks (= diagnostic partials) for an ny x nx grid
-extern "C" int dflo_num_blocks(int ny, int nx) {
-  const dim3 g = dflo::grid_for(ny, nx);
-  return (int)(g.x * g.y);
-}

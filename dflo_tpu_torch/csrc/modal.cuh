@@ -1,8 +1,10 @@
-// The {Pk degree truncation -> Zhang-Shu positivity} chain on one cell of
-// the modal Pk basis, shared by fused_modal_pos.cu and fused_pk_post.cu
-// (positivity only); the MOOD candidate's tile kernel (residual.cuh) runs
-// the same operations on its staged cells, a positivity point per thread
-// (euler.cuh zs_floors, zs_theta1, zs_point_t), so all three round alike.
+// Zhang-Shu positivity about the mode-0 mean on one cell of the modal Pk
+// basis, held by one thread (fused_pk_post.cu), and the run-time degree of
+// each mode that the tile kernels' truncation reads (tile.cuh); the tile
+// kernels (the MOOD candidate, residual.cuh, and the modal positivity,
+// fused_modal_pos.cu) run the same operations on their staged cells, a
+// positivity point per thread (euler.cuh zs_floors, zs_theta1, zs_point_t),
+// so all three round alike.
 //
 // The mirror of dflo_tpu/ops/pallas_kernels.py _modal_tp_slabs and
 // _modal_pos_slabs (:196-265): truncation zeroes every mode whose total
@@ -18,18 +20,8 @@
 namespace dflo {
 
 // total degree i + j of mode k in the reference ordering (j outer, i inner,
-// i + j <= P: ops/basis._pk_index); constant-folded in unrolled loops
-template <int P>
-__host__ __device__ constexpr int pk_mode_degree(int k) {
-  int n = 0;
-  for (int j = 0; j <= P; ++j)
-    for (int i = 0; i <= P - j; ++i, ++n)
-      if (n == k) return i + j;
-  return -1;
-}
-
-// the same at run time, for a degree P read at run time too (the
-// candidate's tile kernel)
+// i + j <= P: ops/basis._pk_index), for a degree P read at run time (the
+// tile kernels' truncation, tile.cuh)
 __device__ __forceinline__ int mode_degree(int P, int k) {
   for (int j = 0; j <= P; ++j) {
     const int row = P - j + 1;
@@ -38,12 +30,6 @@ __device__ __forceinline__ int mode_degree(int P, int k) {
   }
   return P + 1;
 }
-
-// whether the dims are the fixed BDims (sizes known at compile time)
-template <class D>
-struct fixed_dims { static constexpr bool value = false; };
-template <int P, bool MODAL>
-struct fixed_dims<BDims<P, MODAL>> { static constexpr bool value = true; };
 
 // one cell's DoFs [4][K] from the [4, K, ny, nx] state
 template <typename T, class D>
@@ -78,34 +64,6 @@ __device__ __forceinline__ void modal_pos(const D& d, T w[4][D::KMAX],
 #pragma unroll
     for (int k = 1; k < K; ++k) w[c][k] = w[c][k] * theta2;
   }
-}
-
-// truncation to degree deg, then positivity about the (truncation-
-// invariant) mode-0 mean avg0 * w[c][0].  The fixed dims fold each mode's
-// degree at compile time; the general dims walk the (i, j) ordering of
-// degree d.P at run time.  Both zero the same modes (exact assignments, so
-// their order does not matter).
-template <typename T, class D>
-__device__ __forceinline__ void modal_tp(const D& d, T w[4][D::KMAX], int deg,
-                                         const T* __restrict__ Pm, T avg0) {
-  if constexpr (fixed_dims<D>::value) {
-    constexpr int K = D::K;
-#pragma unroll
-    for (int k = 1; k < K; ++k)
-      if (deg < pk_mode_degree<D::P>(k))
-#pragma unroll
-        for (int c = 0; c < 4; ++c) w[c][k] = T(0);
-  } else {
-    int k = 0;
-    for (int j = 0; j <= d.P; ++j)
-      for (int i = 0; i <= d.P - j; ++i, ++k)
-        if (deg < i + j)
-          for (int c = 0; c < 4; ++c) w[c][k] = T(0);
-  }
-  T ub[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) ub[c] = avg0 * w[c][0];
-  modal_pos<T>(d, w, ub, Pm);
 }
 
 // The dims of a kernel on the modal Pk basis (the candidate, the modal

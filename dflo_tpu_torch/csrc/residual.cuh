@@ -24,7 +24,8 @@
 //     at the domain edge, by index) go from U[4, K, ny, nx] to shared memory
 //     with cp.async, with the mask bytes and, for the candidate, the degrees.
 //     The candidate applies the {truncation -> positivity} chain to every
-//     staged cell there once (its positivity points on separate threads).
+//     staged cell there once (its positivity points spread over the
+//     threads, tile.cuh).
 //  2. Traces and averages once: the W/E traces of the x faces' two sides
 //     and the S/N traces of the y faces', the ring cells only the one that
 //     faces the tile; each is the ordered sum over k of trace_mem.
@@ -74,7 +75,7 @@
 
 #include <stdint.h>
 
-#include "modal.cuh"
+#include "tile.cuh"
 
 namespace dflo {
 
@@ -92,14 +93,6 @@ __host__ __device__ constexpr bool reads_averages() {
 // general dims' kernels, whose arm is read at run time (SrcArgs::kind)
 enum { SRC_ANY = -1, SRC_NONE = 0, FORCE_CONST = 1, FORCE_PLANES = 2,
        WB_ISO = 3 };
-
-// threads per block of the tile kernels (ops/kernels.TILE_THREADS), and the
-// register tile of their products: RB rows (modes or points) by CB cells
-constexpr int TNT = 256;
-constexpr int RB = 4;
-constexpr int CB = 4;
-// the dynamic shared memory a block may take on the H100 (227 kB)
-constexpr int MAX_SMEM = 232448;
 
 // operator buffer layout (ops/kernels.residual_operators): faceV [4][NQ][K]
 // first, then the lift [K][NL], V [Q][K] (MODAL dims only) and the cell
@@ -150,11 +143,12 @@ struct TileArgs {
 // it shares with its east neighbour, its N rows that of the y face it
 // shares with its north neighbour), the scratch SCR (a chunk of NCH volume
 // points, the isothermal arm's E and its additions, the candidate's
-// positivity points) and the candidate's per-cell chain values TPS [7][SS];
-// byte offsets of the mask and degree planes after them.
+// positivity points) and the candidate's per-cell chain values TPS [7][SS],
+// after the candidate's transposed positivity points PMT [K][QPP] (tile.cuh
+// stage_points); byte offsets of the mask and degree planes after them.
 struct TileGeo {
   int TY, TX, NC, SX, SS, NCH, ntx, nty;
-  int oU, oAVG, oTR, oSCR, oTPS, bMSK, bDEG, bytes;
+  int oPMT, oU, oAVG, oTR, oSCR, oTPS, bMSK, bDEG, bytes;
 };
 
 template <typename T, class D>
@@ -170,8 +164,9 @@ TileGeo tile_geo(const D& d, bool avg, bool masked, bool tp, bool body,
   g.nty = (ny + ty - 1) / ty;
   const int K = d.K, NQ = d.NQ, NC = g.NC;
   // the regions but the scratch, in elements of T, and the bytes after them
-  const int fixed = 4 * K * g.SS + (avg ? 4 * g.SS : 0) + 16 * NQ * g.SS +
-                    (tp ? 7 * g.SS : 0);
+  const int pmt = tp ? K * pad_points(d.QP) : 0;
+  const int fixed = pmt + 4 * K * g.SS + (avg ? 4 * g.SS : 0) +
+                    16 * NQ * g.SS + (tp ? 7 * g.SS : 0);
   const int tail = (masked ? g.SS : 0) + 4 + (tp ? 4 * g.SS : 0) + 16;
   // volume points per chunk: a multiple of RB (the products' row tile); on
   // a modal basis 1024 point-cells (the W product then gives every thread a
@@ -192,8 +187,9 @@ TileGeo tile_geo(const D& d, bool avg, bool masked, bool tp, bool body,
   int scr = w + 8 * NCH * NC;                    // W and the volume fluxes
   if (body && w + 4 * NCH * NC > scr) scr = w + 4 * NCH * NC;
   if (wb && 5 * K * NC > scr) scr = 5 * K * NC;  // E and the additions
-  if (tp && d.QP * g.SS > scr) scr = d.QP * g.SS;
+  if (tp && pad_points(d.QP) * g.SS > scr) scr = pad_points(d.QP) * g.SS;
   int off = 0;
+  g.oPMT = off; off += pmt;
   g.oU = off;   off += 4 * K * g.SS;
   g.oAVG = off; off += avg ? 4 * g.SS : 0;
   g.oTR = off;  off += 16 * NQ * g.SS;
@@ -205,127 +201,6 @@ TileGeo tile_geo(const D& d, bool avg, bool masked, bool tp, bool body,
   g.bDEG = b;   b += tp ? 4 * g.SS : 0;
   g.bytes = (b + 15) & ~15;
   return g;
-}
-
-// i / d for 0 <= i < 2^22 through a float reciprocal: (i + 1/2) r is within
-// a relative 2^-23 of (i + 1/2) / d, which lies at least 1/(2d) from an
-// integer, so the truncation is exact (cheaper than an integer division by
-// a divisor known only at run time)
-struct FDiv {
-  int d;
-  float r;
-  __device__ __forceinline__ explicit FDiv(int d_)
-      : d(d_), r(1.0f / (float)d_) {}
-  __device__ __forceinline__ int q(int i) const {
-    return (int)(((float)i + 0.5f) * r);
-  }
-};
-
-// v in [-1, n + tile) wrapped periodically into [0, n)
-__device__ __forceinline__ int wrap_index(int v, int n) {
-  v = v < 0 ? v + n : v;
-  return v < n ? v : v % n;
-}
-
-// one element from global to shared memory without a register round trip
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-#if defined(__CUDA_ARCH__)
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
-               :: "r"(d), "l"(src), "n"(sizeof(T)));
-#else
-  *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void copy_async_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-#endif
-}
-
-// One register tile of a product with the staged DoFs: acc[i][j] = sum_k
-// M[r_i][k] Uc[k][s_j], rows r_i = min(r0 + i, NR - 1), Uc = one
-// component's staged planes; one multiply and one add per term in k order,
-// the first term a product (trace_mem, point_state, contract._ordered_sum)
-template <int RT, int CT, typename T, class D>
-__device__ __forceinline__ void row_tile(const D& d, const T* __restrict__ M,
-                                         int r0, int NR, const T* Uc, int SS,
-                                         const int s[CT], T acc[RT][CT]) {
-  const int K = d.K;
-  const T* m[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) m[i] = M + (r0 + i < NR ? r0 + i : NR - 1) * K;
-  T a[RT], b[CT];
-#pragma unroll
-  for (int j = 0; j < CT; ++j) b[j] = Uc[s[j]];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) a[i] = __ldg(m[i]);
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j) acc[i][j] = a[i] * b[j];
-  // unrolled by 4: the next terms' loads issue before this term's
-  // products
-#pragma unroll 4
-  for (int k = 1; k < K; ++k) {
-#pragma unroll
-    for (int j = 0; j < CT; ++j) b[j] = Uc[k * SS + s[j]];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) a[i] = __ldg(m[i] + k);
-#pragma unroll
-    for (int i = 0; i < RT; ++i)
-#pragma unroll
-      for (int j = 0; j < CT; ++j) acc[i][j] = acc[i][j] + a[i] * b[j];
-  }
-}
-
-// Group g of the product sum_k M[r][k] U[c][k][sidx(i)] over the NR rows
-// of M, the four components and NCELL cells, stored at out[oidx(c, r, i,
-// s)] (s = sidx(i)): the register tile of component c, rows rb*RT.. and
-// cells cb + j*ncb (strided, so that neighbouring threads take
-// neighbouring cells)
-template <int RT, int CT, typename T, class D, class SIdx, class OIdx>
-__device__ __forceinline__ void row_group(const D& d, const T* __restrict__ M,
-                                          int NR, const T* Us, int SS,
-                                          int NCELL, SIdx sidx, OIdx oidx,
-                                          T* out, int g) {
-  const int nrb = (NR + RT - 1) / RT, ncb = (NCELL + CT - 1) / CT;
-  const int cb = g % ncb, rb = (g / ncb) % nrb, c = g / (ncb * nrb);
-  int s[CT], cell[CT];
-#pragma unroll
-  for (int j = 0; j < CT; ++j) {
-    cell[j] = cb + j * ncb;
-    s[j] = sidx(cell[j] < NCELL ? cell[j] : NCELL - 1);
-  }
-  T acc[RT][CT];
-  row_tile<RT, CT, T>(d, M, rb * RT, NR, Us + c * d.K * SS, SS, s, acc);
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < CT; ++j)
-      if (rb * RT + i < NR && cell[j] < NCELL)
-        out[oidx(c, rb * RT + i, cell[j], s[j])] = acc[i][j];
-}
-
-// the register tiles of that product
-template <int RT, int CT>
-__device__ __forceinline__ int row_groups(int NR, int NCELL) {
-  return 4 * ((NR + RT - 1) / RT) * ((NCELL + CT - 1) / CT);
-}
-
-// The product out[(c NR + r) NCELL + i] over all its groups, the block's
-// threads in turn; the caller synchronises
-template <int RT, int CT, typename T, class D, class SIdx>
-__device__ __forceinline__ void apply_rows(const D& d, const T* __restrict__ M,
-                                           int NR, const T* Us, int SS,
-                                           int NCELL, SIdx sidx, T* out) {
-  for (int g = threadIdx.x; g < row_groups<RT, CT>(NR, NCELL); g += TNT)
-    row_group<RT, CT, T>(
-        d, M, NR, Us, SS, NCELL, sidx,
-        [=](int c, int r, int i, int) { return (c * NR + r) * NCELL + i; },
-        out, g);
 }
 
 // the numerical flux at one face point, l/r the left/right states along the
@@ -398,7 +273,7 @@ __device__ __forceinline__ void tile_residual(const TileArgs<T>& a,
   const bool body = kind == FORCE_CONST || kind == FORCE_PLANES;
   const bool wb = !D::MODAL && kind == WB_ISO;
   const bool need_avg = reads_averages<FLUX>() || wb;
-  const FDiv dSS(SS), dSX(SX), dNC(NC), dTX(TX);
+  const FDiv dSX(SX), dNC(NC), dTX(TX);
   T* Us = sm + g.oU;
   T* Av = sm + g.oAVG;
   T* TR = sm + g.oTR;
@@ -415,110 +290,46 @@ __device__ __forceinline__ void tile_residual(const TileArgs<T>& a,
     return (long)wrap_index(y0 + ly, ny) * nx + wrap_index(x0 + i - ly * TX, nx);
   };
 
-  // ---- 1. stage the tile and its ring: np threads per staged cell, each
-  // taking every np-th of its 4K planes
-  {
-    const int np = TNT >= SS ? TNT / SS : 1;
-    for (int t = tid; t < np * SS; t += TNT) {
-      const int p = dSS.q(t), s = t - p * SS, sy = dSX.q(s);
-      const long gc = (long)wrap_index(y0 + sy - 1, ny) * nx +
-                      wrap_index(x0 + s - sy * SX - 1, nx);
-      for (int ck = p; ck < 4 * K; ck += np)
-        copy_async(Us + ck * SS + s, a.u + ck * plane + gc);
-      if (p == 0) {
-        if (masked) Ms[s] = __ldg(a.mask + gc);
-        if constexpr (TP) Ds[s] = __ldg(a.deg + gc);
-      }
-    }
-  }
-  copy_async_wait();
-  __syncthreads();
+  // ---- 1. stage the tile and its ring (wrapped by index), with the mask
+  // bytes and the candidate's degrees
+  auto staged_gc = [=](int s) {
+    const int sy = dSX.q(s);
+    return (long)wrap_index(y0 + sy - 1, ny) * nx +
+           wrap_index(x0 + s - sy * SX - 1, nx);
+  };
+  if constexpr (TP) stage_points(a.Pm, K, d.QP, sm + g.oPMT);
+  stage_tile<T>(
+      Us, SS, 4 * K,
+      [&](int s, const T*& src, long& stride) {
+        src = a.u + staged_gc(s);
+        stride = plane;
+        return true;
+      },
+      [&](int s) {
+        if (masked) Ms[s] = __ldg(a.mask + staged_gc(s));
+        if constexpr (TP) Ds[s] = __ldg(a.deg + staged_gc(s));
+      });
 
-  // ---- 1b. the candidate: {truncation -> positivity} of every staged cell
+  // ---- 1b. the candidate: {truncation -> positivity} of every staged cell,
+  // the positivity points spread over the threads (tile.cuh)
   if constexpr (TP) {
-    const int QP = d.QP;
-    T* tps = sm + g.oTPS;   // ub[4], eps_p, theta1, theta2 per staged cell
-    for (int i = tid; i < K * SS; i += TNT) {
-      const int k = dSS.q(i), s = i - k * SS;
-      if (Ds[s] < mode_degree(d.P, k))
+    auto ident = [](int s) { return s; };
+    tile_truncate<T>(d, Us, SS, SS, ident, Ds);
+    tile_thetas<T>(
+        d, Us, SS, SS, ident,
+        [&](int s, T ub[4]) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) Us[(c * K + k) * SS + s] = T(0);
-    }
-    __syncthreads();
-    // the density at each positivity point (zs_thetas' first loop)
-    for (int i = tid; i < QP * SS; i += TNT) {
-      const int q = dSS.q(i), s = i - q * SS;
-      const T* P = a.Pm + q * K;
-      const T* w = Us + RHO * K * SS + s;
-      T r = __ldg(P) * w[0];
-      for (int k = 1; k < K; ++k) r = r + __ldg(P + k) * w[k * SS];
-      scr[i] = r;
-    }
-    __syncthreads();
-    for (int s = tid; s < SS; s += TNT) {
-      T ub[4], eps_r, eps_p;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) ub[c] = a.avg0 * Us[c * K * SS + s];
-      zs_floors(ub, eps_r, eps_p);
-      T rho_min = T(INFINITY);
-      for (int q = 0; q < QP; ++q) rho_min = nmin(rho_min, scr[q * SS + s]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) tps[c * SS + s] = ub[c];
-      tps[4 * SS + s] = eps_p;
-      tps[5 * SS + s] = zs_theta1(ub[RHO], eps_r, rho_min);
-    }
-    __syncthreads();
-    // the pressure factor at each positivity point (its second loop)
-    for (int i = tid; i < QP * SS; i += TNT) {
-      const int q = dSS.q(i), s = i - q * SS;
-      const T* P = a.Pm + q * K;
-      T ub[4], Wq[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        ub[c] = tps[c * SS + s];
-        const T* w = Us + c * K * SS + s;
-        T v = __ldg(P) * w[0];
-        for (int k = 1; k < K; ++k) v = v + __ldg(P + k) * w[k * SS];
-        Wq[c] = v;
-      }
-      scr[i] = zs_point_t(Wq, ub, tps[5 * SS + s], tps[4 * SS + s]);
-    }
-    __syncthreads();
-    for (int s = tid; s < SS; s += TNT) {
-      T theta2 = T(INFINITY);
-      for (int q = 0; q < QP; ++q) theta2 = nmin(theta2, scr[q * SS + s]);
-      tps[6 * SS + s] = theta2;
-    }
-    __syncthreads();
-    // the scaling of modal_pos: mode 0 about the mean, the others toward 0
-    const FDiv dK(K);
-    for (int i = tid; i < 4 * K * SS; i += TNT) {
-      const int ck = dSS.q(i), s = i - ck * SS, c = dK.q(ck), k = ck - c * K;
-      const T ubc = tps[c * SS + s];
-      const T theta1 = tps[5 * SS + s], theta2 = tps[6 * SS + s];
-      T v = Us[i];
-      if (c == RHO)
-        v = k == 0 ? v * theta1 + ubc * (T(1) - theta1) : v * theta1;
-      v = k == 0 ? v * theta2 + ubc * (T(1) - theta2) : v * theta2;
-      Us[i] = v;
-    }
-    __syncthreads();
+          for (int c = 0; c < 4; ++c) ub[c] = a.avg0 * Us[c * K * SS + s];
+        },
+        sm + g.oPMT, scr, sm + g.oTPS);
+    tile_scale<true, T>(Us, K, SS, SS, ident, sm + g.oTPS);
   }
 
   // ---- 2. averages (LxF, KEP; the isothermal source's RT) and the traces:
   // each tile cell on its four faces (faceV as one [4 NQ][K] matrix), each
   // ring cell on the face it shares with the tile (the W ring's E trace,
   // the E ring's W, the S ring's N, the N ring's S), into TR[c][f NQ + q][s]
-  if (need_avg) {
-    const T* avg = ops + O.AVG;
-    for (int i = tid; i < 4 * SS; i += TNT) {
-      const int c = dSS.q(i);
-      const T* w = Us + c * K * SS + i - c * SS;
-      T v = __ldg(avg) * w[0];
-      for (int k = 1; k < K; ++k) v = v + __ldg(avg + k) * w[k * SS];
-      Av[i] = v;
-    }
-  }
+  if (need_avg) tile_averages<T>(d, ops + O.AVG, Us, SS, Av);
   {
     const int gt = row_groups<RB, CB>(4 * NQ, NC);
     const int gx = row_groups<RB, CB>(NQ, TY), gy = row_groups<RB, CB>(NQ, TX);
@@ -919,13 +730,7 @@ int launch_tiles(const D& d, const TileArgs<T>& a, int kind, int ty, int tx,
     kern = tile_residual_kernel_wide<T, D, FLUX, SRC, TP>;
   else
     kern = tile_residual_kernel<T, D, FLUX, SRC, TP>;
-  if (g.bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<g.ntx * g.nty, TNT, g.bytes, stream>>>(a, d, g);
-  return (int)cudaGetLastError();
+  return launch_tile_kernel(kern, g.ntx * g.nty, g.bytes, stream, a, d, g);
 }
 
 template <typename T, int FLUX, int SRC, class D>

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -97,10 +98,37 @@ DEGREES = (1, 2, 3, 4, 5, 6)
 #: the quadrature bound of the general dims (csrc/euler.cuh NQ_MAX, beside
 #: K_MAX = 49, Q6's DoFs): nq = p + 2 at p = 6
 NQ_MAX = 8
-#: threads per block of the residual's and the candidate's tile kernels
-#: (csrc/residual.cuh TNT); each thread of the lift owns 4 modes x 4 cells
-#: of one component (RB x CB)
+#: threads per block of the tile kernels (csrc/tile.cuh TNT: the residual
+#: and the candidate, the post and the modal positivity); each thread of the
+#: residual's lift owns 4 modes x 4 cells of one component (RB x CB)
 TILE_THREADS = 256
+#: (rows, columns) of cells per block of the thread-per-cell kernels (the
+#: diag, the Pk post, the check, the per-cell post: csrc/euler.cuh BY x BX,
+#: which csrc/fused_diag.cu dflo_block_dims reports), whose diag partials
+#: number these blocks
+BLOCK = (4, 32)
+#: the tiles of the post's and the modal positivity's kernels, largest first
+#: (post_tile)
+POST_TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
+#: the positivity points one thread of those kernels' point products takes
+#: (csrc/tile.cuh PR; the points are padded to a multiple of it)
+POINT_ROWS = 4
+#: the dynamic shared memory one block may take on the H100 (csrc/tile.cuh
+#: MAX_SMEM)
+MAX_SMEM = 232448
+#: the dynamic shared memory a block of those kernels may take: two blocks
+#: per SM of the H100's 228 kB; the float64 post's kernel (255 registers a
+#: thread, one block per SM) may take all of MAX_SMEM
+POST_SMEM = 112 * 1024
+#: the most cells x K (one component's staged modes) a float32 tile of the
+#: modal positivity takes: beyond it the next smaller tile ran faster on
+#: the H100 at P3, P4 and P6 (kernel_ab.py, PERF.md), while the post's
+#: larger tiles ran faster at Q3 and Q5; float64 is bounded by POST_SMEM
+MODAL_TILE_DOFS = {torch.float32: 2000, torch.float64: None}
+#: the degrees whose post runs the per-cell kernel, a thread per cell on a
+#: BLOCK of cells, by dtype (csrc/fused_post.cu CELL_MAX_P, a choice made
+#: at build time: DFLO_POST_CELL_MAX_P_F32 and _F64)
+POST_CELL_MAX_P = {torch.float32: 2, torch.float64: 1}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _lib = None
@@ -206,7 +234,9 @@ def _load():
     lib = ctypes.CDLL(str(so))
     vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     sig = {
-        "dflo_num_blocks": [ci, ci],
+        "dflo_block_dims": [ci],
+        "dflo_post_smem": [ci] * 6,
+        "dflo_modal_pos_smem": [ci] * 5,
         **{_RESIDUAL_ENTRY[f]: [ci] * 5 + [vp] * 10 + [ci] * 4 + [vp]
            for f in FLUXES},
         "dflo_fused_residual_src": [ci] * 7 + [vp] * 12 + [cd, cd, vp]
@@ -217,9 +247,10 @@ def _load():
         **{e: [ci] * 5 + [vp] * 12 + [cd] + [ci] * 4 + [vp, vp]
            for e in _CANDIDATE_ENTRY.values()},
         "dflo_fused_post": [ci, ci] + [vp] * 10 + [ci] * 10 + [cd] * 9
-                           + [vp],
+                           + [ci, ci, vp],
         "dflo_fused_diag": [ci, ci] + [vp] * 5 + [ci, ci, cd, vp],
-        "dflo_fused_modal_pos": [ci] * 4 + [vp] * 6 + [ci, ci, cd, cd, vp],
+        "dflo_fused_modal_pos": [ci] * 4 + [vp] * 6
+                                + [ci, ci, cd, cd, ci, ci, vp],
         "dflo_fused_pk_post": [ci] * 4 + [vp] * 6 + [ci] * 5 + [cd] * 4
                               + [vp],
         "dflo_fused_mood_check": [ci, ci] + [vp] * 8 + [ci] * 4 + [cd, vp],
@@ -287,10 +318,17 @@ def _check_plane(t: torch.Tensor, like: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _partials(lib, u: torch.Tensor, ny: int, nx: int):
-    nb = lib.dflo_num_blocks(ny, nx)
-    return (torch.empty(nb, dtype=u.dtype, device=u.device),
-            torch.empty(nb, dtype=u.dtype, device=u.device))
+def tile_count(ny: int, nx: int, tile: tuple[int, int]) -> int:
+    """The ty x tx tiles (or thread blocks) over an ny x nx grid: the number
+    of diag partials a kernel writes, one per tile."""
+    return -(-ny // tile[0]) * -(-nx // tile[1])
+
+
+def _partials(u: torch.Tensor, tile: tuple[int, int]):
+    """The diag partials (lam, minq) of a launch over u's grid in tiles."""
+    n = tile_count(u.shape[-2], u.shape[-1], tile)
+    return (torch.empty(n, dtype=u.dtype, device=u.device),
+            torch.empty(n, dtype=u.dtype, device=u.device))
 
 
 def _wrappers():
@@ -360,6 +398,65 @@ def residual_tile(K: int, dtype: torch.dtype) -> tuple[int, int]:
         if ty * tx <= cap and mode_blocks * ty * tx <= TILE_THREADS:
             return ty, tx
     raise NotImplementedError(f"no tile takes K = {K} DoFs per cell")
+
+
+def post_smem(p: int, modal: bool, dtype: torch.dtype,
+              tile: tuple[int, int], masked: bool = True,
+              pos: bool = True) -> int:
+    """Bytes of dynamic shared memory per block of the post (modal False,
+    degree p, a masked domain and positivity by the flags) or the modal
+    positivity (modal True) on a ty x tx tile: the layouts of csrc/
+    fused_post.cu post_geo (the tile and its ring: DoFs, averages, the
+    indicator traces; the tile's mean derivatives; with positivity the
+    transposed points, the points' values and the per-cell values; the
+    flag bytes; 0 for the per-cell kernel) and fused_modal_pos.cu
+    modal_pos_geo (the transposed points; the tile's modes, points' values
+    and per-cell values)."""
+    ty, tx = tile
+    size = torch.finfo(dtype).bits // 8
+    qpp = -(-len(_pos_points(p)) // POINT_ROWS) * POINT_ROWS
+    nc = ty * tx
+    if modal:
+        K = (p + 1) * (p + 2) // 2
+        b = ((K + nc) * qpp + 4 * K * nc + 7 * nc) * size
+    elif _post_per_cell(p, dtype):
+        return 0
+    else:
+        K, nq, ss = (p + 1) ** 2, p + 1, (ty + 2) * (tx + 2)
+        b = (4 * K * ss + 4 * ss + 4 * nq * ss + 8 * nc
+             + ((K + nc) * qpp + 7 * nc if pos else 0)) * size
+        b += 5 * ss if masked else 0
+    return (b + 15) // 16 * 16
+
+
+def _post_per_cell(p: int, dtype: torch.dtype) -> bool:
+    """Whether the post runs its per-cell kernel at degree p."""
+    return p <= POST_CELL_MAX_P[dtype]
+
+
+@functools.lru_cache(maxsize=None)
+def post_tile(p: int, modal: bool, dtype: torch.dtype) -> tuple[int, int]:
+    """(TY, TX), the tile of cells one block of the post (modal False) or
+    the modal positivity (modal True) takes at degree p: the largest of
+    POST_TILES whose shared memory (post_smem, masked and with positivity)
+    fits POST_SMEM (the float64 post MAX_SMEM), whose cells get a thread
+    each (the post's chain two)
+    and, for the modal positivity, whose cells x K stay within
+    MODAL_TILE_DOFS; for the post's per-cell forms (POST_CELL_MAX_P:
+    float32 Q1-Q2, float64 Q1) its thread block, BLOCK."""
+    if not modal and _post_per_cell(p, dtype):
+        return BLOCK
+    K = (p + 1) * (p + 2) // 2 if modal else (p + 1) ** 2
+    dofs = MODAL_TILE_DOFS[dtype] if modal else None
+    smem = MAX_SMEM if not modal and dtype == torch.float64 else POST_SMEM
+    for tile in POST_TILES:
+        cells = tile[0] * tile[1]
+        # the post's chain takes two threads a cell
+        if (cells * (1 if modal else 2) <= TILE_THREADS
+                and (dofs is None or cells * K <= dofs)
+                and post_smem(p, modal, dtype, tile) <= smem):
+            return tile
+    raise NotImplementedError(f"no tile takes degree {p}")
 
 
 # ---------------------------------------------------------------------------
@@ -980,7 +1077,9 @@ fused_residual.launches = 0
 def modal_tp_plain(u, deg, ops: ModalOps):
     """{Pk truncation to deg -> Zhang-Shu positivity about mode 0} on
     u[4, K, *cells] with deg[*cells] (None: positivity only); the plain
-    twin of csrc/modal.cuh modal_tp (pallas_kernels._modal_tp_slabs)."""
+    twin of the tile kernels' truncation and positivity phases (csrc/
+    tile.cuh tile_truncate, tile_thetas, zs_scale; pallas_kernels.
+    _modal_tp_slabs)."""
     if deg is not None:
         md = ops.mode_degree.view((1, ops.K) + (1,) * (u.dim() - 2))
         u = torch.where(md <= deg[None, None], u,
@@ -1130,7 +1229,7 @@ def fused_modal_pos(u, ops: ModalOps, deg=None, with_diag: bool = False):
     """{truncation to deg ->} Zhang-Shu positivity about mode 0 on a Pk
     state (deg None: no truncation); with_diag also returns the 0-dim
     (lam_max, minq).  CPU tensors: the plain version; CUDA tensors: the
-    kernel."""
+    tile kernel (post_tile; its per-tile diag partials reduced here)."""
     ny, nx = _check_state(u, ops.K)
     if not _cuda_or_cpu(u, ops.P):
         return fused_modal_pos_plain(u, ops, deg, with_diag)
@@ -1138,13 +1237,14 @@ def fused_modal_pos(u, ops: ModalOps, deg=None, with_diag: bool = False):
         _check_plane(deg, u, torch.int32, (ny, nx), "deg")
     lib = _load()
     out = torch.empty_like(u)
+    tile = post_tile(ops.p, True, u.dtype)
     lam_p = minq_p = None
     if with_diag:
-        lam_p, minq_p = _partials(lib, u, ny, nx)
+        lam_p, minq_p = _partials(u, tile)
     rc = _call(u.device, lib.dflo_fused_modal_pos,
         _DTYPE_CODE[u.dtype], ops.p, ops.K, ops.P.shape[0], _ptr(u),
         _ptr(deg), _ptr(ops.P), _ptr(out), _ptr(lam_p), _ptr(minq_p), ny, nx,
-        ops.avg0, ops.h, _stream(u.device))
+        ops.avg0, ops.h, *tile, _stream(u.device))
     _check(rc, "fused_modal_pos")
     fused_modal_pos.launches += 1
     if not with_diag:
@@ -1226,8 +1326,9 @@ def fused_post(u, ops: PostOps, with_diag: bool = False, halos=None):
     the block form, on one block of a domain split over a device mesh (its
     neighbors' edge DoF lines; None on a true, non-periodic domain edge,
     whose border cells then have no neighbor across it).  CPU tensors: the
-    plain version; CUDA tensors: the kernel (per-block diag partials
-    reduced here with amax/amin)."""
+    plain version; CUDA tensors: the kernel on the tile of post_tile (the
+    tile kernel, or the per-cell kernel on its BLOCK; the diag partials,
+    one per tile, reduced here with amax/amin)."""
     ny, nx = _check_state(u, ops.K)
     hs = (None,) * 4 if halos is None else tuple(halos)
     if not _cuda_or_cpu(u, ops.buf, *hs):
@@ -1248,16 +1349,17 @@ def fused_post(u, ops: PostOps, with_diag: bool = False, halos=None):
         nb = tuple(h is not None for h in hs)
     lib = _load()
     out = torch.empty_like(u)
+    tile = post_tile(ops.p, False, u.dtype)
     lam_p = minq_p = None
     if with_diag:
-        lam_p, minq_p = _partials(lib, u, ny, nx)
+        lam_p, minq_p = _partials(u, tile)
     rc = _call(u.device, lib.dflo_fused_post,
         _DTYPE_CODE[u.dtype], ops.p, _ptr(u), _ptr(ops.buf),
         _ptr(ops.vflags), *map(_ptr, hs), _ptr(out), _ptr(lam_p),
         _ptr(minq_p), ny, nx, *map(int, nb), ops.comp, int(ops.mark_all),
         int(ops.char_lim), int(ops.pos_lim), ops.dx, ops.dy, ops.h,
         ops.h / ops.dx, ops.h / ops.dy, 1.0 / ops.h, ops.diam_pow, ops.Mdx2,
-        ops.beta, _stream(u.device))
+        ops.beta, *tile, _stream(u.device))
     _check(rc, "fused_post")
     fused_post.launches += 1
     if halos is not None:
@@ -1334,7 +1436,7 @@ def fused_pk_post(u, shock, ops: PkPostOps, with_diag: bool = False):
     out = torch.empty_like(u)
     lam_p = minq_p = None
     if with_diag:
-        lam_p, minq_p = _partials(lib, u, ny, nx)
+        lam_p, minq_p = _partials(u, BLOCK)
     rc = _call(u.device, lib.dflo_fused_pk_post,
         _DTYPE_CODE[u.dtype], ops.p, ops.K, ops.P.shape[0], _ptr(u),
         _ptr(shock), _ptr(ops.P), _ptr(out), _ptr(lam_p), _ptr(minq_p), ny,
@@ -1371,7 +1473,7 @@ def _diag_launch(u, ops: DiagOps):
     if ops.mask is not None:
         _check_plane(ops.mask, u, torch.bool, (ny, nx), "mask")
     lib = _load()
-    lam_p, minq_p = _partials(lib, u, ny, nx)
+    lam_p, minq_p = _partials(u, BLOCK)
     rc = _call(u.device, lib.dflo_fused_diag, _DTYPE_CODE[u.dtype], ops.K,
                _ptr(u), _ptr(ops.avg), _ptr(ops.mask), _ptr(lam_p),
                _ptr(minq_p), ny, nx, ops.h, _stream(u.device))

@@ -31,7 +31,13 @@ versions; the tile kernels' edges (the residual and the candidate share one
 tile kernel, csrc/residual.cuh): grids cut against every tile and smaller
 than one, periodic wrap faces, solid cells on tile and domain edges, every
 source arm, the candidate on the four corners, an empty and a full set, and
-the candidate's tile-list kernel against its plain twin, all bitwise.
+the candidate's tile-list kernel against its plain twin, all bitwise; the
+post's and the modal positivity's tile kernels (and the post's per-cell
+kernel at Q1-Q2) on the same kind of grids: the post at Q1-Q6 periodic in
+x, y and both, with the three indicators, char_lim and pos_lim off, solid
+cells on tile and domain edges and a NaN cell, its block form with each
+halo line present and absent, the modal positivity at P1-P6 in its four
+forms with a degree map holding every degree 0..p, all bitwise.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -1413,3 +1419,163 @@ def test_tile_list_kernel_matches_plain(cuda, shape):
             n = int(rcnt)
             assert int(cnt) == n and kernels.tile_list.launches == before + 1
             assert torch.equal(lst[:n].sort().values, ref[:n])
+
+
+# ---------------------------------------------------------------------------
+# the post's and the modal positivity's tile kernels (csrc/fused_post.cu,
+# csrc/fused_modal_pos.cu, kernels.post_tile): tiles cut by the grid's
+# edge, grids smaller than one tile, the wrap on either axis, solid cells
+# on tile and domain edges, the block form's halo lines; each bitwise equal
+# to its plain version, with and without diag
+# ---------------------------------------------------------------------------
+
+#: (nx, ny) of the post's and the modal positivity's edge cases; "past"
+#: is the grid one cell past the degree's tile on both axes
+POST_GRIDS = ((1, 1), (3, 2), (2, 37), (40, 1), "past")
+#: (per_x, per_y, indicator, char_lim, pos_lim, masked)
+POST_FORMS = ((False, False, "density", True, True, False),
+              (True, False, "energy", False, True, False),
+              (False, True, "limiter", True, True, False),
+              (True, True, "density", False, False, False),
+              (True, True, "limiter", True, True, False),
+              (False, False, "density", True, True, True),
+              (True, True, "energy", True, True, True))
+
+
+def post_grid(grid, p, modal, dt):
+    if grid != "past":
+        return grid
+    ty, tx = kernels.post_tile(p, modal, dt)
+    return tx + 1, ty + 1
+
+
+def noisy_state(family, p, nx, ny, dt, cuda, seed, scale=0.3):
+    """The DMR IC on the 4 x 1 box with `scale` relative noise on every DoF
+    (numpy seed): the limiter marks cells, positivity moves some."""
+    mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
+    u = ic.set_initial_condition(make_basis(family, p), mesh, dmr_ic,
+                                 dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(seed)
+    u = u * torch.from_numpy(1.0 + scale * rng.uniform(-1.0, 1.0, u.shape))
+    return mesh, u.to(dtype=dt, device=cuda).contiguous()
+
+
+def post_edge_mask(nx, ny):
+    """Solid cells on the domain's four edges and on the tiles' edges
+    (columns 7, 8, 15, 16 and rows 3, 4, 7, 8, 15, 16), fluid elsewhere."""
+    m = np.ones((ny, nx), bool)
+    m[::3, 0] = m[1::4, -1] = False
+    m[0, 1::5] = m[-1, ::4] = False
+    for x in (7, 8, 15, 16):
+        if x < nx:
+            m[1::2, x] = False
+    for y in (3, 4, 7, 8, 15, 16):
+        if y < ny:
+            m[y, 2::3] = False
+    return m
+
+
+def all_same_bits(pairs) -> bool:
+    torch.cuda.synchronize()
+    return all(same_bits(k, q) for k, q in pairs)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("form", POST_FORMS)
+@pytest.mark.parametrize("grid", POST_GRIDS)
+@pytest.mark.parametrize("p", (1, 2, 3, 4, 5, 6))
+def test_tile_edges_post_is_bitwise_plain(cuda, p, grid, form, dtype):
+    """The post at Q1-Q6 on grids cut against its tile and smaller than
+    one: periodic in x, y and both, the three indicators, char_lim on and
+    off, pos_lim off, masked with solid cells on tile and domain edges;
+    with and without diag; one launch each."""
+    dt = getattr(torch, dtype)
+    nx, ny = post_grid(grid, p, False, dt)
+    per_x, per_y, ind, char, pos, masked = form
+    mesh, u = noisy_state("Qk", p, nx, ny, dt, cuda, 10 * p + nx)
+    post = kernels.post_operators(
+        make_basis("Qk", p), mesh, indicator=ind, beta=2.0, char_lim=char,
+        pos_lim=pos, per_x=per_x, per_y=per_y,
+        mask=post_edge_mask(nx, ny) if masked else None, dtype=dt,
+        device=cuda)
+    before = kernels.fused_post.launches
+    assert all_same_bits([
+        (kernels.fused_post(u, post), kernels.fused_post_plain(u, post)),
+        *zip(kernels.fused_post(u, post, with_diag=True),
+             kernels.fused_post_plain(u, post, with_diag=True))])
+    assert kernels.fused_post.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3, 4, 5, 6))
+def test_tile_post_nan_cell_reaches_lam_max(cuda, p, dtype):
+    """A NaN cell gives NaN in lam_max and trips the fatal flag, as in the
+    plain version; the other cells stay bitwise."""
+    dt = getattr(torch, dtype)
+    mesh, u = noisy_state("Qk", p, 37, 11, dt, cuda, 90 + p)
+    u[:, :, 5, 17] = float("nan")
+    post = kernels.post_operators(make_basis("Qk", p), mesh,
+                                  indicator="density", beta=2.0,
+                                  char_lim=True, dtype=dt, device=cuda)
+    k = kernels.fused_post(u, post, with_diag=True)
+    assert all_same_bits(zip(k, kernels.fused_post_plain(u, post,
+                                                         with_diag=True)))
+    assert bool(k[1].isnan()) and bool(~(k[2] >= EPS))
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("per", ((False, False), (True, False),
+                                 (False, True), (True, True)))
+@pytest.mark.parametrize("grid", ((34, 18), (6, 4), (2, 2)))
+@pytest.mark.parametrize("p", (1, 2, 3, 4, 5, 6))
+def test_tile_edges_block_post_is_bitwise(cuda, p, grid, per, dtype):
+    """The block form on four ragged blocks of a (2, 2) virtual mesh,
+    periodic on neither, one or both axes (each halo line present and
+    absent): bitwise equal to its plain block form, and the sharded post
+    bitwise equal to the single-device post."""
+    from dflo_tpu_torch.parallel import (exchange_halos, gather_state,
+                                         shard_state)
+    dt = getattr(torch, dtype)
+    mesh, u = noisy_state("Qk", p, *grid, dt, cuda, 70 + p)
+    post = kernels.post_operators(make_basis("Qk", p), mesh,
+                                  indicator="density", beta=2.0,
+                                  char_lim=True, per_x=per[0], per_y=per[1],
+                                  dtype=dt, device=cuda)
+    dm = _virtual_mesh(cuda)
+    blocks = shard_state(u, dm)
+    halos = exchange_halos(blocks, dm, *per)
+    assert all_same_bits([
+        pair for b, h in zip(blocks, halos)
+        for pair in zip(kernels.fused_post(b, post, True, halos=h),
+                        kernels.fused_post_plain(b, post, True, halos=h))])
+    ks, lam, mq = kernels.fused_post_sharded(blocks, [post] * 4, dm, True)
+    assert all_same_bits(zip((gather_state(ks, dm), lam, mq),
+                             kernels.fused_post(u, post, with_diag=True)))
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("grid", POST_GRIDS)
+@pytest.mark.parametrize("p", (1, 2, 3, 4, 5, 6))
+def test_tile_edges_modal_pos_is_bitwise_plain(cuda, p, grid, dtype):
+    """The modal positivity at P1-P6 in its four forms on grids cut
+    against its tile and smaller than one, the degree map holding every
+    degree 0..p."""
+    dt = getattr(torch, dtype)
+    nx, ny = post_grid(grid, p, True, dt)
+    mesh, u = noisy_state("Pk", p, nx, ny, dt, cuda, 100 + 10 * p + nx)
+    mops = kernels.modal_operators(make_basis("Pk", p), mesh, dtype=dt,
+                                   device=cuda)
+    rng = np.random.default_rng(p + nx)
+    deg = rng.integers(0, p + 1, (ny, nx), dtype=np.int32)
+    deg.flat[:min(p + 1, deg.size)] = np.arange(p + 1)[:deg.size]
+    deg = torch.from_numpy(deg).to(cuda)
+    before = kernels.fused_modal_pos.launches
+    assert all_same_bits([
+        pair for d in (None, deg)
+        for pair in [(kernels.fused_modal_pos(u, mops, d),
+                      kernels.fused_modal_pos_plain(u, mops, d)),
+                     *zip(kernels.fused_modal_pos(u, mops, d,
+                                                  with_diag=True),
+                          kernels.fused_modal_pos_plain(u, mops, d,
+                                                        with_diag=True))]])
+    assert kernels.fused_modal_pos.launches == before + 4

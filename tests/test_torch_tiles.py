@@ -1,8 +1,13 @@
-"""The tiles of the residual's and the MOOD candidate's kernels
+"""The tiles of the tile kernels: the residual's and the MOOD candidate's
 (csrc/residual.cuh): the device-side tile list the candidate launches over
 (ops/kernels.tile_list) against a numpy reference on random cell planes,
-and the tile each basis takes (kernels.residual_tile).  Torch and numpy
-only: no JAX, no card."""
+and the tile each basis takes (kernels.residual_tile); the post's and the
+modal positivity's (csrc/fused_post.cu, csrc/fused_modal_pos.cu): the tile
+each degree takes (kernels.post_tile) against the block size and the
+shared-memory budget, and the diag partials, one per tile, against the
+tiles that cover a ragged grid.  Torch and numpy only: no JAX, no card."""
+
+import re
 
 import numpy as np
 import pytest
@@ -71,3 +76,125 @@ def test_residual_tile_fits_the_block():
     assert kernels.residual_tile(6, torch.float32) == (8, 16)
     assert kernels.residual_tile(6, torch.float64) == (8, 8)
     assert kernels.residual_tile(49, torch.float64) == (4, 4)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("modal", (False, True))
+@pytest.mark.parametrize("p", (1, 2, 3, 4, 5, 6))
+def test_post_tile_fits_the_block_and_the_budget(p, modal, dtype):
+    """Every degree of the post (Q1-Q6) and the modal positivity (P1-P6)
+    takes a tile whose cells each get a thread of the chain (the post's
+    two), whose shared memory, in every form, fits the budget (two blocks
+    per SM; the float64 post, one block per SM, the card's) and whose
+    float32 cells x K stay within MODAL_TILE_DOFS for the modal positivity;
+    no larger tile of the list passes all three.  The post's per-cell forms
+    (float32 Q1-Q2, float64 Q1) take their thread block, BLOCK, and no
+    shared memory."""
+    ty, tx = kernels.post_tile(p, modal, dtype)
+    if not modal and p <= kernels.POST_CELL_MAX_P[dtype]:
+        assert (ty, tx) == kernels.BLOCK
+        assert kernels.post_smem(p, modal, dtype, (ty, tx)) == 0
+        return
+    assert (ty, tx) in kernels.POST_TILES
+    threads = ty * tx * (1 if modal else 2)    # the post's chain: two a cell
+    assert threads <= kernels.TILE_THREADS and (ty * tx) % 4 == 0
+    forms = ((True, True),) if modal else ((False, False), (False, True),
+                                           (True, False), (True, True))
+    budget = (kernels.MAX_SMEM if not modal and dtype == torch.float64
+              else kernels.POST_SMEM)
+    for masked, pos in forms:
+        b = kernels.post_smem(p, modal, dtype, (ty, tx), masked, pos)
+        assert 0 < b <= budget <= kernels.MAX_SMEM and b % 16 == 0
+    K = (p + 1) * (p + 2) // 2 if modal else (p + 1) ** 2
+    dofs = kernels.MODAL_TILE_DOFS[dtype] if modal else None
+    assert dofs is None or ty * tx * K <= dofs
+    larger = kernels.POST_TILES[:kernels.POST_TILES.index((ty, tx))]
+    assert all(kernels.post_smem(p, modal, dtype, t) > budget
+               or t[0] * t[1] * (1 if modal else 2) > kernels.TILE_THREADS
+               or (dofs is not None and t[0] * t[1] * K > dofs)
+               for t in larger)
+
+
+def test_post_tiles_of_the_main_paths():
+    """The tiles of the main paths' forms: the Q2 and Q1 posts (RK/TVB
+    DMR, the forward step) on the per-cell kernel's 4 x 32 block in
+    float32, the Q3 post on 8 x 16, Q4 and Q5 on 8 x 8, Q6 on 4 x 8, the
+    P2, P3 and P4 modal positivity on 16 x 16, 8 x 16 and 8 x 16 (the cap
+    of 2,000 modes a tile); in float64 the post on the tiles its one block
+    per SM allows, Q4 on 8 x 8 and Q6 on 4 x 8, whose staged state alone
+    takes 4 * 49 * 60 * 8 B."""
+    f32, f64 = torch.float32, torch.float64
+    assert kernels.post_tile(2, False, f32) == kernels.BLOCK == (4, 32)
+    assert kernels.post_tile(1, False, f32) == kernels.BLOCK
+    assert kernels.post_tile(2, False, f64) == (8, 16)
+    assert kernels.post_tile(3, False, f32) == (8, 16)
+    assert kernels.post_tile(4, False, f32) == (8, 8)
+    assert kernels.post_tile(5, False, f32) == (8, 8)
+    assert kernels.post_tile(2, True, f32) == (16, 16)
+    assert kernels.post_tile(4, True, f32) == (8, 16)
+    assert kernels.post_tile(3, True, f32) == (8, 16)
+    assert kernels.post_tile(6, False, f32) == (4, 8)
+    assert kernels.post_tile(4, False, f64) == (8, 8)
+    assert kernels.post_tile(6, False, f64) == (4, 8)
+    assert kernels.post_smem(6, False, f64, (4, 8)) > 4 * 49 * 60 * 8
+
+
+@pytest.mark.parametrize("tile", kernels.POST_TILES + ((4, 32),))
+@pytest.mark.parametrize("shape", ((1, 1), (3, 2), (2, 37), (40, 1),
+                                   (17, 9), (288, 1152), (33, 65)))
+def test_diag_partials_number_the_tiles(shape, tile):
+    """The diag partials of a launch (one per tile: thread 0 of block b
+    writes slot b) number the tiles the kernel's blocks decode, which
+    cover every cell of a ragged grid exactly once; the partials' tensors
+    are sized from the tile in Python, with no built library."""
+    ny, nx = shape
+    ty, tx = tile
+    n = kernels.tile_count(ny, nx, tile)
+    ntx = -(-nx // tx)
+    cover = np.zeros((ny, nx), int)
+    for b in range(n):
+        y0, x0 = (b // ntx) * ty, (b % ntx) * tx
+        assert y0 < ny and x0 < nx
+        cover[y0:y0 + ty, x0:x0 + tx] += 1
+    assert (cover == 1).all()
+    u = torch.zeros((4, 1, ny, nx), dtype=torch.float64)
+    lam, minq = kernels._partials(u, tile)
+    assert lam.shape == minq.shape == (n,) and lam.dtype == u.dtype
+
+
+def _constant(source: str, pattern: str) -> int:
+    """The integer a C source of the kernels defines by pattern."""
+    text = (kernels.CSRC / source).read_text()
+    found = re.findall(pattern, text)
+    assert len(found) == 1, (source, pattern, found)
+    return int(found[0])
+
+
+@pytest.mark.parametrize("name", ("BLOCK", "POST_CELL_MAX_P", "TILE_THREADS",
+                                  "POINT_ROWS", "MAX_SMEM"))
+def test_python_mirrors_match_the_sources(name):
+    """Each constant the wrappers mirror from the C sources (the per-cell
+    kernels' block, which sizes their diag partials; the post's per-cell
+    degrees; the tile kernels' threads, point rows and shared-memory
+    ceiling) equals the sources' own, read from csrc/ as built by default
+    (chip_smoke.py phase 1 asks the built library for the block and the
+    shared memory on the card)."""
+    if name == "BLOCK":
+        got = (_constant("euler.cuh", r"constexpr int BY = (\d+);"),
+               _constant("euler.cuh", r"constexpr int BX = (\d+);"))
+        assert got == kernels.BLOCK
+    elif name == "POST_CELL_MAX_P":
+        got = {dt: _constant("fused_post.cu",
+                             rf"#define DFLO_POST_CELL_MAX_P_{tag} (\d+)")
+               for dt, tag in ((torch.float32, "F32"),
+                               (torch.float64, "F64"))}
+        assert got == kernels.POST_CELL_MAX_P
+    elif name == "TILE_THREADS":
+        assert _constant("tile.cuh", r"constexpr int TNT = (\d+);") \
+            == kernels.TILE_THREADS
+    elif name == "POINT_ROWS":
+        assert _constant("tile.cuh", r"constexpr int PR = (\d+);") \
+            == kernels.POINT_ROWS
+    else:
+        assert _constant("tile.cuh", r"constexpr int MAX_SMEM = (\d+);") \
+            == kernels.MAX_SMEM
