@@ -13,7 +13,10 @@ Phases (any failure raises, and the script then prints no result):
    spill from ptxas, and the tile and dynamic shared memory per block of
    the main forms (the post's and the modal positivity's equal to
    ops/kernels.post_smem at every degree, the per-cell kernels' thread
-   block equal to ops/kernels.BLOCK).
+   block equal to ops/kernels.BLOCK); the Pk post's and the check's tile
+   kernels (csrc/fused_pk_post.cu, csrc/fused_mood_check.cu): no stack and
+   no spill in any tile instantiation, each tile's shared memory equal to
+   ops/kernels.pk_post_smem and check_smem.
 2. RK/TVB kernels against their plain PyTorch versions on the card, on the
    1152 x 288 Q2 double-Mach-reflection (DMR) state after the initial
    post_stage and after 10 plain steps, in float32 and float64: both forms of
@@ -270,6 +273,17 @@ Phases (any failure raises, and the script then prints no result):
    against its plain block form and the sharded post against the
    single-device post; the modal positivity at P1-P6 on the same grids
    with and without a degree map holding every degree 0..p.
+30. the tile Pk post (row 9) and the wide-tile MOOD check (row 10) against
+   their plain versions, f32 and f64, bitwise (NaN where the plain version
+   has NaN): the Pk post at P1-P6, with and without diag, on phase 29's
+   grids and the grid one cell past the degree's tile, periodic on
+   neither, one or both axes (char_lim on and off, a TVB M on one), the
+   marked cells on tile and domain edges and half the others; a NaN cell
+   reaching lam_max; the check at p 2-6 on the same grids, 256 x 20 and
+   260 x 35 (rows a 16-byte vector of every plane, of the float planes
+   alone) and one cell past its tile, periodic on neither, one or both
+   axes, degree-1 marked cells on tile and domain edges, so that spreads
+   cross tile borders and wrap.
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -2646,7 +2660,71 @@ def phase_tile_report(kernels, log, results):
         "instantiations": len(rows), "registers": [min(regs), max(regs)],
         "with_stack_or_spill": [list(r) for r in local],
         "smem_per_block": smem,
-        "post_and_modal_pos": post_tile_report(kernels, log)}
+        "post_and_modal_pos": post_tile_report(kernels, log),
+        "pk_post_and_check": pk_check_report(kernels, log)}
+
+
+def pk_check_report(kernels, log) -> dict:
+    """Phase 1, the Pk post's and the check's kernels (rows 9 and 10): each
+    instantiation's registers, stack and spill (ptxas; no tile kernel's
+    may have a stack frame or spill), and the tile and dynamic shared memory per block
+    of the Pk post at every degree and of the check in each dtype (csrc
+    dflo_pk_post_smem, dflo_mood_check_smem), which must equal
+    ops/kernels.pk_post_smem and check_smem."""
+    import re
+    from dflo_tpu_torch.stab.positivity import _pos_points
+    rows, fn, stack, spill = [], "", 0, 0
+    pat = (r"(tile_pk_post|cell_pk_post|tile_check|cell_check)_kernel"
+           r"(?:_wide)?I([fd])"
+           r"(?:NS_5(?:BDimsILi(\d)ELb1|GDimsILb1)E)?")
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        k = re.search(pat, fn)
+        if m and k:
+            kind = {"tile_pk_post": "pk_post", "cell_pk_post": "pk_post_cell",
+                    "tile_check": "mood_check",
+                    "cell_check": "mood_check_cell"}[k.group(1)]
+            dims = ("" if kind.startswith("mood_check") else
+                    "G" if k.group(3) is None else f"P{k.group(3)}")
+            rows.append((kind, "f32" if k.group(2) == "f" else "f64", dims,
+                         int(m.group(1)), stack, spill))
+    assert {r[0] for r in rows} >= {"pk_post", "mood_check"}, rows
+    print("ptxas tile_pk_post_kernel(_wide) / cell_pk_post_kernel / "
+          "tile_check_kernel / cell_check_kernel: " + ", ".join(
+              f"{k} {d} {dims} {r} regs {st} B stack {sp} B spill"
+              for k, d, dims, r, st, sp in rows))
+    # the tile kernels hold no cell's arrays; the per-cell Pk post at
+    # float32 P3 and float64 P2 keeps PR 13's stack frame (faster there)
+    local = [r for r in rows if (r[4] or r[5]) and not r[0].endswith("_cell")]
+    assert not local, f"rows 9 and 10 with a stack frame or spills: {local}"
+    lib = kernels._load()
+    smem = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        code = int(dtype == torch.float64)
+        for p in range(1, 7):
+            tile = kernels.pk_post_tile(p, dtype)
+            n = lib.dflo_pk_post_smem(code, p, (p + 1) * (p + 2) // 2,
+                                      len(_pos_points(p)), *tile)
+            assert n == kernels.pk_post_smem(p, dtype, tile), (tag, p, n)
+            smem[f"pk_post P{p} {tag}"] = {"tile": list(tile),
+                                           "smem_bytes": n}
+        n = lib.dflo_mood_check_smem(code)
+        assert n == kernels.check_smem(dtype), (tag, n)
+        smem[f"check {tag}"] = {"tile": list(kernels.check_tile(dtype)),
+                                "smem_bytes": n}
+    print("Pk post / check tile shared memory per block (0: the per-cell "
+          "kernel): " + "; ".join(
+              f"{k} {v['tile'][0]}x{v['tile'][1]} {v['smem_bytes']} B"
+              for k, v in smem.items()))
+    return {"instantiations": [list(r) for r in rows],
+            "smem_per_block": smem}
 
 
 def phase_flux_kernels(kernels, results, log):
@@ -3498,7 +3576,7 @@ def ptxas_general(log: str) -> dict:
         if m:
             stack, spill = int(m.group(1)), int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
-        k = re.search(r"(tile_post|tile_modal_pos|fused_pk_post)_kernel"
+        k = re.search(r"(tile_post|tile_modal_pos|tile_pk_post)_kernel"
                       r"(?:_wide)?I([fd])NS_5GDimsILb([01])E", fn)
         # the tile kernel of the residual (TP false) and the candidate
         t = re.search(r"tile_residual_kernel(?:_wide)?I([fd])NS_5GDimsILb([01])EEE"
@@ -4477,6 +4555,128 @@ def phase_tile_post_kernels(kernels, results):
     results["tile_post_cases"] = out
 
 
+#: the check's coverage grids (phase 30): phase 29's, and rows a 16-byte
+#: vector of every plane (256) and of the float planes alone (260); each
+#: dtype also runs the grid one cell past its tile on both axes
+CK_GRIDS = TP_GRIDS + ((256, 20), (260, 35))
+PER_AXES = ((False, False), (True, False), (False, True), (True, True))
+
+
+def edge_marks(nx: int, ny: int, seed: int, density: float = 0.5):
+    """A random bool plane (numpy seed) set on the domain's four edges and
+    on the tiles' edges (columns 7, 8, 15, 16, 127, 128 and rows 3, 4, 7,
+    8, 15, 16)."""
+    import numpy as np
+    m = np.random.default_rng(seed).uniform(size=(ny, nx)) < density
+    m[0, :] = m[-1, :] = m[:, 0] = m[:, -1] = True
+    m[:, [x for x in (7, 8, 15, 16, 127, 128) if x < nx]] = True
+    m[[y for y in (3, 4, 7, 8, 15, 16) if y < ny], :] = True
+    return m
+
+
+def check_inputs(u, p: int, nx: int, ny: int, seed: int):
+    """(candidate, deg, lim) of a phase-30 check case: the candidate with
+    1e-4 relative noise on the means (DMP fails at most local extrema) and
+    its higher modes 1 % of the mean in random signs (the u2 test fails in
+    most cells), degree 1 and 70 % marked on the edge_marks cells."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    cand = u * torch.from_numpy(1.0 + 1e-4 * rng.uniform(-1.0, 1.0, u.shape)
+                                ).to(u)
+    cand[:, 1:] += 0.01 * cand[:, :1] * torch.from_numpy(
+        rng.uniform(-1.0, 1.0, cand[:, 1:].shape)).to(u)
+    edges = edge_marks(nx, ny, seed + 1, density=0.3)
+    deg = np.where(edges, 1, rng.integers(1, p + 1, (ny, nx))).astype(np.int32)
+    lim = edges & (rng.uniform(size=(ny, nx)) < 0.7)
+    return (cand.contiguous(), torch.from_numpy(deg).to("cuda"),
+            torch.from_numpy(lim).to("cuda"))
+
+
+def phase_tile_pk_check_kernels(kernels, results):
+    """Phase 30 for both dtypes: the tile Pk post (row 9) and the wide-tile
+    check (row 10) against their plain versions, bitwise (NaN where the
+    plain version has NaN).  The Pk post at P1-P6 with and without diag on
+    TP_GRIDS and the grid one cell past its tile, periodic on neither, one
+    or both axes (char_lim off where only x is, a TVB M where only y is),
+    the marked cells on tile and domain edges and half the others; a NaN
+    cell reaching lam_max.  The check at p 2-6 on CK_GRIDS and one cell
+    past its tile, periodic on neither, one or both axes, degree-1 marked
+    cells on tile and domain edges (spreads across tile borders and wrap);
+    some cells change."""
+    import numpy as np
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.stab import mood as mood_mod
+    from dflo_tpu_torch.stab.positivity import EPS
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        n_cases, changed = 0, 0
+
+        def note(key, pairs):
+            nonlocal n_cases
+            torch.cuda.synchronize()
+            assert all(same(k, q) for k, q in pairs), \
+                f"{key} {tag} is not bitwise"
+            n_cases += 1
+
+        for p in range(1, 7):
+            basis = make_basis("Pk", p)
+            ty, tx = kernels.pk_post_tile(p, dtype)
+            for gi, (nx, ny) in enumerate(TP_GRIDS + ((tx + 1, ty + 1),)):
+                mesh, u = tp_state("Pk", p, nx, ny, dtype, 200 + 10 * p + gi)
+                shock = torch.from_numpy(np.where(
+                    edge_marks(nx, ny, p + gi), 2.0, 0.0)).to(
+                        dtype=dtype, device="cuda")
+                for per in PER_AXES:
+                    po = kernels.pk_post_operators(
+                        basis, mesh, M=10.0 if per == (False, True) else 0.0,
+                        beta=2.0, char_lim=per != (True, False),
+                        per_x=per[0], per_y=per[1], dtype=dtype,
+                        device="cuda")
+                    note(f"pk_post P{p} {nx}x{ny} {per}", [
+                        (kernels.fused_pk_post(u, shock, po),
+                         kernels.fused_pk_post_plain(u, shock, po)),
+                        *zip(kernels.fused_pk_post(u, shock, po,
+                                                   with_diag=True),
+                             kernels.fused_pk_post_plain(u, shock, po,
+                                                         with_diag=True))])
+            # a NaN cell reaches lam_max and the fatal flag, alike
+            mesh, u = tp_state("Pk", p, 37, 11, dtype, 290 + p)
+            u[:, :, 5, 17] = float("nan")
+            po = kernels.pk_post_operators(basis, mesh, beta=2.0,
+                                           char_lim=True, dtype=dtype,
+                                           device="cuda")
+            shock = torch.full((11, 37), 2.0, dtype=dtype, device="cuda")
+            k = kernels.fused_pk_post(u, shock, po, with_diag=True)
+            note(f"pk_post P{p} NaN cell", zip(k, kernels.fused_pk_post_plain(
+                u, shock, po, with_diag=True)))
+            assert bool(k[1].isnan()) and bool(~(k[2] >= EPS))
+        for p in range(2, 7):
+            basis = make_basis("Pk", p)
+            ty, tx = kernels.check_tile(dtype)
+            for gi, (nx, ny) in enumerate(CK_GRIDS + ((tx + 1, ty + 1),)):
+                mesh, u = tp_state("Pk", p, nx, ny, dtype, 400 + 10 * p + gi)
+                cand, deg, lim = check_inputs(u, p, nx, ny, 7 * p + gi)
+                for per in PER_AXES:
+                    ops = kernels.mood_check_operators(
+                        basis, mesh, per_x=per[0], per_y=per[1],
+                        device="cuda")
+                    rho0 = ops.avg0 * u[euler.RHO, 0]
+                    bmin = mood_mod.neighborhood_min(rho0, ops.valid)
+                    bmax = mood_mod.neighborhood_max(rho0, ops.valid)
+                    k = kernels.fused_mood_check(cand, bmin, bmax, deg, lim,
+                                                 ops)
+                    note(f"check P{p} {nx}x{ny} {per}", zip(
+                        k, kernels.fused_mood_check_plain(cand, bmin, bmax,
+                                                          deg, lim, ops)))
+                    changed += int(k[2].sum())
+        assert changed > 0, f"{tag}: no check case changed a degree"
+        out[tag] = n_cases
+        print(f"[{tag}] tile Pk post and check: {n_cases} cases bitwise "
+              f"(rows 9 and 10; P1-P6 / p 2-6), {changed} degrees dropped")
+    results["tile_pk_check_cases"] = out
+
+
 def clock(t_start: float, what: str) -> None:
     """The script's elapsed time before the phases `what`."""
     print(f"chip_smoke: at {time.perf_counter() - t_start:.1f} s, next: "
@@ -4558,6 +4758,10 @@ def main() -> int:
     clock(t_start, "phase 29")
     # ---- phase 29: the tile post and modal positivity over their forms --
     phase_tile_post_kernels(kernels, results)
+
+    clock(t_start, "phase 30")
+    # ---- phase 30: the tile Pk post and check over their forms ------------
+    phase_tile_pk_check_kernels(kernels, results)
 
     clock(t_start, "phases 3 and 6")
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
@@ -4762,6 +4966,7 @@ def main() -> int:
                           results["mood_degree_registers"],
                       "mood_degree_cases": results["mood_degree_cases"],
                       "tile_post_cases": results["tile_post_cases"],
+                      "tile_pk_check_cases": results["tile_pk_check_cases"],
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
                                           "mood_host", "mood_p4",

@@ -1,6 +1,7 @@
 // The pieces of the tile kernels, shared by the residual and the MOOD
-// candidate (residual.cuh), the nodal post (fused_post.cu) and the modal
-// positivity (fused_modal_pos.cu): one block of TNT threads per tile of
+// candidate (residual.cuh), the nodal post (fused_post.cu), the modal
+// positivity (fused_modal_pos.cu), the Pk post (fused_pk_post.cu) and the
+// MOOD check (fused_mood_check.cu): one block of TNT threads per tile of
 // TY x TX cells, the tile's DoFs (and, for the residual and the post, a
 // one-cell ring) staged once in dynamic shared memory, each product an
 // ordered sum per output (register-tiled where it has the rows), and
@@ -52,6 +53,19 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src) {
                :: "r"(d), "l"(src), "n"(sizeof(T)));
 #else
   *dst = *src;
+#endif
+}
+
+// 16 bytes (one vector; both addresses 16-byte aligned) from global to
+// shared memory, past L1
+template <typename T>
+__device__ __forceinline__ void copy_async16(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src));
+#else
+  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) dst[i] = src[i];
 #endif
 }
 

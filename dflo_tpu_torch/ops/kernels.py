@@ -103,9 +103,9 @@ NQ_MAX = 8
 #: residual's lift owns 4 modes x 4 cells of one component (RB x CB)
 TILE_THREADS = 256
 #: (rows, columns) of cells per block of the thread-per-cell kernels (the
-#: diag, the Pk post, the check, the per-cell post: csrc/euler.cuh BY x BX,
-#: which csrc/fused_diag.cu dflo_block_dims reports), whose diag partials
-#: number these blocks
+#: diag, the per-cell posts and check: csrc/euler.cuh BY x BX, which
+#: csrc/fused_diag.cu dflo_block_dims reports), whose diag partials number
+#: these blocks
 BLOCK = (4, 32)
 #: the tiles of the post's and the modal positivity's kernels, largest first
 #: (post_tile)
@@ -129,6 +129,23 @@ MODAL_TILE_DOFS = {torch.float32: 2000, torch.float64: None}
 #: BLOCK of cells, by dtype (csrc/fused_post.cu CELL_MAX_P, a choice made
 #: at build time: DFLO_POST_CELL_MAX_P_F32 and _F64)
 POST_CELL_MAX_P = {torch.float32: 2, torch.float64: 1}
+#: the degrees whose Pk post runs its per-cell kernel, by dtype
+#: (csrc/fused_pk_post.cu PK_CELL_MAX_P, a choice made at build time:
+#: DFLO_PK_POST_CELL_MAX_P_F32 and _F64): the tile kernel ran slower there
+#: on the H100 (kernel_ab.py, PERF.md)
+PK_POST_CELL_MAX_P = {torch.float32: 3, torch.float64: 2}
+#: the most cells x K (one component's staged modes) a tile of the Pk post
+#: takes, by dtype: the Pk post's tile sweep on the H100 (kernel_ab.py)
+PK_TILE_DOFS = {torch.float32: 2700, torch.float64: 2000}
+#: the wide tile of the MOOD check's tile kernel (csrc/fused_mood_check.cu
+#: CHECK_TY x CHECK_TX): the fastest on the DMR (1152 x 288) in float32 in
+#: the tile sweep on the H100 (kernel_ab.py, PERF.md)
+CHECK_TILE = (16, 64)
+#: whether the MOOD check runs its per-cell kernel on BLOCK, by dtype
+#: (csrc/fused_mood_check.cu CHECK_PER_CELL, a choice made at build time:
+#: DFLO_CHECK_PER_CELL_F32 and _F64): the tile kernel ran slower in float64
+#: on the H100 (kernel_ab.py, PERF.md)
+CHECK_PER_CELL = {torch.float32: False, torch.float64: True}
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _lib = None
@@ -252,8 +269,10 @@ def _load():
         "dflo_fused_modal_pos": [ci] * 4 + [vp] * 6
                                 + [ci, ci, cd, cd, ci, ci, vp],
         "dflo_fused_pk_post": [ci] * 4 + [vp] * 6 + [ci] * 5 + [cd] * 4
-                              + [vp],
+                              + [ci, ci, vp],
+        "dflo_pk_post_smem": [ci] * 6,
         "dflo_fused_mood_check": [ci, ci] + [vp] * 8 + [ci] * 4 + [cd, vp],
+        "dflo_mood_check_smem": [ci],
     }
     for name, args in sig.items():
         fn = getattr(lib, name)
@@ -427,6 +446,70 @@ def post_smem(p: int, modal: bool, dtype: torch.dtype,
              + ((K + nc) * qpp + 7 * nc if pos else 0)) * size
         b += 5 * ss if masked else 0
     return (b + 15) // 16 * 16
+
+
+def pk_post_smem(p: int, dtype: torch.dtype, tile: tuple[int, int]) -> int:
+    """Bytes of dynamic shared memory per block of the Pk post's tile
+    kernel at degree p on a ty x tx tile, the layout of csrc/
+    fused_pk_post.cu pk_post_geo (the transposed points; the tile's modes;
+    the means of the tile and its ring, whose space the points' values
+    take after the chain; the shock values and the per-cell values); 0 for
+    the per-cell kernel."""
+    if p <= PK_POST_CELL_MAX_P[dtype]:
+        return 0
+    ty, tx = tile
+    size = torch.finfo(dtype).bits // 8
+    qpp = -(-len(_pos_points(p)) // POINT_ROWS) * POINT_ROWS
+    K, nc, ss = (p + 1) * (p + 2) // 2, ty * tx, (ty + 2) * (tx + 2)
+    b = (K * qpp + 4 * K * nc + max(4 * ss, qpp * nc) + nc + 7 * nc) * size
+    return (b + 15) // 16 * 16
+
+
+@functools.lru_cache(maxsize=None)
+def pk_post_tile(p: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(TY, TX), the tile of cells one block of the Pk post takes at degree
+    p: the largest of POST_TILES whose cells x K stay within PK_TILE_DOFS
+    and whose shared memory (pk_post_smem) fits POST_SMEM in float32 (two
+    blocks per SM), MAX_SMEM in float64 (one block per SM by registers);
+    the chain takes two threads a cell on tiles of up to TILE_THREADS / 2
+    cells, one beyond.  For the per-cell forms (PK_POST_CELL_MAX_P) its
+    thread block, BLOCK."""
+    if p <= PK_POST_CELL_MAX_P[dtype]:
+        return BLOCK
+    K = (p + 1) * (p + 2) // 2
+    smem = POST_SMEM if dtype == torch.float32 else MAX_SMEM
+    for tile in POST_TILES:
+        cells = tile[0] * tile[1]
+        if (cells <= TILE_THREADS and cells * K <= PK_TILE_DOFS[dtype]
+                and pk_post_smem(p, dtype, tile) <= smem):
+            return tile
+    raise NotImplementedError(f"no tile takes degree {p}")
+
+
+def check_smem(dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory per block of the MOOD check's tile
+    kernel on CHECK_TILE, the layout of csrc/fused_mood_check.cu check_geo:
+    the two D2 planes with a two-cell halo, rho0, dmin, dmax, deg and lim
+    with a one-cell halo (each row padded by a 16-byte vector on both
+    sides) and the fail and spread flags of the tile and its ring, each
+    region a multiple of 16 bytes; 0 for the per-cell kernel."""
+    if CHECK_PER_CELL[dtype]:
+        return 0
+    ty, tx = CHECK_TILE
+    size = torch.finfo(dtype).bits // 8
+
+    def a16(b):
+        return (b + 15) // 16 * 16
+    pt, rows = tx + 2 * (16 // size), ty + 2
+    return (a16(2 * (ty + 4) * pt * size) + 3 * a16(rows * pt * size)
+            + a16(rows * (tx + 8) * 4) + a16(rows * (tx + 32))
+            + 2 * a16(rows * (tx + 8)))
+
+
+def check_tile(dtype: torch.dtype) -> tuple[int, int]:
+    """(TY, TX), the cells one block of the MOOD check takes: CHECK_TILE,
+    or BLOCK for the per-cell kernel (CHECK_PER_CELL)."""
+    return BLOCK if CHECK_PER_CELL[dtype] else CHECK_TILE
 
 
 def _post_per_cell(p: int, dtype: torch.dtype) -> bool:
@@ -1426,7 +1509,8 @@ def fused_pk_post(u, shock, ops: PkPostOps, with_diag: bool = False):
     """The MOOD stage's post on a Pk state: shock [ny, nx] in u's dtype
     (2.0 where the cascade marked the cell, else 0); with_diag also returns
     the 0-dim (lam_max, minq).  CPU tensors: the plain version; CUDA
-    tensors: the kernel."""
+    tensors: the kernel (pk_post_tile; its per-tile diag partials reduced
+    here)."""
     ny, nx = _check_state(u, ops.K)
     if not _cuda_or_cpu(u, shock, ops.P):
         return fused_pk_post_plain(u, shock, ops, with_diag)
@@ -1434,14 +1518,15 @@ def fused_pk_post(u, shock, ops: PkPostOps, with_diag: bool = False):
         raise ValueError(f"shock shape {tuple(shock.shape)} != {(ny, nx)}")
     lib = _load()
     out = torch.empty_like(u)
+    tile = pk_post_tile(ops.p, u.dtype)
     lam_p = minq_p = None
     if with_diag:
-        lam_p, minq_p = _partials(u, BLOCK)
+        lam_p, minq_p = _partials(u, tile)
     rc = _call(u.device, lib.dflo_fused_pk_post,
         _DTYPE_CODE[u.dtype], ops.p, ops.K, ops.P.shape[0], _ptr(u),
         _ptr(shock), _ptr(ops.P), _ptr(out), _ptr(lam_p), _ptr(minq_p), ny,
         nx, int(ops.per_x), int(ops.per_y), int(ops.char_lim), ops.avg0,
-        0.5 * ops.beta, ops.Mdx2, ops.h, _stream(u.device))
+        0.5 * ops.beta, ops.Mdx2, ops.h, *tile, _stream(u.device))
     _check(rc, "fused_pk_post")
     fused_pk_post.launches += 1
     if not with_diag:
@@ -1541,7 +1626,8 @@ def fused_mood_check(u_c, dmp_min, dmp_max, deg, lim, ops: MoodCheckOps):
     DMP against [dmp_min, dmp_max], u2 smoothness, degree reduction, limiter
     marks and their spread to face neighbors.  deg int32 and lim bool
     [ny, nx]; returns (deg_new int32, lim_new bool, chg bool).  CPU tensors:
-    the plain version; CUDA tensors: the kernel (bitwise equal to it)."""
+    the plain version; CUDA tensors: the kernel on check_tile's blocks
+    (bitwise equal to it), lim_new and chg two planes of one allocation."""
     ny, nx = _check_state(u_c, ops.K)
     if not _cuda_or_cpu(u_c, dmp_min, dmp_max):
         return fused_mood_check_plain(u_c, dmp_min, dmp_max, deg, lim, ops)
@@ -1552,8 +1638,8 @@ def fused_mood_check(u_c, dmp_min, dmp_max, deg, lim, ops: MoodCheckOps):
     _check_plane(lim, u_c, torch.bool, (ny, nx), "lim")
     lib = _load()
     deg_new = torch.empty_like(deg)
-    lim_new = torch.empty_like(lim)
-    chg = torch.empty_like(lim)
+    lim_new, chg = torch.empty((2, ny, nx), dtype=torch.bool,
+                               device=lim.device)
     rc = _call(u_c.device, lib.dflo_fused_mood_check,
         _DTYPE_CODE[u_c.dtype], ops.p, _ptr(u_c), _ptr(dmp_min),
         _ptr(dmp_max), _ptr(deg), _ptr(lim), _ptr(deg_new), _ptr(lim_new),

@@ -1,33 +1,35 @@
-"""Time the post's and the modal positivity's kernels of two trees of the
-port against each other on one GPU, in one run, and the post's two
-kernels (per cell and per tile) at the degrees its launch table chooses
-between.
+"""Time the Pk post's and the MOOD check's kernels (and, as a control, a
+few forms of the post's and the modal positivity's) of two trees of the
+port against each other on one GPU, in one run, and the Pk post's and
+the check's two kernels (per cell and per tile) where their build-time
+caps choose between them.
 
     python3 kernel_ab.py --parent DIR [--out FILE]
 
 DIR holds the tree of the commit to compare with (`git archive <commit> |
 tar -x -C DIR`); the change is the tree this file lies in.  A first process
 makes every input through the plain versions (no kernel runs) and saves
-it; meanwhile each arm builds its own library from the post's and the
-modal positivity's sources alone (all compiles started together).  Each
-arm is then timed twice, in processes of its own (the two packages never
-share one), in the order parent, change, cell0, cell2, cell2, cell0,
-change, parent:
+it; meanwhile each arm builds its own library from SOURCES alone (all
+compiles started together).  Each arm is then timed twice, in processes of
+its own (the two packages never share one), in the order parent, change,
+tile, cell, cell, tile, change, parent:
 
 - parent: DIR as it stands;
-- change: this tree; it also times each form of the tile kernels on
-  every other tile they take there (`name@TYxTX`), for the rule of
-  ops/kernels.post_tile;
-- cell0: this tree built with DFLO_POST_CELL_MAX_P_F32 = _F64 = 0 (the
-  post's tile kernel at every degree), Q1-Q2 forms only;
-- cell2: the same with both = 2 (the per-cell kernel at Q1-Q2 in both
-  dtypes), Q1-Q2 forms only.
+- change: this tree; it also times each form of the Pk post's tile
+  kernel on every other tile it takes there (`name@TYxTX`), for the rule
+  of ops/kernels.pk_post_tile;
+- tile: this tree built with DFLO_PK_POST_CELL_MAX_P_F32 = _F64 = 0 and
+  DFLO_CHECK_PER_CELL_F32 = _F64 = 0 (the tile kernels at every degree
+  and in both dtypes), the P1-P3 Pk post forms and the check's;
+- cell: the same with the Pk post's caps at 3 and the check's at 1 (the
+  per-cell kernels at P1-P3 and in both dtypes), the same forms.
 
 Per form and run: `call_ms`, the median CUDA-event time of one wrapper
 call (chip_smoke.py's `ms`: the wrapper's host work before the launch
 included), and `dev_ms`, the device time of the port's kernels per call in
-a torch.profiler trace; and whether each output equals the parent's
-bitwise.  It prints the card's name and power limit, one line per form,
+a torch.profiler trace (traced again, up to three times, where a trace
+dropped a launch; null, and the form marked `dev incomplete`, where all
+three did); and whether each output equals the parent's bitwise.  It prints the card's name and power limit, one line per form,
 and the whole as one JSON line (also to FILE, given `--out`).  `--small` cuts
 every grid by 16 and runs on the CPU through the plain versions: a
 rehearsal of the script, whose times mean nothing.
@@ -50,12 +52,17 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ARMS = {"parent": (), "change": (),
-        "cell0": ("DFLO_POST_CELL_MAX_P_F32=0", "DFLO_POST_CELL_MAX_P_F64=0"),
-        "cell2": ("DFLO_POST_CELL_MAX_P_F32=2", "DFLO_POST_CELL_MAX_P_F64=2")}
-ORDER = ("parent", "change", "cell0", "cell2", "cell2", "cell0", "change",
+        "tile": ("DFLO_PK_POST_CELL_MAX_P_F32=0",
+                 "DFLO_PK_POST_CELL_MAX_P_F64=0",
+                 "DFLO_CHECK_PER_CELL_F32=0", "DFLO_CHECK_PER_CELL_F64=0"),
+        "cell": ("DFLO_PK_POST_CELL_MAX_P_F32=3",
+                 "DFLO_PK_POST_CELL_MAX_P_F64=3",
+                 "DFLO_CHECK_PER_CELL_F32=1", "DFLO_CHECK_PER_CELL_F64=1")}
+ORDER = ("parent", "change", "tile", "cell", "cell", "tile", "change",
          "parent")
 #: the sources an arm builds (the others' entry points answer as stubs)
-SOURCES = ("fused_post.cu", "fused_modal_pos.cu", "fused_diag.cu")
+SOURCES = ("fused_post.cu", "fused_modal_pos.cu", "fused_diag.cu",
+           "fused_pk_post.cu", "fused_mood_check.cu")
 REPS, WARM = 20, 3
 #: the dynamic shared memory one block may take (csrc/tile.cuh MAX_SMEM)
 MAX_SMEM = 232448
@@ -65,25 +72,29 @@ VX = 2048                   # examples/vortex_system_pbc.prm, cut to VX^2
 FS = (1920, 640)            # examples/forward_step_tpu.prm
 RT = (1024, 3072)           # examples/rayleigh_taylor.prm
 
-# (name, kind, dtype, maker, degree, with_diag); "low": the Q1-Q2 post
-# forms, which every arm times
+# (name, kind, dtype, maker, degree, with_diag); "capped": the P1-P3 Pk
+# post forms and the check's, which every arm times
 FORMS = (
-    *((f"post_dmr_q{p}_f32", "post", "f32", "dmr", p, True)
-      for p in range(1, 7)),
-    *((f"post_dmr_q{p}_f64", "post", "f64", "dmr", p, True)
-      for p in range(1, 7)),
-    ("post_pbc_q1_f32", "post", "f32", "pbc", 1, True),
-    ("post_fwd_q1_f32", "post", "f32", "fwd", 1, True),
-    *((f"modal_dmr_p{p}_f32", "modal", "f32", "dmr_mood", p, False)
+    *((f"pkpost_dmr_p{p}_{tag}{'_diag' if diag else ''}", "pk_post", tag,
+       "dmr_mood", p, diag)
+      for tag in ("f32", "f64") for p in range(1, 7)
+      for diag in (True, False)),
+    *((f"pkpost_{m}_p2_f32{'_diag' if diag else ''}", "pk_post", "f32",
+       f"{m}_mood", 2, diag) for m in ("rt", "fwd") for diag in (True, False)),
+    *((f"check_dmr_p{p}_f32", "check", "f32", "dmr_mood", p, False)
       for p in range(2, 7)),
-    ("modal_dmr_p4_f64", "modal", "f64", "dmr_mood", 4, False),
+    ("check_dmr_p4_f64", "check", "f64", "dmr_mood", 4, False),
+    ("check_rt_p2_f32", "check", "f32", "rt_mood", 2, False),
+    # the control: rows 4 and 8, whose kernels this change leaves alone
+    ("post_dmr_q2_f32", "post", "f32", "dmr", 2, True),
+    ("post_dmr_q4_f32", "post", "f32", "dmr", 4, True),
+    ("modal_dmr_p4_f32", "modal", "f32", "dmr_mood", 4, False),
     ("modal_rt_p2_f32", "modal", "f32", "rt_mood", 2, False),
-    ("modal_fwd_p2_f32", "modal", "f32", "fwd_mood", 2, False),
 )
 
 
-def low(form) -> bool:
-    return form[1] == "post" and form[4] <= 2
+def capped(form) -> bool:
+    return form[1] == "check" or (form[1] == "pk_post" and form[4] <= 3)
 
 
 # ---------------------------------------------------------------------------
@@ -104,12 +115,11 @@ def prm_solver(cs, path, dtype, dev, grid, edits=()):
 
 
 def solver(cs, form, dtype, dev, cut):
-    """(solver, operators the form's kernel reads, make_state()): the
-    solver of the form's path; make_state() its input (u, deg) through
-    the plain versions."""
+    """(solver, base()): the solver of the form's path and base() its
+    state (u, t, dt) through the plain versions."""
     from dflo_tpu_torch import cli, entry
     from dflo_tpu_torch.ops import kernels
-    _, kind, _, maker, p, _ = form
+    maker, p = form[3], form[4]
 
     def steps(s, u, n, t_end=1.0):
         t, dt = 0.0, None
@@ -121,32 +131,16 @@ def solver(cs, form, dtype, dev, cut):
                 assert not bool(bad), (form[0], "a plain step tripped bad")
         return u, t, dt
 
-    def pass1_degrees(s, u, t, dt):
-        return cs.cascade_pass1(kernels, s, u, s._scalar(t), dt)["deg1"]
-
     if maker in ("dmr", "dmr_mood"):
         s, u0 = entry._build(NX // cut, NY // cut, dtype=dtype, device=dev,
                              degree=p,
                              method="mood" if maker == "dmr_mood" else "rk")
-        if maker == "dmr":
-            return s, s._post_ops, lambda: (steps(s, u0, 2)[0], None)
-        return s, s._mood_stage.mops, lambda: (steps(s, u0, 1)[0], None)
-    if maker in ("pbc", "fwd"):
-        path, grid = ((cs.PBC_PRM, (VX, VX)) if maker == "pbc"
-                      else (cs.FS_PRM, FS))
-        params, s = prm_solver(cs, path, dtype, dev,
-                               (grid[0] // cut, grid[1] // cut))
-        return s, s._post_ops, lambda: (steps(
-            s, cli.set_ic(params, s), 2, params.final_time)[0], None)
+        return s, lambda: steps(s, u0, 2 if maker == "dmr" else 1)
     if maker == "rt_mood":
         params, s = prm_solver(cs, cs.RT_PRM, dtype, dev,
                                (RT[0] // cut, RT[1] // cut),
                                cs.RT_MOOD_EDITS)
-
-        def rt_state():
-            u, t, dt = steps(s, cli.set_ic(params, s), 2)
-            return u, pass1_degrees(s, u, t, dt)
-        return s, s.rhs.modal_ops, rt_state
+        return s, lambda: steps(s, cli.set_ic(params, s), 2)
     assert maker == "fwd_mood", maker
     params, s = prm_solver(cs, cs.FS_PRM, dtype, dev,
                            (FS[0] // cut, FS[1] // cut),
@@ -155,7 +149,7 @@ def solver(cs, form, dtype, dev, cut):
     def fwd_state():
         # chip_smoke.fwd_pk_solver's state: the IC with 2 % noise on every
         # DoF and 0.3 % of the mean on the higher modes, solid cells pinned,
-        # the plain modal positivity; the degrees of its pass-1 check
+        # the plain modal positivity
         import torch
         u = cli.set_ic(params, s)
         g = torch.Generator(device=dev).manual_seed(102)
@@ -167,9 +161,92 @@ def solver(cs, form, dtype, dev, cut):
         u = kernels.fused_modal_pos_plain(s.apply_mask(u.contiguous()),
                                           s.rhs.modal_ops)
         lam, _ = kernels.fused_diag_plain(u, s._diag_ops)
-        dt = s.cfl / lam / (2.0 * s.basis.degree + 1.0)
-        return u, pass1_degrees(s, u, 0.0, dt)
-    return s, s.rhs.modal_ops, fwd_state
+        return u, 0.0, s.cfl / lam / (2.0 * s.basis.degree + 1.0)
+    return s, fwd_state
+
+
+def operators(kernels, form, s):
+    """The operators the form's kernel reads.  The masked forward step runs
+    no Pk post on its path (its post is the plain modal TVB chain), so its
+    Pk post form takes the unmasked operators of its limiter settings."""
+    kind, maker = form[1], form[3]
+    if kind == "post":
+        return s._post_ops
+    if kind == "modal":
+        return s.rhs.modal_ops
+    if kind == "check":
+        return s._mood_stage.cops
+    if maker != "fwd_mood":
+        return s._pk_post_ops
+    cfg = s.limiter_cfg
+    return kernels.pk_post_operators(s.basis, s.mesh, M=cfg.M, beta=cfg.beta,
+                                     char_lim=cfg.char_lim, dtype=s.dtype,
+                                     device=s.device)
+
+
+def inputs(cs, kernels, form, s, u, t, dt) -> dict:
+    """The form's inputs from its path's state (u, t, dt), through the
+    plain versions: the post's state; the modal positivity's with pass 1's
+    degree map (rt, fwd); the Pk post's with the shock plane of the cells a
+    MOOD stage marks; the check's pass-1 inputs (the candidate u_c, the
+    DMP bounds, the initial degree and limiter planes)."""
+    kind, maker = form[1], form[3]
+    if kind == "post" or (kind == "modal" and maker == "dmr_mood"):
+        return {"u": u, "deg": None}
+    tt = s._scalar(t)
+    if kind == "pk_post":
+        with cs.plain_versions(kernels):
+            _, marked, _, _ = s._mood_stage(u, tt, dt)
+        return {"u": u, "shock": marked.to(u.dtype) * 2.0}
+    c1 = cs.cascade_pass1(kernels, s, u, tt, dt)
+    if kind == "modal":
+        return {"u": u, "deg": c1["deg1"]}
+    return {k: c1[k] for k in ("u_c", "bmin", "bmax", "deg0", "lim0")}
+
+
+def input_key(form) -> str:
+    """The file of the form's inputs (the Pk post's two forms share one)."""
+    _, kind, tag, maker, p, _ = form
+    return f"{kind}_{maker}_p{p}_{tag}"
+
+
+def call(kernels, form, ops, x):
+    """One call of the form's wrapper on its inputs x."""
+    kind, diag = form[1], form[5]
+    if kind == "post":
+        return kernels.fused_post(x["u"], ops, with_diag=diag)
+    if kind == "modal":
+        return kernels.fused_modal_pos(x["u"], ops, x["deg"])
+    if kind == "pk_post":
+        return kernels.fused_pk_post(x["u"], x["shock"], ops, with_diag=diag)
+    return kernels.fused_mood_check(x["u_c"], x["bmin"], x["bmax"],
+                                    x["deg0"], x["lim0"], ops)
+
+
+#: each kind's tile rule in ops/kernels (absent in a tree without it)
+RULES = {"post": "post_tile", "modal": "post_tile",
+         "pk_post": "pk_post_tile", "check": "check_tile"}
+
+
+def rule_tile(kernels, form, dtype):
+    """The tile the form's rule picks, or None where the tree has none."""
+    kind, p = form[1], form[4]
+    rule = getattr(kernels, RULES[kind], None)
+    if rule is None:
+        return None
+    if kind in ("post", "modal"):
+        return rule(p, kind == "modal", dtype)
+    return rule(p, dtype) if kind == "pk_post" else rule(dtype)
+
+
+def other_tiles(kernels, form, dtype, tile) -> list:
+    """Every other tile the Pk post's tile kernel takes at this form:
+    shared memory within the card's."""
+    kind, p = form[1], form[4]
+    if kind == "pk_post" and tile != kernels.BLOCK:
+        return [t for t in kernels.POST_TILES if t != tile
+                and 0 < kernels.pk_post_smem(p, dtype, t) <= MAX_SMEM]
+    return []
 
 
 # ---------------------------------------------------------------------------
@@ -223,12 +300,15 @@ def use_subset(kernels, work: Path, arm: str) -> None:
 
 
 def pin_cells(kernels, arm: str) -> None:
-    """The Python mirror of the arm's DFLO_POST_CELL_MAX_P defines."""
-    if arm in ("cell0", "cell2"):
+    """The Python mirrors of the arm's DFLO_PK_POST_CELL_MAX_P and
+    DFLO_CHECK_PER_CELL defines."""
+    if arm in ("tile", "cell"):
         import torch
         v = int(ARMS[arm][0][-1])
-        kernels.POST_CELL_MAX_P = {torch.float32: v, torch.float64: v}
-        kernels.post_tile.cache_clear()
+        kernels.PK_POST_CELL_MAX_P = {torch.float32: v, torch.float64: v}
+        kernels.pk_post_tile.cache_clear()
+        c = arm == "cell"
+        kernels.CHECK_PER_CELL = {torch.float32: c, torch.float64: c}
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +326,9 @@ def digest(ts) -> str:
 
 def time_call(fn, dev) -> tuple[float, float | None, float]:
     """(call_ms, dev_ms, the port's kernels launched per call in the
-    trace); dev_ms None unless the trace holds one launch per call."""
+    trace); a trace that dropped a launch would under-count, so it is
+    taken again, up to three times; dev_ms None where none held one launch
+    per call."""
     import torch
     for _ in range(WARM):
         fn()
@@ -269,15 +351,17 @@ def time_call(fn, dev) -> tuple[float, float | None, float]:
         ts.append(a.elapsed_time(b))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and "dflo" in e.name]
-    # a trace that dropped events would under-count: no device time then
-    dev_ms = 1e-3 * sum(us) / REPS if len(us) == REPS else None
-    return statistics.median(ts), dev_ms, len(us) / REPS
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "dflo" in e.name]
+        if len(us) == REPS:
+            return (statistics.median(ts), 1e-3 * sum(us) / REPS,
+                    len(us) / REPS)
+    return statistics.median(ts), None, len(us) / REPS
 
 
 def worker(args) -> None:
@@ -307,14 +391,23 @@ def worker(args) -> None:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         return
     if args.worker == "prep":
+        # one state per path, degree and dtype; each kind's inputs from it
+        paths = {}
         for form in FORMS:
+            paths.setdefault((form[3], form[4], form[2]), {}).setdefault(
+                input_key(form), form)
+        for (maker, p, tag), keys in paths.items():
             t0 = time.perf_counter()
-            _, _, make = solver(cs, form, dtypes[form[2]], dev, cut)
-            u, deg = make()
-            torch.save({"u": u, "deg": deg}, work / f"{form[0]}.pt")
-            print(f"prep {form[0]}: {tuple(u.shape)} in "
+            s, base = solver(cs, next(iter(keys.values())), dtypes[tag], dev,
+                             cut)
+            state = base()
+            for key, form in keys.items():
+                torch.save(inputs(cs, kernels, form, s, *state),
+                           work / f"{key}.pt")
+            print(f"prep {maker} p{p} {tag} ({', '.join(keys)}): "
+                  f"{tuple(state[0].shape)} in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
-            del u, deg
+            del s, base, state
             if dev == "cuda":
                 torch.cuda.empty_cache()
         return
@@ -322,57 +415,41 @@ def worker(args) -> None:
     if dev == "cuda":
         use_subset(kernels, work, args.arm)
     pin_cells(kernels, args.arm)
-    out = {}
+    out, solvers = {}, {}
     for form in FORMS:
-        if args.arm in ("cell0", "cell2") and not low(form):
+        if args.arm in ("tile", "cell") and not capped(form):
             continue
-        name, kind, tag, _, p, diag = form
+        name, kind, tag, maker, p, _ = form
         dtype = dtypes[tag]
-        _, ops, _ = solver(cs, form, dtype, dev, cut)
-        st = torch.load(work / f"{name}.pt", map_location=dev)
-        u, deg = st["u"], st["deg"]
-
-        def fn():
-            if kind == "post":
-                return kernels.fused_post(u, ops, with_diag=diag)
-            return kernels.fused_modal_pos(u, ops, deg)
-        tiles = [None]
-        rule = getattr(kernels, "post_tile", None)
-        if rule is not None:
-            tiles = [rule(p, kind == "modal", dtype)]
-            if args.arm == "change" and tiles[0] != kernels.BLOCK:
-                tiles += [t for t in kernels.POST_TILES if t != tiles[0]
-                          and takes(kernels, ops, kind, dtype, t)]
+        if (maker, p, tag) not in solvers:
+            solvers.clear()
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            solvers[(maker, p, tag)] = solver(cs, form, dtype, dev, cut)[0]
+        ops = operators(kernels, form, solvers[(maker, p, tag)])
+        x = torch.load(work / f"{input_key(form)}.pt", map_location=dev)
+        rule = getattr(kernels, RULES[kind], None)
+        tiles = [rule_tile(kernels, form, dtype)]
+        if args.arm == "change":
+            tiles += other_tiles(kernels, form, dtype, tiles[0])
         for i, tile in enumerate(tiles):
             if i:   # every other tile the kernel takes, for the rule
-                kernels.post_tile = lambda *a, _t=tile: _t
-            res = fn()
+                setattr(kernels, RULES[kind], lambda *a, _t=tile: _t)
+            res = call(kernels, form, ops, x)
             res = res if isinstance(res, tuple) else (res,)
-            call_ms, dev_ms, n = time_call(fn, dev)
+            call_ms, dev_ms, n = time_call(
+                lambda: call(kernels, form, ops, x), dev)
             key = name if i == 0 else f"{name}@{tile[0]}x{tile[1]}"
             out[key] = {"call_ms": round(call_ms, 4),
                         "dev_ms": None if dev_ms is None else round(dev_ms, 4),
                         "launches_per_call": n,
                         "tile": None if tile is None else list(tile),
                         "digest": digest(res)}
-            kernels.post_tile = rule
+            if rule is not None:
+                setattr(kernels, RULES[kind], rule)
             print(f"{args.arm} {key}: {out[key]}", flush=True)
-        del st, u, deg, ops
-        if dev == "cuda":
-            torch.cuda.empty_cache()
+        del x, ops
     (work / f"time_{args.arm}_{args.run}.json").write_text(json.dumps(out))
-
-
-def takes(kernels, ops, kind, dtype, tile) -> bool:
-    """Whether the tile kernel takes tile at this form: a thread per cell
-    (the post's chain two) and the shared memory within the card's."""
-    modal = kind == "modal"
-    cells = tile[0] * tile[1]
-    b = (kernels.post_smem(ops.p, True, dtype, tile) if modal else
-         kernels.post_smem(ops.p, False, dtype, tile, ops.vflags is not None,
-                           ops.pos_lim))
-    return cells * (1 if modal else 2) <= kernels.TILE_THREADS and \
-        0 < b <= MAX_SMEM
 
 
 def spawn(kind, arm, root, work, small, run=0):
@@ -440,15 +517,16 @@ def main() -> None:
 
 
 def summarize(runs) -> dict:
-    """Per form: each arm's runs (call_ms, dev_ms, tile) and whether every
-    output equals the parent's bitwise."""
+    """Per form: each arm's runs (call_ms, dev_ms, tile), whether every
+    run has its device time and whether every output equals the parent's
+    bitwise."""
     out = {}
     for key in runs["parent"][0]:   # the forms
         ref = runs["parent"][0][key]["digest"]
         row = {}
         alts = sorted(k for k in runs["change"][0]
                       if k.startswith(f"{key}@"))
-        for arm in ("parent", "change", "cell0", "cell2"):
+        for arm in ("parent", "change", "tile", "cell"):
             for k in (key, *(alts if arm == "change" else ())):
                 rs = [r[k] for r in runs[arm] if k in r]
                 if not rs:
@@ -457,11 +535,14 @@ def summarize(runs) -> dict:
                 row[lab] = {"call_ms": [r["call_ms"] for r in rs],
                             "dev_ms": [r["dev_ms"] for r in rs],
                             "tile": rs[0]["tile"],
+                            "dev_complete": all(r["dev_ms"] is not None
+                                                for r in rs),
                             "bitwise": all(r["digest"] == ref for r in rs)}
         out[key] = row
         print(f"{key:22s} " + "  ".join(
             f"{lab} {v['tile'] or 'cell'} call {v['call_ms']} dev "
-            f"{v['dev_ms']}{'' if v['bitwise'] else ' NOT BITWISE'}"
+            f"{v['dev_ms']}{'' if v['dev_complete'] else ' dev incomplete'}"
+            f"{'' if v['bitwise'] else ' NOT BITWISE'}"
             for lab, v in row.items()), flush=True)
     return out
 

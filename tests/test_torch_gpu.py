@@ -37,7 +37,12 @@ kernel at Q1-Q2) on the same kind of grids: the post at Q1-Q6 periodic in
 x, y and both, with the three indicators, char_lim and pos_lim off, solid
 cells on tile and domain edges and a NaN cell, its block form with each
 halo line present and absent, the modal positivity at P1-P6 in its four
-forms with a degree map holding every degree 0..p, all bitwise.
+forms with a degree map holding every degree 0..p, all bitwise; the Pk
+post's and the MOOD check's tile kernels on the same kind of grids: the Pk
+post at P1-P6 periodic on neither, one or both axes, with marked cells on
+tile and domain edges and a NaN cell, the check at p 2-6 with degree-1
+marked cells on tile and domain edges, so that spreads cross tile borders
+and wrap, all bitwise.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -1579,3 +1584,130 @@ def test_tile_edges_modal_pos_is_bitwise_plain(cuda, p, grid, dtype):
                           kernels.fused_modal_pos_plain(u, mops, d,
                                                         with_diag=True))]])
     assert kernels.fused_modal_pos.launches == before + 4
+
+
+# ---------------------------------------------------------------------------
+# the Pk post's and the MOOD check's tile kernels (csrc/fused_pk_post.cu,
+# csrc/fused_mood_check.cu, kernels.pk_post_tile and check_tile): grids cut
+# against their tiles and smaller than one, periodic on neither, one or both
+# axes, marked cells on tile and domain edges, spreads that cross tile
+# borders and wrap; each bitwise equal to its plain version
+# ---------------------------------------------------------------------------
+
+PER_AXES = ((False, False), (True, False), (False, True), (True, True))
+#: (nx, ny) of the Pk post's cases; "past" is the grid one cell past the
+#: degree's tile on both axes
+PK_POST_GRIDS = ((1, 1), (3, 2), (2, 37), (40, 1), (37, 11), "past")
+#: (nx, ny) of the check's cases: rows a 16-byte vector of every plane
+#: (256), of the float planes alone (260) and of none (129, 37), and
+#: "past", one cell past its tile on both axes
+CHECK_GRIDS = ((1, 1), (3, 2), (2, 37), (40, 1), (37, 11), (256, 20),
+               (260, 35), "past")
+
+
+def edge_marks(nx, ny, seed, density=0.5):
+    """A random bool plane (numpy seed) set on the domain's four edges and
+    on the tiles' edges (columns 7, 8, 15, 16, 127, 128 and rows 3, 4, 7, 8,
+    15, 16)."""
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(size=(ny, nx)) < density
+    m[0, :] = m[-1, :] = m[:, 0] = m[:, -1] = True
+    m[:, [x for x in (7, 8, 15, 16, 127, 128) if x < nx]] = True
+    m[[y for y in (3, 4, 7, 8, 15, 16) if y < ny], :] = True
+    return m
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("per", PER_AXES)
+@pytest.mark.parametrize("grid", PK_POST_GRIDS)
+@pytest.mark.parametrize("p", (1, 2, 3, 4, 5, 6))
+def test_tile_edges_pk_post_is_bitwise_plain(cuda, p, grid, per, dtype):
+    """The Pk post at P1-P6 on grids cut against its tile and smaller than
+    one, periodic on neither, one or both axes, characteristic limiting and
+    a TVB M on some, the marked cells on tile and domain edges and half the
+    others; with and without diag, one launch each."""
+    dt = getattr(torch, dtype)
+    if grid == "past":
+        ty, tx = kernels.pk_post_tile(p, dt)
+        grid = (tx + 1, ty + 1)
+    nx, ny = grid
+    mesh, u = noisy_state("Pk", p, nx, ny, dt, cuda, 200 + 10 * p + nx)
+    post = kernels.pk_post_operators(
+        make_basis("Pk", p), mesh, M=10.0 if per == (False, True) else 0.0,
+        beta=2.0, char_lim=per != (True, False), per_x=per[0], per_y=per[1],
+        dtype=dt, device=cuda)
+    shock = torch.from_numpy(np.where(edge_marks(nx, ny, p + nx), 2.0, 0.0)
+                             ).to(dtype=dt, device=cuda)
+    before = kernels.fused_pk_post.launches
+    assert all_same_bits([
+        (kernels.fused_pk_post(u, shock, post),
+         kernels.fused_pk_post_plain(u, shock, post)),
+        *zip(kernels.fused_pk_post(u, shock, post, with_diag=True),
+             kernels.fused_pk_post_plain(u, shock, post, with_diag=True))])
+    assert kernels.fused_pk_post.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("p", (1, 2, 3, 4, 5, 6))
+def test_tile_pk_post_nan_cell_reaches_lam_max(cuda, p, dtype):
+    """A NaN cell gives NaN in lam_max, as in the plain version; the other
+    outputs stay bitwise (NaN where the plain version has NaN)."""
+    dt = getattr(torch, dtype)
+    mesh, u = noisy_state("Pk", p, 37, 11, dt, cuda, 290 + p)
+    u[:, :, 5, 17] = float("nan")
+    post = kernels.pk_post_operators(make_basis("Pk", p), mesh, beta=2.0,
+                                     char_lim=True, dtype=dt, device=cuda)
+    shock = torch.full((11, 37), 2.0, dtype=dt, device=cuda)
+    k = kernels.fused_pk_post(u, shock, post, with_diag=True)
+    assert all_same_bits(zip(k, kernels.fused_pk_post_plain(
+        u, shock, post, with_diag=True)))
+    assert bool(k[1].isnan()) and bool(~(k[2] >= EPS))
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("per", PER_AXES)
+@pytest.mark.parametrize("grid", CHECK_GRIDS)
+@pytest.mark.parametrize("p", (2, 3, 4, 5, 6))
+def test_tile_edges_mood_check_is_bitwise_plain(cuda, p, grid, per, dtype):
+    """The check at p 2-6 on grids cut against its wide tile and smaller
+    than one, periodic on neither, one or both axes, with degree-1 marked
+    cells on the tile and domain edges, so that spreads cross tile borders
+    and wrap; a candidate near the predictor, so the DMP test goes both
+    ways.  The three outputs bitwise equal to the plain version's, and on
+    grids with cells off the domain's edges some cells change."""
+    from dflo_tpu_torch.stab import mood
+    dt = getattr(torch, dtype)
+    if grid == "past":
+        ty, tx = kernels.check_tile(dt)
+        grid = (tx + 1, ty + 1)
+    nx, ny = grid
+    mesh, u = noisy_state("Pk", p, nx, ny, dt, cuda, 400 + 10 * p + nx)
+    ops = kernels.mood_check_operators(make_basis("Pk", p), mesh,
+                                       per_x=per[0], per_y=per[1],
+                                       device=cuda)
+    rho0 = ops.avg0 * u[euler.RHO, 0]
+    bmin = mood.neighborhood_min(rho0, ops.valid)
+    bmax = mood.neighborhood_max(rho0, ops.valid)
+    # the candidate: 1e-4 relative noise on the means (DMP fails at most
+    # local extrema), the higher modes 1 % of the mean in random signs (the
+    # u2 test fails in most cells: the IC's higher modes are 0)
+    rng = np.random.default_rng(p + nx)
+    cand = u * torch.from_numpy(1.0 + 1e-4 * rng.uniform(-1.0, 1.0, u.shape)
+                                ).to(u)
+    cand[:, 1:] += 0.01 * cand[:, :1] * torch.from_numpy(
+        rng.uniform(-1.0, 1.0, cand[:, 1:].shape)).to(u)
+    cand = cand.contiguous()
+    edges = edge_marks(nx, ny, 7 * p + nx, density=0.3)
+    deg = np.where(edges, 1, rng.integers(1, p + 1, (ny, nx))).astype(np.int32)
+    lim = edges & (rng.uniform(size=(ny, nx)) < 0.7)
+    deg, lim = torch.from_numpy(deg).to(cuda), torch.from_numpy(lim).to(cuda)
+    before = kernels.fused_mood_check.launches
+    k = kernels.fused_mood_check(cand, bmin, bmax, deg, lim, ops)
+    q = kernels.fused_mood_check_plain(cand, bmin, bmax, deg, lim, ops)
+    torch.cuda.synchronize()
+    assert kernels.fused_mood_check.launches == before + 1
+    for a, b in zip(k, q):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert k[0].dtype == torch.int32 and k[1].dtype == k[2].dtype == torch.bool
+    if min(nx, ny) > 2:      # cells off the domain's edges (deg 1 there)
+        assert 0 < int(k[2].sum())

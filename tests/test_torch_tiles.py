@@ -5,7 +5,12 @@ and the tile each basis takes (kernels.residual_tile); the post's and the
 modal positivity's (csrc/fused_post.cu, csrc/fused_modal_pos.cu): the tile
 each degree takes (kernels.post_tile) against the block size and the
 shared-memory budget, and the diag partials, one per tile, against the
-tiles that cover a ragged grid.  Torch and numpy only: no JAX, no card."""
+tiles that cover a ragged grid; the Pk post's and the MOOD check's
+(csrc/fused_pk_post.cu, csrc/fused_mood_check.cu): the Pk post's tile at
+every degree and dtype (kernels.pk_post_tile) and the check's block
+(kernels.check_tile) against the block and the budget, the Pk post's diag
+partials against its tiles, and the constants the wrappers mirror from
+the sources.  Torch and numpy only: no JAX, no card."""
 
 import re
 
@@ -162,6 +167,110 @@ def test_diag_partials_number_the_tiles(shape, tile):
     assert lam.shape == minq.shape == (n,) and lam.dtype == u.dtype
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("p", (1, 2, 3, 4, 5, 6))
+def test_pk_post_tile_fits_the_block_and_the_budget(p, dtype):
+    """Every degree of the Pk post takes a tile of POST_TILES whose cells
+    get a thread each at least (two, the chain's x and y halves, on tiles
+    of up to TILE_THREADS / 2 cells), whose cells x K stay within
+    PK_TILE_DOFS and whose shared memory fits the budget (POST_SMEM, two
+    blocks per SM, in float32; MAX_SMEM in float64); no larger tile of the
+    list passes; the per-cell degrees (PK_POST_CELL_MAX_P) take BLOCK and
+    no shared memory."""
+    tile = kernels.pk_post_tile(p, dtype)
+    if p <= kernels.PK_POST_CELL_MAX_P[dtype]:
+        assert tile == kernels.BLOCK
+        assert kernels.pk_post_smem(p, dtype, tile) == 0
+        return
+    K = (p + 1) * (p + 2) // 2
+    budget = (kernels.POST_SMEM if dtype == torch.float32
+              else kernels.MAX_SMEM)
+
+    def fits(t):
+        return (kernels.TILE_THREADS % (t[0] * t[1]) == 0
+                and t[0] * t[1] * K <= kernels.PK_TILE_DOFS[dtype]
+                and kernels.pk_post_smem(p, dtype, t) <= budget)
+    assert tile in kernels.POST_TILES and fits(tile)
+    b = kernels.pk_post_smem(p, dtype, tile)
+    assert 0 < b <= kernels.MAX_SMEM and b % 16 == 0
+    assert not any(fits(t) for t in
+                   kernels.POST_TILES[:kernels.POST_TILES.index(tile)])
+
+
+def test_pk_post_tiles_of_the_main_paths():
+    """The Pk post on the MOOD paths: P1 (the DMR P1 path) and P2 (the DMR
+    P2, rt and fwd paths) on the per-cell kernel's 4 x 32 block in both
+    dtypes, P3 there in float32 and on 8 x 16 in float64, P4 on 8 x 16 in
+    both dtypes
+    (1,920 modes of a component), P5 on 8 x 16 in float32 and 8 x 8 in
+    float64, P6 on 8 x 8; the layout's bytes at P4 float32 by hand: the
+    transposed points, the modes, the points' values (in the space of the
+    ring's means, which are fewer), the shock values and the per-cell
+    values."""
+    f32, f64 = torch.float32, torch.float64
+    assert kernels.pk_post_tile(1, f32) == kernels.pk_post_tile(1, f64) \
+        == kernels.pk_post_tile(2, f32) == kernels.pk_post_tile(2, f64) \
+        == kernels.pk_post_tile(3, f32) == kernels.BLOCK == (4, 32)
+    assert kernels.pk_post_tile(3, f64) == (8, 16)
+    assert kernels.pk_post_tile(4, f32) == kernels.pk_post_tile(4, f64) \
+        == (8, 16)
+    assert kernels.pk_post_tile(5, f32) == (8, 16)
+    assert kernels.pk_post_tile(5, f64) == (8, 8)
+    assert kernels.pk_post_tile(6, f32) == kernels.pk_post_tile(6, f64) \
+        == (8, 8)
+    qpp, K, nc, ss = 40, 15, 128, 10 * 18
+    assert 4 * ss < qpp * nc
+    assert kernels.pk_post_smem(4, f32, (8, 16)) == 4 * (
+        K * qpp + 4 * K * nc + qpp * nc + nc + 7 * nc)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_check_tiles_fit_the_budget(dtype):
+    """The check's block in each dtype: the per-cell kernel's BLOCK (no
+    dynamic shared memory) where CHECK_PER_CELL says, else the wide
+    CHECK_TILE, its columns a multiple of 16 (a byte plane's 16-byte
+    vector, so the tile's vectors start aligned), its cells runs of four
+    along x, its shared memory (two D2 planes with a two-cell halo, five
+    planes with a one-cell halo, the flags, each row padded so that a run
+    of four cells is one aligned vector) within the card's, by hand in
+    float32."""
+    if kernels.CHECK_PER_CELL[dtype]:
+        assert kernels.check_tile(dtype) == kernels.BLOCK
+        assert kernels.check_smem(dtype) == 0
+        return
+    ty, tx = kernels.check_tile(dtype)
+    assert (ty, tx) == kernels.CHECK_TILE
+    assert tx % 16 == 0 and (ty * tx) % 4 == 0
+    b = kernels.check_smem(dtype)
+    assert 0 < b <= kernels.MAX_SMEM and b % 16 == 0
+    if dtype == torch.float32:
+        pt, rows = tx + 8, ty + 2
+        assert b == (2 * (ty + 4) * pt * 4 + 3 * rows * pt * 4
+                     + rows * (tx + 8) * 4 + rows * (tx + 32)
+                     + 2 * rows * (tx + 8))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("shape", ((1, 1), (9, 17), (40, 3), (288, 1152)))
+@pytest.mark.parametrize("p", (1, 2, 4, 6))
+def test_pk_post_partials_number_its_tiles(p, shape, dtype):
+    """The Pk post's diag partials (one per tile: thread 0 of block b
+    writes slot b) number the tiles of pk_post_tile over the grid, which
+    its blocks decode row-major and which cover every cell once."""
+    ny, nx = shape
+    tile = kernels.pk_post_tile(p, dtype)
+    n = kernels.tile_count(ny, nx, tile)
+    u = torch.zeros((4, (p + 1) * (p + 2) // 2, ny, nx), dtype=dtype)
+    lam, minq = kernels._partials(u, tile)
+    assert lam.shape == minq.shape == (n,) and lam.dtype == dtype
+    cover = np.zeros(shape, int)
+    ntx = -(-nx // tile[1])
+    for b in range(n):
+        y0, x0 = (b // ntx) * tile[0], (b % ntx) * tile[1]
+        cover[y0:y0 + tile[0], x0:x0 + tile[1]] += 1
+    assert (cover == 1).all()
+
+
 def _constant(source: str, pattern: str) -> int:
     """The integer a C source of the kernels defines by pattern."""
     text = (kernels.CSRC / source).read_text()
@@ -171,14 +280,17 @@ def _constant(source: str, pattern: str) -> int:
 
 
 @pytest.mark.parametrize("name", ("BLOCK", "POST_CELL_MAX_P", "TILE_THREADS",
-                                  "POINT_ROWS", "MAX_SMEM"))
+                                  "POINT_ROWS", "MAX_SMEM",
+                                  "PK_POST_CELL_MAX_P", "CHECK_TILE",
+                                  "CHECK_PER_CELL"))
 def test_python_mirrors_match_the_sources(name):
     """Each constant the wrappers mirror from the C sources (the per-cell
     kernels' block, which sizes their diag partials; the post's per-cell
     degrees; the tile kernels' threads, point rows and shared-memory
-    ceiling) equals the sources' own, read from csrc/ as built by default
-    (chip_smoke.py phase 1 asks the built library for the block and the
-    shared memory on the card)."""
+    ceiling; the Pk post's per-cell degrees; the check's tile and the
+    dtypes of its per-cell kernel) equals the sources' own, read
+    from csrc/ as built by default (chip_smoke.py phase 1 asks the built
+    library for the block and the shared memory on the card)."""
     if name == "BLOCK":
         got = (_constant("euler.cuh", r"constexpr int BY = (\d+);"),
                _constant("euler.cuh", r"constexpr int BX = (\d+);"))
@@ -192,6 +304,25 @@ def test_python_mirrors_match_the_sources(name):
     elif name == "TILE_THREADS":
         assert _constant("tile.cuh", r"constexpr int TNT = (\d+);") \
             == kernels.TILE_THREADS
+    elif name == "PK_POST_CELL_MAX_P":
+        got = {dt: _constant("fused_pk_post.cu",
+                             rf"#define DFLO_PK_POST_CELL_MAX_P_{tag} (\d+)")
+               for dt, tag in ((torch.float32, "F32"),
+                               (torch.float64, "F64"))}
+        assert got == kernels.PK_POST_CELL_MAX_P
+        assert max(got.values()) <= 3    # the fixed dims alone
+    elif name == "CHECK_TILE":
+        got = (_constant("fused_mood_check.cu",
+                         r"constexpr int CHECK_TY = (\d+), CHECK_TX = \d+;"),
+               _constant("fused_mood_check.cu",
+                         r"constexpr int CHECK_TY = \d+, CHECK_TX = (\d+);"))
+        assert got == kernels.CHECK_TILE
+    elif name == "CHECK_PER_CELL":
+        got = {dt: bool(_constant("fused_mood_check.cu",
+                                  rf"#define DFLO_CHECK_PER_CELL_{tag} (\d+)"))
+               for dt, tag in ((torch.float32, "F32"),
+                               (torch.float64, "F64"))}
+        assert got == kernels.CHECK_PER_CELL
     elif name == "POINT_ROWS":
         assert _constant("tile.cuh", r"constexpr int PR = (\d+);") \
             == kernels.POINT_ROWS
