@@ -284,6 +284,19 @@ Phases (any failure raises, and the script then prints no result):
    alone) and one cell past its tile, periodic on neither, one or both
    axes, degree-1 marked cells on tile and domain edges, so that spreads
    cross tile borders and wrap.
+31. the diag (row 6, one launch a call: the Pk mode-0 mean, the nodal full
+   row), its sharded form (row 7) and the volume residual (row 1: the
+   per-cell kernel up to ops/kernels.VOLUME_CELL_MAX_P, the tile kernel
+   above) against their plain versions, f32 and f64,
+   bitwise, on grids whose rows a 16-byte vector covers and does not, odd
+   row counts, grids smaller than one run or tile, masked and not, and a
+   state 4 bytes past a 16-byte boundary.
+
+Rows 1, 6 and 7 are bitwise in every phase that compares them (record,
+BITWISE_ROWS).  Phase 1 also holds the diag's and the volume residual's
+instantiations to no stack and no spill and the volume tile's shared
+memory to ops/kernels.volume_smem; phase 8 traces 20 diag calls and
+finds 20 device events, each the diag kernel.
 
 The last lines are the kernel table, the card line and the card as JSON.  The
 machine with the card has no JAX: this script imports neither jax nor
@@ -560,8 +573,8 @@ SOURCES = {
     "fused_diag_q4": ("dflo_tpu_torch/csrc/fused_diag.cu", f"{PK}:1663",
                       f"{PK}:make_fused_diag (Q4)", "fused_diag", "dmr_q4"),
     "volume_residual_q4": ("dflo_tpu_torch/csrc/volume_residual.cu",
-                           f"{PK}:166", f"{PK}:volume_residual (Q4; K at "
-                           f"run time)", "volume_residual", "pallas_q4"),
+                           f"{PK}:166", f"{PK}:volume_residual (Q4; the tile "
+                           f"kernel)", "volume_residual", "pallas_q4"),
     "fused_residual_q2oi_lxf": ("dflo_tpu_torch/csrc/fused_residual_lxf.cu",
                                 f"{PK}:617", f"{PK}:make_fused_residual "
                                 f"(over-integrated Q2 on 4 x 4 points, lxf; "
@@ -698,10 +711,21 @@ def abs_err(k: torch.Tensor, p: torch.Tensor) -> float:
     return float((k.double() - p.double()).abs().max())
 
 
+#: the rows whose kernels equal their plain versions bitwise in every
+#: comparison (NaN where the plain version has NaN, -0 equal to +0): the
+#: diag (rows 6 and 7: max and min are exact) and the volume residual (row
+#: 1: the plain version's products and sums in its order)
+BITWISE_ROWS = ("fused_diag", "volume_residual")
+
+
 def record(results, name, tag, pairs):
     """Fold the (kernel, plain) pairs' errors into results[name]; returns the
-    largest relative error."""
+    largest relative error.  A row of BITWISE_ROWS must be bitwise."""
     r = results[name]
+    if name.startswith(BITWISE_ROWS):
+        eq = all(same(k, p) for k, p in pairs)
+        r[f"bitwise_{tag}"] = r.get(f"bitwise_{tag}", True) and eq
+        assert eq, f"{name} {tag} is not bitwise equal to its plain version"
     e = max(rel_err(k, p) for k, p in pairs)
     r[f"max_rel_err_{tag}"] = max(r.get(f"max_rel_err_{tag}", 0.0), e)
     r[f"max_abs_err_{tag}"] = max(r.get(f"max_abs_err_{tag}", 0.0),
@@ -1608,6 +1632,8 @@ def device_busy(fn) -> dict | None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": 1e3 * wall, "busy_ms": 1e-3 * busy,
             "device_events": len(evs), "port_kernel_events": len(port),
+            "diag_kernel_events": sum("fused_diag_kernel" in e.name
+                                      for e in evs),
             "port_kernel_ms": 1e-3 * sum(e.time_range.elapsed_us()
                                          for e in port),
             "top_ms": {k: 1e-3 * v for k, v in top}}
@@ -1654,10 +1680,28 @@ def phase_trace(entry, ms_per_step, built):
                  "port_kernel_ms_per_step": r["port_kernel_ms"] / steps,
                  "device_events_per_step": r["device_events"] / steps,
                  "port_kernel_events_per_step":
-                     r["port_kernel_events"] / steps}
+                     r["port_kernel_events"] / steps,
+                 "diag_kernel_events_per_step":
+                     r["diag_kernel_events"] / steps}
         print(f"{method} trace ({steps} steps): "
               f"{json.dumps(r) if r else 'no device events: not measured'}")
         out[method] = r
+    # a diag call is one kernel and nothing after it: 20 calls on the P4
+    # vortex (the mode-0 mean) and on iso_xing_shu (GLL2, the full row)
+    # (a trace that drops an event is taken again, up to three times)
+    from dflo_tpu_torch.ops import kernels
+    for method in ("vortex_p4", "iso"):
+        s, u = built[method]
+        for _ in range(3):
+            r = device_busy(lambda: [kernels.fused_diag(u, s._diag_ops)
+                                     for _ in range(20)])
+            if r is None or r["device_events"] == 20:
+                break
+        print(f"{method} diag, 20 calls: "
+              f"{json.dumps(r) if r else 'no device events: not measured'}")
+        if r is not None:
+            assert r["device_events"] == r["diag_kernel_events"] == 20, r
+        out[f"diag_calls_{method}"] = r
     return out
 
 
@@ -2661,7 +2705,8 @@ def phase_tile_report(kernels, log, results):
         "with_stack_or_spill": [list(r) for r in local],
         "smem_per_block": smem,
         "post_and_modal_pos": post_tile_report(kernels, log),
-        "pk_post_and_check": pk_check_report(kernels, log)}
+        "pk_post_and_check": pk_check_report(kernels, log),
+        "diag_and_volume": diag_volume_report(kernels, log)}
 
 
 def pk_check_report(kernels, log) -> dict:
@@ -2725,6 +2770,61 @@ def pk_check_report(kernels, log) -> dict:
               for k, v in smem.items()))
     return {"instantiations": [list(r) for r in rows],
             "smem_per_block": smem}
+
+
+def diag_volume_report(kernels, log) -> dict:
+    """Phase 1, the diag's and the volume residual's kernels (rows 6 and 1):
+    each instantiation's registers, stack and spill (ptxas; none may have
+    a stack frame or spill), and the volume residual's tile and dynamic
+    shared memory per block at every degree and dtype (csrc
+    dflo_volume_smem, 0 for the per-cell kernel), which must equal
+    ops/kernels.volume_smem."""
+    import re
+    rows, fn, stack, spill = [], "", 0, 0
+    pat = (r"(fused_diag|cell_volume|tile_volume)_kernelI([fd])Li(\d+)"
+           r"E(?:L[ib](\d+)E)?")
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            stack, spill = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        k = re.search(pat, fn)
+        if m and k:
+            kind, n, w = k.group(1), int(k.group(3)), k.group(4)
+            form = {"fused_diag": f"{'mode0' if n == 0 else f'K{n}'}"
+                                  f"{' vec' if w == '1' else ''}",
+                    "cell_volume": f"K{n}",
+                    "tile_volume": f"Q{n} x{w}"}[kind]
+            rows.append((kind, "f32" if k.group(2) == "f" else "f64", form,
+                         int(m.group(1)), stack, spill))
+    assert {r[0] for r in rows} >= {"fused_diag", "tile_volume"}, rows
+    print("ptxas fused_diag_kernel / cell_volume_kernel / "
+          "tile_volume_kernel: " + ", ".join(
+              f"{k} {d} {f} {r} regs {st} B stack {sp} B spill"
+              for k, d, f, r, st, sp in rows))
+    local = [r for r in rows if r[4] or r[5]]
+    assert not local, f"rows 1 and 6 with a stack frame or spills: {local}"
+    lib = kernels._load()
+    smem = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        code = int(dtype == torch.float64)
+        for p in range(1, 7):
+            K = (p + 1) ** 2
+            n = lib.dflo_volume_smem(code, K)
+            assert n == kernels.volume_smem(p, dtype), (tag, p, n)
+            assert n <= kernels.MAX_SMEM, (tag, p, n)
+            smem[f"volume Q{p} {tag}"] = {
+                "tile_x": kernels.volume_tile(K, dtype), "smem_bytes": n}
+    print("volume residual tile (cells along x, 0: the per-cell kernel) and "
+          "shared memory per block: " + "; ".join(
+              f"{k} {v['tile_x']} {v['smem_bytes']} B"
+              for k, v in smem.items()))
+    return {"instantiations": [list(r) for r in rows],
+            "volume_smem_per_block": smem}
 
 
 def phase_flux_kernels(kernels, results, log):
@@ -3675,6 +3775,7 @@ def phase_envelope_kernels(entry, kernels, results, log):
             e, eq = pairs_err(pairs)
             cases[key] = {"rel_err": e, "bitwise": eq}
             assert e <= tol[tol_key], f"{key} {tag}: {e}"
+            assert eq or tol_key not in BITWISE_ROWS, f"{key} {tag}: not bitwise"
 
         # ---- the residual: degrees 4-6, over-integrated, masked ----------
         for fam, p, nq, flux, forms, masked in ENV_CASES:
@@ -4677,6 +4778,106 @@ def phase_tile_pk_check_kernels(kernels, results):
     results["tile_pk_check_cases"] = out
 
 
+#: the diag's and the volume residual's coverage grids (phase 31): rows a
+#: 16-byte vector of cells covers (nx % 4 == 0) and rows it does not, odd
+#: row counts, grids smaller than one run or tile, and one of 64 tiles
+DV_GRIDS = ((96, 20), (33, 17), (130, 9), (5, 3), (1, 1), (256, 64))
+#: the diag's bases there: (family, degree, nq or None)
+DV_DIAG_BASES = (*(("Pk", p, None) for p in range(1, 7)),
+                 *(("Qk", p, None) for p in range(1, 7)),
+                 *(("Qk_gll", p, None) for p in range(1, 7)),
+                 ("Pk", 2, 4), ("Pk", 6, 8), ("Qk", 2, 4), ("Qk_gll", 5, 7))
+
+
+def phase_diag_volume_kernels(kernels, results):
+    """Phase 31 for both dtypes: the diag (row 6) over DV_DIAG_BASES (the
+    Pk mode-0 mean, the nodal full row, over-integrated bases) on
+    DV_GRIDS, masked (a quarter of the cells solid) and not, and on a state
+    4 bytes past a 16-byte boundary (the element loads); the sharded diag
+    (row 7) on a (2, 2) virtual mesh at P2, Q2 and Q4; the volume residual
+    (row 1) at Q1-Q6 and GLL1-GLL6 on DV_GRIDS; the diag also on a workspace
+    of 3 blocks (the grid-stride loop's later rounds); all bitwise (NaN
+    where the plain version has NaN), one launch a call."""
+    import dataclasses
+
+    import numpy as np
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.parallel import shard_state
+    from dflo_tpu_torch.solver.spatial import make_rhs
+    out = {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        n_cases = 0
+
+        def note(key, pairs):
+            nonlocal n_cases
+            pairs = list(pairs)
+            torch.cuda.synchronize()
+            assert all(same(k, q) for k, q in pairs), f"{key} {tag}"
+            n_cases += 1
+
+        for fam, p, nq in DV_DIAG_BASES:
+            basis = make_basis(fam, p, nq)
+            for gi, (nx, ny) in enumerate(DV_GRIDS):
+                mesh, u = tp_state(fam, p, nx, ny, dtype, 800 + 10 * p + gi)
+                rng = np.random.default_rng(p + gi)
+                for mask in (None, rng.uniform(size=(ny, nx)) > 0.25):
+                    ops = kernels.diag_operators(basis, mesh, mask=mask,
+                                                 dtype=dtype, device="cuda")
+                    # and on a workspace of 3 blocks: the grid-stride
+                    # loop's later rounds
+                    narrow = dataclasses.replace(
+                        ops, part=ops.part[:6].clone(),
+                        ticket=torch.zeros_like(ops.ticket))
+                    for o in (ops, narrow):
+                        n0 = kernels.fused_diag.launches
+                        note(f"diag {fam}{p} nq{basis.nq} {nx}x{ny}",
+                             zip(kernels.fused_diag(u, o),
+                                 kernels.fused_diag_plain(u, o)))
+                        assert kernels.fused_diag.launches == n0 + 1
+                        assert int(o.ticket) == 0
+                buf = torch.empty(u.numel() + 1, dtype=dtype, device="cuda")
+                off = buf[1:].view(u.shape)
+                off.copy_(u)
+                note(f"diag {fam}{p} {nx}x{ny} unaligned",
+                     zip(kernels.fused_diag(off, ops),
+                         kernels.fused_diag_plain(u, ops)))
+                del u, buf, off
+        dm = virtual_mesh()
+        for fam, p in (("Pk", 2), ("Qk", 2), ("Qk", 4)):
+            basis = make_basis(fam, p)
+            mesh, u = tp_state(fam, p, 256, 64, dtype, 880 + p)
+            blocks = shard_state(u, dm)
+            bops = [kernels.diag_operators(basis, mesh, dtype=dtype,
+                                           device="cuda") for _ in blocks]
+            got = kernels.fused_diag_sharded(blocks, bops, dm)
+            note(f"sharded diag {fam}{p}", zip(got, kernels.fused_diag(
+                u, kernels.diag_operators(basis, mesh, dtype=dtype,
+                                          device="cuda"))))
+            note(f"sharded diag {fam}{p} plain", zip(
+                got, kernels.fused_diag_sharded_plain(blocks, bops, dm)))
+            del u, blocks
+        for fam in ("Qk", "Qk_gll"):
+            for p in range(1, 7):
+                basis = make_basis(fam, p)
+                for gi, (nx, ny) in enumerate(DV_GRIDS):
+                    mesh, u = tp_state(fam, p, nx, ny, dtype,
+                                       900 + 10 * p + gi, scale=0.05)
+                    L = make_rhs(basis, mesh, bump_bcs(), dtype=dtype,
+                                 device="cuda",
+                                 volume_kernel="pallas").lift_stack
+                    n0 = kernels.volume_residual.launches
+                    note(f"volume {fam}{p} {nx}x{ny}",
+                         [(kernels.volume_residual(L, u),
+                           kernels.volume_residual_plain(L, u))])
+                    assert kernels.volume_residual.launches == n0 + 1
+                    del u
+        torch.cuda.empty_cache()
+        out[tag] = n_cases
+        print(f"[{tag}] diag and volume residual: {n_cases} cases bitwise "
+              f"(rows 6, 7 and 1)")
+    results["diag_volume_cases"] = out
+
+
 def clock(t_start: float, what: str) -> None:
     """The script's elapsed time before the phases `what`."""
     print(f"chip_smoke: at {time.perf_counter() - t_start:.1f} s, next: "
@@ -4762,6 +4963,10 @@ def main() -> int:
     clock(t_start, "phase 30")
     # ---- phase 30: the tile Pk post and check over their forms ------------
     phase_tile_pk_check_kernels(kernels, results)
+
+    clock(t_start, "phase 31")
+    # ---- phase 31: the diag and the volume residual over their forms -----
+    phase_diag_volume_kernels(kernels, results)
 
     clock(t_start, "phases 3 and 6")
     # ---- phases 3 and 6: the main paths, with the plain versions counted -----
@@ -4967,6 +5172,7 @@ def main() -> int:
                       "mood_degree_cases": results["mood_degree_cases"],
                       "tile_post_cases": results["tile_post_cases"],
                       "tile_pk_check_cases": results["tile_pk_check_cases"],
+                      "diag_volume_cases": results["diag_volume_cases"],
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
                                           "mood_host", "mood_p4",

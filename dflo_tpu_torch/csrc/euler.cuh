@@ -733,19 +733,6 @@ __device__ __forceinline__ T dot_seq(const T* __restrict__ op, const T v[K]) {
   return acc;
 }
 
-// sum_k op[k] * u[(c*K + k) * plane + cell] for one component c, in k order
-// (contract.basis_reduce)
-template <typename T, int K>
-__device__ __forceinline__ T dot_cell(const T* __restrict__ op,
-                                      const T* __restrict__ u, int c,
-                                      long plane, long cell) {
-  T acc = op[0] * __ldg(u + (long)(c * K) * plane + cell);
-#pragma unroll
-  for (int k = 1; k < K; ++k)
-    acc = acc + op[k] * __ldg(u + (long)(c * K + k) * plane + cell);
-  return acc;
-}
-
 // Block reduction of the per-cell diagnostics: NaN-propagating max of lam and
 // min of mq over the block; thread 0 writes the block's partials.  Every
 // thread of the block must call it.

@@ -315,11 +315,11 @@ class Solver:
             if self._fused_chain:
                 self._post_ops = post_ops(self.device)
         else:
-            # one operator set per distinct device, listed per block
-            by_dev = {d: (diag_ops(d), post_ops(d))
-                      for d in dict.fromkeys(device_mesh.flat)}
-            self._blk_diag_ops = [by_dev[d][0] for d in device_mesh.flat]
-            self._blk_post_ops = [by_dev[d][1] for d in device_mesh.flat]
+            # one post operator set per distinct device, listed per block;
+            # a diag set per block (each holds its kernel's workspace)
+            by_dev = {d: post_ops(d) for d in dict.fromkeys(device_mesh.flat)}
+            self._blk_diag_ops = [diag_ops(d) for d in device_mesh.flat]
+            self._blk_post_ops = [by_dev[d] for d in device_mesh.flat]
         if modal:
             self._avg0 = kernels.mode0_mean(basis)
         # the plain stab chain {indicator -> TVB -> positivity}, each step

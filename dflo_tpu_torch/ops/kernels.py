@@ -103,10 +103,19 @@ NQ_MAX = 8
 #: residual's lift owns 4 modes x 4 cells of one component (RB x CB)
 TILE_THREADS = 256
 #: (rows, columns) of cells per block of the thread-per-cell kernels (the
-#: diag, the per-cell posts and check: csrc/euler.cuh BY x BX, which
+#: per-cell posts, check and volume residual: csrc/euler.cuh BY x BX, which
 #: csrc/fused_diag.cu dflo_block_dims reports), whose diag partials number
 #: these blocks
 BLOCK = (4, 32)
+#: the diag kernel's threads per block and the adjacent cells along x one
+#: thread takes per run (csrc/fused_diag.cu DIAG_THREADS, DIAG_RUN)
+DIAG_THREADS = 256
+DIAG_RUN = 4
+#: the diag's grid: at most this many blocks per SM (a grid-stride loop
+#: covers the rest), so its workspace holds 2 x SMs x this many partials;
+#: the kernel launches at most one wave of them (the blocks an SM holds at
+#: once, from its registers: csrc/fused_diag.cu launch_one)
+DIAG_BLOCKS_PER_SM = 4
 #: the tiles of the post's and the modal positivity's kernels, largest first
 #: (post_tile)
 POST_TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
@@ -146,6 +155,16 @@ CHECK_TILE = (16, 64)
 #: DFLO_CHECK_PER_CELL_F32 and _F64): the tile kernel ran slower in float64
 #: on the H100 (kernel_ab.py, PERF.md)
 CHECK_PER_CELL = {torch.float32: False, torch.float64: True}
+#: the degrees whose volume residual runs its per-cell kernel, by dtype
+#: (csrc/volume_residual.cu CELL_MAX_P, a choice made at build time:
+#: DFLO_VOLUME_CELL_MAX_P_F32 and _F64; at most 3): float32 Q1-Q2 and
+#: float64 Q1, where it ran faster on the H100 (kernel_ab.py, PERF.md); the
+#: tile kernel above
+VOLUME_CELL_MAX_P = {torch.float32: 2, torch.float64: 1}
+#: the cells along x of one row that a block of the volume residual's tile
+#: kernel takes (csrc/volume_residual.cu TILE_X): the fastest of 32, 64
+#: and 128 at Q4-Q6 in both dtypes on the H100 (kernel_ab.py, PERF.md)
+VOLUME_TILE_X = 32
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _lib = None
@@ -260,12 +279,13 @@ def _load():
                                    + [ci] * 4 + [vp],
         "dflo_tile_smem": [ci] * 11,
         "dflo_tile_list": [vp] + [ci] * 4 + [vp] * 3,
-        "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci, ci, vp],
+        "dflo_volume_residual": [ci, ci] + [vp] * 3 + [ci] * 3 + [vp],
+        "dflo_volume_smem": [ci] * 2,
         **{e: [ci] * 5 + [vp] * 12 + [cd] + [ci] * 4 + [vp, vp]
            for e in _CANDIDATE_ENTRY.values()},
         "dflo_fused_post": [ci, ci] + [vp] * 10 + [ci] * 10 + [cd] * 9
                            + [ci, ci, vp],
-        "dflo_fused_diag": [ci, ci] + [vp] * 5 + [ci, ci, cd, vp],
+        "dflo_fused_diag": [ci] * 3 + [vp] * 6 + [ci] * 3 + [cd, vp],
         "dflo_fused_modal_pos": [ci] * 4 + [vp] * 6
                                 + [ci, ci, cd, cd, ci, ci, vp],
         "dflo_fused_pk_post": [ci] * 4 + [vp] * 6 + [ci] * 5 + [cd] * 4
@@ -512,6 +532,38 @@ def check_tile(dtype: torch.dtype) -> tuple[int, int]:
     return BLOCK if CHECK_PER_CELL[dtype] else CHECK_TILE
 
 
+def volume_smem(p: int, dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory per block of the volume residual's
+    tile kernel at degree p (csrc/volume_residual.cu tile_smem): the fluxes
+    [2][4][K][VOLUME_TILE_X] and the lift's coefficient table [K][2(p + 1)];
+    0 where the degree runs the per-cell kernel."""
+    if p <= VOLUME_CELL_MAX_P[dtype]:
+        return 0
+    n = p + 1
+    return ((8 * n * n * VOLUME_TILE_X + 2 * n ** 3)
+            * (torch.finfo(dtype).bits // 8))
+
+
+@functools.lru_cache(maxsize=None)
+def volume_tile(K: int, dtype: torch.dtype) -> int:
+    """The cells along x of one row that a block of the volume residual's
+    kernel takes for K = (p + 1)^2 nodes: VOLUME_TILE_X for the tile
+    kernel, 0 for the per-cell kernel (VOLUME_CELL_MAX_P)."""
+    p = round(K ** 0.5) - 1
+    if (p + 1) ** 2 != K or p not in DEGREES:
+        raise NotImplementedError(f"volume_residual takes the collocated "
+                                  f"Q1-Q6 (K = 4, 9, ..., 49), got {K}")
+    return 0 if p <= VOLUME_CELL_MAX_P[dtype] else VOLUME_TILE_X
+
+
+def diag_grid(ny: int, nx: int, cap: int) -> int:
+    """The diag kernel's blocks over an ny x nx grid: one thread per run of
+    DIAG_RUN cells along x, at most `cap` blocks (the workspace's; a
+    grid-stride loop covers the rest)."""
+    runs = ny * -(-nx // DIAG_RUN)
+    return max(1, min(-(-runs // DIAG_THREADS), cap))
+
+
 def _post_per_cell(p: int, dtype: torch.dtype) -> bool:
     """Whether the post runs its per-cell kernel at degree p."""
     return p <= POST_CELL_MAX_P[dtype]
@@ -585,12 +637,49 @@ def _flat(parts, dtype, device) -> tuple[torch.Tensor, list[torch.Tensor]]:
     return buf, views
 
 
+def carries_mode0_mean(basis: basis_mod.Basis) -> bool:
+    """Whether mode 0 alone carries the cell mean: a modal Pk basis whose
+    other mean weights (wq2 @ V)[1:] are quadrature round-off (< 1e-13),
+    on its own quadrature or an over-integrated one."""
+    avg = basis.wq2 @ basis.V
+    return basis.family == "Pk" and bool(np.abs(avg[1:]).max() < 1e-13)
+
+
 def mode0_mean(basis: basis_mod.Basis) -> float:
     """avg0 = (wq2 @ V)[0]: modal Legendre mode 0 carries the cell mean, the
     other mean weights are quadrature round-off (< 1e-13)."""
-    avg = basis.wq2 @ basis.V
-    assert np.abs(avg[1:]).max() < 1e-13, "mode 0 must carry the mean"
-    return float(avg[0])
+    assert carries_mode0_mean(basis), "mode 0 must carry the mean"
+    return float((basis.wq2 @ basis.V)[0])
+
+
+def check_volume_lift(basis: basis_mod.Basis, lift: np.ndarray) -> None:
+    """Raise unless the volume lift [K, 2K] = [dy GxW^T | dx GyW^T] of a
+    collocated nodal basis lies on the tensor-product pattern that
+    csrc/volume_residual.cu's tile kernel reads: node m = (i, j) takes its
+    x column entries from the nodes of its own row (same j) and its y
+    column entries from those of its own column (same i).  The node order
+    is read off basis.nodes and must be x fastest (k = i + (p + 1) j)."""
+    if not basis.is_nodal_collocated:
+        raise ValueError("volume_residual takes a collocated nodal basis")
+    n, K = basis.degree + 1, basis.K
+    lift = np.asarray(lift)
+    if lift.shape != (K, 2 * K):
+        raise ValueError(f"lift shape {lift.shape} != {(K, 2 * K)}")
+    # each node's x and y index: its coordinate's rank among the nodes'
+    ix = np.unique(basis.nodes[:, 0], return_inverse=True)[1].ravel()
+    iy = np.unique(basis.nodes[:, 1], return_inverse=True)[1].ravel()
+    if not np.array_equal(ix + n * iy, np.arange(K)):
+        raise ValueError("the volume kernel takes the nodes x fastest "
+                         "(k = i + (p + 1) j)")
+    row = iy[:, None] == iy[None, :]          # [m, k]: k in m's row
+    col = ix[:, None] == ix[None, :]          # k in m's column
+    off = np.concatenate([~row, ~col], axis=1) & (lift != 0)
+    if off.any():
+        m, k = np.argwhere(off)[0]
+        raise ValueError(
+            f"the volume lift is not a tensor product: entry ({m}, {k}) = "
+            f"{lift[m, k]!r} lies outside node {m}'s "
+            f"{'row' if k < K else 'column'}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -912,22 +1001,45 @@ def pk_post_operators(basis: basis_mod.Basis, mesh, *, M: float = 0.0,
 
 @dataclasses.dataclass(frozen=True)
 class DiagOps:
-    """Operators of the fused diagnostics: avg [K], the CFL length h and
-    the bool [ny, nx] fluid flags of a masked domain (solid cells enter
-    neither reduction), or None."""
+    """Operators of the fused diagnostics: the mean-weight row avg [K]
+    (mode0: a modal Pk basis whose mean is avg[0] * mode 0, read alone),
+    the CFL length h, the bool [ny, nx] fluid flags of a masked domain
+    (solid cells enter neither reduction) or None, and on a CUDA device the
+    kernel's workspace: `part`, two partials per block of its grid, and
+    `ticket`, the zeroed int32 counter its last block takes (each launch
+    leaves it at 0).  Calls on one workspace must be ordered (one stream):
+    a Solver keeps one set, and one per block under a mesh."""
     p: int
     K: int
     avg: torch.Tensor
     h: float
     mask: torch.Tensor | None
+    mode0: bool
+    part: torch.Tensor | None
+    ticket: torch.Tensor | None
+
+
+def diag_workspace(ny: int, nx: int, dtype, device, sms: int):
+    """(part, ticket) of the diag kernel on an ny x nx grid: 2 partials per
+    block of diag_grid(ny, nx, sms * DIAG_BLOCKS_PER_SM) and one zeroed
+    int32."""
+    n = diag_grid(ny, nx, sms * DIAG_BLOCKS_PER_SM)
+    return (torch.empty(2 * n, dtype=dtype, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
 
 
 def diag_operators(basis: basis_mod.Basis, mesh, *, mask=None, dtype,
                    device) -> DiagOps:
     _check_basis(basis)
+    device = torch.device(device)
+    part = ticket = None
+    if device.type == "cuda":
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        part, ticket = diag_workspace(mesh.ny, mesh.nx, dtype, device, sms)
     return DiagOps(basis.degree, basis.K,
                    as_tensor(basis.wq2 @ basis.V, dtype, device),
-                   mesh.diameter_h, _mask_tensor(mask, mesh, device))
+                   mesh.diameter_h, _mask_tensor(mask, mesh, device),
+                   carries_mode0_mean(basis), part, ticket)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1543,33 +1655,48 @@ fused_pk_post.launches_with_diag = 0
 # fused diag
 # ---------------------------------------------------------------------------
 
+def diag_means(u, ops: DiagOps):
+    """The cell averages [4, ny, nx] the diag reads: avg[0] * mode 0 on a
+    modal Pk basis (ops.mode0), else the ordered sum over the row."""
+    if ops.mode0:
+        return ops.avg[0] * u[:, 0]
+    return basis_reduce(ops.avg, u)
+
+
 def fused_diag_plain(u, ops: DiagOps):
     """Plain version of the fused diag: compute_dt's wave speed and the
     negativity min over the (fluid) cell averages of u."""
-    return _lam_minq(basis_reduce(ops.avg, u), ops.h, ops.mask)
+    return _lam_minq(diag_means(u, ops), ops.h, ops.mask)
 
 
 def _diag_launch(u, ops: DiagOps):
     """The diag kernel on CUDA tensors (True) or its plain version (False),
     as the pair ((lam_max, minq), launched)."""
     ny, nx = _check_state(u, ops.K)
-    if not _cuda_or_cpu(u, ops.avg):
+    if not _cuda_or_cpu(u, ops.avg, ops.part):
         return fused_diag_plain(u, ops), False
+    if ops.part is None:
+        raise ValueError("these DiagOps hold no workspace: build them on "
+                         "the state's CUDA device")
+    _check_plane(ops.ticket, u, torch.int32, (1,), "ticket")
     if ops.mask is not None:
         _check_plane(ops.mask, u, torch.bool, (ny, nx), "mask")
     lib = _load()
-    lam_p, minq_p = _partials(u, BLOCK)
+    out = torch.empty(2, dtype=u.dtype, device=u.device)
+    blocks = diag_grid(ny, nx, ops.part.numel() // 2)
     rc = _call(u.device, lib.dflo_fused_diag, _DTYPE_CODE[u.dtype], ops.K,
-               _ptr(u), _ptr(ops.avg), _ptr(ops.mask), _ptr(lam_p),
-               _ptr(minq_p), ny, nx, ops.h, _stream(u.device))
+               int(ops.mode0), _ptr(u), _ptr(ops.avg), _ptr(ops.mask),
+               _ptr(ops.part), _ptr(ops.ticket), _ptr(out), ny, nx, blocks,
+               ops.h, _stream(u.device))
     _check(rc, "fused_diag")
-    return (torch.amax(lam_p), torch.amin(minq_p)), True
+    return (out[0], out[1]), True
 
 
 def fused_diag(u, ops: DiagOps):
     """(lam_max, minq) as 0-dim tensors, over the fluid cells of a masked
-    domain.  CPU tensors: the plain version; CUDA tensors: the kernel plus
-    an amax/amin over its per-block partials."""
+    domain.  CPU tensors: the plain version; CUDA tensors: one launch of
+    the kernel, which reduces across its blocks itself (bitwise equal to
+    the plain version)."""
     out, launched = _diag_launch(u, ops)
     fused_diag.launches += launched
     return out
@@ -1680,8 +1807,10 @@ def volume_residual_plain(lift, u):
 def volume_residual(lift, u):
     """The collocated volume term [dy GxW^T | dx GyW^T] @ [Fx; Fy] of
     u[4, K, ny, nx] (the `volume_kernel='pallas'` path of solver/spatial,
-    pallas_kernels.volume_residual): lift [K, 2K] in u's dtype.  CPU
-    tensors: the plain version; CUDA tensors: the kernel."""
+    pallas_kernels.volume_residual): lift [K, 2K] in u's dtype, on the
+    tensor-product pattern (check_volume_lift, which make_rhs runs once).
+    CPU tensors: the plain version; CUDA tensors: the kernel (the per-cell
+    one up to VOLUME_CELL_MAX_P, the tile kernel above)."""
     if u.dim() != 4 or u.shape[0] != 4:
         raise ValueError(f"state must be [4, K, ny, nx], got "
                          f"{tuple(u.shape)}")
@@ -1690,13 +1819,11 @@ def volume_residual(lift, u):
         raise ValueError(f"lift shape {tuple(lift.shape)} != {(K, 2 * K)}")
     if not _cuda_or_cpu(u, lift):
         return volume_residual_plain(lift, u)
-    if K not in [(p + 1) ** 2 for p in DEGREES]:
-        raise NotImplementedError(f"volume_residual takes the collocated "
-                                  f"Q1-Q6 (K = 4, 9, ..., 49), got {K}")
+    tx = volume_tile(K, u.dtype)
     lib = _load()
     out = torch.empty_like(u)
     rc = _call(u.device, lib.dflo_volume_residual, _DTYPE_CODE[u.dtype], K,
-               _ptr(u), _ptr(lift), _ptr(out), ny, nx, _stream(u.device))
+               _ptr(u), _ptr(lift), _ptr(out), ny, nx, tx, _stream(u.device))
     _check(rc, "volume_residual")
     volume_residual.launches += 1
     return out

@@ -211,6 +211,12 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
     faceVw = [cast(basis.wq[:, None] * basis.faceV[f]) for f in range(4)]
     avg_op = cast(basis.wq2 @ basis.V)
     lift_stack = torch.cat([dy * GxW.T, dx * GyW.T], dim=1).contiguous()
+    if volume_kernel == "pallas":
+        # the kernel reads the lift's tensor-product entries alone: check
+        # the host copy once (its zeros are the cast tensor's zeros)
+        kernels.check_volume_lift(basis, np.concatenate(
+            [dy * (basis.wq2[:, None] * basis.Gx).T,
+             dx * (basis.wq2[:, None] * basis.Gy).T], axis=1))
     minv = cast(1.0 / basis.mass)
     area = dx * dy
 

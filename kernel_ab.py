@@ -1,38 +1,42 @@
-"""Time the Pk post's and the MOOD check's kernels (and, as a control, a
-few forms of the post's and the modal positivity's) of two trees of the
-port against each other on one GPU, in one run, and the Pk post's and
-the check's two kernels (per cell and per tile) where their build-time
-caps choose between them.
+"""Time the diag's and the volume residual's kernels (rows 6 and 1; and, as
+a control, a few forms of the post's and the modal positivity's, rows 4
+and 8) of two trees of the port against each other on one GPU, in one
+run, and the volume residual's two kernels (per cell and per tile) where
+its build-time cap chooses between them.
 
     python3 kernel_ab.py --parent DIR [--out FILE]
 
 DIR holds the tree of the commit to compare with (`git archive <commit> |
 tar -x -C DIR`); the change is the tree this file lies in.  A first process
-makes every input through the plain versions (no kernel runs) and saves
-it; meanwhile each arm builds its own library from SOURCES alone (all
-compiles started together).  Each arm is then timed twice, in processes of
-its own (the two packages never share one), in the order parent, change,
-tile, cell, cell, tile, change, parent:
+makes the control forms' inputs through the plain versions (no kernel
+runs) and saves them; meanwhile each arm builds its own library from
+SOURCES alone (all compiles started together).  The diag's and the volume
+residual's inputs are made in each timing process on the card from a
+seed (torch alone: every arm gets the same bits).  Each arm is then timed
+twice, in processes of its own (the two packages never share one), in the
+order parent, change, tile, cell, cell, tile, change, parent:
 
 - parent: DIR as it stands;
-- change: this tree; it also times each form of the Pk post's tile
-  kernel on every other tile it takes there (`name@TYxTX`), for the rule
-  of ops/kernels.pk_post_tile;
-- tile: this tree built with DFLO_PK_POST_CELL_MAX_P_F32 = _F64 = 0 and
-  DFLO_CHECK_PER_CELL_F32 = _F64 = 0 (the tile kernels at every degree
-  and in both dtypes), the P1-P3 Pk post forms and the check's;
-- cell: the same with the Pk post's caps at 3 and the check's at 1 (the
-  per-cell kernels at P1-P3 and in both dtypes), the same forms.
+- change: this tree; it also times each diag form with a workspace for 2
+  and for 8 blocks per SM (`name@bps<N>`; the kernel takes at most one
+  wave of them), for the rule DIAG_BLOCKS_PER_SM;
+- tile: this tree built with DFLO_VOLUME_CELL_MAX_P_F32 = _F64 = 0 (the
+  tile kernel at every degree), the Q1-Q3 volume forms alone (f32, f64);
+- cell: the same with both caps at 3 (the per-cell kernel at Q1-Q3).
 
 Per form and run: `call_ms`, the median CUDA-event time of one wrapper
 call (chip_smoke.py's `ms`: the wrapper's host work before the launch
-included), and `dev_ms`, the device time of the port's kernels per call in
-a torch.profiler trace (traced again, up to three times, where a trace
+included), `dev_ms`, the device time of the port's kernels per call in a
+torch.profiler trace (traced again, up to three times, where a trace
 dropped a launch; null, and the form marked `dev incomplete`, where all
-three did); and whether each output equals the parent's bitwise.  It prints the card's name and power limit, one line per form,
-and the whole as one JSON line (also to FILE, given `--out`).  `--small` cuts
-every grid by 16 and runs on the CPU through the plain versions: a
-rehearsal of the script, whose times mean nothing.
+three did), `all_dev_ms`, the device time of every kernel of the call (the
+parent's diag adds its amax and amin over the partials), `bound_ms`, the
+bytes the function must move over the H100's 3.35 TB/s; and whether each
+output equals the parent's bitwise.  It prints the card's name and power
+limit, one line per form, and the whole as one JSON line (also to FILE,
+given `--out`).  `--small` cuts every grid by 16 and runs on the CPU
+through the plain versions: a rehearsal of the script, whose times mean
+nothing.
 """
 from __future__ import annotations
 
@@ -52,54 +56,88 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ARMS = {"parent": (), "change": (),
-        "tile": ("DFLO_PK_POST_CELL_MAX_P_F32=0",
-                 "DFLO_PK_POST_CELL_MAX_P_F64=0",
-                 "DFLO_CHECK_PER_CELL_F32=0", "DFLO_CHECK_PER_CELL_F64=0"),
-        "cell": ("DFLO_PK_POST_CELL_MAX_P_F32=3",
-                 "DFLO_PK_POST_CELL_MAX_P_F64=3",
-                 "DFLO_CHECK_PER_CELL_F32=1", "DFLO_CHECK_PER_CELL_F64=1")}
+        "tile": ("DFLO_VOLUME_CELL_MAX_P_F32=0",
+                 "DFLO_VOLUME_CELL_MAX_P_F64=0"),
+        "cell": ("DFLO_VOLUME_CELL_MAX_P_F32=3",
+                 "DFLO_VOLUME_CELL_MAX_P_F64=3")}
 ORDER = ("parent", "change", "tile", "cell", "cell", "tile", "change",
          "parent")
 #: the sources an arm builds (the others' entry points answer as stubs)
 SOURCES = ("fused_post.cu", "fused_modal_pos.cu", "fused_diag.cu",
-           "fused_pk_post.cu", "fused_mood_check.cu")
+           "volume_residual.cu")
 REPS, WARM = 20, 3
-#: the dynamic shared memory one block may take (csrc/tile.cuh MAX_SMEM)
-MAX_SMEM = 232448
+HBM_BPS = 3.35e12           # the H100 SXM's memory rate (bytes/s)
 
 NX, NY = 1152, 288          # the DMR
-VX = 2048                   # examples/vortex_system_pbc.prm, cut to VX^2
+VX = 2048                   # examples/isentropic_vortex.prm, cut to VX^2
 FS = (1920, 640)            # examples/forward_step_tpu.prm
 RT = (1024, 3072)           # examples/rayleigh_taylor.prm
 
-# (name, kind, dtype, maker, degree, with_diag); "capped": the P1-P3 Pk
-# post forms and the check's, which every arm times
+# (name, kind, dtype, maker, basis (family, degree, nq), grid (nx, ny));
+# "synthetic": an input made on the card from a seed in the timing process
+# (the diag and the volume residual), else the path whose state the prep
+# makes (the controls); "capped": the Q1-Q3 volume forms, which every arm
+# times
 FORMS = (
-    *((f"pkpost_dmr_p{p}_{tag}{'_diag' if diag else ''}", "pk_post", tag,
-       "dmr_mood", p, diag)
-      for tag in ("f32", "f64") for p in range(1, 7)
-      for diag in (True, False)),
-    *((f"pkpost_{m}_p2_f32{'_diag' if diag else ''}", "pk_post", "f32",
-       f"{m}_mood", 2, diag) for m in ("rt", "fwd") for diag in (True, False)),
-    *((f"check_dmr_p{p}_f32", "check", "f32", "dmr_mood", p, False)
-      for p in range(2, 7)),
-    ("check_dmr_p4_f64", "check", "f64", "dmr_mood", 4, False),
-    ("check_rt_p2_f32", "check", "f32", "rt_mood", 2, False),
+    ("diag_vortex_p2_f32", "diag", "f32", "synthetic", ("Pk", 2, None),
+     (VX, VX)),
+    ("diag_vortex_p4_f32", "diag", "f32", "synthetic", ("Pk", 4, None),
+     (VX, VX)),
+    ("diag_vortex_p4_f64", "diag", "f64", "synthetic", ("Pk", 4, None),
+     (VX, VX)),
+    ("diag_vortex_p6_f32", "diag", "f32", "synthetic", ("Pk", 6, None),
+     (VX // 2, VX // 2)),
+    ("diag_dmr_p2_f32", "diag", "f32", "synthetic", ("Pk", 2, None),
+     (NX, NY)),
+    ("diag_dmr_q2_f32", "diag", "f32", "synthetic", ("Qk", 2, None),
+     (NX, NY)),
+    ("diag_dmr_q4_f32", "diag", "f32", "synthetic", ("Qk", 4, None),
+     (NX, NY)),
+    ("diag_fwd_p2_f32_masked", "diag", "f32", "fwd_mask", ("Pk", 2, None),
+     FS),
+    ("diag_iso_gll2_f32", "diag", "f32", "synthetic", ("Qk_gll", 2, None),
+     (VX, VX)),
+    ("diag_vortex_q2oi_f32", "diag", "f32", "synthetic", ("Qk", 2, 4),
+     (VX, VX)),
+    *((f"volume_dmr_q{p}_f32", "volume", "f32", "synthetic", ("Qk", p, None),
+       (NX, NY)) for p in range(1, 7)),
+    *((f"volume_dmr_q{p}_f64", "volume", "f64", "synthetic", ("Qk", p, None),
+       (NX, NY)) for p in (1, 2, 3, 4)),
+    ("volume_fwd_q1_f32", "volume", "f32", "synthetic", ("Qk", 1, None), FS),
     # the control: rows 4 and 8, whose kernels this change leaves alone
-    ("post_dmr_q2_f32", "post", "f32", "dmr", 2, True),
-    ("post_dmr_q4_f32", "post", "f32", "dmr", 4, True),
-    ("modal_dmr_p4_f32", "modal", "f32", "dmr_mood", 4, False),
-    ("modal_rt_p2_f32", "modal", "f32", "rt_mood", 2, False),
+    ("post_dmr_q2_f32", "post", "f32", "dmr", ("Qk", 2, None), (NX, NY)),
+    ("post_dmr_q4_f32", "post", "f32", "dmr", ("Qk", 4, None), (NX, NY)),
+    ("modal_dmr_p4_f32", "modal", "f32", "dmr_mood", ("Pk", 4, None),
+     (NX, NY)),
+    ("modal_rt_p2_f32", "modal", "f32", "rt_mood", ("Pk", 2, None), RT),
 )
 
 
 def capped(form) -> bool:
-    return form[1] == "check" or (form[1] == "pk_post" and form[4] <= 3)
+    return form[1] == "volume" and form[4][1] <= 3
+
+
+def bound_ms(form) -> float | None:
+    """The least time of the diag's and the volume residual's work on the
+    H100: the bytes it must move (each input read once, each output written
+    once) over the memory rate; both are bound by bytes.  The diag reads
+    the planes its mean needs (mode 0 alone on Pk) and a mask byte."""
+    from dflo_tpu_torch.ops.basis import make_basis
+    _, kind, tag, maker, (fam, p, nq), (nx, ny) = form
+    if kind not in ("diag", "volume"):
+        return None
+    size = 4 if tag == "f32" else 8
+    K = make_basis(fam, p, nq).K
+    n = nx * ny
+    if kind == "volume":
+        return 1e3 * 8 * K * size * n / HBM_BPS
+    planes = 4 if fam == "Pk" else 4 * K
+    return 1e3 * (planes * size * n + (n if maker == "fwd_mask" else 0)) \
+        / HBM_BPS
 
 
 # ---------------------------------------------------------------------------
-# the inputs (the same code in every arm: the prep makes the states, the
-# timing processes only the solvers whose operators the kernels read)
+# the inputs
 # ---------------------------------------------------------------------------
 
 def prm_solver(cs, path, dtype, dev, grid, edits=()):
@@ -115,11 +153,11 @@ def prm_solver(cs, path, dtype, dev, grid, edits=()):
 
 
 def solver(cs, form, dtype, dev, cut):
-    """(solver, base()): the solver of the form's path and base() its
-    state (u, t, dt) through the plain versions."""
+    """(solver, base()) of a control form: the solver of the form's path
+    and base() its state (u, t, dt) through the plain versions."""
     from dflo_tpu_torch import cli, entry
     from dflo_tpu_torch.ops import kernels
-    maker, p = form[3], form[4]
+    maker, p = form[3], form[4][1]
 
     def steps(s, u, n, t_end=1.0):
         t, dt = 0.0, None
@@ -136,117 +174,108 @@ def solver(cs, form, dtype, dev, cut):
                              degree=p,
                              method="mood" if maker == "dmr_mood" else "rk")
         return s, lambda: steps(s, u0, 2 if maker == "dmr" else 1)
-    if maker == "rt_mood":
-        params, s = prm_solver(cs, cs.RT_PRM, dtype, dev,
-                               (RT[0] // cut, RT[1] // cut),
-                               cs.RT_MOOD_EDITS)
-        return s, lambda: steps(s, cli.set_ic(params, s), 2)
-    assert maker == "fwd_mood", maker
-    params, s = prm_solver(cs, cs.FS_PRM, dtype, dev,
-                           (FS[0] // cut, FS[1] // cut),
-                           cs.pk_edits(2, "mood"))
-
-    def fwd_state():
-        # chip_smoke.fwd_pk_solver's state: the IC with 2 % noise on every
-        # DoF and 0.3 % of the mean on the higher modes, solid cells pinned,
-        # the plain modal positivity
-        import torch
-        u = cli.set_ic(params, s)
-        g = torch.Generator(device=dev).manual_seed(102)
-        u = u * (1.0 + 0.02 * (2.0 * torch.rand(
-            u.shape, generator=g, dtype=dtype, device=dev) - 1.0))
-        g = torch.Generator(device=dev).manual_seed(202)
-        u[:, 1:] += 0.003 * u[:, :1] * (2.0 * torch.rand(
-            u[:, 1:].shape, generator=g, dtype=dtype, device=dev) - 1.0)
-        u = kernels.fused_modal_pos_plain(s.apply_mask(u.contiguous()),
-                                          s.rhs.modal_ops)
-        lam, _ = kernels.fused_diag_plain(u, s._diag_ops)
-        return u, 0.0, s.cfl / lam / (2.0 * s.basis.degree + 1.0)
-    return s, fwd_state
+    assert maker == "rt_mood", maker
+    params, s = prm_solver(cs, cs.RT_PRM, dtype, dev,
+                           (RT[0] // cut, RT[1] // cut), cs.RT_MOOD_EDITS)
+    return s, lambda: steps(s, cli.set_ic(params, s), 2)
 
 
-def operators(kernels, form, s):
-    """The operators the form's kernel reads.  The masked forward step runs
-    no Pk post on its path (its post is the plain modal TVB chain), so its
-    Pk post form takes the unmasked operators of its limiter settings."""
+def synthetic(form, dtype, dev, cut, seed):
+    """The diag's or the volume residual's state [4, K, ny, nx] on the
+    device, from a seed: the DMR's post-shock state, 2 % noise on every
+    nodal value, or on a modal basis the means with 2 % noise and the
+    higher modes 1 % of the mean (torch alone: the same bits in every
+    arm)."""
+    import torch
+
+    from dflo_tpu_torch.ops.basis import make_basis
+    fam, p, nq = form[4]
+    nx, ny = (max(1, n // cut) for n in form[5])
+    K = make_basis(fam, p, nq).K
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = 2.0 * torch.rand((4, K, ny, nx), generator=g, dtype=dtype,
+                             device=dev) - 1.0
+    mean = torch.tensor([8.25 * 0.866, -8.25 * 0.5, 8.0, 563.5],
+                        dtype=dtype, device=dev)[:, None, None, None]
+    if fam != "Pk":
+        return (mean * (1.0 + 0.02 * noise)).contiguous()
+    noise[:, :1] = mean * (1.0 + 0.02 * noise[:, :1])
+    noise[:, 1:] *= 0.01 * mean
+    return noise.contiguous()
+
+
+def operators(cs, kernels, form, dtype, dev, cut):
+    """The operators the form's kernel reads: the diag's DiagOps (the
+    masked forward step's from its solver), the volume residual's lift
+    (make_rhs with volume_kernel="pallas"), the controls' from their
+    solver (made again here, without its state)."""
+    from dflo_tpu_torch.mesh import CartesianMesh
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.solver.spatial import BoundarySide, make_rhs
+    from dflo_tpu_torch.physics import euler
     kind, maker = form[1], form[3]
-    if kind == "post":
-        return s._post_ops
-    if kind == "modal":
-        return s.rhs.modal_ops
-    if kind == "check":
-        return s._mood_stage.cops
-    if maker != "fwd_mood":
-        return s._pk_post_ops
-    cfg = s.limiter_cfg
-    return kernels.pk_post_operators(s.basis, s.mesh, M=cfg.M, beta=cfg.beta,
-                                     char_lim=cfg.char_lim, dtype=s.dtype,
-                                     device=s.device)
+    if kind in ("post", "modal"):
+        s = solver(cs, form, dtype, dev, cut)[0]
+        return s._post_ops if kind == "post" else s.rhs.modal_ops
+    nx, ny = (max(1, n // cut) for n in form[5])
+    basis = make_basis(*form[4])
+    if maker == "fwd_mask":
+        _, s = prm_solver(cs, cs.FS_PRM, dtype, dev, (nx, ny),
+                          cs.pk_edits(2, "rk3"))
+        assert s.mask is not None and s._diag_ops.K == basis.K
+        return s._diag_ops
+    x1, y1 = (3.0, 1.0) if form[5] == FS else (4.0, 1.0)
+    mesh = CartesianMesh(nx, ny, 0.0, x1, 0.0, y1)
+    if kind == "diag":
+        return kernels.diag_operators(basis, mesh, dtype=dtype, device=dev)
+    side = BoundarySide(euler.BC_OUTFLOW)
+    return make_rhs(basis, mesh, {k: side for k in "WESN"}, dtype=dtype,
+                    device=dev, volume_kernel="pallas").lift_stack
 
 
 def inputs(cs, kernels, form, s, u, t, dt) -> dict:
-    """The form's inputs from its path's state (u, t, dt), through the
-    plain versions: the post's state; the modal positivity's with pass 1's
-    degree map (rt, fwd); the Pk post's with the shock plane of the cells a
-    MOOD stage marks; the check's pass-1 inputs (the candidate u_c, the
-    DMP bounds, the initial degree and limiter planes)."""
+    """A control form's inputs from its path's state (u, t, dt), through
+    the plain versions: the post's state; the modal positivity's with
+    pass 1's degree map (rt)."""
     kind, maker = form[1], form[3]
-    if kind == "post" or (kind == "modal" and maker == "dmr_mood"):
+    if kind == "post" or maker == "dmr_mood":
         return {"u": u, "deg": None}
-    tt = s._scalar(t)
-    if kind == "pk_post":
-        with cs.plain_versions(kernels):
-            _, marked, _, _ = s._mood_stage(u, tt, dt)
-        return {"u": u, "shock": marked.to(u.dtype) * 2.0}
-    c1 = cs.cascade_pass1(kernels, s, u, tt, dt)
-    if kind == "modal":
-        return {"u": u, "deg": c1["deg1"]}
-    return {k: c1[k] for k in ("u_c", "bmin", "bmax", "deg0", "lim0")}
-
-
-def input_key(form) -> str:
-    """The file of the form's inputs (the Pk post's two forms share one)."""
-    _, kind, tag, maker, p, _ = form
-    return f"{kind}_{maker}_p{p}_{tag}"
+    c1 = cs.cascade_pass1(kernels, s, u, s._scalar(t), dt)
+    return {"u": u, "deg": c1["deg1"]}
 
 
 def call(kernels, form, ops, x):
     """One call of the form's wrapper on its inputs x."""
-    kind, diag = form[1], form[5]
+    kind = form[1]
     if kind == "post":
-        return kernels.fused_post(x["u"], ops, with_diag=diag)
+        return kernels.fused_post(x["u"], ops, with_diag=True)
     if kind == "modal":
         return kernels.fused_modal_pos(x["u"], ops, x["deg"])
-    if kind == "pk_post":
-        return kernels.fused_pk_post(x["u"], x["shock"], ops, with_diag=diag)
-    return kernels.fused_mood_check(x["u_c"], x["bmin"], x["bmax"],
-                                    x["deg0"], x["lim0"], ops)
+    if kind == "diag":
+        return kernels.fused_diag(x["u"], ops)
+    return kernels.volume_residual(ops, x["u"])
 
 
-#: each kind's tile rule in ops/kernels (absent in a tree without it)
-RULES = {"post": "post_tile", "modal": "post_tile",
-         "pk_post": "pk_post_tile", "check": "check_tile"}
+def variants(kernels, form, dtype, ops, u):
+    """[(label, ops)] of the change arm's other settings of a diag form: a
+    workspace for 2 and for 8 blocks per SM (bps<N>; the kernel takes at
+    most one wave of them)."""
+    import dataclasses
 
-
-def rule_tile(kernels, form, dtype):
-    """The tile the form's rule picks, or None where the tree has none."""
-    kind, p = form[1], form[4]
-    rule = getattr(kernels, RULES[kind], None)
-    if rule is None:
-        return None
-    if kind in ("post", "modal"):
-        return rule(p, kind == "modal", dtype)
-    return rule(p, dtype) if kind == "pk_post" else rule(dtype)
-
-
-def other_tiles(kernels, form, dtype, tile) -> list:
-    """Every other tile the Pk post's tile kernel takes at this form:
-    shared memory within the card's."""
-    kind, p = form[1], form[4]
-    if kind == "pk_post" and tile != kernels.BLOCK:
-        return [t for t in kernels.POST_TILES if t != tile
-                and 0 < kernels.pk_post_smem(p, dtype, t) <= MAX_SMEM]
-    return []
+    import torch
+    kind = form[1]
+    if kind != "diag" or u.device.type != "cuda":
+        return []
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    out = []
+    for bps in (2, 8):
+        if bps == kernels.DIAG_BLOCKS_PER_SM:
+            continue
+        part, ticket = kernels.diag_workspace(u.shape[2], u.shape[3],
+                                              dtype, u.device, sms * bps)
+        out.append((f"bps{bps}",
+                    dataclasses.replace(ops, part=part, ticket=ticket)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -254,17 +283,12 @@ def other_tiles(kernels, form, dtype, tile) -> list:
 # ---------------------------------------------------------------------------
 
 class _Stub:
-    """An entry point the subset library lacks.  The parent tree's
-    dflo_num_blocks (in its residual's source) is answered here: one diag
-    partial per 4 x 32 block (csrc/euler.cuh BY x BX)."""
+    """An entry point the subset library lacks."""
 
     def __init__(self, name):
         self.name = name
 
     def __call__(self, *args):
-        if self.name == "dflo_num_blocks":
-            ny, nx = args
-            return -(-ny // 4) * -(-nx // 32)
         raise RuntimeError(f"{self.name} is not in this build")
 
 
@@ -300,15 +324,12 @@ def use_subset(kernels, work: Path, arm: str) -> None:
 
 
 def pin_cells(kernels, arm: str) -> None:
-    """The Python mirrors of the arm's DFLO_PK_POST_CELL_MAX_P and
-    DFLO_CHECK_PER_CELL defines."""
+    """The Python mirror of the arm's DFLO_VOLUME_CELL_MAX_P defines."""
     if arm in ("tile", "cell"):
         import torch
         v = int(ARMS[arm][0][-1])
-        kernels.PK_POST_CELL_MAX_P = {torch.float32: v, torch.float64: v}
-        kernels.pk_post_tile.cache_clear()
-        c = arm == "cell"
-        kernels.CHECK_PER_CELL = {torch.float32: c, torch.float64: c}
+        kernels.VOLUME_CELL_MAX_P = {torch.float32: v, torch.float64: v}
+        kernels.volume_tile.cache_clear()
 
 
 # ---------------------------------------------------------------------------
@@ -324,11 +345,11 @@ def digest(ts) -> str:
     return h.hexdigest()[:16]
 
 
-def time_call(fn, dev) -> tuple[float, float | None, float]:
-    """(call_ms, dev_ms, the port's kernels launched per call in the
-    trace); a trace that dropped a launch would under-count, so it is
-    taken again, up to three times; dev_ms None where none held one launch
-    per call."""
+def time_call(fn, dev) -> tuple[float, float | None, float, float | None]:
+    """(call_ms, dev_ms, the port's kernels launched per call in the trace,
+    all_dev_ms: every device kernel of the call); a trace that dropped a
+    launch would under-count, so it is taken again, up to three times;
+    dev_ms and all_dev_ms None where none held one launch per call."""
     import torch
     for _ in range(WARM):
         fn()
@@ -338,7 +359,7 @@ def time_call(fn, dev) -> tuple[float, float | None, float]:
             t0 = time.perf_counter()
             fn()
             ts.append(1e3 * (time.perf_counter() - t0))
-        return statistics.median(ts), None, 0.0
+        return statistics.median(ts), None, 0.0, None
     torch.cuda.synchronize()
     ts = []
     for _ in range(REPS):
@@ -356,12 +377,13 @@ def time_call(fn, dev) -> tuple[float, float | None, float]:
             for _ in range(REPS):
                 fn()
             torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and "dflo" in e.name]
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = [e.time_range.elapsed_us() for e in evs if "dflo" in e.name]
         if len(us) == REPS:
             return (statistics.median(ts), 1e-3 * sum(us) / REPS,
-                    len(us) / REPS)
-    return statistics.median(ts), None, len(us) / REPS
+                    len(us) / REPS, 1e-3 * sum(e.time_range.elapsed_us()
+                                               for e in evs) / REPS)
+    return statistics.median(ts), None, len(us) / REPS, None
 
 
 def worker(args) -> None:
@@ -391,21 +413,16 @@ def worker(args) -> None:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         return
     if args.worker == "prep":
-        # one state per path, degree and dtype; each kind's inputs from it
-        paths = {}
+        # the controls: one state per path, degree and dtype
         for form in FORMS:
-            paths.setdefault((form[3], form[4], form[2]), {}).setdefault(
-                input_key(form), form)
-        for (maker, p, tag), keys in paths.items():
+            if form[3] in ("synthetic", "fwd_mask"):
+                continue
             t0 = time.perf_counter()
-            s, base = solver(cs, next(iter(keys.values())), dtypes[tag], dev,
-                             cut)
+            s, base = solver(cs, form, dtypes[form[2]], dev, cut)
             state = base()
-            for key, form in keys.items():
-                torch.save(inputs(cs, kernels, form, s, *state),
-                           work / f"{key}.pt")
-            print(f"prep {maker} p{p} {tag} ({', '.join(keys)}): "
-                  f"{tuple(state[0].shape)} in "
+            torch.save(inputs(cs, kernels, form, s, *state),
+                       work / f"{form[0]}.pt")
+            print(f"prep {form[0]}: {tuple(state[0].shape)} in "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
             del s, base, state
             if dev == "cuda":
@@ -415,40 +432,44 @@ def worker(args) -> None:
     if dev == "cuda":
         use_subset(kernels, work, args.arm)
     pin_cells(kernels, args.arm)
-    out, solvers = {}, {}
-    for form in FORMS:
+    out = {}
+    rule = getattr(kernels, "volume_tile", None)
+    for i_form, form in enumerate(FORMS):
         if args.arm in ("tile", "cell") and not capped(form):
             continue
-        name, kind, tag, maker, p, _ = form
+        name, kind, tag, maker, (fam, p, nq), _ = form
         dtype = dtypes[tag]
-        if (maker, p, tag) not in solvers:
-            solvers.clear()
-            if dev == "cuda":
-                torch.cuda.empty_cache()
-            solvers[(maker, p, tag)] = solver(cs, form, dtype, dev, cut)[0]
-        ops = operators(kernels, form, solvers[(maker, p, tag)])
-        x = torch.load(work / f"{input_key(form)}.pt", map_location=dev)
-        rule = getattr(kernels, RULES[kind], None)
-        tiles = [rule_tile(kernels, form, dtype)]
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        ops = operators(cs, kernels, form, dtype, dev, cut)
+        if maker in ("synthetic", "fwd_mask"):
+            x = {"u": synthetic(form, dtype, dev, cut, 1000 + i_form)}
+        else:
+            x = torch.load(work / f"{form[0]}.pt", map_location=dev)
+        if kind == "volume" and rule is not None:
+            setting = f"x{rule((p + 1) ** 2, dtype)}"
+        elif kind == "diag" and hasattr(kernels, "DIAG_BLOCKS_PER_SM"):
+            setting = f"bps{kernels.DIAG_BLOCKS_PER_SM}"
+        else:
+            setting = None
+        runs = [(name, setting, ops)]
         if args.arm == "change":
-            tiles += other_tiles(kernels, form, dtype, tiles[0])
-        for i, tile in enumerate(tiles):
-            if i:   # every other tile the kernel takes, for the rule
-                setattr(kernels, RULES[kind], lambda *a, _t=tile: _t)
-            res = call(kernels, form, ops, x)
+            runs += [(f"{name}@{lab}", lab, v) for lab, v in
+                     variants(kernels, form, dtype, ops, x["u"])]
+        for key, lab, o in runs:
+            res = call(kernels, form, o, x)
             res = res if isinstance(res, tuple) else (res,)
-            call_ms, dev_ms, n = time_call(
-                lambda: call(kernels, form, ops, x), dev)
-            key = name if i == 0 else f"{name}@{tile[0]}x{tile[1]}"
+            call_ms, dev_ms, n, all_ms = time_call(
+                lambda: call(kernels, form, o, x), dev)
             out[key] = {"call_ms": round(call_ms, 4),
                         "dev_ms": None if dev_ms is None else round(dev_ms, 4),
-                        "launches_per_call": n,
-                        "tile": None if tile is None else list(tile),
+                        "all_dev_ms": None if all_ms is None
+                        else round(all_ms, 4),
+                        "bound_ms": bound_ms(form),
+                        "launches_per_call": n, "tile": lab,
                         "digest": digest(res)}
-            if rule is not None:
-                setattr(kernels, RULES[kind], rule)
             print(f"{args.arm} {key}: {out[key]}", flush=True)
-        del x, ops
+        del x, ops, res
     (work / f"time_{args.arm}_{args.run}.json").write_text(json.dumps(out))
 
 
@@ -517,13 +538,13 @@ def main() -> None:
 
 
 def summarize(runs) -> dict:
-    """Per form: each arm's runs (call_ms, dev_ms, tile), whether every
-    run has its device time and whether every output equals the parent's
-    bitwise."""
+    """Per form: each arm's runs (call_ms, dev_ms, all_dev_ms, the tile or
+    grid setting), the bound, whether every run has its device time and
+    whether every output equals the parent's bitwise."""
     out = {}
     for key in runs["parent"][0]:   # the forms
         ref = runs["parent"][0][key]["digest"]
-        row = {}
+        row = {"bound_ms": runs["parent"][0][key].get("bound_ms")}
         alts = sorted(k for k in runs["change"][0]
                       if k.startswith(f"{key}@"))
         for arm in ("parent", "change", "tile", "cell"):
@@ -534,16 +555,18 @@ def summarize(runs) -> dict:
                 lab = arm if k == key else k[len(key):]
                 row[lab] = {"call_ms": [r["call_ms"] for r in rs],
                             "dev_ms": [r["dev_ms"] for r in rs],
+                            "all_dev_ms": [r.get("all_dev_ms") for r in rs],
                             "tile": rs[0]["tile"],
                             "dev_complete": all(r["dev_ms"] is not None
                                                 for r in rs),
                             "bitwise": all(r["digest"] == ref for r in rs)}
         out[key] = row
-        print(f"{key:22s} " + "  ".join(
-            f"{lab} {v['tile'] or 'cell'} call {v['call_ms']} dev "
-            f"{v['dev_ms']}{'' if v['dev_complete'] else ' dev incomplete'}"
+        print(f"{key:24s} bound {row['bound_ms']} " + "  ".join(
+            f"{lab} {v['tile']} call {v['call_ms']} dev {v['dev_ms']} all "
+            f"{v['all_dev_ms']}"
+            f"{'' if v['dev_complete'] else ' dev incomplete'}"
             f"{'' if v['bitwise'] else ' NOT BITWISE'}"
-            for lab, v in row.items()), flush=True)
+            for lab, v in row.items() if lab != "bound_ms"), flush=True)
     return out
 
 

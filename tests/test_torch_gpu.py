@@ -42,7 +42,11 @@ post's and the MOOD check's tile kernels on the same kind of grids: the Pk
 post at P1-P6 periodic on neither, one or both axes, with marked cells on
 tile and domain edges and a NaN cell, the check at p 2-6 with degree-1
 marked cells on tile and domain edges, so that spreads cross tile borders
-and wrap, all bitwise.
+and wrap, all bitwise; the diag (one launch a call, the Pk mode-0 mean,
+the nodal full row, masked, over-integrated, on ragged and unaligned
+states and a narrow workspace), its sharded form and the volume residual
+at Q1-Q6 and GLL1-GLL6, all bitwise, and a diag call traced as one
+kernel.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -53,10 +57,13 @@ imports JAX, hence --noconftest):
 Tolerances, relative to the plain version's largest magnitude per
 component: f64 1e-11 and f32 1e-5 (1e-4 for the post chains), the round-off
 of another summation order and of FMA contraction.  The MOOD check's
-integer and flag outputs are bitwise equal.  The f32 post may flip a
+integer and flag outputs are bitwise equal, and so are the diag's and the
+volume residual's outputs (rows 6, 7 and 1) in every test.  The f32 post may flip a
 limiter threshold decision (KXRCF > 1, change > 1e-10) in a few cells; those
 are counted and bounded by 1 % of the cells at this small size.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -154,7 +161,7 @@ def test_fused_post_and_diag_match_plain(cuda, p, dtype):
     assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
     lam_d, minq_d = kernels.fused_diag(u, diag)
     lam_dp, minq_dp = kernels.fused_diag_plain(u, diag)
-    assert rel(lam_d, lam_dp) <= TOL[dt] and rel(minq_d, minq_dp) <= TOL[dt]
+    assert same_bits(lam_d, lam_dp) and same_bits(minq_d, minq_dp)
 
 
 @pytest.mark.parametrize("dtype", ("float32", "float64"))
@@ -284,7 +291,7 @@ def test_modal_pos_pk_post_and_diag_match_plain(cuda, p, dtype):
     diag = kernels.diag_operators(basis, mesh, dtype=dt, device=cuda)
     for a, b in zip(kernels.fused_diag(u, diag),
                     kernels.fused_diag_plain(u, diag)):
-        assert rel(a, b) <= TOL[dt]
+        assert same_bits(a, b)
 
 
 @pytest.mark.parametrize("per", ((False, False), (True, True)))
@@ -394,16 +401,17 @@ def test_masked_post_and_diag_match_plain(cuda, p, dtype):
     assert e <= POST_TOL[dt]
     assert flips <= (0 if dt == torch.float64 else FS_NX * FS_NY // 100)
     assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
-    for a, b in zip(kernels.fused_diag(u, diag),
-                    kernels.fused_diag_plain(u, diag)):
-        assert rel(a, b) <= TOL[dt]
+    lam_d, minq_d = kernels.fused_diag(u, diag)
+    for a, b in zip((lam_d, minq_d), kernels.fused_diag_plain(u, diag)):
+        assert same_bits(a, b)
     # a NaN solid cell enters neither reduction; a NaN fluid cell trips
     # the fatal flag
     iy, ix = (~rhs.ops.mask).nonzero()[0].tolist()
     u_bad = u.clone()
     u_bad[:, :, iy, ix] = float("nan")
     lam_b, minq_b = kernels.fused_diag(u_bad, diag)
-    assert rel(lam_b, lam_p) <= TOL[dt] and bool(minq_b >= EPS)
+    assert same_bits(lam_b, lam_d) and same_bits(minq_b, minq_d)
+    assert bool(minq_b >= EPS)
     u_bad[:, :, FS_NY - 1, 0] = float("nan")
     _, minq_b = kernels.fused_diag(u_bad, diag)
     _, _, minq_c = kernels.fused_post(u_bad, post, with_diag=True)
@@ -424,7 +432,7 @@ def test_volume_residual_matches_plain(cuda, p, dtype):
     q = kernels.volume_residual_plain(lift, u)
     torch.cuda.synchronize()
     assert kernels.volume_residual.launches == before + 1
-    assert rel(k, q) <= TOL[dt]
+    assert same_bits(k, q)
     # the residual with the volume term through the kernel (the
     # volume_kernel="pallas" path) against the plain residual
     xc, yc = mesh.cell_centers()
@@ -489,7 +497,7 @@ def test_block_post_and_sharded_diag_match(cuda, p, dtype):
     assert all(torch.equal(a, b) for a, b in
                zip(dk, kernels.fused_diag(u, diag)))
     dp = kernels.fused_diag_sharded_plain(blocks, [diag] * 4, dm)
-    assert all(rel(a, b) <= TOL[dt] for a, b in zip(dk, dp))
+    assert all(same_bits(a, b) for a, b in zip(dk, dp))
 
 
 def test_sharded_step_over_distinct_cards(cuda):
@@ -680,7 +688,7 @@ def test_gll_diag_matches_plain(cuda, p, dtype):
                                   dtype=dt, device=cuda)
     lam, minq = kernels.fused_diag(u, diag)
     lam_p, minq_p = kernels.fused_diag_plain(u, diag)
-    assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+    assert same_bits(lam, lam_p) and same_bits(minq, minq_p)
 
 
 @pytest.mark.parametrize("flux", ("hllc", "lxf"))
@@ -1120,7 +1128,7 @@ def test_envelope_diag_matches_plain(cuda, case, dtype):
         before = kernels.fused_diag.launches
         lam, minq = kernels.fused_diag(u, diag)
         lam_p, minq_p = kernels.fused_diag_plain(u, diag)
-        assert rel(lam, lam_p) <= TOL[dt] and rel(minq, minq_p) <= TOL[dt]
+        assert same_bits(lam, lam_p) and same_bits(minq, minq_p)
         assert kernels.fused_diag.launches == before + 1
 
 
@@ -1136,7 +1144,7 @@ def test_volume_residual_q4_q6_matches_plain(cuda, p, dtype):
     k = kernels.volume_residual(rhs.lift_stack, u)
     q = kernels.volume_residual_plain(rhs.lift_stack, u)
     torch.cuda.synchronize()
-    assert rel(k, q) <= TOL[dt]
+    assert same_bits(k, q)
     assert kernels.volume_residual.launches == before + 1
 
 
@@ -1711,3 +1719,160 @@ def test_tile_edges_mood_check_is_bitwise_plain(cuda, p, grid, per, dtype):
     assert k[0].dtype == torch.int32 and k[1].dtype == k[2].dtype == torch.bool
     if min(nx, ny) > 2:      # cells off the domain's edges (deg 1 there)
         assert 0 < int(k[2].sum())
+
+
+# ---------------------------------------------------------------------------
+# the diag as one launch (csrc/fused_diag.cu) and the volume residual's
+# tile kernel (csrc/volume_residual.cu): every form bitwise
+# ---------------------------------------------------------------------------
+
+#: (nx, ny): rows a 16-byte vector of cells covers (nx % 4 == 0) and rows
+#: it does not, odd row counts, grids smaller than one run, tile or block
+DV_GRIDS = ((96, 20), (33, 17), (130, 9), (64, 7), (5, 3), (1, 1))
+DIAG_BASES = (*(("Pk", p, None) for p in range(1, 7)),
+              *(("Qk", p, None) for p in range(1, 7)),
+              *(("Qk_gll", p, None) for p in range(1, 7)),
+              ("Pk", 2, 4), ("Pk", 6, 8), ("Qk", 2, 4), ("Qk_gll", 5, 7))
+
+
+def dv_mask(nx, ny, seed):
+    """Random fluid flags, about a quarter of the cells solid."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(size=(ny, nx)) > 0.25
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("case", DIAG_BASES)
+def test_diag_forms_are_bitwise_plain(cuda, case, dtype):
+    """The diag over every basis kind (the Pk mode-0 mean, the nodal full
+    row, over-integrated bases of both) on every grid of DV_GRIDS, masked
+    and not, on a workspace of two blocks (the grid-stride loop's later
+    rounds) and on a state whose storage starts 4 bytes past a 16-byte
+    boundary (the element loads on a grid the vector loads would take):
+    (lam_max, minq) equal to the plain version's, one launch a call."""
+    family, p, nq = case
+    dt = getattr(torch, dtype)
+    basis = make_basis(family, p, nq)
+    for nx, ny in DV_GRIDS:
+        mesh, u = noisy_state(family, p, nx, ny, dt, cuda, 500 + p + nx)
+        for mask in (None, dv_mask(nx, ny, p + nx)):
+            ops = kernels.diag_operators(basis, mesh, mask=mask, dtype=dt,
+                                         device=cuda)
+            assert ops.mode0 == (family == "Pk")
+            before = kernels.fused_diag.launches
+            got = kernels.fused_diag(u, ops)
+            assert kernels.fused_diag.launches == before + 1
+            assert all(same_bits(a, b) for a, b in
+                       zip(got, kernels.fused_diag_plain(u, ops)))
+            # twice in a row: the ticket is back at 0 after each launch
+            assert all(same_bits(a, b) for a, b in
+                       zip(kernels.fused_diag(u, ops), got))
+            assert int(ops.ticket) == 0
+            # a workspace of 2 blocks: the grid-stride loop's later rounds
+            narrow = dataclasses.replace(ops, part=ops.part[:4].clone(),
+                                         ticket=torch.zeros_like(ops.ticket))
+            assert all(same_bits(a, b) for a, b in
+                       zip(kernels.fused_diag(u, narrow), got))
+            assert int(narrow.ticket) == 0
+        buf = torch.empty(u.numel() + 1, dtype=dt, device=cuda)
+        off = buf[1:].view(u.shape)
+        off.copy_(u)
+        assert off.data_ptr() % 16 != 0
+        assert all(same_bits(a, b) for a, b in
+                   zip(kernels.fused_diag(off, ops),
+                       kernels.fused_diag_plain(u, ops)))
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("family", ("Pk", "Qk"))
+def test_diag_nan_cell_makes_minq_nan(cuda, family, dtype):
+    """One NaN fluid cell makes lam and minq NaN (the fatal flag trips);
+    the same NaN in a solid cell enters neither reduction."""
+    dt = getattr(torch, dtype)
+    mesh, u = noisy_state(family, 3, 33, 17, dt, cuda, 610)
+    mask = np.ones((17, 33), bool)
+    mask[8, 13] = False
+    ops = kernels.diag_operators(make_basis(family, 3), mesh, mask=mask,
+                                 dtype=dt, device=cuda)
+    clean = kernels.fused_diag(u, ops)
+    u[:, :, 8, 13] = float("nan")
+    assert all(same_bits(a, b) for a, b in
+               zip(kernels.fused_diag(u, ops), clean))
+    u[:, :, 16, 32] = float("nan")
+    lam, minq = kernels.fused_diag(u, ops)
+    assert bool(lam.isnan()) and bool(minq.isnan()) and not bool(minq >= EPS)
+    assert all(same_bits(a, b) for a, b in
+               zip((lam, minq), kernels.fused_diag_plain(u, ops)))
+
+
+@pytest.mark.parametrize("family", ("Pk", "Qk"))
+def test_diag_call_is_one_kernel(cuda, family):
+    """A diag call launches one kernel on the card and nothing after it
+    (no reduction over partials): a torch.profiler trace of 10 calls holds
+    10 device events, each the diag kernel (traced again, up to three
+    times, where a trace dropped an event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    mesh, u = noisy_state(family, 2, 256, 128, torch.float32, cuda, 620)
+    ops = kernels.diag_operators(make_basis(family, 2), mesh,
+                                 dtype=torch.float32, device=cuda)
+    kernels.fused_diag(u, ops)
+    torch.cuda.synchronize()
+    for _ in range(3):    # a trace that drops an event is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kernels.fused_diag(u, ops)
+            torch.cuda.synchronize()
+        evs = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if len(evs) == 10:
+            break
+    assert len(evs) == 10, evs
+    assert all("fused_diag_kernel" in n for n in evs), evs
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("case", (("Pk", 2), ("Qk", 4), ("Qk_gll", 2)))
+def test_sharded_diag_equals_single_device_diag(cuda, case, dtype):
+    """The sharded diag (row 7: the diag per block of a (2, 2) virtual
+    mesh, one workspace per block, then max / min across the blocks)
+    equals the single-device diag and its own plain version bitwise."""
+    from dflo_tpu_torch.parallel import shard_state
+    family, p = case
+    dt = getattr(torch, dtype)
+    mesh, u = noisy_state(family, p, 96, 20, dt, cuda, 630 + p)
+    basis = make_basis(family, p)
+    ops = kernels.diag_operators(basis, mesh, dtype=dt, device=cuda)
+    dm = _virtual_mesh(cuda)
+    blocks = shard_state(u, dm)
+    bops = [kernels.diag_operators(basis, mesh, dtype=dt, device=cuda)
+            for _ in blocks]
+    before = kernels.fused_diag_sharded.launches
+    got = kernels.fused_diag_sharded(blocks, bops, dm)
+    assert kernels.fused_diag_sharded.launches == before + 4
+    assert all(same_bits(a, b) for a, b in
+               zip(got, kernels.fused_diag(u, ops)))
+    assert all(same_bits(a, b) for a, b in
+               zip(got, kernels.fused_diag_sharded_plain(blocks, bops, dm)))
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+@pytest.mark.parametrize("family", ("Qk", "Qk_gll"))
+@pytest.mark.parametrize("p", range(1, 7))
+def test_volume_forms_are_bitwise_plain(cuda, p, family, dtype):
+    """volume_residual at Q1-Q6 and GLL1-GLL6 (the per-cell kernel up to
+    VOLUME_CELL_MAX_P, the tile kernel above) on every grid of DV_GRIDS:
+    equal to the plain version bitwise, one launch a call."""
+    dt = getattr(torch, dtype)
+    basis = make_basis(family, p)
+    for nx, ny in DV_GRIDS:
+        mesh, u = noisy_state(family, p, nx, ny, dt, cuda, 700 + p + nx,
+                              scale=0.05)
+        rhs = make_rhs(basis, mesh, BCS, dtype=dt, device=cuda,
+                       volume_kernel="pallas")
+        before = kernels.volume_residual.launches
+        k = kernels.volume_residual(rhs.lift_stack, u)
+        q = kernels.volume_residual_plain(rhs.lift_stack, u)
+        torch.cuda.synchronize()
+        assert kernels.volume_residual.launches == before + 1
+        assert same_bits(k, q), (nx, ny)

@@ -282,13 +282,16 @@ def _constant(source: str, pattern: str) -> int:
 @pytest.mark.parametrize("name", ("BLOCK", "POST_CELL_MAX_P", "TILE_THREADS",
                                   "POINT_ROWS", "MAX_SMEM",
                                   "PK_POST_CELL_MAX_P", "CHECK_TILE",
-                                  "CHECK_PER_CELL"))
+                                  "CHECK_PER_CELL", "VOLUME_CELL_MAX_P",
+                                  "DIAG_THREADS", "DIAG_RUN"))
 def test_python_mirrors_match_the_sources(name):
     """Each constant the wrappers mirror from the C sources (the per-cell
     kernels' block, which sizes their diag partials; the post's per-cell
     degrees; the tile kernels' threads, point rows and shared-memory
     ceiling; the Pk post's per-cell degrees; the check's tile and the
-    dtypes of its per-cell kernel) equals the sources' own, read
+    dtypes of its per-cell kernel; the volume residual's per-cell degrees
+    and its tile kernel's threads; the diag's threads and run of cells per
+    thread, which size its grid and workspace) equals the sources' own, read
     from csrc/ as built by default (chip_smoke.py phase 1 asks the built
     library for the block and the shared memory on the card)."""
     if name == "BLOCK":
@@ -323,6 +326,24 @@ def test_python_mirrors_match_the_sources(name):
                for dt, tag in ((torch.float32, "F32"),
                                (torch.float64, "F64"))}
         assert got == kernels.CHECK_PER_CELL
+    elif name == "VOLUME_CELL_MAX_P":
+        got = {dt: _constant("volume_residual.cu",
+                             rf"#define DFLO_VOLUME_CELL_MAX_P_{tag} (\d+)")
+               for dt, tag in ((torch.float32, "F32"),
+                               (torch.float64, "F64"))}
+        assert got == kernels.VOLUME_CELL_MAX_P
+        assert max(got.values()) <= 3    # registers up to Q3
+        assert _constant("volume_residual.cu",
+                         r"constexpr int VOL_THREADS = (\d+);") \
+            == kernels.TILE_THREADS
+    elif name == "DIAG_THREADS":
+        assert _constant("fused_diag.cu",
+                         r"constexpr int DIAG_THREADS = (\d+);") \
+            == kernels.DIAG_THREADS
+    elif name == "DIAG_RUN":
+        assert _constant("fused_diag.cu",
+                         r"constexpr int DIAG_RUN = (\d+);") \
+            == kernels.DIAG_RUN
     elif name == "POINT_ROWS":
         assert _constant("tile.cuh", r"constexpr int PR = (\d+);") \
             == kernels.POINT_ROWS
