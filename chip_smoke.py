@@ -49,7 +49,7 @@ Phases (any failure raises, and the script then prints no result):
 8. the device's busy share: each main path's chunk (RK 5 steps, MOOD 3,
    forward step 3, sharded RK 3, the vortex 10, rayleigh_taylor 10,
    iso_xing_shu 10, the forward step on P2 under MOOD 3, the DMR on P4
-   under MOOD 3, the vortex on P4 5) under
+   under MOOD 3, the vortex on P4 5, the curvilinear annulus 10) under
    torch.profiler; busy time is the union of the
    device events' intervals; idle shares of the traced wall and of the
    untraced ms/step of phases 3, 6 and 10.
@@ -159,16 +159,16 @@ Phases (any failure raises, and the script then prints no result):
    kernel's ms against the rest; not diverged, finite.
 21. the steady bump through cli.run: Q1, roe, `method = gmres`,
    `stationary = true`, local dt, cfl 2, linear residual 1e-4 at 256 x 256
-   (the 128 x 128 companion first), --max-steps 5 per level (at cfl 2
+   (the 128 x 128 companion first), --max-steps 3 per level (at cfl 2
    the bump's disturbance crosses these grids in hundreds of PTC steps:
    60 steps moved ||R|| from 66.8 to 45.4 on 128 x 128 and not at all on
-   256 x 256, see PERF.md; cut from 20 and then 10 per level to keep the
-   script within its time limit), f32: the PTC steps and first and last ||R||
+   256 x 256, see PERF.md; cut from 20, 10 and then 5 per level to keep
+   the script within its time limit), f32: the PTC steps and first and last ||R||
    of each level (both histories to chiprun_out/steady_history.json), the
    CLI timer, roe R-form launches (> 0), plain calls (0), every linear
    solve run, the histories finite.
 22. f64 kernel primal against plain primal: the implicit vortex at 64 x 64
-   (cfl 2, linear residual 1e-6, block-Jacobi), 5 steps with
+   (cfl 2, linear residual 1e-6, block-Jacobi), 2 steps with
    volume_kernel="fused" and "xla" from the same state: within 1e-10
    relative, equal Newton counts, every linear solve converged.
 23. the masked modal residual against its plain version, f32 and f64, in
@@ -292,6 +292,34 @@ Phases (any failure raises, and the script then prints no result):
    row counts, grids smaller than one run or tile, masked and not, and a
    state 4 bytes past a 16-byte boundary.
 
+32. the DMR from a mesh file (path A): a .geo of two transfinite blocks
+   (1152 x 288, the bottom split at x = 1/6 with Physical Lines 0 and 1)
+   and its .prm (entry.dmr_geo_text, entry.dmr_geo_prm: the boundary
+   conditions of tests/test_masked_domain.py:66-110, Q2, hllc, TVB beta 1
+   with the `limiter` indicator, positivity, cfl 0.4) through cli.run, f32,
+   20 steps in chunks of 10: rows 2, 4 and 6 launched, no plain version
+   called, no fatal flag, finite; dmr_geo_q2_rk_tvb_dof_updates_per_sec
+   and ms/step timed apart from output; the domain through write_msh and
+   the native load_msh gives identical arrays; one full-width SSP stage
+   with the segmented strips bitwise against its plain version, f32 and
+   f64, timed (the kernel table's row fused_residual_geo).
+33. the curvilinear block that fills the card (path B): the annulus of
+   scripts/naca_bench.py:130-146 (320 x 1536 cells, r 1 to 3), Q2, hllc,
+   periodic W/E, slip S, farfield N at the naca0012 free stream, cfl 0.4,
+   f32, limiter none with positivity on (minmax on a q1 block waits for
+   slice E), 20 steps in chunks of 10 after a warm-up: plain torch, as the
+   reference's curvilinear path is XLA (no kernel launched, no plain
+   version called); annulus_q2_curvi_rk_dof_updates_per_sec and ms/step
+   (its chunk traced in phase 8); the f64 free stream on a 1024 x 1024
+   wavy block of the unit square, max |R| * h below 1e-12 (h = 1/1024:
+   the round-off of one cell's fluxes is divided by its size).
+34. the naca0012 steady workflow (path C) through cli.run with
+   examples/naca0012.prm's settings on a NACA 0012 O-mesh of naca.struct's
+   size (160 x 40, mesh.curvilinear.naca0012_omesh) written as a .struct,
+   f32, 5 PTC steps on each level of the grid sequence: Newton and Krylov
+   counts and each level's ||R|| history (chiprun_out/
+   naca_steady_history.json); no Newton divergence, finite.
+
 Rows 1, 6 and 7 are bitwise in every phase that compares them (record,
 BITWISE_ROWS).  Phase 1 also holds the diag's and the volume residual's
 instantiations to no stack and no spill and the volume tile's shared
@@ -388,10 +416,13 @@ FLUX_STEPS = 4
 BUMP_FAR = (0.5, 0.0, 1.0, 2.6)
 #: the implicit paths: the vortex (phase 20; IMPL_FALLBACK_N if one step
 #: takes over 10 s), the steady bump through the CLI (phase 21), the f64
-#: kernel primal against the plain one (phase 22)
+#: kernel primal against the plain one (phase 22); each tangent of the
+#: Krylov solves costs 64-83 ms on the card (launch-bound), so the steady
+#: and primal depths were cut from 5 to make room for phase 34's 10 PTC
+#: steps within the script's limit
 IMPL_N, IMPL_FALLBACK_N, IMPL_STEPS = 1024, 512, 2
-STEADY_N, STEADY_STEPS = 256, 5
-PRIMAL_N, PRIMAL_STEPS = 64, 5
+STEADY_N, STEADY_STEPS = 256, 3
+PRIMAL_N, PRIMAL_STEPS = 64, 2
 #: masked modal Pk and MOOD with every flux and a body force (phases
 #: 23-24): the residual's fluxes; the forward step on P2 under MOOD
 #: (FWD_MOOD_STEPS in chunks of FWD_MOOD_CHUNK) and RK; rayleigh_taylor on
@@ -421,6 +452,25 @@ MD_PLAIN_STEPS = 1
 MD_P4_STEPS, MD_P1_STEPS = 10, 5
 SOD_MOOD_PRM = "examples/sod_mood.prm"
 SOD_GRID = (100, 4)
+#: slice D, part 2 (phases 32-34): the DMR read from a .geo file at
+#: NX x NY (two transfinite blocks, GEO_NL cells across before the split of
+#: its bottom at x = 1/6), GEO_STEPS steps in chunks of GEO_CHUNK; the
+#: annulus of scripts/naca_bench.py:130-146 (r_in, r_out, n_r, n_theta) on
+#: Q2 at the naca0012 free stream, ANN_STEPS in chunks of ANN_CHUNK; the
+#: f64 free stream on a wavy unit square of WAVY_N x WAVY_N, max |R| * h
+#: below WAVY_FS_TOL; the naca0012 O-mesh of naca.struct's size (cells
+#: around, out), NACA_STEPS PTC steps a level
+GEO_NL, GEO_STEPS, GEO_CHUNK = 48, 20, 10
+ANN = (1.0, 3.0, 320, 1536)
+ANN_STEPS, ANN_CHUNK = 20, 10
+WAVY_N, WAVY_FS_TOL = 1024, 1e-12
+NACA_PRM = "examples/naca0012.prm"
+#: each PTC step here is one Newton iteration of up to 10 GMRES restarts of
+#: 30 tangents (naca0012.prm's settings; at cfl 2 they stop unconverged),
+#: 15 to 22 s on the card: the 10 steps take 156 to 221 s (PERF.md)
+NACA, NACA_STEPS = (160, 40), 5
+#: the naca0012 free stream, M 0.63 at 2 degrees (examples/naca0012.prm)
+NACA_FS = (0.6296158, 0.0219908, 1.0, 1.9841269)
 #: the external force of the force-plane form (f_0, f_1 expressions)
 FORCE_EXPR = ("0.01*sin(2*pi*x)*cos(t)", "-1.0")
 #: the card's peaks for the bound (NVIDIA H100 SXM data sheet, dense,
@@ -609,6 +659,10 @@ SOURCES = {
     "fused_mood_check_p4": ("dflo_tpu_torch/csrc/fused_mood_check.cu",
                             f"{PK}:2222", f"{PK}:make_fused_mood_check (P4)",
                             "fused_mood_check", "dmr_p4_mood"),
+    "fused_residual_geo": ("dflo_tpu_torch/csrc/fused_residual.cu",
+                           f"{PK}:617", f"{PK}:make_fused_residual (the .geo "
+                           f"DMR: segmented S strips, SSP stage)",
+                           "fused_residual[qk_hllc_stage]", "dmr_geo"),
 }
 #: the grid each row is measured and bounded at, by path: the DMR's, the
 #: forward step's, the vortex's; the LxF candidate's launches come from
@@ -627,9 +681,10 @@ GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
          "vortex_p4": (P4_N, P4_N), "vortex_p6": (P6_N, P6_N),
          "dmr_q4": (NX, NY), "pallas_q4": (NX, NY),
          "q2oi": (Q2OI_N, Q2OI_N), "rt_roe": (RT_NX, RT_NY),
-         "iso_roe": (ISO_N, ISO_N), "dmr_p4_mood": (NX, NY)}
+         "iso_roe": (ISO_N, ISO_N), "dmr_p4_mood": (NX, NY),
+         "dmr_geo": (NX, NY)}
 #: the steps of each path whose rows carry launches per step
-PATH_STEPS = {"dmr_p4_mood": MD_P4_STEPS}
+PATH_STEPS = {"dmr_p4_mood": MD_P4_STEPS, "dmr_geo": GEO_STEPS}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
@@ -799,7 +854,8 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
             "fused_mood_candidate_p4": "fused_mood_candidate",
             "fused_modal_pos_p4": "fused_modal_pos",
             "fused_pk_post_p4": "fused_pk_post",
-            "fused_mood_check_p4": "fused_mood_check"}.get(name, name)
+            "fused_mood_check_p4": "fused_mood_check",
+            "fused_residual_geo": "fused_residual"}.get(name, name)
 
     def nnz(a):
         """nonzero entries; an entry within 1e-12 of the largest is a zero
@@ -1647,7 +1703,8 @@ def phase_trace(entry, ms_per_step, built):
     1024 x 3072 and iso_xing_shu 10 steps at 2048 x 2048 on their CLI's
     solvers, the forward step on P2 under MOOD 3 steps on its CLI's solver,
     the DMR on P4 under MOOD 3 steps (phase 28's solver), the vortex on P4
-    ENV_CHUNK steps at P4_N x P4_N (phase 26's solver);
+    ENV_CHUNK steps at P4_N x P4_N (phase 26's solver), the curvilinear
+    annulus ANN_CHUNK steps (phase 33's solver);
     built[method] = (solver, state) for all but the first two;
     f32, after a warm-up):
     device busy time, and the idle share of the traced wall and of the
@@ -1659,7 +1716,8 @@ def phase_trace(entry, ms_per_step, built):
     for method, steps in (("rk", 5), ("mood", 3), ("fwd", 3), ("shard", 3),
                           ("vortex", VX_CHUNK), ("rt", SRC_CHUNK),
                           ("iso", SRC_CHUNK), ("fwd_mood", 3),
-                          ("dmr_p4_mood", 3), ("vortex_p4", ENV_CHUNK)):
+                          ("dmr_p4_mood", 3), ("vortex_p4", ENV_CHUNK),
+                          ("annulus", ANN_CHUNK)):
         if method in built:
             s, u = built[method]
         else:
@@ -4878,6 +4936,290 @@ def phase_diag_volume_kernels(kernels, results):
     results["diag_volume_cases"] = out
 
 
+def geo_dmr_files(out: str) -> str:
+    """The DMR as its own input describes it, written to out: a .geo of two
+    transfinite blocks, NX x NY cells with the bottom split at x = 1/6
+    (entry.dmr_geo_text), and its .prm (entry.dmr_geo_prm: the boundary
+    conditions of tests/test_masked_domain.py:66-110 as expressions,
+    mapping cartesian, Q2, hllc, TVB beta 1 with the `limiter` indicator,
+    positivity, cfl 0.4); returns the .prm's path."""
+    from dflo_tpu_torch import entry
+    with open(os.path.join(out, "dmr.geo"), "w") as f:
+        f.write(entry.dmr_geo_text(GEO_NL, NX - GEO_NL, NY))
+    prm = os.path.join(out, "dmr_geo.prm")
+    with open(prm, "w") as f:
+        f.write(entry.dmr_geo_prm("dmr.geo"))
+    return prm
+
+
+def phase_geo_dmr(kernels, plain_calls, results):
+    """Phase 32 (path A): the DMR from a .geo file through cli.run at
+    NX x NY in f32, GEO_STEPS steps in chunks of GEO_CHUNK: the residual
+    (with the segmented bottom's strips), the post and the diag launched,
+    no plain version called, no fatal flag, finite; then the CLI's solver
+    timed apart from output (dmr_geo_q2_rk_tvb_dof_updates_per_sec).  The
+    same domain through write_msh and the native load_msh gives the same
+    arrays.  One full-width SSP stage with the segmented strips against
+    its plain version, f32 and f64, bitwise, timed.  Returns (launch
+    counts, ms/step, summary)."""
+    from dflo_tpu_torch import cli
+    from dflo_tpu_torch.config.params import AllParameters
+    from dflo_tpu_torch.mesh import geo, msh
+    from dflo_tpu_torch.solver.spatial import SegmentedSide, make_rhs
+    with tempfile.TemporaryDirectory() as out:
+        prm = geo_dmr_files(out)
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        t0 = time.perf_counter()
+        res = cli.run([prm, "--max-steps", str(GEO_STEPS), "--chunk",
+                       str(GEO_CHUNK), "--output-dir", out])
+        torch.cuda.synchronize()
+        wall_cli = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        plain = plain_calls["n"]
+        s = res.solver
+        finite = bool(torch.isfinite(res.u).all())
+        used = {k: v for k, v in counts.items() if v}
+        print(f"dmr .geo CLI {NX}x{NY}: {res.it} steps to t={res.t!r} in "
+              f"{wall_cli:.2f} s with set-up and output, finite={finite}, "
+              f"launches={used}, plain calls={plain}")
+        assert res.it == GEO_STEPS and finite
+        assert res.u.dtype == torch.float32 and res.u.is_cuda
+        assert (s.mesh.nx, s.mesh.ny, s.mask) == (NX, NY, None)
+        assert isinstance(s.bcs["S"], SegmentedSide)
+        assert all(counts[k] > 0 for k in ("fused_residual", "fused_post",
+                                           "fused_diag")), counts
+        assert counts["fused_residual[qk_hllc_stage]"] == 3 * GEO_STEPS
+        assert plain == 0, "the .geo DMR called a plain version"
+
+        # the same domain as a .msh, read back by the native reader
+        dom = geo.load_geo(os.path.join(out, "dmr.geo"))
+        path = os.path.join(out, "dmr.msh")
+        t0 = time.perf_counter()
+        msh.write_msh(path, dom.mesh, dom.side_bids, dom.mask)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = msh.load_msh(path)
+        t_read = time.perf_counter() - t0
+        same_msh = (back.mesh == dom.mesh and back.mask is None
+                    and dom.mask is None
+                    and all(bool((back.side_bids[k] == dom.side_bids[k])
+                                 .all()) for k in "WESN"))
+        print(f"dmr .msh round trip: write_msh {t_write:.2f} s, native "
+              f"load_msh {t_read:.2f} s ({os.path.getsize(path)} B), "
+              f"identical arrays {same_msh}")
+        assert same_msh
+
+        # the CLI's solver timed apart from output
+        multi = s._multi_step(GEO_CHUNK)
+        multi(res.u, res.t, 1e3)                   # warm-up
+        torch.cuda.synchronize()
+        u, t, n, bad = res.u, res.t, 0, False
+        t0 = time.perf_counter()
+        for _ in range(GEO_STEPS // GEO_CHUNK):
+            u, t, nd, bad_c, _ = multi(u, t, 1e3)
+            n, bad = n + nd, bad | bad_c
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, bad = int(n), bool(bad)
+        assert n == GEO_STEPS and not bad and bool(torch.isfinite(u).all())
+        ms = 1e3 * wall / GEO_STEPS
+        rows = {"fused_residual": "row 2", "fused_post": "row 4",
+                "fused_diag": "row 6"}
+        summary = {"dmr_geo_q2_rk_tvb_dof_updates_per_sec":
+                   4 * s.basis.K * NX * NY * GEO_STEPS / wall,
+                   "unit": "DoF-updates/s", "dtype": "float32",
+                   "grid": [NX, NY], "steps": GEO_STEPS, "chunk": GEO_CHUNK,
+                   "ms_per_step": ms, "cli_wall_s": wall_cli,
+                   "launches_per_step": {f"{k} ({r})": counts[k] / GEO_STEPS
+                                         for k, r in rows.items()},
+                   "plain_calls": plain,
+                   "msh_round_trip_s": [t_write, t_read],
+                   "card": card_line()}
+        print(json.dumps(summary))
+
+        # one full-width stage with the segmented strips, bitwise
+        params = AllParameters.from_prm_file(prm)
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            sd, _ = cli.build_solver(params, out, dtype=dtype, device="cuda")
+            ud = sd.post_stage(u.to(dtype))
+            u_old = sd.post_stage(cli.set_ic(params, sd))
+            tt = torch.full((), float(t), dtype=dtype, device="cuda")
+            strips = sd.rhs.strips(ud, tt)
+            whole = dict(sd.bcs, S=sd.bcs["S"].segments[1])
+            slip = make_rhs(sd.basis, sd.mesh, whole, flux="hllc",
+                            dtype=dtype, device="cuda",
+                            volume_kernel="fused").strips(ud, tt)
+            assert not torch.equal(strips[2], slip[2])
+            lam, _ = sd._diag(ud)
+            sc = torch.stack([torch.full((), 0.75, dtype=dtype,
+                                         device="cuda"),
+                              0.4 / lam / 5.0])
+
+            def fk(ud=ud, strips=strips, sd=sd, u_old=u_old, sc=sc):
+                return kernels.fused_residual(ud, *strips, sd.rhs.ops,
+                                              u_old=u_old, sc=sc)
+
+            def fp(ud=ud, strips=strips, sd=sd, u_old=u_old, sc=sc):
+                return kernels.fused_residual_plain(ud, *strips, sd.rhs.ops,
+                                                    u_old=u_old, sc=sc)
+
+            fold(results, "fused_residual_geo", tag, [(fk(), fp())],
+                 TOL[dtype]["fused_residual"], bitwise=True)
+            time_pair(results, "fused_residual_geo", tag, fk, fp, (NX, NY))
+            del sd, ud, u_old, strips
+        torch.cuda.empty_cache()
+    return counts, ms, summary
+
+
+def phase_annulus(kernels, plain_calls):
+    """Phase 33 (path B): the curvilinear block that fills the card, the
+    annulus of scripts/naca_bench.py:130-146 (r 1 to 3, 320 x 1536 cells),
+    Q2, hllc, periodic W/E, slip S, farfield N, the naca0012 free stream
+    (M 0.63 at 2 degrees), cfl 0.4, f32, ANN_STEPS steps in chunks of
+    ANN_CHUNK through Solver._multi_step after a warm-up: limiter none with
+    positivity on (minmax on a q1 block waits for slice E); the path is
+    plain torch, as the reference's is XLA, so no kernel is launched and no
+    plain version called; annulus_q2_curvi_rk_dof_updates_per_sec and
+    ms/step.  Then the f64 free stream on a wavy unit square of WAVY_N x
+    WAVY_N cells (Q2, hllc, farfield sides): max |R| * h below WAVY_FS_TOL,
+    h = 1/WAVY_N.  Returns (ms/step, (solver, state) for the trace,
+    summary)."""
+    from dflo_tpu_torch import ic
+    from dflo_tpu_torch.driver import LimiterConfig, Solver
+    from dflo_tpu_torch.mesh.curvilinear import annulus_mesh, wavy_mesh
+    from dflo_tpu_torch.ops.basis import make_basis
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.solver.spatial import BoundarySide
+    from dflo_tpu_torch.solver.spatial_curvi import make_rhs_curvilinear
+
+    def freestream(x, y, t=0.0):
+        return torch.stack([torch.full_like(x, v) for v in NACA_FS])
+
+    r_in, r_out, n_r, n_th = ANN
+    mesh = annulus_mesh(r_in, r_out, n_r, n_th)
+    basis = make_basis("Qk", 2)
+    per = BoundarySide(euler.BC_PERIODIC)
+    far = BoundarySide(euler.BC_FARFIELD, freestream)
+    bcs = dict(W=per, E=per, S=BoundarySide(euler.BC_SLIP), N=far)
+    t0 = time.perf_counter()
+    s = Solver(basis, mesh, bcs, flux="hllc", limiter=LimiterConfig(
+        pos_lim=True), cfl=0.4, dtype=torch.float32, device="cuda")
+    u = s.post_stage(ic.set_initial_condition(
+        basis, mesh, freestream, dtype=torch.float32, device="cuda"))
+    setup_s = time.perf_counter() - t0
+    multi = s._multi_step(ANN_CHUNK)
+    kernels.reset_launch_counts()
+    plain_calls["n"] = 0
+    u, t, _, _, _ = multi(u, 0.0, 1e3)             # warm-up
+    torch.cuda.synchronize()
+    n, bad = 0, False
+    t0 = time.perf_counter()
+    for _ in range(ANN_STEPS // ANN_CHUNK):
+        u, t, nd, bad_c, _ = multi(u, t, 1e3)
+        n, bad = n + nd, bad | bad_c
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n, bad = int(n), bool(bad)
+    finite = bool(torch.isfinite(u).all())
+    print(f"annulus {n_th}x{n_r} Q2: {n} steps to t={float(t)!r}, "
+          f"finite={finite}, fatal flag {bad}, launches="
+          f"{ {k: v for k, v in counts.items() if v} }, plain calls="
+          f"{plain_calls['n']}")
+    assert n == ANN_STEPS and not bad and finite
+    assert s.curvilinear and not any(counts.values()), counts
+    assert plain_calls["n"] == 0
+    ms = 1e3 * wall / ANN_STEPS
+
+    # the f64 free stream on a wavy block (the discrete metric identities):
+    # du/dt is the round-off of a cell's face fluxes over its size h, so
+    # max |R| * h is what the reference's 1e-12 bounds at its cells of 0.2 x
+    # 0.125 (tests/test_curvilinear.py:32-43)
+    h = 1.0 / WAVY_N
+    wmesh = wavy_mesh(WAVY_N, WAVY_N, 0.0, 1.0, 0.0, 1.0, amp=0.05)
+    rhs = make_rhs_curvilinear(basis, wmesh, dict(W=far, E=far, S=far, N=far),
+                               flux="hllc", dtype=torch.float64,
+                               device="cuda")
+    uw = ic.set_initial_condition(basis, wmesh, freestream,
+                                  dtype=torch.float64, device="cuda")
+    fs = float(rhs(uw, 0.0).abs().max())
+    del rhs, uw
+    torch.cuda.empty_cache()
+    summary = {"annulus_q2_curvi_rk_dof_updates_per_sec":
+               4 * basis.K * n_r * n_th * ANN_STEPS / wall,
+               "unit": "DoF-updates/s", "dtype": "float32",
+               "grid": [n_th, n_r], "steps": ANN_STEPS, "chunk": ANN_CHUNK,
+               "ms_per_step": ms, "setup_s": setup_s,
+               "limiter": "none, positivity on (minmax on a q1 block waits "
+                          "for slice E)",
+               "wavy_f64_free_stream_max_abs_R": fs,
+               "wavy_f64_free_stream_max_abs_R_times_h": fs * h,
+               "wavy_grid": [WAVY_N, WAVY_N], "card": card_line()}
+    print(json.dumps(summary))
+    assert fs * h < WAVY_FS_TOL, f"wavy free stream max|R| {fs!r}, h {h!r}"
+    return ms, (s, u), summary
+
+
+def phase_naca_steady(kernels, plain_calls):
+    """Phase 34 (path C): the naca0012 steady workflow through cli.run with
+    examples/naca0012.prm's settings (Q1, roe, local dt, cfl 2, gmres,
+    limiter none, grid-sequenced) on a NACA 0012 O-mesh of naca.struct's
+    size (mesh.curvilinear.naca0012_omesh: 160 cells around, 40 out, the
+    farfield at 20 chords) written as a .struct, f32, NACA_STEPS PTC steps
+    on each level: the Newton and Krylov counts and the ||R|| history of
+    each level (to chiprun_out/naca_steady_history.json); gates: no Newton
+    divergence (cli.run raises on one) and a finite state; a drop in ||R||
+    is not a gate.  Returns the summary."""
+    import io
+    import re
+    from dflo_tpu_torch import cli
+    from dflo_tpu_torch.mesh.curvilinear import naca0012_omesh, write_struct
+    with tempfile.TemporaryDirectory() as out:
+        write_struct(os.path.join(out, "naca.struct"), naca0012_omesh(*NACA))
+        text = "\n".join("set mesh file = naca.struct"
+                         if ln.startswith("set mesh file") else ln
+                         for ln in open(NACA_PRM).read().splitlines())
+        prm = os.path.join(out, "naca.prm")
+        with open(prm, "w") as f:
+            f.write(text + "\n")
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            res = cli.run([prm, "--max-steps", str(NACA_STEPS),
+                           "--output-dir", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    text = log.getvalue()
+    timer = {k: float(v) for k, v in re.findall(
+        r"^(Setup|Time loop|Output)\s+\d+\s+([0-9.]+)", text, re.M)}
+    coarse, fine = res.steady_levels
+    s = res.solver
+    finite = bool(torch.isfinite(res.u).all())
+    out = {"grid": [s.mesh.nx, s.mesh.ny],
+           "coarse_grid": [s.steady_coarse.mesh.nx, s.steady_coarse.mesh.ny],
+           "dtype": "float32", "ptc_steps": [len(coarse), len(fine)],
+           "res_coarse": coarse, "res_fine": fine,
+           "krylov_coarse": s.steady_coarse.krylov_counts.as_dict(),
+           "krylov_fine": s.krylov_counts.as_dict(),
+           "linear_warnings": text.count("WARNING"), "diverged": False,
+           "finite": finite, "cli_timer_s": timer, "cli_wall_s": wall,
+           "plain_calls": plain_calls["n"], "card": card_line()}
+    print(json.dumps(out))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "naca_steady_history.json"),
+              "w") as f:
+        json.dump(out, f)
+    assert finite and s.curvilinear
+    assert len(coarse) == len(fine) == NACA_STEPS
+    assert all(math.isfinite(r) for r in coarse + fine)
+    assert not any(counts.values()) and plain_calls["n"] == 0
+    return out
+
+
 def clock(t_start: float, what: str) -> None:
     """The script's elapsed time before the phases `what`."""
     print(f"chip_smoke: at {time.perf_counter() - t_start:.1f} s, next: "
@@ -5065,14 +5407,24 @@ def main() -> int:
         entry, kernels, plain_calls)
     counts.update(counts_md)
 
+    clock(t_start, "phases 32-34")
+    # ---- phases 32-34: the DMR from a .geo file, the curvilinear annulus,
+    # the naca0012 steady workflow --------------------------------------------
+    counts["dmr_geo"], ms_step["dmr_geo"], geo_dmr = phase_geo_dmr(
+        kernels, plain_calls, results)
+    ms_step["annulus"], annulus, annulus_summary = phase_annulus(
+        kernels, plain_calls)
+    naca = phase_naca_steady(kernels, plain_calls)
+
     clock(t_start, "phase 8")
     # ---- phase 8: the device's busy share under torch.profiler --------------
     busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard,
                                         "vortex": vortex, "rt": rt,
                                         "iso": iso, "fwd_mood": fwd_mood,
                                         "dmr_p4_mood": p4_mood,
-                                        "vortex_p4": vortex_p4})
-    del vortex, rt, iso, fwd_mood, p4_mood, vortex_p4
+                                        "vortex_p4": vortex_p4,
+                                        "annulus": annulus})
+    del vortex, rt, iso, fwd_mood, p4_mood, vortex_p4, annulus
 
     clock(t_start, "phase 7")
     # ---- phase 7: sparse against dense ---------------------------------------
@@ -5111,7 +5463,8 @@ def main() -> int:
              "dmr_q4": make_basis("Qk", 4), "pallas_q4": make_basis("Qk", 4),
              "q2oi": make_basis("Qk", 2, 4), "rt_roe": make_basis("Qk", 1),
              "iso_roe": make_basis("Qk_gll", 2),
-             "dmr_p4_mood": make_basis("Pk", 4)}
+             "dmr_p4_mood": make_basis("Pk", 4),
+             "dmr_geo": make_basis("Qk", 2)}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
@@ -5173,6 +5526,8 @@ def main() -> int:
                       "tile_post_cases": results["tile_post_cases"],
                       "tile_pk_check_cases": results["tile_pk_check_cases"],
                       "diag_volume_cases": results["diag_volume_cases"],
+                      "dmr_geo": geo_dmr, "annulus": annulus_summary,
+                      "naca_steady": naca,
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
                                           "mood_host", "mood_p4",

@@ -1,5 +1,6 @@
 """dflo_tpu_torch — the PyTorch/CUDA port of dflo_tpu, a discontinuous-Galerkin
-solver for the 2-D compressible Euler equations on Cartesian meshes.
+solver for the 2-D compressible Euler equations on Cartesian meshes and
+structured curvilinear blocks.
 
 The JAX package ``dflo_tpu`` is the reference; this package imports ``torch``
 and never ``jax``.  It keeps the reference's state layout ``U[4, K, ny, nx]``
@@ -13,8 +14,9 @@ through hand-written CUDA kernels
 (``dflo_tpu_torch/csrc``, loaded by
 ``dflo_tpu_torch.ops.kernels``); each has a plain PyTorch version beside it
 that runs on CPU tensors.  ``python -m dflo_tpu_torch input.prm`` runs a
-``.prm`` configuration (``dflo_tpu_torch.cli``); ``dflo_tpu_torch.parallel``
-splits the RK/TVB step over a mesh of devices.
+``.prm`` configuration (``dflo_tpu_torch.cli``) on a Cartesian mesh or a
+mesh file (.geo, .msh, .struct: ``dflo_tpu_torch.mesh``);
+``dflo_tpu_torch.parallel`` splits the RK/TVB step over a mesh of devices.
 
 Reduced-precision products broke the DG free-stream cancellation in the
 reference's history, so TF32 is switched off for matmuls and cuDNN here.

@@ -1,16 +1,21 @@
 """Command-line driver: ``python -m dflo_tpu_torch input.prm``.
 
-The torch counterpart of dflo_tpu/cli.py for the explicit Cartesian path
-(after src/main.cc:13-81 and src/claw.cc:953-1130): parse the .prm config,
-build the Cartesian mesh and its solid-cell mask from the `cartesian mesh`
-subsection, wire the boundary ids to the four sides, set the IC, march in
+The torch counterpart of dflo_tpu/cli.py (after src/main.cc:13-81 and
+src/claw.cc:953-1130): parse the .prm config, build the mesh (the Cartesian
+mesh and its solid-cell mask from the `cartesian mesh` subsection, or the
+`mesh file`: a .geo rasterized to a Cartesian mesh with a mask and
+segmented sides, or chained into a curvilinear block; a raster .msh; a
+.struct O-mesh as a curvilinear block wrapped in xi), wire the boundary ids
+to the four sides (a side with several ids becomes a SegmentedSide), set
+the IC, march in
 time with the configured flux, limiter chain and body force
 (``method = rk3`` on Qk, GLL or Pk, ``mood`` on Pk, ``gmres``, ``direct``
 or ``umfpack`` for implicit Newton-Krylov; a global, local or fixed time
 step; ``gravity``, the ``f_0``/``f_1`` force or a ``potential`` for
 well-balanced gravity), or with ``stationary = true`` and an implicit
 method solve to steady state by pseudo-transient continuation (grid-
-sequenced through a 2x-coarsened companion where the grid halves), write
+sequenced through a 2x-coarsened companion where the grid halves, a
+curvilinear block's every other node), write
 VTU snapshots and checkpoints on their cadence and report the wall time of
 each phase.
 
@@ -20,9 +25,9 @@ kernel wrapper takes its plain version.  Without a CUDA device and without
 CPU by itself.  ``--devices N`` splits the domain over N devices (the
 most-square mesh that divides the grid, parallel/sharding): N distinct
 cards, or with ``--platform cpu`` N CPU blocks; snapshots and checkpoints
-gather the blocks first.  The reference's other branches (mesh files,
-unstructured meshes, AMR, ``--slices``) raise NotImplementedError naming
-the ROADMAP item that brings them.
+gather the blocks first.  The reference's other branches (unstructured
+meshes: a circle-bounded .geo and a .msh that is not a raster; AMR;
+``--slices``) raise NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -44,20 +49,21 @@ from dflo_tpu_torch.driver import LimiterConfig, Solver
 from dflo_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from dflo_tpu_torch.io.vtk import write_vtu
 from dflo_tpu_torch.mesh import CartesianMesh
+from dflo_tpu_torch.mesh.curvilinear import CurvilinearMesh, load_struct
+from dflo_tpu_torch.mesh.geo import load_geo
+from dflo_tpu_torch.mesh.msh import load_msh
 from dflo_tpu_torch.ops.basis import make_basis
 from dflo_tpu_torch.parallel.sharding import compatible_shape, device_mesh
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.solver.implicit import run_steady, run_steady_sequenced
-from dflo_tpu_torch.solver.spatial import BoundarySide
+from dflo_tpu_torch.solver.spatial import BoundarySide, SegmentedSide
 from dflo_tpu_torch.utils.profiling import Timer, device_trace
 
 #: where the branches this CLI does not carry yet come from (ROADMAP)
 _LATER = {
-    "mesh files": "slices D and E (ROADMAP queue 1, items 7 and 8: .geo/"
-                  ".msh/.struct meshes and unstructured meshes)",
-    "envelope": "the physics envelope (ROADMAP queue 1, item 4)",
-    "amr": "slice F (ROADMAP queue 1, item 9: AMR)",
-    "devices": "slice G (ROADMAP queue 1, item 10: multi-GPU)",
+    "envelope": "the rest of the physics envelope (ROADMAP)",
+    "amr": "slice F, AMR (ROADMAP)",
+    "devices": "slice G, the rest of multi-GPU (ROADMAP)",
 }
 
 
@@ -67,36 +73,72 @@ def _later(what: str, key: str) -> NotImplementedError:
 
 
 def build_domain(params: AllParameters, prm_dir: str = "."):
-    """(mesh, mask, side boundary ids) from the `cartesian mesh` subsection:
-    the mask is True on fluid cells, False where the `solid` expression of
-    the cell centre is nonzero."""
+    """(mesh, mask, side boundary ids) of the configuration
+    (dflo_tpu/cli.py:31-80): the `cartesian mesh` subsection (the mask True
+    on fluid cells, False where the `solid` expression of the cell centre is
+    nonzero), or the `mesh file`.  A missing file falls back to the .geo or
+    .struct of its stem, then to any .geo or .struct beside the config (the
+    reference ships generators, not .msh files).  A .struct is a curvilinear
+    O-mesh wrapped in xi (W/E id -2, the airfoil S = 0, the farfield
+    N = 1); a .geo a rasterized Cartesian domain or a curvilinear chain; any
+    other file a .msh raster."""
     cm = params.cartesian_mesh
-    if not (params.mesh_type == "cartesian" or cm.nx > 0):
-        raise _later(f"mesh file {params.mesh_filename!r}", "mesh files")
-    mesh = CartesianMesh(cm.nx, cm.ny, cm.x0, cm.x1, cm.y0, cm.y1)
-    # native meshes use the Gmsh-free convention S=1, E=2, N=3, W=4
-    side_bids = {"W": np.full(cm.ny, 4), "E": np.full(cm.ny, 2),
-                 "S": np.full(cm.nx, 1), "N": np.full(cm.nx, 3)}
-    mask = None
-    if cm.solid is not None:
-        xc, yc = mesh.cell_centers()
-        solid = cm.solid(torch.as_tensor(xc), torch.as_tensor(yc))
-        mask = ~np.asarray(solid.numpy(), bool)
-    return mesh, mask, side_bids
+    if params.mesh_type == "cartesian" or cm.nx > 0:
+        mesh = CartesianMesh(cm.nx, cm.ny, cm.x0, cm.x1, cm.y0, cm.y1)
+        # native meshes use the Gmsh-free convention S=1, E=2, N=3, W=4
+        side_bids = {"W": np.full(cm.ny, 4), "E": np.full(cm.ny, 2),
+                     "S": np.full(cm.nx, 1), "N": np.full(cm.nx, 3)}
+        mask = None
+        if cm.solid is not None:
+            xc, yc = mesh.cell_centers()
+            solid = cm.solid(torch.as_tensor(xc), torch.as_tensor(yc))
+            mask = ~np.asarray(solid.numpy(), bool)
+        return mesh, mask, side_bids
+    path = os.path.join(prm_dir, params.mesh_filename)
+    if not os.path.exists(path):
+        stem = os.path.splitext(path)[0]
+        candidates = [path, stem + ".geo", stem + ".struct"] + [
+            os.path.join(prm_dir, f) for f in sorted(os.listdir(prm_dir))
+            if f.endswith((".geo", ".struct"))]
+        path = next((c for c in candidates if os.path.exists(c)), None)
+        if path is None:
+            raise FileNotFoundError(
+                f"mesh file {params.mesh_filename!r} not found "
+                f"(src/claw.cc:961 fatal)")
+    if path.endswith(".struct"):
+        # the O-mesh (naca.struct): wrap-periodic in xi, the airfoil at
+        # eta = 0 (boundary id 0), the farfield at eta = max (id 1)
+        cmesh = load_struct(path)
+        side_bids = {"W": np.full(cmesh.ny, -2), "E": np.full(cmesh.ny, -2),
+                     "S": np.full(cmesh.nx, 0), "N": np.full(cmesh.nx, 1)}
+        return cmesh, None, side_bids
+    dom = load_geo(path) if path.endswith(".geo") else load_msh(path)
+    return dom.mesh, dom.mask, dom.side_bids
 
 
 def build_bcs(params: AllParameters, side_bids: dict):
-    """Map the boundary_N config table onto the four domain sides; a side
-    id without a boundary_N entry is a slip wall."""
+    """Map the boundary_N config table onto the four domain sides
+    (dflo_tpu/cli.py:83-106): id -2 is the O-mesh's periodic wrap, a
+    negative id (a bounding-box edge behind a solid region) or an id
+    without a boundary_N entry a slip wall; a side with several ids is a
+    SegmentedSide."""
+    wall = BoundarySide(euler.BC_SLIP)
     sides = {}
     for name, bids in side_bids.items():
         uniq = sorted(set(int(b) for b in bids))
-        if len(uniq) != 1:
-            raise _later(f"side {name} with boundary ids {uniq} (a "
-                         f"segmented side)", "envelope")
-        spec = params.boundary_conditions.get(uniq[0])
-        sides[name] = (BoundarySide(euler.BC_SLIP) if spec is None
-                       else BoundarySide(spec.kind, spec.values))
+        segs, seg_of = [], {}
+        for b in uniq:
+            spec = params.boundary_conditions.get(b)
+            if b == -2:
+                segs.append(BoundarySide(euler.BC_PERIODIC))
+            elif b < 0 or spec is None:
+                segs.append(wall)
+            else:
+                segs.append(BoundarySide(spec.kind, spec.values))
+            seg_of[b] = len(segs) - 1
+        seg_id = np.array([seg_of[int(b)] for b in bids], np.int32)
+        sides[name] = (segs[0] if len(segs) == 1
+                       else SegmentedSide(seg_id, tuple(segs)))
     return sides
 
 
@@ -138,7 +180,8 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
     """(solver, mask) of the configuration; solver_kw go to Solver (e.g.
     volume_kernel, post_kernel).  A steady implicit solve on an unmasked
     single-device grid that halves gets its 2x-coarsened companion as
-    ``solver.steady_coarse`` (dflo_tpu/cli.py:298-320)."""
+    ``solver.steady_coarse`` (dflo_tpu/cli.py:298-320): the Cartesian mesh
+    at half the cells, or a curvilinear block's every other node."""
     mesh, mask, side_bids = (domain if domain is not None
                              else build_domain(params, prm_dir))
     if params.mass_matrix != "diagonal":
@@ -188,8 +231,12 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
             and mesh.ny % 2 == 0 and mesh.nx % 2 == 0):
         # the coarse companion of grid-sequenced steady solves
         # (run_steady_sequenced)
-        cmesh = CartesianMesh(mesh.nx // 2, mesh.ny // 2, mesh.x0, mesh.x1,
-                              mesh.y0, mesh.y1)
+        if isinstance(mesh, CurvilinearMesh):
+            cmesh = CurvilinearMesh(mesh.X[::2, ::2].copy(),
+                                    mesh.Y[::2, ::2].copy())
+        else:
+            cmesh = CartesianMesh(mesh.nx // 2, mesh.ny // 2, mesh.x0,
+                                  mesh.x1, mesh.y0, mesh.y1)
         kw = {k: v for k, v in solver_kw.items() if k != "device_mesh"}
         solver.steady_coarse = Solver(basis, cmesh, bcs, **common, **kw)
     return solver, mask

@@ -98,6 +98,15 @@ def compile_expression(expr: str, variables=("x", "y", "t")) -> Callable:
         raise ValueError(f"cannot parse expression {expr!r}: {e}") from None
     _Validator(variables).visit(tree)
 
+    def promote(a, b, const):
+        """A comparison's bool plane beside a number becomes numbers of the
+        variables' dtype, as JAX promotes it (torch refuses `1 - (x < s)`);
+        two bool planes stay bool, as in JAX ((x > a)*(y < b) is a mask)."""
+        if (a.dtype == torch.bool) != (b.dtype == torch.bool):
+            fdt = const(0.0).dtype
+            a, b = (v.to(fdt) if v.dtype == torch.bool else v for v in (a, b))
+        return a, b
+
     def ev(node, env, const):
         if isinstance(node, ast.Expression):
             return ev(node.body, env, const)
@@ -109,7 +118,8 @@ def compile_expression(expr: str, variables=("x", "y", "t")) -> Callable:
             v = ev(node.operand, env, const)
             return +v if isinstance(node.op, ast.UAdd) else -v
         if isinstance(node, ast.BinOp):
-            a, b = ev(node.left, env, const), ev(node.right, env, const)
+            a, b = promote(ev(node.left, env, const),
+                           ev(node.right, env, const), const)
             if isinstance(node.op, ast.Add):
                 return a + b
             if isinstance(node.op, ast.Sub):

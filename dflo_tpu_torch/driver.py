@@ -76,14 +76,25 @@ per chunk.  The port's kernels take any block shape: a mesh needs only
 ``ny % DY == nx % DX == 0`` (the JAX package's sharded kernels also want
 8 x 128-aligned blocks).
 
+On a curvilinear block (a mesh with per-cell metric terms, ``mapping =
+q1``: mesh/curvilinear.py) the residual is solver/spatial_curvi.py's plain
+one on every device, as the reference keeps that path off its kernels
+(dflo_tpu/driver.py:105, :145): "auto" resolves to the plain forms and an
+explicit kernel form raises; the cell averages are metric-weighted, dt is
+the curvilinear CFL dt every step (no carried wave speed, no per-cell dt)
+and the fatal flag comes from those averages; the limiter is "none"
+(positivity may be on), TVB, masks and well-balancing raise as in the
+reference (dflo_tpu/driver.py:157-166).  Any side may be a SegmentedSide.
+
 Configurations outside the ported slices raise NotImplementedError on
 every device: MOOD off the fused residual (with a source callable its
 source arm does not carry), a basis beyond the kernels' bounds (degree
-above 6 or more than kernels.NQ_MAX quadrature points per direction, queue
-2, item 11), the minmax limiter and the other indicators (the physics
-envelope); under a device mesh, MOOD, implicit and local stepping, masks,
-source terms, the plain and volume_residual forms and the plain post chain
-(ROADMAP queue 1, item 10).
+above 6 or more than kernels.NQ_MAX quadrature points per direction: the
+bounds of the general dims, ROADMAP), the minmax limiter and the other
+indicators (the rest of the physics envelope; minmax on a q1 block with
+slice E); under a device mesh, MOOD, implicit and local stepping, masks,
+source terms, curvilinear blocks, the plain and volume_residual forms and
+the plain post chain (slice G, the rest of multi-GPU).
 """
 
 from __future__ import annotations
@@ -102,10 +113,13 @@ from dflo_tpu_torch.parallel.sharding import (block_shape, gather_state,
 from dflo_tpu_torch.solver import implicit as implicit_mod
 from dflo_tpu_torch.solver import rk as rk_mod
 from dflo_tpu_torch.solver.spatial import BoundarySide, _check_bcs, make_rhs
+from dflo_tpu_torch.solver.spatial_curvi import (compute_dt_curvilinear,
+                                                 make_rhs_curvilinear)
 from dflo_tpu_torch.stab.indicator import make_shock_indicator
 from dflo_tpu_torch.stab.limiter import make_tvb_limiter
 from dflo_tpu_torch.stab.mood import MoodStats, make_mood
-from dflo_tpu_torch.stab.positivity import EPS, make_positivity_limiter
+from dflo_tpu_torch.stab.positivity import (EPS, make_positivity_limiter,
+                                            negative_average_flag)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,13 +184,46 @@ def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
 
 def _mesh_later(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} under a device mesh is not ported yet; it comes with the "
-        f"rest of the multi-GPU slice (ROADMAP queue 1, item 10)")
+        f"{what} under a device mesh is not ported yet; it comes with "
+        f"slice G, the rest of multi-GPU (ROADMAP)")
+
+
+def _check_curvilinear(cfg: LimiterConfig, mask, well_balanced, device_mesh,
+                       volume_kernel: str, post_kernel: str) -> None:
+    """What a curvilinear block (mapping = q1) refuses, as the reference
+    does (dflo_tpu/driver.py:157-166, :105, :145): the TVB limiter, masks,
+    well-balancing, the kernels' forms (their residual, post and diag are
+    Cartesian; "auto" resolves to the plain forms there), and here also the
+    minmax limiter (the reference's runs through its unstructured view) and
+    a device mesh."""
+    if cfg.type == "TVB":
+        raise ValueError(
+            "the TVB limiter requires the cartesian mapping "
+            "(src/parameters.cc:545-546); q1 meshes use the mapping-general "
+            "minmax limiter (src_mpi/limiter.cc:397-555)")
+    if mask is not None or well_balanced is not None:
+        raise ValueError("masks / well-balanced gravity are Cartesian-path "
+                         "features")
+    if cfg.type == "minmax":
+        raise NotImplementedError(
+            "the minmax limiter on a q1 block is not ported yet; it runs on "
+            "the unstructured view of the block and comes with slice E, "
+            "unstructured meshes (ROADMAP)")
+    if volume_kernel not in ("auto", "xla") or post_kernel not in ("auto",
+                                                                   "xla"):
+        raise ValueError(
+            f"volume_kernel={volume_kernel!r} / post_kernel={post_kernel!r}:"
+            f" a curvilinear block has no kernel form; its residual, post "
+            f"and dt are plain PyTorch, as the reference's are XLA "
+            f"(dflo_tpu/driver.py:105, :145)")
+    if device_mesh is not None:
+        raise _mesh_later("a curvilinear block")
 
 
 class Solver:
-    """DG solver on a Cartesian mesh, on one device or (RK/TVB on
-    collocated Qk, device_mesh) on a mesh of blocks: RK on nodal Qk or GLL
+    """DG solver on a Cartesian mesh or a curvilinear block, on one device
+    or (RK/TVB on collocated Qk, device_mesh) on a mesh of blocks: RK on
+    nodal Qk or GLL
     or modal Pk (method="rk"), the MOOD cascade on modal Pk
     (method="mood") or the implicit theta-scheme (method="implicit":
     theta, max_nonlin_iter, linear_residual, gmres_restart,
@@ -229,11 +276,17 @@ class Solver:
                                  f"type ({device_mesh.flat[0].type})")
             block_shape(device_mesh, mesh.ny, mesh.nx)
         cfg = limiter or LimiterConfig()
+        # curvilinear blocks (mapping = q1) carry per-cell metric terms
+        curvilinear = hasattr(mesh, "metric")
+        if curvilinear:
+            _check_curvilinear(cfg, mask, well_balanced, device_mesh,
+                               volume_kernel, post_kernel)
+            volume_kernel = post_kernel = "xla"
         if cfg.type not in ("none", "TVB"):
             if cfg.type == "minmax":
                 raise NotImplementedError(
-                    "the minmax limiter is not ported yet (the physics "
-                    "envelope, ROADMAP queue 1, item 4)")
+                    "the minmax limiter is not ported yet; it comes with the "
+                    "rest of the physics envelope (ROADMAP)")
             raise ValueError(f"unknown limiter type {cfg.type!r}")
         if cfg.type == "TVB" and (
                 cfg.conserve_angular_momentum
@@ -267,6 +320,7 @@ class Solver:
                        else device_mesh.flat[0])
         self.method = method
         self.limiter_cfg = cfg
+        self.curvilinear = curvilinear
         self.volume_kernel, self.post_kernel = volume_kernel, post_kernel
         per_x, per_y = _check_bcs(bcs)
         self.mask = None if mask is None else np.asarray(mask, bool)
@@ -276,12 +330,20 @@ class Solver:
                                          device=self.device)[:, None, None,
                                                              None]
 
-        self.rhs = make_rhs(basis, mesh, bcs, flux=flux, dtype=dtype,
-                            device=self.device, volume_kernel=volume_kernel,
-                            mask=self.mask, source=source,
-                            well_balanced=well_balanced, potential=potential,
-                            polytropic_nu=polytropic_nu,
-                            device_mesh=device_mesh)
+        if curvilinear:
+            # the plain curvilinear residual on every device, as the
+            # reference's XLA one (dflo_tpu/driver.py:157-169)
+            self.rhs = make_rhs_curvilinear(basis, mesh, bcs, flux=flux,
+                                            source=source, dtype=dtype,
+                                            device=self.device)
+        else:
+            self.rhs = make_rhs(basis, mesh, bcs, flux=flux, dtype=dtype,
+                                device=self.device,
+                                volume_kernel=volume_kernel, mask=self.mask,
+                                source=source, well_balanced=well_balanced,
+                                potential=potential,
+                                polytropic_nu=polytropic_nu,
+                                device_mesh=device_mesh)
         if method == "implicit" and volume_kernel == "fused":
             # Newton-Krylov on the kernel: its R form for the primal, the
             # plain residual's Jacobian-vector products for the tangent
@@ -310,7 +372,11 @@ class Solver:
                              and basis.family == "Qk"
                              and basis.is_nodal_collocated
                              and cfg.type == "TVB")
-        if device_mesh is None:
+        if curvilinear:
+            # no fused diag off Cartesian meshes (dflo_tpu/driver.py:145):
+            # dt and the fatal flag come from the metric-weighted averages
+            self._diag_ops = None
+        elif device_mesh is None:
             self._diag_ops = diag_ops(self.device)
             if self._fused_chain:
                 self._post_ops = post_ops(self.device)
@@ -395,6 +461,9 @@ class Solver:
                                           self.device_mesh)
 
     def cell_averages(self, u):
+        if self.curvilinear:
+            # metric-weighted means (dflo_tpu/driver.py:372-373)
+            return self.rhs.cell_averages(u)
         if self.basis.family == "Pk":
             # modal Legendre: mode 0 is the mean (dflo_tpu/driver.py:371)
             return self._avg0 * u[:, 0]
@@ -457,6 +526,15 @@ class Solver:
         if self.method != "implicit":
             return None
         return self._implicit_step.counts
+
+    def _bad(self, u):
+        """The fatal flag of a state (0-dim bool, NaN-safe): a (fluid) cell
+        average with density or pressure below EPS, from the diag, or on a
+        curvilinear block from its metric-weighted averages
+        (dflo_tpu/driver.py:554-559)."""
+        if self.curvilinear:
+            return negative_average_flag(self.cell_averages(u))
+        return ~(self._diag(u)[1] >= EPS)
 
     def _local_dt(self, u):
         """The per-cell dt of `time step type = local` (rk.local_dt at the
@@ -531,21 +609,24 @@ class Solver:
             if self.fixed_time_step is not None:
                 # `time step = ...` with cfl <= 0 (src/claw.cc:455-459)
                 dt = self._scalar(self.fixed_time_step)
+            elif self.curvilinear:
+                dt = compute_dt_curvilinear(self.cell_averages(u), self.mesh,
+                                            self.basis.degree, self.cfl)
             else:
                 lam = lam_prev if carry_lam else self._diag(u)[0]
                 dt = self.cfl / lam / denom
             dt = torch.minimum(dt, t_end - t)
+            # no per-cell dt on a curvilinear block (dflo_tpu/driver.py:524)
             dt_field = (self._local_dt(u) if self.time_step_type == "local"
-                        else None)
+                        and not self.curvilinear else None)
             stats = ()
             if self.method == "implicit":
                 u, info = self._implicit_step(
                     u, t, dt if dt_field is None else dt_field,
                     u_guess=pred if self._carry_pred else None)
-                _, minq = self._diag(u)
                 # Newton divergence aborts the run like the reference's
                 # AssertThrow (src/claw.cc:919-923)
-                bad = ~(minq >= EPS) | info.diverged
+                bad = self._bad(u) | info.diverged
                 out = (u, dt, bad, info)
                 if self._carry_pred:
                     # the next step's Newton seed (src/claw.cc:1104-1108)
@@ -566,8 +647,13 @@ class Solver:
                                        self.stage_times,
                                        post_stage=self.post_stage,
                                        dt_field=dt_field)
-                lam_new, minq = self._diag(u)
-            bad = ~(minq >= EPS)            # NaN-safe
+                # a curvilinear block has no diag: its flag comes from its
+                # averages, and so does its next dt (no wave speed carried,
+                # dflo_tpu/driver.py:481-482)
+                lam_new, minq = ((None, None) if self.curvilinear
+                                 else self._diag(u))
+            bad = (self._bad(u) if self.curvilinear
+                   else ~(minq >= EPS))     # NaN-safe
             if carry_lam:
                 return u, dt, bad, stats, lam_new
             return u, dt, bad, stats
@@ -599,7 +685,7 @@ class Solver:
                 bad = torch.zeros((), dtype=torch.bool, device=self.device)
                 # seed once per chunk; thereafter the wave speed comes free
                 # from the final stage's fused post diagnostics
-                lam, _ = self._diag(u)
+                lam = None if self.curvilinear else self._diag(u)[0]
                 stats = ()
                 for _ in range(chunk):
                     live = (t < t_end - 1e-12) & ~bad
@@ -616,7 +702,8 @@ class Solver:
                     t = torch.where(live, t2, t)
                     it = it + live.to(it.dtype)
                     bad = bad | (live & bad_n)
-                    lam = torch.where(live, lam_n, lam)
+                    if not self.curvilinear:
+                        lam = torch.where(live, lam_n, lam)
                 return u, t, it, bad, stats
 
             self._multi_cache[chunk] = multi

@@ -11,6 +11,12 @@ the caller asks for another device.  ``_build(..., device_mesh=dm)`` builds
 the RK solver on a mesh of blocks (parallel/sharding) and
 ``dryrun_multichip`` steps it once, the analogs of
 ``__graft_entry__._build(..., device_mesh=...)`` and ``dryrun_multichip``.
+
+``dmr_geo_text`` and ``dmr_geo_prm`` write the DMR as the reference's own
+input describes it (examples/double_mach_reflection/grid.geo and
+input.prm): a .geo box of two transfinite blocks whose bottom is split at
+x = 1/6 (a segmented side: post-shock farfield before, slip wall after)
+and a .prm that runs it through the CLI.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ from dflo_tpu_torch.solver.spatial import BoundarySide
 
 #: the Mach-10 post-shock state (rho, vx, vy, p)
 POST_SHOCK = (8.0, 7.14471, -4.125, 116.5)
+#: the same state in the conserved layout (mx, my, rho, E)
+POST_CONSERVED = (8.0 * 7.14471, -8.0 * 4.125, 8.0,
+                  116.5 / 0.4 + 0.5 * 8.0 * (7.14471**2 + 4.125**2))
 
 
 def dmr_inflow(x, y, t):
@@ -133,3 +142,119 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     assert float(dt) == float(dt_ref)
     err = float((u1 - ref).abs().max() / ref.abs().max())
     assert err <= 1e-12, f"sharded step differs from one device by {err}"
+
+
+def dmr_geo_text(nl: int, nr: int, ny: int) -> str:
+    """The DMR box [0, 4] x [0, 1] as two transfinite blocks split at
+    x = 1/6 (nl and nr cells across, ny up): Physical Line 0 on the bottom
+    before the split, 1 after it, 2 on E, 3 on N, 4 on W."""
+    return f"""// double Mach reflection, bottom split at x0 = 1/6
+lx = 4.0; ly = 1.0; x0 = 1.0/6.0;
+nl = {nl}; nr = {nr}; ny = {ny};
+Point(1) = {{0, 0, 0}};
+Point(2) = {{x0, 0, 0}};
+Point(3) = {{lx, 0, 0}};
+Point(4) = {{lx, ly, 0}};
+Point(5) = {{x0, ly, 0}};
+Point(6) = {{0, ly, 0}};
+Line(1) = {{1, 2}};
+Line(2) = {{2, 3}};
+Line(3) = {{3, 4}};
+Line(4) = {{4, 5}};
+Line(5) = {{5, 6}};
+Line(6) = {{6, 1}};
+Line(7) = {{2, 5}};
+Line Loop(1) = {{1, 7, 5, 6}};
+Plane Surface(1) = {{1}};
+Line Loop(2) = {{2, 3, 4, -7}};
+Plane Surface(2) = {{2}};
+Transfinite Line{{1, 5}} = nl + 1;
+Transfinite Line{{2, 4}} = nr + 1;
+Transfinite Line{{3, 6, 7}} = ny + 1;
+Transfinite Surface{{1, 2}};
+Recombine Surface{{1, 2}};
+Physical Line(0) = {{1}};
+Physical Line(1) = {{2}};
+Physical Line(2) = {{3}};
+Physical Line(3) = {{4, 5}};
+Physical Line(4) = {{6}};
+"""
+
+
+#: the moving shock on the top edge and the oblique shock of the IC, as
+#: .prm conditions (1 where post-shock)
+SHOCK = "(x < 1.0/6.0 + (1.0 + 20.0*t)/sqrt(3.0))"
+OBLIQUE = "(x < 1.0/6.0 + y/sqrt(3.0))"
+
+
+def dmr_geo_prm(mesh_file: str, basis: str = "Qk", method: str = "rk3",
+                out_iter: int = 1000) -> str:
+    """The DMR of tests/test_masked_domain.py:66-110 as a .prm on a mesh
+    file: the post-shock state on boundary 0 (farfield) and on W (4,
+    inflow), slip on 1, the moving shock on N (3, farfield), outflow on E
+    (2); the oblique Mach-10 shock as IC; Q2, hllc, characteristic TVB with
+    beta 1 and the `limiter` indicator, positivity, cfl 0.4; a snapshot
+    every out_iter steps."""
+    post = "\n".join(f"   set w_{c} value = {v!r}" for c, v in
+                     enumerate(POST_CONSERVED))
+
+    def shocked(cond):
+        return "\n".join([
+            f"   set w_0 value = {POST_CONSERVED[0]!r}*{cond}",
+            f"   set w_1 value = {POST_CONSERVED[1]!r}*{cond}",
+            f"   set w_2 value = 8.0*{cond} + 1.4*(1 - {cond})",
+            f"   set w_3 value = {POST_CONSERVED[3]!r}*{cond}"
+            f" + 2.5*(1 - {cond})"])
+
+    return f"""set mesh type = gmsh
+set mesh file = {mesh_file}
+set degree = 2
+set basis = {basis}
+set mapping = cartesian
+subsection boundary_0
+   set type = farfield
+{post}
+end
+subsection boundary_1
+   set type = slip
+end
+subsection boundary_2
+   set type = outflow
+end
+subsection boundary_3
+   set type = farfield
+{shocked(SHOCK)}
+end
+subsection boundary_4
+   set type = inflow
+{post}
+end
+subsection initial condition
+{shocked(OBLIQUE)}
+end
+subsection time stepping
+   set time step type = global
+   set cfl = 0.4
+   set final time = 0.2
+end
+subsection linear solver
+   set method = {method}
+end
+subsection output
+   set iter step = {out_iter}
+   set schlieren plot = true
+end
+subsection refinement
+   set refinement = false
+end
+subsection flux
+   set flux = hllc
+end
+subsection limiter
+   set type = TVB
+   set shock indicator = limiter
+   set characteristic limiter = true
+   set positivity limiter = true
+   set beta = 1.0
+end
+"""

@@ -23,7 +23,11 @@ def save_checkpoint(path: str, u, t: float, it: int, *, basis=None,
     if basis is not None:
         meta.update(family=basis.family, degree=basis.degree)
     if mesh is not None:
-        if hasattr(mesh, "nx"):
+        if hasattr(mesh, "metric"):
+            # a curvilinear block has no box: its cell counts alone (the
+            # reference's save_checkpoint reads x0 and raises there)
+            meta.update(nx=mesh.nx, ny=mesh.ny)
+        elif hasattr(mesh, "nx"):
             meta.update(nx=mesh.nx, ny=mesh.ny, x0=mesh.x0, x1=mesh.x1,
                         y0=mesh.y0, y1=mesh.y1)
         else:   # unstructured flat-cell mesh

@@ -1,4 +1,5 @@
-"""Solution output: derived quantities and a VTU writer for Cartesian meshes.
+"""Solution output: derived quantities and a VTU writer for Cartesian and
+curvilinear meshes.
 
 The NumPy counterpart of dflo_tpu/io/vtk.py's ``write_vtu`` (after
 src/output.cc:32-107 and EulerEquations::Postprocessor,
@@ -8,12 +9,15 @@ one VTU file per snapshot (output/solution-NNN.vtu, as src/output.cc:95-105
 names them).  Each DG cell is written as its own patch of p x p quad
 subcells with values at its (p+1)^2 uniform nodes, so discontinuities at
 cell interfaces render as they are (deal.II's DataOut::build_patches);
-solid cells of a masked domain are left out.
+solid cells of a masked domain are left out.  On a mesh with per-cell
+metric terms (a curvilinear block) the schlieren gradient inverts the
+bilinear Jacobian (_physical_gradient).
 
-The file is the appended-raw-binary VTU the reference package's native
-writer produces (native/dflo_native.cc vtu_write: UInt64 block headers,
-Float64 fields), written here with NumPy alone; it runs on the host at
-output cadence.
+The file is an appended-raw-binary VTU (UInt64 block headers, Float64
+fields), written as the reference writes it (dflo_tpu/io/vtk.py:105-115):
+by the native writer (dflo_tpu_torch/native vtu_write, the port's copy of
+the reference's C++), or with ``writer="python"`` by _write_vtu_file,
+NumPy alone, its plain version.  It runs on the host at output cadence.
 """
 
 from __future__ import annotations
@@ -48,11 +52,29 @@ def _patch_nodes(p: int) -> np.ndarray:
     return np.array([(a, b) for b in s for a in s])
 
 
+def _physical_gradient(basis, mesh, rho, ref_pts):
+    """d(rho)/dx, d(rho)/dy [M, ny, nx] at reference points in every cell
+    (dflo_tpu/io/vtk.py:43-57): a Cartesian mesh divides by dx and dy, a
+    mesh with per-cell metric terms (CurvilinearMesh) inverts the bilinear
+    Jacobian (the schlieren postprocessor on general mappings,
+    src/equation.cc:122-124)."""
+    Gx, Gy = basis.grad_at(ref_pts)
+    d_xi = _apply(Gx, rho[None])[0]
+    d_eta = _apply(Gy, rho[None])[0]
+    if hasattr(mesh, "metric"):
+        x_xi, x_eta, y_xi, y_eta, detJ = mesh.metric(ref_pts)
+        drdx = (y_eta * d_xi - y_xi * d_eta) / detJ
+        drdy = (-x_eta * d_xi + x_xi * d_eta) / detJ
+        return drdx, drdy
+    return d_xi / mesh.dx, d_eta / mesh.dy
+
+
 def write_vtu(path: str, basis: basis_mod.Basis, mesh, u, t: float = 0.0,
-              schlieren: bool = True, mask=None):
-    """Write the DG solution u [4, K, ny, nx] (numpy) on a Cartesian mesh as
-    a VTU file of per-cell patches; mask: optional [ny, nx] fluid flags,
-    solid cells are dropped."""
+              schlieren: bool = True, mask=None, writer: str = "native"):
+    """Write the DG solution u [4, K, ny, nx] (numpy) on a Cartesian or
+    curvilinear mesh as a VTU file of per-cell patches; mask: optional
+    [ny, nx] fluid flags, solid cells are dropped; writer "native" (the C++
+    writer) or "python" (_write_vtu_file)."""
     u = np.asarray(u, np.float64)
     p = basis.degree
     ny, nx = u.shape[-2:]
@@ -80,10 +102,7 @@ def write_vtu(path: str, basis: basis_mod.Basis, mesh, u, t: float = 0.0,
     fields["YVelocity"] = gather(vy)
     fields["Pressure"] = gather(pr)
     if schlieren:
-        Gx, Gy = basis.grad_at(nodes)
-        rho = u[euler.RHO][None]
-        drdx = _apply(Gx, rho)[0] / mesh.dx
-        drdy = _apply(Gy, rho)[0] / mesh.dy
+        drdx, drdy = _physical_gradient(basis, mesh, u[euler.RHO], nodes)
         fields["schlieren_plot"] = gather(drdx**2 + drdy**2)
 
     # connectivity: p*p quad subcells per cell
@@ -91,7 +110,14 @@ def write_vtu(path: str, basis: basis_mod.Basis, mesh, u, t: float = 0.0,
     sub = np.array([[j * n1 + i, j * n1 + i + 1, (j + 1) * n1 + i + 1,
                      (j + 1) * n1 + i] for j in range(p) for i in range(p)])
     conn = (np.arange(ncell)[:, None, None] * M + sub[None]).reshape(-1, 4)
-    _write_vtu_file(path, pts, conn, fields, t)
+    if writer == "native":
+        from dflo_tpu_torch import native
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        native.vtu_write(path, pts, conn, fields, {}, t)
+    elif writer == "python":
+        _write_vtu_file(path, pts, conn, fields, t)
+    else:
+        raise ValueError(f"unknown VTU writer {writer!r}")
 
 
 def _write_vtu_file(path, pts, conn, point_fields, t):

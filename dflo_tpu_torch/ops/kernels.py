@@ -605,8 +605,8 @@ def beyond_caps(basis: basis_mod.Basis) -> NotImplementedError:
     return NotImplementedError(
         f"the kernels take degrees {DEGREES[0]}-{DEGREES[-1]} with at most "
         f"NQ_MAX = {NQ_MAX} quadrature points per direction; got "
-        f"{basis.family} p = {basis.degree}, nq = {basis.nq} (ROADMAP "
-        f"queue 2, item 11)")
+        f"{basis.family} p = {basis.degree}, nq = {basis.nq} (ROADMAP, "
+        f"the bounds of the general dims)")
 
 
 def _check_basis(basis: basis_mod.Basis, modal: bool | None = None) -> bool:
@@ -1497,7 +1497,8 @@ def fused_post_plain(u, ops: PostOps, with_diag: bool = False, halos=None):
         if ops.vflags is not None:
             raise NotImplementedError(
                 "the post on a masked domain under a device mesh is not "
-                "ported yet (ROADMAP queue 1, item 10)")
+                "ported yet; it comes with slice G, the rest of multi-GPU "
+                "(ROADMAP)")
         ly, lx = u.shape[-2:]
         valid = _padded_valid(ly, lx, halos, u.device)
         u = _pad_halos(u, halos)
@@ -1532,7 +1533,8 @@ def fused_post(u, ops: PostOps, with_diag: bool = False, halos=None):
         if halos is not None:
             raise NotImplementedError(
                 "the post on a masked domain under a device mesh is not "
-                "ported yet (ROADMAP queue 1, item 10)")
+                "ported yet; it comes with slice G, the rest of multi-GPU "
+                "(ROADMAP)")
         _check_plane(ops.vflags, u, torch.bool, (5, ny, nx), "vflags")
     for h, n in zip(hs, (ny, ny, nx, nx)):
         if h is not None and tuple(h.shape) != (4, ops.K, n):

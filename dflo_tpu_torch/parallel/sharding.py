@@ -22,8 +22,8 @@ take any block shape, so a split needs only ``ny % DY == nx % DX == 0``; the
 JAX package's sharded kernels also need ``(ny/DY) % 8 == 0`` and
 ``(nx/DX) % 128 == 0`` (dflo_tpu/driver.py:92-97) and run XLA otherwise.
 One process per card under ``torch.distributed`` (the multi-host idiom),
-the multi-slice mesh and the flat-cell sharding are not ported (ROADMAP
-queue 1, item 10).
+the multi-slice mesh and the flat-cell sharding are not ported (slice G,
+the rest of multi-GPU, ROADMAP).
 """
 
 from __future__ import annotations

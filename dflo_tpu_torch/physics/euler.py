@@ -46,6 +46,12 @@ def sound_speed(U):
     return torch.sqrt(GAMMA * _pos(pressure(U)) / _pos(U[RHO]))
 
 
+def max_eigenvalue(U):
+    """|v| + c  (src/equation.h:97-114)."""
+    v = torch.sqrt(U[MX] * U[MX] + U[MY] * U[MY]) / U[RHO]
+    return v + sound_speed(U)
+
+
 def max_eigenvalue_normal(U, nx, ny):
     """|v.n| + c  (src/equation.h:119-137)."""
     vn = (U[MX] * nx + U[MY] * ny) / U[RHO]
@@ -183,9 +189,10 @@ def wall_fix(FL, FR, AL, AR, mL, mR, mirror):
 def compute_wminus(kind: int, nx: float, ny: float, Wplus, bvals):
     """Ghost state from the inside trace + BC data (src/equation.h:939-1033).
 
-    kind  : one BC_* code for the whole side (the Cartesian sides of this
-            slice are unsegmented)
-    nx,ny : outward unit normal components
+    kind  : one BC_* code (a segmented side calls this once per segment,
+            solver/spatial.segment_ghost)
+    nx,ny : outward unit normal components (floats, or tensors that
+            broadcast against the trace on a curvilinear side)
     Wplus : [4, ...] inside trace
     bvals : [4, ...] boundary expression values
     """

@@ -41,6 +41,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.solver import rk as rk_mod
 
 #: absolute Newton stopping tolerance (src/claw.cc:925-927)
@@ -444,7 +445,9 @@ def run_steady(solver, u, cfl0: float | None = None,
     backward-Euler Newton steps, the CFL ramped by the residual-history
     factor clamped to [0.5, 2] (src/claw.cc:1079-1090).
 
-    `solver` is a driver.Solver built with method="implicit".  Newton
+    `solver` is a driver.Solver built with method="implicit"; on a
+    curvilinear block each cell's dt is h/(|v| + c)/(2p + 1) with h from
+    mesh.cell_h, as the reference's.  Newton
     divergence raises FloatingPointError (src/claw.cc:919-923); a
     non-converged linear solve warns and continues (src/claw.cc:677-687).
     The steady residual is ||R(u)|| of the new state through the solver's
@@ -461,9 +464,21 @@ def run_steady(solver, u, cfl0: float | None = None,
     use_lag = (jacobi_lag > 1
                and getattr(solver, "precondition", None) == "block_jacobi")
 
+    curvi = getattr(solver, "curvilinear", False)
+    if curvi:
+        # a curvilinear block's per-cell h (dflo_tpu/solver/implicit.py:
+        # 329-345)
+        h_field = torch.as_tensor(solver.mesh.cell_h()).to(
+            dtype=u.dtype, device=u.device)
+
     def one(u, cfl, jr=None):
         ubar = solver.cell_averages(u)
-        dtc = rk_mod.local_dt(ubar, solver.mesh, solver.basis.degree, 1.0)
+        if curvi:
+            lam = euler.max_eigenvalue(ubar)
+            dtc = h_field / lam / (2.0 * solver.basis.degree + 1.0)
+        else:
+            dtc = rk_mod.local_dt(ubar, solver.mesh, solver.basis.degree,
+                                  1.0)
         u_new, info = step(u, 0.0, dtc * cfl, jr_blocks=jr)
         counts.primals += 1
         res = torch.sqrt(torch.sum(solver.rhs(u_new, 0.0) ** 2))

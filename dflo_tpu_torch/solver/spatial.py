@@ -84,21 +84,55 @@ class BoundarySide:
     values: Callable | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class SegmentedSide:
+    """One domain side split into boundary-id segments along its length
+    (dflo_tpu/solver/spatial.py:62-75): e.g. the double Mach reflection's
+    bottom, post-shock Dirichlet before x = 1/6 and a slip wall after
+    (examples/double_mach_reflection/grid.geo Physical Lines 0/1).
+    ``seg_id[i]`` picks ``segments[seg_id[i]]`` for cell column (S, N) or
+    row (W, E) i."""
+
+    seg_id: np.ndarray
+    segments: tuple
+
+    @property
+    def kind(self) -> int:
+        # a segmented side is periodic only if its single segment is
+        return (self.segments[0].kind
+                if len(self.segments) == 1 else -999)
+
+
+def _as_segmented(side, n_along: int) -> SegmentedSide:
+    """A side as a SegmentedSide of n_along cells (a whole-side
+    BoundarySide is one segment)."""
+    if isinstance(side, SegmentedSide):
+        if len(side.seg_id) != n_along:
+            raise ValueError("seg_id length must equal the side's cell count")
+        return side
+    return SegmentedSide(np.zeros(n_along, np.int32), (side,))
+
+
 #: outward unit normals per side
 NORMALS = {"W": (-1.0, 0.0), "E": (1.0, 0.0), "S": (0.0, -1.0), "N": (0.0, 1.0)}
 
 
 def _check_bcs(bcs) -> tuple[bool, bool]:
-    """Validate the four sides; returns (per_x, per_y)."""
+    """Validate the four sides (BoundarySide or SegmentedSide); returns
+    (per_x, per_y)."""
     for name in ("W", "E", "S", "N"):
         side = bcs[name]
-        if not isinstance(side, BoundarySide):
-            raise NotImplementedError(
-                f"side {name}: only whole-side BoundarySide BCs are ported "
-                f"(segmented sides come with the physics envelope slice)")
-        if side.kind not in euler.SUPPORTED_BC:
-            raise NotImplementedError(
-                f"side {name}: boundary kind {side.kind} is not ported yet")
+        segs = (side.segments if isinstance(side, SegmentedSide)
+                else (side,))
+        for seg in segs:
+            if not isinstance(seg, BoundarySide):
+                raise TypeError(f"side {name}: {seg!r} is not a "
+                                f"BoundarySide")
+            if seg.kind not in euler.SUPPORTED_BC:
+                raise NotImplementedError(
+                    f"side {name}: boundary kind {seg.kind} is not ported "
+                    f"yet; it comes with the rest of the physics envelope "
+                    f"(ROADMAP)")
     per_x = bcs["W"].kind == euler.BC_PERIODIC
     per_y = bcs["S"].kind == euler.BC_PERIODIC
     if per_x != (bcs["E"].kind == euler.BC_PERIODIC):
@@ -106,6 +140,42 @@ def _check_bcs(bcs) -> tuple[bool, bool]:
     if per_y != (bcs["N"].kind == euler.BC_PERIODIC):
         raise ValueError("periodic BC must pair S with N")
     return per_x, per_y
+
+
+def segmented_sides(bcs, mesh, device):
+    """(sides, planes): each of the four sides as a SegmentedSide of its
+    cell count, and per side the bool plane [n_along] of each segment's
+    cells (seg_id == si) on device."""
+    sides = {n: _as_segmented(bcs[n], mesh.ny if n in "WE" else mesh.nx)
+             for n in ("W", "E", "S", "N")}
+    planes = {n: [torch.as_tensor(np.asarray(side.seg_id) == si,
+                                  device=device)
+                  for si in range(len(side.segments))]
+              for n, side in sides.items()}
+    return sides, planes
+
+
+def segment_ghost(side: SegmentedSide, seg_sel, nrm_x, nrm_y, trace, xb, yb,
+                  t):
+    """The ghost state on a (segmented) side (dflo_tpu/solver/spatial.py:
+    241-264): each segment's ghost from its kind and values at the face
+    points (xb, yb), selected per cell by seg_sel[si] (bool [n_along] on
+    the trace's device, seg_id == si).  A single segment is its own ghost,
+    with no select.  A periodic segment of a split side copies the trace,
+    as the reference's compute_wminus does for a kind it does not name."""
+    ghost = None
+    for si, seg in enumerate(side.segments):
+        if seg.values is not None:
+            bvals = torch.as_tensor(seg.values(xb, yb, t)).to(
+                dtype=trace.dtype, device=trace.device).expand_as(trace)
+        else:
+            bvals = trace
+        kind = (euler.BC_OUTFLOW if seg.kind == euler.BC_PERIODIC
+                else seg.kind)
+        g = euler.compute_wminus(kind, nrm_x, nrm_y, trace, bvals)
+        ghost = g if ghost is None else torch.where(seg_sel[si][None, None],
+                                                    g, ghost)
+    return ghost
 
 
 def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
@@ -156,13 +226,12 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         if volume_kernel != "fused" or mask is not None:
             raise NotImplementedError(
                 "under a device mesh the port carries the fused residual on "
-                "an unmasked domain; the plain forms and masks come with the "
-                "rest of the multi-GPU slice (ROADMAP queue 1, item 10)")
+                "an unmasked domain; the plain forms and masks come with "
+                "slice G, the rest of multi-GPU (ROADMAP)")
         if source is not None or well_balanced is not None:
             raise NotImplementedError(
                 "a source term under a device mesh is not ported yet; it "
-                "comes with the rest of the multi-GPU slice (ROADMAP queue "
-                "1, item 10)")
+                "comes with slice G, the rest of multi-GPU (ROADMAP)")
         return _make_rhs_sharded(basis, mesh, bcs, flux, dtype, device_mesh)
     num_flux = get_flux(flux)
     per_x, per_y = _check_bcs(bcs)
@@ -226,24 +295,22 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         xb, yb = mesh.face_coords(side, basis.xq)
         face_xy[name] = (cast(xb), cast(yb))
 
+    bcs, seg_sel = segmented_sides(bcs, mesh, device)
+
     def boundary_flux(name: str, trace, ubar_b, t, off: int = 0):
         """Outward numerical flux on one domain side.
 
         trace  : [4, nq, n_along] inside trace
         ubar_b : [4, n_along] boundary-cell averages
         off    : the first cell of the side's stretch (a block's offset
-                 along it; the JAX path's _bflux_local)
+                 along it; the JAX path's _bflux_local slices its face
+                 coordinates and segment ids there)
         Returns [4, nq, n_along], w.r.t. the OUTWARD normal."""
-        side = bcs[name]
         nrm_x, nrm_y = NORMALS[name]
-        if side.values is not None:
-            n_along = trace.shape[-1]
-            xb, yb = (c[:, off:off + n_along] for c in face_xy[name])
-            bvals = torch.as_tensor(side.values(xb, yb, t)).to(
-                dtype=trace.dtype, device=trace.device).expand_as(trace)
-        else:
-            bvals = trace
-        ghost = euler.compute_wminus(side.kind, nrm_x, nrm_y, trace, bvals)
+        n_along = trace.shape[-1]
+        xb, yb = (c[:, off:off + n_along] for c in face_xy[name])
+        sel = [m[off:off + n_along] for m in seg_sel[name]]
+        ghost = segment_ghost(bcs[name], sel, nrm_x, nrm_y, trace, xb, yb, t)
         A = ubar_b[:, None, :].expand_as(trace)
         return num_flux(trace, ghost, nrm_x, nrm_y, AL=A, AR=A)
 

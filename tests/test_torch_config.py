@@ -7,7 +7,7 @@ give the same values, the mask bit for bit on the full-size mesh.  The
 expression compilers agree on a set of expressions covering the
 whitelisted syntax to 1e-13 relative (elementary functions may round the
 last bit differently).  The CLI's branches that are not ported raise
-NotImplementedError naming their ROADMAP item.  sod_mood.prm with `gravity
+NotImplementedError naming the slice that brings them.  sod_mood.prm with `gravity
 = 1` (MOOD with the residual's gravity arm) runs through both CLIs to the
 same checkpoints and MoodStats (tests/test_torch_configs.check_cli_pair).
 """
@@ -76,7 +76,8 @@ EXPRS = ("1.0*(x<=0.5)+0.125*(x>0.5)", "(x>0.6)*(y<0.2)", "4.2", "-x^2+y",
          "0.3 < x < 1.7", "(x>1) && (y<0.5) || (x<0.2)", "atan2(y, x+1)",
          "pow(x+1, 1.5) + abs(y-0.5) + log(x+2) - tanh(y)",
          "min(x, y) + max(x, 2*y) + floor(3*x) + ceil(y) + sign(y-0.5)",
-         "t*x + _pi", "x % 0.7")
+         "t*x + _pi", "x % 0.7", "8.0*(x<1.5) + 1.4*(1 - (x<1.5))",
+         "2*(x<0.3) - (y>0.5)")
 
 
 @pytest.mark.parametrize("expr", EXPRS)
@@ -131,10 +132,14 @@ def test_unported_branches_raise(tmp_path):
     gmsh = params("set mesh type = cartesian",
                   "set mesh type = gmsh\nset mesh file = a.msh")
     gmsh.cartesian_mesh.nx = 0
+    # mesh files are ported: a missing one is the reference's fatal error
+    # (dflo_tpu/cli.py:57-59)
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(FileNotFoundError, match="'a.msh' not found"):
+        cli.build_domain(gmsh, str(empty))
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, items 7 and 8"):
-        cli.build_domain(gmsh)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+                       match="slice G, the rest of multi-GPU"):
         cli.run([PRMS[0], "--platform", "cpu", "--devices", "4"])
     # body forces build (tests/test_torch_configs.py runs them), MOOD with
     # one too (test_mood_with_gravity_matches_jax_cli); MOOD with

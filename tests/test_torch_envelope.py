@@ -25,7 +25,7 @@ on the CPU in float64.
   post to the kernel on collocated Q4 with TVB and to the plain chain on
   over-integrated Qk (the reference's post_ok); MOOD at p = 7 and a basis
   with more than NQ_MAX points per direction raise NotImplementedError
-  naming their ROADMAP item (on the card as well, tests/test_torch_gpu.py);
+  naming the ROADMAP section (on the card as well, tests/test_torch_gpu.py);
   MOOD at p 4-6 builds (its steps: tests/test_torch_mood_degrees.py).
 - Two configs through both CLIs (tests/test_torch_configs.check_cli_pair,
   every checkpoint within 1e-10): isentropic_vortex.prm at `degree = 4`
@@ -231,19 +231,23 @@ def test_auto_routes_the_envelope_to_the_kernels():
 
 def test_mood_above_p3_and_quadrature_beyond_cap_raise():
     """MOOD above the kernels' degrees (p = 7) and a basis beyond NQ_MAX
-    raise at Solver construction (beyond_caps, queue 2, item 11), on the
-    CPU as on the card: neither runs on the plain path instead."""
+    raise at Solver construction (beyond_caps, the bounds of the general
+    dims), on the CPU as on the card: neither runs on the plain path
+    instead."""
     mesh = CartesianMesh(NX, NY, 0.0, 2.0, 0.0, 1.0)
     bcs, _ = sides(PER_X_SLIP_Y)
     tvb = LimiterConfig(type="TVB", beta=2.0, pos_lim=True)
-    with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="the bounds of the general dims"):
         Solver(make_basis("Pk", 7), mesh, bcs, limiter=tvb, dtype=F64,
                device="cpu", method="mood")
-    with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="the bounds of the general dims"):
         kernels.pk_post_operators(make_basis("Pk", 7), mesh, dtype=F64,
                                   device="cpu")
     for vk in ("auto", "fused"):
-        with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+        with pytest.raises(NotImplementedError,
+                           match="the bounds of the general dims"):
             Solver(make_basis("Qk", 2, kernels.NQ_MAX + 1), mesh, bcs,
                    dtype=F64, device="cpu", volume_kernel=vk)
 

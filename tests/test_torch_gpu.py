@@ -75,7 +75,8 @@ from dflo_tpu_torch.mesh import CartesianMesh
 from dflo_tpu_torch.ops import kernels
 from dflo_tpu_torch.ops.basis import make_basis
 from dflo_tpu_torch.physics import euler
-from dflo_tpu_torch.solver.spatial import BoundarySide, make_rhs
+from dflo_tpu_torch.solver.spatial import (BoundarySide, SegmentedSide,
+                                           make_rhs)
 from dflo_tpu_torch.stab.positivity import EPS
 
 pytestmark = pytest.mark.gpu
@@ -1155,10 +1156,12 @@ def test_mood_above_p3_and_quadrature_beyond_cap_raise(cuda):
     from dflo_tpu_torch.driver import LimiterConfig, Solver
     mesh = CartesianMesh(SRC_NX, SRC_NY, 0.0, 1.0, 0.0, 1.0)
     lim = LimiterConfig(type="TVB", beta=2.0, pos_lim=True)
-    with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="the bounds of the general dims"):
         Solver(make_basis("Pk", 7), mesh, BUMP_BCS, limiter=lim,
                dtype=torch.float32, device=cuda, method="mood")
-    with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="the bounds of the general dims"):
         Solver(make_basis("Qk", 2, kernels.NQ_MAX + 1), mesh, BUMP_BCS,
                dtype=torch.float32, device=cuda)
     for p in (4, 5, 6):
@@ -1876,3 +1879,120 @@ def test_volume_forms_are_bitwise_plain(cuda, p, family, dtype):
         torch.cuda.synchronize()
         assert kernels.volume_residual.launches == before + 1
         assert same_bits(k, q), (nx, ny)
+
+
+# ---------------------------------------------------------------------------
+# mesh files, segmented sides and curvilinear blocks
+# ---------------------------------------------------------------------------
+
+def segmented_dmr_bcs(nx: int, ny: int):
+    """The DMR sides with the bottom split at x = 1/6: post-shock farfield
+    before, slip after (the reference's grid.geo Physical Lines 0/1)."""
+    xc = (np.arange(nx) + 0.5) * 4.0 / nx
+    seg = (xc > 1.0 / 6.0).astype(np.int32)
+    bottom = SegmentedSide(seg, (BoundarySide(euler.BC_FARFIELD, dmr_inflow),
+                                 BoundarySide(euler.BC_SLIP)))
+    return dict(BCS, S=bottom)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+def test_segmented_stage_and_candidate_are_bitwise_plain(cuda, dtype):
+    """With the split DMR bottom: the Q2 SSP-stage form of the residual
+    (row 2) and the P2 MOOD candidate on its tp'd strips (row 3), each
+    equal to its plain version bitwise; the segments change the strips."""
+    dt = getattr(torch, dtype)
+    bcs = segmented_dmr_bcs(NX, NY)
+    u, post, _, _ = setup(2, dt, cuda)
+    u = kernels.fused_post_plain(u, post)
+    mesh = CartesianMesh(NX, NY, 0.0, 4.0, 0.0, 1.0)
+    rhs = make_rhs(make_basis("Qk", 2), mesh, bcs, flux="hllc", dtype=dt,
+                   device=cuda, volume_kernel="fused")
+    t = torch.full((), 0.05, dtype=dt, device=cuda)
+    strips = rhs.strips(u, t)
+    whole = make_rhs(make_basis("Qk", 2), mesh, BCS, flux="hllc", dtype=dt,
+                     device=cuda, volume_kernel="fused").strips(u, t)
+    assert not torch.equal(strips[2], whole[2])
+    assert torch.equal(strips[3], whole[3])
+    sc = torch.tensor([0.75, 1e-4], dtype=dt, device=cuda)
+    u_old = u.flip(-1).contiguous()
+    before = kernels.fused_residual.launches
+    k = kernels.fused_residual(u, *strips, rhs.ops, u_old=u_old, sc=sc)
+    q = kernels.fused_residual_plain(u, *strips, rhs.ops, u_old=u_old, sc=sc)
+    torch.cuda.synchronize()
+    assert kernels.fused_residual.launches == before + 1
+    assert same_bits(k, q)
+
+    _, pmesh, up, _, pl = setup_pk(2, dt, cuda, seed=31, ny=NY, nx=NX)
+    prhs = make_rhs(make_basis("Pk", 2), pmesh, bcs, flux="hllc", dtype=dt,
+                    device=cuda, volume_kernel="fused")
+    tp = prhs.strips(up, t, pl["deg"])
+    h = torch.full((), 1e-4, dtype=dt, device=cuda)
+    prev = up.flip(-1).contiguous()
+    for cells in (pl["cells"], torch.ones_like(pl["cells"])):
+        before = kernels.fused_mood_candidate.launches
+        k = prhs.sparse_candidate(up, prev.clone(), pl["deg"], t, h, cells)
+        q = kernels.fused_mood_candidate_plain(
+            up, prev.clone(), pl["deg"], cells, *tp, prhs.ops,
+            prhs.modal_ops, h)
+        torch.cuda.synchronize()
+        assert kernels.fused_mood_candidate.launches == before + 1
+        assert same_bits(k, q)
+
+
+@pytest.mark.parametrize("case", ("wavy", "annulus"))
+def test_curvilinear_rhs_on_the_card_matches_cpu(cuda, case):
+    """The curvilinear residual (plain torch on every device, as the
+    reference's is XLA) on the card in f64 against the CPU within 1e-12,
+    with a segmented bottom on the wavy block."""
+    from dflo_tpu_torch.mesh.curvilinear import annulus_mesh, wavy_mesh
+    from dflo_tpu_torch.solver.spatial_curvi import make_rhs_curvilinear
+    basis = make_basis("Qk", 2)
+    per = BoundarySide(euler.BC_PERIODIC)
+    if case == "wavy":
+        mesh = wavy_mesh(40, 16, 0.0, 4.0, 0.0, 1.0, amp=0.05)
+        bcs = segmented_dmr_bcs(40, 16)
+    else:
+        mesh = annulus_mesh(1.0, 3.0, 16, 96)
+        bcs = dict(W=per, E=per, S=BoundarySide(euler.BC_SLIP),
+                   N=BoundarySide(euler.BC_FARFIELD, dmr_inflow))
+    rng = np.random.default_rng(41)
+    u = ic.set_initial_condition(basis, mesh, dmr_inflow, dtype=torch.float64,
+                                 device="cpu")
+    u = u * torch.from_numpy(1.0 + 0.05 * rng.uniform(-1, 1, u.shape))
+    out = []
+    for dev in ("cpu", cuda):
+        rhs = make_rhs_curvilinear(basis, mesh, bcs, flux="hllc",
+                                   dtype=torch.float64, device=dev)
+        out.append(rhs(u.to(dev), 0.05).cpu())
+    assert rel(out[1], out[0]) <= 1e-12
+
+
+def test_cli_runs_mesh_files_on_the_card(cuda, tmp_path):
+    """cli.run on the card (no --platform): the .geo DMR at 48 x 12 through
+    the residual, post and diag kernels, and a 32 x 8 NACA 0012 .struct
+    with examples/naca0012.prm's settings, one PTC step per level."""
+    from dflo_tpu_torch import cli
+    from dflo_tpu_torch.entry import dmr_geo_prm, dmr_geo_text
+    from dflo_tpu_torch.mesh.curvilinear import naca0012_omesh, write_struct
+    (tmp_path / "dmr.geo").write_text(dmr_geo_text(2, 46, 12))
+    (tmp_path / "dmr.prm").write_text(dmr_geo_prm("dmr.geo"))
+    kernels.reset_launch_counts()
+    res = cli.run([str(tmp_path / "dmr.prm"), "--max-steps", "3",
+                   "--output-dir", str(tmp_path / "out_dmr")])
+    counts = kernels.launch_counts()
+    assert res.it == 3 and res.u.is_cuda and bool(torch.isfinite(res.u).all())
+    assert isinstance(res.solver.bcs["S"], SegmentedSide)
+    assert all(counts[k] > 0 for k in ("fused_residual", "fused_post",
+                                       "fused_diag")), counts
+
+    write_struct(str(tmp_path / "naca.struct"), naca0012_omesh(32, 8))
+    text = open("examples/naca0012.prm").read()
+    text = "\n".join("set mesh file = naca.struct"
+                     if ln.startswith("set mesh file") else ln
+                     for ln in text.splitlines())
+    (tmp_path / "naca.prm").write_text(text)
+    res = cli.run([str(tmp_path / "naca.prm"), "--max-steps", "1",
+                   "--output-dir", str(tmp_path / "out_naca")])
+    assert res.solver.curvilinear and res.u.is_cuda
+    assert [len(h) for h in res.steady_levels] == [1, 1]
+    assert bool(torch.isfinite(res.u).all())

@@ -299,11 +299,11 @@ def test_source_forms_resolve_and_refuse():
         Solver(make_basis("Pk", 2), mesh, bcs, limiter=lim_mood,
                method="mood", source=generic, **kw)
     dm = device_mesh((2, 2), [torch.device("cpu")] * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="slice G, the rest of multi-GPU"):
         Solver(make_basis("Qk", 2), mesh, bcs,
                limiter=LimiterConfig(type="TVB"), source=grav,
                device_mesh=dm, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="slice G, the rest of multi-GPU"):
         make_rhs(make_basis("Qk", 2), mesh, bcs, volume_kernel="fused",
                  source=grav, device_mesh=dm, **kw)
 

@@ -385,15 +385,15 @@ def test_out_of_slice_configurations_raise_under_a_mesh(tmp_path):
     args = (s.basis, s.mesh, s.bcs)
     kw = dict(limiter=lim, dtype=F64, device=CPU, device_mesh=dm)
     with pytest.raises(NotImplementedError,
-                       match="mask.*ROADMAP queue 1, item 10"):
+                       match="mask.*slice G, the rest of multi-GPU"):
         Solver(*args, mask=np.ones((4, 16), bool), **kw)
     with pytest.raises(NotImplementedError,
-                       match="MOOD.*ROADMAP queue 1, item 10"):
+                       match="MOOD.*slice G, the rest of multi-GPU"):
         Solver(make_basis("Pk", 2), s.mesh, s.bcs, method="mood", **kw)
     for form in (dict(post_kernel="xla"), dict(volume_kernel="pallas"),
                  dict(volume_kernel="xla")):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1, item 10"):
+                           match="slice G, the rest of multi-GPU"):
             Solver(*args, **form, **kw)
     with pytest.raises(ValueError, match="divisible"):
         Solver(*args, limiter=lim, dtype=F64, device=CPU,
@@ -408,6 +408,6 @@ def test_out_of_slice_configurations_raise_under_a_mesh(tmp_path):
         if torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="visible"):
                 cli.run([str(prm), "--devices", "2", "--max-steps", "0"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="slice G, the rest of multi-GPU"):
         cli.run(["examples/implosion.prm", "--platform", "cpu", "--devices",
                  "4", "--slices", "2"])

@@ -197,7 +197,8 @@ def test_out_of_slice_configurations_raise():
     # (tests/test_torch_envelope.py); beyond those bounds nothing does
     for basis in (make_basis("Qk", 2, kernels.NQ_MAX + 1),
                   make_basis("Pk", 7)):
-        with pytest.raises(NotImplementedError, match="queue 2, item 11"):
+        with pytest.raises(NotImplementedError,
+                           match="the bounds of the general dims"):
             kernels.residual_operators(basis, s.mesh, dtype=F64,
                                        device="cpu")
 
