@@ -316,9 +316,44 @@ Phases (any failure raises, and the script then prints no result):
 34. the naca0012 steady workflow (path C) through cli.run with
    examples/naca0012.prm's settings on a NACA 0012 O-mesh of naca.struct's
    size (160 x 40, mesh.curvilinear.naca0012_omesh) written as a .struct,
-   f32, 5 PTC steps on each level of the grid sequence: Newton and Krylov
+   f32, 2 PTC steps on each level of the grid sequence: Newton and Krylov
    counts and each level's ||R|| history (chiprun_out/
    naca_steady_history.json); no Newton divergence, finite.
+35. the limiters and indicators of the physics envelope, f32 at full
+   width: the 1152 x 288 DMR (entry._build) on Q2 with the minmax limiter
+   (characteristic, density indicator, positivity) and on P2 under RK3
+   with TVB and the u2 indicator, 10 steps each, and on Q2 with TVB and
+   the residual indicator, 5 steps: the residual kernel (the SSP stage;
+   the R form inside the residual indicator) and the diag launched, the
+   fused post not, no plain version called, finite, no fatal flag
+   (dmr_q2_rk_minmax_, dmr_p2_rk_tvb_u2_, dmr_q2_rk_tvb_residual_
+   dof_updates_per_sec); examples/vortex_system.prm at 2048 x 2048 with
+   `conserve angular momentum = true` through cli.run, 10 steps, its
+   angular-momentum monitor line every step, its solver timed apart
+   (vortex_system_p1_angmom_dof_updates_per_sec).
+36. pressure sides and the full mass matrix: examples/forward_step_tpu.prm
+   at its 1920 x 640 through cli.run with its outlet a pressure side at
+   the free stream's pressure, 20 steps in chunks of 10: rows 2, 4 and 6
+   launched, no plain version called
+   (fwdstep_q1_pressure_outlet_dof_updates_per_sec); one full-width masked
+   Q1 stage with the pressure strips bitwise against its plain version, f32
+   and f64, timed (the kernel table's row fused_residual_pressure);
+   examples/iso_xing_shu.prm at 2048 x 2048 with `mass matrix = full` and
+   cfl 0.5 (the consistent mass is unstable at the shipped 0.9, in the
+   reference too), 10 steps: the plain residual and the diag
+   (isohydro_gll2_fullmass_dof_updates_per_sec); its f64 well-balance
+   drift at 512 x 512 after 5 steps.
+37. MOOD off the fused route, and output: the P2 DMR MOOD with
+   volume_kernel="xla", 5 steps, f32: rows 3, 8, 9 and 10 and the residual
+   kernel not launched, row 6 launched (dmr_p2_mood_xla_dof_updates_per
+   _sec); one f64 stage each on that state: dmp_bounds="collapsed" reduces
+   a superset of the neighborhood's cells, deg_in = full(p) equals the
+   cold stage bitwise outside the cells the full-degree chain moves (and
+   their neighbors), a warm start from the settled map accepts the same
+   state in no more passes; mu_shock of phase 35's final minmax state,
+   timed, finite and nonnegative; examples/sod_shock_tube.prm as shipped
+   through cli.run, 20 steps, with `format = tecplot` (.plt snapshots) and
+   with `diffusion coefficient = 1` (VTUs with the mu_shock field).
 
 Rows 1, 6 and 7 are bitwise in every phase that compares them (record,
 BITWISE_ROWS).  Phase 1 also holds the diag's and the volume residual's
@@ -467,8 +502,21 @@ WAVY_N, WAVY_FS_TOL = 1024, 1e-12
 NACA_PRM = "examples/naca0012.prm"
 #: each PTC step here is one Newton iteration of up to 10 GMRES restarts of
 #: 30 tangents (naca0012.prm's settings; at cfl 2 they stop unconverged),
-#: 15 to 22 s on the card: the 10 steps take 156 to 221 s (PERF.md)
-NACA, NACA_STEPS = (160, 40), 5
+#: 15 to 22 s on the card: 5 steps a level took 156 to 221 s (PERF.md), so
+#: the phase takes 2 a level to keep the script inside its limit
+NACA, NACA_STEPS = (160, 40), 2
+#: the rest of the physics envelope (phases 35-37): the DMR paths' steps
+#: (minmax, u2, MOOD off the fused route) and chunk; the residual
+#: indicator's; the vortex system at VS_N x VS_N and its steps; the forward
+#: step with a pressure outlet, its steps; iso_xing_shu with the full mass
+#: matrix at ISO_N x ISO_N, its steps, and its f64 drift at WB_N x WB_N; the
+#: Sod tube as shipped (SOD_N) and its steps
+ENV_STEPS, ENV_CHUNK, RESID_STEPS = 10, 10, 5
+VS_PRM, VS_N, VS_STEPS = "examples/vortex_system.prm", 2048, 10
+PRES_STEPS, PRES_CHUNK = 20, 10
+FULLMASS_STEPS, WB_N, WB_STEPS = 10, 512, 5
+MOOD_XLA_STEPS = 5
+SOD_PRM, SOD_N, SOD_STEPS = "examples/sod_shock_tube.prm", (100, 10), 20
 #: the naca0012 free stream, M 0.63 at 2 degrees (examples/naca0012.prm)
 NACA_FS = (0.6296158, 0.0219908, 1.0, 1.9841269)
 #: the external force of the force-plane form (f_0, f_1 expressions)
@@ -663,6 +711,12 @@ SOURCES = {
                            f"{PK}:617", f"{PK}:make_fused_residual (the .geo "
                            f"DMR: segmented S strips, SSP stage)",
                            "fused_residual[qk_hllc_stage]", "dmr_geo"),
+    "fused_residual_pressure": ("dflo_tpu_torch/csrc/fused_residual_lxf.cu",
+                                f"{PK}:617",
+                                f"{PK}:make_fused_residual (masked, lxf, "
+                                f"a pressure outlet's E strips, SSP stage)",
+                                "fused_residual[qk_lxf_masked_stage]",
+                                "fwd_pressure"),
 }
 #: the grid each row is measured and bounded at, by path: the DMR's, the
 #: forward step's, the vortex's; the LxF candidate's launches come from
@@ -682,9 +736,10 @@ GRIDS = {"rk": (NX, NY), "mood": (NX, NY), "fwd": (FS_NX, FS_NY),
          "dmr_q4": (NX, NY), "pallas_q4": (NX, NY),
          "q2oi": (Q2OI_N, Q2OI_N), "rt_roe": (RT_NX, RT_NY),
          "iso_roe": (ISO_N, ISO_N), "dmr_p4_mood": (NX, NY),
-         "dmr_geo": (NX, NY)}
+         "dmr_geo": (NX, NY), "fwd_pressure": (FS_NX, FS_NY)}
 #: the steps of each path whose rows carry launches per step
-PATH_STEPS = {"dmr_p4_mood": MD_P4_STEPS, "dmr_geo": GEO_STEPS}
+PATH_STEPS = {"dmr_p4_mood": MD_P4_STEPS, "dmr_geo": GEO_STEPS,
+              "fwd_pressure": PRES_STEPS}
 #: the kernel wrappers of dflo_tpu_torch.ops.kernels (each has a *_plain)
 WRAPPERS = ("fused_residual", "fused_mood_candidate", "fused_post",
             "fused_diag", "fused_modal_pos", "fused_pk_post",
@@ -855,7 +910,8 @@ def work(name: str, basis, dtype, n: int, marked: int = 0, cells: int = 0,
             "fused_modal_pos_p4": "fused_modal_pos",
             "fused_pk_post_p4": "fused_pk_post",
             "fused_mood_check_p4": "fused_mood_check",
-            "fused_residual_geo": "fused_residual"}.get(name, name)
+            "fused_residual_geo": "fused_residual",
+            "fused_residual_pressure": "fused_residual_fwd"}.get(name, name)
 
     def nnz(a):
         """nonzero entries; an entry within 1e-12 of the largest is a zero
@@ -5220,6 +5276,379 @@ def phase_naca_steady(kernels, plain_calls):
     return out
 
 
+def envelope_limiter(kind: str):
+    """The DMR's limiter configuration of phase 35's paths: minmax
+    (characteristic, density indicator, positivity), or characteristic
+    TVB beta 2 with positivity and the `u2` or `residual` indicator."""
+    from dflo_tpu_torch.driver import LimiterConfig
+    if kind == "minmax":
+        return LimiterConfig(type="minmax", shock_indicator="density",
+                             char_lim=True, pos_lim=True)
+    return LimiterConfig(type="TVB", shock_indicator=kind, beta=2.0,
+                         char_lim=True, pos_lim=True)
+
+
+def phase_envelope_limiters(entry, kernels, plain_calls):
+    """Phase 35, the limiters and indicators of the physics envelope, f32
+    at full width, each through the normal entry points: the NX x NY DMR
+    (entry._build) on Q2 with the minmax limiter (characteristic, the
+    density indicator, positivity), on P2 under RK3 with TVB and the u2
+    indicator, ENV_STEPS steps each, and on Q2 with TVB and the residual
+    indicator, RESID_STEPS steps: the residual kernel (row 2: the SSP stage,
+    and the R form inside the residual indicator) and the diag (row 6)
+    launched, the fused post not (the reference's post_ok excludes them),
+    no plain version called, finite, no fatal flag; then
+    examples/vortex_system.prm at VS_N x VS_N with `conserve angular
+    momentum = true` through cli.run, VS_STEPS steps with its angular-
+    momentum monitor line every step, and its solver timed apart from
+    output.  Returns (launch counts by path, ms/step by path, summaries,
+    the minmax DMR's solver and final state for phase 37)."""
+    import io
+    import re
+    from dflo_tpu_torch import cli
+    counts, ms, summary = {}, {}, {}
+    last = {}
+
+    def keep(s, u, t):
+        last["s"], last["u"] = s, u
+        return {}
+
+    paths = (("dmr_q2_minmax", "dmr_q2_rk_minmax_dof_updates_per_sec",
+              dict(limiter=envelope_limiter("minmax")), ENV_STEPS,
+              ("fused_residual[qk_hllc_stage]", "fused_diag")),
+             ("dmr_p2_rk_u2", "dmr_p2_rk_tvb_u2_dof_updates_per_sec",
+              dict(limiter=envelope_limiter("u2"), family="Pk"), ENV_STEPS,
+              ("fused_residual[pk_hllc_stage]", "fused_diag")),
+             ("dmr_q2_residual", "dmr_q2_rk_tvb_residual_dof_updates_per_sec",
+              dict(limiter=envelope_limiter("residual")), RESID_STEPS,
+              ("fused_residual[qk_hllc_stage]", "fused_residual[qk_hllc_R]",
+               "fused_diag")))
+    for name, metric, kw, steps, forms in paths:
+        s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
+                             **kw)
+        assert s.volume_kernel == "fused" and not s._fused_chain
+        c, m = phase_solver_path(
+            kernels, plain_calls, name, metric, s, u0, steps, steps, forms,
+            (NX, NY), extra=keep if name == "dmr_q2_minmax" else None)
+        assert c["fused_post"] == 0, c
+        n_st = len(s.ark)
+        assert c["fused_residual"] == n_st * steps * (
+            2 if name == "dmr_q2_residual" else 1), c
+        counts[name], ms[name] = c, m
+        if name == "dmr_q2_minmax":
+            dmr_minmax = (last["s"], last["u"])
+        del s, u0
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as out:
+        prm = edit_prm(VS_PRM, os.path.join(out, "vs.prm"), VS_N, VS_N, (
+            "set beta = 2",
+            "set beta = 2\n   set conserve angular momentum = true"))
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            res = cli.run([prm, "--max-steps", str(VS_STEPS),
+                           "--output-dir", out])
+        torch.cuda.synchronize()
+        wall_cli = time.perf_counter() - t0
+        c = kernels.launch_counts()
+    am = re.findall(r"^Total angular momentum:.*$", log.getvalue(), re.M)
+    for line in am:
+        print("vortex_system " + line)
+    s = res.solver
+    finite = bool(torch.isfinite(res.u).all())
+    used = {k: v for k, v in c.items() if v}
+    print(f"vortex_system CLI {VS_N}x{VS_N} (conserve angular momentum): "
+          f"{res.it} steps to t={res.t!r} in {wall_cli:.2f} s with set-up "
+          f"and output, finite={finite}, launches={used}, plain calls="
+          f"{plain_calls['n']}")
+    assert res.it == VS_STEPS and finite and res.u.is_cuda
+    assert s.limiter_cfg.conserve_angular_momentum and len(am) == VS_STEPS
+    assert c["fused_residual[pk_lxf_stage]"] == len(s.ark) * VS_STEPS, c
+    assert c["fused_diag"] > 0 and plain_calls["n"] == 0
+    am_vals = [float(ln.split()[-1]) for ln in am]
+    c2, m2 = phase_solver_path(
+        kernels, plain_calls, "vortex_system_angmom",
+        "vortex_system_p1_angmom_dof_updates_per_sec", s, res.u, VS_STEPS,
+        VS_STEPS, ("fused_residual[pk_lxf_stage]", "fused_diag"),
+        (VS_N, VS_N), extra=lambda s_, u_, t_: {
+            "cli_wall_s": wall_cli, "angular_momentum": am_vals})
+    counts["vortex_system_angmom"], ms["vortex_system_angmom"] = c, m2
+    summary["angular_momentum"] = am_vals
+    del res, s
+    torch.cuda.empty_cache()
+    return counts, ms, summary, dmr_minmax
+
+
+def phase_pressure_fullmass(kernels, plain_calls, results):
+    """Phase 36, pressure sides and the full mass matrix, f32 unless said:
+    examples/forward_step_tpu.prm at its 1920 x 640 (Q1, LxF, the mask)
+    through cli.run with its outlet a pressure side at the free stream's
+    pressure (energy slot 1.0), PRES_STEPS steps in chunks of PRES_CHUNK:
+    rows 2 (the masked stage, the pressure strips on E), 4 and 6 launched,
+    no plain version called; its solver timed apart from output
+    (fwdstep_q1_pressure_outlet_dof_updates_per_sec); one full-width
+    masked Q1 stage with the pressure strips bitwise against its plain
+    version in f32 and f64, timed (the kernel table's row
+    fused_residual_pressure); then examples/iso_xing_shu.prm at ISO_N x
+    ISO_N with `mass matrix = full` and cfl 0.5 (the shipped 0.9 is
+    unstable with the consistent mass, in the reference too) through cli's
+    solver (the plain residual and the diag, row 6), FULLMASS_STEPS steps
+    (isohydro_gll2_fullmass_dof_updates_per_sec), and its f64 well-balance
+    drift at WB_N x WB_N after WB_STEPS steps.  Returns (launch counts by
+    path, ms/step by path, summaries)."""
+    from dflo_tpu_torch import cli
+    from dflo_tpu_torch.config.params import AllParameters
+    from dflo_tpu_torch.physics import euler
+    from dflo_tpu_torch.solver.spatial import BoundarySide, make_rhs
+    counts, ms, summary = {}, {}, {}
+    pressure = (("subsection boundary_2\n   set type = outflow",
+                 "subsection boundary_2\n   set type = pressure\n"
+                 "   set w_3 value = 1.0"),)
+    with tempfile.TemporaryDirectory() as out:
+        prm = edit_prm(FS_PRM, os.path.join(out, "fwd_p.prm"), FS_NX, FS_NY,
+                       *pressure)
+        kernels.reset_launch_counts()
+        plain_calls["n"] = 0
+        t0 = time.perf_counter()
+        res = cli.run([prm, "--max-steps", str(PRES_STEPS), "--chunk",
+                       str(PRES_CHUNK), "--output-dir", out])
+        torch.cuda.synchronize()
+        wall_cli = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        s = res.solver
+        finite = bool(torch.isfinite(res.u).all())
+        used = {k: v for k, v in c.items() if v}
+        print(f"forward step CLI, pressure outlet: {res.it} steps to "
+              f"t={res.t!r} in {wall_cli:.2f} s with set-up and output, "
+              f"finite={finite}, launches={used}, plain calls="
+              f"{plain_calls['n']}")
+        assert res.it == PRES_STEPS and finite and res.u.is_cuda
+        assert s.bcs["E"].kind == euler.BC_PRESSURE and s.mask is not None
+        form = "fused_residual[qk_lxf_masked_stage]"
+        assert c[form] == len(s.ark) * PRES_STEPS, c
+        assert all(c[k] > 0 for k in ("fused_post", "fused_diag")), c
+        assert plain_calls["n"] == 0, "the pressure outlet called a plain"
+        counts["fwd_pressure"] = c
+        c2, ms["fwd_pressure"] = phase_solver_path(
+            kernels, plain_calls, "fwd_pressure",
+            "fwdstep_q1_pressure_outlet_dof_updates_per_sec", s, res.u,
+            PRES_STEPS, PRES_CHUNK, (form, "fused_post", "fused_diag"),
+            (FS_NX, FS_NY), extra=lambda s_, u_, t_: {"cli_wall_s": wall_cli})
+        u_end = res.u
+
+        # one full-width masked stage with the pressure strips, bitwise
+        params = AllParameters.from_prm_file(prm)
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            sd, _ = cli.build_solver(params, out, dtype=dtype, device="cuda")
+            ud = sd.post_stage(u_end.to(dtype))
+            u_old = sd.post_stage(cli.set_ic(params, sd))
+            tt = torch.full((), 0.01, dtype=dtype, device="cuda")
+            strips = sd.rhs.strips(ud, tt)
+            outflow = make_rhs(sd.basis, sd.mesh, dict(
+                sd.bcs, E=BoundarySide(euler.BC_OUTFLOW)), flux="lxf",
+                dtype=dtype, device="cuda", volume_kernel="fused",
+                mask=sd.mask).strips(ud, tt)
+            assert not torch.equal(strips[1], outflow[1])
+            lam, _ = sd._diag(ud)
+            sc = torch.stack([torch.full((), 0.5, dtype=dtype,
+                                         device="cuda"),
+                              0.5 / lam / 3.0])
+
+            def fk(ud=ud, strips=strips, sd=sd, u_old=u_old, sc=sc):
+                return kernels.fused_residual(ud, *strips, sd.rhs.ops,
+                                              u_old=u_old, sc=sc)
+
+            def fp(ud=ud, strips=strips, sd=sd, u_old=u_old, sc=sc):
+                return kernels.fused_residual_plain(ud, *strips, sd.rhs.ops,
+                                                    u_old=u_old, sc=sc)
+
+            fold(results, "fused_residual_pressure", tag, [(fk(), fp())],
+                 TOL[dtype]["fused_residual"], bitwise=True)
+            time_pair(results, "fused_residual_pressure", tag, fk, fp,
+                      (FS_NX, FS_NY))
+            del sd, ud, u_old, strips, outflow
+        del res, s, u_end
+    torch.cuda.empty_cache()
+
+    # the consistent mass shrinks the stable CFL number: at the shipped 0.9
+    # the round-off of the rest state grows ten-fold a step in both
+    # packages (f32 fails in 9 steps), at 0.5 it stays bounded
+    full = (("set potential = x + y",
+             "set potential = x + y\nset mass matrix = full"),
+            ("set cfl = 0.9", "set cfl = 0.5"))
+    with tempfile.TemporaryDirectory() as out:
+        prm = edit_prm(ISO_PRM, os.path.join(out, "iso_full.prm"), ISO_N,
+                       ISO_N, *full)
+        params = AllParameters.from_prm_file(prm)
+        s, _ = cli.build_solver(params, out, dtype=torch.float32,
+                                device="cuda")
+        assert s.volume_kernel == "xla" and params.mass_matrix == "full"
+        c, ms["iso_fullmass"] = phase_solver_path(
+            kernels, plain_calls, "iso_fullmass",
+            "isohydro_gll2_fullmass_dof_updates_per_sec", s,
+            cli.set_ic(params, s), FULLMASS_STEPS, FULLMASS_STEPS,
+            ("fused_diag",), (ISO_N, ISO_N))
+        assert c["fused_residual"] == 0, c
+        counts["iso_fullmass"] = c
+        del s
+        torch.cuda.empty_cache()
+        # the f64 well-balance drift with the full mass matrix
+        prm = edit_prm(ISO_PRM, os.path.join(out, "iso_wb.prm"), WB_N, WB_N,
+                       *full)
+        params = AllParameters.from_prm_file(prm)
+        s, _ = cli.build_solver(params, out, dtype=torch.float64,
+                                device="cuda")
+        u0 = s.post_stage(cli.set_ic(params, s))
+        u, t, n, bad, _ = s._multi_step(WB_STEPS)(u0, 0.0, 1e3)
+        drift = float((u - u0).abs().max())
+        mom = float(u[:2].abs().max())
+        print(f"iso_xing_shu full mass f64 {WB_N}x{WB_N}: {int(n)} steps to "
+              f"t={float(t)!r}, max |u - u0| {drift:.3e}, max |m| {mom:.3e}")
+        assert int(n) == WB_STEPS and not bool(bad)
+        assert math.isfinite(drift)
+        summary["iso_fullmass_f64_drift"] = {
+            "grid": [WB_N, WB_N], "steps": WB_STEPS, "max_abs_du": drift,
+            "max_abs_momentum": mom, "t": float(t)}
+        del s, u, u0
+    torch.cuda.empty_cache()
+    return counts, ms, summary
+
+
+def phase_mood_off_route(entry, kernels, plain_calls, dmr_minmax):
+    """Phase 37, MOOD off the fused route, and output: the NX x NY P2 DMR
+    MOOD with volume_kernel="xla" (the plain residual, MoodStage's plain
+    arm, the plain post), MOOD_XLA_STEPS steps, f32: the diag (row 6)
+    launched and the candidate, the modal positivity, the Pk post and the
+    check (rows 3, 8, 9 and 10) not, nor the residual kernel, as the
+    reference routes it (dflo_tpu_torch/driver.py, dflo_tpu/driver.py:
+    283-330) (dmr_p2_mood_xla_dof_updates_per_sec); then one f64 stage each
+    on that DMR state through the fused route: dmp_bounds="collapsed"
+    reduces a superset of the neighborhood's cells; deg_in = full(p) equals
+    the cold stage bitwise outside the cells (and their neighbors) where
+    the full-degree {truncation -> positivity} chain moves the predictor;
+    a warm start from the cold stage's settled map accepts the same state
+    (1e-12) in no more passes.  mu_shock (stab/mushock) of phase 35's final
+    minmax DMR state, f32, timed: finite, at least -1e-12 times its max.
+    examples/sod_shock_tube.prm as shipped through cli.run, SOD_STEPS steps,
+    with `format = tecplot` (the .plt snapshots written) and with
+    `diffusion coefficient = 1` (each VTU carries the mu_shock field).
+    Returns (launch counts, ms/step, summary)."""
+    from dflo_tpu_torch import cli
+    from dflo_tpu_torch.stab import mood as mood_mod
+    from dflo_tpu_torch.stab.mushock import make_mu_shock
+    summary = {}
+    s, u0 = entry._build(NX, NY, dtype=torch.float32, device="cuda",
+                         method="mood", volume_kernel="xla")
+    assert s.volume_kernel == "xla" and not s._mood_stage.fused
+    assert s._pk_post_ops is None
+    state = {}
+
+    def keep(s_, u_, t_):
+        state["u"], state["t"] = u_, t_
+        st = s_.last_stats
+        return {"mood_stats_last_step": [int(st.n_reduce), int(st.n_marked),
+                                         st.iters]}
+
+    counts, ms = phase_solver_path(
+        kernels, plain_calls, "dmr_p2_mood_xla",
+        "dmr_p2_mood_xla_dof_updates_per_sec", s, u0, MOOD_XLA_STEPS,
+        MOOD_XLA_STEPS, ("fused_diag",), (NX, NY), extra=keep)
+    off = ("fused_mood_candidate", "fused_modal_pos", "fused_pk_post",
+           "fused_mood_check", "fused_residual")
+    assert all(counts[k] == 0 for k in off), counts
+    assert counts["fused_diag"] > 0, counts
+    summary["dmr_p2_mood_xla_rows_3_8_9_10"] = [counts[k] for k in off[:4]]
+
+    # one f64 stage each through the fused route on the DMR state
+    sf, _ = entry._build(NX, NY, dtype=torch.float64, device="cuda",
+                         method="mood")
+    u = sf.post_stage(state["u"].double())
+    stage = sf._mood_stage
+    t64 = torch.zeros((), dtype=torch.float64, device="cuda")
+    dt = sf.cfl / sf._diag(u)[0] / 5.0
+    cold = stage(u, t64, dt)
+    coll = mood_mod.make_mood(sf.basis, sf.mesh, sf.rhs,
+                              dmp_bounds="collapsed")(u, t64, dt)
+    p = sf.basis.degree
+    red_n, red_c = cold[3] < p, coll[3] < p
+    superset = bool((red_c | ~red_n).all())
+    full = stage(u, t64, dt, deg_in=torch.full_like(cold[3], p))
+    moved = mood_mod.dilate4((kernels.fused_modal_pos(u, stage.mops) != u)
+                             .flatten(0, 1).any(0))
+    same_out = bool(torch.equal(full[0][..., ~moved], cold[0][..., ~moved])
+                    and torch.equal(full[3][~moved], cold[3][~moved]))
+    bitwise_all = bool(torch.equal(full[0], cold[0]))
+    warm = stage(u, t64, dt, deg_in=cold[3])
+    warm_err = rel_err(warm[0], cold[0])
+    line = {"cells": NX * NY, "dtype": "float64",
+            "neighborhood_reduced_cells": int(red_n.sum()),
+            "collapsed_reduced_cells": int(red_c.sum()),
+            "collapsed_superset": superset,
+            "moved_cells_with_neighbors": int(moved.sum()),
+            "full_p_bitwise_outside_moved": same_out,
+            "full_p_bitwise_everywhere": bitwise_all,
+            "cold_passes": cold[2].iters, "warm_passes": warm[2].iters,
+            "warm_rel_err": warm_err,
+            "warm_same_degree_map": bool(torch.equal(warm[3], cold[3]))}
+    print("MOOD stage options on the DMR state: " + json.dumps(line))
+    assert superset and same_out, line
+    assert warm_err <= 1e-12 and warm[2].iters <= cold[2].iters, line
+    summary["mood_stage_options"] = line
+    del sf, u, stage, cold, coll, full, warm, s, state
+    torch.cuda.empty_cache()
+
+    # mu_shock of the final minmax DMR state
+    sm, um = dmr_minmax
+    mu_fn = make_mu_shock(sm.basis, sm.mesh, 1.0, dtype=torch.float32,
+                          device="cuda", bcs=sm.bcs)
+    ubar = sm.cell_averages(um)
+    mu = mu_fn(um, ubar)
+    torch.cuda.synchronize()
+    mu_ms = host_ms(lambda: mu_fn(um, ubar))
+    mu_max, mu_min = float(mu.max()), float(mu.min())
+    finite = bool(torch.isfinite(mu).all())
+    summary["mu_shock"] = {"grid": [NX, NY], "max": mu_max, "min": mu_min,
+                           "ms": mu_ms, "finite": finite}
+    print(f"mu_shock of the minmax DMR state {NX}x{NY} f32: max {mu_max:.4e}"
+          f", min {mu_min:.4e}, finite {finite}, {mu_ms:.2f} ms a call")
+    assert finite and mu_min >= -1e-12 * mu_max and mu_max > 0.0
+
+    # sod as shipped: Tecplot snapshots, and VTUs with mu_shock
+    with tempfile.TemporaryDirectory() as out:
+        tec = edit_prm(SOD_PRM, os.path.join(out, "sod_tec.prm"), *SOD_N, (
+            "set schlieren plot = true",
+            "set schlieren plot = true\n   set format = tecplot"))
+        mu_prm = edit_prm(SOD_PRM, os.path.join(out, "sod_mu.prm"), *SOD_N, (
+            "set mapping = cartesian",
+            "set mapping = cartesian\nset diffusion coefficient = 1.0"))
+        files = {}
+        for tag, prm, ext in (("tecplot", tec, ".plt"),
+                              ("mu_shock", mu_prm, ".vtu")):
+            d = os.path.join(out, tag)
+            t0 = time.perf_counter()
+            res = cli.run([prm, "--max-steps", str(SOD_STEPS),
+                           "--output-dir", d])
+            wall = time.perf_counter() - t0
+            names = sorted(f for f in os.listdir(d) if f.endswith(ext))
+            assert res.it == SOD_STEPS and res.u.is_cuda and len(names) == 2
+            assert bool(torch.isfinite(res.u).all())
+            head = open(os.path.join(d, names[-1]), "rb").read(4096)
+            if ext == ".vtu":
+                assert b'Name="mu_shock"' in head, head[:400]
+                assert not [f for f in os.listdir(d) if f.endswith(".plt")]
+            else:
+                assert head.startswith(b'TITLE = "dflo_tpu solution"')
+            files[tag] = {"files": names, "cli_wall_s": wall,
+                          "bytes": os.path.getsize(os.path.join(d,
+                                                                names[-1]))}
+        print("sod_shock_tube as shipped, " + json.dumps(files))
+        summary["sod_output"] = files
+    return counts, ms, summary
+
+
 def clock(t_start: float, what: str) -> None:
     """The script's elapsed time before the phases `what`."""
     print(f"chip_smoke: at {time.perf_counter() - t_start:.1f} s, next: "
@@ -5416,6 +5845,38 @@ def main() -> int:
         kernels, plain_calls)
     naca = phase_naca_steady(kernels, plain_calls)
 
+    clock(t_start, "phases 35-37")
+    # ---- phases 35-37: the rest of the physics envelope --------------------
+    t_env = time.perf_counter()
+    c35, ms35, env_lim, dmr_minmax = phase_envelope_limiters(
+        entry, kernels, plain_calls)
+    c36, ms36, env_pres = phase_pressure_fullmass(kernels, plain_calls,
+                                                  results)
+    counts.update(c35)
+    counts.update(c36)
+    ms_step.update(ms35)
+    ms_step.update(ms36)
+    counts["dmr_p2_mood_xla"], ms_step["dmr_p2_mood_xla"], env_mood = \
+        phase_mood_off_route(entry, kernels, plain_calls, dmr_minmax)
+    del dmr_minmax
+    envelope = {"phases_35_37_s": time.perf_counter() - t_env,
+                "launches_per_step": {
+                    k: {f: v / steps for f, v in counts[k].items() if v}
+                    for k, steps in (
+                        ("dmr_q2_minmax", ENV_STEPS),
+                        ("dmr_p2_rk_u2", ENV_STEPS),
+                        ("dmr_q2_residual", RESID_STEPS),
+                        ("vortex_system_angmom", VS_STEPS),
+                        ("fwd_pressure", PRES_STEPS),
+                        ("iso_fullmass", FULLMASS_STEPS),
+                        ("dmr_p2_mood_xla", MOOD_XLA_STEPS))},
+                "ms_per_step": {k: ms_step[k] for k in (
+                    "dmr_q2_minmax", "dmr_p2_rk_u2", "dmr_q2_residual",
+                    "vortex_system_angmom", "fwd_pressure", "iso_fullmass",
+                    "dmr_p2_mood_xla")},
+                **env_lim, **env_pres, **env_mood, "card": card_line()}
+    print("physics envelope: " + json.dumps(envelope))
+
     clock(t_start, "phase 8")
     # ---- phase 8: the device's busy share under torch.profiler --------------
     busy = phase_trace(entry, ms_step, {"fwd": fwd, "shard": shard,
@@ -5464,7 +5925,8 @@ def main() -> int:
              "q2oi": make_basis("Qk", 2, 4), "rt_roe": make_basis("Qk", 1),
              "iso_roe": make_basis("Qk_gll", 2),
              "dmr_p4_mood": make_basis("Pk", 4),
-             "dmr_geo": make_basis("Qk", 2)}
+             "dmr_geo": make_basis("Qk", 2),
+             "fwd_pressure": make_basis("Qk", 1)}
     table = []
     for name, (src, line, tpu, wrapper, path) in SOURCES.items():
         r = results[name]
@@ -5527,7 +5989,7 @@ def main() -> int:
                       "tile_pk_check_cases": results["tile_pk_check_cases"],
                       "diag_volume_cases": results["diag_volume_cases"],
                       "dmr_geo": geo_dmr, "annulus": annulus_summary,
-                      "naca_steady": naca,
+                      "naca_steady": naca, "physics_envelope": envelope,
                       **{k: v for k, v in results.items()
                          if k.startswith(("free_stream", "sparse_vs",
                                           "mood_host", "mood_p4",

@@ -12,12 +12,14 @@ time with the configured flux, limiter chain and body force
 (``method = rk3`` on Qk, GLL or Pk, ``mood`` on Pk, ``gmres``, ``direct``
 or ``umfpack`` for implicit Newton-Krylov; a global, local or fixed time
 step; ``gravity``, the ``f_0``/``f_1`` force or a ``potential`` for
-well-balanced gravity), or with ``stationary = true`` and an implicit
-method solve to steady state by pseudo-transient continuation (grid-
-sequenced through a 2x-coarsened companion where the grid halves, a
-curvilinear block's every other node), write
-VTU snapshots and checkpoints on their cadence and report the wall time of
-each phase.
+well-balanced gravity; the lumped or the full mass matrix), or with
+``stationary = true`` and an implicit method solve to steady state by
+pseudo-transient continuation (grid-sequenced through a 2x-coarsened
+companion where the grid halves, a curvilinear block's every other node),
+write VTU snapshots (with the mu_shock field of a nonzero `diffusion
+coefficient` on a Cartesian mesh, src/output.cc:95-105) or, with `format =
+tecplot`, ASCII Tecplot snapshots, and checkpoints on their cadence, and
+report the wall time of each phase.
 
 The run is on the card; ``--platform cpu`` runs it on the CPU, where every
 kernel wrapper takes its plain version.  Without a CUDA device and without
@@ -47,7 +49,7 @@ from dflo_tpu_torch.config.params import AllParameters
 from dflo_tpu_torch.diagnostics import angular_momentum
 from dflo_tpu_torch.driver import LimiterConfig, Solver
 from dflo_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
-from dflo_tpu_torch.io.vtk import write_vtu
+from dflo_tpu_torch.io.vtk import write_tecplot, write_vtu
 from dflo_tpu_torch.mesh import CartesianMesh
 from dflo_tpu_torch.mesh.curvilinear import CurvilinearMesh, load_struct
 from dflo_tpu_torch.mesh.geo import load_geo
@@ -57,11 +59,11 @@ from dflo_tpu_torch.parallel.sharding import compatible_shape, device_mesh
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.solver.implicit import run_steady, run_steady_sequenced
 from dflo_tpu_torch.solver.spatial import BoundarySide, SegmentedSide
+from dflo_tpu_torch.stab.mushock import make_mu_shock
 from dflo_tpu_torch.utils.profiling import Timer, device_trace
 
 #: where the branches this CLI does not carry yet come from (ROADMAP)
 _LATER = {
-    "envelope": "the rest of the physics envelope (ROADMAP)",
     "amr": "slice F, AMR (ROADMAP)",
     "devices": "slice G, the rest of multi-GPU (ROADMAP)",
 }
@@ -184,12 +186,6 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
     at half the cells, or a curvilinear block's every other node."""
     mesh, mask, side_bids = (domain if domain is not None
                              else build_domain(params, prm_dir))
-    if params.mass_matrix != "diagonal":
-        raise _later(f"mass matrix = {params.mass_matrix}", "envelope")
-    if params.diffusion_coef != 0.0:
-        raise _later("the mu_shock diffusion", "envelope")
-    if params.output.format != "vtk":
-        raise _later(f"output format {params.output.format!r}", "envelope")
     if params.refinement.do_refine:
         raise _later("refinement = true", "amr")
     basis = make_basis({"Qk": "Qk", "Pk": "Pk", "GLL": "Qk_gll"}[params.basis],
@@ -223,7 +219,8 @@ def build_solver(params: AllParameters, prm_dir: str = ".", domain=None, *,
                   well_balanced=well_balanced, potential=params.potential,
                   theta=params.theta, max_nonlin_iter=params.max_nonlin_iter,
                   linear_residual=params.solver.linear_residual,
-                  time_step_type=params.time_step_type)
+                  time_step_type=params.time_step_type,
+                  mass_matrix=params.mass_matrix)
     solver = Solver(basis, mesh, bcs, mask=mask, fixed_time_step=fixed_dt,
                     **common, **solver_kw)
     if (params.is_stationary and method == "implicit" and mask is None
@@ -351,14 +348,36 @@ def run(argv=None) -> CliRun:
     next_out_t = [out_tstep]          # src/claw.cc:1093-1099 time cadence
     ang_iter = params.output.ang_mom_step
     snap = [0]
+    tecplot = params.output.format == "tecplot"
+    # the mu_shock diagnostic field (src/mu_shock.cc:288-374), written with
+    # each VTU on one device's Cartesian mesh (dflo_tpu/cli.py:487-497)
+    mu_fn = None
+    if (params.diffusion_coef != 0.0 and not tecplot and dm is None
+            and not solver.curvilinear):
+        per_x = solver.bcs["W"].kind == euler.BC_PERIODIC
+        per_y = solver.bcs["S"].kind == euler.BC_PERIODIC
+        mu_fn = make_mu_shock(basis, mesh, params.diffusion_coef, per_x,
+                              per_y, dtype=dtype, device=device,
+                              bcs=solver.bcs)
 
     def write_snapshot(u, t):
         with timer("Output"):
-            u_np = whole(u).detach().cpu().numpy()
-            write_vtu(os.path.join(args.output_dir,
-                                   f"solution-{snap[0]:03d}.vtu"),
-                      basis, mesh, u_np, t=t,
-                      schlieren=params.output.schlieren_plot, mask=mask)
+            uw = whole(u)
+            u_np = uw.detach().cpu().numpy()
+            if tecplot:
+                write_tecplot(os.path.join(args.output_dir,
+                                           f"solution-{snap[0]:03d}.plt"),
+                              basis, mesh, u_np, t=t, mask=mask)
+            else:
+                extra = None
+                if mu_fn is not None:
+                    extra = {"mu_shock": mu_fn(
+                        uw, solver.cell_averages(uw), t).cpu().numpy()}
+                write_vtu(os.path.join(args.output_dir,
+                                       f"solution-{snap[0]:03d}.vtu"),
+                          basis, mesh, u_np, t=t,
+                          schlieren=params.output.schlieren_plot, mask=mask,
+                          extra_cell_fields=extra)
             if args.checkpoint_every and snap[0] % args.checkpoint_every == 0:
                 save_checkpoint(os.path.join(args.output_dir,
                                              f"checkpoint-{snap[0]:03d}.npz"),

@@ -39,28 +39,39 @@ The torch counterpart of dflo_tpu/driver.py's ``Solver``:
   from the stage predictor, blends, pins solid cells, and runs the fused Pk
   post (modal TVB on the cells the cascade marked, then positivity); the
   final stage's Pk post yields the wave speed and the negativity minimum.
-  On a masked domain, where the reference has no fused Pk post either
-  (dflo_tpu/driver.py:323-326), the stage's post is the plain modal TVB on
-  the marked cells with the mask, then the modal positivity kernel, and the
-  diag kernel reads the wave speed and the negativity minimum off the
-  step's result.  A body force (``euler.GravitySource`` or
-  ``euler.ExternalForce``) rides the residual's source arm; such a cascade
-  and a masked one take the dense route (stab/mood.MoodStage).  The state
-  before the first step goes through the plain stab chain (KXRCF -> modal
-  TVB -> modal positivity), as the JAX package's post_stage does for Pk.
-  MOOD needs the Pk basis and a global dt (dflo_tpu/driver.py:64-66), and
-  runs at every degree 1-6 the residual takes (on P1 its check is the
-  plain one, as the reference's).
+  Where the reference builds no fused Pk post (dflo_tpu/driver.py:
+  322-326: a masked domain, limiter none, the angular-momentum option, or
+  off the fused route) the stage's post is the plain limiter on the marked
+  cells, if any, then the modal positivity kernel on the fused route with
+  positivity on or else the plain positivity, if on
+  (dflo_tpu/driver.py:457-466), and the diag kernel reads the wave speed
+  and the negativity minimum off the step's result.  A body force
+  (``euler.GravitySource`` or ``euler.ExternalForce``) rides the residual's
+  source arm; such a cascade and a masked one take the dense route
+  (stab/mood.MoodStage).  Off the fused route (``volume_kernel="xla"``, a
+  source callable the kernel does not carry) or with positivity off the
+  cascade takes MoodStage's plain arm, as the reference's make_mood does
+  without its {truncation -> positivity} kernel.  The state before the
+  first step goes through the plain stab chain (indicator -> modal TVB ->
+  modal positivity), as the JAX package's post_stage does for Pk.  MOOD
+  needs the Pk basis and a global dt (dflo_tpu/driver.py:64-66), and runs
+  at every degree 1-6 the residual takes (on P1 its check is the plain
+  one, as the reference's).
 
 ``volume_kernel`` and ``post_kernel`` select the forms as the reference's
 Solver does (dflo_tpu/driver.py:104-138): "auto" takes the fused kernels
 wherever the configuration is inside their envelope, as the reference does
 on a TPU; "xla" runs the plain PyTorch residual or post chain,
 ``volume_kernel="pallas"`` the plain residual with its volume term through
-``kernels.volume_residual``.  The fused post exists for the collocated Qk
-TVB chain only (the reference's post_ok); the Pk RK post is the plain
-modal chain on every device, in the reference too, which has no fused
-kernel for it.  Each wrapper is chosen by the device of the state: on a
+``kernels.volume_residual``.  The full mass matrix (``mass_matrix="full"``)
+runs on the plain residual (vol_ok, dflo_tpu/driver.py:117).  The fused
+post exists for the collocated Qk TVB chain with the limiter, density or
+energy indicator and without the angular-momentum option (the reference's
+post_ok, dflo_tpu/driver.py:124-134); everywhere else (the minmax limiter,
+the u2 and residual indicators, the Pk RK post) the post is the plain
+chain on every device, in the reference too, which has no fused kernel
+for it.  The residual indicator evaluates the solver's residual (the
+kernel's R form on the fused route).  Each wrapper is chosen by the device of the state: on a
 CUDA tensor it launches its kernel, on a CPU tensor it runs its plain
 version, so the control flow is the same on both.
 
@@ -87,14 +98,12 @@ and the fatal flag comes from those averages; the limiter is "none"
 reference (dflo_tpu/driver.py:157-166).  Any side may be a SegmentedSide.
 
 Configurations outside the ported slices raise NotImplementedError on
-every device: MOOD off the fused residual (with a source callable its
-source arm does not carry), a basis beyond the kernels' bounds (degree
-above 6 or more than kernels.NQ_MAX quadrature points per direction: the
-bounds of the general dims, ROADMAP), the minmax limiter and the other
-indicators (the rest of the physics envelope; minmax on a q1 block with
-slice E); under a device mesh, MOOD, implicit and local stepping, masks,
-source terms, curvilinear blocks, the plain and volume_residual forms and
-the plain post chain (slice G, the rest of multi-GPU).
+every device: a basis beyond the kernels' bounds (degree above 6 or more
+than kernels.NQ_MAX quadrature points per direction: the bounds of the
+general dims, ROADMAP), minmax on a q1 block (slice E); under a device
+mesh, MOOD, implicit and local stepping, masks, source terms, curvilinear
+blocks, the plain and volume_residual forms and the plain post chain
+(slice G, the rest of multi-GPU).
 """
 
 from __future__ import annotations
@@ -116,7 +125,7 @@ from dflo_tpu_torch.solver.spatial import BoundarySide, _check_bcs, make_rhs
 from dflo_tpu_torch.solver.spatial_curvi import (compute_dt_curvilinear,
                                                  make_rhs_curvilinear)
 from dflo_tpu_torch.stab.indicator import make_shock_indicator
-from dflo_tpu_torch.stab.limiter import make_tvb_limiter
+from dflo_tpu_torch.stab.limiter import make_minmax_limiter, make_tvb_limiter
 from dflo_tpu_torch.stab.mood import MoodStats, make_mood
 from dflo_tpu_torch.stab.positivity import (EPS, make_positivity_limiter,
                                             negative_average_flag)
@@ -125,8 +134,9 @@ from dflo_tpu_torch.stab.positivity import (EPS, make_positivity_limiter,
 @dataclasses.dataclass(frozen=True)
 class LimiterConfig:
     """Mirrors Parameters::Limiter (src/parameters.h:241-256)."""
-    type: str = "none"               # none | TVB
-    shock_indicator: str = "limiter"  # limiter | density | energy
+    type: str = "none"               # none | TVB | minmax
+    shock_indicator: str = "limiter"  # limiter | density | energy | u2 |
+                                      # residual
     M: float = 0.0
     beta: float = 1.0
     char_lim: bool = False
@@ -143,23 +153,37 @@ def _where(cond, new, old):
             for n, o in zip(new, old)]
 
 
+def _fused_post_takes(basis, limiter: LimiterConfig) -> bool:
+    """The configurations the fused post carries (the reference's post_ok,
+    dflo_tpu/driver.py:124-134): collocated Gauss Qk with the TVB limiter,
+    the limiter, density or energy indicator and no angular-momentum
+    option."""
+    return (basis.family == "Qk" and basis.is_nodal_collocated
+            and limiter.type == "TVB"
+            and not limiter.conserve_angular_momentum
+            and limiter.shock_indicator in ("limiter", "density", "energy"))
+
+
 def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
                   volume_kernel: str, post_kernel: str, source=None,
-                  well_balanced: str | None = None) -> tuple[str, str]:
+                  well_balanced: str | None = None,
+                  mass_matrix: str = "diagonal") -> tuple[str, str]:
     """Resolve "auto" as the reference does (dflo_tpu/driver.py:104-138):
     the fused residual wherever the configuration is inside its envelope
     (any Qk, GLL or Pk basis of degree 1-6 on any quadrature, any of the
     six fluxes, no source term or one of the kernel's source arms: a
-    GravitySource, an ExternalForce or isothermal well-balancing), the
-    fused post on collocated Gauss Qk with the TVB limiter (the reference's
-    post_ok), else the plain forms.  A basis beyond the kernels' bounds
+    GravitySource, an ExternalForce or isothermal well-balancing; the
+    diagonal mass matrix), the fused post on collocated Gauss Qk with the
+    TVB limiter, without the angular-momentum option, and the limiter,
+    density or energy indicator (the reference's post_ok), else the plain
+    forms.  A basis beyond the kernels' bounds
     raises where the Solver builds its operators (kernels.beyond_caps), on
     every device: the reference runs its kernels there, and no device runs
     it on the plain path instead."""
     vol_ok = (flux in kernels.FLUXES
-              and kernels.carries_source(source, well_balanced))
-    post_ok = (vol_ok and basis.family == "Qk" and basis.is_nodal_collocated
-               and limiter.type == "TVB")
+              and kernels.carries_source(source, well_balanced)
+              and mass_matrix == "diagonal")
+    post_ok = vol_ok and _fused_post_takes(basis, limiter)
     if volume_kernel == "auto":
         volume_kernel = "fused" if vol_ok else "xla"
     if post_kernel == "auto":
@@ -170,15 +194,9 @@ def _kernel_forms(basis, flux: str, method: str, limiter: LimiterConfig,
         raise ValueError(f"unknown post kernel {post_kernel!r}")
     if method in ("rk", "implicit") and post_kernel == "fused" and not post_ok:
         raise ValueError("post_kernel='fused' covers the collocated Qk TVB "
-                         "chain only, on Gauss nodes (dflo_tpu/driver.py:"
-                         "129-140)")
-    if method == "mood" and volume_kernel != "fused":
-        raise NotImplementedError(
-            "the port's MOOD cascade runs on the fused residual "
-            "(volume_kernel='fused'), whose source arm carries "
-            "euler.GravitySource and euler.ExternalForce, not other source "
-            "callables (the reference runs such a cascade on its XLA "
-            "residual)")
+                         "chain only, on Gauss nodes, with the limiter, "
+                         "density or energy indicator and no angular-"
+                         "momentum option (dflo_tpu/driver.py:124-140)")
     return volume_kernel, post_kernel
 
 
@@ -246,7 +264,8 @@ class Solver:
                  gmres_restart: int = 30, gmres_maxiter: int = 10,
                  precondition: str | None = None,
                  fixed_time_step: float | None = None,
-                 time_step_type: str = "global"):
+                 time_step_type: str = "global",
+                 mass_matrix: str = "diagonal"):
         if method not in ("rk", "mood", "implicit"):
             raise ValueError(f"unknown solver method {method!r}")
         if time_step_type not in ("global", "local"):
@@ -282,26 +301,11 @@ class Solver:
             _check_curvilinear(cfg, mask, well_balanced, device_mesh,
                                volume_kernel, post_kernel)
             volume_kernel = post_kernel = "xla"
-        if cfg.type not in ("none", "TVB"):
-            if cfg.type == "minmax":
-                raise NotImplementedError(
-                    "the minmax limiter is not ported yet; it comes with the "
-                    "rest of the physics envelope (ROADMAP)")
+        if cfg.type not in ("none", "TVB", "minmax"):
             raise ValueError(f"unknown limiter type {cfg.type!r}")
-        if cfg.type == "TVB" and (
-                cfg.conserve_angular_momentum
-                or cfg.shock_indicator not in ("limiter", "density",
-                                               "energy")):
-            raise NotImplementedError(
-                "the port carries the TVB limiter with the limiter, density "
-                "or energy indicator (no angular-momentum option)")
-        if method == "mood" and (cfg.type != "TVB" or not cfg.pos_lim):
-            raise NotImplementedError(
-                "the MOOD path of the port carries the TVB limiter and "
-                "positivity on")
         volume_kernel, post_kernel = _kernel_forms(
             basis, flux, method, cfg, volume_kernel, post_kernel, source,
-            well_balanced)
+            well_balanced, mass_matrix)
         if device_mesh is not None and (volume_kernel, post_kernel) != (
                 "fused", "fused"):
             raise _mesh_later(f"volume_kernel={volume_kernel!r} / "
@@ -343,6 +347,7 @@ class Solver:
                                 source=source, well_balanced=well_balanced,
                                 potential=potential,
                                 polytropic_nu=polytropic_nu,
+                                mass_matrix=mass_matrix,
                                 device_mesh=device_mesh)
         if method == "implicit" and volume_kernel == "fused":
             # Newton-Krylov on the kernel: its R form for the primal, the
@@ -365,13 +370,12 @@ class Solver:
                 per_x=per_x, per_y=per_y, mask=self.mask, dtype=dtype,
                 device=dev)
 
-        # the RK and implicit post on collocated Gauss Qk with TVB: the
-        # fused post (or its plain version; RK takes its diag form); every
-        # other post is the plain chain
+        # the RK and implicit post on collocated Gauss Qk with TVB, the
+        # limiter, density or energy indicator and no angular-momentum
+        # option: the fused post (or its plain version; RK takes its diag
+        # form); every other post is the plain chain
         self._fused_chain = (method in ("rk", "implicit")
-                             and basis.family == "Qk"
-                             and basis.is_nodal_collocated
-                             and cfg.type == "TVB")
+                             and _fused_post_takes(basis, cfg))
         if curvilinear:
             # no fused diag off Cartesian meshes (dflo_tpu/driver.py:145):
             # dt and the fatal flag come from the metric-weighted averages
@@ -392,25 +396,41 @@ class Solver:
         # only where configured (dflo_tpu/driver.py:223-233, :389-408)
         dev = self.device
         self._indicator = self._limit = self._positivity = None
-        if not self._fused_chain and cfg.type == "TVB":
+        if not self._fused_chain and cfg.type != "none":
+            # the residual indicator evaluates the solver's residual
+            # (dflo_tpu/driver.py:200-202)
             self._indicator = make_shock_indicator(
                 basis, mesh, cfg.shock_indicator, per_x, per_y, self.mask,
-                dtype=dtype, device=dev)
+                dtype=dtype, device=dev, rhs=self.rhs)
+        if not self._fused_chain and cfg.type == "TVB":
             self._limit = make_tvb_limiter(
                 basis, mesh, M=cfg.M, beta=cfg.beta, char_lim=cfg.char_lim,
+                conserve_angular_momentum=cfg.conserve_angular_momentum,
                 per_x=per_x, per_y=per_y, mask=self.mask, dtype=dtype,
                 device=dev)
+        elif cfg.type == "minmax":
+            # dflo_tpu/driver.py:227-231 (Qk only: Pk raises ValueError)
+            self._limit = make_minmax_limiter(
+                basis, mesh, M=cfg.M, char_lim=cfg.char_lim, per_x=per_x,
+                per_y=per_y, mask=self.mask, dtype=dtype, device=dev)
         if not self._fused_chain and cfg.pos_lim:
             self._positivity = make_positivity_limiter(basis, dtype=dtype,
                                                        device=dev)
         if method == "mood":
-            if self.mask is None:
+            self._mood_stage = make_mood(basis, mesh, self.rhs, per_x, per_y,
+                                         mask=self.mask,
+                                         positivity=cfg.pos_lim)
+            # beside the reference's {truncation -> positivity} kernel (the
+            # stage's fused route, dflo_tpu/driver.py:283-285), its fused Pk
+            # post (:322-326: unmasked, TVB without angular momentum)
+            self._pk_post_ops = None
+            if (self._mood_stage.fused and self.mask is None
+                    and cfg.type == "TVB"
+                    and not cfg.conserve_angular_momentum):
                 self._pk_post_ops = kernels.pk_post_operators(
                     basis, mesh, M=cfg.M, beta=cfg.beta,
                     char_lim=cfg.char_lim, per_x=per_x, per_y=per_y,
                     dtype=dtype, device=dev)
-            self._mood_stage = make_mood(basis, mesh, self.rhs, per_x, per_y,
-                                         mask=self.mask)
         self.ark, self.stage_times = rk_mod.rk_coeffs(
             scheme or rk_mod.default_scheme(basis.degree))
         self.precondition = precondition
@@ -489,7 +509,7 @@ class Solver:
             return u
         ubar = self.cell_averages(u)
         if self._limit is not None:
-            shock, _ = self._indicator(u, ubar)
+            shock, _ = self._indicator(u, ubar, t)
             u = self._limit(u, ubar, shock)
         if self._positivity is not None:
             u = self._positivity(u, ubar)
@@ -550,11 +570,13 @@ class Solver:
         updates (iterate_mood, src/claw.cc:777-871): each stage re-cascades
         from degree p, blends, pins solid cells, then runs the Pk post with
         the TVB limiter only on the cells the cascade marked
-        (src/mood.cc:335-340) and positivity (src/claw.cc:866-869); on a
-        masked domain that post is the plain modal TVB with the mask and the
-        modal positivity kernel (dflo_tpu/driver.py:443-466).  Returns (u,
-        summed MoodStats, (lam, minq) of the step's result: from the final
-        stage's Pk post, or on a masked domain from the diag)."""
+        (src/mood.cc:335-340) and positivity (src/claw.cc:866-869); where
+        the reference builds no Pk post that post is the plain limiter on
+        the marked cells, if any, then the modal positivity kernel on the
+        fused route with positivity on, else the plain positivity, if on
+        (dflo_tpu/driver.py:443-466).  Returns (u, summed MoodStats, (lam,
+        minq) of the step's result: from the final stage's Pk post, else
+        from the diag)."""
         u_old = u
         n_red = n_mark = None
         iters = 0
@@ -568,9 +590,14 @@ class Solver:
             u = self.apply_mask(a * u_old + (1.0 - a) * u_cand)
             shock = marked.to(u.dtype) * 2.0
             last = si == n_st - 1
-            if self.mask is not None:
-                u = self._limit(u, self.cell_averages(u), shock)
-                u = kernels.fused_modal_pos(u, self.rhs.modal_ops)
+            if self._pk_post_ops is None:
+                ubar = self.cell_averages(u)
+                if self._limit is not None:
+                    u = self._limit(u, ubar, shock)
+                if self._mood_stage.fused:
+                    u = kernels.fused_modal_pos(u, self.rhs.modal_ops)
+                elif self._positivity is not None:
+                    u = self._positivity(u, ubar)
                 if last:
                     lam, minq = self._diag(u)
             elif last:

@@ -78,23 +78,27 @@ def contact_ic(x, y, t=0.0):
 
 def _build(nx: int, ny: int, dtype: torch.dtype = torch.float64,
            device="cuda", method: str = "rk", device_mesh=None,
-           flux: str = "hllc", degree: int = 2):
+           flux: str = "hllc", degree: int = 2, family: str | None = None,
+           limiter: LimiterConfig | None = None, **solver_kw):
     """(solver, u0) of the DMR configuration on an nx x ny mesh, with the
     HLLC flux unless `flux` names another, on Q2 (P2 for MOOD) unless
-    `degree` names another; u0 is the nodal interpolant (Qk) or the L2
-    projection (Pk) of the IC, a whole state on `device` (under a device
-    mesh, ``solver.shard(u0)`` splits it)."""
-    basis = make_basis("Pk" if method == "mood" else "Qk", degree)
+    `degree` or `family` names another, with characteristic TVB (beta 2),
+    the density indicator and positivity unless `limiter` is given;
+    solver_kw go to Solver (e.g. volume_kernel); u0 is the nodal
+    interpolant (Qk) or the L2 projection (Pk) of the IC, a whole state on
+    `device` (under a device mesh, ``solver.shard(u0)`` splits it)."""
+    family = family or ("Pk" if method == "mood" else "Qk")
+    basis = make_basis(family, degree)
     mesh = CartesianMesh(nx, ny, 0.0, 4.0, 0.0, 1.0)
     bcs = dict(W=BoundarySide(euler.BC_INFLOW, dmr_inflow),
                E=BoundarySide(euler.BC_OUTFLOW),
                S=BoundarySide(euler.BC_SLIP),
                N=BoundarySide(euler.BC_FARFIELD, dmr_inflow))
-    lim = LimiterConfig(type="TVB", shock_indicator="density", beta=2.0,
-                        char_lim=True, pos_lim=True)
+    lim = limiter or LimiterConfig(type="TVB", shock_indicator="density",
+                                   beta=2.0, char_lim=True, pos_lim=True)
     solver = Solver(basis, mesh, bcs, flux=flux, limiter=lim, cfl=0.5,
                     dtype=dtype, device=device, method=method,
-                    device_mesh=device_mesh)
+                    device_mesh=device_mesh, **solver_kw)
     u0 = ic.set_initial_condition(basis, mesh, dmr_ic, dtype=dtype,
                                   device=device)
     return solver, u0

@@ -17,7 +17,11 @@ The file is an appended-raw-binary VTU (UInt64 block headers, Float64
 fields), written as the reference writes it (dflo_tpu/io/vtk.py:105-115):
 by the native writer (dflo_tpu_torch/native vtu_write, the port's copy of
 the reference's C++), or with ``writer="python"`` by _write_vtu_file,
-NumPy alone, its plain version.  It runs on the host at output cadence.
+NumPy alone, its plain version; both write the piecewise-constant cell
+fields of ``extra_cell_fields`` (the CLI's mu_shock).  ``write_tecplot``
+writes the same patches as an ASCII Tecplot FEQUADRILATERAL zone
+(`format = tecplot`, dflo_tpu/io/vtk.py:313-352).  Everything here runs on
+the host at output cadence.
 """
 
 from __future__ import annotations
@@ -69,12 +73,25 @@ def _physical_gradient(basis, mesh, rho, ref_pts):
     return d_xi / mesh.dx, d_eta / mesh.dy
 
 
+def _patch_conn(p: int, ncell: int) -> np.ndarray:
+    """The p*p quad subcells of each cell's patch, [ncell * p * p, 4]
+    (0-based point indices)."""
+    n1 = p + 1
+    sub = np.array([[j * n1 + i, j * n1 + i + 1, (j + 1) * n1 + i + 1,
+                     (j + 1) * n1 + i] for j in range(p) for i in range(p)])
+    return (np.arange(ncell)[:, None, None] * n1 * n1
+            + sub[None]).reshape(-1, 4)
+
+
 def write_vtu(path: str, basis: basis_mod.Basis, mesh, u, t: float = 0.0,
-              schlieren: bool = True, mask=None, writer: str = "native"):
+              schlieren: bool = True, mask=None, writer: str = "native",
+              extra_cell_fields=None):
     """Write the DG solution u [4, K, ny, nx] (numpy) on a Cartesian or
     curvilinear mesh as a VTU file of per-cell patches; mask: optional
-    [ny, nx] fluid flags, solid cells are dropped; writer "native" (the C++
-    writer) or "python" (_write_vtu_file)."""
+    [ny, nx] fluid flags, solid cells are dropped; extra_cell_fields: name
+    -> [ny, nx] piecewise-constant fields (mu_shock; dflo_tpu/io/vtk.py:
+    193-199), each cell's value on its p*p subcells; writer "native" (the
+    C++ writer) or "python" (_write_vtu_file)."""
     u = np.asarray(u, np.float64)
     p = basis.degree
     ny, nx = u.shape[-2:]
@@ -105,24 +122,61 @@ def write_vtu(path: str, basis: basis_mod.Basis, mesh, u, t: float = 0.0,
         drdx, drdy = _physical_gradient(basis, mesh, u[euler.RHO], nodes)
         fields["schlieren_plot"] = gather(drdx**2 + drdy**2)
 
-    # connectivity: p*p quad subcells per cell
-    n1 = p + 1
-    sub = np.array([[j * n1 + i, j * n1 + i + 1, (j + 1) * n1 + i + 1,
-                     (j + 1) * n1 + i] for j in range(p) for i in range(p)])
-    conn = (np.arange(ncell)[:, None, None] * M + sub[None]).reshape(-1, 4)
+    conn = _patch_conn(p, ncell)
+    cell_fields = {name: np.repeat(np.asarray(a, np.float64)[iy, ix], p * p)
+                   for name, a in (extra_cell_fields or {}).items()}
     if writer == "native":
         from dflo_tpu_torch import native
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        native.vtu_write(path, pts, conn, fields, {}, t)
+        native.vtu_write(path, pts, conn, fields, cell_fields, t)
     elif writer == "python":
-        _write_vtu_file(path, pts, conn, fields, t)
+        _write_vtu_file(path, pts, conn, fields, t, cell_fields)
     else:
         raise ValueError(f"unknown VTU writer {writer!r}")
 
 
-def _write_vtu_file(path, pts, conn, point_fields, t):
+def write_tecplot(path: str, basis: basis_mod.Basis, mesh, u,
+                  t: float = 0.0, mask=None):
+    """Write u [4, K, ny, nx] (numpy) as an ASCII Tecplot FEQUADRILATERAL
+    zone (`format = tecplot`, src/parameters.cc:273-275; dflo_tpu/io/
+    vtk.py:313-352): the VTU's per-cell patches, columns x, y, Density,
+    XVelocity, YVelocity, Pressure, Energy at %.10g, then the 1-based
+    connectivity; solid cells of a mask are dropped."""
+    u = np.asarray(u, np.float64)
+    p = basis.degree
+    ny, nx = u.shape[-2:]
+    nodes = _patch_nodes(p)
+    M = len(nodes)
+    m = np.ones((ny, nx), bool) if mask is None else np.asarray(mask, bool)
+    iy, ix = np.nonzero(m)
+    ncell = len(iy)
+    vals = _apply(basis.eval_at(nodes), u)           # [4, M, ny, nx]
+    xn, yn = mesh.point_coords(nodes)
+    vx, vy, pr = derived_fields(vals)
+
+    def gather(field):
+        return field[:, iy, ix].T.ravel()
+
+    cols = [gather(np.broadcast_to(xn, vals.shape[1:])),
+            gather(np.broadcast_to(yn, vals.shape[1:])),
+            gather(vals[euler.RHO]), gather(vx), gather(vy), gather(pr),
+            gather(vals[euler.ENE])]
+    conn = _patch_conn(p, ncell) + 1
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        f.write('TITLE = "dflo_tpu solution"\n')
+        f.write('VARIABLES = "x" "y" "Density" "XVelocity" "YVelocity" '
+                '"Pressure" "Energy"\n')
+        f.write(f'ZONE T="t={t}", N={ncell * M}, E={len(conn)}, '
+                f'DATAPACKING=POINT, ZONETYPE=FEQUADRILATERAL, '
+                f'SOLUTIONTIME={t}\n')
+        np.savetxt(f, np.stack(cols, axis=1), fmt="%.10g")
+        np.savetxt(f, conn, fmt="%d")
+
+
+def _write_vtu_file(path, pts, conn, point_fields, t, cell_fields=None):
     """Appended-raw-binary VTU: each block is a UInt64 byte count followed
-    by the little-endian data."""
+    by the little-endian data; point fields, then cell fields."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     ncells, npts = len(conn), len(pts)
     blocks = [("Points", np.ascontiguousarray(pts, "<f8"), 3),
@@ -131,6 +185,9 @@ def _write_vtu_file(path, pts, conn, point_fields, t):
               ("types", np.full(ncells, 9, "u1"), 1)]      # VTK_QUAD
     blocks += [(n, np.ascontiguousarray(a, "<f8"), 1)
                for n, a in point_fields.items()]
+    n_point = len(blocks)
+    blocks += [(n, np.ascontiguousarray(a, "<f8"), 1)
+               for n, a in (cell_fields or {}).items()]
     kinds = {"<f8": "Float64", "<i4": "Int32", "|u1": "UInt8"}
     offs, off = [], 0
     for _, a, _ in blocks:
@@ -153,8 +210,10 @@ def _write_vtu_file(path, pts, conn, point_fields, t):
            f'<Piece NumberOfPoints="{npts}" NumberOfCells="{ncells}">\n'
            '<Points>\n', header(0), '</Points>\n<Cells>\n',
            header(1), header(2), header(3), '</Cells>\n<PointData>\n']
-    xml += [header(i) for i in range(4, len(blocks))]
-    xml += ['</PointData>\n</Piece>\n</UnstructuredGrid>\n'
+    xml += [header(i) for i in range(4, n_point)]
+    xml += ['</PointData>\n<CellData>\n']
+    xml += [header(i) for i in range(n_point, len(blocks))]
+    xml += ['</CellData>\n</Piece>\n</UnstructuredGrid>\n'
             '<AppendedData encoding="raw">\n_']
     with open(path, "wb") as f:
         f.write("".join(xml).encode())

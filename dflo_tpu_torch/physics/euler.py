@@ -58,6 +58,17 @@ def max_eigenvalue_normal(U, nx, ny):
     return torch.abs(vn) + sound_speed(U)
 
 
+def entropy_var(U):
+    """Entropy variables V(U)  (src/equation.h:1039-1058)."""
+    p = pressure(U)
+    T = p / U[RHO]
+    u = U[MX] / U[RHO]
+    v = U[MY] / U[RHO]
+    u2 = u * u + v * v
+    Vr = torch.log(U[RHO] / T ** (1.0 / (GAMMA - 1.0))) - 0.5 * u2 / T
+    return torch.stack([u / T, v / T, Vr, -1.0 / T])
+
+
 def flux_x(U):
     """Cartesian x-flux column F(U)  (src/equation.h:158-193)."""
     p = pressure(U)
@@ -126,6 +137,51 @@ def eigen_matrices(U):
     return Rx, Lx, Ry, Ly
 
 
+def eigen_matrices_dir(U, kx, ky):
+    """Eigenvector matrices for the direction k = (kx, ky): the 2-argument
+    compute_eigen_matrix of src_mpi/equation.h:300-331 (dflo_tpu/physics/
+    euler.py:148).  Returns (R, L) in the internal (rho, mx, my, E)
+    ordering; kx, ky broadcast against the state's trailing dims."""
+    g1 = GAMMA - 1.0
+    rho = U[RHO]
+    u = U[MX] / rho
+    v = U[MY] / rho
+    q2 = u * u + v * v
+    p = g1 * (U[ENE] - 0.5 * rho * q2)
+    c2 = GAMMA * _pos(p) / _pos(rho)
+    c = torch.sqrt(c2)
+    beta = 0.5 / c2
+    phi2 = 0.5 * g1 * q2
+    h = c2 / g1 + 0.5 * q2
+    uk = u * kx + v * ky
+    one = torch.ones_like(rho)
+    zero = torch.zeros_like(rho)
+
+    def M(rows):
+        return torch.stack([torch.stack([torch.broadcast_to(e, rho.shape)
+                                         for e in r]) for r in rows])
+
+    R = M([[one, zero, one, one],
+           [u, ky * one, u + kx * c, u - kx * c],
+           [v, -kx * one, v + ky * c, v - ky * c],
+           [0.5 * q2, ky * u - kx * v, h + c * uk, h - c * uk]])
+    L = M([[1 - phi2 / c2, g1 * u / c2, g1 * v / c2, -g1 / c2 * one],
+           [-(ky * u - kx * v), ky * one, -kx * one, zero],
+           [beta * (phi2 - c * uk), beta * (kx * c - g1 * u),
+            beta * (ky * c - g1 * v), beta * g1 * one],
+           [beta * (phi2 + c * uk), -beta * (kx * c + g1 * u),
+            -beta * (ky * c + g1 * v), beta * g1 * one]])
+    return R, L
+
+
+def streamline_eigen_matrices(U):
+    """(R, L) along the local velocity direction (src_mpi/equation.h:
+    315-317, theta = atan2(v, u)); a stagnant cell takes the x-direction
+    (atan2(0, 0) = 0, as in the reference)."""
+    theta = torch.atan2(U[MY], U[MX])
+    return eigen_matrices_dir(U, torch.cos(theta), torch.sin(theta))
+
+
 def _reorder_to_internal(W):
     """(mx, my, rho, E) -> (rho, mx, my, E)  (src/equation.h:276-279)."""
     return torch.stack([W[RHO], W[MX], W[MY], W[ENE]])
@@ -159,9 +215,9 @@ def to_conserved(R, Wc):
 BC_INFLOW, BC_OUTFLOW, BC_SLIP, BC_PRESSURE, BC_FARFIELD, BC_PERIODIC, BC_NONE = (
     0, 1, 2, 3, 4, 5, -1)
 
-#: the kinds compute_wminus handles in this slice (the pressure kind comes with
-#: the rest of the physics envelope)
-SUPPORTED_BC = (BC_INFLOW, BC_OUTFLOW, BC_SLIP, BC_FARFIELD, BC_PERIODIC)
+#: the kinds a side may take (periodic is topological: the mesh pairs it)
+SUPPORTED_BC = (BC_INFLOW, BC_OUTFLOW, BC_SLIP, BC_PRESSURE, BC_FARFIELD,
+                BC_PERIODIC)
 
 
 def mirror_x(U):
@@ -194,21 +250,25 @@ def compute_wminus(kind: int, nx: float, ny: float, Wplus, bvals):
     nx,ny : outward unit normal components (floats, or tensors that
             broadcast against the trace on a curvilinear side)
     Wplus : [4, ...] inside trace
-    bvals : [4, ...] boundary expression values
+    bvals : [4, ...] boundary expression values (the pressure kind reads
+            its prescribed pressure from the energy slot, src/equation.h:992)
     """
     if kind in (BC_INFLOW, BC_FARFIELD):
         return bvals
-    if kind == BC_OUTFLOW:
-        return Wplus
+    if kind == BC_PRESSURE:
+        # momentum and density from the trace, the energy from the
+        # prescribed pressure (dflo_tpu/physics/euler.py:237-247)
+        return torch.stack([Wplus[MX], Wplus[MY], Wplus[RHO],
+                            bvals[ENE] / (GAMMA - 1.0)
+                            + kinetic_energy(Wplus)])
     if kind == BC_SLIP:
         vdotn = Wplus[MX] * nx + Wplus[MY] * ny
         return torch.stack([Wplus[MX] - 2.0 * vdotn * nx,
                             Wplus[MY] - 2.0 * vdotn * ny,
                             Wplus[RHO], Wplus[ENE]])
-    raise NotImplementedError(
-        f"boundary kind {kind} is not ported yet (slice A covers inflow, "
-        f"outflow, slip and farfield; the pressure kind comes with the "
-        f"physics envelope slice)")
+    # outflow, and any code the reference's where-chain does not name,
+    # copies the trace
+    return Wplus
 
 
 def forcing_gravity(U, gvec=(0.0, -1.0)):

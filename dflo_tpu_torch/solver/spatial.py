@@ -129,10 +129,8 @@ def _check_bcs(bcs) -> tuple[bool, bool]:
                 raise TypeError(f"side {name}: {seg!r} is not a "
                                 f"BoundarySide")
             if seg.kind not in euler.SUPPORTED_BC:
-                raise NotImplementedError(
-                    f"side {name}: boundary kind {seg.kind} is not ported "
-                    f"yet; it comes with the rest of the physics envelope "
-                    f"(ROADMAP)")
+                raise ValueError(f"side {name}: unknown boundary kind "
+                                 f"{seg.kind}")
     per_x = bcs["W"].kind == euler.BC_PERIODIC
     per_y = bcs["S"].kind == euler.BC_PERIODIC
     if per_x != (bcs["E"].kind == euler.BC_PERIODIC):
@@ -182,7 +180,8 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
              flux: str = "lxf", *, dtype: torch.dtype, device,
              volume_kernel: str = "xla", mask=None, source=None,
              well_balanced: str | None = None, potential=None,
-             polytropic_nu: float = 1.2, device_mesh=None):
+             polytropic_nu: float = 1.2, mass_matrix: str = "diagonal",
+             device_mesh=None):
     """Build du/dt = rhs(u, t) for a Cartesian mesh (see module docstring).
 
     bcs  : {'W','E','S','N'} -> BoundarySide; periodic sides come in opposite
@@ -198,6 +197,11 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
            round-off (src_gll/assemble_explicit.cc:30-230); needs a
            collocated basis and excludes `source`.  Polytropic (exponent
            polytropic_nu) runs on the plain forms only, as in the reference.
+    mass_matrix : 'diagonal' (lumped, src_gll/claw.cc:233-262) or 'full'
+           (the consistent per-cell mass matrix, inverted exactly in float64
+           once, src_gll/claw.cc:754-770, dflo_tpu/solver/spatial.py:183):
+           the plain forms only, as the reference's kernel covers the
+           diagonal mass alone.
     The fused form carries ``.strips(u, t)``, ``.stage(u, u_old, t, a, dt)``,
     ``.step(u, t, dt)``, ``.ops`` (the kernel operators) and
     ``.force(t)`` (the external force's planes at t, or None); the plain
@@ -219,6 +223,12 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         if potential is None:
             raise ValueError("well-balanced gravity needs a potential "
                              "phi(x, y)")
+    if mass_matrix not in ("diagonal", "full"):
+        raise ValueError(f"unknown mass matrix option {mass_matrix!r}")
+    if volume_kernel == "fused" and mass_matrix != "diagonal":
+        raise ValueError("volume_kernel='fused' covers the diagonal-mass "
+                         "hot path (dflo_tpu/solver/spatial.py:191-194); use "
+                         "'xla' or 'pallas' for the full mass matrix")
     if volume_kernel == "fused" and well_balanced == "polytropic":
         raise ValueError("volume_kernel='fused' carries no polytropic "
                          "well-balanced source; use 'xla' or 'pallas'")
@@ -287,6 +297,9 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
             [dy * (basis.wq2[:, None] * basis.Gx).T,
              dx * (basis.wq2[:, None] * basis.Gy).T], axis=1))
     minv = cast(1.0 / basis.mass)
+    # the full mass matrix inverted in float64, then cast (as the reference)
+    minv_full = (cast(np.linalg.inv(basis.mass_full))
+                 if mass_matrix == "full" else None)
     area = dx * dy
 
     # boundary face quadrature coordinates (for BC expressions)
@@ -563,8 +576,11 @@ def make_rhs(basis: basis_mod.Basis, mesh, bcs: dict[str, BoundarySide],
         R = R - dx * basis_apply(faceVw[NORTH].T, Fy_all[..., 1:, :])
         R = R + dx * basis_apply(faceVw[SOUTH].T, Fy_all[..., :-1, :])
 
-        # ---- diagonal mass solve (src/claw.cc:694-713) -------------------
-        R = R * (minv[None, :, None, None] / area)
+        # ---- mass solve (src/claw.cc:694-713; full: src_gll/claw.cc:754) --
+        if minv_full is not None:
+            R = basis_apply(minv_full, R) / area
+        else:
+            R = R * (minv[None, :, None, None] / area)
         if mask is not None:
             R = R * fmask[None, None]                 # solid cells are frozen
         return R

@@ -1,12 +1,16 @@
 """Shock indicators as whole-domain tensor sweeps.
 
-The torch counterpart of dflo_tpu/stab/indicator.py for the `limiter` kind,
-which marks every cell (src/indicator.cc:19-22), and the KXRCF density and
+The torch counterpart of dflo_tpu/stab/indicator.py: the `limiter` kind,
+which marks every cell (src/indicator.cc:19-22); the KXRCF density and
 energy indicators (compute_shock_indicator_kxrcf, src/indicator.cc:48-198):
 per cell, the inflow-part boundary integral of the jump in the indicator
-variable, normalized by h^{(p+1)/2} * inflow measure * cell average.
-Boundary faces, and faces to a solid cell of a masked domain, contribute no
-jump (src/indicator.cc:174-179).  A cell is marked (limiter active) when the
+variable, normalized by h^{(p+1)/2} * inflow measure * cell average, where
+boundary faces, and faces to a solid cell of a masked domain, contribute no
+jump (src/indicator.cc:174-179); Diot's `u2` smoothness test on the density
+D2 modes of the Pk basis (src/indicator.cc:34-46, src/mood.cc:233-282);
+and the `residual` indicator, the RMS of du/dt per cell against 1e-12
+(src_gll/indicator.cc:40-62), which marks nearly every cell of a float32
+state, as the reference's does.  A cell is marked (limiter active) when the
 indicator exceeds 1 (src/limiter.cc:263).
 """
 
@@ -20,18 +24,27 @@ from dflo_tpu_torch.ops.basis import EAST, NORTH, SOUTH, WEST
 from dflo_tpu_torch.ops.contract import as_tensor, basis_apply1, quad_reduce1
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.stab.limiter import neighbor_valid
+from dflo_tpu_torch.stab.mood import u2_ok
+
+
+def _full(like, value: float, dtype: torch.dtype) -> torch.Tensor:
+    """A 0-dim tensor of value in dtype on like's device (a Python scalar
+    in torch.where would round through float32)."""
+    return torch.full((), value, dtype=dtype, device=like.device)
 
 
 def make_shock_indicator(basis: basis_mod.Basis, mesh, kind: str = "density",
                          per_x: bool = False, per_y: bool = False,
                          mask: np.ndarray | None = None, *,
-                         dtype: torch.dtype, device):
-    """Build indicator(u, ubar, valid=None) -> (shock_ind[ny,nx],
+                         dtype: torch.dtype, device, rhs=None):
+    """Build indicator(u, ubar, t=0.0, valid=None) -> (shock_ind[ny,nx],
     jump_ind[ny,nx]).
 
     kind : 'limiter' (mark all, src/indicator.cc:19-22) | 'density' |
-           'energy' (KXRCF).  The 'u2' and 'residual' indicators come with
-           later slices.
+           'energy' (KXRCF) | 'u2' (Pk, p >= 2: the density D2 modes 2 and
+           2p + 1 over the plus stencil, dflo_tpu/stab/indicator.py:48-70) |
+           'residual' (the RMS of rhs(u, t) over components and modes
+           against 1e-12; needs `rhs`; its second result is the RMS).
     mask : optional bool [ny, nx] fluid flags; faces whose neighbor is solid
            count like boundary faces.
     valid: the call's own neighbor-exists flags (W, E, S, N), bool [ny, nx]
@@ -39,15 +52,40 @@ def make_shock_indicator(basis: basis_mod.Basis, mesh, kind: str = "density",
            block form passes those of a block framed by its halo lines).
     """
     if kind == "limiter":
-        def mark_all(u, ubar, valid=None):
+        def mark_all(u, ubar, t=0.0, valid=None):
             shape = u.shape[-2:]
             return (torch.full(shape, 1e20, dtype=dtype, device=u.device),
                     torch.zeros(shape, dtype=dtype, device=u.device))
         return mark_all
+    if kind == "u2":
+        if basis.family != "Pk" or basis.degree < 2:
+            raise ValueError("u2 indicator needs the Pk basis with degree "
+                             ">= 2 (src/mood.cc:215-231 modal coefficients)")
+        p = basis.degree
+        valid_u2 = tuple(torch.as_tensor(v, device=device) for v in
+                         neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
+                                        mask))
+
+        def u2_indicator(u, ubar, t=0.0, valid=None):
+            ok = u2_ok(u[euler.RHO, 2], u[euler.RHO, 2 * p + 1],
+                       valid_u2 if valid is None else valid)
+            shock = torch.where(ok, _full(ok, 0.0, dtype), _full(ok, 1e20,
+                                                                  dtype))
+            return shock, torch.zeros_like(shock)
+        return u2_indicator
+    if kind == "residual":
+        if rhs is None:
+            raise ValueError("residual indicator needs the rhs function")
+
+        def residual_indicator(u, ubar, t=0.0, valid=None):
+            r = rhs(u, t)                             # [4, K, ny, nx]
+            rms = torch.sqrt(torch.mean(r * r, dim=(0, 1)))
+            shock = torch.where(rms > 1.0e-12, _full(rms, 1e20, dtype),
+                                _full(rms, 0.0, dtype))
+            return shock, rms
+        return residual_indicator
     if kind not in ("density", "energy"):
-        raise NotImplementedError(
-            f"shock indicator {kind!r} is not ported yet (the port carries "
-            f"the limiter kind and the KXRCF density and energy indicators)")
+        raise ValueError(f"unknown shock indicator {kind!r}")
     comp = {"density": euler.RHO, "energy": euler.ENE}[kind]
     faceV = [as_tensor(basis.faceV[f], dtype, device) for f in range(4)]
     wq = as_tensor(basis.wq, dtype, device)
@@ -59,7 +97,7 @@ def make_shock_indicator(basis: basis_mod.Basis, mesh, kind: str = "density",
                        neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
                                       mask))
 
-    def indicator(u, ubar, valid=None):
+    def indicator(u, ubar, t=0.0, valid=None):
         vW, vE, vS, vN = (valid_mesh if valid is None
                           else (f.to(u.dtype) for f in valid))
         v = u[comp]                                   # [K, ny, nx]

@@ -37,19 +37,34 @@ The fixed point runs on the host, one ``bool(chg.any())`` per pass (up to
 ``max_iters``); everything else stays on the device.  MOOD requires the Pk
 basis and global time stepping (src/parameters.cc:536-544).
 
-Two routes, as the reference's make_mood on its TPU path: the sparse route
+Three routes, as the reference's make_mood: with the fused modal residual
+and positivity on (the reference's fused {truncation -> positivity}
+kernel, dflo_tpu/stab/mood.py:262, driver.py:283-285), the sparse route
 above where the residual carries the one-pass candidate (an unmasked domain
-without a source term); else the dense route, every pass after the first
-the {truncation -> positivity} of the predictor followed by the
-forward-Euler residual on every cell (dflo_tpu/stab/mood.py:320-332).  On a
-masked domain solid cells count as missing neighbors of the plane ops and
-never fail the check; the check is then this module's plain check_update,
-as the reference's masked cascade runs its XLA check
-(dflo_tpu/stab/mood.py:280-291, :348); unmasked it is the check kernel.
-On P1 the check is the plain check_update with the u2 exemption off on
-every device: the basis has no D2 modes and the reference has no check
-kernel below p = 2 (dflo_tpu/stab/mood.py:244-246, :284).  The candidate,
-the modal positivity and the Pk post take every degree 1-6.
+without a source term), else the dense route, every pass after the first
+the {truncation -> positivity} kernel on the predictor followed by the
+forward-Euler residual on every cell (dflo_tpu/stab/mood.py:320-332).
+Otherwise (the plain residual, a source callable the kernel does not carry,
+or positivity off) the plain arm: each pass's candidate is the truncated
+predictor, re-limited by the plain Zhang-Shu limiter about the predictor's
+averages when positivity is on, plus dt times the residual, on every cell,
+and the check is the plain check_update (dflo_tpu/stab/mood.py:320-362).
+On a masked domain solid cells count as missing neighbors of the plane ops
+and never fail the check; the check is then this module's plain
+check_update, as the reference's masked cascade runs its XLA check
+(dflo_tpu/stab/mood.py:280-291, :348); unmasked on the fused route it is
+the check kernel.  On P1 the check is the plain check_update with the u2
+exemption off on every device: the basis has no D2 modes and the reference
+has no check kernel below p = 2 (dflo_tpu/stab/mood.py:244-246, :284).  The
+candidate, the modal positivity and the Pk post take every degree 1-6.
+
+Options of the reference's make_mood: ``dmp_bounds="collapsed"`` (the
+bounds its loop executes, every cell's interval collapsed to its own mean:
+a superset of the neighborhood's failing cells, kept for validation,
+dflo_tpu/stab/mood.py:308-310) and the warm start ``deg_in`` (the cascade
+starts at a given degree map, its first pass the {truncation ->
+positivity} candidate; the settled map is the fourth result,
+dflo_tpu/stab/mood.py:314-318, :395-409).
 """
 
 from __future__ import annotations
@@ -59,8 +74,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dflo_tpu_torch.ops.contract import as_tensor, basis_reduce
 from dflo_tpu_torch.physics import euler
 from dflo_tpu_torch.stab.limiter import neighbor_valid
+from dflo_tpu_torch.stab.positivity import make_positivity_limiter
 
 DMP_EPS = 1.0e-6     # src/mood.cc:296
 U2_EPS = 0.5         # src/mood.cc:271
@@ -162,35 +179,35 @@ class MoodStats(NamedTuple):
 
 
 class MoodStage:
-    """mood_stage(u_pre, t, dt) -> (u_candidate, limiter_marked, MoodStats,
-    degree) for one SSP stage (dflo_tpu/stab/mood.py make_mood, the TPU form).
-    rhs is the fused modal residual of solver/spatial.make_rhs(...,
-    volume_kernel="fused") (its ``.step``, ``.modal_ops`` and, where it has
-    one, ``.sparse_candidate``); mask the bool [ny, nx] fluid flags of a
-    masked domain, or None.  Any degree 1-6 the residual takes.
+    """mood_stage(u_pre, t, dt, deg_in=None) -> (u_candidate, limiter_marked,
+    MoodStats, degree) for one SSP stage (dflo_tpu/stab/mood.py make_mood).
+    rhs is the modal residual of solver/spatial.make_rhs: the fused one
+    (its ``.step``, ``.modal_ops`` and, where it has one,
+    ``.sparse_candidate``) or a plain one; mask the bool [ny, nx] fluid
+    flags of a masked domain, or None; positivity whether Zhang-Shu
+    re-limits each truncated predictor.  Any degree 1-6 the residual takes.
 
-    Each pass's candidate goes through the port's kernels (their plain
-    versions on CPU tensors): pass 1 is the dense modal residual's
-    forward-Euler form u + dt*R(u); later passes are the sparse candidate on
-    the cells that can change (sparse_mode="auto" with a residual that has
-    one; see the module docstring), else the dense fused_modal_pos(u_pre,
-    deg) followed by the dense forward-Euler residual on every cell.  Each
-    pass ends in the check: the check kernel, or on a masked domain or
-    below p = 2 the plain check_update (with the mask; on P1 with the u2
-    test off).  host_syncs counts the ``bool(chg.any())`` reads."""
+    With the fused residual and positivity on (``fused``), each pass's
+    candidate goes through the port's kernels (their plain versions on CPU
+    tensors): pass 1 is the dense modal residual's forward-Euler form
+    u + dt*R(u); later passes are the sparse candidate on the cells that
+    can change (sparse_mode="auto" with a residual that has one; see the
+    module docstring), else the dense fused_modal_pos(u_pre, deg) followed
+    by the dense forward-Euler residual on every cell.  Each pass ends in
+    the check: the check kernel, or on a masked domain or below p = 2 the
+    plain check_update (with the mask; on P1 with the u2 test off).
+    Otherwise every pass is the plain arm on every cell, with the plain
+    check.  host_syncs counts the ``bool(chg.any())`` reads."""
 
     def __init__(self, basis, mesh, rhs, per_x: bool = False,
                  per_y: bool = False, *, mask=None, max_iters: int = 20,
-                 dmp_bounds: str = "neighborhood", sparse_mode: str = "auto"):
+                 dmp_bounds: str = "neighborhood", sparse_mode: str = "auto",
+                 positivity: bool = True):
         from dflo_tpu_torch.ops import kernels
         if basis.family != "Pk":
             raise ValueError("MOOD is implemented only for Pk "
                              "(src/parameters.cc:541-544)")
-        if dmp_bounds == "collapsed":
-            raise NotImplementedError(
-                "dmp_bounds='collapsed' (the reference's executed bounds, a "
-                "validation option) is not ported yet")
-        if dmp_bounds != "neighborhood":
+        if dmp_bounds not in ("neighborhood", "collapsed"):
             raise ValueError(f"unknown dmp_bounds {dmp_bounds!r}")
         if sparse_mode not in ("auto", "off"):
             raise ValueError(f"unknown sparse_mode {sparse_mode!r}")
@@ -198,59 +215,112 @@ class MoodStage:
         self.p = basis.degree
         self.rhs = rhs
         self.max_iters = max_iters
-        self.sparse = (sparse_mode == "auto"
+        self.collapsed = dmp_bounds == "collapsed"
+        # the reference's use_fused: its {truncation -> positivity} kernel
+        # exists on the fused modal residual with positivity on
+        self.fused = positivity and hasattr(rhs, "modal_ops")
+        self.sparse = (self.fused and sparse_mode == "auto"
                        and hasattr(rhs, "sparse_candidate"))
-        self.mops = rhs.modal_ops
-        device = self.mops.P.device
+        self.mops = rhs.modal_ops if self.fused else None
+        self.avg0 = kernels.mode0_mean(basis)
+        # an operator of the residual gives the dtype and device
+        ref = (rhs.modal_ops.P if hasattr(rhs, "modal_ops")
+               else rhs.lift_stack)
+        device = ref.device
         self.mask = (None if mask is None
                      else torch.as_tensor(np.asarray(mask, bool),
                                           device=device))
         self.valid = tuple(torch.as_tensor(v, device=device) for v in
                            neighbor_valid((mesh.ny, mesh.nx), per_x, per_y,
                                           mask))
-        # the check kernel's operators; None below p = 2, where the check
-        # is the plain one (the reference builds no check kernel there)
+        # the check kernel's operators on the fused route; None below
+        # p = 2, where the check is the plain one (the reference builds no
+        # check kernel there), and on the plain arm
         self.cops = (kernels.mood_check_operators(basis, mesh, per_x=per_x,
                                                   per_y=per_y, device=device)
-                     if self.p >= 2 else None)
+                     if self.fused and self.p >= 2 else None)
+        # the plain arm's truncation masks [p + 1, K] (mode total degree
+        # <= d, src/mood.cc:174-191), mean weights and positivity limiter
+        kw = dict(dtype=ref.dtype, device=device)
+        self.trunc = as_tensor(np.stack(
+            [basis.mode_degree <= d for d in range(self.p + 1)]), **kw)
+        self.avg_op = as_tensor(basis.wq2 @ basis.V, **kw)
+        self.pos = (make_positivity_limiter(basis, **kw)
+                    if positivity and not self.fused else None)
         self.host_syncs = 0
 
+    def _forward(self, u, t, dt):
+        """u + dt*R(u): the fused residual's forward-Euler form, or the
+        plain residual's R and an axpy."""
+        if hasattr(self.rhs, "step"):
+            return self.rhs.step(u, t, dt)
+        return u + dt * self.rhs(u, t)
+
+    def _candidate(self, u_pre, deg, t, dt, ubar0):
+        """The dense candidate of a degree map: {truncation -> positivity}
+        of the predictor (the kernel on the fused route), then u + dt*R
+        (dflo_tpu/stab/mood.py:320-332)."""
+        if self.fused:
+            u_t = self.kernels.fused_modal_pos(u_pre, self.mops, deg)
+        else:
+            u_t = u_pre * self.trunc[deg.long()].permute(2, 0, 1)[None]
+            if self.pos is not None:
+                u_t = self.pos(u_t, ubar0)
+        return self._forward(u_t, t, dt)
+
     def _check(self, u_c, dmp_min, dmp_max, deg, lim):
-        """One acceptance pass: the check kernel, or on a masked domain or
-        below p = 2 the plain check (the reference's XLA check: with the
-        mask; on P1 with the u2 test off)."""
+        """One acceptance pass: the check kernel, or on a masked domain,
+        below p = 2 or on the plain arm the plain check (the reference's
+        XLA check: with the mask; on P1 with the u2 test off)."""
         if self.mask is None and self.cops is not None:
             return self.kernels.fused_mood_check(u_c, dmp_min, dmp_max, deg,
                                                  lim, self.cops)
         rho = u_c[euler.RHO]
         d2 = ((rho[2], rho[2 * self.p + 1]) if self.p >= 2
               else (None, None))
-        return check_update(self.mops.avg0 * rho[0], *d2, dmp_min, dmp_max,
+        return check_update(self.avg0 * rho[0], *d2, dmp_min, dmp_max,
                             deg, lim, self.valid, self.mask)
 
     def __call__(self, u_pre, t, dt, deg_in=None, live=None):
-        """live: optional 0-dim bool tensor; when false the cascade stops
-        after pass 1 (a step whose result the chunked loop discards).  The
-        fourth result is the settled degree map (int32), which the JAX
-        stage does not return."""
-        if deg_in is not None:
-            raise NotImplementedError(
-                "the MOOD warm start (deg_in) is not ported yet; every stage "
-                "re-cascades from degree p, as the reference does")
+        """deg_in: optional int [ny, nx] degree map the cascade starts at
+        (clipped to 1..p), the warm start; live: optional 0-dim bool
+        tensor, when false the cascade stops after pass 1 (a step whose
+        result the chunked loop discards).  The fourth result is the
+        settled degree map (int32), which the JAX stage returns only with
+        deg_in."""
         k = self.kernels
-        rho0 = self.mops.avg0 * u_pre[euler.RHO, 0]
-        dmp_min = neighborhood_min(rho0, self.valid)
-        dmp_max = neighborhood_max(rho0, self.valid)
+        ubar0 = None
+        if self.pos is None:
+            rho0 = self.avg0 * u_pre[euler.RHO, 0]
+        else:
+            # the plain positivity limits about the predictor's averages
+            ubar0 = basis_reduce(self.avg_op, u_pre)
+            rho0 = ubar0[euler.RHO]
+        if self.collapsed:
+            dmp_min = dmp_max = rho0
+        else:
+            dmp_min = neighborhood_min(rho0, self.valid)
+            dmp_max = neighborhood_max(rho0, self.valid)
         shape = u_pre.shape[-2:]
-        deg = torch.full(shape, self.p, dtype=torch.int32,
-                         device=u_pre.device)
+        if deg_in is None:
+            deg = torch.full(shape, self.p, dtype=torch.int32,
+                             device=u_pre.device)
+        else:
+            deg = torch.clamp(deg_in.to(device=u_pre.device,
+                                        dtype=torch.int32), 1, self.p)
         lim = torch.zeros(shape, dtype=torch.bool, device=u_pre.device)
 
-        # ---- pass 1, peeled: the unmodified predictor's forward Euler ----
-        u_c = self.rhs.step(u_pre, t, dt)
+        # ---- pass 1, peeled: the unmodified predictor's forward Euler, or
+        # with a warm start the candidate of deg_in ------------------------
+        if deg_in is None:
+            u_c = self._forward(u_pre, t, dt)
+        else:
+            u_c = self._candidate(u_pre, deg, t, dt, ubar0)
         deg, lim, chg = self._check(u_c, dmp_min, dmp_max, deg, lim)
         it = 1
-        moved = None
+        # the cells (and their neighbors) whose pass-1 candidate skipped a
+        # chain that moves them: none after a warm start's pass 1
+        moved = None if deg_in is None else torch.zeros_like(chg)
         while it < self.max_iters:
             if live is not None:
                 chg = chg & live
@@ -269,8 +339,7 @@ class MoodStage:
                 aff = chg | dilate4(chg) | moved
                 u_c = self.rhs.sparse_candidate(u_pre, u_c, deg, t, dt, aff)
             else:
-                u_t = k.fused_modal_pos(u_pre, self.mops, deg)
-                u_c = self.rhs.step(u_t, t, dt)
+                u_c = self._candidate(u_pre, deg, t, dt, ubar0)
             deg, lim, chg = self._check(u_c, dmp_min, dmp_max, deg, lim)
             it += 1
         stats = MoodStats(torch.sum(self.p - deg), torch.sum(lim), it)

@@ -100,13 +100,14 @@ def edited(name: str, nx: int, ny: int, *edits) -> str:
 
 def check_cli_pair(text: str, tmp_path, family: str, nx: int,
                    at_rest: bool = False, steps: int = STEPS,
-                   equal_moods: bool = True):
+                   equal_moods: bool = True, logs: dict | None = None):
     """The config `text` through both CLIs, `steps` steps with a checkpoint
     after each: equal step counts and times, every checkpoint within TOL
     (rel, or for a state at rest relative to its largest magnitude with
     the port's momentum below 5e-13), and (equal_moods) the MOOD counters
     of every step the two print equal.  Returns (the port's CliRun, the
-    JAX package's counters, the port's)."""
+    JAX package's counters, the port's); logs, when given, receives the
+    two CLIs' standard output under "jax" and "port"."""
     prm = tmp_path / "config.prm"
     prm.write_text(text)
     common = [str(prm), "--platform", "cpu", "--x64", "--max-steps",
@@ -117,6 +118,8 @@ def check_cli_pair(text: str, tmp_path, family: str, nx: int,
         assert jcli.main(common + ["--output-dir", str(jout)]) == 0
     with contextlib.redirect_stdout(tlog):
         res = cli.run(common + ["--output-dir", str(tout)])
+    if logs is not None:
+        logs.update(jax=jlog.getvalue(), port=tlog.getvalue())
     assert re.search(rf"steps={steps}\s", jlog.getvalue())
     pat = r"it=\s*(\d+).*mood: (reduce=\d+ limit=\d+ passes=\d+)"
     moods = re.findall(pat, jlog.getvalue())

@@ -46,7 +46,9 @@ and wrap, all bitwise; the diag (one launch a call, the Pk mode-0 mean,
 the nodal full row, masked, over-integrated, on ragged and unaligned
 states and a narrow workspace), its sharded form and the volume residual
 at Q1-Q6 and GLL1-GLL6, all bitwise, and a diag call traced as one
-kernel.
+kernel; the physics envelope: the masked Q1 stage on a pressure outlet's
+strips, bitwise, the MOOD cascade off the fused route launching no MOOD
+kernel, and minmax and u2 steps on the card against the CPU port.
 
 Marked ``gpu``; without a CUDA device every test skips.  The file imports no
 JAX, so it also runs on a machine with the card and no JAX (tests/conftest.py
@@ -1996,3 +1998,111 @@ def test_cli_runs_mesh_files_on_the_card(cuda, tmp_path):
     assert res.solver.curvilinear and res.u.is_cuda
     assert [len(h) for h in res.steady_levels] == [1, 1]
     assert bool(torch.isfinite(res.u).all())
+
+
+# ---------------------------------------------------------------------------
+# the rest of the physics envelope: pressure sides, minmax, u2, MOOD off
+# the fused route
+# ---------------------------------------------------------------------------
+
+def outlet_pressure(x, y, t):
+    """A pressure side's values: the free stream's pressure 1.0 in the
+    energy slot (the forward step's)."""
+    z = torch.zeros_like(x)
+    return torch.stack([z, z, z, z + 1.0])
+
+
+@pytest.mark.parametrize("dtype", ("float32", "float64"))
+def test_pressure_strip_stage_is_bitwise_plain(cuda, dtype):
+    """The masked Q1 forward step at 96 x 32 (lxf, the step's solid cells)
+    with its outlet a pressure side: the SSP-stage form of the residual
+    (row 2) on the pressure strips equals its plain version bitwise, and the
+    pressure side changes the E strip."""
+    dt = getattr(torch, dtype)
+    mesh = CartesianMesh(96, 32, 0.0, 3.0, 0.0, 1.0)
+    xc, yc = mesh.cell_centers()
+    mask = ~((xc > 0.6) & (yc < 0.2))
+
+    def inflow(x, y, t):
+        return torch.stack([torch.full_like(x, v)
+                            for v in (4.2, 0.0, 1.4, 8.8)])
+
+    slip = BoundarySide(euler.BC_SLIP)
+    bcs = dict(W=BoundarySide(euler.BC_INFLOW, inflow),
+               E=BoundarySide(euler.BC_PRESSURE, outlet_pressure), S=slip,
+               N=slip)
+    basis = make_basis("Qk", 1)
+    gen = torch.Generator().manual_seed(17)
+    u = ic.set_initial_condition(basis, mesh, inflow, dtype=torch.float64,
+                                 device="cpu")
+    u = u * (1.0 + 0.05 * (2.0 * torch.rand(u.shape, generator=gen,
+                                            dtype=torch.float64) - 1.0))
+    u = u.to(dtype=dt, device=cuda)
+    rhs = make_rhs(basis, mesh, bcs, flux="lxf", dtype=dt, device=cuda,
+                   volume_kernel="fused", mask=mask)
+    t = torch.full((), 0.05, dtype=dt, device=cuda)
+    strips = rhs.strips(u, t)
+    out = make_rhs(basis, mesh, dict(bcs, E=BoundarySide(euler.BC_OUTFLOW)),
+                   flux="lxf", dtype=dt, device=cuda, volume_kernel="fused",
+                   mask=mask).strips(u, t)
+    assert not torch.equal(strips[1], out[1])
+    sc = torch.tensor([0.5, 1e-4], dtype=dt, device=cuda)
+    u_old = u.flip(-1).contiguous()
+    before = kernels.fused_residual.launches
+    k = kernels.fused_residual(u, *strips, rhs.ops, u_old=u_old, sc=sc)
+    q = kernels.fused_residual_plain(u, *strips, rhs.ops, u_old=u_old, sc=sc)
+    torch.cuda.synchronize()
+    assert kernels.fused_residual.launches == before + 1
+    assert same_bits(k, q)
+
+
+def test_mood_xla_route_launches_no_mood_kernel(cuda):
+    """The P2 DMR MOOD with volume_kernel="xla" at 96 x 24, f32, two steps:
+    the candidate, the modal positivity, the Pk post and the check (rows 3,
+    8, 9 and 10) and the residual kernel are not launched, the diag (row 6)
+    is, as the reference routes a cascade without its fused residual."""
+    from dflo_tpu_torch import entry
+    s, u0 = entry._build(96, 24, dtype=torch.float32, device=cuda,
+                         method="mood", volume_kernel="xla")
+    u = s.post_stage(u0)
+    kernels.reset_launch_counts()
+    u, t, n, bad, stats = s._multi_step(2)(u, 0.0, 1.0)
+    counts = kernels.launch_counts()
+    assert int(n) == 2 and not bool(bad) and bool(torch.isfinite(u).all())
+    for k in ("fused_mood_candidate", "fused_modal_pos", "fused_pk_post",
+              "fused_mood_check", "fused_residual"):
+        assert counts[k] == 0, counts
+    assert counts["fused_diag"] > 0 and int(stats.n_reduce) > 0
+
+
+@pytest.mark.parametrize("case", ("minmax_q2", "u2_p2"))
+def test_envelope_steps_on_the_card_match_cpu(cuda, case):
+    """Three f32 steps of the 96 x 24 DMR with minmax on Q2 (characteristic,
+    density indicator, positivity) or TVB with the u2 indicator on P2, on
+    the card (the residual kernel, the plain post) against the same steps
+    of the port on the CPU (the kernels' plain versions), 1e-5 relative."""
+    from dflo_tpu_torch import entry
+    from dflo_tpu_torch.driver import LimiterConfig
+    if case == "minmax_q2":
+        kw = dict(limiter=LimiterConfig(type="minmax",
+                                        shock_indicator="density",
+                                        char_lim=True, pos_lim=True))
+    else:
+        kw = dict(family="Pk", limiter=LimiterConfig(
+            type="TVB", shock_indicator="u2", beta=2.0, char_lim=True,
+            pos_lim=True))
+    out = []
+    for dev in (cuda, "cpu"):
+        s, u0 = entry._build(96, 24, dtype=torch.float32, device=dev, **kw)
+        u, t = s.post_stage(u0), 0.0
+        kernels.reset_launch_counts()
+        for _ in range(3):
+            u, dt, bad, _ = s._step(u, t, 1.0)
+            t += float(dt)
+            assert not bool(bad)
+        if dev == cuda:
+            counts = kernels.launch_counts()
+            assert counts["fused_residual"] == 3 * len(s.ark), counts
+            assert counts["fused_post"] == 0, counts
+        out.append(u.cpu())
+    assert rel(out[0], out[1]) <= 1e-5

@@ -293,11 +293,12 @@ def test_source_forms_resolve_and_refuse():
     with pytest.raises(ValueError, match="potential"):
         make_rhs(basis, mesh, bcs, well_balanced="isothermal", **kw)
     # MOOD with a GravitySource runs (tests/test_torch_mood.py); with a
-    # source callable the kernel's source arm does not carry it waits
+    # source callable the kernel's source arm does not carry, on the plain
+    # residual (tests/test_torch_mood_routes.py)
     lim_mood = LimiterConfig(type="TVB", pos_lim=True)
-    with pytest.raises(NotImplementedError, match="fused residual"):
-        Solver(make_basis("Pk", 2), mesh, bcs, limiter=lim_mood,
-               method="mood", source=generic, **kw)
+    sm = Solver(make_basis("Pk", 2), mesh, bcs, limiter=lim_mood,
+                method="mood", source=generic, **kw)
+    assert sm.volume_kernel == "xla" and sm._pk_post_ops is None
     dm = device_mesh((2, 2), [torch.device("cpu")] * 4)
     with pytest.raises(NotImplementedError, match="slice G, the rest of multi-GPU"):
         Solver(make_basis("Qk", 2), mesh, bcs,

@@ -186,12 +186,22 @@ def test_one_mood_stage_matches_jax(dmr, dt):
 def test_mood_stage_options():
     ts, u0 = entry._build(16, 8, device="cpu", method="mood")
     stage = ts._mood_stage
-    with pytest.raises(NotImplementedError, match="warm start"):
-        stage(u0, tdt(0.0), tdt(1e-4), deg_in=torch.ones((8, 16),
-                                                          dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="collapsed"):
-        tmood.make_mood(ts.basis, ts.mesh, ts.rhs,
-                        dmp_bounds="collapsed")
+    u = ts.post_stage(u0)
+    # the warm start (tests/test_torch_mood_options.py holds it against
+    # dflo_tpu): a map of ones starts every cell at degree 1, where the
+    # cascade can only mark, never reduce
+    c1, _, s1, d1 = stage(u, tdt(0.0), tdt(1e-4),
+                          deg_in=torch.ones((8, 16), dtype=torch.int32))
+    assert torch.equal(d1, torch.ones_like(d1)) and s1.iters == 1
+    assert int(s1.n_reduce) == 16 * 8 * (ts.basis.degree - 1)
+    # the collapsed bounds fail a superset of the neighborhood's cells
+    coll = tmood.make_mood(ts.basis, ts.mesh, ts.rhs,
+                           dmp_bounds="collapsed")
+    _, _, sn, dn = stage(u, tdt(0.0), tdt(1e-4))
+    _, _, sc, dc = coll(u, tdt(0.0), tdt(1e-4))
+    assert bool((dc <= dn).all()) and int(sc.n_reduce) >= int(sn.n_reduce)
+    with pytest.raises(ValueError, match="dmp_bounds"):
+        tmood.make_mood(ts.basis, ts.mesh, ts.rhs, dmp_bounds="nope")
     with pytest.raises(ValueError, match="Pk"):
         tmood.make_mood(make_basis("Qk", 2), ts.mesh, ts.rhs)
     # a dead step (live false) stops after pass 1

@@ -118,7 +118,9 @@ def test_kxrcf_indicator_matches_jax(kind):
         u, basis_reduce(as_tensor(tb.wq2 @ tb.V, F64, "cpu"), u))
     assert rel(js, ts) <= TOL and rel(jj, tj) <= TOL
     assert np.array_equal(np.asarray(js) > 1.0, (ts > 1.0).numpy())
-    with pytest.raises(NotImplementedError):
+    # u2 is Diot's test on the modal D2 coefficients: Pk at p >= 2 only, as
+    # the reference (tests/test_torch_envelope_limiters.py holds it)
+    with pytest.raises(ValueError, match="Pk basis"):
         tind.make_shock_indicator(tb, MESH, "u2", dtype=F64, device="cpu")
 
 

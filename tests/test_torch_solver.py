@@ -181,18 +181,24 @@ def test_out_of_slice_configurations_raise():
         Solver(*args, limiter=lim, dtype=F64, device="cpu", method="implicit",
                device_mesh=device_mesh((1, 2), ["cpu"] * 2))
     # masked MOOD runs (tests/test_torch_masked_pk.py); MOOD with a source
-    # callable the residual kernel's source arm does not carry waits
-    with pytest.raises(NotImplementedError, match="fused residual"):
-        Solver(make_basis("Pk", 2), s.mesh, s.bcs, limiter=lim, dtype=F64,
-               device="cpu", method="mood", mask=np.ones((4, 16), bool),
-               source=lambda x, y, t, W: 0.0 * W)
+    # callable the residual kernel's source arm does not carry runs on the
+    # plain residual, as the reference's (tests/test_torch_mood_routes.py)
+    sm = Solver(make_basis("Pk", 2), s.mesh, s.bcs, limiter=lim, dtype=F64,
+                device="cpu", method="mood", mask=np.ones((4, 16), bool),
+                source=lambda x, y, t, W: 0.0 * W)
+    assert sm.volume_kernel == "xla" and not sm._mood_stage.fused
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         Solver(*args, limiter=lim, dtype=F64, device="cpu",
                device_mesh=device_mesh((1, 2), ["cpu"] * 2),
                post_kernel="xla")
-    with pytest.raises(NotImplementedError, match="minmax"):
-        Solver(*args, limiter=LimiterConfig(type="minmax"), dtype=F64,
-               device="cpu")
+    # minmax runs on the plain post (tests/test_torch_envelope_limiters.py);
+    # on the modal basis it raises, as the reference's
+    smm = Solver(*args, limiter=LimiterConfig(type="minmax"), dtype=F64,
+                 device="cpu")
+    assert (smm.volume_kernel, smm.post_kernel) == ("fused", "xla")
+    with pytest.raises(ValueError, match="Qk"):
+        Solver(make_basis("Pk", 2), s.mesh, s.bcs, dtype=F64, device="cpu",
+               limiter=LimiterConfig(type="minmax"))
     # degrees 1-6 on any quadrature up to NQ_MAX run through the kernels
     # (tests/test_torch_envelope.py); beyond those bounds nothing does
     for basis in (make_basis("Qk", 2, kernels.NQ_MAX + 1),
